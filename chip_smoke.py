@@ -25,7 +25,23 @@ Phases (any failure exits non-zero; nothing is caught):
    before and read just after, and must both be > 0;
 5. run a 2-layer llama3_8b-width engine in float32 twice from one state,
    on the card (kernels) and with ``device="cpu"`` (plain versions): the
-   first 16 greedy tokens of 4 prompts must be identical.
+   first 16 greedy tokens of 4 prompts must be identical;
+6. train: ``setup`` -> ``build_train_step(remat=True)`` -> 1 warm-up and
+   10 timed steps of the bench's Llama (~0.95 B params: hidden 2048, 16
+   layers, 16 heads, FFN 5632, vocab 32000; bf16 params, f32 AdamW) on
+   one [8, 2049] batch; the loss must be finite and fall, and the
+   flash-attention counters (zeroed just before, read just after) must
+   show 2 K1 forwards (remat) and one K2 dq and dk/dv per layer per step;
+   tokens/s, MFU, peak memory and a profile of one step;
+7. one training step in float32 at 2 layers of the same width, card
+   (kernels) vs CPU (plain versions) from one set of params: loss, every
+   grad and every param after the step agree by relative norm.
+
+Phase 3 also holds the flash-attention kernels (K1 forward, K2 dq and
+dk/dv) to their plain versions in bf16 at four shapes (the training
+shape, llama3_8b widths, a ragged sq > sk case and seq 8192), per row of
+out, dq, dk and dv, with the same kind of planted fault (the kernels
+told 64 keys fewer than there are).
 
 Prints a ``{"kernels": [...]}`` line before the last, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -34,6 +50,7 @@ when no CUDA card is present.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -52,6 +69,19 @@ BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 # which a per-row relative limit holds as tightly as the short ones.
 ROW_TOL = 2 ** -6
 FAULT_KEYS = 64               # planted fault: each row loses its last 64 keys
+# flash attention (K1/K2) in phase 3: the training shape first (the one
+# the kernels line reports), then llama3_8b widths, a ragged cross-length
+# case whose first 300 rows see no key, and a long sequence
+FLASH_SHAPES = (  # name, B, H, kvH, Sq, Sk
+    ("train", 8, 16, 16, 2048, 2048),
+    ("llama3_8b", 1, 32, 8, 2048, 2048),
+    ("ragged", 2, 16, 4, 1000, 700),
+    ("long", 1, 16, 16, 8192, 8192),
+)
+FAULT_SHARE = 0.99            # gradient rows the planted fault must fail
+TRAIN_STEPS = 10
+# phase 7, card (f32 kernels, no TF32) vs CPU, ||card - cpu|| / ||cpu||
+PARITY_TOL = 1e-4
 
 
 def require(cond, what):
@@ -75,18 +105,49 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def release():
+    """Free what an earlier phase left (engines hold reference cycles, so
+    a collection comes first) before the next phase measures memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def row_rel_err(out, ref):
-    """Per-row ||out - ref|| / ||ref|| over the last dim; a row whose
-    reference is all zero (no visible key) must be exactly zero."""
+def row_rel_err(out, ref, floor=0.0):
+    """Per-row ||out - ref|| / max(||ref||, floor) over the last dim; with
+    no floor, a row whose reference is all zero (no visible key) must be
+    exactly zero."""
     o, r = out.float(), ref.float()
     diff = (o - r).norm(dim=-1)
-    norm = r.norm(dim=-1)
+    norm = r.norm(dim=-1).clamp_min(floor)
     return torch.where(norm > 0, diff / norm.clamp_min(1e-30),
                        torch.where(diff > 0, math.inf, 0.0))
+
+
+def grad_row_err(g, ref):
+    """The per-row check for gradients.  A row's true gradient can be 0
+    where its output is not (dq of a query that sees one key: ds = p (dp
+    - delta) with delta = dp), so the denominator has a floor of 2^-6 x
+    the RMS row norm of ``ref``: such a row is held to an absolute
+    ||g|| <= 2^-12 x that RMS instead of an undefined ratio."""
+    rms = ref.float().norm(dim=-1).square().mean().sqrt().item()
+    return row_rel_err(g, ref, floor=2 ** -6 * rms)
+
+
+def visible_pairs(sq, sk):
+    """(query, key) pairs a causal, bottom-right aligned row set sees."""
+    return int(np.clip(np.arange(sq) + (sk - sq) + 1, 0, sk).sum())
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    bf16 operations over the tensor-core peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_paged(PA, gen):
@@ -128,18 +189,15 @@ def phase_paged(PA, gen):
     item = q.element_size()
     nbytes = (2 * q.numel() * item + 2 * toks * kvh * D * item
               + 4 * (table.numel() + lens.numel()))
-    flops = 4 * toks * D * nh
-    bound_s = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S)
+    bound_ms, bound_by = bound(nbytes, 4 * toks * D * nh)
     shape = {"kernel": "paged_attention", "dtype": "bfloat16", "B": B,
              "nh": nh, "kvh": kvh, "D": D, "page_size": ps, "W": W,
              "lens": lens.tolist(), "max_abs_err": err,
              "max_row_rel_err": row_err, "row_tol": ROW_TOL,
              "worst_row_lens": worst_lens,
              "fault_min_row_rel_err": fault.min().item(),
-             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-             "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
-                          >= flops / BF16_FLOPS_PER_S else "operations"),
-             "library_ms": None}
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": None}
     emit({"phase": 3, **shape})
     return shape
 
@@ -191,20 +249,130 @@ def phase_masked(FM, gen, bucket, plen):
                                       scale=scale, enable_gqa=True))
     # visible (query, key) pairs: row i sees keys <= i that are real
     pairs = int(np.minimum(np.arange(bucket) + 1, plen).sum())
-    flops = 4 * pairs * D * H
     item = q.element_size()
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * item \
-        + vecs.numel() * 4
-    bound_s = max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S)
+    bound_ms, bound_by = bound(
+        (2 * q.numel() + k.numel() + v.numel()) * item + vecs.numel() * 4,
+        4 * pairs * D * H)
     shape = {"kernel": "flash_mha_masked", "dtype": "bfloat16", "B": 1,
              "H": H, "kvh": kvh, "D": D, "bucket": bucket, "plen": plen,
              "max_abs_err": err, "max_row_rel_err": row_err,
              "row_tol": ROW_TOL, "worst_row_keys": worst_keys,
              "fault_min_row_rel_err": fault.min().item(), "ms": ms,
-             "plain_ms": plain_ms, "bound_ms": bound_s * 1e3,
-             "bound_by": ("operations" if flops / BF16_FLOPS_PER_S
-                          >= nbytes / HBM_BYTES_PER_S else "bytes"),
-             "library_ms": library_ms}
+             "plain_ms": plain_ms, "bound_ms": bound_ms,
+             "bound_by": bound_by, "library_ms": library_ms}
+    emit({"phase": 3, **shape})
+    return shape
+
+
+def phase_flash(FA, gen, name, B, H, kvh, sq, sk):
+    """K1 forward and the K2 dq and dk/dv kernels against their plain
+    versions in bf16, causal, on [B, S, H, D] tensors passed as the
+    transposed views ``sdpa`` hands over.  The backward kernels and
+    their plain versions take the same (q, k, v, out, lse, dout): the
+    kernel forward's out and lse."""
+    dev, dt, D = "cuda", torch.bfloat16, 128
+    scale = 1.0 / math.sqrt(D)
+    q, k, v, do = (torch.randn(B, s, n, D, device=dev, generator=gen)
+                   .to(dt).transpose(1, 2)
+                   for s, n in ((sq, H), (sk, kvh), (sk, kvh), (sq, H)))
+    out, lse = FA._flash_fwd(q, k, v, True, scale)
+    dq, delta = FA._flash_bwd_dq(q, k, v, out, lse, do, True, scale)
+    dk, dv = FA._flash_bwd_dkv(q, k, v, lse, delta, do, True, scale)
+    torch.cuda.synchronize()
+    errs, rows = {}, {}
+    ref, ref_lse = FA._flash_fwd_xla(q, k, v, True, scale)
+    live = ref_lse != FA.LSE_INVALID                 # rows that see a key
+    require(bool((lse[~live] == FA.LSE_INVALID).all()),
+            f"flash fwd {name}: rows with no key must get LSE_INVALID")
+    rows["out"] = row_rel_err(out, ref)
+    errs["out"] = (out.float() - ref.float()).abs().max().item()
+    ref_dq = FA._flash_bwd_dq_xla(q, k, v, out, lse, do, True, scale)
+    rows["dq"] = grad_row_err(dq, ref_dq)
+    errs["dq"] = (dq.float() - ref_dq.float()).abs().max().item()
+    ref_dk, ref_dv = FA._flash_bwd_dkv_xla(q, k, v, out, lse, do, True,
+                                           scale)
+    for key, got, want in (("dk", dk, ref_dk), ("dv", dv, ref_dv)):
+        rows[key] = grad_row_err(got, want)
+        errs[key] = (got.float() - want.float()).abs().max().item()
+    row_err = {key: r.max().item() for key, r in rows.items()}
+    for key, err in row_err.items():
+        require(err <= ROW_TOL, f"flash {key} kernel vs plain at {name}: "
+                f"row error {err} > {ROW_TOL}")
+    # planted fault: every kernel told 64 keys fewer than there are
+    kf, vf = k[:, :, :-FAULT_KEYS], v[:, :, :-FAULT_KEYS]
+    f_out, _ = FA._flash_fwd(q, kf, vf, True, scale)
+    f_dq, f_delta = FA._flash_bwd_dq(q, kf, vf, out, lse, do, True, scale)
+    f_dk, f_dv = FA._flash_bwd_dkv(q, kf, vf, lse, f_delta, do, True, scale)
+    # a row that sees one key has dq = 0 (ds = p (dp - delta), delta =
+    # dp): the dq check covers the rows that see two or more
+    multi = (torch.arange(sq, device=dev) + (sk - sq) >= 1)[None, None]
+    fault_rows = {
+        "out": row_rel_err(f_out, ref)[live],
+        "dq": grad_row_err(f_dq, ref_dq)[live & multi],
+        "dk": grad_row_err(f_dk, ref_dk[:, :, :-FAULT_KEYS]),
+        "dv": grad_row_err(f_dv, ref_dv[:, :, :-FAULT_KEYS])}
+    fault = {key: r.min().item() for key, r in fault_rows.items()}
+    caught = {key: (r > ROW_TOL).float().mean().item()
+              for key, r in fault_rows.items()}
+    del ref, ref_dq, ref_dk, ref_dv, f_out, f_dq, f_dk, f_dv, fault_rows
+    # every output row must see the fault; a gradient row sums over all
+    # the rows (or keys) it meets, so losing 64 of ~8000 terms moves a
+    # few rows in 10^5 by less than the limit: 99 % of them must fail
+    require(caught["out"] == 1.0, f"planted fault ({FAULT_KEYS} keys "
+            f"dropped) passed the flash out check at {name} on some rows: "
+            f"min row error {fault['out']}")
+    for key in ("dq", "dk", "dv"):
+        require(caught[key] >= FAULT_SHARE, f"planted fault ({FAULT_KEYS} "
+                f"keys dropped) failed the flash {key} check at {name} on "
+                f"only {caught[key]:.4f} of the rows (< {FAULT_SHARE})")
+
+    ms = {"fwd": cuda_ms(lambda: FA._flash_fwd(q, k, v, True, scale)),
+          "dq": cuda_ms(lambda: FA._flash_bwd_dq(q, k, v, out, lse, do, True,
+                                                 scale)),
+          "dkv": cuda_ms(lambda: FA._flash_bwd_dkv(q, k, v, lse, delta, do,
+                                                   True, scale))}
+    plain = {"fwd": cuda_ms(lambda: FA._flash_fwd_xla(q, k, v, True, scale),
+                            iters=3, warmup=1),
+             "dq": cuda_ms(lambda: FA._flash_bwd_dq_xla(
+                 q, k, v, out, lse, do, True, scale), iters=3, warmup=1),
+             "dkv": cuda_ms(lambda: FA._flash_bwd_dkv_xla(
+                 q, k, v, out, lse, do, True, scale), iters=3, warmup=1)}
+    # yardstick: one scaled_dot_product_attention call (never on the
+    # port's path), bottom-right causal; forward, and forward + backward
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    mask = None if sq == sk else torch.ones(
+        sq, sk, dtype=torch.bool, device=dev).tril(sk - sq)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def lib_fwd():
+        return sdpa(q, k, v, attn_mask=mask, is_causal=mask is None,
+                    scale=scale, enable_gqa=kvh != H)
+
+    def lib_fwd_bwd():
+        o = sdpa(*leaves, attn_mask=mask, is_causal=mask is None,
+                 scale=scale, enable_gqa=kvh != H)
+        torch.autograd.grad(o, leaves, do)
+
+    library = {"fwd": cuda_ms(lib_fwd), "fwd_bwd": cuda_ms(lib_fwd_bwd)}
+    pairs = visible_pairs(sq, sk) * B * H
+    item = 2
+    n_q, n_kv = B * H * sq * D, B * kvh * sk * D
+    rows_f32 = B * H * sq * 4                            # lse or delta
+    bounds = {
+        "fwd": bound((2 * n_q + 2 * n_kv) * item + rows_f32, 4 * pairs * D),
+        "dq": bound((4 * n_q + 2 * n_kv) * item + 2 * rows_f32,
+                    6 * pairs * D),
+        "dkv": bound((2 * n_q + 4 * n_kv) * item + 2 * rows_f32,
+                     8 * pairs * D)}
+    shape = {"kernel": "flash_attention", "shape": name, "dtype": "bfloat16",
+             "B": B, "H": H, "kvh": kvh, "D": D, "sq": sq, "sk": sk,
+             "causal": True, "dead_rows": int((~live).sum()),
+             "max_abs_err": errs, "max_row_rel_err": row_err,
+             "row_tol": ROW_TOL, "fault_min_row_rel_err": fault,
+             "fault_rows_caught": caught, "ms": ms,
+             "plain_ms": plain, "library_ms": library,
+             "bound_ms": {key: b[0] for key, b in bounds.items()},
+             "bound_by": {key: b[1] for key, b in bounds.items()}}
     emit({"phase": 3, **shape})
     return shape
 
@@ -357,14 +525,182 @@ def phase_parity(cfg8b, create_engine, init_state, GenerationConfig):
     require(same, outs)
 
 
+def bench_config(LlamaConfig, **kw):
+    """The reference bench's one-chip training rung (bench.py:148-153)."""
+    cfg = dict(vocab_size=32000, hidden_size=2048, intermediate_size=5632,
+               num_hidden_layers=16, num_attention_heads=16,
+               num_key_value_heads=16, max_position_embeddings=2048,
+               dtype="bfloat16")
+    cfg.update(kw)
+    return LlamaConfig(**cfg)
+
+
+def phase_train(cfg, TH, FA, batch=8, seq=2048):
+    """The training path at full width and depth: setup -> step, as
+    bench.py's _llama_throughput drives the reference (one warm-up step,
+    then timed steps on one batch)."""
+    t0 = time.perf_counter()
+    params, opt = TH.setup(cfg, seed=0, dtype=torch.bfloat16)
+    step = TH.build_train_step(cfg, remat=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq + 1), device="cuda",
+                        generator=gen)
+    n_params = sum(t.numel() for t in TH.tree_leaves(params))
+    loss, params, opt = step(params, opt, ids)                 # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()   # params + AdamW state
+    FA.flash_mha.fwd_launches = 0
+    FA.flash_mha.dq_launches = 0
+    FA.flash_mha.dkv_launches = 0
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        loss, params, opt = step(params, opt, ids)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention_fwd": FA.flash_mha.fwd_launches,
+                "flash_attention_bwd_dq": FA.flash_mha.dq_launches,
+                "flash_attention_bwd_dkv": FA.flash_mha.dkv_launches}
+    losses = [float(x) for x in losses]
+    layers = cfg.num_hidden_layers
+    require(all(math.isfinite(x) for x in losses), f"loss {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    want = {"flash_attention_fwd": 2 * layers * TRAIN_STEPS,
+            "flash_attention_bwd_dq": layers * TRAIN_STEPS,
+            "flash_attention_bwd_dkv": layers * TRAIN_STEPS}
+    require(launches == want, f"flash launches {launches} != {want}")
+    tps = batch * seq * TRAIN_STEPS / wall
+    attn_flops = 12 * layers * cfg.hidden_size * seq
+    mfu = tps * (6 * n_params + attn_flops) / BF16_FLOPS_PER_S
+    emit({"phase": 6, "params": n_params, "batch": batch, "seq": seq,
+          "steps": TRAIN_STEPS, "remat": True, "setup_and_warmup_s": setup_s,
+          "wall_s": wall, "s_per_step": wall / TRAIN_STEPS,
+          "tokens_per_s": tps, "mfu": mfu, "loss_first": losses[0],
+          "loss_last": losses[-1], "losses": losses, "launches": launches,
+          "resident_bytes": resident,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    profile_train(step, params, opt, ids)
+    return launches
+
+
+def profile_train(step, params, opt, ids):
+    """Where one training step's time goes: ``torch.profiler`` over one
+    step, device time per kernel grouped, idle share = 1 - device busy
+    time / the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, ids)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_kernel: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[ev.name] = (per_kernel.get(ev.name, 0.0)
+                                   + ev.time_range.elapsed_us() / 1e3)
+    groups = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
+              "matmul": 0.0, "other": 0.0}
+    for name, ms in per_kernel.items():
+        low = name.lower()
+        for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            if key + "_kernel" in low:
+                groups[key] += ms
+                break
+        else:
+            if any(m in low for m in ("gemm", "gemv", "cutlass", "xmma",
+                                      "sm90", "cublas", "nvjet")):
+                groups["matmul"] += ms
+            else:
+                groups["other"] += ms
+    busy = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
+    emit({"phase": 6, "profile": "train_step", "wall_ms": wall * 1e3,
+          "device_ms": groups, "device_busy_ms": busy,
+          "device_idle_share": 1 - busy / (wall * 1e3),
+          "kernels_seen": len(per_kernel),
+          "top_kernels_ms": [[n[:80], ms] for n, ms in top]})
+
+
+def rel_norm(a, b):
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return ((a - b).norm() / b.norm().clamp_min(1e-300)).item()
+
+
+def phase_train_parity(cfg, TH, seq=256):
+    """One f32 training step, card (kernels) vs CPU (plain versions),
+    from one set of params: loss, every grad, every param after it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    params_cpu, _ = TH.setup(cfg, seed=1, dtype=torch.float32, device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (1, seq + 1)).astype(np.int64))
+    res = {}
+    for device in ("cuda", "cpu"):
+        params = TH.tree_map(lambda t: t.to(device, copy=True), params_cpu)
+        t0 = time.perf_counter()
+        loss, grads = TH.value_and_grad(params, ids.to(device), cfg,
+                                        remat=True)
+        step = TH.build_train_step(cfg, remat=True, device=device)
+        _, params, _ = step(params, TH.init_adamw(params), ids)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        res[device] = (loss, TH.tree_leaves(grads), TH.tree_leaves(params),
+                       time.perf_counter() - t0)
+    (gl, gg, gp, gs), (cl, cg, cp, cs) = res["cuda"], res["cpu"]
+    errs = {"loss": rel_norm(gl, cl),
+            "grads": max(rel_norm(a, b) for a, b in zip(gg, cg)),
+            "params": max(rel_norm(a, b) for a, b in zip(gp, cp))}
+    emit({"phase": 7, "layers": cfg.num_hidden_layers, "dtype": "float32",
+          "seq": seq, "loss_cuda": float(gl), "loss_cpu": float(cl),
+          "rel_err": errs, "tol": PARITY_TOL, "cuda_s": gs, "cpu_s": cs})
+    for key, err in errs.items():
+        require(err <= PARITY_TOL, f"training parity {key}: {err} > "
+                f"{PARITY_TOL}")
+
+
+def flash_entries(flash, launches):
+    """The K1 / K2 entries of the kernels line: times at the training
+    shape (flash[0], the main path's), errors over all phase-3 shapes.
+    The K2 entries' library time is one forward + backward of
+    scaled_dot_product_attention (it computes dq, dk and dv together)."""
+    train = flash[0]
+    src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    ref = "paddle_tpu/ops/pallas/flash_attention.py"
+    out = []
+    for name, part, line, errs, lib in (
+            ("flash_attention_fwd", "fwd", 576, ("out",), "fwd"),
+            ("flash_attention_bwd_dq", "dq", 1036, ("dq",), "fwd_bwd"),
+            ("flash_attention_bwd_dkv", "dkv", 1053, ("dk", "dv"),
+             "fwd_bwd")):
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": f"{ref}:{line}", "launches": launches[name],
+            "max_abs_err": max(f["max_abs_err"][e] for f in flash
+                               for e in errs),
+            "max_row_rel_err": max(f["max_row_rel_err"][e] for f in flash
+                                   for e in errs),
+            "ms": train["ms"][part], "plain_ms": train["plain_ms"][part],
+            "bound_ms": train["bound_ms"][part],
+            "bound_by": train["bound_by"][part],
+            "library_ms": train["library_ms"][lib]})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the "
               "card", file=sys.stderr)
         return 1
-    from paddle_tpu_torch.models import (GenerationConfig, init_state,
-                                         llama3_8b)
+    from paddle_tpu_torch.models import (GenerationConfig, LlamaConfig,
+                                         init_state, llama3_8b)
+    from paddle_tpu_torch.models import llama_hybrid as TH
     from paddle_tpu_torch.ops import cuda_lib
+    from paddle_tpu_torch.ops.pallas import flash_attention as FA
     from paddle_tpu_torch.ops.pallas import flash_mask as FM
     from paddle_tpu_torch.ops.pallas import paged_attention as PA
     from paddle_tpu_torch.serving import create_engine
@@ -393,15 +729,25 @@ def main() -> int:
     paged = phase_paged(PA, gen)
     masked = [phase_masked(FM, gen, bucket, plen)
               for bucket, plen in ((512, 448), (2048, 1900), (6144, 5000))]
-    torch.cuda.empty_cache()
+    flash = [phase_flash(FA, gen, *shape) for shape in FLASH_SHAPES]
+    release()
 
     # phase 4: the main path at full width and depth
     launches = phase_serve(llama3_8b(), PA, FM, create_engine, init_state,
                            GenerationConfig)
-    torch.cuda.empty_cache()
+    release()
 
     # phase 5: end-to-end parity, card vs CPU
     phase_parity(llama3_8b(), create_engine, init_state, GenerationConfig)
+    release()
+
+    # phase 6: the training path at full width and depth
+    launches.update(phase_train(bench_config(LlamaConfig), TH, FA))
+    release()
+
+    # phase 7: training parity, card vs CPU
+    phase_train_parity(bench_config(LlamaConfig, num_hidden_layers=2,
+                                    dtype="float32"), TH)
 
     rep = masked[1]     # the 2048 bucket: the longest prompts of phase 4
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -419,7 +765,8 @@ def main() -> int:
          "launches": launches["flash_mha_masked"],
          "max_abs_err": max(m["max_abs_err"] for m in masked),
          "max_row_rel_err": max(m["max_row_rel_err"] for m in masked),
-         **{k: rep[k] for k in keys}}]})
+         **{k: rep[k] for k in keys}},
+        *flash_entries(flash, launches)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,9 +1,13 @@
 """Model state for the port: carried over from the JAX package, or random.
 
-A state is a flat dict of tensors with the reference's
+A serving state is a flat dict of tensors with the reference's
 ``functional_state()`` keys (``llama.embed_tokens.weight``,
 ``llama.layers.{i}.self_attn.q_proj.weight``, ..., ``llama.norm.weight``,
-``lm_head.weight``) and its ``[in, out]`` weight layout.
+``lm_head.weight``) and its ``[in, out]`` weight layout.  A training
+param tree (``models/llama_hybrid.py``) is ``{"embed", "stages",
+"norm", "head"}`` with one dict of tensors per layer in ``stages``;
+:func:`hybrid_params_from_numpy` and :func:`hybrid_params_to_numpy`
+carry it to and from the reference's stage-stacked tree.
 """
 from __future__ import annotations
 
@@ -13,7 +17,8 @@ import torch
 from .. import resolve_device
 from .llama import LlamaConfig
 
-__all__ = ["init_state", "state_from_numpy"]
+__all__ = ["hybrid_params_from_numpy", "hybrid_params_to_numpy",
+           "init_state", "state_from_numpy"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -82,3 +87,42 @@ def init_state(config: LlamaConfig, generator: torch.Generator,
     if not config.tie_word_embeddings:
         state["lm_head.weight"] = normal(h, v)
     return state
+
+
+def hybrid_params_from_numpy(np_tree: dict, device=None, dtype=None) -> dict:
+    """The reference ``llama_hybrid.init_params`` tree as numpy (stage
+    leaves ``[1, L, ...]``: pp = 1) -> the port's tree, with one owned
+    tensor per layer weight, on ``device`` (default CUDA), optionally
+    cast to ``dtype``.  Also takes AdamW m/v trees."""
+    dev = resolve_device(device)
+
+    def conv(a):
+        t = _to_tensor(a)
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(dev)
+
+    stages = {k: np.asarray(a) for k, a in np_tree["stages"].items()}
+    pp, n_layers = next(iter(stages.values())).shape[:2]
+    if pp != 1:
+        raise ValueError(f"stage leaves must be [1, L, ...] (pp = 1), got "
+                         f"pp = {pp}")
+    return {"embed": conv(np_tree["embed"]),
+            "stages": [{k: conv(a[0, i]) for k, a in stages.items()}
+                       for i in range(n_layers)],
+            "norm": conv(np_tree["norm"]), "head": conv(np_tree["head"])}
+
+
+def hybrid_params_to_numpy(tree: dict) -> dict:
+    """The inverse of :func:`hybrid_params_from_numpy`: numpy arrays with
+    stage leaves stacked to ``[1, L, ...]`` (bf16 tensors come out as
+    float32, which holds them exactly)."""
+    def conv(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    keys = tree["stages"][0].keys()
+    return {"embed": conv(tree["embed"]),
+            "stages": {k: np.stack([conv(lp[k]) for lp in tree["stages"]])[None]
+                       for k in keys},
+            "norm": conv(tree["norm"]), "head": conv(tree["head"])}

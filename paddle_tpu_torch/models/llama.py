@@ -1,7 +1,8 @@
 """Llama-family configuration and the shared layer math, in PyTorch.
 
 Ports ``paddle_tpu/models/llama.py`` (``LlamaConfig``, ``llama3_8b``,
-``llama_tiny``, ``_rope_tables``, ``_rotate_half``) and ``_rms`` from
+``llama_tiny``, ``_rope_tables``, ``_rotate_half``,
+``apply_rotary_pos_emb``) and ``_rms`` from
 ``paddle_tpu/models/llama_hybrid.py``.  The nn-Layer model classes come
 with a later slice; serving works on a state dict (``models/convert.py``).
 """
@@ -11,7 +12,8 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["LlamaConfig", "llama3_8b", "llama_tiny"]
+__all__ = ["LlamaConfig", "apply_rotary_pos_emb", "llama3_8b",
+           "llama_tiny"]
 
 
 @dataclass
@@ -64,6 +66,14 @@ def _rope_tables(seq_len, head_dim, theta, device=None,
 def _rotate_half(x):
     h = x.shape[-1] // 2
     return torch.cat([-x[..., h:], x[..., :h]], dim=-1)
+
+
+def apply_rotary_pos_emb(q, k, cos, sin):
+    """q, k: [B, S, H, D]; cos, sin: [S, D] f32 tables, applied in q's
+    dtype (reference ``models/llama.py:96-100``)."""
+    cos = cos[None, :, None, :].to(q.dtype)
+    sin = sin[None, :, None, :].to(q.dtype)
+    return q * cos + _rotate_half(q) * sin, k * cos + _rotate_half(k) * sin
 
 
 def _rms(x, w, eps):

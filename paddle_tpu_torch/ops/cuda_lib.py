@@ -23,7 +23,7 @@ __all__ = ["BUILD_DIR", "SOURCES", "build", "build_log", "check",
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("paged_attention", "flash_mask")
+SOURCES = ("paged_attention", "flash_mask", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -39,6 +39,7 @@ def test_no_reference_imports(path):
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, paddle_tpu_torch.serving, paddle_tpu_torch.models, "
+            "paddle_tpu_torch.models.llama_hybrid, "
             "paddle_tpu_torch.ops.pallas.flash_mask; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
