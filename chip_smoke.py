@@ -6,7 +6,9 @@ toolkit::
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught):
+Phases (any failure exits non-zero; no failure of the port is caught —
+only the K4 library yardstick is skipped where the installed torch has
+no CUDA ``_weight_int8pack_mm``):
 
 1. print the card's name and power limit; require compute capability 9.0;
 2. build the CUDA kernels from ``paddle_tpu_torch/csrc`` (one nvcc per
@@ -35,13 +37,33 @@ Phases (any failure exits non-zero; nothing is caught):
    tokens/s, MFU, peak memory and a profile of one step;
 7. one training step in float32 at 2 layers of the same width, card
    (kernels) vs CPU (plain versions) from one set of params: loss, every
-   grad and every param after the step agree by relative norm.
+   grad and every param after the step agree by relative norm;
+8. the quantized and multi-LoRA serving modes at llama3_8b full width
+   and depth, phase 4's engine settings and traffic: (8a) int8 weights
+   with an ``AdapterStore`` of 4 random rank-16 adapters (two requests
+   dense, six on adapters; the two that share the 1024-token prefix on
+   one adapter, a third with that prefix on another, which must not
+   share its pages), (8b) int4 weights with int8 KV pages.  The K4
+   launches must be 224 per decode step (7 projections x 32 layers),
+   K5 the same in 8a, K3 zero in 8b (int8 pages take the plain
+   dequantizing attention); decode tokens/s, TTFT, memory and a profile
+   of the decode step;
+9. both phase-8 configurations at 2 layers of llama3_8b width in
+   float32, card (kernels) vs CPU (plain versions) from one state
+   quantized once on the host: identical greedy tokens, except that a
+   request may part where the CPU's top two logits tie (within 1e-3 of
+   the logits' std; int8 KV pages turn last-bit differences into
+   whole quantization steps now and then).
 
 Phase 3 also holds the flash-attention kernels (K1 forward, K2 dq and
 dk/dv) to their plain versions in bf16 at four shapes (the training
 shape, llama3_8b widths, a ragged sq > sk case and seq 8192), per row of
 out, dq, dk and dv, with the same kind of planted fault (the kernels
-told 64 keys fewer than there are).
+told 64 keys fewer than there are); and the weight-only GEMV (K4, int8
+and int4) and the gather-LoRA matmul (K5) at the llama3_8b decode
+projection shapes, per output row (<= 2^-7), each with a planted fault
+(int8: the last 64 K rows of q zeroed; int4: nibbles swapped; K5: every
+adapter row reads the next adapter).
 
 Prints a ``{"kernels": [...]}`` line before the last, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -82,6 +104,22 @@ FAULT_SHARE = 0.99            # gradient rows the planted fault must fail
 TRAIN_STEPS = 10
 # phase 7, card (f32 kernels, no TF32) vs CPU, ||card - cpu|| / ||cpu||
 PARITY_TOL = 1e-4
+# K4 / K5 in phase 3, bf16 per output row (one token over N): both the
+# kernels and their plain versions round once, at the output; the rest
+# is summation order over K
+GEMV_ROW_TOL = 2 ** -7
+# the llama3_8b projections (K, N): q/o, k/v, gate/up, down
+PROJ_SHAPES = (("q/o", 4096, 4096), ("k/v", 4096, 1024),
+               ("gate/up", 4096, 14336), ("down", 14336, 4096))
+LORA_RANK, LORA_ALPHA = 16, 32.0
+# phase 9: a request whose card and CPU tokens part must part at a tie:
+# at the first differing token, |l_card - l_cpu| / std(l) of the CPU's
+# f32 logits for the two picks.  int8 KV pages round every new k/v row
+# to 1/127 of its absmax, so a last-bit difference between the card's
+# and the CPU's f32 sums moves a row by a whole step now and then; a
+# random model's top two logits can lie that close
+TIE_TOL = 1e-3
+LORA_IDX = (0, 1, 2, 3, 4, 1, 0, 2)
 
 
 def require(cond, what):
@@ -103,6 +141,25 @@ def cuda_ms(fn, iters=10, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """Mean device milliseconds per call: the summed duration of every
+    kernel ``fn`` launches, from ``torch.profiler``.  For calls shorter
+    than the host's launch work (K4/K5 at decode shapes), CUDA events
+    around a loop measure the host, not the card."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters
 
 
 def release():
@@ -377,6 +434,141 @@ def phase_flash(FA, gen, name, B, H, kvh, sq, sk):
     return shape
 
 
+def int8pack_ms(x, q, scale):
+    """The library yardstick for K4 int8: ``torch._weight_int8pack_mm``
+    (q transposed to [N, K] outside the timing), where the installed
+    torch runs it on CUDA; else (None, why)."""
+    qt = q.t().contiguous()
+    sc = scale.to(x.dtype)
+    try:
+        torch._weight_int8pack_mm(x, qt, sc)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        return None, str(e).splitlines()[0][:120]
+    return device_ms(lambda: torch._weight_int8pack_mm(x, qt, sc)), None
+
+
+def phase_quant(QM, gen):
+    """K4 int8 and int4 against the plain version (``_xla_fallback``) in
+    bf16 at the llama3_8b decode shapes: M = 8 for every projection, and
+    M = 1 and 64 at gate/up.  ``ms``, ``plain_ms`` and the library's
+    time are device time per call (``device_ms``); ``events_ms`` is the
+    CUDA-event time of back-to-back calls, which the host's per-call
+    work sets at these sizes.  Returns one record per (kind, shape)."""
+    dev, dt = "cuda", torch.bfloat16
+    shapes = [(name, 8, k, n) for name, k, n in PROJ_SHAPES]
+    shapes += [("gate/up", 1, 4096, 14336), ("gate/up", 64, 4096, 14336)]
+    records = []
+    for kind in ("int8", "int4"):
+        bound_q = 127 if kind == "int8" else 7
+        for name, m, k, n in shapes:
+            x = torch.randn(m, k, device=dev, generator=gen).to(dt)
+            q = torch.randint(-bound_q, bound_q + 1, (k, n), device=dev,
+                              generator=gen).to(torch.int8)
+            sc = torch.rand(n, device=dev, generator=gen) * 0.02 + 1e-3
+            w = (QM.QuantizedWeight(QM.pack_int4(q), sc, "int4", k)
+                 if kind == "int4" else QM.QuantizedWeight(q, sc))
+            out = QM.weight_only_matmul(x, w)
+            torch.cuda.synchronize()
+            ref = QM._xla_fallback(x, w)
+            rows = row_rel_err(out, ref)
+            row_err = rows.max().item()
+            require(row_err <= GEMV_ROW_TOL,
+                    f"K4 {kind} {name} M={m}: row error {row_err} > "
+                    f"{GEMV_ROW_TOL}")
+            if kind == "int8":
+                bad_q = w.q.clone()
+                bad_q[-FAULT_KEYS:] = 0
+                bad = QM.QuantizedWeight(bad_q, sc)
+            else:
+                u = w.q.view(torch.uint8)
+                bad = QM.QuantizedWeight(((u >> 4) | (u << 4)).view(
+                    torch.int8), sc, "int4", k)
+            fault = row_rel_err(QM.weight_only_matmul(x, bad), ref)
+            require(bool((fault > GEMV_ROW_TOL).all()),
+                    f"planted fault passed the K4 {kind} check at {name} "
+                    f"M={m}: min row error {fault.min().item()}")
+            ms = device_ms(lambda: QM.weight_only_matmul(x, w))
+            wall_ms = cuda_ms(lambda: QM.weight_only_matmul(x, w), iters=50)
+            plain_ms = device_ms(lambda: QM._xla_fallback(x, w), iters=5)
+            wq = w.q
+            dense_w = torch.randn(k, n, device=dev, generator=gen).to(dt)
+            dense_ms = device_ms(lambda: x @ dense_w)
+            del dense_w
+            lib_ms, lib_why = (int8pack_ms(x, q, sc) if kind == "int8"
+                               else (None, "no single PyTorch call"))
+            nbytes = (wq.numel() + 4 * n + 2 * x.numel() + 2 * m * n)
+            bound_ms, bound_by = bound(nbytes, 2 * m * k * n)
+            rec = {"kernel": f"weight_only_matmul_{kind}", "shape": name,
+                   "M": m, "K": k, "N": n, "dtype": "bfloat16",
+                   "max_abs_err": (out.float() - ref.float()).abs().max()
+                   .item(), "max_row_rel_err": row_err,
+                   "row_tol": GEMV_ROW_TOL,
+                   "fault_min_row_rel_err": fault.min().item(),
+                   "ms": ms, "events_ms": wall_ms, "plain_ms": plain_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": lib_ms, "library_note": lib_why,
+                   "dense_bf16_matmul_ms": dense_ms}
+            emit({"phase": 3, **rec})
+            records.append(rec)
+    return records
+
+
+def phase_lora(LM, gen):
+    """K5 against the plain version (``_xla_gather_matmul``) at the
+    decode shape: 8 slots, rank 16, a 5-row f32 bank (row 0 zero), idx
+    (0, 1, 2, 3, 4, 1, 0, 2), bf16 x, at the four projection shapes."""
+    dev, dt = "cuda", torch.bfloat16
+    idx = torch.tensor(LORA_IDX, dtype=torch.int32, device=dev)
+    zero = idx == 0
+    records = []
+    for name, k, m in PROJ_SHAPES:
+        x = torch.randn(len(LORA_IDX), k, device=dev, generator=gen).to(dt)
+        a = torch.randn(5, LORA_RANK, k, device=dev, generator=gen) / k ** .5
+        b = torch.randn(5, LORA_RANK, m, device=dev, generator=gen) \
+            / LORA_RANK ** .5
+        a[0] = 0
+        b[0] = 0
+        sc = torch.rand(5, device=dev, generator=gen) + 0.5
+        out = LM.lora_gather_matmul(x, a, b, sc, idx)
+        torch.cuda.synchronize()
+        ref = LM._xla_gather_matmul(x, a, b, sc, idx)
+        require(int(torch.count_nonzero(out[zero])) == 0,
+                f"K5 {name}: rows with idx 0 must be exactly zero")
+        rows = row_rel_err(out[~zero], ref[~zero])
+        row_err = rows.max().item()
+        require(row_err <= GEMV_ROW_TOL,
+                f"K5 {name}: row error {row_err} > {GEMV_ROW_TOL}")
+        nxt = torch.where(idx > 0, idx % 4 + 1, idx).to(torch.int32)
+        fault = row_rel_err(LM.lora_gather_matmul(x, a, b, sc, nxt)[~zero],
+                            ref[~zero])
+        require(bool((fault > GEMV_ROW_TOL).all()),
+                f"planted fault (next adapter) passed the K5 check at "
+                f"{name}: min row error {fault.min().item()}")
+        ms = device_ms(lambda: LM.lora_gather_matmul(x, a, b, sc, idx))
+        wall_ms = cuda_ms(lambda: LM.lora_gather_matmul(x, a, b, sc, idx),
+                          iters=50)
+        plain_ms = device_ms(
+            lambda: LM._xla_gather_matmul(x, a, b, sc, idx), iters=10)
+        rows_named = len(set(LORA_IDX))
+        nbytes = (rows_named * LORA_RANK * (k + m) * 4 + 2 * x.numel()
+                  + 2 * len(LORA_IDX) * m + 4 * len(LORA_IDX) + 4 * 5)
+        bound_ms, bound_by = bound(
+            nbytes, 2 * len(LORA_IDX) * LORA_RANK * (k + m))
+        rec = {"kernel": "lora_gather_matmul", "shape": name, "S": 8,
+               "K": k, "M": m, "rank": LORA_RANK, "bank_rows": 5,
+               "idx": list(LORA_IDX), "dtype": "bfloat16 x, float32 bank",
+               "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+               "max_row_rel_err": row_err, "row_tol": GEMV_ROW_TOL,
+               "fault_min_row_rel_err": fault.min().item(), "ms": ms,
+               "events_ms": wall_ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None}
+        emit({"phase": 3, **rec})
+        records.append(rec)
+    return records
+
+
 def phase_serve(cfg, PA, FM, create_engine, init_state, GenerationConfig):
     """The main path at llama3_8b width and depth."""
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -449,14 +641,17 @@ def phase_serve(cfg, PA, FM, create_engine, init_state, GenerationConfig):
     return launches
 
 
-def profile_decode(engine, prompts, GenerationConfig, steps=8):
+def profile_decode(engine, prompts, GenerationConfig, steps=8, phase=4,
+                   adapters=None):
     """Where the decode time goes: ``torch.profiler`` over ``steps``
     lockstep decode steps of 8 fresh requests (their prefill runs before
-    the window).  Device time is summed per kernel and grouped; the idle
-    share is 1 - device busy time / the window's wall time."""
+    the window; ``adapters`` gives each request's adapter).  Device time
+    is summed per kernel and grouped; the idle share is 1 - device busy
+    time / the window's wall time."""
     from torch.profiler import ProfilerActivity, profile
-    for p in prompts:
-        engine.submit(p, GenerationConfig(max_new_tokens=2 * steps + 2))
+    for i, p in enumerate(prompts):
+        engine.submit(p, GenerationConfig(max_new_tokens=2 * steps + 2),
+                      adapter=adapters[i] if adapters else None)
     engine.step()                       # admission + prefill of all 8
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -473,6 +668,7 @@ def profile_decode(engine, prompts, GenerationConfig, steps=8):
             per_kernel[ev.name] = (per_kernel.get(ev.name, 0.0)
                                    + ev.time_range.elapsed_us() / 1e3)
     groups = {"paged_attention": 0.0, "flash_mha_masked": 0.0,
+              "weight_only_matmul": 0.0, "lora_gather_matmul": 0.0,
               "matmul": 0.0, "other": 0.0}
     for name, ms in per_kernel.items():
         low = name.lower()
@@ -480,6 +676,10 @@ def profile_decode(engine, prompts, GenerationConfig, steps=8):
             groups["paged_attention"] += ms
         elif "masked_fwd" in low:
             groups["flash_mha_masked"] += ms
+        elif "wo_gemv" in low or "splitk_reduce" in low:
+            groups["weight_only_matmul"] += ms
+        elif "lora_gather" in low:
+            groups["lora_gather_matmul"] += ms
         elif any(s in low for s in ("gemm", "gemv", "cutlass", "xmma",
                                     "sm90", "cublas", "nvjet")):
             groups["matmul"] += ms
@@ -487,7 +687,7 @@ def profile_decode(engine, prompts, GenerationConfig, steps=8):
             groups["other"] += ms
     busy = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    emit({"phase": 4, "profile": "decode", "steps": steps,
+    emit({"phase": phase, "profile": "decode", "steps": steps,
           "wall_ms_per_step": wall * 1e3 / steps,
           "device_ms_per_step": {k: v / steps for k, v in groups.items()},
           "device_busy_share": busy / (wall * 1e3) if wall else None,
@@ -523,6 +723,245 @@ def phase_parity(cfg8b, create_engine, init_state, GenerationConfig):
           "prompt_lens": [len(p) for p in prompts], "new_tokens": 16,
           "tokens_identical": same})
     require(same, outs)
+
+
+def serve_prompts(vocab, seed=0):
+    """Phase 4's traffic (rng seed 0: a warm-up prompt, the 1024-token
+    shared prefix, 8 prompts of 128-2048 tokens, prompts 5 and 6 on the
+    shared prefix) plus prompt 7 on the shared prefix too (phase 8)."""
+    rng = np.random.default_rng(seed)
+    warm = rng.integers(0, vocab, 100)
+    shared = rng.integers(0, vocab, 1024)
+    lens = [128, 2048, 700, 1500, 333, 1024 + 500, 1024 + 300, 1900]
+    prompts = [rng.integers(0, vocab, n) for n in lens]
+    for i in (5, 6, 7):
+        prompts[i] = np.concatenate([shared, prompts[i][1024:]])
+    return warm, prompts, rng
+
+
+# phase 8a: prompts 5 and 6 (shared prefix) on one adapter, prompt 7 (the
+# same prefix) on another, 0 and 1 dense
+MODE_ADAPTERS = (None, None, "a0", "a1", "a2", "a3", "a3", "a0")
+
+
+def mode_launches(QM, LM, PA, FM):
+    return {"weight_only_matmul_int8": QM.weight_only_matmul.int8_launches,
+            "weight_only_matmul_int4": QM.weight_only_matmul.int4_launches,
+            "lora_gather_matmul": LM.lora_gather_matmul.launches,
+            "paged_attention": PA.paged_attention.launches,
+            "flash_mha_masked": FM.flash_mha_masked.launches}
+
+
+def zero_launches(QM, LM, PA, FM):
+    QM.weight_only_matmul.int8_launches = 0
+    QM.weight_only_matmul.int4_launches = 0
+    QM.weight_only_matmul.matmul_calls = 0
+    LM.lora_gather_matmul.launches = 0
+    PA.paged_attention.launches = 0
+    FM.flash_mha_masked.launches = 0
+
+
+def phase_modes(cfg, mods, name, quant, kv_quant, use_lora):
+    """Phase 8: one serving mode at llama3_8b full width and depth, phase
+    4's engine settings and traffic; the main path's launches, counted
+    from 0 over the 8 requests."""
+    (QM, LM, PA, FM, create_engine, init_state, GenerationConfig,
+     AdapterStore, random_adapter) = mods
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    state = init_state(cfg, gen, device="cuda")
+    store = None
+    if use_lora:
+        store = AdapterStore(cfg, capacity=4, rank=LORA_RANK)
+        for i in range(4):
+            store.register(f"a{i}", random_adapter(cfg, LORA_RANK, seed=i),
+                           alpha=LORA_ALPHA)
+    engine = create_engine(cfg, state, max_slots=8, page_size=64,
+                           max_model_len=8192, enable_prefix_cache=True,
+                           sync_interval=8, quant=quant, kv_quant=kv_quant,
+                           lora=store)
+    del state               # the engine holds the quantized state
+    release()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    adapters = MODE_ADAPTERS if use_lora else (None,) * 8
+    warm, prompts, rng = serve_prompts(cfg.vocab_size)
+    engine.submit(warm, GenerationConfig(max_new_tokens=8)).result()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    timings0, stats0 = dict(engine.timings), engine.stats()
+    zero_launches(QM, LM, PA, FM)
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, GenerationConfig(max_new_tokens=64),
+                          adapter=a) for p, a in zip(prompts, adapters)]
+    engine.run_until_complete()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = mode_launches(QM, LM, PA, FM)
+    matmul_calls = QM.weight_only_matmul.matmul_calls
+    stats = engine.stats()
+    pool = engine.blocks.pool_accounting()
+    for r in reqs:
+        require(r.finish_reason == "length", (r, r.finish_reason))
+        require(len(r.output_tokens) == 64, (r, len(r.output_tokens)))
+        require(all(0 <= t < cfg.vocab_size for t in r.output_tokens),
+                f"request {r.id}: token outside the vocabulary")
+    steps = stats["decode_steps"] - stats0["decode_steps"]
+    per_step = cfg.num_hidden_layers * 7
+    kind = f"weight_only_matmul_{quant}"
+    require(launches[kind] == per_step * steps,
+            f"{name}: K4 {quant} launches {launches[kind]} != {per_step} x "
+            f"{steps} decode steps")
+    require(launches["lora_gather_matmul"]
+            == (per_step * steps if use_lora else 0),
+            f"{name}: K5 launches {launches['lora_gather_matmul']}")
+    if kv_quant:
+        require(launches["paged_attention"] == 0,
+                f"{name}: int8 pages must not run K3")
+    else:
+        require(launches["paged_attention"] > 0, launches)
+    require(launches["flash_mha_masked"] > 0, launches)
+    require(stats["decode_traces"] == 1, stats["decode_traces"])
+    require(pool["leak"] == 0 and stats["pages_in_use"] == 0, pool)
+    cached = [r.num_cached_tokens for r in reqs]
+    if use_lora:
+        # 6 shares 5's prefix pages (one adapter); 7 has the same prefix
+        # under another adapter and must not
+        require(cached[6] >= 1024 and cached[7] == 0,
+                f"{name}: cross-adapter prefix sharing, cached {cached}")
+    ttft = [r.first_token_at - r.arrival_time for r in reqs]
+    decode_s = (engine.timings["decode_s"] - timings0["decode_s"]
+                + engine.timings["host_sync_s"] - timings0["host_sync_s"])
+    decode_tokens = sum(len(r.output_tokens) - 1 for r in reqs)
+    emit({"phase": 8, "mode": name, "quant": quant, "kv_quant": kv_quant,
+          "lora": store.snapshot() if store else None,
+          "adapters": list(adapters), "requests": len(reqs),
+          "prompt_lens": [len(p) for p in prompts], "max_new_tokens": 64,
+          "setup_s": setup_s, "wall_s": wall,
+          "ttft_s_mean": float(np.mean(ttft)),
+          "ttft_s_max": float(np.max(ttft)),
+          "prefill_s": engine.timings["prefill_s"] - timings0["prefill_s"],
+          "decode_s": decode_s, "decode_tokens": decode_tokens,
+          "decode_tokens_per_s": decode_tokens / decode_s,
+          "decode_steps": steps, "cached_tokens_per_request": cached,
+          "prefix_hits": stats["prefix_hits"] - stats0["prefix_hits"],
+          "launches": launches, "launches_per_decode_step": {
+              k: v / steps for k, v in launches.items()},
+          "dequant_matmul_calls": matmul_calls,
+          "decode_traces": stats["decode_traces"], "pool": pool,
+          "quant_snapshot": engine.quant_snapshot(),
+          "resident_bytes": resident,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    profile_decode(engine, [rng.integers(0, cfg.vocab_size, n)
+                            for n in (128, 2048, 700, 1500, 333, 1524, 1324,
+                                      1900)],
+                   GenerationConfig, phase=8, adapters=adapters)
+    return launches
+
+
+def record_logits(engine):
+    """Hook a CPU engine (``emit_logits=True``, ``sync_interval=1``) to
+    keep, per request id, the f32 logits row behind each emitted token:
+    the prefill's from ``_pick_token``, each decode step's from the
+    step's logits at the slot."""
+    rows = {}
+    pick, emit = engine._pick_token, engine._emit
+
+    def pick_hook(req, logits):
+        rows.setdefault(req.id, []).append(np.array(logits))
+        return pick(req, logits)
+
+    def emit_hook(slot, req, tok, now):
+        seen = rows.setdefault(req.id, [])
+        if len(seen) == len(req.output_tokens):        # a decode token
+            seen.append(engine._last_logits[slot].numpy())
+        return emit(slot, req, tok, now)
+
+    engine._pick_token, engine._emit = pick_hook, emit_hook
+    return rows
+
+
+def phase_modes_parity(cfg8b, create_engine, init_state, GenerationConfig,
+                       AdapterStore, random_adapter, quantize_state):
+    """Phase 9: both phase-8 configurations at 2 layers of llama3_8b
+    width in float32, card vs CPU, from one state quantized once on the
+    host (the quantizer is not under test).  The greedy tokens must be
+    identical, except that a request may part at a tie: at its first
+    differing token the CPU's logits of the two picks differ by at most
+    ``TIE_TOL`` x their std, and the rest of it is not compared."""
+    cfg = dataclasses.replace(cfg8b, num_hidden_layers=2, dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dense = init_state(cfg, torch.Generator().manual_seed(2), device="cpu")
+    adapters = {f"a{i}": random_adapter(cfg, LORA_RANK, seed=10 + i)
+                for i in range(2)}
+    rng = np.random.default_rng(2)
+    prefix = rng.integers(0, cfg.vocab_size, 96)
+    prompts = [rng.integers(0, cfg.vocab_size, 37),
+               np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 60)]),
+               rng.integers(0, cfg.vocab_size, 200),
+               np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 9)]),
+               np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 30)])]
+    result = {}
+    for name, quant, kv_quant, names in (
+            ("int8+lora", "int8", False, (None, "a0", "a1", "a0", "a1")),
+            ("int4+kv_quant", "int4", True, (None,) * 5)):
+        qstate = quantize_state(dense, kind=quant)
+        outs, rows = {}, None
+        for device in ("cuda", "cpu"):
+            store = None
+            if names[1] is not None:
+                store = AdapterStore(cfg, capacity=2, rank=LORA_RANK)
+                for a, w in adapters.items():
+                    store.register(a, w, alpha=LORA_ALPHA)
+            engine = create_engine(
+                cfg, {k: v.to(device) for k, v in qstate.items()},
+                device=device, max_slots=4, page_size=64, max_model_len=512,
+                enable_prefix_cache=True,
+                sync_interval=4 if device == "cuda" else 1,
+                emit_logits=device == "cpu", quant=quant,
+                kv_quant=kv_quant, lora=store)
+            if device == "cpu":
+                rows = record_logits(engine)
+            reqs = [engine.submit(p, GenerationConfig(max_new_tokens=16),
+                                  adapter=a)
+                    for p, a in zip(prompts, names)]
+            engine.run_until_complete()
+            outs[device] = [r.output_tokens for r in reqs]
+            ids = [r.id for r in reqs]
+        parts = []
+        for i, (card, cpu) in enumerate(zip(outs["cuda"], outs["cpu"])):
+            t = next((j for j, (a, b) in enumerate(zip(card, cpu))
+                      if a != b), None)
+            if t is None:
+                continue
+            lg = rows[ids[i]][t]
+            margin = float(abs(lg[card[t]] - lg[cpu[t]]) / lg.std())
+            parts.append({"request": i, "token": t, "card": card[t],
+                          "cpu": cpu[t], "margin_over_std": margin})
+        same = outs["cuda"] == outs["cpu"]
+        result[name] = same
+        emit({"phase": 9, "mode": name, "layers": 2, "dtype": "float32",
+              "prompt_lens": [len(p) for p in prompts], "adapters": names,
+              "new_tokens": 16, "tokens_identical": same,
+              "parted_at_tie": parts, "tie_tol": TIE_TOL})
+        require(all(p["margin_over_std"] <= TIE_TOL for p in parts),
+                (name, parts, outs))
+    return result
+
+
+def gemv_entry(name, src, replaces, records, launches, rep):
+    """A kernels-line entry: times at ``rep``, the record of the main
+    path's largest projection (gate/up at M = 8), errors over every
+    shape of phase 3."""
+    return {"name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(x["max_abs_err"] for x in records),
+            "max_row_rel_err": max(x["max_row_rel_err"] for x in records),
+            "shape": rep["shape"], "ms": rep["ms"],
+            "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"]}
 
 
 def bench_config(LlamaConfig, **kw):
@@ -702,8 +1141,11 @@ def main() -> int:
     from paddle_tpu_torch.ops import cuda_lib
     from paddle_tpu_torch.ops.pallas import flash_attention as FA
     from paddle_tpu_torch.ops.pallas import flash_mask as FM
+    from paddle_tpu_torch.ops.pallas import lora_matmul as LM
     from paddle_tpu_torch.ops.pallas import paged_attention as PA
-    from paddle_tpu_torch.serving import create_engine
+    from paddle_tpu_torch.ops.pallas import quant_matmul as QM
+    from paddle_tpu_torch.serving import (AdapterStore, create_engine,
+                                          quantize_state, random_adapter)
 
     # phase 1: the card
     smi = subprocess.run(
@@ -730,6 +1172,8 @@ def main() -> int:
     masked = [phase_masked(FM, gen, bucket, plen)
               for bucket, plen in ((512, 448), (2048, 1900), (6144, 5000))]
     flash = [phase_flash(FA, gen, *shape) for shape in FLASH_SHAPES]
+    quant = phase_quant(QM, gen)
+    lora = phase_lora(LM, gen)
     release()
 
     # phase 4: the main path at full width and depth
@@ -748,6 +1192,22 @@ def main() -> int:
     # phase 7: training parity, card vs CPU
     phase_train_parity(bench_config(LlamaConfig, num_hidden_layers=2,
                                     dtype="float32"), TH)
+    release()
+
+    # phase 8: the quantized and multi-LoRA serving modes, full depth
+    mods = (QM, LM, PA, FM, create_engine, init_state, GenerationConfig,
+            AdapterStore, random_adapter)
+    modes = {"8a": phase_modes(llama3_8b(), mods, "8a int8+lora", "int8",
+                               False, True)}
+    release()
+    modes["8b"] = phase_modes(llama3_8b(), mods, "8b int4+kv_quant", "int4",
+                              True, False)
+    release()
+
+    # phase 9: both modes, card vs CPU
+    phase_modes_parity(llama3_8b(), create_engine, init_state,
+                       GenerationConfig, AdapterStore, random_adapter,
+                       quantize_state)
 
     rep = masked[1]     # the 2048 bucket: the longest prompts of phase 4
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -766,7 +1226,26 @@ def main() -> int:
          "max_abs_err": max(m["max_abs_err"] for m in masked),
          "max_row_rel_err": max(m["max_row_rel_err"] for m in masked),
          **{k: rep[k] for k in keys}},
-        *flash_entries(flash, launches)]})
+        *flash_entries(flash, launches),
+        gemv_entry("weight_only_matmul_int8", "paddle_tpu_torch/csrc/"
+                   "quant_matmul.cu", "paddle_tpu/ops/pallas/"
+                   "quant_matmul.py:144", [q for q in quant
+                                           if q["kernel"].endswith("int8")],
+                   modes["8a"]["weight_only_matmul_int8"],
+                   next(q for q in quant if q["kernel"].endswith("int8")
+                        and q["shape"] == "gate/up" and q["M"] == 8)),
+        gemv_entry("weight_only_matmul_int4", "paddle_tpu_torch/csrc/"
+                   "quant_matmul.cu", "paddle_tpu/ops/pallas/"
+                   "quant_matmul.py:163", [q for q in quant
+                                           if q["kernel"].endswith("int4")],
+                   modes["8b"]["weight_only_matmul_int4"],
+                   next(q for q in quant if q["kernel"].endswith("int4")
+                        and q["shape"] == "gate/up" and q["M"] == 8)),
+        gemv_entry("lora_gather_matmul", "paddle_tpu_torch/csrc/"
+                   "lora_matmul.cu", "paddle_tpu/ops/pallas/"
+                   "lora_matmul.py:65", lora,
+                   modes["8a"]["lora_gather_matmul"],
+                   next(r for r in lora if r["shape"] == "gate/up"))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

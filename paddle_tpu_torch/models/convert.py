@@ -7,7 +7,10 @@ A serving state is a flat dict of tensors with the reference's
 param tree (``models/llama_hybrid.py``) is ``{"embed", "stages",
 "norm", "head"}`` with one dict of tensors per layer in ``stages``;
 :func:`hybrid_params_from_numpy` and :func:`hybrid_params_to_numpy`
-carry it to and from the reference's stage-stacked tree.
+carry it to and from the reference's stage-stacked tree.  A quantized
+serving leaf is a :class:`~paddle_tpu_torch.ops.pallas.quant_matmul.
+QuantizedWeight`; :func:`adapter_from_numpy` carries the reference's
+LoRA adapter dicts over.
 """
 from __future__ import annotations
 
@@ -15,10 +18,11 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..ops.pallas.quant_matmul import QuantizedWeight
 from .llama import LlamaConfig
 
-__all__ = ["hybrid_params_from_numpy", "hybrid_params_to_numpy",
-           "init_state", "state_from_numpy"]
+__all__ = ["adapter_from_numpy", "hybrid_params_from_numpy",
+           "hybrid_params_to_numpy", "init_state", "state_from_numpy"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -37,15 +41,35 @@ def state_from_numpy(np_state: dict, device=None, dtype=None) -> dict:
     """``{key: numpy array}`` (e.g. the JAX package's
     ``{k: np.asarray(v) for k, v in model.functional_state().items()}``)
     -> ``{key: tensor}`` on ``device`` (default CUDA), optionally cast to
-    ``dtype``.  bf16 arrays keep their exact bits."""
+    ``dtype``.  bf16 arrays keep their exact bits.  A quantized leaf is
+    given as ``(q, scale, kind, k)`` — numpy int8 values, f32 scales,
+    ``"int8"``/``"int4"`` and the logical K, e.g. from the reference's
+    ``QuantizedWeight`` — and becomes a :class:`QuantizedWeight` (never
+    cast)."""
     dev = resolve_device(device)
     out = {}
     for k, a in np_state.items():
+        if isinstance(a, tuple):
+            q, scale, kind, logical_k = a
+            out[k] = QuantizedWeight(_to_tensor(q).to(dev),
+                                     _to_tensor(scale).to(dev), kind=kind,
+                                     k=logical_k)
+            continue
         t = _to_tensor(a)
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
         out[k] = t.to(dev)
     return out
+
+
+def adapter_from_numpy(weights: dict) -> dict:
+    """The reference's LoRA adapter dict ``{key: (A [L, r, in],
+    B [L, r, out])}`` of numpy arrays -> the port's, the same pairs as
+    float32 CPU tensors (what ``serving.lora.AdapterStore.register``
+    parks on the host)."""
+    return {key: (torch.from_numpy(np.asarray(a, np.float32).copy()),
+                  torch.from_numpy(np.asarray(b, np.float32).copy()))
+            for key, (a, b) in weights.items()}
 
 
 def init_state(config: LlamaConfig, generator: torch.Generator,

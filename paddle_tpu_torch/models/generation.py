@@ -9,6 +9,16 @@ state dict with the reference's keys and ``[in, out]`` layout, so
 
 The paged decode layer writes the new token's K/V into the pools in
 place (the reference returns updated pools from a functional scatter).
+
+A weight may be quantized (:class:`~paddle_tpu_torch.ops.pallas.
+quant_matmul.QuantizedWeight`, or the legacy ``(int8, scale)`` pair):
+``_mm`` sends it through ``weight_only_matmul`` (the K4 GEMV).  A
+non-empty ``lora`` bank adds each row's rank-r adapter delta
+(``lora_delta``: the K5 kernel for a per-slot index vector, plain
+matmuls for a scalar index) exactly where the reference adds it;
+``lora=()`` is the dense path, unchanged.  The generate path's fused
+``quantize_state`` comes with the rest of generation (ROADMAP queue 1
+item 3).
 """
 from __future__ import annotations
 
@@ -17,7 +27,9 @@ from dataclasses import dataclass
 import torch
 
 from ..ops.pallas.flash_attention import sdpa
+from ..ops.pallas.lora_matmul import lora_delta
 from ..ops.pallas.paged_attention import select_paged_attention
+from ..ops.pallas.quant_matmul import QuantizedWeight, weight_only_matmul
 from .llama import LlamaConfig, _rms, _rotate_half
 
 __all__ = ["GenerationConfig"]
@@ -36,12 +48,13 @@ class GenerationConfig:
 
 
 def _mm(h, w):
-    """Matmul against a dense ``[in, out]`` weight.  Quantized weights
-    (the K4 weight-only GEMV) are not ported yet."""
-    if not isinstance(w, torch.Tensor):
-        raise NotImplementedError(
-            f"quantized weight {type(w).__name__}: the K4 weight-only "
-            "GEMV kernel is not ported yet")
+    """Matmul against a dense ``[in, out]`` weight, a legacy
+    ``(int8, scale)`` pair, or a :class:`QuantizedWeight` (the K4
+    weight-only GEMV at decode shapes)."""
+    if isinstance(w, tuple):        # legacy (int8, scale) pair
+        w = QuantizedWeight(w[0], w[1], kind="int8")
+    if isinstance(w, QuantizedWeight):
+        return weight_only_matmul(h, w)
     return h @ w
 
 
@@ -60,13 +73,36 @@ def _layer_weights(state, i):
     }
 
 
-def _qkv_proj(w, h):
-    return _mm(h, w["q"]), _mm(h, w["k"]), _mm(h, w["v"])
+def _qkv_proj(w, h, lora=(), aidx=None, li=0):
+    """(q, k, v) projections, plus each row's adapter delta when a
+    ``lora`` bank is given (``aidx`` indexes it per row, or is one
+    scalar for the whole call)."""
+    q, k, v = _mm(h, w["q"]), _mm(h, w["k"]), _mm(h, w["v"])
+    if lora:
+        q = q + lora_delta(lora, "q", li, h, aidx)
+        k = k + lora_delta(lora, "k", li, h, aidx)
+        v = v + lora_delta(lora, "v", li, h, aidx)
+    return q, k, v
 
 
-def _ffn(w, h):
+def _ffn(w, h, lora=(), aidx=None, li=0):
     g, u = _mm(h, w["gate"]), _mm(h, w["up"])
-    return _mm(torch.nn.functional.silu(g) * u, w["down"])
+    if lora:
+        g = g + lora_delta(lora, "gate", li, h, aidx)
+        u = u + lora_delta(lora, "up", li, h, aidx)
+    act = torch.nn.functional.silu(g) * u
+    out = _mm(act, w["down"])
+    if lora:
+        out = out + lora_delta(lora, "down", li, act, aidx)
+    return out
+
+
+def _out_proj(w, attn, lora=(), aidx=None, li=0):
+    """The attention output projection, plus its adapter delta."""
+    o = _mm(attn, w["o"])
+    if lora:
+        o = o + lora_delta(lora, "o", li, attn, aidx)
+    return o
 
 
 def _rope_at(cos, sin, pos):
@@ -74,14 +110,15 @@ def _rope_at(cos, sin, pos):
     return cos[pos], sin[pos]
 
 
-def _prefill_layer(w, x, cos, sin, mask, cfg: LlamaConfig):
+def _prefill_layer(w, x, cos, sin, mask, cfg: LlamaConfig, lora=(),
+                   aidx=None, li=0):
     """x: [B, S, H]; mask [B, S] bool key padding (True = real token);
     returns (out, k, v) with k/v [B, S, kvH, D] post-rope."""
     b, s, _ = x.shape
     nh, kvh, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim)
     h = _rms(x, w["ln1"], cfg.rms_norm_eps)
-    qp, kp, vp = _qkv_proj(w, h)
+    qp, kp, vp = _qkv_proj(w, h, lora, aidx, li)
     q = qp.reshape(b, s, nh, hd)
     k = kp.reshape(b, s, kvh, hd)
     v = vp.reshape(b, s, kvh, hd)
@@ -92,13 +129,13 @@ def _prefill_layer(w, x, cos, sin, mask, cfg: LlamaConfig):
     # causal + key-padding: the masked flash forward (CUDA K8 forward)
     attn = sdpa(q, k, v, attn_mask=mask[:, None, None, :],
                 is_causal=True).reshape(b, s, nh * hd)
-    x = x + _mm(attn, w["o"])
+    x = x + _out_proj(w, attn, lora, aidx, li)
     h = _rms(x, w["ln2"], cfg.rms_norm_eps)
-    return x + _ffn(w, h), k, v
+    return x + _ffn(w, h, lora, aidx, li), k, v
 
 
 def _decode_layer_paged(w, x, kpool, vpool, table, cos1, sin1, pos,
-                        cfg: LlamaConfig):
+                        cfg: LlamaConfig, lora=(), aidx=None, li=0):
     """Paged-cache decode layer: x [B, H] one token per sequence; pools
     [P, kvH, ps, D], updated IN PLACE with this token's K/V at page
     table[b, pos // ps], slot pos % ps; table [B, max_pages] int32; pos
@@ -109,7 +146,7 @@ def _decode_layer_paged(w, x, kpool, vpool, table, cos1, sin1, pos,
                    cfg.head_dim)
     ps = kpool.shape[2]
     h = _rms(x, w["ln1"], cfg.rms_norm_eps)
-    qp, kp, vp = _qkv_proj(w, h)
+    qp, kp, vp = _qkv_proj(w, h, lora, aidx, li)
     q = qp.reshape(b, nh, hd)
     k = kp.reshape(b, kvh, hd)
     v = vp.reshape(b, kvh, hd)
@@ -127,6 +164,6 @@ def _decode_layer_paged(w, x, kpool, vpool, table, cos1, sin1, pos,
 
     attn = select_paged_attention()(
         q.contiguous(), kpool, vpool, table, pos + 1).reshape(b, nh * hd)
-    x = x + _mm(attn, w["o"])
+    x = x + _out_proj(w, attn, lora, aidx, li)
     h = _rms(x, w["ln2"], cfg.rms_norm_eps)
-    return x + _ffn(w, h)
+    return x + _ffn(w, h, lora, aidx, li)

@@ -1,0 +1,2 @@
+"""Layers and functions of the port's ``paddle.nn`` surface; so far the
+weight-only quantization helpers the serving engine needs."""

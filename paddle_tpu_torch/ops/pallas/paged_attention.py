@@ -21,6 +21,10 @@ float32 that is no difference; in bf16 it is within one bf16 rounding
 of the output, which the kernel-vs-plain tolerance covers.  With
 ``lens == 0`` the kernel writes zeros and the plain version gives NaN;
 the engine never passes 0 (an idle slot runs with lens = pos + 1 = 1).
+
+The int8 KV page mode (:func:`quantize_kv_rows`,
+:func:`gather_kv_pages_quant`, :func:`paged_attention_quant`) is plain
+PyTorch: the reference runs it on XLA and has no kernel for it.
 """
 from __future__ import annotations
 
@@ -33,7 +37,9 @@ import torch
 from .. import cuda_lib
 
 __all__ = ["paged_attention", "paged_attention_xla", "PagedPool",
-           "select_paged_attention", "gather_kv_pages"]
+           "select_paged_attention", "gather_kv_pages",
+           "gather_kv_pages_quant", "gather_scale_pages",
+           "paged_attention_quant", "quantize_kv_rows"]
 
 _MAX_REP = 16                  # kMaxRep in the kernel
 _HEAD_DIM = 128                # the one head_dim the kernel is built for
@@ -156,6 +162,66 @@ def paged_attention_xla(q, kpool, vpool, table, lens):
     logits = logits.masked_fill(~valid, -math.inf)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bht,bhtd->bhd", probs, vq)
+
+
+# --------------------------------------------------- int8 KV page mode
+def quantize_kv_rows(x):
+    """Symmetric per-(token, head) int8 quantization of new KV rows:
+    ``x`` [..., D] float -> (q int8 [..., D], scale f32 [...]).  The
+    amax runs on the float input, the scale is floored so all-zero rows
+    divide cleanly, and values round (half to even) into [-127, 127]."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.clamp(amax / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127.0, 127.0)
+    return q.to(torch.int8), scale
+
+
+def gather_scale_pages(scale, table):
+    """Scale-pool mirror of :func:`gather_kv_pages`: ``scale``
+    [P, kvH, page_size] f32, ``table`` [..., W] int32 ->
+    [..., W * page_size, kvH] token-major."""
+    kvh, ps = scale.shape[1:]
+    g = scale[table.long()].transpose(-2, -1)     # [..., W, ps, kvh]
+    return g.reshape(tuple(table.shape[:-1]) + (table.shape[-1] * ps, kvh))
+
+
+def gather_kv_pages_quant(pool, scale, table, dtype=torch.float32):
+    """Dequantizing gather: int8 ``pool`` + per-row ``scale`` -> float
+    token-major [..., W * page_size, kvH, D] in ``dtype``."""
+    g = gather_kv_pages(pool, table).float()
+    s = gather_scale_pages(scale, table)
+    return (g * s[..., None]).to(dtype)
+
+
+def paged_attention_quant(q, kpool, vpool, kscale, vscale, table, lens,
+                          tp_axis=None):
+    """Paged attention over int8 KV pools with per-(page-row, head) f32
+    scales: the dense-gather formulation of :func:`paged_attention_xla`
+    with the dequantization fused into the page gather.  It gathers the
+    whole table width of every row (the reference's XLA path); there is
+    no kernel for int8 pages.  The head-parallel (``tp_axis``) variant
+    comes with serving tensor parallelism."""
+    if tp_axis is not None:
+        raise NotImplementedError(
+            "head-parallel paged attention (tp > 1) is not ported yet")
+    b, nh, d = q.shape
+    kvh = kpool.shape[1]
+    rep = nh // kvh
+    # [B, W*ps, kvh, D] -> [B, kvh, W*ps, D], dequantized at the gather;
+    # q heads group onto their kv head ([B, kvh, rep, D]) instead of the
+    # reference's repeat of K/V (the same products)
+    kb = gather_kv_pages_quant(kpool, kscale, table, q.dtype).transpose(1, 2)
+    vb = gather_kv_pages_quant(vpool, vscale, table, q.dtype).transpose(1, 2)
+    qg = q.reshape(b, kvh, rep, d)
+    logits = torch.einsum("bgrd,bgtd->bgrt", qg.float(), kb.float()) \
+        / math.sqrt(d)
+    tpos = torch.arange(kb.shape[2], device=q.device)
+    valid = tpos[None, None, None, :] < lens.to(q.device)[:, None, None,
+                                                          None]
+    logits = logits.masked_fill(~valid, -math.inf)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bgrt,bgtd->bgrd", probs, vb).reshape(b, nh, d)
 
 
 class PagedPool:

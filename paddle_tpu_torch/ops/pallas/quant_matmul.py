@@ -1,0 +1,214 @@
+"""Weight-only int8/int4 matmul for the memory-bound decode path.
+
+Ports ``paddle_tpu/ops/pallas/quant_matmul.py``.  A
+:class:`QuantizedWeight` holds int8 values (nibble-packed ``[K/2, N]``
+for int4: row 2k in the low nibble, row 2k+1 in the high one) and a
+per-output-channel f32 scale; ``x @ dequant(w)`` accumulates in f32,
+multiplies the accumulator by the scale and casts once to x's dtype.
+
+:func:`weight_only_matmul` keeps the reference's routing rule
+(``quant_matmul.py:230-236``): decode-shaped calls (``M <= 64`` rows,
+N a multiple of 128, an even K for int4) take the GEMV kernel, the
+others the dequant-matmul path.
+
+  * On CPU tensors every call runs :func:`_xla_fallback`, the plain
+    version (the reference's XLA path, whose name it keeps).
+  * On CUDA tensors the kernel route launches ``csrc/quant_matmul.cu``
+    (the port of the TPU kernel K4, ``_pallas_int8``/``_pallas_int4``)
+    or raises; there is no probe and no quiet fallback.  The other
+    route is one ``torch.matmul`` against ``q`` cast to x's dtype, the
+    f32 scale on the result, cast back (the reference's XLA route;
+    counted in ``weight_only_matmul.matmul_calls``).
+
+An int8 or int4 value is exact in bf16 and in f32, so the kernel's f32
+FMAs on x and the converted weights compute the Pallas body's product;
+the kernel and the plain version differ only in summation order (and,
+for bf16 x, in the one rounding of the output).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import cuda_lib
+
+__all__ = ["QuantizedWeight", "pack_int4", "unpack_int4",
+           "weight_only_matmul"]
+
+# decode-shaped calls (M rows at most this) take the GEMV kernel;
+# larger M is compute-bound and runs the dequant-matmul path
+_GEMV_MAX_ROWS = 64
+_SM_COUNT = 132                # H100 SXM
+_BN = 128                      # kBN in the kernel: columns per CTA
+_MT = 8                        # kMT: rows of x per CTA
+_MIN_SPLIT_ROWS = 64           # the fewest q rows a K split takes
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_launch = None                 # the C entry, resolved at first CUDA use
+
+
+class QuantizedWeight:
+    """A weight-only-quantized matmul weight: int8 values (nibble-packed
+    ``[K/2, N]`` for int4) + per-output-channel f32 scale ``[N]``, with
+    the logical ``k``.  ``.to(device)`` moves both tensors, so the
+    serving runner places it like the dense weight it replaces."""
+
+    def __init__(self, q, scale, kind="int8", k=None):
+        self.q = q
+        self.scale = scale
+        self.kind = kind                      # "int8" | "int4"
+        self.k = int(k if k is not None else q.shape[0])   # logical K
+
+    @property
+    def shape(self):
+        return (self.k, self.q.shape[1])
+
+    def to(self, device):
+        return QuantizedWeight(self.q.to(device), self.scale.to(device),
+                               kind=self.kind, k=self.k)
+
+    def dequantize(self, dtype=torch.bfloat16):
+        q = unpack_int4(self.q, self.k) if self.kind == "int4" else self.q
+        return (q.float() * self.scale.float()).to(dtype)
+
+
+def pack_int4(q):
+    """[K, N] int8 values in [-8, 7] -> [K/2, N] int8, row 2k in the low
+    nibble and row 2k+1 in the high nibble."""
+    k = q.shape[0]
+    if k % 2:
+        raise ValueError(f"int4 packing needs even K, got {k}")
+    lo = q[0::2].to(torch.int16) & 0xF
+    hi = (q[1::2].to(torch.int16) & 0xF) << 4
+    return (lo | hi).to(torch.uint8).view(torch.int8)
+
+
+def unpack_int4(packed, k=None):
+    """Inverse of :func:`pack_int4` -> [K, N] int8 (sign-extended)."""
+    w = packed.to(torch.int32)
+    lo = _sext4(w & 0xF)
+    hi = _sext4((w >> 4) & 0xF)
+    out = torch.stack([lo, hi], dim=1).reshape(-1, packed.shape[1])
+    return out if k is None else out[:k]
+
+
+def _sext4(nib):
+    """int nibble 0..15 -> sign-extended int8."""
+    return torch.where(nib >= 8, nib - 16, nib).to(torch.int8)
+
+
+def _block_n(n, cap=2048):
+    """Largest multiple of 128 that divides n, capped — the reference's
+    column-block rule, which this port keeps as its routing rule (0 =
+    no kernel).  The reference's int4 cap (``_block_n_int4``) is never
+    below 128, so the rule is the same for both kinds."""
+    best = 0
+    for m in range(128, cap + 1, 128):
+        if n % m == 0:
+            best = m
+    return best
+
+
+def _xla_fallback(x, w: QuantizedWeight):
+    """The plain version: exact int -> f32 weights, f32 accumulation,
+    per-column scale on the result, cast to x's dtype."""
+    q = unpack_int4(w.q, w.k) if w.kind == "int4" else w.q
+    out = torch.matmul(x.float(), q.float())
+    return (out * w.scale.float()).to(x.dtype)
+
+
+def _splits(m, rows, n):
+    """K splits so that one call puts >= 2 CTAs per SM in flight (the
+    k/v projections have only N/128 = 8 column blocks at llama3_8b),
+    each split taking at least ``_MIN_SPLIT_ROWS`` q rows."""
+    blocks = (n // _BN) * -(-m // _MT)
+    want = -(-2 * _SM_COUNT // blocks)
+    splits = max(1, min(want, rows // _MIN_SPLIT_ROWS))
+    return splits, -(-rows // splits)
+
+
+def _check(x2, w):
+    q, scale = w.q, w.scale
+    if q.device != x2.device or scale.device != x2.device:
+        raise ValueError("weight_only_matmul: x, q and scale must be on one "
+                         f"device, got {x2.device}/{q.device}/"
+                         f"{scale.device}")
+    if x2.dtype not in _DTYPES:
+        raise TypeError("weight_only_matmul kernel takes float32 or "
+                        f"bfloat16 x, got {x2.dtype}")
+    if q.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError("weight_only_matmul kernel takes int8 q and a "
+                        f"float32 scale, got {q.dtype}/{scale.dtype}")
+    rows = w.k // 2 if w.kind == "int4" else w.k
+    if q.dim() != 2 or q.shape[0] != rows or tuple(scale.shape) != (
+            q.shape[1],):
+        raise ValueError(
+            f"weight_only_matmul: {w.kind} q {tuple(q.shape)} must be "
+            f"[{rows}, N] and scale {tuple(scale.shape)} [N] for K={w.k}")
+    if not (x2.is_contiguous() and q.is_contiguous()
+            and scale.is_contiguous()):
+        raise ValueError("weight_only_matmul kernel takes contiguous x, q "
+                         "and scale")
+    if q.data_ptr() % 16:
+        raise ValueError("weight_only_matmul: q must be 16-byte aligned")
+    return rows
+
+
+def _kernel(x2, w):
+    """Launch the K4 GEMV: x2 [M <= 64, K] @ w -> [M, N] in x's dtype."""
+    global _launch
+    rows = _check(x2, w)
+    m, k = x2.shape
+    n = w.q.shape[1]
+    out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
+    splits, per_split = _splits(m, rows, n)
+    ws = (torch.empty((splits, m, n), dtype=torch.float32,
+                      device=x2.device) if splits > 1 else None)
+    if _launch is None:
+        _launch = cuda_lib.kernel("quant_matmul", "quant_matmul_fwd",
+                                  _ARGTYPES)
+    err = _launch(_DTYPES[x2.dtype], int(w.kind == "int4"), x2.data_ptr(),
+                  w.q.data_ptr(), w.scale.data_ptr(), out.data_ptr(),
+                  0 if ws is None else ws.data_ptr(), m, k, n, splits,
+                  per_split, torch.cuda.current_stream(x2.device).cuda_stream)
+    cuda_lib.check("quant_matmul", err, "weight_only_matmul launch")
+    if w.kind == "int4":
+        weight_only_matmul.int4_launches += 1
+    else:
+        weight_only_matmul.int8_launches += 1
+    return out
+
+
+def weight_only_matmul(x, w: QuantizedWeight):
+    """x [..., K] @ dequant(w) -> [..., N] in x's dtype: the K4 GEMV
+    kernel at decode shapes on CUDA, the dequant-matmul otherwise, the
+    plain version on the CPU."""
+    if w.kind not in ("int8", "int4"):
+        raise ValueError(f"unsupported quant kind {w.kind!r}")
+    lead = x.shape[:-1]
+    k = x.shape[-1]
+    if k != w.shape[0]:
+        raise ValueError(f"matmul K mismatch: x has {k}, weight "
+                         f"{w.shape[0]}")
+    n = w.shape[1]
+    x2 = x.reshape(-1, k)
+    if x.device.type == "cpu":
+        return _xla_fallback(x2, w).reshape(*lead, n)
+    kernel_route = (_block_n(n) > 0 and x2.shape[0] <= _GEMV_MAX_ROWS
+                    and (w.kind == "int8" or k % 2 == 0))
+    if kernel_route:
+        return _kernel(x2, w).reshape(*lead, n)
+    q = unpack_int4(w.q, w.k) if w.kind == "int4" else w.q
+    out = torch.matmul(x2, q.to(x2.dtype))
+    weight_only_matmul.matmul_calls += 1
+    return (out.float() * w.scale.float()).to(x.dtype).reshape(*lead, n)
+
+
+# kernel launches by kind (the main-path witnesses) and calls of the
+# dequant-matmul route on CUDA (M > 64, the reference's XLA route)
+weight_only_matmul.int8_launches = 0
+weight_only_matmul.int4_launches = 0
+weight_only_matmul.matmul_calls = 0

@@ -101,6 +101,17 @@ _M_HOST_PARKED = _obs.gauge(
 _ROOT = -1          # chain parent of the first chunk of every prompt
 
 
+def _root(adapter):
+    """The chain root a prompt's first chunk hangs from: ``_ROOT`` for
+    the dense model (``adapter=None``, the reference's single root, so
+    dense chains and ``pool_accounting()`` stay the reference's), one
+    root per adapter name otherwise.  KV depends on the adapter (its
+    k/v deltas), so requests share prefix pages only when both their
+    tokens and their adapter match — the reference keys by tokens alone
+    and would hand one adapter's KV to another."""
+    return _ROOT if adapter is None else (_ROOT, str(adapter))
+
+
 class BlockManager:
     """Free-list page allocator + per-sequence block tables (+ optional
     prefix cache).
@@ -206,11 +217,13 @@ class BlockManager:
         self._update_pool_gauges()
         return list(pages)
 
-    def allocate_seq(self, seq_id: int, prompt, max_new_tokens: int):
+    def allocate_seq(self, seq_id: int, prompt, max_new_tokens: int,
+                     adapter=None):
         """Admission entry point: match ``prompt`` against the prefix
-        cache, share matched pages, and reserve fresh pages for the
-        suffix only.  Returns the sequence's full page list (shared
-        prefix first) or ``None`` on backpressure.  The prefill plan
+        cache under ``adapter``'s chain root (``None`` = dense), share
+        matched pages, and reserve fresh pages for the suffix only.
+        Returns the sequence's full page list (shared prefix first) or
+        ``None`` on backpressure.  The prefill plan
         (``cached_len``, ``cow_src``) is retrievable via
         :meth:`seq_meta` until :meth:`free_seq`."""
         if not self.prefix_cache:
@@ -230,8 +243,9 @@ class BlockManager:
         full = plen // ps
 
         # walk the chain index chunk by chunk
+        root = _root(adapter)
         matched: list[int] = []
-        parent = _ROOT
+        parent = root
         for c in range(full):
             page = self._index.get((parent, prompt[c * ps:(c + 1) * ps]))
             if page is None:
@@ -242,7 +256,7 @@ class BlockManager:
             # full-prompt hit: drop the last match so at least one token
             # still runs through the model (its logits seed decoding)
             matched.pop()
-            parent = matched[-1] if matched else _ROOT
+            parent = matched[-1] if matched else root
         m = len(matched)
         self.prefix_hits += m
         self.prefix_misses += full - m
@@ -334,14 +348,15 @@ class BlockManager:
         self._update_pool_gauges()
         return list(pages)
 
-    def publish_seq(self, seq_id: int, tokens):
+    def publish_seq(self, seq_id: int, tokens, adapter=None):
         """Deferred chain registration for a chunk-prefilled admission.
 
         :meth:`allocate_seq` skips chain/tail registration when the
         engine will prefill in chunks (``meta["deferred"]``); the
         engine calls this once the last chunk has landed, passing
-        exactly the token prefix whose KV is now device-resident.
-        Idempotent and a no-op for non-deferred sequences."""
+        exactly the token prefix whose KV is now device-resident and
+        the ``adapter`` it was prefilled under.  Idempotent and a no-op
+        for non-deferred sequences."""
         meta = self._meta.get(seq_id)
         pages = self._tables.get(seq_id)
         if (not self.prefix_cache or not meta or not pages
@@ -350,7 +365,7 @@ class BlockManager:
         toks = tuple(int(t) for t in np.asarray(tokens).reshape(-1))
         ps = self.page_size
         full = min(len(toks) // ps, len(pages))
-        parent = _ROOT
+        parent = _root(adapter)
         for c in range(full):
             key = (parent, toks[c * ps:(c + 1) * ps])
             existing = self._index.get(key)
@@ -693,7 +708,9 @@ class BlockManager:
 
     def prefix_digest(self, max_entries: int = 64) -> dict:
         """Compact cached-chain summary for the fleet plane: the sha1
-        digest (first 16 hex chars) of every *root-level* cached chunk,
+        digest (first 16 hex chars) of every *root-level* cached chunk
+        of the dense model's chains (adapter chains hang from their own
+        roots and are not published),
         hashed over the same int32 token bytes as the router's
         affinity key — so the router can match an incoming prompt's
         first page-aligned chunk against a replica's published digests

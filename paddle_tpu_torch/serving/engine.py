@@ -34,11 +34,18 @@ Sampling is host-side per request (greedy = argmax of the f32 logits;
 stochastic requests draw from a per-request numpy RNG, so results do not
 depend on batch composition).  A kernel or prefill failure propagates
 out of :meth:`Engine.step`; per-request quarantine comes back with the
-supervisor slice.  Speculative decoding, preemption, recovery, fault
-injection, usage metering, request logs, SLO tracking, quantized
-weights or KV pages, LoRA adapters and tensor parallelism come with
-later slices: their constructor arguments raise ``NotImplementedError``
-when set.
+supervisor slice.
+
+Serving modes: ``quant="int8"|"int4"`` converts the dense checkpoint at
+construction (``quantize_state``: the projections run the K4 GEMV);
+``kv_quant=True`` switches the KV pools to int8 pages with f32 scales;
+``lora=AdapterStore(...)`` arms a packed adapter bank, and
+``submit(..., adapter="name")`` pins that adapter's bank row from submit
+to finalize (the decode step's deltas run the K5 kernel).  Prefix pages
+are shared only between requests of one adapter.  Speculative decoding,
+preemption, recovery, fault injection, usage metering, request logs,
+SLO tracking and tensor parallelism come with later slices: their
+constructor arguments raise ``NotImplementedError`` when set.
 """
 from __future__ import annotations
 
@@ -52,6 +59,7 @@ from ..models.generation import GenerationConfig
 from ..models.llama import LlamaConfig
 from .block_manager import BlockManager
 from .parallel.runner import ModelRunner
+from .quantize import quantize_state
 from .request import Request, RequestState
 from .scheduler import Scheduler
 
@@ -90,8 +98,7 @@ _M_CHUNKS = _obs.counter(
 _LATER = {"spec_k": "speculative decoding", "preempt": "preemption",
           "faults": "fault injection", "usage": "usage metering",
           "requestlog": "request logs", "slo": "SLO tracking",
-          "quant": "quantized weights (K4)", "kv_quant": "int8 KV pages",
-          "lora": "LoRA adapters (K5)", "mesh": "tensor parallelism"}
+          "mesh": "tensor parallelism"}
 
 
 class NonFiniteLogitsError(ValueError):
@@ -129,7 +136,9 @@ class Engine:
                  emit_logits: bool = False,
                  enable_prefix_cache: bool = False,
                  sync_interval: int = 1, clock=time.monotonic,
-                 prefill_chunk: int | None = None, **later):
+                 prefill_chunk: int | None = None,
+                 quant: str | None = None, kv_quant: bool | None = None,
+                 lora=None, **later):
         for name, value in later.items():
             if name not in _LATER:
                 raise TypeError(f"Engine got an unexpected argument {name!r}")
@@ -140,6 +149,25 @@ class Engine:
                     f"{name}={value!r}: {_LATER[name]} is not ported to "
                     "paddle_tpu_torch yet")
         self.device = resolve_device(device)
+        # quantized serving: convert the dense checkpoint before
+        # placement (embeddings/norms/lm_head stay dense, so the dtype
+        # the pools take still is the checkpoint's).  None means off.
+        quant = quant or ""
+        if quant not in ("", "int8", "int4"):
+            raise ValueError(
+                f"quant must be '', 'int8', or 'int4', got {quant!r}")
+        self.quant = quant
+        self.kv_quant = bool(kv_quant)
+        if self.quant:
+            state = quantize_state(state, kind=self.quant)
+        # multi-LoRA serving: the AdapterStore sizes the runner's packed
+        # bank (rows x rank fixed at construction)
+        self.lora = lora
+        if lora is not None and lora.rank is None:
+            raise ValueError(
+                "the AdapterStore has no adapters and no explicit "
+                "rank= — the runner cannot size the bank (register "
+                "one adapter first, or pass AdapterStore(rank=...))")
         self.config = config
         self.max_slots = int(max_slots)
         self.page_size = int(page_size)
@@ -184,7 +212,15 @@ class Engine:
             num_pages=self.blocks.num_pages,
             dump_page=self.blocks.dump_page,
             sync_interval=self.sync_interval,
-            emit_logits=self.emit_logits)
+            emit_logits=self.emit_logits, kv_quant=self.kv_quant,
+            lora_slots=lora.capacity if lora is not None else 0,
+            lora_rank=lora.rank if lora is not None else 0)
+        if lora is not None:
+            # bind the store to the bank: resident adapters (if any)
+            # upload now; later acquires patch single rows in place
+            lora.attach(self.runner)
+        self._embed_itemsize = \
+            state["llama.embed_tokens.weight"].element_size()
 
         # host-side mirrors of the slot state (bookkeeping + targeted
         # device patches on admit/evict; NEVER re-uploaded per step)
@@ -193,6 +229,8 @@ class Engine:
         self._pos = np.zeros((self.max_slots,), np.int32)
         self._tok = np.zeros((self.max_slots,), np.int32)
         self._active = np.zeros((self.max_slots,), np.int32)
+        # per-slot adapter bank row (0 = the zero no-adapter row)
+        self._aidx = np.zeros((self.max_slots,), np.int32)
         self._ring_cursor = 0           # host mirror of the ring index
         # ring rows the host has not consumed yet, in decode order:
         # [(ring row, [(slot, request), ...]), ...]
@@ -221,6 +259,30 @@ class Engine:
             "serving_pages_in_use_hist",
             "pages-in-use sampled at each decode step",
             buckets=_pages_buckets(self.blocks.num_pages))
+        # the quant / LoRA metric surface, registered only when the mode
+        # is on, so a dense engine exports the pre-quant set
+        if self.quant or self.kv_quant:
+            _obs.gauge(
+                "serving_quant_weight_bits",
+                "weight-only quantization width of the serving state "
+                "(8 = int8, 4 = nibble-packed int4, 0 = dense weights)"
+            ).set({"int8": 8, "int4": 4}.get(self.quant, 0))
+            _obs.gauge(
+                "serving_quant_kv_page_bits",
+                "KV pool element width: 8 under the int8 page mode "
+                "(per-(page-row, head) f32 scales ride separately), "
+                "else the checkpoint dtype width"
+            ).set(8 if self.kv_quant else self._embed_itemsize * 8)
+            _obs.gauge(
+                "serving_quant_kv_page_bytes",
+                "bytes one KV page pair (k + v + scales) occupies"
+            ).set(self._page_bytes())
+        if self.lora is not None:
+            _obs.gauge(
+                "serving_lora_bank_bytes",
+                "device bytes the packed adapter bank occupies "
+                "(all rows, every projection, + the scale vector)"
+            ).set(self.runner.lora_bank_bytes())
 
     # ------------------------------------------------ runner delegation
     @property
@@ -239,13 +301,19 @@ class Engine:
     def submit(self, prompt, gen: GenerationConfig | None = None, *,
                deadline: float | None = None, on_token=None,
                arrival_time: float | None = None,
-               priority: int = 0) -> Request:
+               priority: int = 0, adapter: str | None = None) -> Request:
         """Queue one request; ``priority`` sets its scheduling class
-        (higher admits first)."""
+        (higher admits first).  ``adapter`` names a LoRA adapter
+        registered with the engine's AdapterStore (None = dense); its
+        bank row is pinned from here to the request's finalize."""
         req = Request(prompt, gen, deadline=deadline, on_token=on_token,
-                      priority=priority,
+                      priority=priority, adapter=adapter,
                       arrival_time=(self._clock() if arrival_time is None
                                     else arrival_time))
+        if req.adapter is not None and self.lora is None:
+            raise ValueError(
+                f"request names adapter {req.adapter!r} but the engine "
+                "was built without lora= (pass an AdapterStore)")
         total = req.prompt.size + req.gen.max_new_tokens
         if total > self.max_model_len:
             raise ValueError(
@@ -263,8 +331,18 @@ class Engine:
             raise ValueError(
                 "do_sample requests need an engine built with "
                 "emit_logits=True (host-side sampling reads the logits)")
+        # unknown names KeyError here; a full bank (every row pinned)
+        # RuntimeErrors
+        req._adapter_row = (self.lora.acquire(req.adapter)
+                            if self.lora is not None else 0)
         req._engine = self
-        self.scheduler.submit(req)
+        try:
+            self.scheduler.submit(req)
+        except BaseException:
+            # a rejected submit must not leave its adapter row pinned
+            if self.lora is not None:
+                self.lora.release(req.adapter)
+            raise
         return req
 
     # -------------------------------------------------------- main loop
@@ -340,13 +418,15 @@ class Engine:
             bucket = -(-plen // ps) * ps
             ids = np.zeros((1, bucket), np.int32)
             ids[0, :plen] = req.prompt
-            logits = self.runner.prefill(ids, plen, row)
+            logits = self.runner.prefill(ids, plen, row,
+                                         adapter_row=req._adapter_row)
         else:
             suffix = plen - cached
             bucket = -(-suffix // ps) * ps
             ids = np.zeros((1, bucket), np.int32)
             ids[0, :suffix] = req.prompt[cached:]
-            logits = self.runner.prefill_cached(ids, suffix, cached, row)
+            logits = self.runner.prefill_cached(
+                ids, suffix, cached, row, adapter_row=req._adapter_row)
         self._note_gap(plen - cached)
         _M_HOST_SYNCS.labels("prefill").inc()
         tok = self._pick_token(req, logits.cpu().numpy()[0])
@@ -388,9 +468,11 @@ class Engine:
         ids = np.zeros((1, bucket), np.int32)
         ids[0, :this] = ids_all[done:done + this]
         if done == 0:
-            logits = self.runner.prefill(ids, this, st["row"])
+            logits = self.runner.prefill(ids, this, st["row"],
+                                         adapter_row=req._adapter_row)
         else:
-            logits = self.runner.prefill_cached(ids, this, done, st["row"])
+            logits = self.runner.prefill_cached(
+                ids, this, done, st["row"], adapter_row=req._adapter_row)
         st["chunks"] += 1
         self.prefill_chunks += 1
         req.prefill_chunks += 1
@@ -407,7 +489,7 @@ class Engine:
         self._chunking.pop(slot)
         # the full chunked prefix is device-resident now — register it
         # in the prefix-cache chain (deferred at allocate_seq)
-        self.blocks.publish_seq(req.id, ids_all)
+        self.blocks.publish_seq(req.id, ids_all, adapter=req.adapter)
         now = self._clock()
         self._note_phase("prefill", time.perf_counter() - t0)
         self._enter_decode(slot, req, st["row"], n, tok)
@@ -422,6 +504,7 @@ class Engine:
         self._pos[slot] = pos
         self._tok[slot] = tok
         self._active[slot] = 1
+        self._aidx[slot] = req._adapter_row
         self._push_slot(slot)
         req.state = RequestState.DECODE
 
@@ -515,6 +598,7 @@ class Engine:
         self._pos[slot] = 0
         self._tok[slot] = 0
         self._active[slot] = 0
+        self._aidx[slot] = 0
         self._push_slot(slot)
 
     def _push_slot(self, slot: int):
@@ -522,7 +606,8 @@ class Engine:
         the host mirrors (admission / eviction only — never per step)."""
         self.runner.push_slot(slot, self.table[slot],
                               int(self._pos[slot]), int(self._tok[slot]),
-                              int(self._active[slot]))
+                              int(self._active[slot]),
+                              adapter_row=int(self._aidx[slot]))
 
     # --------------------------------------------------------- sampling
     def _pick_token(self, req: Request, logits: np.ndarray) -> int:
@@ -568,6 +653,10 @@ class Engine:
         req.state = RequestState.CANCELLED \
             if reason in ("cancelled", "deadline") else RequestState.DONE
         req.finished_at = now
+        if self.lora is not None:
+            # unpin the bank row (acquired at submit); the weights stay
+            # resident until LRU pressure evicts them
+            self.lora.release(req.adapter)
         self._rngs.pop(req.id, None)
         self._e2e.observe(now - req.arrival_time)
         _M_REQUESTS.labels(reason).inc()
@@ -599,9 +688,43 @@ class Engine:
             "prefill_chunks": self.prefill_chunks,
             "max_prefill_gap": self.max_prefill_gap,
             "mesh_tp": 1,
+            "quant": self.quant,
+            "kv_quant": self.kv_quant,
+            "lora": (self.lora.snapshot()
+                     if self.lora is not None else None),
             "timings": {k: round(v, 6) for k, v in self.timings.items()},
             "progress": self.progress,
         }
+
+    def _page_bytes(self, *, dense: bool = False) -> int:
+        """Bytes one KV page pair (k + v, all layers and heads)
+        occupies: under ``kv_quant`` the int8 elements plus the
+        per-(page-row, head) f32 scale rows; ``dense=True`` prices the
+        same page at the checkpoint dtype (the savings baseline)."""
+        cfg = self.config
+        rows = (cfg.num_hidden_layers * cfg.num_key_value_heads
+                * self.page_size)
+        elems = rows * cfg.head_dim
+        if self.kv_quant and not dense:
+            return 2 * elems + 2 * rows * 4
+        return 2 * elems * self._embed_itemsize
+
+    def quant_snapshot(self) -> dict:
+        """What is quantized and the per-page byte math (the spill-tier
+        figures of the reference come with preemption)."""
+        return {
+            "weight_kind": self.quant or "dense",
+            "kv_quant": self.kv_quant,
+            "page_bytes": self._page_bytes(),
+            "dense_page_bytes": self._page_bytes(dense=True),
+        }
+
+    def lora_snapshot(self) -> dict:
+        """The adapter store's residency census plus the device bank
+        footprint."""
+        snap = self.lora.snapshot() if self.lora is not None else {}
+        snap["bank_bytes_device"] = self.runner.lora_bank_bytes()
+        return snap
 
 
 def _softmax(x):
@@ -627,7 +750,9 @@ def create_engine(config: LlamaConfig, state: dict, *, device=None,
                   emit_logits: bool = False,
                   enable_prefix_cache: bool = False,
                   sync_interval: int = 1, clock=time.monotonic,
-                  prefill_chunk: int | None = None, **later) -> Engine:
+                  prefill_chunk: int | None = None,
+                  quant: str | None = None, kv_quant: bool | None = None,
+                  lora=None, **later) -> Engine:
     """Build a continuous-batching engine over a Llama state dict (see
     ``models/convert.py``: :func:`state_from_numpy` carries the JAX
     package's weights over, :func:`init_state` makes random ones).
@@ -637,7 +762,10 @@ def create_engine(config: LlamaConfig, state: dict, *, device=None,
     ``enable_prefix_cache=True`` turns on automatic prefix caching;
     ``sync_interval=N`` lets the greedy decode loop run N device steps
     between host syncs; ``prefill_chunk=N`` splits admission prefill
-    into N-token chunks interleaved with decode steps.
+    into N-token chunks interleaved with decode steps.  ``quant``
+    ("int8"/"int4") quantizes the projection weights, ``kv_quant=True``
+    the KV pages, and ``lora`` takes an :class:`AdapterStore` (requests
+    then pick an adapter with ``submit(..., adapter=name)``).
 
     Example::
 
@@ -653,4 +781,5 @@ def create_engine(config: LlamaConfig, state: dict, *, device=None,
                   emit_logits=emit_logits,
                   enable_prefix_cache=enable_prefix_cache,
                   sync_interval=sync_interval, clock=clock,
-                  prefill_chunk=prefill_chunk, **later)
+                  prefill_chunk=prefill_chunk, quant=quant,
+                  kv_quant=kv_quant, lora=lora, **later)

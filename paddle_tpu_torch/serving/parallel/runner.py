@@ -1,6 +1,6 @@
 """The engine's device half at tp=1: weights, paged KV pools, decode state.
 
-Ports the ``tp == 1``, dense branch of
+Ports the ``tp == 1`` branch of
 ``paddle_tpu/serving/parallel/runner.py``.  The :class:`ModelRunner`
 owns the state dict on its device, the paged KV pools, the rope tables,
 the device-resident decode state (table/pos/tok/active + the
@@ -19,6 +19,25 @@ stays comparable.  Decode attention runs the CUDA paged kernel and full
 prefill the CUDA masked flash forward (through ``sdpa``); the cached-
 suffix prefill's arbitrary bool mask runs plain PyTorch attention, as
 it runs XLA on the TPU.
+
+The serving modes:
+
+  * quantized weights — :class:`QuantizedWeight` leaves (checked at
+    construction by :meth:`ModelRunner._validate_quantized_state`) run
+    through the K4 GEMV in every decode projection;
+  * ``kv_quant`` — int8 pools with f32 scale pools ``[L, P+1, kvH,
+    page_size]``; every write quantizes per (token, head) and decode
+    attention dequantizes in the page gather (plain PyTorch, as the
+    reference runs it on XLA: no K3 launch);
+  * ``lora_slots`` — a packed f32 adapter bank of ``lora_slots + 1``
+    rows (row 0 stays zero: the no-adapter row) and a device ``aidx
+    [slots]`` vector set by :meth:`push_slot`.  The decode step passes
+    the vector to ``lora_delta`` (the K5 kernel); prefill passes the
+    request's scalar row (plain matmuls).
+
+Off modes (dense weights, ``kv_quant=False``, ``lora_slots=0``) run the
+dense path unchanged.  ``read_page``/``write_page`` come with
+preemption (ROADMAP queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -27,11 +46,14 @@ import torch
 
 from ... import observability as _obs
 from ...models.generation import (_decode_layer_paged, _ffn,
-                                  _layer_weights, _mm, _prefill_layer,
-                                  _qkv_proj, _rope_at)
+                                  _layer_weights, _mm, _out_proj,
+                                  _prefill_layer, _qkv_proj, _rope_at)
 from ...models.llama import _rms, _rope_tables, _rotate_half
 from ...ops.pallas.flash_attention import sdpa
-from ...ops.pallas.paged_attention import gather_kv_pages
+from ...ops.pallas.paged_attention import gather_kv_pages, quantize_kv_rows
+from ...ops.pallas.quant_matmul import QuantizedWeight
+from ..lora.store import lora_key_dims
+from .layers import decode_layer_paged_quant, prefill_layer_cached_quant
 
 __all__ = ["ModelRunner"]
 
@@ -51,7 +73,8 @@ class ModelRunner:
     def __init__(self, config, state: dict, *, device: torch.device,
                  max_slots: int, page_size: int, table_width: int,
                  num_pages: int, dump_page: int, sync_interval: int = 1,
-                 emit_logits: bool = False):
+                 emit_logits: bool = False, kv_quant: bool = False,
+                 lora_slots: int = 0, lora_rank: int = 0):
         self.config = config
         self.device = device
         self.max_slots = int(max_slots)
@@ -61,14 +84,31 @@ class ModelRunner:
         self.dump_page = int(dump_page)
         self.sync_interval = int(sync_interval)
         self.emit_logits = bool(emit_logits)
+        self.kv_quant = bool(kv_quant)
+        self.lora_slots = int(lora_slots)
+        self.lora_rank = int(lora_rank)
+        if self.lora_slots and self.lora_rank < 1:
+            raise ValueError(
+                f"lora_slots={self.lora_slots} requires lora_rank >= 1,"
+                f" got {self.lora_rank}")
+        self._validate_quantized_state(state)
         self.state = {k: v.to(device) for k, v in state.items()}
 
         L = config.num_hidden_layers
         kvh, hd = config.num_key_value_heads, config.head_dim
         dtype = self.state["llama.embed_tokens.weight"].dtype
         pool_shape = (L, self.num_pages + 1, kvh, self.page_size, hd)
-        self.kpool = torch.zeros(pool_shape, dtype=dtype, device=device)
-        self.vpool = torch.zeros(pool_shape, dtype=dtype, device=device)
+        pool_dtype = torch.int8 if self.kv_quant else dtype
+        self.kpool = torch.zeros(pool_shape, dtype=pool_dtype, device=device)
+        self.vpool = torch.zeros(pool_shape, dtype=pool_dtype, device=device)
+        # per-(page-row, head) f32 scales of the int8 pools (None when off)
+        self.kscale = self.vscale = None
+        if self.kv_quant:
+            self.kscale = torch.zeros(pool_shape[:-1], dtype=torch.float32,
+                                      device=device)
+            self.vscale = torch.zeros_like(self.kscale)
+        # the adapter bank (() when off)
+        self.lora = self._build_lora_bank() if self.lora_slots else ()
         self._rope_len = self.table_width * self.page_size
         self._cos, self._sin = _rope_tables(self._rope_len, hd,
                                             config.rope_theta, device=device)
@@ -78,6 +118,9 @@ class ModelRunner:
         self._pos_dev = torch.zeros((self.max_slots,), **i32)
         self._tok_dev = torch.zeros((self.max_slots,), **i32)
         self._active_dev = torch.zeros((self.max_slots,), **i32)
+        # per-slot adapter bank rows (None when off)
+        self._aidx_dev = (torch.zeros((self.max_slots,), **i32)
+                          if self.lora_slots else None)
         self._ring_dev = torch.zeros((self.sync_interval, self.max_slots),
                                      **i32)
         self._ridx = 0              # ring row the next step writes
@@ -86,6 +129,82 @@ class ModelRunner:
         self._step_fn = self._build_step()
         self.prefill_buckets: set[int] = set()
         self.cached_prefill_buckets: set[int] = set()
+
+    # ------------------------------------------------------ construction
+    @staticmethod
+    def _validate_quantized_state(state: dict):
+        """Loud construction-time rejection of malformed quantized
+        leaves: a broken QuantizedWeight would otherwise surface as an
+        opaque shape error inside the first step."""
+        for key, v in state.items():
+            if not isinstance(v, QuantizedWeight):
+                continue
+            if v.kind not in ("int8", "int4"):
+                raise ValueError(
+                    f"state[{key!r}]: unsupported quant kind {v.kind!r}"
+                    " (expected 'int8' or 'int4')")
+            if not (hasattr(v.q, "shape") and hasattr(v.scale, "shape")):
+                raise ValueError(
+                    f"state[{key!r}]: QuantizedWeight q/scale must be "
+                    "tensors (missing scale?)")
+            if v.q.dim() != 2:
+                raise ValueError(
+                    f"state[{key!r}]: quantized values must be 2-D, "
+                    f"got shape {tuple(v.q.shape)}")
+            if v.scale.dim() != 1 or v.scale.shape[0] != v.q.shape[1]:
+                raise ValueError(
+                    f"state[{key!r}]: scale shape "
+                    f"{tuple(v.scale.shape)} does not match one scale "
+                    f"per output channel (expected ({v.q.shape[1]},))")
+            rows = v.k // 2 if v.kind == "int4" else v.k
+            if v.q.shape[0] != rows:
+                raise ValueError(
+                    f"state[{key!r}]: {v.kind} values have "
+                    f"{v.q.shape[0]} rows, expected {rows} for "
+                    f"K={v.k}")
+
+    def _build_lora_bank(self):
+        """Zeroed packed bank ``{"a": {key: [L, rows, r, in]}, "b":
+        {key: [L, rows, r, out]}, "scale": [rows]}``, f32 whatever the
+        base dtype — row 0 stays all zero (the no-adapter row), so a
+        mixed batch indexes one bank in one step."""
+        dims = lora_key_dims(self.config)
+        L = self.config.num_hidden_layers
+        rows, r = self.lora_slots + 1, self.lora_rank
+        f32 = dict(dtype=torch.float32, device=self.device)
+        return {
+            "a": {k: torch.zeros((L, rows, r, ind), **f32)
+                  for k, (ind, _) in dims.items()},
+            "b": {k: torch.zeros((L, rows, r, outd), **f32)
+                  for k, (_, outd) in dims.items()},
+            "scale": torch.zeros((rows,), **f32),
+        }
+
+    @torch.no_grad()
+    def load_adapter(self, row: int, a: dict, b: dict, scale: float):
+        """Write one adapter into bank row ``row`` in place (admission
+        path, never per step).  ``a``/``b`` map each projection key to
+        its [L, r, dim] host tensor."""
+        if not self.lora_slots:
+            raise RuntimeError(
+                "runner built with lora_slots=0 has no adapter bank")
+        if not 1 <= int(row) <= self.lora_slots:
+            raise ValueError(
+                f"bank row {row} out of range 1..{self.lora_slots} "
+                "(row 0 is the reserved no-adapter row)")
+        for k, bank in self.lora["a"].items():
+            bank[:, row] = torch.as_tensor(a[k], dtype=torch.float32)
+        for k, bank in self.lora["b"].items():
+            bank[:, row] = torch.as_tensor(b[k], dtype=torch.float32)
+        self.lora["scale"][row] = float(scale)
+
+    def lora_bank_bytes(self) -> int:
+        """Total device bytes of the adapter bank (0 when off)."""
+        if not self.lora_slots:
+            return 0
+        leaves = [*self.lora["a"].values(), *self.lora["b"].values(),
+                  self.lora["scale"]]
+        return sum(t.numel() * t.element_size() for t in leaves)
 
     # ------------------------------------------------------------ programs
     def _build_step(self):
@@ -108,10 +227,18 @@ class ModelRunner:
             posc = self._pos_dev.clamp(max=rope_len - 1)
             h = state["llama.embed_tokens.weight"][self._tok_dev.long()]
             cos1, sin1 = _rope_at(self._cos, self._sin, posc.long())
+            lora, aidx = self.lora, self._aidx_dev
             for i in range(L):
-                h = _decode_layer_paged(
-                    _layer_weights(state, i), h, self.kpool[i],
-                    self.vpool[i], self._table_dev, cos1, sin1, posc, cfg)
+                w = _layer_weights(state, i)
+                if self.kv_quant:
+                    h = decode_layer_paged_quant(
+                        w, h, self.kpool[i], self.vpool[i], self.kscale[i],
+                        self.vscale[i], self._table_dev, cos1, sin1, posc,
+                        cfg, None, lora, aidx, i)
+                else:
+                    h = _decode_layer_paged(
+                        w, h, self.kpool[i], self.vpool[i], self._table_dev,
+                        cos1, sin1, posc, cfg, lora, aidx, i)
             h = _rms(h, state["llama.norm.weight"], cfg.rms_norm_eps)
             logits = _logits_of(state, h).float()
             nxt = logits.argmax(dim=-1).to(torch.int32)
@@ -131,19 +258,37 @@ class ModelRunner:
         logits = self._step_fn()
         return logits if self.emit_logits else None
 
+    def _write_pages(self, i, pages, k, v):
+        """Page one layer's prompt KV ``k``/``v`` [bucket, kvh, D] into
+        pool rows ``pages`` (quantized per (token, head) under
+        ``kv_quant``)."""
+        n_pages, ps = pages.shape[0], self.page_size
+        kvh, hd = k.shape[1:]
+        if self.kv_quant:
+            (k, sk), (v, sv) = quantize_kv_rows(k), quantize_kv_rows(v)
+            self.kscale[i, pages] = sk.reshape(n_pages, ps, kvh) \
+                .transpose(1, 2)
+            self.vscale[i, pages] = sv.reshape(n_pages, ps, kvh) \
+                .transpose(1, 2)
+        # [bucket, kvh, D] -> [n_pages, kvh, ps, D] page rows
+        self.kpool[i, pages] = k.reshape(n_pages, ps, kvh, hd) \
+            .transpose(1, 2).to(self.kpool.dtype)
+        self.vpool[i, pages] = v.reshape(n_pages, ps, kvh, hd) \
+            .transpose(1, 2).to(self.vpool.dtype)
+
     @torch.no_grad()
-    def prefill(self, ids: np.ndarray, plen: int, row: np.ndarray):
+    def prefill(self, ids: np.ndarray, plen: int, row: np.ndarray,
+                adapter_row: int = 0):
         """Full-prompt prefill: pages the prompt's KV into the pool and
         returns the last-token [1, V] f32 logits.  ``ids`` is the
-        [1, bucket] padded prompt (bucket a page multiple)."""
+        [1, bucket] padded prompt (bucket a page multiple);
+        ``adapter_row`` the request's bank row (0 = dense)."""
         cfg = self.config
         bucket = ids.shape[1]
         if bucket not in self.prefill_buckets:
             self.prefill_buckets.add(bucket)
             _M_PREFILL_TRACES.labels(str(bucket)).inc()
-        ps = self.page_size
-        n_pages = bucket // ps
-        kvh, hd = cfg.num_key_value_heads, cfg.head_dim
+        n_pages = bucket // self.page_size
         state = self.state
         ids_t = torch.as_tensor(ids, device=self.device).long()
         pages = torch.as_tensor(row[:n_pages], device=self.device).long()
@@ -152,18 +297,16 @@ class ModelRunner:
         for i in range(cfg.num_hidden_layers):
             x, k, v = _prefill_layer(_layer_weights(state, i), x,
                                      self._cos[:bucket], self._sin[:bucket],
-                                     pmask, cfg)
-            # [1, bucket, kvh, D] -> [n_pages, kvh, ps, D] page rows
-            self.kpool[i, pages] = k[0].reshape(n_pages, ps, kvh, hd) \
-                .transpose(1, 2).to(self.kpool.dtype)
-            self.vpool[i, pages] = v[0].reshape(n_pages, ps, kvh, hd) \
-                .transpose(1, 2).to(self.vpool.dtype)
+                                     pmask, cfg, self.lora,
+                                     int(adapter_row), i)
+            self._write_pages(i, pages, k[0], v[0])
         x = _rms(x, state["llama.norm.weight"], cfg.rms_norm_eps)
         return _logits_of(state, x[:, plen - 1]).float()
 
     @torch.no_grad()
     def prefill_cached(self, ids: np.ndarray, suffix_len: int,
-                       cached_len: int, row: np.ndarray):
+                       cached_len: int, row: np.ndarray,
+                       adapter_row: int = 0):
         """Suffix prefill for a prompt whose first ``cached_len`` tokens
         are already resident in the pool (shared prefix pages and/or a
         CoW-copied tail): suffix queries attend the resident prefix,
@@ -195,32 +338,53 @@ class ModelRunner:
                              self.dump_page)[:, None]
         off = (absp % ps)[:, None]
         heads = torch.arange(kvh, device=dev)[None, :]
+        widx = (page_w, heads, off)
+        lora, aidx = self.lora, int(adapter_row)
         for i in range(cfg.num_hidden_layers):
+            w = _layer_weights(state, i)
+            if self.kv_quant:
+                x, k, v = prefill_layer_cached_quant(
+                    w, x, self.kpool[i], self.vpool[i], self.kscale[i],
+                    self.vscale[i], row_t, cos_s, sin_s, mask, cfg, None,
+                    lora, aidx, i)
+                (qk, sk), (qv, sv) = quantize_kv_rows(k[0]), \
+                    quantize_kv_rows(v[0])
+                self.kpool[i][widx] = qk
+                self.vpool[i][widx] = qv
+                self.kscale[i][widx] = sk
+                self.vscale[i][widx] = sv
+                continue
             kpre = gather_kv_pages(self.kpool[i], row_t)
             vpre = gather_kv_pages(self.vpool[i], row_t)
             x, k, v = _prefill_layer_cached(
-                _layer_weights(state, i), x, kpre[None], vpre[None], cos_s,
-                sin_s, mask, cfg)
-            self.kpool[i, page_w, heads, off] = k[0].to(self.kpool.dtype)
-            self.vpool[i, page_w, heads, off] = v[0].to(self.vpool.dtype)
+                w, x, kpre[None], vpre[None], cos_s, sin_s, mask, cfg,
+                lora, aidx, i)
+            self.kpool[i][widx] = k[0].to(self.kpool.dtype)
+            self.vpool[i][widx] = v[0].to(self.vpool.dtype)
         x = _rms(x, state["llama.norm.weight"], cfg.rms_norm_eps)
         return _logits_of(state, x[:, suffix_len - 1]).float()
 
     @torch.no_grad()
     def copy_page(self, src: int, dst: int):
-        """Copy-on-write page duplicate across every layer."""
+        """Copy-on-write page duplicate across every layer (with its
+        scale rows under ``kv_quant``)."""
         self.kpool[:, dst] = self.kpool[:, src]
         self.vpool[:, dst] = self.vpool[:, src]
+        if self.kv_quant:
+            self.kscale[:, dst] = self.kscale[:, src]
+            self.vscale[:, dst] = self.vscale[:, src]
 
     @torch.no_grad()
     def push_slot(self, slot: int, row: np.ndarray, pos: int, tok: int,
-                  active: int):
+                  active: int, adapter_row: int = 0):
         """Patch ONE slot's row of the device-resident decode state
         (admission / eviction only — never per step)."""
         self._table_dev[slot] = torch.as_tensor(row, device=self.device)
         self._pos_dev[slot] = int(pos)
         self._tok_dev[slot] = int(tok)
         self._active_dev[slot] = int(active)
+        if self.lora_slots:
+            self._aidx_dev[slot] = int(adapter_row)
 
     def fetch_ring(self) -> np.ndarray:
         """The host sync: ONE [sync_interval, slots] int32 transfer."""
@@ -236,7 +400,8 @@ class ModelRunner:
         self._tok_dev[idx] = val
 
 
-def _prefill_layer_cached(w, x, kpre, vpre, cos_s, sin_s, mask, cfg):
+def _prefill_layer_cached(w, x, kpre, vpre, cos_s, sin_s, mask, cfg,
+                          lora=(), aidx=None, li=0):
     """One transformer layer of suffix prefill against a resident
     prefix: ``x`` [1, S, H] suffix hidden, ``kpre``/``vpre``
     [1, Tpre, kvH, D] prefix KV gathered from the pool (keys already
@@ -246,7 +411,7 @@ def _prefill_layer_cached(w, x, kpre, vpre, cos_s, sin_s, mask, cfg):
     nh, kvh, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
                    cfg.head_dim)
     h = _rms(x, w["ln1"], cfg.rms_norm_eps)
-    qp, kp, vp = _qkv_proj(w, h)
+    qp, kp, vp = _qkv_proj(w, h, lora, aidx, li)
     q = qp.reshape(b, s, nh, hd)
     k = kp.reshape(b, s, kvh, hd)
     v = vp.reshape(b, s, kvh, hd)
@@ -258,9 +423,9 @@ def _prefill_layer_cached(w, x, kpre, vpre, cos_s, sin_s, mask, cfg):
     vcat = torch.cat([vpre.to(v.dtype), v], dim=1)
     attn = sdpa(q, kcat, vcat, attn_mask=mask,
                 is_causal=False).reshape(b, s, nh * hd)
-    x = x + _mm(attn, w["o"])
+    x = x + _out_proj(w, attn, lora, aidx, li)
     h = _rms(x, w["ln2"], cfg.rms_norm_eps)
-    return x + _ffn(w, h), k, v
+    return x + _ffn(w, h, lora, aidx, li), k, v
 
 
 def _logits_of(state, h):

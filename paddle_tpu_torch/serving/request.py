@@ -8,8 +8,9 @@ from :meth:`stream` (which drives the attached engine when it runs dry,
 so a plain ``for tok in req.stream():`` serves the request end to end).
 With ``sync_interval > 1`` tokens surface in bursts of up to
 ``sync_interval`` — the host only observes the device token ring at
-sync points.  Tracing spans, tenants, adapters and the request timeline
-come with the slices that port those features.
+sync points.  ``adapter`` names the request's LoRA adapter.  Tracing
+spans, tenants and the request timeline come with the slices that port
+those features.
 """
 from __future__ import annotations
 
@@ -43,7 +44,8 @@ class Request:
 
     def __init__(self, prompt, gen: GenerationConfig | None = None, *,
                  deadline: float | None = None, on_token=None,
-                 arrival_time: float | None = None, priority: int = 0):
+                 arrival_time: float | None = None, priority: int = 0,
+                 adapter: str | None = None):
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
@@ -70,6 +72,10 @@ class Request:
         self.prefill_computed_tokens = 0  # prompt tokens run on device
         self.prefill_cached_tokens = 0    # skipped via prefix cache/CoW
         self.prefill_chunks = 0           # chunked-prefill chunks run
+        # LoRA adapter name (None = the dense base model); the engine's
+        # AdapterStore resolves it to a bank row at submit
+        self.adapter = str(adapter).strip() if adapter else None
+        self._adapter_row = 0             # set by Engine.submit
 
         # timing (engine clock): TTFT = first_token_at - arrival_time
         self.arrival_time = time.monotonic() if arrival_time is None \

@@ -140,7 +140,8 @@ class Scheduler:
             # refcounted, only the uncached suffix is charged against
             # the pool — with caching off this is the plain page count
             pages = self.blocks.allocate_seq(head.id, head.resume_tokens(),
-                                             head.remaining_new_tokens)
+                                             head.remaining_new_tokens,
+                                             adapter=head.adapter)
             if pages is None:
                 # pool exhausted: the head waits (and blocks the queue —
                 # strict FCFS), surfaced as backpressure, not an error

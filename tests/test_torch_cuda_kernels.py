@@ -20,6 +20,12 @@ roundings per element.  A row that attends over n keys has |o| ~
 n^-1/2, so an absolute limit would be loose exactly on the long rows;
 the per-row relative limit is as tight there as on short rows
 (:func:`test_bf16_check_catches_a_dropped_page` holds it to that).
+
+The weight-only GEMV (K4) and the gather-LoRA matmul (K5) are held per
+output row (one token over N): float32 1e-5 relative (summation order
+over K up to 14336), bf16 2^-7 (the plain versions round once, at the
+output, as the kernels do; the limit leaves room for summation order).
+Each has a planted fault that must fail every row it touches.
 """
 import math
 
@@ -28,7 +34,9 @@ import torch
 
 from paddle_tpu_torch.ops.pallas import flash_attention as FA
 from paddle_tpu_torch.ops.pallas import flash_mask as FM
+from paddle_tpu_torch.ops.pallas import lora_matmul as LM
 from paddle_tpu_torch.ops.pallas import paged_attention as PA
+from paddle_tpu_torch.ops.pallas import quant_matmul as QM
 
 pytestmark = pytest.mark.cuda
 F32_TOL = 1e-5
@@ -312,3 +320,121 @@ def test_flash_wrapper_rejects(gen):
     with pytest.raises(ValueError):
         FA._flash_fwd(q, k[:, :1].expand(1, 3, 64, 128), v[:, :1].expand(
             1, 3, 64, 128), True, 0.1)
+
+
+# ------------------------------------------------ K4: weight-only GEMV
+QUANT_ROW_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+
+
+def _quant_inputs(gen, dt, m, k, n, kind):
+    bound = 127 if kind == "int8" else 7
+    x = torch.randn(m, k, device="cuda", generator=gen).to(dt)
+    q = torch.randint(-bound, bound + 1, (k, n), device="cuda",
+                      generator=gen).to(torch.int8)
+    s = torch.rand(n, device="cuda", generator=gen) * 0.02 + 1e-3
+    if kind == "int4":
+        return x, QM.QuantizedWeight(QM.pack_int4(q), s, "int4", k)
+    return x, QM.QuantizedWeight(q, s, "int8", k)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("m,k,n", [(8, 4096, 1024), (1, 4096, 14336),
+                                   (64, 14336, 256), (3, 999, 384)])
+def test_quant_kernel_matches_plain(gen, dt, kind, m, k, n):
+    if kind == "int4" and k % 2:
+        pytest.skip("int4 takes an even K (the route sends odd K to the "
+                    "matmul)")
+    x, w = _quant_inputs(gen, dt, m, k, n, kind)
+    attr = f"{kind}_launches"
+    before = getattr(QM.weight_only_matmul, attr)
+    out = QM.weight_only_matmul(x, w)
+    torch.cuda.synchronize()
+    assert getattr(QM.weight_only_matmul, attr) == before + 1
+    assert out.dtype == dt and out.shape == (m, n)
+    ref = QM._xla_fallback(x, w)
+    assert _row_rel_err(out, ref).max().item() <= QUANT_ROW_TOL[dt]
+
+
+def test_quant_check_catches_planted_faults(gen):
+    """int8 with the last 64 K rows of q zeroed, int4 with its nibbles
+    swapped: every output row must fail the bf16 check."""
+    x, w = _quant_inputs(gen, torch.bfloat16, 8, 4096, 1024, "int8")
+    ref = QM._xla_fallback(x, w)
+    bad_q = w.q.clone()
+    bad_q[-64:] = 0
+    bad = QM.weight_only_matmul(x, QM.QuantizedWeight(bad_q, w.scale))
+    assert bool((_row_rel_err(bad, ref) > BF16_ROW_TOL).all())
+    x, w = _quant_inputs(gen, torch.bfloat16, 8, 4096, 1024, "int4")
+    ref = QM._xla_fallback(x, w)
+    u = w.q.view(torch.uint8)
+    swapped = ((u >> 4) | (u << 4)).view(torch.int8)
+    bad = QM.weight_only_matmul(
+        x, QM.QuantizedWeight(swapped, w.scale, "int4", w.k))
+    assert bool((_row_rel_err(bad, ref) > BF16_ROW_TOL).all())
+
+
+def test_quant_routes(gen):
+    """M > 64 (or N not a multiple of 128) takes the dequant matmul, not
+    the kernel; bad inputs on the kernel route raise."""
+    x, w = _quant_inputs(gen, torch.bfloat16, 65, 256, 256, "int8")
+    launches = QM.weight_only_matmul.int8_launches
+    calls = QM.weight_only_matmul.matmul_calls
+    out = QM.weight_only_matmul(x, w)
+    assert QM.weight_only_matmul.int8_launches == launches
+    assert QM.weight_only_matmul.matmul_calls == calls + 1
+    assert _row_rel_err(out, QM._xla_fallback(x, w)).max().item() \
+        <= 2 ** -6
+    with pytest.raises(TypeError):
+        QM.weight_only_matmul(x[:8].half(), w)
+    with pytest.raises(ValueError):
+        QM.weight_only_matmul(x[:8], QM.QuantizedWeight(
+            w.q[:, ::2].contiguous()[:, :128], w.scale))
+
+
+# --------------------------------------------- K5: gather-LoRA matmul
+LORA_IDX = [0, 1, 2, 3, 4, 1, 0, 2]
+
+
+def _lora_inputs(gen, xdt, bdt, k, m, rank=16, rows=5):
+    x = torch.randn(len(LORA_IDX), k, device="cuda", generator=gen).to(xdt)
+    a = (torch.randn(rows, rank, k, device="cuda", generator=gen)
+         / k ** 0.5).to(bdt)
+    b = (torch.randn(rows, rank, m, device="cuda", generator=gen)
+         / rank ** 0.5).to(bdt)
+    a[0] = 0
+    b[0] = 0
+    scale = torch.rand(rows, device="cuda", generator=gen) + 0.5
+    idx = torch.tensor(LORA_IDX, dtype=torch.int32, device="cuda")
+    return x, a, b, scale, idx
+
+
+@pytest.mark.parametrize("xdt,bdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("k,m", [(4096, 1024), (14336, 4096), (4096, 300)])
+def test_lora_kernel_matches_plain(gen, xdt, bdt, k, m):
+    args = _lora_inputs(gen, xdt, bdt, k, m)
+    before = LM.lora_gather_matmul.launches
+    out = LM.lora_gather_matmul(*args)
+    torch.cuda.synchronize()
+    assert LM.lora_gather_matmul.launches == before + 1
+    ref = LM._xla_gather_matmul(*args)
+    zero = args[-1] == 0
+    assert torch.count_nonzero(out[zero]) == 0
+    # a bf16 bank rounds h to bf16 in the kernel (the Pallas body), not
+    # in the plain version: one 2^-9 rounding per h element
+    tol = QUANT_ROW_TOL[xdt] if bdt == torch.float32 else 2 ** -7
+    assert _row_rel_err(out[~zero], ref[~zero]).max().item() <= tol
+
+
+def test_lora_check_catches_planted_fault(gen):
+    """Every non-zero idx reading the next adapter must fail every
+    non-zero row."""
+    x, a, b, scale, idx = _lora_inputs(gen, torch.bfloat16, torch.float32,
+                                       4096, 1024)
+    ref = LM._xla_gather_matmul(x, a, b, scale, idx)
+    nxt = torch.where(idx > 0, idx % 4 + 1, idx).to(torch.int32)
+    bad = LM.lora_gather_matmul(x, a, b, scale, nxt)
+    live = idx > 0
+    assert bool((_row_rel_err(bad[live], ref[live]) > BF16_ROW_TOL).all())

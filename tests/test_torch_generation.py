@@ -189,5 +189,27 @@ def _jax_gather(pool, row):
 
 
 def test_quantized_weight_not_ported():
-    with pytest.raises(NotImplementedError, match="K4"):
-        TG._mm(torch.zeros(2, 4), (np.zeros((4, 4), np.int8), None))
+    """Named when the K4 GEMV was not ported yet and ``_mm`` raised on a
+    quantized weight.  Now ``_mm`` on a legacy ``(int8, scale)`` pair and
+    on int8 / int4 ``QuantizedWeight``s must match the reference's
+    ``_mm`` (float32, 1e-5)."""
+    from paddle_tpu.ops.pallas import quant_matmul as JQM
+    from paddle_tpu_torch.ops.pallas import quant_matmul as TQM
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((3, 64)).astype(np.float32)
+    q8 = rng.integers(-127, 128, (64, 128)).astype(np.int8)
+    q4 = rng.integers(-8, 8, (64, 128)).astype(np.int8)
+    s = (rng.random(128) * 0.02 + 1e-3).astype(np.float32)
+    jp4 = np.asarray(JQM.pack_int4(jnp.asarray(q4)))
+    cases = [
+        ((jnp.asarray(q8), jnp.asarray(s)),
+         (torch.from_numpy(q8), torch.from_numpy(s))),
+        (JQM.QuantizedWeight(jnp.asarray(q8), jnp.asarray(s)),
+         TQM.QuantizedWeight(torch.from_numpy(q8), torch.from_numpy(s))),
+        (JQM.QuantizedWeight(jnp.asarray(jp4), jnp.asarray(s), "int4", 64),
+         TQM.QuantizedWeight(torch.from_numpy(jp4), torch.from_numpy(s),
+                             "int4", 64))]
+    for jw, tw in cases:
+        want = np.asarray(JG._mm(jnp.asarray(x), jw))
+        got = TG._mm(torch.from_numpy(x), tw).numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)

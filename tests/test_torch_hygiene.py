@@ -40,7 +40,10 @@ def test_no_reference_imports(path):
 def test_import_leaves_jax_unloaded():
     code = ("import sys, paddle_tpu_torch.serving, paddle_tpu_torch.models, "
             "paddle_tpu_torch.models.llama_hybrid, "
-            "paddle_tpu_torch.ops.pallas.flash_mask; "
+            "paddle_tpu_torch.ops.pallas.flash_mask, "
+            "paddle_tpu_torch.ops.pallas.lora_matmul, "
+            "paddle_tpu_torch.nn.quant, paddle_tpu_torch.serving.lora, "
+            "paddle_tpu_torch.serving.parallel.layers; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -69,6 +72,11 @@ def test_entry_points_default_to_cuda():
         init_state(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="CUDA"):
         state_from_numpy({"w": np.zeros(3, np.float32)})
+    # the serving modes too: no quantization, no bank without a card
+    from paddle_tpu_torch.serving import AdapterStore
+    store = AdapterStore(cfg, capacity=1, rank=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_engine(cfg, state, quant="int8", kv_quant=True, lora=store)
     # the CPU is taken only when asked for
     engine = create_engine(cfg, state, device="cpu", max_model_len=32)
     assert engine.device.type == "cpu"

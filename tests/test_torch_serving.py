@@ -191,9 +191,13 @@ def test_pick_token_matches_jax(gen):
     assert picks[0] == picks[1]
 
 
+# quant/kv_quant/lora are ported; combined with a later slice's option
+# (tp > 1 quant and LoRA shards, preemption's int8 page spill) they
+# still raise
 @pytest.mark.parametrize("kw", [dict(spec_k=2), dict(preempt=True),
-                                dict(mesh=2), dict(quant="int8"),
-                                dict(kv_quant=True), dict(lora=object()),
+                                dict(mesh=2), dict(quant="int8", mesh=2),
+                                dict(kv_quant=True, preempt=True),
+                                dict(lora=object(), mesh=2),
                                 dict(faults=object()), dict(usage=object()),
                                 dict(requestlog=object()),
                                 dict(slo=object())])
