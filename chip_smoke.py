@@ -53,7 +53,20 @@ no CUDA ``_weight_int8pack_mm``):
    quantized once on the host: identical greedy tokens, except that a
    request may part where the CPU's top two logits tie (within 1e-3 of
    the logits' std; int8 KV pages turn last-bit differences into
-   whole quantization steps now and then).
+   whole quantization steps now and then);
+10. the reference bench's long-context rung (``bench.py:285-366``):
+   (10a) ``bench_longctx``, phase 6's path at seq 8192, batch 1
+   (``max_position_embeddings`` 8192), 1 warm-up and 8 timed steps;
+   (10b) ``bench_longctx_masked``: the gradient of sum(sdpa(q, k, v,
+   flashmask=three packed documents, is_causal=True).float() ** 2) w.r.t.
+   q, k, v at B 1, S 8192, 16 heads, bf16, next to the same without the
+   flashmask: the masked and unmasked ms and their ratio, launches per
+   call (masked: 1 K8 forward with lse, 1 dq, 1 dk/dv, 0 dbias, no
+   K1/K2; unmasked: K1/K2 only); (10c) ``flashmask_attention(causal=True,
+   window_size=1024)`` at 10b's shape (nvec 4); (10d) the dense-bias
+   route at 10b's shape, an ALiBi float ``attn_mask`` that requires grad
+   (1 biased forward, dq, dk/dv and dbias).  Each is held against the
+   plain versions per row.
 
 Phase 3 also holds the flash-attention kernels (K1 forward, K2 dq and
 dk/dv) to their plain versions in bf16 at four shapes (the training
@@ -63,7 +76,15 @@ told 64 keys fewer than there are); and the weight-only GEMV (K4, int8
 and int4) and the gather-LoRA matmul (K5) at the llama3_8b decode
 projection shapes, per output row (<= 2^-7), each with a planted fault
 (int8: the last 64 K rows of q zeroed; int4: nibbles swapped; K5: every
-adapter row reads the next adapter).
+adapter row reads the next adapter).  Phase 3 also holds the K8
+backward and bias kernels (forward with lse, dq, dk/dv, dbias) in bf16
+at three shapes: SFT with key padding at llama3_8b widths (B 4, S 2048,
+lengths 2048/1900/1200/517, causal), packed documents (B 1, S 4096, 16
+heads, non-causal, nvec 4) and an ALiBi bias that takes a gradient (B 2,
+16 heads, S 2048, causal, f32 [1, 16, S, S]); out per row and gradients
+by ``grad_row_err``, each with its planted fault (every row loses its
+last 64 keys), and float32 instances of the three at S 512, card vs the
+CPU plain versions by relative norm (1e-4).
 
 Prints a ``{"kernels": [...]}`` line before the last, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -101,6 +122,19 @@ FLASH_SHAPES = (  # name, B, H, kvH, Sq, Sk
     ("long", 1, 16, 16, 8192, 8192),
 )
 FAULT_SHARE = 0.99            # gradient rows the planted fault must fail
+# the K8 backward and bias kernels in phase 3: SFT with key padding at
+# llama3_8b widths (GQA), packed documents (non-causal, nvec 4) and an
+# ALiBi bias that takes a gradient (dbias summed over the batch)
+K8_SHAPES = (  # name, B, H, kvH, S, causal, mask
+    ("sft_padding", 4, 32, 8, 2048, True, "padding"),
+    ("packed_docs", 1, 16, 16, 4096, False, "segments"),
+    ("alibi_bias", 2, 16, 16, 2048, True, "alibi"),
+)
+SFT_LENGTHS = (1.0, 1900 / 2048, 1200 / 2048, 517 / 2048)   # of S
+PACKED_DOCS = (0.25, 0.375, 0.375)                          # of S
+# phase 10: the reference bench's long-context rung (bench.py:285-366)
+LONGCTX_SEQ = 8192
+LONGCTX_STEPS = 8                 # bench_longctx's own timed steps (bench.py:301)
 TRAIN_STEPS = 10
 # phase 7, card (f32 kernels, no TF32) vs CPU, ||card - cpu|| / ||cpu||
 PARITY_TOL = 1e-4
@@ -432,6 +466,245 @@ def phase_flash(FA, gen, name, B, H, kvh, sq, sk):
              "bound_by": {key: b[1] for key, b in bounds.items()}}
     emit({"phase": 3, **shape})
     return shape
+
+
+def alibi_bias(H, S, dev):
+    """ALiBi (Press et al., the public recipe): head h = 1..H adds
+    -m_h * (i - j) to the logit of query i and key j, m_h = 2^(-8h/H);
+    [1, H, S, S] float32."""
+    m = 2.0 ** (-8.0 * torch.arange(1, H + 1, device=dev) / H)
+    pos = torch.arange(S, device=dev, dtype=torch.float32)
+    return (-m[:, None, None] * (pos[:, None] - pos[None, :]))[None]
+
+
+def k8_operands(FM, kind, B, H, S, dev):
+    """(mask_vecs, bias) of one phase-3 K8 shape at length S: the SFT key
+    padding (lengths SFT_LENGTHS scaled to S), the packed documents
+    (PACKED_DOCS scaled to S, non-causal: nvec 4) or the ALiBi bias."""
+    if kind == "padding":
+        real = torch.tensor([max(1, round(x * S)) for x in SFT_LENGTHS],
+                            device=dev)
+        keep = torch.arange(S, device=dev)[None] < real[:B, None]
+        return FM.padding_mask_to_intervals(keep, S), None
+    if kind == "segments":
+        sizes = [round(x * S) for x in PACKED_DOCS]
+        sizes[-1] = S - sum(sizes[:-1])
+        seg = torch.repeat_interleave(torch.arange(len(sizes), device=dev),
+                                      torch.tensor(sizes, device=dev))
+        return FM.segment_intervals(seg[None].expand(B, S), causal=False), \
+            None
+    return None, alibi_bias(H, S, dev)
+
+
+def k8_fault(FM, kind, k, v, vecs, bias, S):
+    """The planted fault: every query row loses its last FAULT_KEYS keys.
+    Causal: the last 64 keys go, so bottom-right alignment moves every
+    row's diagonal 64 keys left (and the padding ends 64 keys earlier);
+    the packed documents: the last 64 keys of every document are masked
+    for every row.  Returns (k, v, mask_vecs, bias, keys kept)."""
+    if kind == "segments":
+        lts = vecs[:, :, 0]                     # the column's document end
+        drop = torch.arange(S, device=k.device) >= lts - FAULT_KEYS
+        fv = vecs.clone()
+        fv[:, :, 0] = torch.where(drop, 0, lts)
+        return k, v, fv, None, S
+    n = S - FAULT_KEYS
+    kf, vf = k[:, :, :n], v[:, :, :n]
+    if kind == "padding":
+        real = vecs[:, 0, 0] == S               # key columns that are real
+        keep = real[:, :n] & (torch.arange(n, device=k.device)[None]
+                              < real.sum(-1, keepdim=True) - FAULT_KEYS)
+        return kf, vf, FM.padding_mask_to_intervals(keep, S), None, n
+    return kf, vf, None, bias[..., :n], n
+
+
+def visible_count(FM, vecs, B, H, sq, sk, causal, dev):
+    """(query, key) pairs the mask leaves visible, over batch and heads."""
+    allowed = torch.ones(sq, sk, dtype=torch.bool, device=dev)
+    if causal:
+        allowed = allowed.tril(sk - sq)
+    if vecs is None:
+        return int(allowed.sum()) * B * H
+    dense = FM.dense_mask_from_intervals(vecs, sq, sk) & allowed
+    return int(dense.sum()) * (B // dense.shape[0]) * (H // dense.shape[1])
+
+
+def k8_run(FM, q, k, v, do, vecs, bias, causal, scale):
+    """The K8 kernels once: forward with lse, dq (+ delta), dk/dv and, with
+    a bias, dbias."""
+    out, lse = FM._masked_fwd(q, k, v, vecs, bias, causal, scale, True)
+    dq, delta = FM._masked_bwd_dq(q, k, v, out, lse, do, vecs, bias, causal,
+                                  scale)
+    dk, dv = FM._masked_bwd_dkv(q, k, v, lse, delta, do, vecs, bias, causal,
+                                scale)
+    dbias = (FM._masked_bwd_dbias(q, k, v, lse, delta, do, vecs, bias,
+                                  causal, scale) if bias is not None else None)
+    return {"out": out, "lse": lse, "delta": delta, "dq": dq, "dk": dk,
+            "dv": dv, "dbias": dbias}
+
+
+def caught(err, ref):
+    """Share of rows that carry a gradient (||ref|| above grad_row_err's
+    floor, where the check is relative) on which ``err`` exceeds the
+    limit, and its smallest value there."""
+    norm = ref.float().norm(dim=-1)
+    floor = 2 ** -6 * norm.square().mean().sqrt()
+    e = err[norm > floor]
+    return (e > ROW_TOL).float().mean().item(), e.min().item()
+
+
+def phase_k8(FM, gen, name, B, H, kvh, S, causal, kind):
+    """The K8 forward (with lse), dq, dk/dv and (ALiBi) dbias kernels
+    against their plain versions in bf16, per row, on the transposed
+    [B, S, H, D] views ``sdpa`` passes; the planted fault (k8_fault) must
+    fail every live out row and >= FAULT_SHARE of the gradient rows; the
+    times of kernel, plain version, bound and library."""
+    dev, dt, D = "cuda", torch.bfloat16, 128
+    scale = 1.0 / math.sqrt(D)
+    q, k, v, do = (torch.randn(B, S, n, D, device=dev, generator=gen)
+                   .to(dt).transpose(1, 2) for n in (H, kvh, kvh, H))
+    vecs, bias = k8_operands(FM, kind, B, H, S, dev)
+    got = k8_run(FM, q, k, v, do, vecs, bias, causal, scale)
+    torch.cuda.synchronize()
+    plain = (q, k, v, got["out"], got["lse"], do, vecs, bias, causal, scale)
+    ref_out, ref_lse = FM._masked_fwd_xla(q, k, v, vecs, bias, causal, scale)
+    live = ref_lse != FM.LSE_INVALID
+    require(bool((got["lse"][~live] == FM.LSE_INVALID).all()),
+            f"K8 {name}: rows with no key must get LSE_INVALID")
+    refs = {"out": ref_out, "dq": FM._masked_bwd_dq_xla(*plain)}
+    refs["dk"], refs["dv"] = FM._masked_bwd_dkv_xla(*plain)
+    if bias is not None:
+        refs["dbias"] = FM._masked_bwd_dbias_xla(*plain)
+    rows = {key: (row_rel_err if key == "out" else grad_row_err)(
+        got[key], ref) for key, ref in refs.items()}
+    errs = {key: (got[key].float() - ref.float()).abs().max().item()
+            for key, ref in refs.items()}
+    row_err = {key: r.max().item() for key, r in rows.items()}
+    for key, err in row_err.items():
+        require(err <= ROW_TOL, f"K8 {key} kernel vs plain at {name}: row "
+                f"error {err} > {ROW_TOL}")
+    kf, vf, fvecs, fbias, n = k8_fault(FM, kind, k, v, vecs, bias, S)
+    bad = k8_run(FM, q, kf, vf, do, fvecs, fbias, causal, scale)
+    fault_rows = {"out": row_rel_err(bad["out"], ref_out)[live]}
+    caught_share = {"out": (fault_rows["out"] > ROW_TOL).float().mean()
+                    .item()}
+    fault = {"out": fault_rows["out"].min().item()}
+    for key in refs:
+        if key == "out":
+            continue
+        ref = refs[key][..., :n] if key == "dbias" else (
+            refs[key][:, :, :n] if key in ("dk", "dv") else refs[key])
+        caught_share[key], fault[key] = caught(grad_row_err(bad[key], ref),
+                                               ref)
+    del bad, refs, ref_out, rows
+    require(caught_share["out"] == 1.0, f"planted fault ({FAULT_KEYS} keys "
+            f"dropped) passed the K8 out check at {name} on some rows: min "
+            f"row error {fault['out']}")
+    for key, share in caught_share.items():
+        require(share >= FAULT_SHARE, f"planted fault ({FAULT_KEYS} keys "
+                f"dropped) failed the K8 {key} check at {name} on only "
+                f"{share:.4f} of the rows (< {FAULT_SHARE})")
+
+    out, lse, delta = got["out"], got["lse"], got["delta"]
+    args = (vecs, bias, causal, scale)
+    calls = {
+        "fwd": (lambda: FM._masked_fwd(q, k, v, *args, True),
+                lambda: FM._masked_fwd_xla(q, k, v, *args)),
+        "dq": (lambda: FM._masked_bwd_dq(q, k, v, out, lse, do, *args),
+               lambda: FM._masked_bwd_dq_xla(*plain)),
+        "dkv": (lambda: FM._masked_bwd_dkv(q, k, v, lse, delta, do, *args),
+                lambda: FM._masked_bwd_dkv_xla(*plain))}
+    if bias is not None:
+        calls["dbias"] = (
+            lambda: FM._masked_bwd_dbias(q, k, v, lse, delta, do, *args),
+            lambda: FM._masked_bwd_dbias_xla(*plain))
+    ms = {key: cuda_ms(kern) for key, (kern, _) in calls.items()}
+    plain_ms = {key: cuda_ms(fn, iters=3, warmup=1)
+                for key, (_, fn) in calls.items()}
+    # yardstick: scaled_dot_product_attention with the dense mask (bool,
+    # or the bias with -inf right of the diagonal), forward and forward +
+    # backward (the bias's gradient too, where there is one)
+    tril = torch.ones(S, S, dtype=torch.bool, device=dev)
+    if causal:
+        tril = tril.tril()
+    if bias is None:
+        mask = FM.dense_mask_from_intervals(vecs, S, S) & tril
+    else:                      # SDPA takes a float mask in q's dtype
+        mask = bias.masked_fill(~tril, -math.inf).to(dt)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    lib_mask = mask if bias is None else mask.detach().requires_grad_()
+
+    def lib_fwd_bwd():
+        o = sdpa(*leaves, attn_mask=lib_mask, scale=scale,
+                 enable_gqa=kvh != H)
+        wrt = leaves + ([lib_mask] if bias is not None else [])
+        torch.autograd.grad(o, wrt, do)
+
+    library = {"fwd": cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask,
+                                           scale=scale, enable_gqa=kvh != H)),
+               "fwd_bwd": cuda_ms(lib_fwd_bwd, iters=5, warmup=1)}
+    del mask, lib_mask, leaves
+    pairs = visible_count(FM, vecs, B, H, S, S, causal, dev)
+    item = 2
+    n_q, n_kv = B * H * S * D, B * kvh * S * D
+    rows_f32 = B * H * S * 4                             # lse or delta
+    extra = (vecs.numel() * 4 if vecs is not None
+             else bias.numel() * bias.element_size())    # mask or bias read
+    bounds = {
+        "fwd": bound((2 * n_q + 2 * n_kv) * item + rows_f32 + extra,
+                     4 * pairs * D),
+        "dq": bound((4 * n_q + 2 * n_kv) * item + 2 * rows_f32 + extra,
+                    6 * pairs * D),
+        "dkv": bound((2 * n_q + 4 * n_kv) * item + 2 * rows_f32 + extra,
+                     8 * pairs * D)}
+    if bias is not None:                    # reads the bias, writes dbias
+        bounds["dbias"] = bound((2 * n_q + 2 * n_kv) * item + 2 * rows_f32
+                                + 2 * extra, 4 * pairs * D)
+    rec = {"kernel": "flash_mask_k8", "shape": name, "dtype": "bfloat16",
+           "B": B, "H": H, "kvh": kvh, "D": D, "S": S, "causal": causal,
+           "mask": kind, "nvec": vecs.shape[2] if vecs is not None else 0,
+           "bias": list(bias.shape) if bias is not None else None,
+           "visible_pairs": pairs, "dead_rows": int((~live).sum()),
+           "max_abs_err": errs, "max_row_rel_err": row_err,
+           "row_tol": ROW_TOL, "fault_min_row_rel_err": fault,
+           "fault_rows_caught": caught_share, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library,
+           "bound_ms": {key: b[0] for key, b in bounds.items()},
+           "bound_by": {key: b[1] for key, b in bounds.items()}}
+    emit({"phase": 3, **rec})
+    return rec
+
+
+def phase_k8_f32(FM, name, B, H, kvh, causal, kind, S=512):
+    """A float32 instance of a phase-3 K8 shape at S 512: the kernels on
+    the card vs the plain versions on the CPU from the same inputs (made
+    on the host from a seed), by relative norm (phase 7's limit)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(3)
+    scale = 1.0 / math.sqrt(128)
+    q, k, v, do = (torch.randn(B, S, n, 128, generator=gen).transpose(1, 2)
+                   for n in (H, kvh, kvh, H))
+    vecs, bias = k8_operands(FM, kind, B, H, S, "cpu")
+    res = {}
+    for device in ("cuda", "cpu"):
+        on = [None if t is None else t.to(device)
+              for t in (q, k, v, do, vecs, bias)]
+        out, lse = FM._masked_fwd(*on[:3], on[4], on[5], causal, scale, True)
+        dq, dk, dv, dbias = FM._masked_bwd(*on[:3], out, lse, on[3], on[4],
+                                           on[5], causal, scale,
+                                           need_dbias=bias is not None)
+        res[device] = {"out": out, "dq": dq, "dk": dk, "dv": dv,
+                       "dbias": dbias}
+    errs = {key: rel_norm(res["cuda"][key], res["cpu"][key])
+            for key in res["cpu"] if res["cpu"][key] is not None}
+    emit({"phase": 3, "kernel": "flash_mask_k8", "shape": name,
+          "dtype": "float32", "S": S, "B": B, "H": H, "kvh": kvh,
+          "card_vs_cpu_rel_err": errs, "tol": PARITY_TOL})
+    for key, err in errs.items():
+        require(err <= PARITY_TOL, f"K8 f32 {key} at {name}: card vs CPU "
+                f"{err} > {PARITY_TOL}")
+    return errs
 
 
 def int8pack_ms(x, q, scale):
@@ -974,7 +1247,7 @@ def bench_config(LlamaConfig, **kw):
     return LlamaConfig(**cfg)
 
 
-def phase_train(cfg, TH, FA, batch=8, seq=2048):
+def phase_train(cfg, TH, FA, batch=8, seq=2048, steps=TRAIN_STEPS, phase=6):
     """The training path at full width and depth: setup -> step, as
     bench.py's _llama_throughput drives the reference (one warm-up step,
     then timed steps on one batch)."""
@@ -995,7 +1268,7 @@ def phase_train(cfg, TH, FA, batch=8, seq=2048):
     FA.flash_mha.dkv_launches = 0
     t0 = time.perf_counter()
     losses = []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         loss, params, opt = step(params, opt, ids)
         losses.append(loss)
     torch.cuda.synchronize()
@@ -1007,25 +1280,25 @@ def phase_train(cfg, TH, FA, batch=8, seq=2048):
     layers = cfg.num_hidden_layers
     require(all(math.isfinite(x) for x in losses), f"loss {losses}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    want = {"flash_attention_fwd": 2 * layers * TRAIN_STEPS,
-            "flash_attention_bwd_dq": layers * TRAIN_STEPS,
-            "flash_attention_bwd_dkv": layers * TRAIN_STEPS}
+    want = {"flash_attention_fwd": 2 * layers * steps,
+            "flash_attention_bwd_dq": layers * steps,
+            "flash_attention_bwd_dkv": layers * steps}
     require(launches == want, f"flash launches {launches} != {want}")
-    tps = batch * seq * TRAIN_STEPS / wall
+    tps = batch * seq * steps / wall
     attn_flops = 12 * layers * cfg.hidden_size * seq
     mfu = tps * (6 * n_params + attn_flops) / BF16_FLOPS_PER_S
-    emit({"phase": 6, "params": n_params, "batch": batch, "seq": seq,
-          "steps": TRAIN_STEPS, "remat": True, "setup_and_warmup_s": setup_s,
-          "wall_s": wall, "s_per_step": wall / TRAIN_STEPS,
+    emit({"phase": phase, "params": n_params, "batch": batch, "seq": seq,
+          "steps": steps, "remat": True, "setup_and_warmup_s": setup_s,
+          "wall_s": wall, "s_per_step": wall / steps,
           "tokens_per_s": tps, "mfu": mfu, "loss_first": losses[0],
           "loss_last": losses[-1], "losses": losses, "launches": launches,
           "resident_bytes": resident,
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
-    profile_train(step, params, opt, ids)
+    profile_train(step, params, opt, ids, phase)
     return launches
 
 
-def profile_train(step, params, opt, ids):
+def profile_train(step, params, opt, ids, phase=6):
     """Where one training step's time goes: ``torch.profiler`` over one
     step, device time per kernel grouped, idle share = 1 - device busy
     time / the step's wall time."""
@@ -1057,7 +1330,7 @@ def profile_train(step, params, opt, ids):
                 groups["other"] += ms
     busy = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
-    emit({"phase": 6, "profile": "train_step", "wall_ms": wall * 1e3,
+    emit({"phase": phase, "profile": "train_step", "wall_ms": wall * 1e3,
           "device_ms": groups, "device_busy_ms": busy,
           "device_idle_share": 1 - busy / (wall * 1e3),
           "kernels_seen": len(per_kernel),
@@ -1100,6 +1373,219 @@ def phase_train_parity(cfg, TH, seq=256):
     for key, err in errs.items():
         require(err <= PARITY_TOL, f"training parity {key}: {err} > "
                 f"{PARITY_TOL}")
+
+
+def k8_counts(FA, FM):
+    """Every flash launch counter, K1/K2 and K8."""
+    return {"flash_attention_fwd": FA.flash_mha.fwd_launches,
+            "flash_attention_bwd_dq": FA.flash_mha.dq_launches,
+            "flash_attention_bwd_dkv": FA.flash_mha.dkv_launches,
+            "flash_mha_masked": FM.flash_mha_masked.launches,
+            "flash_mha_biased": FM.flash_mha_biased.launches,
+            "flash_mha_masked_lse": FM.flash_mha_masked.lse_launches,
+            "flash_mask_bwd_dq": FM.flash_mha_masked.dq_launches,
+            "flash_mask_bwd_dkv": FM.flash_mha_masked.dkv_launches,
+            "flash_mask_bwd_dbias": FM.flash_mha_masked.dbias_launches}
+
+
+def zero_flash_counts(FA, FM):
+    FA.flash_mha.fwd_launches = FA.flash_mha.dq_launches = 0
+    FA.flash_mha.dkv_launches = 0
+    FM.flash_mha_masked.launches = FM.flash_mha_biased.launches = 0
+    FM.flash_mha_masked.lse_launches = FM.flash_mha_masked.dq_launches = 0
+    FM.flash_mha_masked.dkv_launches = 0
+    FM.flash_mha_masked.dbias_launches = 0
+
+
+def counted(FA, FM, fn, want, what):
+    """Run ``fn`` once between zeroed and read launch counters; every
+    counter must be as ``want`` says (0 where it is not named)."""
+    zero_flash_counts(FA, FM)
+    res = fn()
+    torch.cuda.synchronize()
+    got = k8_counts(FA, FM)
+    require(got == {k: want.get(k, 0) for k in got},
+            f"{what}: launches {got}, want {want}")
+    return res, got
+
+
+def sq_loss_grads(fn, tensors):
+    """out = fn(*leaves) and the gradient of sum(out.float() ** 2) w.r.t.
+    each leaf (bench_longctx_masked's loss)."""
+    leaves = [t.detach().requires_grad_() for t in tensors]
+    out = fn(*leaves)
+    return out, torch.autograd.grad(out.float().square().sum(), leaves)
+
+
+def check_against_plain(FM, name, q, k, v, out, grads, vecs, bias, causal):
+    """Per-row check of an autograd run (out, dq, dk, dv and dbias) of the
+    K8 Function on [B, S, H, D] tensors against the plain versions fed
+    the same q/k/v, the kernel forward's out and lse, and the loss's
+    cotangent 2 * out."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    o, lse = FM._masked_fwd(qh, kh, vh, vecs, bias, causal, scale, True)
+    do = (2 * o.float()).to(o.dtype)
+    plain = (qh, kh, vh, o, lse, do, vecs, bias, causal, scale)
+    ref_out, _ = FM._masked_fwd_xla(qh, kh, vh, vecs, bias, causal, scale)
+    rows = {"out": row_rel_err(out.transpose(1, 2), ref_out).max().item()}
+    del ref_out
+    rows["dq"] = grad_row_err(grads[0].transpose(1, 2),
+                              FM._masked_bwd_dq_xla(*plain)).max().item()
+    ref_dk, ref_dv = FM._masked_bwd_dkv_xla(*plain)
+    rows["dk"] = grad_row_err(grads[1].transpose(1, 2), ref_dk).max().item()
+    rows["dv"] = grad_row_err(grads[2].transpose(1, 2), ref_dv).max().item()
+    del ref_dk, ref_dv
+    if bias is not None:
+        rows["dbias"] = grad_row_err(
+            grads[3], FM._masked_bwd_dbias_xla(*plain)).max().item()
+    for key, err in rows.items():
+        require(err <= ROW_TOL, f"{name} {key} vs plain: row error {err} > "
+                f"{ROW_TOL}")
+    return rows
+
+
+def longctx_segments(B, S, dev):
+    """bench_longctx_masked's three packed documents, [B, S] ids."""
+    seg = torch.zeros(B, S, dtype=torch.int32, device=dev)
+    seg[:, S // 3:2 * S // 3] = 1
+    seg[:, 2 * S // 3:] = 2
+    return seg
+
+
+def phase_longctx_masked(FA, FM):
+    """10b, bench_longctx_masked (bench.py:323-366) through the port: the
+    gradient of sum(sdpa(q, k, v, flashmask=vecs, is_causal=True)
+    .float() ** 2) w.r.t. q, k and v, three packed documents, next to the
+    same without the flashmask; launches per call, times, their ratio,
+    and the masked run against the plain versions per row."""
+    dev, dt = "cuda", torch.bfloat16
+    B, S, H, D = 1, LONGCTX_SEQ, 16, 128
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = ((torch.randn(B, S, H, D, device=dev, generator=gen) * 0.3)
+               .to(dt) for _ in range(3))
+    vecs = FM.segment_intervals(longctx_segments(B, S, dev), causal=True)
+
+    def masked():
+        return sq_loss_grads(lambda *t: FA.sdpa(*t, flashmask=vecs,
+                                                is_causal=True), (q, k, v))
+
+    def unmasked():
+        return sq_loss_grads(lambda *t: FA.sdpa(*t, is_causal=True),
+                             (q, k, v))
+
+    (out, grads), masked_counts = counted(
+        FA, FM, masked, {"flash_mha_masked": 1, "flash_mha_masked_lse": 1,
+                         "flash_mask_bwd_dq": 1, "flash_mask_bwd_dkv": 1},
+        "10b masked")
+    _, unmasked_counts = counted(
+        FA, FM, unmasked, {"flash_attention_fwd": 1,
+                           "flash_attention_bwd_dq": 1,
+                           "flash_attention_bwd_dkv": 1}, "10b unmasked")
+    masked_ms = cuda_ms(masked, iters=5, warmup=1)
+    unmasked_ms = cuda_ms(unmasked, iters=5, warmup=1)
+    rows = check_against_plain(FM, "10b", q, k, v, out, grads, vecs, None,
+                               True)
+    emit({"phase": "10b", "name": "bench_longctx_masked", "B": B, "S": S,
+          "H": H, "D": D, "dtype": "bfloat16", "documents": 3,
+          "nvec": vecs.shape[2], "masked_ms": masked_ms,
+          "unmasked_ms": unmasked_ms,
+          "longctx8k_masked_attn_relative_mfu": unmasked_ms / masked_ms,
+          "reference_gate_on_tpu": 0.9,
+          "launches_masked_call": masked_counts,
+          "launches_unmasked_call": unmasked_counts,
+          "max_row_rel_err": rows, "row_tol": ROW_TOL})
+    return (q, k, v), masked_counts
+
+
+def phase_longctx_window(FA, FM, qkv):
+    """10c: flashmask_attention(causal=True, window_size=1024) at 10b's
+    shape — the documents as 2-column start/end row indices, the window
+    adding two more (nvec 4) — forward and backward against the plain
+    versions per row."""
+    from paddle_tpu_torch.nn.functional_extra2 import flashmask_attention
+    q, k, v = qkv
+    B, S = q.shape[0], q.shape[1]
+    window = 1024
+    docs = FM.segment_intervals(longctx_segments(B, S, q.device),
+                                causal=True)               # [B, 1, 2, S]
+    startend = docs.movedim(2, -1).contiguous()           # [B, 1, S, 2]
+    vecs = torch.cat([docs, FM.sliding_window_intervals(S, window, B,
+                                                        device=q.device)],
+                     dim=2)
+    (out, grads), counts = counted(
+        FA, FM, lambda: sq_loss_grads(
+            lambda *t: flashmask_attention(*t, startend, causal=True,
+                                           window_size=window), (q, k, v)),
+        {"flash_mha_masked": 1, "flash_mha_masked_lse": 1,
+         "flash_mask_bwd_dq": 1, "flash_mask_bwd_dkv": 1}, "10c")
+    rows = check_against_plain(FM, "10c", q, k, v, out, grads, vecs, None,
+                               True)
+    emit({"phase": "10c", "name": "flashmask_attention", "S": S,
+          "window_size": window, "nvec": vecs.shape[2], "launches": counts,
+          "max_row_rel_err": rows, "row_tol": ROW_TOL})
+    return counts
+
+
+def phase_longctx_bias(FA, FM, qkv):
+    """10d: the dense-bias route at 10b's shape (not a rung of the
+    reference bench: it puts the K8 bias forward and the dbias kernel on
+    the long-context path) — sdpa with a float [1, H, S, S] ALiBi
+    attn_mask that requires grad; one biased forward with lse, one dq,
+    dk/dv and dbias; against the plain versions per row."""
+    q, k, v = qkv
+    H, S = q.shape[2], q.shape[1]
+    bias = alibi_bias(H, S, q.device)
+    (out, grads), counts = counted(
+        FA, FM, lambda: sq_loss_grads(
+            lambda q, k, v, b: FA.sdpa(q, k, v, attn_mask=b, is_causal=True),
+            (q, k, v, bias)),
+        {"flash_mha_biased": 1, "flash_mha_masked_lse": 1,
+         "flash_mask_bwd_dq": 1, "flash_mask_bwd_dkv": 1,
+         "flash_mask_bwd_dbias": 1}, "10d")
+    ms = cuda_ms(lambda: sq_loss_grads(
+        lambda q, k, v, b: FA.sdpa(q, k, v, attn_mask=b, is_causal=True),
+        (q, k, v, bias)), iters=3, warmup=1)
+    rows = check_against_plain(FM, "10d", q, k, v, out, grads, None, bias,
+                               True)
+    emit({"phase": "10d", "name": "alibi_bias_route", "S": S, "H": H,
+          "bias": list(bias.shape), "fwd_bwd_ms": ms, "launches": counts,
+          "max_row_rel_err": rows, "row_tol": ROW_TOL})
+    return counts
+
+
+def k8_entries(k8, launches):
+    """The kernels-line entries of the K8 bias forward and backward: times
+    at the phase-3 shape that runs each on the main path's kind of work
+    (dq, dk/dv: SFT with padding; the bias forward and dbias: ALiBi),
+    errors over every phase-3 K8 shape; launches from phase 10.  The
+    backward entries' library time is one forward + backward of
+    scaled_dot_product_attention with the dense mask."""
+    by = {r["shape"]: r for r in k8}
+    src = "paddle_tpu_torch/csrc/flash_mask.cu"
+    ref = "paddle_tpu/ops/pallas/flash_mask.py"
+    out = []
+    for name, part, line, rep, lib in (
+            ("flash_mha_biased", "fwd", 193, "alibi_bias", "fwd"),
+            ("flash_mask_bwd_dq", "dq", 927, "sft_padding", "fwd_bwd"),
+            ("flash_mask_bwd_dkv", "dkv", 954, "sft_padding", "fwd_bwd"),
+            ("flash_mask_bwd_dbias", "dbias", 976, "alibi_bias", "fwd_bwd")):
+        keys = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv"),
+                "dbias": ("dbias",)}[part]
+        recs = [r for r in k8 if all(k in r["max_abs_err"] for k in keys)]
+        r = by[rep]
+        out.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": f"{ref}:{line}", "launches": launches[name],
+            "shape": rep,
+            "max_abs_err": max(x["max_abs_err"][e] for x in recs
+                               for e in keys),
+            "max_row_rel_err": max(x["max_row_rel_err"][e] for x in recs
+                                   for e in keys),
+            "ms": r["ms"][part], "plain_ms": r["plain_ms"][part],
+            "bound_ms": r["bound_ms"][part], "bound_by": r["bound_by"][part],
+            "library_ms": r["library_ms"][lib]})
+    return out
 
 
 def flash_entries(flash, launches):
@@ -1172,6 +1658,11 @@ def main() -> int:
     masked = [phase_masked(FM, gen, bucket, plen)
               for bucket, plen in ((512, 448), (2048, 1900), (6144, 5000))]
     flash = [phase_flash(FA, gen, *shape) for shape in FLASH_SHAPES]
+    k8 = [phase_k8(FM, gen, *shape) for shape in K8_SHAPES]
+    release()
+    for name, B, H, kvh, _, causal, kind in K8_SHAPES:
+        phase_k8_f32(FM, name, B, H, kvh, causal, kind)
+    release()
     quant = phase_quant(QM, gen)
     lora = phase_lora(LM, gen)
     release()
@@ -1208,6 +1699,20 @@ def main() -> int:
     phase_modes_parity(llama3_8b(), create_engine, init_state,
                        GenerationConfig, AdapterStore, random_adapter,
                        quantize_state)
+    release()
+
+    # phase 10: the reference bench's long-context rung
+    phase_train(bench_config(LlamaConfig,
+                             max_position_embeddings=LONGCTX_SEQ), TH, FA,
+                batch=1, seq=LONGCTX_SEQ, steps=LONGCTX_STEPS, phase="10a")
+    release()
+    qkv, k8_launches = phase_longctx_masked(FA, FM)
+    release()
+    for counts in (phase_longctx_window(FA, FM, qkv),
+                   phase_longctx_bias(FA, FM, qkv)):
+        k8_launches = {k: k8_launches[k] + counts[k] for k in counts}
+    del qkv
+    release()
 
     rep = masked[1]     # the 2048 bucket: the longest prompts of phase 4
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1245,7 +1750,8 @@ def main() -> int:
                    "lora_matmul.cu", "paddle_tpu/ops/pallas/"
                    "lora_matmul.py:65", lora,
                    modes["8a"]["lora_gather_matmul"],
-                   next(r for r in lora if r["shape"] == "gate/up"))]})
+                   next(r for r in lora if r["shape"] == "gate/up")),
+        *k8_entries(k8, k8_launches)]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

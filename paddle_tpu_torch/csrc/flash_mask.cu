@@ -1,381 +1,361 @@
-// Masked flash-attention forward for Hopper (sm_90a).
+// Masked and biased flash attention (K8) for Hopper (sm_90a): forward,
+// dq, dk/dv and dbias.
 //
-// Replaces: paddle_tpu/ops/pallas/flash_mask.py:_masked_fwd (_fwd_kernel,
-// the K8 forward TPU kernel) and its streamed long-sequence twin
-// _masked_fwd_stream (_fwd_kernel_stream).  Blockwise online-softmax
-// attention under flashmask column intervals: for key column j, query
-// rows in [mask[0][j], mask[1][j]) are masked (and, with nvec == 4,
-// also [mask[2][j], mask[3][j])).  A bool key-padding mask becomes such
-// intervals in the Python dispatcher.
+// Replaces, in paddle_tpu/ops/pallas/flash_mask.py:
+//   * the forward: _masked_fwd -> _fwd_kernel (:141, :193) and its
+//     streamed long-sequence twin _masked_fwd_stream (:565), with the
+//     flashmask intervals and/or the dense bias, lse optional;
+//   * the backward: _masked_bwd (:888) -> _bwd_dq_kernel (:748),
+//     _bwd_dkv_kernel (:791) and _bwd_dbias_kernel (:843), with the
+//     broadcast-dim sum of :984-998, and the streamed twin
+//     _masked_bwd_stream (:613), whose dbias kernel reduces the
+//     broadcast dims in-kernel (:455-528) as this one does.
+// One kernel of each kind takes every length: the TPU's 128-padding
+// (and the -1e9 bias tail it needs) and its streamed switch past 4096
+// tokens are VMEM limits; here the ragged edge is masked in-kernel.
 //
-// Semantics, in the order of flash_mask._fwd_kernel:
-//   * keys k >= Sk are invisible (the ragged edge is masked here: any
-//     Sq/Sk is taken, nothing is padded to 128);
-//   * causal visibility is bottom-right aligned: k <= q + (Sk - Sq);
-//   * the interval masks per column;
-//   * GQA: q head h reads kv head h / (H / kvH);
-//   * the K-block trip count skips the causal upper triangle;
-//   * -inf arithmetic is guarded (alpha = 1 and m treated as 0 while a
-//     row has seen no visible key);
-//   * p is rounded to v's dtype before P.V, with f32 accumulation;
-//   * rows with no visible key are written as zeros.
+// Semantics: the K1/K2 kernel bodies of flash_common.cuh in the
+// kIntervals mode (no bias) or the kBiased mode (a bias, intervals
+// optional): a logit is q.k * scale + bias, and a key is invisible past
+// Sk, right of the bottom-right aligned causal diagonal, or inside one
+// of its column's masked row intervals.  Rows with no visible key give
+// zero output, lse = LSE_INVALID (the reference's -inf, made safe) and
+// zero gradients.  dk/dv of a GQA group are summed in f32 before the one
+// rounding to k's dtype (the reference rounds per q head, then sums:
+// identical in float32).  dbias is ds without the scale, p * (dp -
+// delta) in f32, summed over the bias's broadcast batch/head dims in a
+// fixed order and cast to the bias dtype; key blocks past the causal
+// trip count are written as zeros.
 //
-// What bounds it on the H100: operations.  Prefill attention does
-// 4 * Sq * Sk_visible * D flops per head against O((Sq + Sk) * D)
-// bytes, far above the ~295 flop/byte ridge; the floor is the visible
-// flops over the 989 TFLOP/s bf16 tensor-core peak.
+// What bounds them on the H100: operations for the forward (4 * pairs
+// * D flops), dq (6) and dk/dv (8); dbias does 4 * pairs * D flops but
+// writes Sq * Sk * 4 bytes per bias (batch, head), so bytes bound it
+// at short head dims or wide broadcast.
 //
-// The simple design, and what it leaves for later:
-//   * one CTA of 4 warps per (64-row query block, head, batch), looping
-//     over 64-column K/V blocks staged in shared memory with plain
-//     16-byte loads (no cp.async/TMA pipelining, no double buffer);
-//   * bf16 runs Q.K^T and P.V on the tensor cores through WMMA
-//     (16x16x16 mma.sync tiles), not wgmma; the S tile and the f32
-//     output accumulator round-trip through shared memory so the
-//     softmax and the per-row rescale can be done by plain threads;
-//   * float32 uses CUDA-core FMA (no TF32: f32 results must match the
-//     plain PyTorch version to f32 rounding).
-//   A wgmma + TMA pipeline with the accumulator kept in registers is
-//   the later PR that makes this fast.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+// The dbias kernel: one CTA per (64-row query block, bias head, bias
+// batch) walks the (batch, head) members that broadcast onto it in
+// order, recomputing S and dP per member and key block, and adds each
+// member's ds into the output (or an f32 accumulator for a bf16/f16
+// bias) at the same elements from the same thread: deterministic, no
+// atomics, at the price of one CTA per query block when the bias is
+// [1, 1, Sq, Sk].
+#include "flash_common.cuh"
 
-#include <type_traits>
+using namespace flash;
 
 namespace {
 
-using namespace nvcuda;
-
-constexpr int BQ = 64;    // query rows per CTA
-constexpr int BK = 64;    // key columns per block
-constexpr int NT = 128;   // threads per CTA (4 warps x 16 query rows)
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  const int* mask;  // [B|1, H|1, nvec, Sk] int32, or null when nvec == 0
-  void* out;
-  int group;        // q heads per kv head
-  int sq, sk, nvec, causal;
-  float sm_scale;
-  // element strides: batch, head, sequence (the head dim is contiguous)
-  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
-  long long o_sb, o_sh, o_ss;
-  long long m_sb, m_sh, m_sv;  // mask: batch, head (0 = broadcast), vec
-};
-
-// Shared-memory layout (row strides padded by 16 bytes against bank
-// conflicts; every region starts 32-byte aligned, as WMMA requires).
-template <typename T, int D>
-struct Smem {
-  static constexpr int LDT = D + 16 / (int)sizeof(T);  // Q/K/V tiles
-  static constexpr int LDS = BK + 4;                   // S tile, float
-  static constexpr int LDO = D + 4;                    // O accumulator
-  static constexpr int LDP = BK + 8;                   // P tile, bf16
-  static constexpr size_t kQKV = (size_t)BQ * LDT * sizeof(T);
-  static constexpr size_t kS = (size_t)BQ * LDS * sizeof(float);
-  static constexpr size_t kO = (size_t)BQ * LDO * sizeof(float);
-  static constexpr size_t kML = 2 * BQ * sizeof(float);
-  static constexpr size_t kP =
-      std::is_same<T, __nv_bfloat16>::value ? (size_t)BQ * LDP * 2 : 0;
-  static constexpr size_t bytes = 3 * kQKV + kS + kO + kML + kP;
-};
-
-// Load rows [row0, row0 + 64) of a [S, D] operand into a padded tile,
-// zero-filling rows >= n (they must be finite: 0 * NaN would poison
-// P.V even where p == 0).
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src,
-                                          long long stride, int row0,
-                                          int n) {
-  constexpr int LDT = Smem<T, D>::LDT;
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = D / kVec;
-  for (int e = threadIdx.x; e < BQ * kPerRow; e += NT) {
-    const int r = e / kPerRow;
-    const int c = (e % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LDT + c) = val;
-  }
-}
-
-// s_s[r][c] = q_r . k_c (raw dot, f32).
-template <typename T, int D>
-__device__ __forceinline__ void scores(const T* q_s, const T* k_s,
-                                       float* s_s) {
-  constexpr int LDT = Smem<T, D>::LDT;
-  constexpr int LDS = Smem<T, D>::LDS;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const int warp = threadIdx.x >> 5;  // rows [16 warp, 16 warp + 16)
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> kb;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[BK / 16];
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(c[n], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      wmma::load_matrix_sync(a, q_s + warp * 16 * LDT + kk, LDT);
-#pragma unroll
-      for (int n = 0; n < BK / 16; ++n) {
-        // K^T as a column-major [D, BK] operand is K row-major [BK, D]
-        wmma::load_matrix_sync(kb, k_s + n * 16 * LDT + kk, LDT);
-        wmma::mma_sync(c[n], a, kb, c[n]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < BK / 16; ++n)
-      wmma::store_matrix_sync(s_s + warp * 16 * LDS + n * 16, c[n], LDS,
-                              wmma::mem_row_major);
-  } else {
-    for (int e = threadIdx.x; e < BQ * BK; e += NT) {
-      const int r = e / BK;
-      const int c = e % BK;
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) s += to_f(q_s[r * LDT + d]) * to_f(k_s[c * LDT + d]);
-      s_s[r * LDS + c] = s;
-    }
-  }
-}
-
-// o_s[r][:] += p[r][:] . V  (p in v's dtype; f32 accumulation)
-template <typename T, int D>
-__device__ __forceinline__ void accumulate_pv(const float* s_s,
-                                              const __nv_bfloat16* p_s,
-                                              const T* v_s, float* o_s) {
-  constexpr int LDT = Smem<T, D>::LDT;
-  constexpr int LDS = Smem<T, D>::LDS;
-  constexpr int LDO = Smem<T, D>::LDO;
-  constexpr int LDP = Smem<T, D>::LDP;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    const int warp = threadIdx.x >> 5;
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> vb;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      float* o_tile = o_s + warp * 16 * LDO + n * 16;
-      wmma::load_matrix_sync(c, o_tile, LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::load_matrix_sync(a, p_s + warp * 16 * LDP + kk, LDP);
-        wmma::load_matrix_sync(vb, v_s + kk * LDT + n * 16, LDT);
-        wmma::mma_sync(c, a, vb, c);
-      }
-      wmma::store_matrix_sync(o_tile, c, LDO, wmma::mem_row_major);
-    }
-  } else {
-    for (int e = threadIdx.x; e < BQ * D; e += NT) {
-      const int r = e / D;
-      const int d = e % D;
-      float o = o_s[r * LDO + d];
-#pragma unroll 8
-      for (int j = 0; j < BK; ++j) o += s_s[r * LDS + j] * to_f(v_s[j * LDT + d]);
-      o_s[r * LDO + d] = o;
-    }
-  }
-}
-
-// Grid (ceil(Sq / 64), H, B), 128 threads.
-template <typename T, int D>
+template <typename T, Mode kMode>
 __global__ void __launch_bounds__(NT) masked_fwd_kernel(Params p) {
-  using S = Smem<T, D>;
-  constexpr int LDS = S::LDS;
-  constexpr int LDO = S::LDO;
-  constexpr int LDP = S::LDP;
-  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* q_s = reinterpret_cast<T*>(smem);
-  T* k_s = reinterpret_cast<T*>(smem + S::kQKV);
-  T* v_s = reinterpret_cast<T*>(smem + 2 * S::kQKV);
-  float* s_s = reinterpret_cast<float*>(smem + 3 * S::kQKV);
-  float* o_s = reinterpret_cast<float*>(smem + 3 * S::kQKV + S::kS);
-  float* m_s = reinterpret_cast<float*>(smem + 3 * S::kQKV + S::kS + S::kO);
-  float* l_s = m_s + BQ;
-  __nv_bfloat16* p_s = reinterpret_cast<__nv_bfloat16*>(
-      smem + 3 * S::kQKV + S::kS + S::kO + S::kML);
+  fwd_body<T, kMode>(p, smem);
+}
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / p.group;
+template <typename T, Mode kMode>
+__global__ void __launch_bounds__(NT) masked_bwd_dq_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  dq_body<T, kMode>(p, smem);
+}
+
+template <typename T, Mode kMode>
+__global__ void __launch_bounds__(NT) masked_bwd_dkv_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  dkv_body<T, kMode>(p, smem);
+}
+
+template <typename T>
+struct DbiasSmem {
+  static constexpr size_t kT = tile_bytes<T>(BM);   // q, do, k, v
+  static constexpr size_t kS = score_bytes(BM);     // s, dp
+  static constexpr size_t kLD = 2 * BM * sizeof(float);
+  static constexpr size_t bytes = 4 * kT + 2 * kS + kLD;
+};
+
+// Grid (ceil(Sq / 64), Hb, Bb), 128 threads; Hb/Bb are the bias's head
+// and batch dims (1 = broadcast over p.H / p.B).
+template <typename T>
+__global__ void __launch_bounds__(NT) masked_bwd_dbias_kernel(Params p) {
+  using S = DbiasSmem<T>;
+  constexpr int LS = Ld<T>::S;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* q_t = reinterpret_cast<T*>(smem);
+  T* do_t = reinterpret_cast<T*>(smem + S::kT);
+  T* k_t = reinterpret_cast<T*>(smem + 2 * S::kT);
+  T* v_t = reinterpret_cast<T*>(smem + 3 * S::kT);
+  float* s_t = reinterpret_cast<float*>(smem + 4 * S::kT);
+  float* dp_t = reinterpret_cast<float*>(smem + 4 * S::kT + S::kS);
+  float* lse_t = reinterpret_cast<float*>(smem + 4 * S::kT + 2 * S::kS);
+  float* delta_t = lse_t + BM;
+
+  const int q0 = blockIdx.x * BM;
   const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  const int* mg = p.nvec ? p.mask + b * p.m_sb + h * p.m_sh : nullptr;
-  const int ko = p.sk - p.sq;  // bottom-right causal offset
+  const int n_h = gridDim.y == 1 ? p.H : 1;
+  const int h_first = gridDim.y == 1 ? 0 : blockIdx.y;
+  const int n_b = gridDim.z == 1 ? p.B : 1;
+  const int b_first = gridDim.z == 1 ? 0 : blockIdx.z;
+  const int members = n_b * n_h;
+  const long long out_base =
+      ((long long)blockIdx.z * gridDim.y + blockIdx.y) * p.sq * p.sk;
+  // f32 bias: the output is its own accumulator
+  float* acc = p.bias_dt == 0 ? static_cast<float*>(p.dbias) : p.dbias_acc;
+  const int upper = q_trip_count(q0, p);
+  const int nblk = (p.sk + BN - 1) / BN;
 
-  // K-block trip count (flash_attention._q_trip_count)
-  const int nblk = (p.sk + BK - 1) / BK;
-  int upper = nblk;
-  if (p.causal) {
-    const int num = q0 + BQ + ko + BK - 1;
-    upper = num <= 0 ? 0 : min(num / BK, nblk);
-  }
-
-  load_tile<T, D>(q_s, qg, p.q_ss, q0, p.sq);
-  for (int e = t; e < BQ * D; e += NT) o_s[(e / D) * LDO + e % D] = 0.f;
-  if (t < BQ) {
-    m_s[t] = -INFINITY;
-    l_s[t] = 0.f;
-  }
-
-  for (int kb = 0; kb < upper; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // the previous block is done with k_s, v_s, s_s, p_s
-    load_tile<T, D>(k_s, kg, p.k_ss, k0, p.sk);
-    load_tile<T, D>(v_s, vg, p.v_ss, k0, p.sk);
-    __syncthreads();
-    scores<T, D>(q_s, k_s, s_s);
-    __syncthreads();
-
-    // online softmax: warp w owns query rows [16 w, 16 w + 16)
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = warp * 16 + rr;
-      const int qi = q0 + r;
-      float sv[BK / 32];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int u = 0; u < BK / 32; ++u) {
-        const int c = lane + 32 * u;
-        const int kj = k0 + c;
-        bool vis = kj < p.sk;
-        if (p.causal) vis = vis && kj <= qi + ko;
-        if (vis && mg) {
-          for (int iv = 0; iv < p.nvec / 2; ++iv) {
-            const int start = mg[(2 * iv) * p.m_sv + kj];
-            const int end = mg[(2 * iv + 1) * p.m_sv + kj];
-            if (qi >= start && qi < end) vis = false;
-          }
-        }
-        const float s = vis ? s_s[r * LDS + c] * p.sm_scale : -INFINITY;
-        sv[u] = s;
-        mx = fmaxf(mx, s);
-      }
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float m_cur = fmaxf(m_prev, mx);
-      const bool finite = m_cur != -INFINITY;
-      const float alpha = finite ? expf(m_prev - m_cur) : 1.f;
-      const float m_safe = finite ? m_cur : 0.f;
-      float sum = 0.f;
-#pragma unroll
-      for (int u = 0; u < BK / 32; ++u) {
-        const int c = lane + 32 * u;
-        const float pe = expf(sv[u] - m_safe);
-        sum += pe;
-        if constexpr (kBf16) {
-          p_s[r * LDP + c] = __float2bfloat16(pe);
-        } else {
-          s_s[r * LDS + c] = pe;
-        }
-      }
-      sum = warp_sum(sum);
-      for (int d = lane; d < D; d += 32) o_s[r * LDO + d] *= alpha;
-      if (lane == 0) {
-        m_s[r] = m_cur;
-        l_s[r] = l_s[r] * alpha + sum;
-      }
+  for (int kb = upper; kb < nblk; ++kb) {  // past the causal trip count
+    for (int e = t; e < BM * BN; e += NT) {
+      const int qi = q0 + e / BN;
+      const int kj = kb * BN + e % BN;
+      if (qi < p.sq && kj < p.sk)
+        store_any(p.dbias, out_base + (long long)qi * p.sk + kj, 0.f,
+                  p.bias_dt);
     }
-    __syncthreads();
-    accumulate_pv<T, D>(s_s, p_s, v_s, o_s);
   }
-  __syncthreads();
 
-  T* og = static_cast<T*>(p.out) + b * p.o_sb + h * p.o_sh;
-  for (int e = t; e < BQ * D; e += NT) {
-    const int r = e / D;
-    const int d = e % D;
-    if (q0 + r < p.sq) {
-      const float l = l_s[r];
-      og[(long long)(q0 + r) * p.o_ss + d] =
-          from_f<T>(o_s[r * LDO + d] / (l == 0.f ? 1.f : l));
+  for (int mi = 0; mi < members; ++mi) {
+    const int b = b_first + mi / n_h;
+    const int h = h_first + mi % n_h;
+    const int hk = h / p.group;
+    const T* qg = static_cast<const T*>(p.q) + b * p.q_s[0] + h * p.q_s[1];
+    const T* dog =
+        static_cast<const T*>(p.dout) + b * p.do_s[0] + h * p.do_s[1];
+    const T* kg = static_cast<const T*>(p.k) + b * p.k_s[0] + hk * p.k_s[1];
+    const T* vg = static_cast<const T*>(p.v) + b * p.v_s[0] + hk * p.v_s[1];
+    const Vis m = vis_for(p, b, h);
+    const long long row_base = ((long long)b * p.H + h) * p.sq;
+    __syncthreads();  // the previous member is done with q_t, do_t, lse_t
+    load_tile<T, BM>(q_t, qg, p.q_s[2], q0, p.sq);
+    load_tile<T, BM>(do_t, dog, p.do_s[2], q0, p.sq);
+    if (t < BM) {
+      const int qi = q0 + t;
+      lse_t[t] = qi < p.sq ? p.lse[row_base + qi] : kLseInvalid;
+      delta_t[t] = qi < p.sq ? p.delta[row_base + qi] : 0.f;
+    }
+    for (int kb = 0; kb < upper; ++kb) {
+      const int k0 = kb * BN;
+      __syncthreads();  // the previous block is done with k_t, v_t, s_t
+      load_tile<T, BN>(k_t, kg, p.k_s[2], k0, p.sk);
+      load_tile<T, BN>(v_t, vg, p.v_s[2], k0, p.sk);
+      __syncthreads();
+      mm_abt<T, BM>(q_t, k_t, s_t);
+      mm_abt<T, BM>(do_t, v_t, dp_t);
+      __syncthreads();
+      // element (r, c) belongs to the same thread for every member, so
+      // the running sum needs no synchronisation
+      for (int e = t; e < BM * BN; e += NT) {
+        const int r = e / BN;
+        const int c = e % BN;
+        const int qi = q0 + r;
+        const int kj = k0 + c;
+        if (qi >= p.sq || kj >= p.sk) continue;
+        const float pr =
+            visible<kBiased>(qi, kj, p, m)
+                ? expf(scaled<kBiased>(s_t[r * LS + c], qi, kj, p, m) -
+                       lse_t[r])
+                : 0.f;
+        float ds = pr * (dp_t[r * LS + c] - delta_t[r]);
+        const long long i = out_base + (long long)qi * p.sk + kj;
+        if (mi > 0) ds += acc[i];
+        if (mi == members - 1) {
+          store_any(p.dbias, i, ds, p.bias_dt);
+        } else {
+          acc[i] = ds;
+        }
+      }
     }
   }
 }
 
-template <typename T, int D>
-int launch(const Params& p, int B, int H, cudaStream_t stream) {
-  auto kern = masked_fwd_kernel<T, D>;
-  const size_t smem = Smem<T, D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((p.sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, NT, smem, stream>>>(p);
-  return (int)cudaGetLastError();
+// The fields every K8 entry shares.
+void set_common(Params& p, int B, int H, int group, int sq, int sk,
+                int causal, float scale, const void* mask, int nvec,
+                const void* bias, int bias_dt, const long long* mb) {
+  p.B = B;
+  p.H = H;
+  p.group = group;
+  p.sq = sq;
+  p.sk = sk;
+  p.causal = causal;
+  p.scale = scale;
+  p.mask = nvec ? static_cast<const int*>(mask) : nullptr;
+  p.nvec = nvec;
+  set3(p.m_s, mb);
+  p.bias = bias;
+  p.bias_dt = bias_dt;
+  set3(p.b_s, mb + 3);
+}
+
+bool bad_mask(int nvec, const void* mask, int bias_dt) {
+  return (nvec != 0 && nvec != 2 && nvec != 4) || (nvec && !mask) ||
+         bias_dt < 0 || bias_dt > 2;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim must be 128 (the only
-// width of a model on the ported path).  strides: 15 int64 element strides
-// (q, k, v, out: batch/head/seq; mask: batch/head/vec).  Returns a
-// cudaError_t code (0 = launched).  Shapes are validated by the Python
-// wrapper.
+// All entries: dtype 0 = float32, 1 = bfloat16 (q/k/v/out/dout); head_dim
+// must be 128; nvec 0 (no intervals), 2 or 4; bias null or of bias_dtype
+// 0 = float32, 1 = bfloat16, 2 = float16.  strides are int64 element
+// strides (batch, head, sequence) per tensor in the order of the tensor
+// arguments, then the intervals' (batch, head, vector) and the bias's
+// (batch, head, row), 0 for a broadcast dim.  lse/delta are contiguous
+// [B, H, Sq] float32.  Each returns a cudaError_t code (0 = launched).
+// Shapes are validated by the Python wrappers
+// (paddle_tpu_torch/ops/pallas/flash_mask.py).
+
+// strides: q, k, v, out, mask, bias (18); lse may be null (not written)
 int flash_mask_fwd(int dtype, int head_dim, const void* q, const void* k,
-                   const void* v, const void* mask, void* out, int B, int H,
-                   int group, int sq, int sk, int nvec, int causal,
-                   float sm_scale, const long long* strides, void* stream) {
-  Params p;
+                   const void* v, const void* mask, int nvec,
+                   const void* bias, int bias_dtype, void* out, void* lse,
+                   int B, int H, int group, int sq, int sk, int causal,
+                   float scale, const long long* strides, void* stream) {
+  if (bad_args(dtype, head_dim, B, H, group, sq, sk) ||
+      bad_mask(nvec, mask, bias_dtype))
+    return (int)cudaErrorInvalidValue;
+  Params p = {};
+  set_common(p, B, H, group, sq, sk, causal, scale, mask, nvec, bias,
+             bias_dtype, strides + 12);
   p.q = q;
   p.k = k;
   p.v = v;
-  p.mask = static_cast<const int*>(mask);
   p.out = out;
-  p.group = group;
-  p.sq = sq;
-  p.sk = sk;
-  p.nvec = nvec;
-  p.causal = causal;
-  p.sm_scale = sm_scale;
-  p.q_sb = strides[0];  p.q_sh = strides[1];  p.q_ss = strides[2];
-  p.k_sb = strides[3];  p.k_sh = strides[4];  p.k_ss = strides[5];
-  p.v_sb = strides[6];  p.v_sh = strides[7];  p.v_ss = strides[8];
-  p.o_sb = strides[9];  p.o_sh = strides[10]; p.o_ss = strides[11];
-  p.m_sb = strides[12]; p.m_sh = strides[13]; p.m_sv = strides[14];
+  p.lse = static_cast<float*>(lse);
+  set3(p.q_s, strides);
+  set3(p.k_s, strides + 3);
+  set3(p.v_s, strides + 6);
+  set3(p.o_s, strides + 9);
+  dim3 grid((sq + BM - 1) / BM, H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (sq < 1 || sk < 1 || group < 1) return (int)cudaErrorInvalidValue;
-  if (head_dim != 128) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return launch<float, 128>(p, B, H, s);
-  if (dtype == 1) return launch<__nv_bfloat16, 128>(p, B, H, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch(bias ? masked_fwd_kernel<float, kBiased>
+                       : masked_fwd_kernel<float, kIntervals>,
+                  FwdSmem<float>::bytes, grid, p, s);
+  return launch(bias ? masked_fwd_kernel<__nv_bfloat16, kBiased>
+                     : masked_fwd_kernel<__nv_bfloat16, kIntervals>,
+                FwdSmem<__nv_bfloat16>::bytes, grid, p, s);
+}
+
+// strides: q, k, v, out, dout, dq, mask, bias (24); writes dq and delta
+int flash_mask_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
+                      const void* v, const void* out, const void* dout,
+                      const void* lse, void* delta, void* dq,
+                      const void* mask, int nvec, const void* bias,
+                      int bias_dtype, int B, int H, int group, int sq,
+                      int sk, int causal, float scale,
+                      const long long* strides, void* stream) {
+  if (bad_args(dtype, head_dim, B, H, group, sq, sk) ||
+      bad_mask(nvec, mask, bias_dtype))
+    return (int)cudaErrorInvalidValue;
+  Params p = {};
+  set_common(p, B, H, group, sq, sk, causal, scale, mask, nvec, bias,
+             bias_dtype, strides + 18);
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = out;
+  p.dout = dout;
+  p.lse = const_cast<float*>(static_cast<const float*>(lse));
+  p.delta = static_cast<float*>(delta);
+  p.dq = dq;
+  set3(p.q_s, strides);
+  set3(p.k_s, strides + 3);
+  set3(p.v_s, strides + 6);
+  set3(p.o_s, strides + 9);
+  set3(p.do_s, strides + 12);
+  set3(p.dq_s, strides + 15);
+  dim3 grid((sq + BM - 1) / BM, H, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch(bias ? masked_bwd_dq_kernel<float, kBiased>
+                       : masked_bwd_dq_kernel<float, kIntervals>,
+                  DqSmem<float>::bytes, grid, p, s);
+  return launch(bias ? masked_bwd_dq_kernel<__nv_bfloat16, kBiased>
+                     : masked_bwd_dq_kernel<__nv_bfloat16, kIntervals>,
+                DqSmem<__nv_bfloat16>::bytes, grid, p, s);
+}
+
+// strides: q, k, v, dout, dk, dv, mask, bias (24); kvH kv heads, group q
+// heads each (the intervals and bias are indexed by q head)
+int flash_mask_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
+                       const void* v, const void* dout, const void* lse,
+                       const void* delta, void* dk, void* dv,
+                       const void* mask, int nvec, const void* bias,
+                       int bias_dtype, int B, int kvH, int group, int sq,
+                       int sk, int causal, float scale,
+                       const long long* strides, void* stream) {
+  if (bad_args(dtype, head_dim, B, kvH, group, sq, sk) ||
+      bad_mask(nvec, mask, bias_dtype))
+    return (int)cudaErrorInvalidValue;
+  Params p = {};
+  // the kernel indexes lse/delta as (b * kvH * group + h)
+  set_common(p, B, kvH, group, sq, sk, causal, scale, mask, nvec, bias,
+             bias_dtype, strides + 18);
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.lse = const_cast<float*>(static_cast<const float*>(lse));
+  p.delta = const_cast<float*>(static_cast<const float*>(delta));
+  p.dk = dk;
+  p.dv = dv;
+  set3(p.q_s, strides);
+  set3(p.k_s, strides + 3);
+  set3(p.v_s, strides + 6);
+  set3(p.do_s, strides + 9);
+  set3(p.dk_s, strides + 12);
+  set3(p.dv_s, strides + 15);
+  dim3 grid((sk + BN - 1) / BN, kvH, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch(bias ? masked_bwd_dkv_kernel<float, kBiased>
+                       : masked_bwd_dkv_kernel<float, kIntervals>,
+                  DkvCfg<float>::bytes, grid, p, s);
+  return launch(bias ? masked_bwd_dkv_kernel<__nv_bfloat16, kBiased>
+                     : masked_bwd_dkv_kernel<__nv_bfloat16, kIntervals>,
+                DkvCfg<__nv_bfloat16>::bytes, grid, p, s);
+}
+
+// strides: q, k, v, dout, mask, bias (18).  dbias: contiguous [Bb, Hb,
+// Sq, Sk] of bias_dtype (Bb in {1, B}, Hb in {1, H}); dbias_acc: a
+// contiguous f32 buffer of the same shape when bias_dtype != 0 and Bb *
+// Hb < B * H, else null.  Reads the delta the dq entry wrote.
+int flash_mask_bwd_dbias(int dtype, int head_dim, const void* q,
+                         const void* k, const void* v, const void* dout,
+                         const void* lse, const void* delta,
+                         const void* mask, int nvec, const void* bias,
+                         int bias_dtype, void* dbias, void* dbias_acc,
+                         int B, int H, int group, int Bb, int Hb, int sq,
+                         int sk, int causal, float scale,
+                         const long long* strides, void* stream) {
+  if (bad_args(dtype, head_dim, B, H, group, sq, sk) ||
+      bad_mask(nvec, mask, bias_dtype) || !bias || !dbias ||
+      (Bb != 1 && Bb != B) || (Hb != 1 && Hb != H) ||
+      (bias_dtype != 0 && Bb * Hb < B * H && !dbias_acc))
+    return (int)cudaErrorInvalidValue;
+  Params p = {};
+  set_common(p, B, H, group, sq, sk, causal, scale, mask, nvec, bias,
+             bias_dtype, strides + 12);
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.dout = dout;
+  p.lse = const_cast<float*>(static_cast<const float*>(lse));
+  p.delta = const_cast<float*>(static_cast<const float*>(delta));
+  p.dbias = dbias;
+  p.dbias_acc = static_cast<float*>(dbias_acc);
+  set3(p.q_s, strides);
+  set3(p.k_s, strides + 3);
+  set3(p.v_s, strides + 6);
+  set3(p.do_s, strides + 9);
+  // Bb / Hb == 1 makes the kernel loop over the broadcast members; with
+  // B == 1 (or H == 1) that loop has one member either way
+  dim3 grid((sq + BM - 1) / BM, Hb, Bb);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch(masked_bwd_dbias_kernel<float>, DbiasSmem<float>::bytes,
+                  grid, p, s);
+  return launch(masked_bwd_dbias_kernel<__nv_bfloat16>,
+                DbiasSmem<__nv_bfloat16>::bytes, grid, p, s);
 }
 
 const char* flash_mask_error_string(int err) {

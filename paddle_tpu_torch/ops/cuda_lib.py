@@ -80,15 +80,17 @@ def build(names=SOURCES) -> float:
 def kernel(name: str, symbol: str, argtypes):
     """The C entry ``symbol`` of ``csrc/<name>.cu`` as a ctypes function
     returning an int ``cudaError_t``; builds the library on first use
-    (or when its source is newer than the built file).  Wrappers call
+    (or when its source or a shared ``*.cuh`` header is newer than the
+    built file).  Wrappers call
     this once and keep the function, so a launch costs only the call."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             path = _lib_path(name)
             src = CSRC / f"{name}.cu"
-            if (not path.exists()
-                    or path.stat().st_mtime < src.stat().st_mtime):
+            newest = max(f.stat().st_mtime
+                         for f in (src, *CSRC.glob("*.cuh")))
+            if not path.exists() or path.stat().st_mtime < newest:
                 build((name,))
             lib = _libs[name] = ctypes.CDLL(str(path))
             err = getattr(lib, f"{name}_error_string")

@@ -11,13 +11,18 @@ Ports ``sdpa``, ``_xla_sdpa``, ``_pallas_sdpa``, ``flash_mha``,
     whose backward is the recompute-from-lse dq and dk/dv kernels (K2),
     all in ``csrc/flash_attention.cu``;
   * a bool key-padding ``attn_mask`` [B, 1|H, 1, Sk] (the serving
-    prefill mask) becomes flashmask intervals and runs the masked flash
-    forward (``flash_mask.flash_mha_masked``, the CUDA K8 forward);
-  * an explicit ``flashmask`` runs the same kernel;
-  * arbitrary bool masks (the cached-suffix prefill's [1, 1, S, T]) and
-    dropout run :func:`_xla_sdpa`, as they do on the TPU;
-  * a float (dense-bias) mask raises ``NotImplementedError``: it is the
-    K8 dense-bias kernel, not ported yet.
+    prefill mask) becomes flashmask intervals and an explicit
+    ``flashmask`` [B|1, H|1, 2|4, Sk] goes as it is to the masked flash
+    attention (``flash_mask.flash_mha_masked``, the CUDA K8 kernels);
+  * a float ``attn_mask`` [B|1, H|1|kvH, Sq, Sk] is an additive bias for
+    the biased flash attention (``flash_mask.flash_mha_biased``, the same
+    K8 kernels with the bias operand, and the dbias kernel when the bias
+    needs a gradient);
+  * any other mask (an arbitrary bool mask such as the cached-suffix
+    prefill's [1, 1, S, T], or a float mask of another shape such as a
+    [B, 1, 1, Sk] additive padding mask) and dropout run
+    :func:`_xla_sdpa`, as they do on the TPU.
+The masked and biased routes are differentiable, like the unmasked one.
 
 Numerics.  The CUDA kernels and the plain versions
 (:func:`_flash_fwd_xla`, :func:`_flash_bwd_dq_xla`,
@@ -134,29 +139,43 @@ def sdpa(q, k, v, attn_mask=None, dropout_p=0.0, is_causal=False,
             # for all rows or none
             mask_vecs = padding_mask_to_intervals(attn_mask[:, :, 0, :],
                                                   q.shape[1])
-        elif attn_mask.dtype == torch.bool:
+        elif (attn_mask.is_floating_point() and attn_mask.dim() == 4
+              and attn_mask.shape[-2:] == (q.shape[1], k.shape[1])):
+            return _sdpa_biased(q, k, v, attn_mask, is_causal)
+        else:
             return _xla_sdpa(q, k, v, attn_mask=attn_mask,
                              is_causal=is_causal)
-        else:
-            raise NotImplementedError(
-                "sdpa with a float (additive bias) mask runs the K8 dense-"
-                "bias kernel (flash_mask.flash_mha_biased), which is not "
-                "ported yet")
     if mask_vecs is None:
         return _pallas_sdpa(q, k, v, is_causal)
     return _sdpa_masked(q, k, v, mask_vecs, is_causal)
 
 
 def _sdpa_masked(q, k, v, mask_vecs, causal):
-    """[B, S, H, D] wrapper of the masked flash forward (the reference's
-    ``_pallas_sdpa_masked`` without the 128-padding: the kernel takes any
-    length and reads the transposed views through their strides)."""
+    """[B, S, H, D] wrapper of the masked flash attention (the reference's
+    ``_pallas_sdpa_masked`` without the 128-padding: the kernels take any
+    length and read the transposed views through their strides)."""
     from .flash_mask import flash_mha_masked
     h, hm = q.shape[2], mask_vecs.shape[1]
     if hm not in (1, h):                 # per-kv-head mask under GQA
         mask_vecs = mask_vecs.repeat_interleave(h // hm, dim=1)
     out = flash_mha_masked(q.transpose(1, 2), k.transpose(1, 2),
                            v.transpose(1, 2), mask_vecs, causal,
+                           1.0 / math.sqrt(q.shape[-1]))
+    return out.transpose(1, 2)
+
+
+def _sdpa_biased(q, k, v, bias, causal):
+    """[B, S, H, D] wrapper of the biased flash attention (the reference's
+    ``_pallas_sdpa_biased`` at ``:466-482``): a per-kv-head bias is
+    repeated to q heads (its gradient flows back through the repeat); no
+    128-padding and no -1e9 tail, since the kernels mask the ragged edge
+    themselves."""
+    from .flash_mask import flash_mha_biased
+    h, hb = q.shape[2], bias.shape[1]
+    if hb not in (1, h):
+        bias = bias.repeat_interleave(h // hb, dim=1)
+    out = flash_mha_biased(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), bias, causal,
                            1.0 / math.sqrt(q.shape[-1]))
     return out.transpose(1, 2)
 
@@ -281,35 +300,35 @@ def _strided_ok(t):
             and all(s % vec == 0 for s in t.stride()[:3]))
 
 
-def _check(q, k, v, *more):
+def _check(q, k, v, *more, name="flash_mha"):
     """Validate what the kernels take; raise on anything else."""
     tensors = (q, k, v, *more)
     if q.device.type != "cuda":
-        raise ValueError(f"flash_mha kernels take CUDA tensors, got "
+        raise ValueError(f"{name} kernels take CUDA tensors, got "
                          f"{q.device}")
     if any(t.device != q.device for t in tensors):
-        raise ValueError("flash_mha: all inputs must be on one device, got "
+        raise ValueError(f"{name}: all inputs must be on one device, got "
                          f"{[str(t.device) for t in tensors]}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash_mha kernels take float32 or bfloat16 q/k/v "
+        raise TypeError(f"{name} kernels take float32 or bfloat16 q/k/v "
                         f"of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_mha: q {tuple(q.shape)} must be "
+        raise ValueError(f"{name}: q {tuple(q.shape)} must be "
                          f"[B, H, Sq, D] and k/v {tuple(k.shape)}/"
                          f"{tuple(v.shape)} equal [B, kvH, Sk, D]")
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     if d != _HEAD_DIM or k.shape[3] != d or k.shape[0] != b:
-        raise ValueError(f"flash_mha kernels take head_dim {_HEAD_DIM} and "
+        raise ValueError(f"{name} kernels take head_dim {_HEAD_DIM} and "
                          f"matching batch, got q {tuple(q.shape)} k "
                          f"{tuple(k.shape)}")
     if h % kvh or sq < 1 or sk < 1:
-        raise ValueError(f"flash_mha: {h} q heads must group onto {kvh} kv "
+        raise ValueError(f"{name}: {h} q heads must group onto {kvh} kv "
                          "heads, and Sq/Sk must be >= 1")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for label, t in (("q", q), ("k", k), ("v", v)):
         if not _strided_ok(t):
             raise ValueError(
-                f"flash_mha: {name} needs a contiguous head dim, a 16-byte "
+                f"{name}: {label} needs a contiguous head dim, a 16-byte "
                 "aligned base and strides divisible by "
                 f"{16 // t.element_size()} elements, got {t.stride()}")
     return b, h, sq, d, kvh, sk

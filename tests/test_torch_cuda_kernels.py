@@ -26,6 +26,12 @@ output row (one token over N): float32 1e-5 relative (summation order
 over K up to 14336), bf16 2^-7 (the plain versions round once, at the
 output, as the kernels do; the limit leaves room for summation order).
 Each has a planted fault that must fail every row it touches.
+
+The K8 backward and bias kernels (forward with lse, dq, dk/dv, dbias)
+are held to their plain versions the same way, float32 and bf16 (a bf16
+bias in the bf16 cases, so the dbias kernel's f32 accumulator for a
+broadcast bias runs too), over ragged lengths, GQA, nvec 2 and 4 and
+every bias broadcast shape, with their launch counters.
 """
 import math
 
@@ -201,15 +207,135 @@ def test_bf16_check_catches_dropped_prefill_keys(gen):
 
 
 def test_masked_wrapper_rejects(gen):
+    """Bad inputs raise; an input that requires grad no longer does: it
+    takes the autograd Function, whose forward writes lse."""
     q, k, v, vecs = _masked(gen, torch.float32, 1, 4, 2, 64, 64, 128, True,
                             (64,))
-    with pytest.raises(NotImplementedError, match="backward"):
-        FM.flash_mha_masked(q.clone().requires_grad_(), k, v, vecs, True, 0.1)
+    n0 = (FM.flash_mha_masked.launches, FM.flash_mha_masked.lse_launches)
+    out = FM.flash_mha_masked(q.clone().requires_grad_(), k, v, vecs, True,
+                              0.1)
+    assert out.requires_grad
+    assert (FM.flash_mha_masked.launches,
+            FM.flash_mha_masked.lse_launches) == (n0[0] + 1, n0[1] + 1)
+    bias = torch.zeros(1, 4, 64, 64, device="cuda")
+    with pytest.raises(TypeError):
+        FM.flash_mha_biased(q, k, v, bias.double(), True, 0.1)
+    with pytest.raises(ValueError):
+        FM.flash_mha_biased(q, k, v, bias[:, :, :32], True, 0.1)
     with pytest.raises(ValueError):
         FM.flash_mha_masked(q, k, v, vecs.long().int()[..., :10], True, 0.1)
     with pytest.raises(ValueError):
         FM.flash_mha_masked(q[..., :64], k[..., :64], v[..., :64], vecs,
                             True, 0.1)
+
+
+# ------------------------------------------- K8 backward and the bias
+K8_CASES = [  # b, h, kvh, sq, sk, causal, intervals, bias (Bb, Hb)
+    (2, 8, 2, 300, 300, True, "pad", None),      # ragged lengths, GQA
+    (2, 4, 2, 200, 200, True, "seg2", None),     # nvec 2
+    (1, 4, 4, 256, 256, False, "seg4", None),    # nvec 4
+    (1, 4, 2, 150, 300, True, "pad", None),      # sq < sk
+    (1, 4, 2, 300, 150, True, "pad", None),      # sq > sk: rows with no key
+    (2, 4, 4, 257, 257, True, None, (1, 4)),     # every bias broadcast shape
+    (2, 4, 4, 200, 200, True, None, (2, 1)),
+    (2, 4, 4, 200, 200, False, None, (1, 1)),
+    (2, 4, 2, 130, 130, True, None, (2, 4)),     # bias under GQA
+    (2, 4, 2, 200, 200, True, "pad", (1, 4)),    # intervals and bias
+]
+
+
+def _k8_operands(gen, dt, b, h, sq, sk, kind, bshape):
+    vecs = bias = None
+    if kind == "pad":
+        real = torch.tensor([sk, sk // 3][:b], device="cuda")
+        vecs = FM.padding_mask_to_intervals(
+            torch.arange(sk, device="cuda")[None] < real[:, None], sq)
+    elif kind is not None:
+        seg = (torch.arange(sk, device="cuda") // 37)[None].expand(b, sk)
+        vecs = FM.segment_intervals(seg, causal=kind == "seg2")
+    if bshape is not None:
+        bias = (torch.randn(*bshape, sq, sk, device="cuda", generator=gen)
+                * 0.5).to(dt)
+    return vecs, bias
+
+
+def _k8_counts():
+    return (FM.flash_mha_masked.launches, FM.flash_mha_biased.launches,
+            FM.flash_mha_masked.lse_launches, FM.flash_mha_masked.dq_launches,
+            FM.flash_mha_masked.dkv_launches,
+            FM.flash_mha_masked.dbias_launches)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", K8_CASES)
+def test_k8_kernels_match_plain(gen, dt, case):
+    """The K8 forward (with lse), dq, dk/dv and dbias kernels against
+    their plain versions, and one launch of each (no dbias without a
+    bias)."""
+    b, h, kvh, sq, sk, causal, kind, bshape = case
+    q, k, v, do = _flash_inputs(gen, dt, b, h, kvh, sq, sk)
+    vecs, bias = _k8_operands(gen, dt, b, h, sq, sk, kind, bshape)
+    scale = 1.0 / math.sqrt(128)
+    n0 = _k8_counts()
+    out, lse = FM._masked_fwd(q, k, v, vecs, bias, causal, scale, True)
+    torch.cuda.synchronize()
+    ref, ref_lse = FM._masked_fwd_xla(q, k, v, vecs, bias, causal, scale)
+    assert _close(out, ref, dt)
+    dead = ref_lse == FA.LSE_INVALID
+    assert bool((lse[dead] == FA.LSE_INVALID).all())
+    assert torch.count_nonzero(out.float().abs().sum(-1)[dead]) == 0
+    assert (lse[~dead] - ref_lse[~dead]).abs().max().item() <= 1e-3
+    grads = FM._masked_bwd(q, k, v, out, lse, do, vecs, bias, causal, scale,
+                           need_dbias=bias is not None)
+    torch.cuda.synchronize()
+    args = (q, k, v, out, lse, do, vecs, bias, causal, scale)
+    refs = (FM._masked_bwd_dq_xla(*args), *FM._masked_bwd_dkv_xla(*args),
+            FM._masked_bwd_dbias_xla(*args) if bias is not None else None)
+    for g, r in zip(grads, refs):
+        if r is None:
+            assert g is None
+            continue
+        assert g.shape == r.shape and g.dtype == r.dtype
+        assert _grad_close(g, r, dt)
+    assert torch.count_nonzero(grads[0].float().abs().sum(-1)[dead]) == 0
+    masked, biased = (0, 1) if bias is not None else (1, 0)
+    assert _k8_counts() == (n0[0] + masked, n0[1] + biased, n0[2] + 1,
+                            n0[3] + 1, n0[4] + 1, n0[5] + biased)
+
+
+def test_k8_autograd_routes(gen):
+    """sdpa's flashmask and float-mask routes run the K8 Function: one
+    forward with lse, one dq and one dk/dv per backward, and the dbias
+    kernel only when the bias requires grad."""
+    q, k, v, do = _flash_inputs(gen, torch.bfloat16, 2, 8, 2, 200, 200)
+    vecs, bias = _k8_operands(gen, torch.float32, 2, 8, 200, 200, "seg2",
+                              (1, 2))           # a bias per kv head
+    scale = 1.0 / math.sqrt(128)
+    for bias_grad in (False, True):
+        leaves = [t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v)]
+        b_leaf = bias.clone().requires_grad_(bias_grad)
+        n0 = _k8_counts()
+        out = FA.sdpa(*leaves, flashmask=vecs, is_causal=True)
+        out.backward(do.transpose(1, 2))
+        out_b = FA.sdpa(*leaves, attn_mask=b_leaf, is_causal=True)
+        out_b.backward(do.transpose(1, 2))
+        torch.cuda.synchronize()
+        assert _k8_counts() == (n0[0] + 1, n0[1] + 1, n0[2] + 2, n0[3] + 2,
+                                n0[4] + 2, n0[5] + int(bias_grad))
+        assert (b_leaf.grad is not None) == bias_grad
+        if bias_grad:
+            rep = b_leaf.detach().repeat_interleave(4, dim=1)
+            ref, lse = FM._masked_fwd_xla(q, k, v, None, rep, True, scale)
+            want = FM._masked_bwd_dbias_xla(q, k, v, ref, lse, do, None, rep,
+                                            True, scale)
+            want = want.view(1, 2, 4, 200, 200).sum(dim=2)
+            assert _grad_row_err(b_leaf.grad, want).max().item() \
+                <= BF16_ROW_TOL
+    with torch.no_grad():
+        n0 = _k8_counts()
+        FA.sdpa(*leaves, flashmask=vecs, is_causal=True)
+        assert _k8_counts()[2] == n0[2]          # no lse without grad
 
 
 # ----------------------------------------------------------- K1 / K2

@@ -119,7 +119,15 @@ def test_plain_versions_round_like_the_kernels_in_bf16(interpret):
 
 
 def test_dense_bias_route_still_raises():
+    """The dense-bias route no longer raises: a float [1, 1, Sq, Sk] mask
+    runs the biased flash attention (its plain version on the CPU) and
+    gives the JAX ``sdpa``'s result."""
     q, k, v = qkv(1, 1, 8, 8, 2, 2, 16)
     t = tuple(torch.from_numpy(x) for x in (q, k, v))
-    with pytest.raises(NotImplementedError, match="K8"):
-        TFA.sdpa(*t, attn_mask=torch.zeros(1, 1, 8, 8))
+    bias = np.random.default_rng(2).standard_normal((1, 1, 8, 8)).astype(
+        np.float32)
+    out = TFA.sdpa(*t, attn_mask=torch.from_numpy(bias))
+    ref = JFA.sdpa(*(jnp.asarray(x) for x in (q, k, v)),
+                   attn_mask=jnp.asarray(bias))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=TOL,
+                               rtol=TOL)

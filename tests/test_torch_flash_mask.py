@@ -138,46 +138,70 @@ def _spy(calls, name, result):
 
 
 def test_dispatch_routes_like_jax(monkeypatch):
-    """A [B, 1, 1, S] bool mask takes the masked kernel route and a
-    [1, 1, S, T] bool mask the plain route — in the port, and in the JAX
-    package when its backend gate would admit the kernels (S >= 128 on a
-    TPU)."""
+    """A [B, 1, 1, S] bool mask takes the masked kernel route, a [1, 1,
+    S, T] bool mask and a [B, 1, 1, S] float mask the plain route, and a
+    [1, H, S, T] float mask the biased kernel route — in the port, and in
+    the JAX package when its backend gate would admit the kernels (S >=
+    128 on a TPU)."""
     s = 128
     q, k, v = _qkv(3, 1, s, s, 2, 2)
     (jq, jk, jv), (tq, tk, tv) = _both(q, k, v)
     pad = np.ones((1, 1, 1, s), bool)
     arb = np.tril(np.ones((s, s), bool))[None, None]
+    fpad = np.zeros((1, 1, 1, s), np.float32)
+    bias = np.zeros((1, 2, s, s), np.float32)
 
     calls = []
     monkeypatch.setattr(TFA, "_sdpa_masked",
                         _spy(calls, "masked", torch.zeros_like))
+    monkeypatch.setattr(TFA, "_sdpa_biased",
+                        _spy(calls, "biased", torch.zeros_like))
     monkeypatch.setattr(TFA, "_xla_sdpa", _spy(calls, "plain",
                                                 torch.zeros_like))
     TFA.sdpa(tq, tk, tv, attn_mask=torch.from_numpy(pad), is_causal=True)
     TFA.sdpa(tq, tk, tv, attn_mask=torch.from_numpy(arb))
-    assert calls == ["masked", "plain"]
+    TFA.sdpa(tq, tk, tv, attn_mask=torch.from_numpy(fpad))
+    TFA.sdpa(tq, tk, tv, attn_mask=torch.from_numpy(bias), is_causal=True)
+    assert calls == ["masked", "plain", "plain", "biased"]
 
     jcalls = []
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     monkeypatch.setattr(JFA, "_probe_pallas", lambda: True)
     monkeypatch.setattr(JFA, "_pallas_sdpa_masked",
                         _spy(jcalls, "masked", jnp.zeros_like))
+    monkeypatch.setattr(JFA, "_pallas_sdpa_biased",
+                        _spy(jcalls, "biased", jnp.zeros_like))
     monkeypatch.setattr(JFA, "_xla_sdpa", _spy(jcalls, "plain",
                                                 jnp.zeros_like))
     JFA.sdpa(jq, jk, jv, attn_mask=jnp.asarray(pad), is_causal=True)
     JFA.sdpa(jq, jk, jv, attn_mask=jnp.asarray(arb))
+    JFA.sdpa(jq, jk, jv, attn_mask=jnp.asarray(fpad))
+    JFA.sdpa(jq, jk, jv, attn_mask=jnp.asarray(bias), is_causal=True)
     assert jcalls == calls
 
 
 def test_unported_routes_raise():
-    """The dense-bias route (K8 with a bias) still raises; the unmasked
-    route runs the ported K1 (its plain version on the CPU)."""
-    q, k, v = _qkv(1, 1, 8, 8, 2, 2)
-    _, (tq, tk, tv) = _both(q, k, v)
+    """No route raises any more: a float mask computes as in the JAX
+    package — a [B, 1, 1, S] additive padding mask on the plain route, a
+    [1, H, S, S] bias on the biased route (its plain version on the
+    CPU) — and the unmasked route runs the ported K1."""
+    q, k, v = _qkv(1, 1, 16, 16, 2, 2)
+    (jq, jk, jv), (tq, tk, tv) = _both(q, k, v)
     out = TFA.sdpa(tq, tk, tv, is_causal=True)
     assert out.shape == tq.shape and torch.isfinite(out).all()
-    with pytest.raises(NotImplementedError, match="K8"):
-        TFA.sdpa(tq, tk, tv, attn_mask=torch.zeros(1, 1, 8, 8))
+    rng = np.random.RandomState(4)
+    fpad = np.where(np.arange(16) < 11, 0.0, -1e9).astype(
+        np.float32)[None, None, None]
+    bias = rng.randn(1, 2, 16, 16).astype(np.float32)
+    for mask, causal in ((fpad, False), (np.zeros((1, 1, 1, 16),
+                                                  np.float32), True),
+                         (bias, True), (bias, False)):
+        t_out = TFA.sdpa(tq, tk, tv, attn_mask=torch.from_numpy(mask),
+                         is_causal=causal).numpy()
+        j_out = np.asarray(JFA.sdpa(jq, jk, jv, attn_mask=jnp.asarray(mask),
+                                    is_causal=causal))
+        assert t_out.shape == (1, 16, 2, 64)
+        np.testing.assert_allclose(t_out, j_out, atol=ATOL, rtol=0)
 
 
 def test_dropout_takes_plain_route():

@@ -43,6 +43,7 @@ def test_import_leaves_jax_unloaded():
             "paddle_tpu_torch.ops.pallas.flash_mask, "
             "paddle_tpu_torch.ops.pallas.lora_matmul, "
             "paddle_tpu_torch.nn.quant, paddle_tpu_torch.serving.lora, "
+            "paddle_tpu_torch.nn.functional_extra2, "
             "paddle_tpu_torch.serving.parallel.layers; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
