@@ -66,7 +66,30 @@ no CUDA ``_weight_int8pack_mm``):
    window_size=1024)`` at 10b's shape (nvec 4); (10d) the dense-bias
    route at 10b's shape, an ALiBi float ``attn_mask`` that requires grad
    (1 biased forward, dq, dk/dv and dbias).  Each is held against the
-   plain versions per row.
+   plain versions per row; 10b also prints the streamed K8 backward's
+   bound and the library's fwd+bwd of the same loss;
+11. the reference bench's decode rungs through the port's ``generate``
+   (random bf16 weights from seed 0, greedy): (11a) ``bench_decode``
+   (``bench.py:451-482``), the 0.95 B bench model (hidden 2048, 16
+   layers, 16 heads, vocab 32000), batch 8, prompt 128, 128 new tokens,
+   dense and ``weight_quant="int8"``, each with K7 on and off (best of
+   2 after a warm-up; launches per call: K7 16 x 128 on and 0 off, the
+   K8 forward 16, K4 (4 x 16 + 1) per decode step), and a profile of
+   one decode step; (11b) ``bench_paged`` (``bench.py:485-525``): prompt
+   2048 right-padded, ragged lengths, 64 new tokens, dense (K7 on and
+   off) vs ``cache="paged"`` (K3); (11c) llama3_8b at full width and
+   depth, 8 prompts of 8064 tokens and 128 new (T 8192): dense with K7
+   on and off, and paged: tokens/s, the wall time of a one-token call,
+   memory and K7's device ms per step;
+12. generation at 2 layers of llama3_8b width in float32, card
+   (kernels) vs CPU (plain versions) from one state made on the host:
+   identical greedy tokens for dense, paged, int8, int4 and 4 beams
+   with an eos id (a request may part only at a tie of the CPU's top
+   scores, as in phase 9), and on the card: ``top_k=1`` equals greedy,
+   one seed gives one output, every token drawn with ``top_k=8,
+   top_p=0.9`` lies in the filter's support.
+
+Every phase prints its wall seconds.
 
 Phase 3 also holds the flash-attention kernels (K1 forward, K2 dq and
 dk/dv) to their plain versions in bf16 at four shapes (the training
@@ -84,7 +107,19 @@ heads, non-causal, nvec 4) and an ALiBi bias that takes a gradient (B 2,
 16 heads, S 2048, causal, f32 [1, 16, S, S]); out per row and gradients
 by ``grad_row_err``, each with its planted fault (every row loses its
 last 64 keys), and float32 instances of the three at S 512, card vs the
-CPU plain versions by relative norm (1e-4).
+CPU plain versions by relative norm (1e-4).  Phase 3 also holds the
+dense-cache decode attention (K7) in bf16 per row at the bench decode
+shape (B 8, 16/16 heads, T 256) and the reference's own K7 shape (B 8,
+32/8 heads, T 8192), with the planted fault (the kernel told pos - 64),
+its times beside the plain version's, the bound and
+``scaled_dot_product_attention`` with a bool mask, and float32
+instances of both at T 512 card vs CPU; and K4 at the generation
+path's widths (fused q/k/v, fused gate/up, lm_head; M = 8).  Every
+kernel phase 11 runs is also held, with its planted fault, at the shapes
+phase 11 gives it: K4 int8 at 11a's bench-model widths, K7 at 11b's
+dense cache (T 2176), K3 at page 128 with 11b's and 11c's heads and
+lengths, and the K8 forward at the prompt prefills of 11a, 11b and 11c
+(B 8, S 128, 2048 and 8064).
 
 Prints a ``{"kernels": [...]}`` line before the last, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -154,6 +189,64 @@ LORA_RANK, LORA_ALPHA = 16, 32.0
 # random model's top two logits can lie that close
 TIE_TOL = 1e-3
 LORA_IDX = (0, 1, 2, 3, 4, 1, 0, 2)
+# phase 11: the reference bench's decode rungs (bench.py:451-525), batch 8
+DECODE_PROMPT, DECODE_NEW = 128, 128
+PAGED_PROMPT, PAGED_NEW = 2048, 64
+PAGED_LENGTHS = (2048, 160, 96, 224, 128, 192, 96, 160)
+LONG_PROMPT, LONG_NEW = 8064, 128       # 11c: T = 8192 at llama3_8b
+
+
+def padded_t(prompt, new):
+    """The dense cache length ``generate`` allocates with K7 on."""
+    return -(-(prompt + new) // 128) * 128
+
+
+# K7 in phase 3: (a) the reference bench's decode shape (bench.py:424-436,
+# T 256, pos ragged in 128..255), (b) the reference's own K7 measurement
+# shape (decode_attention.py:9: B 8, 32/8 heads, T 8192) with a full
+# row, a short row and pos 0, (c) 11b's dense cache at its last decode
+# step (T 2176: a partial last 256-key chunk)
+K7_SHAPES = (  # name, B, nh, kvh, T, pos
+    ("bench_decode", 8, 16, 16, padded_t(DECODE_PROMPT, DECODE_NEW),
+     (128, 255, 140, 200, 173, 129, 254, 191)),
+    ("reference_8k", 8, 32, 8, 8192, (8191, 8191, 100, 0, 4095, 4096, 8000,
+                                      257)),
+    ("bench_paged", 8, 16, 16, padded_t(PAGED_PROMPT, PAGED_NEW),
+     tuple(n + PAGED_NEW - 1 for n in PAGED_LENGTHS)),
+)
+K7_F32_T = 512                     # the f32 instances, card vs CPU
+# the generation path's new K4 widths at llama3_8b (K, N): fused q/k/v,
+# fused gate/up and the quantized lm_head
+GEN_PROJ_SHAPES = (("qkv_fused", 4096, 6144), ("gateup_fused", 4096, 28672),
+                   ("lm_head", 4096, 128256))
+# and the widths 11a's int8 decode runs on the bench model (hidden 2048,
+# FFN 5632, vocab 32000), int8 only
+BENCH_PROJ_SHAPES = (("bench_qkv_fused", 2048, 6144), ("bench_o", 2048, 2048),
+                     ("bench_gateup_fused", 2048, 11264),
+                     ("bench_down", 5632, 2048),
+                     ("bench_lm_head", 2048, 32000))
+# K3 in phase 3 (name, nh, kvh, page size, table width, lens): phase 4's
+# decode shape, then 11b's and 11c's paged caches at their last decode
+# step (generate's pool: page 128, the prompt's pages at least)
+PAGED_SHAPES = (
+    ("serve", 32, 8, 64, 128, (1, 64, 65, 300, 1000, 2047, 4096, 8192)),
+    ("bench_paged", 16, 16, 128, -(-(max(PAGED_LENGTHS) + PAGED_NEW) // 128),
+     tuple(n + PAGED_NEW for n in PAGED_LENGTHS)),
+    ("long_decode", 32, 8, 128, (LONG_PROMPT + LONG_NEW) // 128,
+     (LONG_PROMPT + LONG_NEW,) * 8),
+)
+# the K8 forward in phase 3 (name, B, H, kvH, S, lengths, yardsticks):
+# phase 4's prefill buckets (one prompt each), then the prompt prefills
+# of 11a, 11b and 11c (at 11c's size the plain version's and the
+# library call's times are not taken)
+MASKED_SHAPES = (
+    ("serve_512", 1, 32, 8, 512, (448,), True),
+    ("serve_2048", 1, 32, 8, 2048, (1900,), True),
+    ("serve_6144", 1, 32, 8, 6144, (5000,), True),
+    ("bench_decode", 8, 16, 16, DECODE_PROMPT, (DECODE_PROMPT,) * 8, True),
+    ("bench_paged", 8, 16, 16, PAGED_PROMPT, PAGED_LENGTHS, True),
+    ("long_decode", 8, 32, 8, LONG_PROMPT, (LONG_PROMPT,) * 8, False),
+)
 
 
 def require(cond, what):
@@ -207,6 +300,19 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+class Laps:
+    """Wall seconds of each phase, printed as each one ends."""
+
+    def __init__(self):
+        self.t0 = self.t = time.perf_counter()
+
+    def __call__(self, phase):
+        now = time.perf_counter()
+        emit({"phase": phase, "phase_wall_s": now - self.t,
+              "total_wall_s": now - self.t0})
+        self.t = now
+
+
 def row_rel_err(out, ref, floor=0.0):
     """Per-row ||out - ref|| / max(||ref||, floor) over the last dim; with
     no floor, a row whose reference is all zero (no visible key) must be
@@ -241,13 +347,12 @@ def bound(nbytes, flops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_paged(PA, gen):
-    """K3 at the decode shape of phase 4: 8 slots, page 64, ragged lens
-    1..8192 (table width 128, one pool row per page + the dump page)."""
+def phase_paged(PA, gen, name, nh, kvh, ps, W, lens):
+    """K3 at one ``PAGED_SHAPES`` decode shape: 8 slots, ragged lens, a
+    table of width ``W`` over one pool row per page + the dump page."""
     dev, dt = "cuda", torch.bfloat16
-    B, nh, kvh, D, ps, W = 8, 32, 8, 128, 64, 128
-    lens = torch.tensor([1, 64, 65, 300, 1000, 2047, 4096, 8192],
-                        dtype=torch.int32, device=dev)
+    B, D = len(lens), 128
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     P = B * W + 1
     dump = P - 1
     q = torch.randn(B, nh, D, device=dev, generator=gen).to(dt)
@@ -265,15 +370,16 @@ def phase_paged(PA, gen):
     row_err = rows.max().item()
     worst_lens = int(lens[rows.amax(dim=1).argmax()])
     require(row_err <= ROW_TOL,
-            f"paged_attention kernel vs plain: row error {row_err} > "
-            f"{ROW_TOL} (worst row: lens {worst_lens})")
+            f"paged_attention {name}: row error {row_err} > {ROW_TOL} "
+            f"(worst row: lens {worst_lens})")
     # the check must catch a kernel that skips each row's last page
     short = torch.clamp(lens - FAULT_KEYS, min=1).to(torch.int32)
     fault = row_rel_err(PA.paged_attention(q, kp, vp, table, short),
                         ref)[lens > FAULT_KEYS]
     require(bool((fault > ROW_TOL).all()),
             f"planted fault (last {FAULT_KEYS} keys dropped) passed the "
-            f"paged_attention check: min row error {fault.min().item()}")
+            f"paged_attention check at {name}: min row error "
+            f"{fault.min().item()}")
     ms = cuda_ms(lambda: PA.paged_attention(q, kp, vp, table, lens))
     plain_ms = cuda_ms(lambda: PA.paged_attention_xla(q, kp, vp, table, lens))
     toks = int(lens.sum())
@@ -281,7 +387,8 @@ def phase_paged(PA, gen):
     nbytes = (2 * q.numel() * item + 2 * toks * kvh * D * item
               + 4 * (table.numel() + lens.numel()))
     bound_ms, bound_by = bound(nbytes, 4 * toks * D * nh)
-    shape = {"kernel": "paged_attention", "dtype": "bfloat16", "B": B,
+    shape = {"kernel": "paged_attention", "shape": name,
+             "dtype": "bfloat16", "B": B,
              "nh": nh, "kvh": kvh, "D": D, "page_size": ps, "W": W,
              "lens": lens.tolist(), "max_abs_err": err,
              "max_row_rel_err": row_err, "row_tol": ROW_TOL,
@@ -293,59 +400,145 @@ def phase_paged(PA, gen):
     return shape
 
 
-def phase_masked(FM, gen, bucket, plen):
-    """K8 forward at a full-prefill shape of phase 4: one prompt padded
-    to ``bucket`` with ``plen`` real tokens, causal + key padding, q/k/v
-    as the transposed [B, S, H, D] views the dispatcher passes."""
-    dev, dt = "cuda", torch.bfloat16
-    H, kvh, D = 32, 8, 128
-    q = torch.randn(1, bucket, H, D, device=dev, generator=gen).to(dt)
-    k = torch.randn(1, bucket, kvh, D, device=dev, generator=gen).to(dt)
-    v = torch.randn(1, bucket, kvh, D, device=dev, generator=gen).to(dt)
-    keep = torch.arange(bucket, device=dev)[None] < plen
-    vecs = FM.padding_mask_to_intervals(keep, bucket)
+def phase_decode(DA, gen, name, B, nh, kvh, T, pos):
+    """K7 against its plain version (``_xla_decode``) in bf16 at one
+    phase-3 shape, per output row; the planted fault (the kernel told
+    pos - 64, so every long row loses its last 64 keys) must fail every
+    such row.  ``ms``, ``plain_ms`` and ``library_ms`` are device time
+    per call (``device_ms``; ``events_ms`` is CUDA events around
+    back-to-back calls, which the host sets at the short shape); the
+    library yardstick is scaled_dot_product_attention on q [B, nh, 1, D]
+    with the bool mask t <= pos and ``enable_gqa``, never on the port's
+    path."""
+    dev, dt, D = "cuda", torch.bfloat16, 128
+    q = torch.randn(B, nh, D, device=dev, generator=gen).to(dt)
+    k = torch.randn(B, kvh, T, D, device=dev, generator=gen).to(dt)
+    v = torch.randn(B, kvh, T, D, device=dev, generator=gen).to(dt)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    out = DA.decode_attention(q, k, v, pos_t)
+    torch.cuda.synchronize()
+    ref = DA._xla_decode(q, k, v, pos_t)
+    rows = row_rel_err(out, ref)                          # [B, nh]
+    row_err = rows.max().item()
+    require(row_err <= ROW_TOL, f"decode_attention {name}: row error "
+            f"{row_err} > {ROW_TOL}")
+    short = torch.clamp(pos_t - FAULT_KEYS, min=0).to(torch.int32)
+    fault = row_rel_err(DA.decode_attention(q, k, v, short),
+                        ref)[pos_t >= FAULT_KEYS]
+    require(bool((fault > ROW_TOL).all()),
+            f"planted fault (last {FAULT_KEYS} keys dropped) passed the "
+            f"decode_attention check at {name}: min row error "
+            f"{fault.min().item()}")
+    ms = device_ms(lambda: DA.decode_attention(q, k, v, pos_t))
+    events_ms = cuda_ms(lambda: DA.decode_attention(q, k, v, pos_t),
+                        iters=50)
+    plain_ms = device_ms(lambda: DA._xla_decode(q, k, v, pos_t), iters=5)
+    mask = (torch.arange(T, device=dev)[None, :] <= pos_t[:, None])[
+        :, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4 = q[:, :, None, :]
+    lib = sdpa(q4, k, v, attn_mask=mask, enable_gqa=kvh != nh)[:, :, 0]
+    library_ms = device_ms(lambda: sdpa(q4, k, v, attn_mask=mask,
+                                        enable_gqa=kvh != nh))
+    visible = int(torch.clamp(pos_t + 1, max=T).sum())
+    item = q.element_size()
+    bound_ms, bound_by = bound(2 * visible * kvh * D * item
+                               + 2 * q.numel() * item + 4 * B,
+                               4 * visible * nh * D)
+    rec = {"kernel": "decode_attention", "shape": name, "dtype": "bfloat16",
+           "B": B, "nh": nh, "kvh": kvh, "D": D, "T": T, "pos": list(pos),
+           "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+           "max_row_rel_err": row_err, "row_tol": ROW_TOL,
+           "fault_min_row_rel_err": fault.min().item(),
+           "library_max_row_rel_err": row_rel_err(lib, ref).max().item(),
+           "ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms}
+    emit({"phase": 3, **rec})
+    return rec
+
+
+def phase_decode_f32(DA, name, B, nh, kvh, T, pos):
+    """A float32 instance of a phase-3 K7 shape at T ``K7_F32_T`` (pos
+    scaled to it): the kernel on the card vs the plain version on the
+    CPU from the same inputs made on the host, by relative norm."""
+    t = K7_F32_T
+    g = torch.Generator().manual_seed(4)
+    q = torch.randn(B, nh, 128, generator=g)
+    k, v = (torch.randn(B, kvh, t, 128, generator=g) for _ in range(2))
+    pos_t = torch.tensor([p * t // T for p in pos], dtype=torch.int32)
+    cpu = DA._xla_decode(q, k, v, pos_t)
+    card = DA.decode_attention(*(x.cuda() for x in (q, k, v, pos_t)))
+    err = rel_norm(card, cpu)
+    emit({"phase": 3, "kernel": "decode_attention", "shape": name,
+          "dtype": "float32", "T": t, "pos": pos_t.tolist(),
+          "card_vs_cpu_rel_err": err, "tol": PARITY_TOL})
+    require(err <= PARITY_TOL, f"decode_attention f32 {name}: card vs CPU "
+            f"{err} > {PARITY_TOL}")
+
+
+def phase_masked(FM, gen, name, B, H, kvh, S, lengths, yardsticks):
+    """K8 forward at one ``MASKED_SHAPES`` prefill shape: B prompts
+    right-padded to S with ``lengths`` real tokens, causal + key
+    padding, q/k/v as the transposed [B, S, H, D] views the dispatcher
+    passes.  The plain version runs one prompt at a time (its f32 score
+    matrix is [H, S, S] then).  Without ``yardsticks`` the plain
+    version's and the library's times are not taken."""
+    dev, dt, D = "cuda", torch.bfloat16, 128
+    q = torch.randn(B, S, H, D, device=dev, generator=gen).to(dt)
+    k = torch.randn(B, S, kvh, D, device=dev, generator=gen).to(dt)
+    v = torch.randn(B, S, kvh, D, device=dev, generator=gen).to(dt)
+    lens = torch.tensor(lengths, device=dev)
+    cols = torch.arange(S, device=dev)[None]
+    keep = cols < lens[:, None]
+    vecs = FM.padding_mask_to_intervals(keep, S)
     qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     scale = 1.0 / math.sqrt(D)
     out = FM.flash_mha_masked(qh, kh, vh, vecs, True, scale)
     torch.cuda.synchronize()
-    ref = FM.flash_mha_masked_xla(qh, kh, vh, vecs, True, scale)
+    ref = torch.cat([FM.flash_mha_masked_xla(qh[b:b + 1], kh[b:b + 1],
+                                             vh[b:b + 1], vecs[b:b + 1],
+                                             True, scale)
+                     for b in range(B)])
     err = (out.float() - ref.float()).abs().max().item()
-    rows = row_rel_err(out, ref)                         # [1, H, bucket]
+    rows = row_rel_err(out, ref).amax(dim=1)             # [B, S]
     row_err = rows.max().item()
-    # query row i sees keys <= i that are real
-    worst_keys = min(int(rows[0].amax(dim=0).argmax()) + 1, plen)
+    # query row i of prompt b sees keys <= i that are real
+    wb, wi = divmod(int(rows.argmax()), S)
+    worst_keys = min(wi + 1, lengths[wb])
     require(row_err <= ROW_TOL,
-            f"flash_mha_masked kernel vs plain at bucket {bucket}: row "
-            f"error {row_err} > {ROW_TOL} (worst row sees {worst_keys} "
-            "keys)")
-    # the check must catch a kernel that drops the last K block: the
-    # prompt's last 64 real keys, lost by every row from plen - 1 on
-    keep_short = torch.arange(bucket, device=dev)[None] < plen - FAULT_KEYS
-    fault = row_rel_err(FM.flash_mha_masked(
-        qh, kh, vh, FM.padding_mask_to_intervals(keep_short, bucket), True,
-        scale), ref)[:, :, plen - 1:]
+            f"flash_mha_masked {name}: row error {row_err} > {ROW_TOL} "
+            f"(worst row sees {worst_keys} keys)")
+    # the check must catch a kernel that drops the last K block: each
+    # prompt's last 64 real keys, lost by every row from its length - 1 on
+    short = FM.padding_mask_to_intervals(cols < lens[:, None] - FAULT_KEYS, S)
+    fault = row_rel_err(FM.flash_mha_masked(qh, kh, vh, short, True, scale),
+                        ref).transpose(1, 2)[cols >= lens[:, None] - 1]
     del ref
     require(bool((fault > ROW_TOL).all()),
             f"planted fault (last {FAULT_KEYS} keys dropped) passed the "
-            f"flash_mha_masked check at bucket {bucket}: min row error "
+            f"flash_mha_masked check at {name}: min row error "
             f"{fault.min().item()}")
     ms = cuda_ms(lambda: FM.flash_mha_masked(qh, kh, vh, vecs, True, scale))
-    plain_ms = cuda_ms(
-        lambda: FM.flash_mha_masked_xla(qh, kh, vh, vecs, True, scale),
-        iters=3, warmup=1)
-    dense = (torch.ones(bucket, bucket, dtype=torch.bool, device=dev).tril()
-             & keep[0][None, :])[None, None]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=dense,
-                                      scale=scale, enable_gqa=True))
+    plain_ms = library_ms = None
+    if yardsticks:
+        plain_ms = cuda_ms(
+            lambda: FM.flash_mha_masked_xla(qh, kh, vh, vecs, True, scale),
+            iters=3, warmup=1)
+        dense = (torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+                 [None] & keep[:, None, :])[:, None]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        library_ms = cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=dense,
+                                          scale=scale, enable_gqa=True))
     # visible (query, key) pairs: row i sees keys <= i that are real
-    pairs = int(np.minimum(np.arange(bucket) + 1, plen).sum())
+    pairs = sum(int(np.minimum(np.arange(S) + 1, n).sum()) for n in lengths)
     item = q.element_size()
     bound_ms, bound_by = bound(
         (2 * q.numel() + k.numel() + v.numel()) * item + vecs.numel() * 4,
         4 * pairs * D * H)
-    shape = {"kernel": "flash_mha_masked", "dtype": "bfloat16", "B": 1,
-             "H": H, "kvh": kvh, "D": D, "bucket": bucket, "plen": plen,
+    shape = {"kernel": "flash_mha_masked", "shape": name,
+             "dtype": "bfloat16", "B": B, "H": H, "kvh": kvh, "D": D,
+             "S": S, "lengths": list(lengths),
              "max_abs_err": err, "max_row_rel_err": row_err,
              "row_tol": ROW_TOL, "worst_row_keys": worst_keys,
              "fault_min_row_rel_err": fault.min().item(), "ms": ms,
@@ -723,18 +916,22 @@ def int8pack_ms(x, q, scale):
 
 def phase_quant(QM, gen):
     """K4 int8 and int4 against the plain version (``_xla_fallback``) in
-    bf16 at the llama3_8b decode shapes: M = 8 for every projection, and
-    M = 1 and 64 at gate/up.  ``ms``, ``plain_ms`` and the library's
+    bf16 at the llama3_8b decode shapes: M = 8 for every projection, M =
+    1 and 64 at gate/up, and M = 8 at the generation path's fused q/k/v,
+    fused gate/up and lm_head widths; int8 also at M = 8 at every width
+    11a's int8 decode runs (``BENCH_PROJ_SHAPES``).  ``ms``, ``plain_ms`` and the library's
     time are device time per call (``device_ms``); ``events_ms`` is the
     CUDA-event time of back-to-back calls, which the host's per-call
     work sets at these sizes.  Returns one record per (kind, shape)."""
     dev, dt = "cuda", torch.bfloat16
     shapes = [(name, 8, k, n) for name, k, n in PROJ_SHAPES]
     shapes += [("gate/up", 1, 4096, 14336), ("gate/up", 64, 4096, 14336)]
+    shapes += [(name, 8, k, n) for name, k, n in GEN_PROJ_SHAPES]
     records = []
     for kind in ("int8", "int4"):
         bound_q = 127 if kind == "int8" else 7
-        for name, m, k, n in shapes:
+        bench = [(name, 8, k, n) for name, k, n in BENCH_PROJ_SHAPES]
+        for name, m, k, n in shapes + (bench if kind == "int8" else []):
             x = torch.randn(m, k, device=dev, generator=gen).to(dt)
             q = torch.randint(-bound_q, bound_q + 1, (k, n), device=dev,
                               generator=gen).to(torch.int8)
@@ -1486,6 +1683,27 @@ def phase_longctx_masked(FA, FM):
     unmasked_ms = cuda_ms(unmasked, iters=5, warmup=1)
     rows = check_against_plain(FM, "10b", q, k, v, out, grads, vecs, None,
                                True)
+    # the streamed K8 backward's bound (phase 3's operation counts on the
+    # visible pairs: forward 4, dq 6, dk/dv 8 x pairs x D) and the
+    # library's fwd+bwd of the same loss: scaled_dot_product_attention
+    # with the dense bool mask of the three documents
+    pairs = visible_count(FM, vecs, B, H, S, S, True, dev)
+    n, rows_f32, extra = B * H * S * D, B * H * S * 4, vecs.numel() * 4
+    bwd_bound = bound(12 * n * 2 + 4 * rows_f32 + 2 * extra,
+                      14 * pairs * D)
+    fwd_bwd_bound = bound(16 * n * 2 + 5 * rows_f32 + 3 * extra,
+                          18 * pairs * D)
+    dense = (FM.dense_mask_from_intervals(vecs, S, S)
+             & torch.ones(S, S, dtype=torch.bool, device=dev).tril())
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def library():
+        return sq_loss_grads(lambda *t: sdpa(
+            *(x.transpose(1, 2) for x in t), attn_mask=dense).transpose(
+                1, 2), (q, k, v))
+
+    library_ms = cuda_ms(library, iters=5, warmup=1)
+    del dense
     emit({"phase": "10b", "name": "bench_longctx_masked", "B": B, "S": S,
           "H": H, "D": D, "dtype": "bfloat16", "documents": 3,
           "nvec": vecs.shape[2], "masked_ms": masked_ms,
@@ -1494,6 +1712,11 @@ def phase_longctx_masked(FA, FM):
           "reference_gate_on_tpu": 0.9,
           "launches_masked_call": masked_counts,
           "launches_unmasked_call": unmasked_counts,
+          "visible_pairs": pairs, "bwd_bound_ms": bwd_bound[0],
+          "bwd_bound_by": bwd_bound[1],
+          "fwd_bwd_bound_ms": fwd_bwd_bound[0],
+          "fwd_bwd_bound_by": fwd_bwd_bound[1],
+          "library_fwd_bwd_ms": library_ms,
           "max_row_rel_err": rows, "row_tol": ROW_TOL})
     return (q, k, v), masked_counts
 
@@ -1552,6 +1775,384 @@ def phase_longctx_bias(FA, FM, qkv):
           "bias": list(bias.shape), "fwd_bwd_ms": ms, "launches": counts,
           "max_row_rel_err": rows, "row_tol": ROW_TOL})
     return counts
+
+
+def gen_counts(mods):
+    """Phase 8's launch counters and K7's."""
+    return {**mode_launches(mods["QM"], mods["LM"], mods["PA"], mods["FM"]),
+            "decode_attention": mods["DA"].decode_attention.launches}
+
+
+def zero_gen_counts(mods):
+    zero_launches(mods["QM"], mods["LM"], mods["PA"], mods["FM"])
+    mods["DA"].decode_attention.launches = 0
+
+
+def gen_call(mods, state, cfg, ids, new, k7=True, **kw):
+    """One ``generate`` call with K7 on or off (``PALLAS_DECODE``), the
+    counters zeroed just before and read just after; the wall time ends
+    with a host fetch of the last token, as the bench's does.  Returns
+    (ids, wall_s, launches)."""
+    mods["DA"].PALLAS_DECODE = k7
+    zero_gen_counts(mods)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = mods["G"].generate(state, cfg, ids, max_new_tokens=new, **kw)
+    int(out[0, -1])
+    wall = time.perf_counter() - t0
+    mods["DA"].PALLAS_DECODE = True
+    counts = gen_counts(mods)
+    require(tuple(out.shape) == (ids.shape[0], ids.shape[1] + new)
+            and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+            f"generate {kw}: output {tuple(out.shape)} or tokens outside "
+            "the vocabulary")
+    return out, wall, counts
+
+
+def group_kernel(name):
+    low = name.lower()
+    for key, marks in (("decode_attention", ("decode_partial",
+                                             "decode_combine")),
+                       ("paged_attention", ("paged_attention",)),
+                       ("flash_mha_masked", ("masked_fwd",)),
+                       ("weight_only_matmul", ("wo_gemv", "splitk_reduce")),
+                       ("matmul", ("gemm", "gemv", "cutlass", "xmma", "sm90",
+                                   "cublas", "nvjet"))):
+        if any(m in low for m in marks):
+            return key
+    return "other"
+
+
+def device_kernels(fn):
+    """(wall_ms, {kernel: device ms}) of one ``fn()`` under
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    per_kernel: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[ev.name] = (per_kernel.get(ev.name, 0.0)
+                                   + ev.time_range.elapsed_us() / 1e3)
+    return wall, per_kernel
+
+
+def profile_generate_step(mods, state, cfg, ids, phase, name, n1=2, n2=10,
+                          **kw):
+    """Where one decode step's time goes: two profiled ``generate`` calls
+    that differ only in their new tokens (``n1``, ``n2``; both run the
+    same prefill), differenced per kernel and divided by ``n2 - n1``.
+    The same two calls unprofiled give the step's wall time (the
+    profiler adds host time of its own); the busy share is device busy
+    time over that wall time."""
+    runs = [device_kernels(lambda n=n: gen_call(mods, state, cfg, ids, n,
+                                                **kw)) for n in (n1, n2)]
+    steps = n2 - n1
+    (w1, k1), (w2, k2) = runs
+    plain_wall = (gen_call(mods, state, cfg, ids, n2, **kw)[1]
+                  - gen_call(mods, state, cfg, ids, n1, **kw)[1]) * 1e3 / steps
+    per_kernel = {n: (k2.get(n, 0.0) - k1.get(n, 0.0)) / steps
+                  for n in set(k1) | set(k2)}
+    groups: dict[str, float] = {}
+    for n, ms in per_kernel.items():
+        groups[group_kernel(n)] = groups.get(group_kernel(n), 0.0) + ms
+    busy = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    rec = {"phase": phase, "profile": "decode_step", "mode": name,
+           "wall_ms_per_step": plain_wall,
+           "profiled_wall_ms_per_step": (w2 - w1) / steps,
+           "device_ms_per_step": groups, "device_busy_ms_per_step": busy,
+           "device_busy_share": busy / plain_wall,
+           "top_kernels_ms_per_step": [[n[:80], ms] for n, ms in top]}
+    emit(rec)
+    return rec
+
+
+def bench_model(mods, cfg):
+    """The bench decode model (bench.py:424-436) with random bf16 weights
+    from seed 0; (state, resident bytes)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = mods["init_state"](cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    return state, torch.cuda.memory_allocated()
+
+
+def phase_bench_decode(mods, cfg):
+    """11a, ``bench_decode`` (bench.py:451-482) through the port: batch
+    8, prompt 128, 128 new tokens, greedy, dense bf16 and
+    ``weight_quant="int8"``, each with K7 on and off; tokens/s = batch x
+    new / wall, best of 2 after a warm-up call.  Launches per call: K7
+    16 x 128 on and 0 off, the K8 forward 16 (the prefill), K4 int8 (4 x
+    16 + 1) per decode step plus the prefill's lm_head row."""
+    state, resident = bench_model(mods, cfg)
+    L = cfg.num_hidden_layers
+    ids = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (8, DECODE_PROMPT))).cuda()
+    runs, outs = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for quant in (None, "int8"):
+        kw = {"weight_quant": quant} if quant else {}
+        for k7 in (True, False):
+            name = f"{quant or 'dense'}_k7_{'on' if k7 else 'off'}"
+            gen_call(mods, state, cfg, ids, DECODE_NEW, k7, **kw)
+            best, counts = 0.0, None
+            for _ in range(2):
+                out, wall, counts = gen_call(mods, state, cfg, ids,
+                                             DECODE_NEW, k7, **kw)
+                best = max(best, 8 * DECODE_NEW / wall)
+            want = {"decode_attention": L * DECODE_NEW if k7 else 0,
+                    "paged_attention": 0, "flash_mha_masked": L,
+                    "weight_only_matmul_int8": (
+                        (4 * L + 1) * DECODE_NEW + 1 if quant else 0),
+                    "weight_only_matmul_int4": 0, "lora_gather_matmul": 0}
+            require(counts == want, f"11a {name}: launches {counts}, want "
+                    f"{want}")
+            runs[name] = {"tokens_per_s": best, "launches": counts,
+                          "k4_launches_per_decode_step": (
+                              counts["weight_only_matmul_int8"] - 1)
+                          / DECODE_NEW if quant else 0}
+            outs[name] = out
+    rec = {"phase": "11a", "name": "bench_decode", "layers": L,
+           "batch": 8, "prompt": DECODE_PROMPT, "new_tokens": DECODE_NEW,
+           "runs": runs,
+           "int8_over_dense_k7_on": runs["int8_k7_on"]["tokens_per_s"]
+           / runs["dense_k7_on"]["tokens_per_s"],
+           "int8_over_dense_k7_off": runs["int8_k7_off"]["tokens_per_s"]
+           / runs["dense_k7_off"]["tokens_per_s"],
+           "tokens_equal_k7_on_off": {
+               q: bool((outs[f"{q}_k7_on"] == outs[f"{q}_k7_off"]).all())
+               for q in ("dense", "int8")},
+           "resident_bytes": resident,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    emit(rec)
+    for name, kw in (("dense_k7_on", {}), ("dense_k7_off", {"k7": False}),
+                     ("int8_k7_on", {"weight_quant": "int8"})):
+        profile_generate_step(mods, state, cfg, ids, "11a", name, **kw)
+    return runs["dense_k7_on"]["launches"]
+
+
+def phase_bench_paged(mods, cfg):
+    """11b, ``bench_paged`` (bench.py:485-525): the same model, prompt
+    2048 right-padded with lengths ``PAGED_LENGTHS``, 64 new tokens;
+    dense with K7 on and off vs ``cache="paged", page_size=128`` (K3);
+    one warm-up and one timed call each, as the bench does.  Launches per
+    call: the K8 forward 16 (the prefill); K3 16 x 64 in the paged call
+    and K7 16 x 64 in the dense call with K7 on, each 0 elsewhere."""
+    state, _ = bench_model(mods, cfg)
+    L = cfg.num_hidden_layers
+    ids = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (8, PAGED_PROMPT))).cuda()
+    lengths = np.array(PAGED_LENGTHS, np.int32)
+    runs = {}
+    for name, k7, kw in (("dense_k7_on", True, {}),
+                         ("dense_k7_off", False, {}),
+                         ("paged", True, {"cache": "paged",
+                                          "page_size": 128})):
+        gen_call(mods, state, cfg, ids, PAGED_NEW, k7, lengths=lengths,
+                 **kw)
+        torch.cuda.reset_peak_memory_stats()
+        _, wall, counts = gen_call(mods, state, cfg, ids, PAGED_NEW, k7,
+                                   lengths=lengths, **kw)
+        want = {"weight_only_matmul_int8": 0, "weight_only_matmul_int4": 0,
+                "lora_gather_matmul": 0, "flash_mha_masked": L,
+                "paged_attention": L * PAGED_NEW if name == "paged" else 0,
+                "decode_attention": (L * PAGED_NEW if name == "dense_k7_on"
+                                     else 0)}
+        require(counts == want, f"11b {name}: launches {counts}, want "
+                f"{want}")
+        runs[name] = {"tokens_per_s": 8 * PAGED_NEW / wall, "wall_s": wall,
+                      "launches": counts,
+                      "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    emit({"phase": "11b", "name": "bench_paged",
+          "layers": cfg.num_hidden_layers, "batch": 8,
+          "prompt": PAGED_PROMPT, "lengths": list(PAGED_LENGTHS),
+          "new_tokens": PAGED_NEW, "runs": runs,
+          "paged_over_dense_k7_on": runs["paged"]["tokens_per_s"]
+          / runs["dense_k7_on"]["tokens_per_s"],
+          "paged_over_dense_k7_off": runs["paged"]["tokens_per_s"]
+          / runs["dense_k7_off"]["tokens_per_s"]})
+
+
+def phase_long_decode(mods, cfg):
+    """11c: llama3_8b at full width and depth, batch 8, every prompt
+    ``LONG_PROMPT`` tokens and ``LONG_NEW`` new, so T = 8192 (the shape
+    behind the reference's K7-off default): dense with K7 on, off, and
+    paged.  One untimed, profiled warm-up call with 2 new tokens gives
+    K7's device ms per decode step; then per mode the tokens/s of one
+    call, the wall time of a ``max_new_tokens=1`` call (prefill + one
+    token), the launches and the peak memory."""
+    state, resident = bench_model(mods, cfg)
+    L = cfg.num_hidden_layers
+    ids = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (8, LONG_PROMPT))).cuda()
+    _, kernels = device_kernels(
+        lambda: gen_call(mods, state, cfg, ids, 2))
+    k7_ms = sum(ms for n, ms in kernels.items()
+                if group_kernel(n) == "decode_attention") / 2
+    runs = {}
+    for name, k7, kw in (("dense_k7_on", True, {}),
+                         ("dense_k7_off", False, {}),
+                         ("paged", True, {"cache": "paged",
+                                          "page_size": 128})):
+        torch.cuda.reset_peak_memory_stats()
+        _, wall, counts = gen_call(mods, state, cfg, ids, LONG_NEW, k7, **kw)
+        peak = torch.cuda.max_memory_allocated()
+        _, wall1, _ = gen_call(mods, state, cfg, ids, 1, k7, **kw)
+        want = {"weight_only_matmul_int8": 0, "weight_only_matmul_int4": 0,
+                "lora_gather_matmul": 0, "flash_mha_masked": L,
+                "paged_attention": L * LONG_NEW if name == "paged" else 0,
+                "decode_attention": (L * LONG_NEW if name == "dense_k7_on"
+                                     else 0)}
+        require(counts == want, f"11c {name}: launches {counts}, want "
+                f"{want}")
+        runs[name] = {"tokens_per_s": 8 * LONG_NEW / wall, "wall_s": wall,
+                      "wall_s_one_new_token": wall1,
+                      "decode_ms_per_step": (wall - wall1) * 1e3
+                      / (LONG_NEW - 1),
+                      "launches": counts, "peak_mem_bytes": peak}
+        release()
+    emit({"phase": "11c", "name": "llama3_8b_long_decode", "layers": L,
+          "batch": 8, "prompt": LONG_PROMPT, "new_tokens": LONG_NEW,
+          "T": mods["G"]._cache_len(LONG_PROMPT, LONG_NEW),
+          "k7_device_ms_per_step": k7_ms,
+          "k7_device_ms_per_layer": k7_ms / L, "runs": runs,
+          "resident_bytes": resident})
+
+
+def first_part(card, cpu):
+    """Index of the first differing token, or None."""
+    return next((j for j, (a, b) in enumerate(zip(card, cpu)) if a != b),
+                None)
+
+
+def phase_generate_parity(mods, cfg8b):
+    """Phase 12: generation at 2 layers of llama3_8b width in float32,
+    card (kernels) vs CPU (plain versions), one state made on the host
+    and carried to both.  Four ragged prompts up to 300 tokens, 16 new
+    tokens: greedy tokens identical for dense (K7), paged (K3), int8 and
+    int4 weight_quant and 4 beams with an eos id, except that a request
+    may part where the CPU's top two scores tie (within ``TIE_TOL`` of
+    their std; for beams, any two of the step's top K + 1 candidates),
+    uncompared after that.  Then sampling on the card."""
+    G = mods["G"]
+    cfg = dataclasses.replace(cfg8b, num_hidden_layers=2, dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    state_cpu = mods["init_state"](cfg, torch.Generator().manual_seed(3),
+                                   device="cpu")
+    state_gpu = {k: v.to("cuda") for k, v in state_cpu.items()}
+    rng = np.random.default_rng(3)
+    lengths = np.array([300, 37, 201, 128], np.int32)
+    ids = rng.integers(0, cfg.vocab_size, (4, 300))
+    new = 16
+    eos = None
+    result = {}
+    for name, kw in (("dense", {}), ("paged", {"cache": "paged"}),
+                     ("int8", {"weight_quant": "int8"}),
+                     ("int4", {"weight_quant": "int4"}),
+                     ("beam4", {"num_beams": 4})):
+        if name == "beam4":
+            kw["eos_token_id"] = eos
+        scores = []
+        hook = "_top_k" if name == "beam4" else "_sample"
+        orig = getattr(G, hook)
+
+        def record(x, *a, orig=orig):
+            scores.append(x.float().clone())
+            return orig(x, *a)
+
+        outs = {}
+        for device, state in (("cuda", state_gpu), ("cpu", state_cpu)):
+            setattr(G, hook, record if device == "cpu" else orig)
+            t0 = time.perf_counter()
+            outs[device] = G.generate(state, cfg, ids, max_new_tokens=new,
+                                      lengths=lengths, device=device,
+                                      **kw)[:, 300:].tolist()
+            outs[device + "_s"] = time.perf_counter() - t0
+        setattr(G, hook, orig)
+        if eos is None:        # an eos the greedy decode reaches
+            eos = int(outs["cpu"][0][4])
+        parts = []
+        for i, (card, cpu) in enumerate(zip(outs["cuda"], outs["cpu"])):
+            t = first_part(card, cpu)
+            if t is None:
+                continue
+            if hook == "_sample":
+                lg = scores[t][i]
+                margin = float((lg[card[t]] - lg[cpu[t]]).abs() / lg.std())
+            else:   # beams: the closest pair among a step's top K + 1
+                margin = math.inf
+                for x in scores[:t + 1]:
+                    row = x[i][x[i] > -1e8]
+                    top = torch.sort(row, descending=True).values[:5]
+                    margin = min(margin, float(
+                        (top[:-1] - top[1:]).min() / row.std()))
+            parts.append({"request": i, "token": t, "card": card[t],
+                          "cpu": cpu[t], "margin_over_std": margin})
+        same = outs["cuda"] == outs["cpu"]
+        result[name] = same
+        emit({"phase": 12, "mode": name, "layers": 2, "dtype": "float32",
+              "prompt_lens": lengths.tolist(), "new_tokens": new,
+              "eos_token_id": kw.get("eos_token_id"),
+              "tokens_identical": same, "parted_at_tie": parts,
+              "tie_tol": TIE_TOL, "cuda_s": outs["cuda_s"],
+              "cpu_s": outs["cpu_s"]})
+        require(all(p["margin_over_std"] <= TIE_TOL for p in parts),
+                (name, parts, outs["cuda"], outs["cpu"]))
+    greedy = G.generate(state_gpu, cfg, ids, max_new_tokens=new,
+                        lengths=lengths)
+    top1 = G.generate(state_gpu, cfg, ids, max_new_tokens=new,
+                      lengths=lengths, do_sample=True, top_k=1, seed=5)
+    draws = []
+    orig = G._sample
+
+    def record_draws(logits, generator, gen):
+        tok = orig(logits, generator, gen)
+        draws.append((logits.float().clone(), tok.clone(), gen))
+        return tok
+
+    G._sample = record_draws
+    s1 = G.generate(state_gpu, cfg, ids, max_new_tokens=new,
+                    lengths=lengths, do_sample=True, top_k=8, top_p=0.9,
+                    seed=7)
+    G._sample = orig
+    s2 = G.generate(state_gpu, cfg, ids, max_new_tokens=new,
+                    lengths=lengths, do_sample=True, top_k=8, top_p=0.9,
+                    seed=7)
+    outside = sum(int((~torch.isfinite(G._filter_logits(lg, gen)).gather(
+        1, tok[:, None])).sum()) for lg, tok, gen in draws)
+    support = [int(torch.isfinite(G._filter_logits(lg, gen)).sum(-1)
+                   .max()) for lg, _, gen in draws]
+    rec = {"phase": 12, "mode": "sampling",
+           "top_k_1_equals_greedy": bool((top1 == greedy).all()),
+           "same_seed_same_tokens": bool((s1 == s2).all()),
+           "draws": len(draws) * len(lengths), "draws_outside_support":
+           outside, "max_support": max(support),
+           "distinct_sampled_vs_greedy": bool((s1 != greedy).any())}
+    emit(rec)
+    require(rec["top_k_1_equals_greedy"] and rec["same_seed_same_tokens"]
+            and outside == 0 and rec["distinct_sampled_vs_greedy"], rec)
+    result["sampling"] = rec
+    return result
+
+
+def decode_entry(records, launches):
+    """The K7 entry of the kernels line: times at the bench decode shape
+    (11a's), errors over every phase-3 shape, launches from 11a."""
+    rep = records[0]
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "paddle_tpu/ops/pallas/decode_attention.py:87",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in records),
+            "max_row_rel_err": max(r["max_row_rel_err"] for r in records),
+            "shape": rep["shape"], "ms": rep["ms"],
+            "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+            "bound_by": rep["bound_by"], "library_ms": rep["library_ms"]}
 
 
 def k8_entries(k8, launches):
@@ -1623,8 +2224,10 @@ def main() -> int:
         return 1
     from paddle_tpu_torch.models import (GenerationConfig, LlamaConfig,
                                          init_state, llama3_8b)
+    from paddle_tpu_torch.models import generation as G
     from paddle_tpu_torch.models import llama_hybrid as TH
     from paddle_tpu_torch.ops import cuda_lib
+    from paddle_tpu_torch.ops.pallas import decode_attention as DA
     from paddle_tpu_torch.ops.pallas import flash_attention as FA
     from paddle_tpu_torch.ops.pallas import flash_mask as FM
     from paddle_tpu_torch.ops.pallas import lora_matmul as LM
@@ -1633,6 +2236,7 @@ def main() -> int:
     from paddle_tpu_torch.serving import (AdapterStore, create_engine,
                                           quantize_state, random_adapter)
 
+    laps = Laps()
     # phase 1: the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1644,6 +2248,7 @@ def main() -> int:
             f"need compute capability 9.0 (Hopper), got {cap}")
     emit({"phase": 1, "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0), "capability": list(cap)})
+    laps(1)
 
     # phase 2: build
     build_s = cuda_lib.build()
@@ -1651,12 +2256,14 @@ def main() -> int:
         name: [line.strip() for line in log.splitlines()
                if "registers" in line or "spill" in line]
         for name, log in cuda_lib.build_log.items()}})
+    laps(2)
 
     # phase 3: kernels vs plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
-    paged = phase_paged(PA, gen)
-    masked = [phase_masked(FM, gen, bucket, plen)
-              for bucket, plen in ((512, 448), (2048, 1900), (6144, 5000))]
+    pageds = [phase_paged(PA, gen, *shape) for shape in PAGED_SHAPES]
+    paged = pageds[0]       # phase 4's decode shape: the kernels line's
+    masked = [phase_masked(FM, gen, *shape) for shape in MASKED_SHAPES]
+    release()
     flash = [phase_flash(FA, gen, *shape) for shape in FLASH_SHAPES]
     k8 = [phase_k8(FM, gen, *shape) for shape in K8_SHAPES]
     release()
@@ -1666,24 +2273,33 @@ def main() -> int:
     quant = phase_quant(QM, gen)
     lora = phase_lora(LM, gen)
     release()
+    decode = [phase_decode(DA, gen, *shape) for shape in K7_SHAPES]
+    for shape in K7_SHAPES:
+        phase_decode_f32(DA, *shape)
+    release()
+    laps(3)
 
     # phase 4: the main path at full width and depth
     launches = phase_serve(llama3_8b(), PA, FM, create_engine, init_state,
                            GenerationConfig)
     release()
+    laps(4)
 
     # phase 5: end-to-end parity, card vs CPU
     phase_parity(llama3_8b(), create_engine, init_state, GenerationConfig)
     release()
+    laps(5)
 
     # phase 6: the training path at full width and depth
     launches.update(phase_train(bench_config(LlamaConfig), TH, FA))
     release()
+    laps(6)
 
     # phase 7: training parity, card vs CPU
     phase_train_parity(bench_config(LlamaConfig, num_hidden_layers=2,
                                     dtype="float32"), TH)
     release()
+    laps(7)
 
     # phase 8: the quantized and multi-LoRA serving modes, full depth
     mods = (QM, LM, PA, FM, create_engine, init_state, GenerationConfig,
@@ -1694,12 +2310,14 @@ def main() -> int:
     modes["8b"] = phase_modes(llama3_8b(), mods, "8b int4+kv_quant", "int4",
                               True, False)
     release()
+    laps(8)
 
     # phase 9: both modes, card vs CPU
     phase_modes_parity(llama3_8b(), create_engine, init_state,
                        GenerationConfig, AdapterStore, random_adapter,
                        quantize_state)
     release()
+    laps(9)
 
     # phase 10: the reference bench's long-context rung
     phase_train(bench_config(LlamaConfig,
@@ -1713,6 +2331,26 @@ def main() -> int:
         k8_launches = {k: k8_launches[k] + counts[k] for k in counts}
     del qkv
     release()
+    laps(10)
+
+    # phase 11: the reference bench's decode rungs through generate
+    gmods = {"G": G, "DA": DA, "PA": PA, "FM": FM, "QM": QM, "LM": LM,
+             "init_state": init_state}
+    decode_cfg = bench_config(LlamaConfig, max_position_embeddings=4096)
+    decode_launches = phase_bench_decode(gmods, decode_cfg)
+    release()
+    laps("11a")
+    phase_bench_paged(gmods, decode_cfg)
+    release()
+    laps("11b")
+    phase_long_decode(gmods, llama3_8b())
+    release()
+    laps("11c")
+
+    # phase 12: generation parity, card vs CPU, and sampling on the card
+    phase_generate_parity(gmods, llama3_8b())
+    release()
+    laps(12)
 
     rep = masked[1]     # the 2048 bucket: the longest prompts of phase 4
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1721,8 +2359,8 @@ def main() -> int:
          "source": "paddle_tpu_torch/csrc/paged_attention.cu",
          "replaces": "paddle_tpu/ops/pallas/paged_attention.py:123",
          "launches": launches["paged_attention"],
-         "max_abs_err": paged["max_abs_err"],
-         "max_row_rel_err": paged["max_row_rel_err"],
+         "max_abs_err": max(p["max_abs_err"] for p in pageds),
+         "max_row_rel_err": max(p["max_row_rel_err"] for p in pageds),
          **{k: paged[k] for k in keys}},
         {"name": "flash_mha_masked", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_mask.cu",
@@ -1751,7 +2389,8 @@ def main() -> int:
                    "lora_matmul.py:65", lora,
                    modes["8a"]["lora_gather_matmul"],
                    next(r for r in lora if r["shape"] == "gate/up")),
-        *k8_entries(k8, k8_launches)]})
+        *k8_entries(k8, k8_launches),
+        decode_entry(decode, decode_launches["decode_attention"])]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

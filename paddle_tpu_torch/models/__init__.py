@@ -1,5 +1,9 @@
-"""Models of the port: Llama config, layer math and model state."""
+"""Models of the port: Llama config, layer math, model state and
+one-shot generation."""
 from .convert import (hybrid_params_from_numpy,  # noqa: F401
                       hybrid_params_to_numpy, init_state, state_from_numpy)
-from .generation import GenerationConfig  # noqa: F401
+from .generation import (GenerationConfig, build_generate_fn,  # noqa: F401
+                         build_generate_fn_beam, build_generate_fn_paged,
+                         generate)
+from .generation import quantize_state as quantize_generation_state  # noqa
 from .llama import LlamaConfig, llama3_8b, llama_tiny  # noqa: F401

@@ -12,8 +12,15 @@ from dataclasses import dataclass
 
 import torch
 
-__all__ = ["LlamaConfig", "apply_rotary_pos_emb", "llama3_8b",
-           "llama_tiny"]
+__all__ = ["LlamaConfig", "MATMUL_KEYS", "apply_rotary_pos_emb",
+           "llama3_8b", "llama_tiny"]
+
+# the key suffixes of a layer's per-projection matmul weights in a state
+# dict: what weight-only quantization converts (serving and generation)
+MATMUL_KEYS = ("self_attn.q_proj.weight", "self_attn.k_proj.weight",
+               "self_attn.v_proj.weight", "self_attn.o_proj.weight",
+               "mlp.gate_proj.weight", "mlp.up_proj.weight",
+               "mlp.down_proj.weight")
 
 
 @dataclass

@@ -22,8 +22,8 @@ so the forward of every layer runs twice per step.
 
 Left out (each raises ``NotImplementedError``): ``remat="attn"``,
 ``schedule`` other than ``"gpipe"`` (1F1B, zero bubble), ``n_virtual >
-1``, ``zero1`` and any mesh with pp, dp or tp above 1 (ROADMAP queue 1
-item 8; ``remat="attn"`` is item 2's leftover).
+1``, ``zero1`` and any mesh with pp, dp or tp above 1 (ROADMAP queue 1,
+hybrid-parallel training; ``remat="attn"`` is its first step).
 """
 from __future__ import annotations
 
@@ -47,9 +47,10 @@ _LAYER_KEYS = ("input_ln", "q", "k", "v", "o", "post_ln", "gate", "up",
 # [B, S, V] f32 logits up to this many bytes take one wide head matmul;
 # above it the CE runs in sequence chunks (reference ``:274``)
 _CE_ONE_SHOT_BYTES = 1.1e9
-_LATER = "is not ported yet (ROADMAP queue 1 item 8: hybrid-parallel training)"
+_LATER = "is not ported yet (ROADMAP queue 1, hybrid-parallel training)"
 _REMAT_ATTN = ("remat='attn' (keep the attention outputs, recompute the "
-               "rest) is not ported yet (ROADMAP queue 1 item 2, left out); "
+               "rest) is not ported yet (ROADMAP queue 1, hybrid-parallel "
+               "training, its first step); "
                "use remat=True or False")
 
 

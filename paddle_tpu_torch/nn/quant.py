@@ -7,7 +7,7 @@ output column, int8 values ``[K, N]`` or int4 values nibble-packed
 reference's, in the same order and in float32 — IEEE division and
 round half to even on both sides — so on the CPU the values and scales
 are bit-identical to the JAX package's.  Grouped scales (``group_size``
-64 or 128) are not ported yet (ROADMAP queue 1 item 12).
+64 or 128) are not ported yet (ROADMAP queue 1, Paddle API surface).
 """
 from __future__ import annotations
 
@@ -31,7 +31,7 @@ def _check(algo, group_size):
     if group_size != -1:
         raise NotImplementedError(
             f"group_size={group_size}: grouped scales are not ported yet "
-            "(ROADMAP queue 1 item 12)")
+            "(ROADMAP queue 1, Paddle API surface)")
 
 
 def weight_quantize(x, algo="weight_only_int8", arch=None, group_size=-1):

@@ -87,17 +87,13 @@ def pack_int4(q):
 
 
 def unpack_int4(packed, k=None):
-    """Inverse of :func:`pack_int4` -> [K, N] int8 (sign-extended)."""
-    w = packed.to(torch.int32)
-    lo = _sext4(w & 0xF)
-    hi = _sext4((w >> 4) & 0xF)
+    """Inverse of :func:`pack_int4` -> [K, N] int8 (sign-extended): an
+    arithmetic right shift of the int8 byte sign-extends its high nibble,
+    and of the byte shifted left by 4, its low one."""
+    lo = (packed << 4) >> 4
+    hi = packed >> 4
     out = torch.stack([lo, hi], dim=1).reshape(-1, packed.shape[1])
     return out if k is None else out[:k]
-
-
-def _sext4(nib):
-    """int nibble 0..15 -> sign-extended int8."""
-    return torch.where(nib >= 8, nib - 16, nib).to(torch.int8)
 
 
 def _block_n(n, cap=2048):

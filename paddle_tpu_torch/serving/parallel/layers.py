@@ -8,7 +8,7 @@ attention dequantizes fused into the page gather (plain PyTorch: the
 reference runs these on XLA).  The decode layer updates the pools in
 place, as the dense ``_decode_layer_paged`` does.  The tensor-parallel
 bodies (``*_tp``, an axis name) come with serving tensor parallelism
-(ROADMAP queue 1 item 9).
+(ROADMAP queue 1, serving tensor parallelism).
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ def _single_device(axis):
     if axis is not None:
         raise NotImplementedError(
             f"axis={axis!r}: the tensor-parallel layer bodies are not "
-            "ported yet (ROADMAP queue 1 item 9)")
+            "ported yet (ROADMAP queue 1, serving tensor parallelism)")
 
 
 def _rope(x, cos, sin):

@@ -37,7 +37,7 @@ The serving modes:
 
 Off modes (dense weights, ``kv_quant=False``, ``lora_slots=0``) run the
 dense path unchanged.  ``read_page``/``write_page`` come with
-preemption (ROADMAP queue 1 item 4).
+preemption (ROADMAP queue 1, serving engine: the rest at tp=1).
 """
 from __future__ import annotations
 

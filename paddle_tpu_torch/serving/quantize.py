@@ -10,17 +10,13 @@ device the state lives on.
 """
 from __future__ import annotations
 
+# only the per-projection matmul weights are quantized; everything else
+# (embeddings, norms, lm_head) stays dense
+from ..models.llama import MATMUL_KEYS
 from ..nn.quant import weight_quantize
 from ..ops.pallas.quant_matmul import QuantizedWeight
 
 __all__ = ["quantize_state"]
-
-# the per-projection matmul weights the serving runner knows; everything
-# else (embeddings, norms, lm_head) stays dense
-_MATMUL_KEYS = ("self_attn.q_proj.weight", "self_attn.k_proj.weight",
-                "self_attn.v_proj.weight", "self_attn.o_proj.weight",
-                "mlp.gate_proj.weight", "mlp.up_proj.weight",
-                "mlp.down_proj.weight")
 
 
 def quantize_state(state: dict, kind: str = "int8", skip=()) -> dict:
@@ -39,7 +35,7 @@ def quantize_state(state: dict, kind: str = "int8", skip=()) -> dict:
     skip = tuple(skip)
     out = {}
     for name, arr in state.items():
-        if (not name.endswith(_MATMUL_KEYS)
+        if (not name.endswith(MATMUL_KEYS)
                 or (skip and name.endswith(skip))
                 or isinstance(arr, QuantizedWeight)):
             out[name] = arr

@@ -32,12 +32,19 @@ are held to their plain versions the same way, float32 and bf16 (a bf16
 bias in the bf16 cases, so the dbias kernel's f32 accumulator for a
 broadcast bias runs too), over ragged lengths, GQA, nvec 2 and 4 and
 every bias broadcast shape, with their launch counters.
+
+The dense-cache decode attention (K7) is held to its plain version the
+same way as K3 (float32 1e-5 absolute, bf16 2^-6 per row) at the two
+shapes of ``chip_smoke.py`` phase 3 (the bench's decode shape and the
+reference's own K7 measurement shape at T 8192), with a planted fault
+(every row told 64 keys fewer) and the wrapper's rejections.
 """
 import math
 
 import pytest
 import torch
 
+from paddle_tpu_torch.ops.pallas import decode_attention as DA
 from paddle_tpu_torch.ops.pallas import flash_attention as FA
 from paddle_tpu_torch.ops.pallas import flash_mask as FM
 from paddle_tpu_torch.ops.pallas import lora_matmul as LM
@@ -564,3 +571,69 @@ def test_lora_check_catches_planted_fault(gen):
     bad = LM.lora_gather_matmul(x, a, b, scale, nxt)
     live = idx > 0
     assert bool((_row_rel_err(bad[live], ref[live]) > BF16_ROW_TOL).all())
+
+
+# ------------------------------------------------ K7: dense-cache decode
+K7_SHAPES = {  # name: B, nh, kvh, T, pos
+    "bench_decode": (8, 16, 16, 256, [128, 255, 140, 200, 173, 129, 254,
+                                      191]),
+    "reference_8k": (8, 32, 8, 8192, [8191, 8191, 100, 0, 4095, 4096,
+                                      8000, 257]),
+}
+
+
+def _k7_inputs(gen, dt, b, nh, kvh, t, pos):
+    q = torch.randn(b, nh, 128, device="cuda", generator=gen).to(dt)
+    k = torch.randn(b, kvh, t, 128, device="cuda", generator=gen).to(dt)
+    v = torch.randn(b, kvh, t, 128, device="cuda", generator=gen).to(dt)
+    return q, k, v, torch.tensor(pos, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(K7_SHAPES))
+def test_decode_kernel_matches_plain(gen, dt, shape):
+    args = _k7_inputs(gen, dt, *K7_SHAPES[shape])
+    before = DA.decode_attention.launches
+    out = DA.decode_attention(*args)
+    torch.cuda.synchronize()
+    assert DA.decode_attention.launches == before + 1
+    assert _close(out, DA._xla_decode(*args), dt)
+
+
+def test_decode_kernel_off_runs_the_plain_version(gen, monkeypatch):
+    args = _k7_inputs(gen, torch.bfloat16, *K7_SHAPES["bench_decode"])
+    monkeypatch.setattr(DA, "PALLAS_DECODE", False)
+    before = DA.decode_attention.launches
+    out = DA.decode_attention(*args)
+    assert DA.decode_attention.launches == before
+    torch.testing.assert_close(out, DA._xla_decode(*args), atol=0, rtol=0)
+
+
+def test_bf16_check_catches_dropped_decode_keys(gen):
+    """The kernel told pos - 64 (every long row loses its last 64 keys)
+    must fail the bf16 check on every head of every such row."""
+    q, k, v, pos = _k7_inputs(gen, torch.bfloat16,
+                              *K7_SHAPES["reference_8k"])
+    ref = DA._xla_decode(q, k, v, pos)
+    short = torch.clamp(pos - 64, min=0).to(torch.int32)
+    err = _row_rel_err(DA.decode_attention(q, k, v, short), ref)
+    assert bool((err[pos >= 64] > BF16_ROW_TOL).all())
+
+
+def test_decode_wrapper_rejects(gen):
+    q, k, v, pos = _k7_inputs(gen, torch.float32, 2, 8, 2, 300, [5, 299])
+    with pytest.raises(ValueError, match="head_dim"):
+        DA.decode_attention(q[..., :64].contiguous(),
+                            k[..., :64].contiguous(),
+                            v[..., :64].contiguous(), pos)
+    with pytest.raises(TypeError):
+        DA.decode_attention(q.bfloat16(), k, v, pos)
+    with pytest.raises(TypeError):
+        DA.decode_attention(q, k, v, pos.long())
+    with pytest.raises(ValueError, match="at most 16"):
+        DA.decode_attention(torch.randn(2, 34, 128, device="cuda"),
+                            k[:, :1].contiguous(), v[:, :1].contiguous(),
+                            pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        DA.decode_attention(q, k.transpose(2, 3).contiguous()
+                            .transpose(2, 3), v, pos)

@@ -44,7 +44,9 @@ def test_import_leaves_jax_unloaded():
             "paddle_tpu_torch.ops.pallas.lora_matmul, "
             "paddle_tpu_torch.nn.quant, paddle_tpu_torch.serving.lora, "
             "paddle_tpu_torch.nn.functional_extra2, "
-            "paddle_tpu_torch.serving.parallel.layers; "
+            "paddle_tpu_torch.serving.parallel.layers, "
+            "paddle_tpu_torch.ops.pallas.decode_attention, "
+            "paddle_tpu_torch.models.generation; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -78,6 +80,13 @@ def test_entry_points_default_to_cuda():
     store = AdapterStore(cfg, capacity=1, rank=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         create_engine(cfg, state, quant="int8", kv_quant=True, lora=store)
+    # one-shot generation too, whatever the mode
+    from paddle_tpu_torch.models import generate
+    for kw in ({}, {"cache": "paged"}, {"weight_quant": "int8"},
+               {"num_beams": 2}):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            generate(state, cfg, np.zeros((1, 4), np.int64),
+                     max_new_tokens=2, **kw)
     # the CPU is taken only when asked for
     engine = create_engine(cfg, state, device="cpu", max_model_len=32)
     assert engine.device.type == "cpu"
