@@ -87,7 +87,29 @@ no CUDA ``_weight_int8pack_mm``):
    with an eos id (a request may part only at a tie of the CPU's top
    scores, as in phase 9), and on the card: ``top_k=1`` equals greedy,
    one seed gives one output, every token drawn with ``top_k=8,
-   top_p=0.9`` lies in the filter's support.
+   top_p=0.9`` lies in the filter's support;
+13. the reference bench's MoE rung (``bench.py:369-420``) through the
+   port's ``moe_llm``: (13a) ``bench_moe``, hidden 1024, FFN 1408, 8
+   layers, 8/8 heads, 8 experts top-2, bf16, plain SGD, batch 16 x 512,
+   1 + 2 warm-up and 10 timed steps (the loss must fall; launches per
+   step exactly 8 K1, 8 K2 dq, 8 K2 dk/dv and no K9: the model takes the
+   "sort" dispatch); tokens/s, MFU over the active params (by leaf name,
+   and the bench's own count beside it), memory and a profile of one
+   step; (13b) one MoE layer, forward + backward of
+   ``moe_dispatch_combine`` at 13a's layer and at DeepSeekMoE-16B's (4096
+   tokens, 64 experts top-6, hidden 2048, FFN 1408) in the "sort",
+   "grouped" (K9: exactly one forward and one backward launch per call)
+   and "dense" modes, grouped held to sort at capacity_factor E / top_k
+   (nothing dropped) per output row; (13c) ``incubate.nn.functional.
+   fused_rms_norm`` with a residual, forward + backward at llama3_8b width
+   (one K6 launch per call);
+14. one ``moe_llm`` training step in float32 at 2 layers of 13a's width
+   (batch 2 x 128), without and with 2 shared experts, card (kernels) vs
+   CPU (plain versions) from one set of params: loss, every grad and
+   every param agree by relative norm (1e-4); and the grouped
+   ``moe_dispatch_combine`` (K9 in float32) with its grads.  Routing must
+   agree except at a tie of the CPU's f32 probabilities (within 1e-6),
+   which the run names.
 
 Every phase prints its wall seconds.
 
@@ -119,7 +141,16 @@ kernel phase 11 runs is also held, with its planted fault, at the shapes
 phase 11 gives it: K4 int8 at 11a's bench-model widths, K7 at 11b's
 dense cache (T 2176), K3 at page 128 with 11b's and 11c's heads and
 lengths, and the K8 forward at the prompt prefills of 11a, 11b and 11c
-(B 8, S 128, 2048 and 8064).
+(B 8, S 128, 2048 and 8064).  Phase 3 also holds the grouped expert FFN
+(K9, forward and backward) in bf16 per row (<= 2^-7) against its plain
+versions at four layers: 13a's routing from a seeded gate, the same
+widths with skewed routing (an expert with no tile, one with half the
+rows), DeepSeekMoE-16B's layer and the gated (swiglu) variant with
+float32 biases, each with a planted fault (tile 0 computed as the next
+expert's) and the sort path's two expert einsums as the yardstick, plus
+float32 instances card vs CPU; and RMSNorm (K6) at llama3_8b width (16,384
+rows of 4096, bf16, per row <= 2^-7, planted fault: the weight one
+column off) beside ``torch.nn.functional.rms_norm``.
 
 Prints a ``{"kernels": [...]}`` line before the last, and last
 ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
@@ -147,14 +178,21 @@ BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 # which a per-row relative limit holds as tightly as the short ones.
 ROW_TOL = 2 ** -6
 FAULT_KEYS = 64               # planted fault: each row loses its last 64 keys
+# phase 3's K9 records and phases 13-14: the reference bench's MoE rung
+# (bench.py:381-385: hidden 1024, FFN 1408, 8 layers, 8/8 heads, 8
+# experts top-2, bf16) at its batch 16 x 512 and 10 timed steps
+MOE_BATCH, MOE_SEQ, MOE_STEPS = 16, 512, 10
+MOE_HEADS = 8
 # flash attention (K1/K2) in phase 3: the training shape first (the one
 # the kernels line reports), then llama3_8b widths, a ragged cross-length
-# case whose first 300 rows see no key, and a long sequence
+# case whose first 300 rows see no key, a long sequence, and 13a's MoE
+# rung (every layer of its step launches K1, dq and dk/dv at this shape)
 FLASH_SHAPES = (  # name, B, H, kvH, Sq, Sk
     ("train", 8, 16, 16, 2048, 2048),
     ("llama3_8b", 1, 32, 8, 2048, 2048),
     ("ragged", 2, 16, 4, 1000, 700),
     ("long", 1, 16, 16, 8192, 8192),
+    ("moe_train", MOE_BATCH, MOE_HEADS, MOE_HEADS, MOE_SEQ, MOE_SEQ),
 )
 FAULT_SHARE = 0.99            # gradient rows the planted fault must fail
 # the K8 backward and bias kernels in phase 3: SFT with key padding at
@@ -194,6 +232,32 @@ DECODE_PROMPT, DECODE_NEW = 128, 128
 PAGED_PROMPT, PAGED_NEW = 2048, 64
 PAGED_LENGTHS = (2048, 160, 96, 224, 128, 192, 96, 160)
 LONG_PROMPT, LONG_NEW = 8064, 128       # 11c: T = 8192 at llama3_8b
+# K9 in phase 3 (name, tokens, E, top_k, D, F, gated, routing): the bench
+# layer with routing from a seeded gate, the same widths with skewed
+# routing (expert 0 owns no tile, expert 1 half the rows), DeepSeekMoE-
+# 16B's layer (deepseek_moe_16b: 4096 tokens, 64 experts top-6, hidden
+# 2048, FFN 1408) and the gated (swiglu, 2F) variant at the bench widths
+K9_SHAPES = (
+    ("bench_layer", MOE_BATCH * MOE_SEQ, 8, 2, 1024, 1408, False, "gate"),
+    ("bench_skewed", MOE_BATCH * MOE_SEQ, 8, 2, 1024, 1408, False,
+     "skewed"),
+    ("deepseek_16b", 4096, 64, 6, 2048, 1408, False, "gate"),
+    ("bench_gated", MOE_BATCH * MOE_SEQ, 8, 2, 1024, 1408, True, "gate"),
+)
+# 13b's layers (name, tokens, E, top_k, D, F): 13a's and DeepSeekMoE-16B's
+MOE_LAYER_SHAPES = (("bench_layer", MOE_BATCH * MOE_SEQ, 8, 2, 1024, 1408),
+                    ("deepseek_16b", 4096, 64, 6, 2048, 1408))
+# K9 bf16, kernel vs plain version per row: both round h and ds to bf16
+# from f32 sums taken in another order (a last bit flips now and then)
+# and round each output once
+K9_ROW_TOL = 2 ** -7
+# K6 at llama3_8b width (8 x 2048 rows of 4096, bf16), per row: both
+# round once, at the output; the row's mean of squares in another order
+RMS_ROWS, RMS_WIDTH = 8 * 2048, 4096
+K6_ROW_TOL = 2 ** -7
+# phase 14: a routing difference must sit at a tie, two of the CPU's f32
+# probabilities of one token within this of each other
+MOE_TIE_TOL = 1e-6
 
 
 def padded_t(prompt, new):
@@ -2217,6 +2281,622 @@ def flash_entries(flash, launches):
     return out
 
 
+# ------------------------------------------------- K9, K6 and the MoE rung
+def moe_routing(TM, gen, tokens, E, k, D, routing):
+    """(x [tokens, D] bf16, expert ids, gate values) from a seeded gate;
+    ``"skewed"``: expert 0 is never chosen and expert 1 is every token's
+    first choice (half the entries)."""
+    x = torch.randn(tokens, D, device="cuda", generator=gen).bfloat16()
+    gate = torch.randn(D, E, device="cuda", generator=gen) / D ** 0.5
+    logits = x.float() @ gate
+    if routing == "skewed":
+        logits[:, 0] -= 30.0
+        logits[:, 1] += 8.0
+    idx, gv, _ = TM._topk_choices(logits, k, False, None)
+    return x, idx, gv
+
+
+def k9_operands(TM, gen, x, idx, gv, E, F, gated, bdt, dt=torch.bfloat16):
+    """The tile-aligned buffer of ``grouped_dispatch_ffn`` for this routing
+    and random expert weights: (x_buf, w1, b1, w2, b2), emap, dy, the
+    real entry count and the per-expert entry counts."""
+    D = x.shape[1]
+    n, _, _, _, svalid, ft_slot, _, emap = TM._tile_layout(idx, gv, E, dt)
+    x_buf = torch.where(svalid[:, None], x[ft_slot], 0).to(dt)
+    f2 = 2 * F if gated else F
+
+    def rnd(*shape, scale, dtype=dt):
+        return (torch.randn(*shape, device=x.device, generator=gen)
+                * scale).to(dtype)
+
+    args = (x_buf, rnd(E, D, f2, scale=D ** -0.5), rnd(E, f2, scale=0.1,
+                                                        dtype=bdt),
+            rnd(E, F, D, scale=F ** -0.5), rnd(E, D, scale=0.1, dtype=bdt))
+    dy = rnd(x_buf.shape[0], D, scale=1.0)
+    counts = torch.bincount(idx.reshape(-1), minlength=E)
+    return args, emap, dy, n, counts
+
+
+K9_OUTPUTS = ("out", "dx", "dw1", "db1", "dw2", "db2")
+
+
+def k9_kernel(GF, args, emap, dy, gated):
+    """(out, dx, dw1, db1, dw2, db2) through the kernels, under autograd."""
+    leaves = [t.detach().requires_grad_() for t in args]
+    out = GF.grouped_ffn(*leaves, emap, gated)
+    return [out.detach(), *torch.autograd.grad(out, leaves, dy)]
+
+
+def k9_plain(GF, args, emap, dy, gated):
+    x_buf, w1, b1, w2, b2 = args
+    return [GF.grouped_ffn_xla(*args, emap, gated),
+            *GF._plain_bwd(x_buf, dy, w1, b1, w2, b2.dtype, emap, gated)]
+
+
+def k9_row_errs(got, want):
+    """Per-row errors of each output: out by ``row_rel_err``, the
+    gradients by ``grad_row_err``; each weight gradient's rows are its
+    [E * in, out] rows, the bias gradients one row per expert."""
+    errs = {}
+    for name, g, w in zip(K9_OUTPUTS, got, want):
+        g2, w2 = g.reshape(-1, g.shape[-1]), w.reshape(-1, w.shape[-1])
+        errs[name] = (row_rel_err(g2, w2) if name == "out"
+                      else grad_row_err(g2, w2)).reshape(g.shape[:-1])
+    return errs
+
+
+def phase_k9(GF, TM, gen, name, tokens, E, k, D, F, gated, routing):
+    """K9 forward and backward against their plain versions at one MoE
+    layer's routing, bf16 (float32 biases in the gated record), per row
+    (``K9_ROW_TOL``), with the planted fault: tile 0 pointed at the next
+    expert must fail that tile's rows of out and dx and the gradient
+    rows of both experts.  Times the kernels, the plain versions and the
+    sort path's two expert einsums at its capacity (1.25) as the cuBLAS
+    yardstick, both by device time (the yardstick's eager autograd call
+    is shorter than its host work); the bound counts the real (token,
+    expert) rows."""
+    bdt = torch.float32 if gated else torch.bfloat16
+    x, idx, gv = moe_routing(TM, gen, tokens, E, k, D, routing)
+    args, emap, dy, n, counts = k9_operands(TM, gen, x, idx, gv, E, F,
+                                            gated, bdt)
+    del x
+    R = args[0].shape[0]
+    f0, b0 = GF.grouped_ffn.fwd_launches, GF.grouped_ffn.bwd_launches
+    got = k9_kernel(GF, args, emap, dy, gated)
+    torch.cuda.synchronize()
+    require((GF.grouped_ffn.fwd_launches - f0,
+             GF.grouped_ffn.bwd_launches - b0) == (1, 1),
+            f"K9 {name}: one forward and one backward launch")
+    want = k9_plain(GF, args, emap, dy, gated)
+    errs = k9_row_errs(got, want)
+    row_err = {o: errs[o].max().item() for o in K9_OUTPUTS}
+    abs_err = {o: (g.float() - w.float()).abs().max().item()
+               for o, g, w in zip(K9_OUTPUTS, got, want)}
+    for o, err in row_err.items():
+        require(err <= K9_ROW_TOL, f"K9 {name} {o}: row error {err} > "
+                f"{K9_ROW_TOL}")
+    unvisited = [e for e in range(E) if not bool((emap == e).any())]
+    for e in unvisited:
+        for o, g in zip(K9_OUTPUTS[2:], got[2:]):
+            require(not bool(g[e].float().abs().any()),
+                    f"K9 {name}: expert {e} owns no tile, {o} must be 0")
+    # planted fault: tile 0 computed (and reduced) as the next expert's
+    e0 = int(emap[0])
+    bad = emap.clone()
+    bad[0] = e0 + 1
+    ferr = k9_row_errs(k9_kernel(GF, args, bad, dy, gated), want)
+    fault = {o: ferr[o][:GF.TILE].min().item() for o in ("out", "dx")}
+    for o in ("out", "dx"):
+        require(fault[o] > K9_ROW_TOL, f"planted fault passed the K9 check "
+                f"at {name}: tile 0's {o} min row error {fault[o]}")
+    for o in K9_OUTPUTS[2:]:
+        rows = ferr[o][e0:e0 + 2].reshape(-1)
+        share = (rows > K9_ROW_TOL).float().mean().item()
+        fault[o] = share
+        require(share >= FAULT_SHARE, f"planted fault passed the K9 check "
+                f"at {name}: {o} of experts {e0}, {e0 + 1}: only {share} "
+                "of the rows fail")
+    del got, want, ferr
+    x_buf, w1, b1, w2, b2 = args
+    ms = {"fwd": device_ms(lambda: GF._kernel_fwd(*args, emap, gated)),
+          "bwd": device_ms(lambda: GF._kernel_bwd(x_buf, dy, w1, b1, w2,
+                                                  b2, emap, gated))}
+    plain_ms = {"fwd": cuda_ms(lambda: GF.grouped_ffn_xla(*args, emap,
+                                                          gated),
+                               iters=3, warmup=1),
+                "bwd": cuda_ms(lambda: GF._plain_bwd(x_buf, dy, w1, b1, w2,
+                                                     b2.dtype, emap, gated),
+                               iters=3, warmup=1)}
+    # the yardstick: the sort path's expert FFN (two einsums) on the
+    # capacity buffer this routing gives at capacity_factor 1.25
+    cap = TM._capacity(tokens, k, 1.25, E, None)
+    xe = torch.randn(E, cap, D, device="cuda", generator=gen).bfloat16()
+    ys = [t.detach().clone().bfloat16().requires_grad_()
+          for t in (xe, w1, b1, w2, b2)]
+
+    def einsums():
+        h = torch.einsum("ecm,emf->ecf", ys[0], ys[1]) + ys[2][:, None, :]
+        h = (torch.nn.functional.silu(h[..., :F]) * h[..., F:] if gated
+             else torch.nn.functional.silu(h))
+        return torch.einsum("ecf,efm->ecm", h, ys[3]) + ys[4][:, None, :]
+
+    def einsums_fwd_bwd():
+        out = einsums()
+        torch.autograd.grad(out, ys, torch.ones_like(out))
+
+    with torch.no_grad():
+        yard = {"fwd": device_ms(einsums)}
+    yard["fwd_bwd"] = device_ms(einsums_fwd_bwd)
+    f2 = w1.shape[2]
+    flops = {"fwd": 2 * n * D * f2 + 2 * n * F * D,
+             "bwd": 6 * n * D * f2 + 4 * n * F * D}
+    # each input read once, each output written once (the bwd writes a
+    # gradient of each of x_buf, w1, b1, w2, b2 and reads all but b2)
+    arg_bytes = sum(t.numel() * t.element_size() for t in args)
+    nbytes = {"fwd": arg_bytes + emap.numel() * 4 + R * D * 2,
+              "bwd": 2 * arg_bytes - b2.numel() * b2.element_size()
+              + dy.numel() * 2 + emap.numel() * 4}
+    bounds = {p: bound(nbytes[p], flops[p]) for p in ("fwd", "bwd")}
+    rec = {"kernel": "grouped_ffn", "shape": name, "tokens": tokens, "E": E,
+           "top_k": k, "D": D, "F": F, "gated": gated,
+           "bias_dtype": str(bdt).split(".")[-1], "R": R, "real_rows": n,
+           "entries_per_expert": counts.tolist(), "unvisited": unvisited,
+           "max_abs_err": abs_err, "max_row_rel_err": row_err,
+           "row_tol": K9_ROW_TOL, "fault": {"tile": 0, "experts":
+                                            [e0, e0 + 1], **fault},
+           "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": {p: b[0] for p, b in bounds.items()},
+           "bound_by": {p: b[1] for p, b in bounds.items()},
+           "library_ms": None, "yardstick": "sort path's expert einsums, "
+           f"capacity {cap}", "yardstick_ms": yard}
+    emit({"phase": 3, **rec})
+    return rec
+
+
+def phase_k9_f32(GF, TM):
+    """Float32 instances of K9 (plain and gated) at a small shape, made on
+    the host from a seed: the kernels on the card against the plain
+    versions on the CPU, every output by relative norm (phase 7's
+    limit)."""
+    gen = torch.Generator().manual_seed(11)
+    tokens, E, k, D, F = 512, 8, 2, 256, 384
+    x = torch.randn(tokens, D, generator=gen)
+    logits = x @ (torch.randn(D, E, generator=gen) / D ** 0.5)
+    idx, gv, _ = TM._topk_choices(logits, k, False, None)
+    for gated in (False, True):
+        args, emap, dy, _, _ = k9_operands(TM, gen, x, idx, gv, E, F, gated,
+                                           torch.float32, torch.float32)
+        cpu = k9_plain(GF, args, emap, dy, gated)
+        card = k9_kernel(GF, [t.cuda() for t in args], emap.cuda(),
+                         dy.cuda(), gated)
+        errs = {o: rel_norm(a, b) for o, a, b in zip(K9_OUTPUTS, card, cpu)}
+        emit({"phase": 3, "kernel": "grouped_ffn", "shape": "f32_small",
+              "gated": gated, "dtype": "float32", "tokens": tokens, "E": E,
+              "D": D, "F": F, "card_vs_cpu_rel_err": errs,
+              "tol": PARITY_TOL})
+        for o, err in errs.items():
+            require(err <= PARITY_TOL, f"K9 f32 card vs CPU {o}: {err}")
+
+
+def phase_k6(RN, gen):
+    """K6 against its plain version at llama3_8b width (8 x 2048 rows of
+    4096, bf16), per row (``K6_ROW_TOL``), with a planted fault (the
+    weight read one column off); a float32 instance card vs CPU; times
+    beside the bound and ``torch.nn.functional.rms_norm`` (timing only:
+    it rounds before the weight multiply), kernel and library by device
+    time."""
+    n, d = RMS_ROWS, RMS_WIDTH
+    x = torch.randn(n, d, device="cuda", generator=gen).bfloat16()
+    w = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).bfloat16()
+    before = RN.rms_norm.launches
+    out = RN.rms_norm(x, w)
+    torch.cuda.synchronize()
+    require(RN.rms_norm.launches == before + 1, "K6: one launch per call")
+    ref = RN._plain_rms(x, w, 1e-6)
+    row_err = row_rel_err(out, ref).max().item()
+    require(row_err <= K6_ROW_TOL, f"K6: row error {row_err} > {K6_ROW_TOL}")
+    fault = row_rel_err(RN.rms_norm(x, torch.roll(w, 1)), ref)
+    require(bool((fault > K6_ROW_TOL).all()),
+            "planted fault (weight one column off) passed the K6 check: "
+            f"min row error {fault.min().item()}")
+    xs = torch.randn(64, d, generator=torch.Generator().manual_seed(12))
+    ws = 1 + 0.1 * torch.randn(d, generator=torch.Generator().manual_seed(13))
+    f32_err = rel_norm(RN.rms_norm(xs.cuda(), ws.cuda()),
+                       RN.rms_norm(xs, ws))
+    require(f32_err <= PARITY_TOL, f"K6 f32 card vs CPU: {f32_err}")
+    ms = device_ms(lambda: RN._kernel(x, w, 1e-6))
+    plain_ms = cuda_ms(lambda: RN._plain_rms(x, w, 1e-6))
+    library_ms = device_ms(lambda: torch.nn.functional.rms_norm(
+        x, (d,), w, 1e-6))
+    bound_ms, bound_by = bound(2 * n * d * 2 + d * 2, 4 * n * d)
+    rec = {"kernel": "rms_norm", "shape": "llama3_8b", "N": n, "d": d,
+           "dtype": "bfloat16",
+           "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+           "max_row_rel_err": row_err, "row_tol": K6_ROW_TOL,
+           "fault_min_row_rel_err": fault.min().item(),
+           "f32_card_vs_cpu_rel_err": f32_err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": library_ms}
+    emit({"phase": 3, **rec})
+    return rec
+
+
+def moe_bench_config(M, **kw):
+    """The reference bench's MoE rung (bench.py:381-385)."""
+    cfg = dict(vocab_size=32000, hidden_size=1024, moe_intermediate_size=1408,
+               num_hidden_layers=8, num_attention_heads=MOE_HEADS,
+               num_key_value_heads=MOE_HEADS, num_experts=8, top_k=2,
+               dtype="bfloat16")
+    cfg.update(kw)
+    return M.MoEConfig(**cfg)
+
+
+def moe_param_counts(M, cfg, params):
+    """(total, active by leaf name, the bench's own active count).  Active
+    by name scales w1/b1/w2/b2 by top_k / E.  The bench (bench.py:408-
+    412) counts as expert weights every stacked [L, ...] layer leaf whose
+    third-from-last dim is E, which at L = E takes in q/k/v/o/gate too."""
+    total = sum(t.numel() for t in M.tree_leaves(params))
+    expert = sum(lp[k].numel() for lp in params["layers"]
+                 for k in ("w1", "b1", "w2", "b2"))
+    L, E = cfg.num_hidden_layers, cfg.num_experts
+    bench_expert = sum(t.numel() for lp in params["layers"]
+                       for t in lp.values()
+                       if t.dim() + 1 >= 3 and ((L,) + tuple(t.shape))[-3]
+                       == E)
+    scale = cfg.top_k / E
+    return (total, int(total - expert + expert * scale),
+            int(total - bench_expert + bench_expert * cfg.top_k // E))
+
+
+def flash_counts(FA):
+    return {"flash_attention_fwd": FA.flash_mha.fwd_launches,
+            "flash_attention_bwd_dq": FA.flash_mha.dq_launches,
+            "flash_attention_bwd_dkv": FA.flash_mha.dkv_launches}
+
+
+def zero_moe_counts(FA, GF, RN):
+    FA.flash_mha.fwd_launches = 0
+    FA.flash_mha.dq_launches = 0
+    FA.flash_mha.dkv_launches = 0
+    GF.grouped_ffn.fwd_launches = 0
+    GF.grouped_ffn.bwd_launches = 0
+    RN.rms_norm.launches = 0
+
+
+def params_moved(M, params, before):
+    """How far the timed steps moved the params: per leaf name (summed
+    over layers) the share of elements that changed, and the whole
+    tree's ||after - before|| / ||before||."""
+    names = (["embed"] + [k for _ in params["layers"]
+                          for k in M._layer_keys(params)]
+             + ["norm", "head"])
+    changed, numel, f32 = {}, {}, set()
+    d2 = p2 = 0.0
+    for name, old, new in zip(names, before, M.tree_leaves(params)):
+        old = old.to(new.device)
+        changed[name] = changed.get(name, 0) + int((old != new).sum())
+        numel[name] = numel.get(name, 0) + new.numel()
+        if new.dtype == torch.float32:
+            f32.add(name)
+        d2 += float((new.float() - old.float()).square().sum())
+        p2 += float(old.float().square().sum())
+    return {"changed_share": {k: changed[k] / numel[k] for k in changed},
+            "float32_leaves": sorted(f32),
+            "rel_change": math.sqrt(d2 / p2)}
+
+
+def phase_moe_train(M, FA, GF, RN):
+    """13a: the reference bench's MoE rung (bench.py:369-420) through the
+    port's moe_llm: setup -> build_train_step, 1 + 2 warm-up steps and
+    10 timed steps on one [16, 513] batch (the "sort" dispatch, K1/K2
+    attention, no remat).
+
+    Phase 14 holds the step's loss, gradients and update to the CPU's;
+    this phase only shows that the step runs at full size and moves the
+    params: the loss must fall over the timed steps, every float32 leaf
+    (the routers) must change, and the share of each leaf's elements
+    that changed is reported.  Plain SGD at lr 3e-4 leaves most bf16
+    weights where they are (an update under half a bf16 ulp rounds
+    away), so the loss falls by little."""
+    cfg = moe_bench_config(M)
+    t0 = time.perf_counter()
+    params = M.setup(cfg, seed=0)
+    step = M.build_train_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ + 1),
+                        device="cuda", generator=gen)
+    for _ in range(3):
+        loss, params = step(params, ids)
+    float(loss)
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    before = [t.detach().to("cpu", copy=True)
+              for t in M.tree_leaves(params)]
+    zero_moe_counts(FA, GF, RN)
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(MOE_STEPS):
+        loss, params = step(params, ids)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    moved = params_moved(M, params, before)
+    del before
+    launches = {**flash_counts(FA),
+                "grouped_ffn_fwd": GF.grouped_ffn.fwd_launches,
+                "grouped_ffn_bwd": GF.grouped_ffn.bwd_launches}
+    losses = [float(x) for x in losses]
+    L = cfg.num_hidden_layers
+    want = {"flash_attention_fwd": L * MOE_STEPS,
+            "flash_attention_bwd_dq": L * MOE_STEPS,
+            "flash_attention_bwd_dkv": L * MOE_STEPS,
+            "grouped_ffn_fwd": 0, "grouped_ffn_bwd": 0}
+    require(launches == want, f"13a launches {launches} != {want}")
+    require(all(math.isfinite(x) for x in losses), f"loss {losses}")
+    require(losses[-1] < losses[0], f"13a loss did not fall: {losses}")
+    require(all(share > 0 for name, share in moved["changed_share"].items()
+                if name in moved["float32_leaves"]),
+            f"13a: a float32 leaf did not change: {moved}")
+    total, active, bench_active = moe_param_counts(M, cfg, params)
+    tps = MOE_BATCH * MOE_SEQ * MOE_STEPS / wall
+    emit({"phase": "13a", "name": "bench_moe", "params_total": total,
+          "params_active": active, "params_active_bench_count":
+          bench_active, "batch": MOE_BATCH, "seq": MOE_SEQ,
+          "steps": MOE_STEPS, "setup_and_warmup_s": setup_s,
+          "wall_s": wall, "s_per_step": wall / MOE_STEPS,
+          "tokens_per_s": tps,
+          "mfu_active": tps * 6 * active / BF16_FLOPS_PER_S,
+          "mfu_active_bench_count": tps * 6 * bench_active
+          / BF16_FLOPS_PER_S,
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "losses": losses, "params_moved": moved, "launches_per_step":
+          {k: v // MOE_STEPS for k, v in launches.items()},
+          "resident_bytes": resident,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    wall_ms, per_kernel = device_kernels(lambda: step(params, ids))
+    busy = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
+    emit({"phase": "13a", "profile": "train_step", "wall_ms": wall_ms,
+          "device_busy_ms": busy, "device_busy_share": busy / wall_ms,
+          "kernels_seen": len(per_kernel),
+          "top_kernels_ms": [[nm[:80], ms] for nm, ms in top]})
+    return launches
+
+
+MOE_MODES = ("sort", "grouped", "dense")
+
+
+def phase_moe_layer(TM, GF, gen, name, tokens, E, k, D, F):
+    """13b: one MoE layer, forward + backward of ``moe_dispatch_combine``
+    (bf16 weights, f32 router) in the three dispatch modes: ms per call
+    by device time (what orders the modes) and by CUDA events (the
+    wall, which the host's eager work sets at these sizes),
+    exactly one K9 forward and backward per grouped call, and grouped
+    held against sort at capacity_factor E / top_k (nothing dropped) per
+    output row (``ROW_TOL``: the sort path's einsums round h, the bias
+    add and silu to bf16 where K9 keeps f32)."""
+    silu = torch.nn.functional.silu
+
+    def rnd(*shape, scale, dtype=torch.bfloat16):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).to(dtype)
+
+    ops = (rnd(tokens, D, scale=1.0),
+           rnd(D, E, scale=D ** -0.5, dtype=torch.float32),
+           rnd(E, D, F, scale=D ** -0.5), rnd(E, F, scale=0.1),
+           rnd(E, F, D, scale=F ** -0.5), rnd(E, D, scale=0.1))
+    ct = rnd(tokens, D, scale=1.0)
+
+    def call(mode, cf=1.25):
+        leaves = [t.detach().requires_grad_() for t in ops]
+        y, aux = TM.moe_dispatch_combine(*leaves, top_k=k,
+                                         capacity_factor=cf,
+                                         activation=silu, dispatch_mode=mode)
+        grads = torch.autograd.grad((y.float() * ct.float()).sum() + aux,
+                                    leaves)
+        return y.detach(), aux.detach(), grads
+
+    f0, b0 = GF.grouped_ffn.fwd_launches, GF.grouped_ffn.bwd_launches
+    yg, ag, _ = call("grouped")
+    torch.cuda.synchronize()
+    per_call = (GF.grouped_ffn.fwd_launches - f0,
+                GF.grouped_ffn.bwd_launches - b0)
+    require(per_call == (1, 1), f"13b {name}: K9 launches per grouped call "
+            f"{per_call} != (1, 1)")
+    ys, as_, _ = call("sort", cf=E / k)
+    rows = row_rel_err(yg, ys)
+    require(rows.max().item() <= ROW_TOL, f"13b {name}: grouped vs "
+            f"undropped sort row error {rows.max().item()} > {ROW_TOL}")
+    require(abs(float(ag) - float(as_)) <= 1e-6, f"13b {name}: aux differs")
+    ms = {mode: device_ms(lambda: call(mode), iters=5, warmup=1)
+          for mode in MOE_MODES}
+    wall = {mode: cuda_ms(lambda: call(mode), iters=5, warmup=1)
+            for mode in MOE_MODES}
+    rec = {"phase": "13b", "name": name, "tokens": tokens, "E": E,
+           "top_k": k, "D": D, "F": F, "capacity": TM._capacity(
+               tokens, k, 1.25, E, None),
+           "device_ms_fwd_bwd": ms, "wall_ms_fwd_bwd": wall,
+           "grouped_over_sort": ms["grouped"] / ms["sort"],
+           "k9_launches_per_grouped_call": list(per_call),
+           "grouped_vs_sort_max_row_rel_err": rows.max().item(),
+           "row_tol": ROW_TOL}
+    emit(rec)
+    return rec
+
+
+def phase_fused_rms_norm(RN):
+    """13c: ``incubate.nn.functional.fused_rms_norm`` with a residual,
+    forward + backward at llama3_8b width (bf16): exactly one K6 launch
+    per call; ms per call by device time and by CUDA events."""
+    from paddle_tpu_torch.incubate.nn.functional import fused_rms_norm
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    n, d = RMS_ROWS, RMS_WIDTH
+    x, res, ct = (torch.randn(n, d, device="cuda", generator=gen).bfloat16()
+                  for _ in range(3))
+    w = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).bfloat16()
+
+    def call():
+        leaves = [t.detach().requires_grad_() for t in (x, res, w)]
+        out, resid = fused_rms_norm(leaves[0], leaves[2],
+                                    residual=leaves[1])
+        return torch.autograd.grad((out.float() * ct.float()).sum(), leaves)
+
+    before = RN.rms_norm.launches
+    grads = call()
+    torch.cuda.synchronize()
+    require(RN.rms_norm.launches == before + 1,
+            "13c: one K6 launch per fused_rms_norm call")
+    require(all(bool(torch.isfinite(g.float()).all()) for g in grads),
+            "13c: gradients finite")
+    emit({"phase": "13c", "name": "fused_rms_norm", "N": n, "d": d,
+          "dtype": "bfloat16", "device_ms_fwd_bwd": device_ms(call),
+          "wall_ms_fwd_bwd": cuda_ms(call, iters=10),
+          "k6_launches_per_call": 1})
+
+
+def record_routes(TM, routes):
+    """Wrap ``distributed.moe._topk_choices`` to keep each call's expert
+    ids and f32 probabilities (on the host); returns the original."""
+    orig = TM._topk_choices
+
+    def rec(logits, top_k, train, noise_key):
+        out = orig(logits, top_k, train, noise_key)
+        routes.append((out[0].detach().cpu(),
+                       torch.softmax(logits.detach().float(), -1).cpu()))
+        return out
+
+    TM._topk_choices = rec
+    return orig
+
+
+def route_ties(card, cpu):
+    """Compare the card's and the CPU's routing call by call.  Returns
+    the ties (a token whose expert ids differ where the CPU's f32
+    probabilities of the two experts lie within ``MOE_TIE_TOL``); raises
+    on a difference that is not a tie."""
+    require(len(card) == len(cpu), "routing: call counts differ")
+    ties = []
+    for c, ((ic, _), (ip, pp)) in enumerate(zip(card, cpu)):
+        for tok in torch.nonzero((ic != ip).any(-1))[:, 0].tolist():
+            for j in torch.nonzero(ic[tok] != ip[tok])[:, 0].tolist():
+                a, b = int(ic[tok, j]), int(ip[tok, j])
+                gap = abs(float(pp[tok, a]) - float(pp[tok, b]))
+                require(gap <= MOE_TIE_TOL, f"routing differs at call {c} "
+                        f"token {tok} (experts {a} / {b}, gap {gap}): not "
+                        "a tie")
+                ties.append({"call": c, "token": tok, "choice": j,
+                             "experts": [a, b], "gap": gap})
+    return ties
+
+
+def phase_moe_parity(M, TM):
+    """14: one moe_llm training step in float32 at 2 layers of the bench
+    rung's width (batch 2 x 128), with no and with 2 shared experts, card
+    (kernels) vs CPU (plain versions) from one set of params: loss,
+    every grad and every param after the step by relative norm
+    (``PARITY_TOL``); then the grouped ``moe_dispatch_combine`` (K9 in
+    float32), its output and grads.  Routing must agree except at a tie
+    of the CPU's probabilities; a run that meets a tie names it and
+    compares nothing after it."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    for shared in (0, 2):
+        cfg = moe_bench_config(M, num_hidden_layers=2, dtype="float32",
+                               num_shared_experts=shared)
+        ids = torch.from_numpy(np.random.default_rng(9).integers(
+            0, cfg.vocab_size, (2, 129)).astype(np.int64))
+        params_cpu = M.setup(cfg, seed=1, device="cpu")
+        res, routes = {}, {}
+        for device in ("cuda", "cpu"):
+            routes[device] = []
+            orig = record_routes(TM, routes[device])
+            try:
+                params = M.tree_map(lambda t: t.to(device, copy=True),
+                                    params_cpu)
+                loss, grads = M.value_and_grad(params, ids.to(device), cfg)
+                _, params = M.build_train_step(cfg, device=device)(params,
+                                                                   ids)
+            finally:
+                TM._topk_choices = orig
+            res[device] = (loss, M.tree_leaves(grads), M.tree_leaves(params))
+        ties = route_ties(routes["cuda"], routes["cpu"])
+        (gl, gg, gp), (cl, cg, cp) = res["cuda"], res["cpu"]
+        errs = {"loss": rel_norm(gl, cl),
+                "grads": max(rel_norm(a, b) for a, b in zip(gg, cg)),
+                "params": max(rel_norm(a, b) for a, b in zip(gp, cp))}
+        emit({"phase": 14, "model": "moe_llm", "layers": 2,
+              "shared_experts": shared, "dtype": "float32",
+              "tokens": ids.shape[0] * (ids.shape[1] - 1),
+              "loss_cuda": float(gl), "loss_cpu": float(cl),
+              "rel_err": errs, "tol": PARITY_TOL, "ties": ties})
+        if not ties:
+            for key, err in errs.items():
+                require(err <= PARITY_TOL, f"14 moe_llm (shared {shared}) "
+                        f"{key}: {err} > {PARITY_TOL}")
+    # the grouped dispatch (K9, float32) on the card against the CPU
+    gen = torch.Generator().manual_seed(21)
+    s, E, D, F = 512, 8, 1024, 1408
+    ops = [torch.randn(*sh, generator=gen) * sc
+           for sh, sc in (((s, D), 1.0), ((D, E), D ** -0.5),
+                          ((E, D, F), D ** -0.5), ((E, F), 0.1),
+                          ((E, F, D), F ** -0.5), ((E, D), 0.1))]
+    ct = torch.randn(s, D, generator=gen)
+    res, routes = {}, {}
+    for device in ("cuda", "cpu"):
+        routes[device] = []
+        orig = record_routes(TM, routes[device])
+        try:
+            leaves = [t.to(device).requires_grad_() for t in ops]
+            y, aux = TM.moe_dispatch_combine(
+                *leaves, top_k=2, activation=torch.nn.functional.silu,
+                dispatch_mode="grouped")
+            grads = torch.autograd.grad((y * ct.to(device)).sum() + aux,
+                                        leaves)
+        finally:
+            TM._topk_choices = orig
+        res[device] = [y.detach(), aux.detach(), *grads]
+    ties = route_ties(routes["cuda"], routes["cpu"])
+    names = ("y", "aux", "dx", "dgate_w", "dw1", "db1", "dw2", "db2")
+    errs = {nm: rel_norm(a, b) for nm, a, b in zip(names, res["cuda"],
+                                                   res["cpu"])}
+    emit({"phase": 14, "model": "moe_dispatch_combine grouped", "tokens": s,
+          "E": E, "D": D, "F": F, "dtype": "float32", "rel_err": errs,
+          "tol": PARITY_TOL, "ties": ties})
+    if not ties:
+        for key, err in errs.items():
+            require(err <= PARITY_TOL, f"14 grouped dispatch {key}: {err}")
+
+
+def k9_entries(records, launches):
+    """The K9 entries of the kernels line: times at the bench layer
+    (records[0]), errors over every phase-3 K9 record, launches from
+    13b.  No single PyTorch call computes the fused FFN (library_ms
+    null); the yardstick is the sort path's two expert einsums."""
+    rep = records[0]
+    out = []
+    for part, line, outs, yard in (
+            ("fwd", 97, ("out",), "fwd"),
+            ("bwd", 126, ("dx", "dw1", "db1", "dw2", "db2"), "fwd_bwd")):
+        out.append({
+            "name": f"grouped_ffn_{part}", "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/grouped_ffn.cu",
+            "replaces": f"paddle_tpu/ops/pallas/grouped_ffn.py:{line}",
+            "launches": launches[f"grouped_ffn_{part}"],
+            "shape": rep["shape"],
+            "max_abs_err": max(r["max_abs_err"][o] for r in records
+                               for o in outs),
+            "max_row_rel_err": max(r["max_row_rel_err"][o] for r in records
+                                   for o in outs),
+            "ms": rep["ms"][part], "plain_ms": rep["plain_ms"][part],
+            "bound_ms": rep["bound_ms"][part],
+            "bound_by": rep["bound_by"][part], "library_ms": None,
+            "yardstick_ms": rep["yardstick_ms"][yard]})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the "
@@ -2224,15 +2904,19 @@ def main() -> int:
         return 1
     from paddle_tpu_torch.models import (GenerationConfig, LlamaConfig,
                                          init_state, llama3_8b)
+    from paddle_tpu_torch.distributed import moe as TM
     from paddle_tpu_torch.models import generation as G
     from paddle_tpu_torch.models import llama_hybrid as TH
+    from paddle_tpu_torch.models import moe_llm as M
     from paddle_tpu_torch.ops import cuda_lib
     from paddle_tpu_torch.ops.pallas import decode_attention as DA
     from paddle_tpu_torch.ops.pallas import flash_attention as FA
     from paddle_tpu_torch.ops.pallas import flash_mask as FM
+    from paddle_tpu_torch.ops.pallas import grouped_ffn as GF
     from paddle_tpu_torch.ops.pallas import lora_matmul as LM
     from paddle_tpu_torch.ops.pallas import paged_attention as PA
     from paddle_tpu_torch.ops.pallas import quant_matmul as QM
+    from paddle_tpu_torch.ops.pallas import rms_norm as RN
     from paddle_tpu_torch.serving import (AdapterStore, create_engine,
                                           quantize_state, random_adapter)
 
@@ -2276,6 +2960,11 @@ def main() -> int:
     decode = [phase_decode(DA, gen, *shape) for shape in K7_SHAPES]
     for shape in K7_SHAPES:
         phase_decode_f32(DA, *shape)
+    release()
+    k9 = [phase_k9(GF, TM, gen, *shape) for shape in K9_SHAPES]
+    release()
+    phase_k9_f32(GF, TM)
+    k6 = phase_k6(RN, gen)
     release()
     laps(3)
 
@@ -2352,6 +3041,29 @@ def main() -> int:
     release()
     laps(12)
 
+    # phase 13: the reference bench's MoE rung through moe_llm (13a), one
+    # MoE layer in the three dispatch modes (13b), fused_rms_norm (13c)
+    phase_moe_train(M, FA, GF, RN)
+    release()
+    laps("13a")
+    zero_moe_counts(FA, GF, RN)
+    for shape in MOE_LAYER_SHAPES:
+        phase_moe_layer(TM, GF, gen, *shape)
+        release()
+    k9_launches = {"grouped_ffn_fwd": GF.grouped_ffn.fwd_launches,
+                   "grouped_ffn_bwd": GF.grouped_ffn.bwd_launches}
+    laps("13b")
+    zero_moe_counts(FA, GF, RN)
+    phase_fused_rms_norm(RN)
+    k6_launches = RN.rms_norm.launches
+    release()
+    laps("13c")
+
+    # phase 14: MoE training and the grouped dispatch, card vs CPU
+    phase_moe_parity(M, TM)
+    release()
+    laps(14)
+
     rep = masked[1]     # the 2048 bucket: the longest prompts of phase 4
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
@@ -2390,7 +3102,15 @@ def main() -> int:
                    modes["8a"]["lora_gather_matmul"],
                    next(r for r in lora if r["shape"] == "gate/up")),
         *k8_entries(k8, k8_launches),
-        decode_entry(decode, decode_launches["decode_attention"])]})
+        decode_entry(decode, decode_launches["decode_attention"]),
+        *k9_entries(k9, k9_launches),
+        {"name": "rms_norm", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/rms_norm.cu",
+         "replaces": "paddle_tpu/ops/pallas/rms_norm.py:24",
+         "launches": k6_launches, "shape": k6["shape"],
+         "max_abs_err": k6["max_abs_err"],
+         "max_row_rel_err": k6["max_row_rel_err"],
+         **{k: k6[k] for k in keys}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

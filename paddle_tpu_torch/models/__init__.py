@@ -1,7 +1,9 @@
-"""Models of the port: Llama config, layer math, model state and
-one-shot generation."""
+"""Models of the port: Llama config, layer math, model state, one-shot
+generation; the MoE model is ``models.moe_llm``."""
 from .convert import (hybrid_params_from_numpy,  # noqa: F401
-                      hybrid_params_to_numpy, init_state, state_from_numpy)
+                      hybrid_params_to_numpy, init_state,
+                      moe_params_from_numpy, moe_params_to_numpy,
+                      state_from_numpy)
 from .generation import (GenerationConfig, build_generate_fn,  # noqa: F401
                          build_generate_fn_beam, build_generate_fn_paged,
                          generate)

@@ -10,7 +10,10 @@ param tree (``models/llama_hybrid.py``) is ``{"embed", "stages",
 carry it to and from the reference's stage-stacked tree.  A quantized
 serving leaf is a :class:`~paddle_tpu_torch.ops.pallas.quant_matmul.
 QuantizedWeight`; :func:`adapter_from_numpy` carries the reference's
-LoRA adapter dicts over.
+LoRA adapter dicts over.  An MoE param tree (``models/moe_llm.py``) is
+``{"embed", "layers", "norm", "head"}`` with one dict per layer in
+``layers``; :func:`moe_params_from_numpy` and :func:`moe_params_to_numpy`
+carry it to and from the reference's ``[L, ...]``-stacked tree.
 """
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ from ..ops.pallas.quant_matmul import QuantizedWeight
 from .llama import LlamaConfig
 
 __all__ = ["adapter_from_numpy", "hybrid_params_from_numpy",
-           "hybrid_params_to_numpy", "init_state", "state_from_numpy"]
+           "hybrid_params_to_numpy", "init_state", "moe_params_from_numpy",
+           "moe_params_to_numpy", "state_from_numpy"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -148,5 +152,42 @@ def hybrid_params_to_numpy(tree: dict) -> dict:
     keys = tree["stages"][0].keys()
     return {"embed": conv(tree["embed"]),
             "stages": {k: np.stack([conv(lp[k]) for lp in tree["stages"]])[None]
+                       for k in keys},
+            "norm": conv(tree["norm"]), "head": conv(tree["head"])}
+
+
+def moe_params_from_numpy(np_tree: dict, device=None, dtype=None) -> dict:
+    """The reference ``moe_llm.init_params`` tree as numpy (layer leaves
+    stacked ``[L, ...]``) -> the port's tree, one owned tensor per layer
+    weight, on ``device`` (default CUDA).  ``dtype`` casts every float
+    leaf but the router ``gate``, which stays float32 as in the
+    reference."""
+    dev = resolve_device(device)
+
+    def conv(a, key=None):
+        t = _to_tensor(a)
+        if dtype is not None and t.is_floating_point() and key != "gate":
+            t = t.to(dtype)
+        return t.to(dev)
+
+    layers = {k: np.asarray(a) for k, a in np_tree["layers"].items()}
+    n_layers = next(iter(layers.values())).shape[0]
+    return {"embed": conv(np_tree["embed"]),
+            "layers": [{k: conv(a[i], k) for k, a in layers.items()}
+                       for i in range(n_layers)],
+            "norm": conv(np_tree["norm"]), "head": conv(np_tree["head"])}
+
+
+def moe_params_to_numpy(tree: dict) -> dict:
+    """The inverse of :func:`moe_params_from_numpy`: numpy arrays with
+    layer leaves stacked to ``[L, ...]`` (bf16 tensors come out as
+    float32, which holds them exactly).  Also takes a grads tree."""
+    def conv(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    keys = tree["layers"][0].keys()
+    return {"embed": conv(tree["embed"]),
+            "layers": {k: np.stack([conv(lp[k]) for lp in tree["layers"]])
                        for k in keys},
             "norm": conv(tree["norm"]), "head": conv(tree["head"])}

@@ -24,7 +24,8 @@ __all__ = ["BUILD_DIR", "SOURCES", "build", "build_log", "check",
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("paged_attention", "flash_mask", "flash_attention",
-           "quant_matmul", "lora_matmul", "decode_attention")
+           "quant_matmul", "lora_matmul", "decode_attention", "grouped_ffn",
+           "rms_norm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -33,6 +33,18 @@ bias in the bf16 cases, so the dbias kernel's f32 accumulator for a
 broadcast bias runs too), over ragged lengths, GQA, nvec 2 and 4 and
 every bias broadcast shape, with their launch counters.
 
+The grouped expert FFN (K9, forward and backward) is held to its plain
+versions in float32 (1e-5 relative to each output's largest entry: f32
+sums over D, F or an expert's rows in another order) and bf16 per row
+(2^-7: both sides round h and ds to bf16 from f32 sums taken in another
+order, which flips a last bit now and then, and round each output
+once), plain and gated, with an expert that owns no tile, trailing
+padding tiles and float32 biases beside bf16 weights; a tile pointed at
+the next expert must fail the check.  RMSNorm (K6) is held to its plain
+version per row (float32 1e-5 absolute on O(1) entries, bf16 and fp16
+2^-7: one rounding of the output each) with a planted fault (the weight
+read one column off).
+
 The dense-cache decode attention (K7) is held to its plain version the
 same way as K3 (float32 1e-5 absolute, bf16 2^-6 per row) at the two
 shapes of ``chip_smoke.py`` phase 3 (the bench's decode shape and the
@@ -47,9 +59,11 @@ import torch
 from paddle_tpu_torch.ops.pallas import decode_attention as DA
 from paddle_tpu_torch.ops.pallas import flash_attention as FA
 from paddle_tpu_torch.ops.pallas import flash_mask as FM
+from paddle_tpu_torch.ops.pallas import grouped_ffn as GF
 from paddle_tpu_torch.ops.pallas import lora_matmul as LM
 from paddle_tpu_torch.ops.pallas import paged_attention as PA
 from paddle_tpu_torch.ops.pallas import quant_matmul as QM
+from paddle_tpu_torch.ops.pallas import rms_norm as RN
 
 pytestmark = pytest.mark.cuda
 F32_TOL = 1e-5
@@ -637,3 +651,190 @@ def test_decode_wrapper_rejects(gen):
     with pytest.raises(ValueError, match="contiguous"):
         DA.decode_attention(q, k.transpose(2, 3).contiguous()
                             .transpose(2, 3), v, pos)
+
+
+# ------------------------------------------------------- K9 grouped FFN
+GFFN_ROW_TOL = 2 ** -7
+
+
+def _gffn_inputs(gen, dt, bdt, e, d, f, dout, emap, gated):
+    r = len(emap) * GF.TILE
+    f2 = 2 * f if gated else f
+
+    def rnd(*shape, dtype=dt, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).to(dtype)
+
+    return (rnd(r, d), rnd(e, d, f2, scale=d ** -0.5), rnd(e, f2, dtype=bdt),
+            rnd(e, f, dout, scale=f ** -0.5), rnd(e, dout, dtype=bdt),
+            torch.tensor(emap, dtype=torch.int32, device="cuda"),
+            rnd(r, dout))
+
+
+def _gffn_run(x, w1, b1, w2, b2, emap, dy, gated):
+    """(out, dx, dw1, db1, dw2, db2) through the kernels (autograd)."""
+    leaves = [t.detach().requires_grad_() for t in (x, w1, b1, w2, b2)]
+    out = GF.grouped_ffn(*leaves[:3], *leaves[3:], emap, gated)
+    grads = torch.autograd.grad(out, leaves, dy)
+    return (out.detach(), *grads)
+
+
+def _gffn_plain(x, w1, b1, w2, b2, emap, dy, gated):
+    out = GF.grouped_ffn_xla(x, w1, b1, w2, b2, emap, gated)
+    return (out, *GF._plain_bwd(x, dy, w1, b1, w2, b2.dtype, emap, gated))
+
+
+def _gffn_errs(got, want, dt):
+    """Per-output errors: f32, max |diff| / max |want|; bf16, per row."""
+    out = []
+    for g, w in zip(got, want):
+        if dt == torch.float32:
+            scale = max(w.abs().max().item(), 1e-30)
+            out.append((g.float() - w.float()).abs().max().item() / scale)
+        else:
+            g2, w2 = g.reshape(-1, g.shape[-1]), w.reshape(-1, w.shape[-1])
+            out.append(_grad_row_err(g2, w2).max().item())
+    return out
+
+
+# (E, D, F, D', emap): an expert that owns no tile (2), trailing padding
+# tiles clipped to E - 1, ragged column blocks (F 200, D' 136)
+GFFN_CASES = {
+    "ragged": (4, 128, 200, 136, [0, 0, 1, 3, 3, 3]),
+    "bench_width": (8, 1024, 1408, 1024, [0, 1, 1, 2, 4, 5, 6, 7, 7]),
+}
+
+
+@pytest.mark.parametrize("dt,bdt", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("gated", [False, True])
+@pytest.mark.parametrize("case", sorted(GFFN_CASES))
+def test_grouped_ffn_kernels_match_plain(gen, dt, bdt, gated, case):
+    e, d, f, dout, emap = GFFN_CASES[case]
+    args = _gffn_inputs(gen, dt, bdt, e, d, f, dout, emap, gated)
+    fwd0, bwd0 = GF.grouped_ffn.fwd_launches, GF.grouped_ffn.bwd_launches
+    got = _gffn_run(*args, gated)
+    torch.cuda.synchronize()
+    assert (GF.grouped_ffn.fwd_launches, GF.grouped_ffn.bwd_launches) == (
+        fwd0 + 1, bwd0 + 1)
+    want = _gffn_plain(*args, gated)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+    tol = 1e-5 if dt == torch.float32 else GFFN_ROW_TOL
+    errs = _gffn_errs(got, want, dt)
+    assert max(errs) <= tol, errs
+    # the expert with no tile gets exact zeros
+    if case == "ragged":
+        for g in got[2:]:
+            assert not g[2].float().abs().any()
+
+
+def test_grouped_ffn_check_catches_a_misrouted_tile(gen):
+    """Tile 3 pointed at the next expert: its rows of out and dx, and the
+    gradient rows of both experts, must fail the bf16 check."""
+    e, d, f, dout, emap = GFFN_CASES["bench_width"]
+    x, w1, b1, w2, b2, em, dy = _gffn_inputs(
+        gen, torch.bfloat16, torch.bfloat16, e, d, f, dout, emap, False)
+    want = _gffn_plain(x, w1, b1, w2, b2, em, dy, False)
+    bad = em.clone()
+    bad[3] += 1          # expert 2's only tile computed as expert 3's
+    got = _gffn_run(x, w1, b1, w2, b2, bad, dy, False)
+    rows = slice(3 * GF.TILE, 4 * GF.TILE)
+    for g, w in zip(got[:2], want[:2]):
+        assert bool((_row_rel_err(g[rows], w[rows]) > GFFN_ROW_TOL).all())
+    for g, w in zip(got[2:], want[2:]):
+        for ex in (2, 3):
+            err = _grad_row_err(g[ex].reshape(-1, g.shape[-1]),
+                                w[ex].reshape(-1, w.shape[-1]))
+            assert bool((err > GFFN_ROW_TOL).all())
+
+
+def test_grouped_ffn_wrapper_rejects(gen):
+    x, w1, b1, w2, b2, em, _ = _gffn_inputs(
+        gen, torch.float32, torch.float32, 2, 64, 64, 64, [0, 1], False)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        GF.grouped_ffn(x[:200].contiguous(), w1, b1, w2, b2, em)
+    with pytest.raises(TypeError, match="int32"):
+        GF.grouped_ffn(x, w1, b1, w2, b2, em.long())
+    with pytest.raises(TypeError):
+        GF.grouped_ffn(x.bfloat16(), w1, b1, w2, b2, em)
+    with pytest.raises(ValueError, match="shapes"):
+        GF.grouped_ffn(x, w1, b1, w2, b2, em, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        GF.grouped_ffn(x, w1.transpose(1, 2).contiguous().transpose(1, 2),
+                       b1, w2, b2, em)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        GF.grouped_ffn(x[:, :60].contiguous(), w1[:, :60].contiguous(), b1,
+                       w2, b2, em)
+
+
+def test_grouped_dispatch_matches_undropped_sort(gen):
+    """moe_dispatch_combine: the grouped mode (K9) against the sort mode
+    at capacity_factor E / top_k (nothing dropped), float32, with grads."""
+    from paddle_tpu_torch.distributed.moe import moe_dispatch_combine
+    s, m, f, e = 300, 128, 256, 8
+    x = torch.randn(s, m, device="cuda", generator=gen)
+    ws = [torch.randn(*shape, device="cuda", generator=gen) * sc
+          for shape, sc in (((m, e), 1.0), ((e, m, f), m ** -0.5),
+                            ((e, f), 0.1), ((e, f, m), f ** -0.5),
+                            ((e, m), 0.1))]
+    outs = {}
+    for mode in ("sort", "grouped"):
+        leaves = [t.clone().requires_grad_() for t in (x, *ws)]
+        y, aux = moe_dispatch_combine(
+            *leaves, top_k=2, capacity_factor=e / 2,
+            activation=torch.nn.functional.silu, dispatch_mode=mode)
+        grads = torch.autograd.grad((y.square().sum() + aux), leaves)
+        outs[mode] = (y.detach(), *grads)
+    for g, w in zip(outs["grouped"], outs["sort"]):
+        scale = w.abs().max().item()
+        assert (g - w).abs().max().item() <= 1e-5 * scale
+
+
+# ------------------------------------------------------------ K6 RMSNorm
+@pytest.mark.parametrize("dt,wdt", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32),
+                                    (torch.float16, torch.float16)])
+@pytest.mark.parametrize("n,d", [(384, 4096), (5, 128), (64, 2048)])
+def test_rms_norm_kernel_matches_plain(gen, dt, wdt, n, d):
+    x = torch.randn(n, d, device="cuda", generator=gen).to(dt)
+    w = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).to(wdt)
+    before = RN.rms_norm.launches
+    out = RN.rms_norm(x, w)
+    torch.cuda.synchronize()
+    assert RN.rms_norm.launches == before + 1
+    ref = RN._plain_rms(x, w, 1e-6)
+    assert out.dtype == dt
+    if dt == torch.float32:
+        assert (out - ref).abs().max().item() <= 1e-5
+    else:
+        assert _row_rel_err(out, ref).max().item() <= 2 ** -7
+
+
+def test_rms_norm_check_catches_a_shifted_weight(gen):
+    x = torch.randn(384, 4096, device="cuda", generator=gen).bfloat16()
+    w = (1 + 0.5 * torch.randn(4096, device="cuda", generator=gen)).bfloat16()
+    ref = RN._plain_rms(x, w, 1e-6)
+    out = RN.rms_norm(x, torch.roll(w, 1))
+    assert bool((_row_rel_err(out, ref) > 2 ** -7).all())
+
+
+def test_rms_norm_routes_and_rejects(gen):
+    x = torch.randn(8, 96, device="cuda", generator=gen).bfloat16()
+    w = torch.ones(96, device="cuda", dtype=torch.float32)
+    before = RN.rms_norm.launches
+    out = RN.rms_norm(x, w)       # d % 128: the reference's plain body
+    assert RN.rms_norm.launches == before
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, RN._xla_rms(x, w, 1e-6), atol=0, rtol=0)
+    with pytest.raises(ValueError, match="weight"):
+        RN._kernel(torch.randn(4, 128, device="cuda"),
+                   torch.ones(64, device="cuda"), 1e-6)
+    with pytest.raises(TypeError):
+        RN._kernel(torch.randn(4, 128, device="cuda").double(),
+                   torch.ones(128, device="cuda"), 1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        RN._kernel(torch.randn(128, 4, device="cuda").T,
+                   torch.ones(128, device="cuda"), 1e-6)

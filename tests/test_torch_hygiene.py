@@ -46,7 +46,12 @@ def test_import_leaves_jax_unloaded():
             "paddle_tpu_torch.nn.functional_extra2, "
             "paddle_tpu_torch.serving.parallel.layers, "
             "paddle_tpu_torch.ops.pallas.decode_attention, "
-            "paddle_tpu_torch.models.generation; "
+            "paddle_tpu_torch.models.generation, "
+            "paddle_tpu_torch.models.moe_llm, "
+            "paddle_tpu_torch.distributed.moe, "
+            "paddle_tpu_torch.ops.pallas.grouped_ffn, "
+            "paddle_tpu_torch.ops.pallas.rms_norm, "
+            "paddle_tpu_torch.incubate.nn.functional; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -87,6 +92,15 @@ def test_entry_points_default_to_cuda():
         with pytest.raises(RuntimeError, match="CUDA"):
             generate(state, cfg, np.zeros((1, 4), np.int64),
                      max_new_tokens=2, **kw)
+    # MoE training too
+    from paddle_tpu_torch.models import moe_llm
+    mcfg = moe_llm.moe_tiny()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        moe_llm.setup(mcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        moe_llm.init_params(mcfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        moe_llm.build_train_step(mcfg)
     # the CPU is taken only when asked for
     engine = create_engine(cfg, state, device="cpu", max_model_len=32)
     assert engine.device.type == "cpu"
