@@ -114,10 +114,12 @@ no CUDA ``_weight_int8pack_mm``):
 Every phase prints its wall seconds.
 
 Phase 3 also holds the flash-attention kernels (K1 forward, K2 dq and
-dk/dv) to their plain versions in bf16 at four shapes (the training
-shape, llama3_8b widths, a ragged sq > sk case and seq 8192), per row of
-out, dq, dk and dv, with the same kind of planted fault (the kernels
-told 64 keys fewer than there are); and the weight-only GEMV (K4, int8
+dk/dv; in bf16 the Hopper kernels of ``csrc/flash_sm90.cuh``: wgmma,
+a TMA ring, register accumulators) to their plain versions in bf16 at
+five shapes (the training shape, llama3_8b widths, a ragged sq > sk
+case, seq 8192 and 13a's MoE rung), per row of out, dq, dk and dv, with
+the same kind of planted fault (the kernels told 64 keys fewer than
+there are); and the weight-only GEMV (K4, int8
 and int4) and the gather-LoRA matmul (K5) at the llama3_8b decode
 projection shapes, per output row (<= 2^-7), each with a planted fault
 (int8: the last 64 K rows of q zeroed; int4: nibbles swapped; K5: every
@@ -301,15 +303,15 @@ PAGED_SHAPES = (
 )
 # the K8 forward in phase 3 (name, B, H, kvH, S, lengths, yardsticks):
 # phase 4's prefill buckets (one prompt each), then the prompt prefills
-# of 11a, 11b and 11c (at 11c's size the plain version's and the
-# library call's times are not taken)
+# of 11a, 11b and 11c (at 11c's size the plain version's time is not
+# taken, and the library call gets k/v repeated to the q heads)
 MASKED_SHAPES = (
     ("serve_512", 1, 32, 8, 512, (448,), True),
     ("serve_2048", 1, 32, 8, 2048, (1900,), True),
     ("serve_6144", 1, 32, 8, 6144, (5000,), True),
     ("bench_decode", 8, 16, 16, DECODE_PROMPT, (DECODE_PROMPT,) * 8, True),
     ("bench_paged", 8, 16, 16, PAGED_PROMPT, PAGED_LENGTHS, True),
-    ("long_decode", 8, 32, 8, LONG_PROMPT, (LONG_PROMPT,) * 8, False),
+    ("long_decode", 8, 32, 8, LONG_PROMPT, (LONG_PROMPT,) * 8, "library"),
 )
 
 
@@ -546,8 +548,12 @@ def phase_masked(FM, gen, name, B, H, kvh, S, lengths, yardsticks):
     right-padded to S with ``lengths`` real tokens, causal + key
     padding, q/k/v as the transposed [B, S, H, D] views the dispatcher
     passes.  The plain version runs one prompt at a time (its f32 score
-    matrix is [H, S, S] then).  Without ``yardsticks`` the plain
-    version's and the library's times are not taken."""
+    matrix is [H, S, S] then).  ``yardsticks`` True times the plain
+    version and the library call; ``"library"`` the library call alone,
+    with k/v repeated to the q heads outside the timed call, on the
+    memory-efficient backend (with ``enable_gqa`` and a mask,
+    ``scaled_dot_product_attention`` takes its math path, whose [B, H, S,
+    S] scores do not fit at 11c's size)."""
     dev, dt, D = "cuda", torch.bfloat16, 128
     q = torch.randn(B, S, H, D, device=dev, generator=gen).to(dt)
     k = torch.randn(B, S, kvh, D, device=dev, generator=gen).to(dt)
@@ -586,14 +592,24 @@ def phase_masked(FM, gen, name, B, H, kvh, S, lengths, yardsticks):
     ms = cuda_ms(lambda: FM.flash_mha_masked(qh, kh, vh, vecs, True, scale))
     plain_ms = library_ms = None
     if yardsticks:
-        plain_ms = cuda_ms(
-            lambda: FM.flash_mha_masked_xla(qh, kh, vh, vecs, True, scale),
-            iters=3, warmup=1)
         dense = (torch.ones(S, S, dtype=torch.bool, device=dev).tril()
                  [None] & keep[:, None, :])[:, None]
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        library_ms = cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=dense,
-                                          scale=scale, enable_gqa=True))
+        if yardsticks is True:
+            plain_ms = cuda_ms(
+                lambda: FM.flash_mha_masked_xla(qh, kh, vh, vecs, True,
+                                                scale),
+                iters=3, warmup=1)
+            library_ms = cuda_ms(lambda: sdpa(qh, kh, vh, attn_mask=dense,
+                                              scale=scale, enable_gqa=True))
+        else:
+            from torch.nn.attention import SDPBackend, sdpa_kernel
+            kr, vr = (t.repeat_interleave(H // kvh, dim=1) for t in (kh, vh))
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                library_ms = cuda_ms(lambda: sdpa(
+                    qh, kr, vr, attn_mask=dense, scale=scale))
+            del kr, vr
+        del dense
     # visible (query, key) pairs: row i sees keys <= i that are real
     pairs = sum(int(np.minimum(np.arange(S) + 1, n).sum()) for n in lengths)
     item = q.element_size()
@@ -1577,10 +1593,17 @@ def profile_train(step, params, opt, ids, phase=6):
                                    + ev.time_range.elapsed_us() / 1e3)
     groups = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
               "matmul": 0.0, "other": 0.0}
+    # K1/K2 by kernel name: the bf16 kernels of flash_sm90.cuh, the f32
+    # ones of flash_attention.cu ("sm90" alone marks a cuBLAS GEMM)
+    flash = {"flash_fwd": ("flash_sm90::fwd_kernel", "flash_fwd_kernel"),
+             "flash_bwd_dq": ("flash_sm90::dq_kernel",
+                              "flash_bwd_dq_kernel"),
+             "flash_bwd_dkv": ("flash_sm90::dkv_kernel",
+                               "flash_bwd_dkv_kernel")}
     for name, ms in per_kernel.items():
         low = name.lower()
-        for key in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-            if key + "_kernel" in low:
+        for key, marks in flash.items():
+            if any(m in low for m in marks):
                 groups[key] += ms
                 break
         else:
@@ -2259,7 +2282,7 @@ def flash_entries(flash, launches):
     The K2 entries' library time is one forward + backward of
     scaled_dot_product_attention (it computes dq, dk and dv together)."""
     train = flash[0]
-    src = "paddle_tpu_torch/csrc/flash_attention.cu"
+    src = "paddle_tpu_torch/csrc/flash_sm90.cuh"     # the bf16 kernels
     ref = "paddle_tpu/ops/pallas/flash_attention.py"
     out = []
     for name, part, line, errs, lib in (

@@ -21,6 +21,11 @@
 // visibility test written other than as a select before the exp cost
 // them 4-6 %.
 //
+// These bodies run every float32 flash kernel (K1/K2 and K8) and the
+// bf16 K8 kernels; the bf16 K1/K2 kernels have their own Hopper bodies
+// in flash_sm90.cuh (wgmma, a TMA ring, register accumulators), which
+// is where the K8 modes go when K8 is redesigned.
+//
 // The simple design, and what it leaves for later:
 //   * 4 warps per CTA; 64-row tiles staged in shared memory with plain
 //     16-byte loads (no cp.async/TMA, no double buffering);

@@ -1,0 +1,1010 @@
+// Flash attention K1 (forward) and K2 (dq, dk/dv) for Hopper: the bf16
+// instances behind flash_attention_fwd, flash_attention_bwd_dq and
+// flash_attention_bwd_dkv (flash_attention.cu).  The float32 instances
+// and every K8 kernel keep the WMMA bodies of flash_common.cuh.
+//
+// Each kernel computes what its TPU kernel computes
+// (paddle_tpu/ops/pallas/flash_attention.py _fwd_kernel :523,
+// _bwd_dq_kernel :925, _bwd_dkv_kernel :960), with the numerics listed
+// in flash_attention.cu, and is built the FlashAttention-3 way
+// (Shah et al., 2024):
+//   * warp specialisation: warpgroup 0 is the producer (one thread
+//     issues TMA loads; setmaxnreg gives its registers away), the other
+//     warpgroups are consumers, each owning 64 rows of the CTA's tile;
+//   * every tile comes in by TMA (4-D tensor maps over the [B, H, S, D]
+//     strided views, 128-byte swizzle, zero fill past S) into a
+//     two-stage ring guarded by full/empty mbarriers, so loads overlap
+//     the products;
+//   * every product is a wgmma with its f32 accumulator in registers:
+//     Q.K^T and dO.V^T read both operands from shared memory (K-major);
+//     P.V, dS.K, P^T.dO and dS^T.Q take P or dS as the register A
+//     operand straight from the score accumulator (rounded to bf16 in
+//     registers) and V, K, dO or Q as an MN-major B (the transpose bit);
+//     no score or accumulator tile passes through shared memory;
+//   * softmax on the accumulator registers: scale * log2(e) folded into
+//     one multiply, exp2f, row max by __shfl_xor_sync over the quad;
+//   * the visibility test is one function of (query row, key column),
+//     visible<kMode>(), applied only to key blocks that cross the
+//     bottom-right aligned diagonal or the Sk edge;
+//   * no float atomics: each output element is written by one CTA and
+//     every sum is taken in a fixed order, so runs repeat bit for bit.
+//
+// Kernels:
+//   * forward: one CTA per (128-row query block, q head, batch), 3
+//     warpgroups; Q resident, 128-key K and V tiles in the ring (160 KB
+//     of shared memory); O (64 x 128 f32 per warpgroup) stays in
+//     registers until the epilogue divides by l and stores it;
+//   * dq: one CTA per (128-row query block, q head, batch), 3
+//     warpgroups; a prologue takes delta = rowsum(out * dout) in f32 and
+//     writes it out for the dk/dv kernel; Q and dO resident, 64-key K
+//     and V tiles in the ring; per tile S = Q.K^T, dP = dO.V^T, then
+//     dQ += dS.K;
+//   * dk/dv: one CTA per (128-key block, kv head, batch), 3
+//     warpgroups, each consumer owning 64 keys; K and V resident, 64-row
+//     Q and dO tiles (with their lse and delta rows) in the ring, over
+//     the GQA group's q heads and each head's query blocks from the
+//     causal lower bound; per tile S^T = K.Q^T, dP^T = V.dO^T, then dV +=
+//     P^T.dO and dK += dS^T.Q; the group's sums stay in f32 registers and
+//     are rounded once.  Its 128 accumulator registers plus the 64 of
+//     S^T and dP^T do not fit in 240 without ptxas spilling ~400 bytes
+//     and serialising some wgmma.  64-key CTAs, two per SM at 232
+//     registers (so that llama3_8b's 8 kv heads give 256 CTAs for the
+//     132 SMs, not 128), spilled more and ran slower at every row of
+//     tools/flash_ab.py, llama3_8b's included (NVIDIA H100 80GB HBM3,
+//     700 W: 1.60 against 1.20 ms at b 8, h 16, s 2048; 0.66 against
+//     0.52 at llama3_8b's b 1, h 32/8, s 2048).
+// Causal grids launch the heaviest blocks first: the query-block
+// kernels take block x from the end, the dk/dv kernel's key block 0
+// (which every query sees) is first already.
+//
+// Bounds on the H100 (989 TFLOP/s bf16): operations.  At the training
+// shape (b 8, h 16, s 2048, d 128, causal: 268.6 M visible pairs) the
+// forward does 4 * pairs * D = 137.5 GFLOP (0.139 ms), dq 6 * pairs * D
+// (0.209 ms), dk/dv 8 * pairs * D (0.278 ms).
+//
+// Left for later: overlapping one warpgroup's softmax with its next
+// wgmma (two score buffers; issuing S of the next key block before P.V
+// of this one, as written here, spilled and ran slower) and pingpong
+// scheduling between the consumer warpgroups; persistent CTAs with a
+// tile scheduler; TMA stores of the outputs; fp8.
+#pragma once
+
+#include <cuda.h>   // CUtensorMap (the encoder comes from the runtime's
+                    // driver entry point: no -lcuda)
+
+#include "flash_common.cuh"
+
+namespace flash_sm90 {
+
+using flash::kLseInvalid;
+using flash::Mode;
+using flash::Params;
+
+constexpr int D = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// ---------------------------------------------------------------- PTX
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Arrive and expect ``bytes`` more from asynchronous copies.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// Wait until the phase of ``parity`` has completed.  A ring that never
+// fills (a fault in this file) traps after ~2^32 cycles, so it ends as
+// a launch error instead of a hung card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(bar, parity))
+    if (clock64() - t0 > (1LL << 32)) __trap();
+}
+
+// One 64-column box (128 bytes of bf16, the swizzle's span) of rows
+// [row, row + box rows) of head h, batch b, columns [col, col + 64).
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
+                                        uint32_t bar, int col, int row, int h,
+                                        int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row),
+      "r"(h), "r"(b)
+      : "memory");
+}
+
+// A [rows, 128] tile as two 64-column panels, panel 1 at rows * 128
+// bytes: both boxes complete on ``bar``.
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int row, int h, int b,
+                                         int rows) {
+  tma_box(dst, map, bar, 0, row, h, b);
+  tma_box(dst + rows * 128, map, bar, 64, row, h, b);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads of an accumulator above the
+// wgmma.wait_group that completes it.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void consumer_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+}
+
+// wgmma shared-memory descriptors, 128-byte swizzle (layout type 1);
+// addresses and offsets in 16-byte units.  K-major: 8-row groups 1024
+// bytes apart (SBO), LBO unused.  MN-major: 64-element panels
+// ``panel`` bytes apart (LBO), 8-row groups along K 1024 bytes apart.
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr, uint32_t panel) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(panel >> 4) << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d[64] (+)= A . B^T, m64n128k16: A [64, 16] and B [128, 16] both in
+// shared memory, K-major (128-byte swizzle); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                        uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[32] (+)= A . B^T, m64n64k16: A [64, 16] and B [64, 16] both in
+// shared memory, K-major (128-byte swizzle); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                        uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64] += A . B, m64n128k16: A [64, 16] bf16 in registers (the
+// accumulator layout of a score tile, packed in pairs), B [16, 128] in
+// shared memory, MN-major (128-byte swizzle, the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
+                                        uint32_t a1, uint32_t a2,
+                                        uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// Add N (16-byte units) to the address field of a wgmma descriptor, in
+// program order between the steps of a product, so that a product holds
+// two descriptors live.
+template <int N>
+__device__ __forceinline__ void advance(uint64_t& desc) {
+  asm volatile("add.s64 %0, %0, %1;\n" : "+l"(desc) : "n"(N));
+}
+
+// d (+)= A . B^T over the 128 head-dim columns (eight k16 steps; the
+// first overwrites d): A and B K-major tiles of AR and BR rows (two
+// swizzled panels each), at shared addresses a and b.
+template <int AR, int BR, int N>
+__device__ __forceinline__ void gemm_abt(float (&d)[N], uint32_t a,
+                                         uint32_t b) {
+  uint64_t da = desc_k(a), db = desc_k(b);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_ss(d, da, db, kk);
+    if (kk == 3) {               // from column 48 of panel 0 to panel 1
+      advance<(AR * 128 - 96) / 16>(da);
+      advance<(BR * 128 - 96) / 16>(db);
+    } else if (kk < D / 16 - 1) {
+      advance<2>(da);
+      advance<2>(db);
+    }
+  }
+}
+
+// d += A . B: A from a score accumulator s in registers (STEPS k16
+// steps, rounded to bf16 as each step is issued), B an MN-major tile of
+// 16 STEPS rows by 128 columns at shared address b, its two panels ROWS
+// rows apart.  In the m64nN accumulator layout thread (g = lane / 4, t =
+// lane % 4) of warp w holds rows 16 w + g (+ 8), columns 8 j + 2 t (+ 1)
+// in s[4 j .. 4 j + 3], which are the rows and columns that the A
+// operand of a k16 step wants of it: step kk packs s[8 kk .. 8 kk + 7].
+template <int STEPS, int ROWS>
+__device__ __forceinline__ void gemm_rs(float (&d)[64],
+                                        const float (&s)[8 * STEPS],
+                                        uint32_t b) {
+  uint64_t db = desc_mn(b, ROWS * 128);
+#pragma unroll
+  for (int kk = 0; kk < STEPS; ++kk) {
+    const float* a = s + 8 * kk;
+    wgmma_rs_n128(d, pack_bf16(a[0], a[1]), pack_bf16(a[2], a[3]),
+                  pack_bf16(a[4], a[5]), pack_bf16(a[6], a[7]), db);
+    if (kk < STEPS - 1) advance<16 * 128 / 16>(db);
+  }
+}
+
+// ------------------------------------------------------------ visibility
+struct Vis {
+  int sk;
+  int diag;     // Sk - Sq: causal row q sees keys <= q + diag
+  int causal;
+};
+
+// Whether query row q sees key k: kPlain (K1/K2) is "below Sk and,
+// causal, at or left of the bottom-right aligned diagonal".  The one
+// place where a further mode adds its own test.
+template <Mode kMode>
+__device__ __forceinline__ bool visible(int q, int k, const Vis& v) {
+  static_assert(kMode == flash::kPlain, "only kPlain is instantiated");
+  return k < v.sk && (!v.causal || k <= q + v.diag);
+}
+
+// Whether every key of [k0, k0 + n) is visible to every row from q0 on
+// (row q0 sees the fewest), so the block needs no test.
+__device__ __forceinline__ bool all_visible(int q0, int k0, int n,
+                                            const Vis& v) {
+  return k0 + n <= v.sk && (!v.causal || k0 + n - 1 <= q0 + v.diag);
+}
+
+// Key blocks of width n that rows [q0, q0 + rows) reach.
+__device__ __forceinline__ int key_blocks(int q0, int rows, int n,
+                                          const Vis& v) {
+  const int nblk = (v.sk + n - 1) / n;
+  if (!v.causal) return nblk;
+  const int last = q0 + rows - 1 + v.diag;
+  return last < 0 ? 0 : min(last / n + 1, nblk);
+}
+
+__device__ __forceinline__ unsigned char* align_smem(unsigned char* raw,
+                                                     uint32_t* base) {
+  const uint32_t r = smem_u32(raw);
+  *base = (r + 1023u) & ~1023u;
+  return raw + (*base - r);
+}
+
+// Store the thread's two rows of a 64 x 128 f32 accumulator (times
+// ``mul``), as bf16, to rows row and row + 8 of ``dst`` (row stride
+// ``rs``), skipping rows >= n.
+__device__ __forceinline__ void store_rows(const float (&acc)[64],
+                                           __nv_bfloat16* dst, long long rs,
+                                           int row, int n, int t,
+                                           const float (&mul)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row + 8 * r >= n) continue;
+    __nv_bfloat16* d = dst + (long long)(row + 8 * r) * rs + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<uint32_t*>(d + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * r] * mul[r], acc[4 * j + 2 * r + 1] * mul[r]);
+  }
+}
+
+// ------------------------------------------------------------- forward
+// Fold one key block (first key k0) of a 64 x 128 score tile into the
+// online softmax of rows ``row`` and ``row`` + 8: mask it where
+// ``masked``, update m (log2 units) and l, turn the scores into p in
+// place and return each row's rescale factor in alpha.  A row that has
+// seen no visible key keeps m = -inf, takes alpha = 1 and m as 0 (its p
+// are all 0).
+template <Mode kMode>
+__device__ __forceinline__ void softmax_block(float (&sc)[64], int row, int t,
+                                              int k0, bool masked,
+                                              const Vis& vis, float sl2,
+                                              float (&m)[2], float (&l)[2],
+                                              float (&alpha)[2]) {
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (!visible<kMode>(row + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1),
+                            vis))
+          sc[4 * j + e] = -INFINITY;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx * sl2);
+    const bool dead = m_new == -INFINITY;
+    alpha[r] = dead ? 1.f : exp2f(m[r] - m_new);
+    const float ms = dead ? 0.f : m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float pe = exp2f(fmaf(sc[4 * j + 2 * r + e], sl2, -ms));
+        sc[4 * j + 2 * r + e] = pe;
+        sum += pe;
+      }
+    l[r] = l[r] * alpha[r] + sum;
+    m[r] = m_new;
+  }
+}
+
+namespace fwd_cfg {
+constexpr int BM = 128, BN = 128, NS = 2, NT = 384;
+constexpr uint32_t kTile = 128 * D * 2;            // one [128, 128] tile
+constexpr uint32_t kQ = 0, kK = kTile, kV = kK + NS * kTile;
+constexpr uint32_t kBar = kV + NS * kTile;         // full_q, full_k, full_v, empty
+constexpr size_t kSmem = kBar + 8 * (1 + 3 * NS) + 1024;
+}  // namespace fwd_cfg
+
+template <Mode kMode>
+__global__ void __launch_bounds__(fwd_cfg::NT, 1)
+    fwd_kernel(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const Params p) {
+  using namespace fwd_cfg;
+  extern __shared__ unsigned char smem_sm90[];
+  uint32_t base;
+  align_smem(smem_sm90, &base);
+  const uint32_t full_q = base + kBar;
+  const auto full_k = [&](int s) { return base + kBar + 8 * (1 + s); };
+  const auto full_v = [&](int s) { return base + kBar + 8 * (1 + NS + s); };
+  const auto empty = [&](int s) { return base + kBar + 8 * (1 + 2 * NS + s); };
+
+  const int qb = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qb * BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const Vis vis{p.sk, p.sk - p.sq, p.causal};
+  const int upper = key_blocks(q0, BM, BN, vis);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty(s), 8);     // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer
+    reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      const int hk = h / p.group;
+      mbar_expect_tx(full_q, kTile);
+      tma_tile(base + kQ, &tq, full_q, q0, h, b, BM);
+      for (int kb = 0; kb < upper; ++kb) {
+        const int s = kb % NS;
+        mbar_wait(empty(s), ((kb / NS) & 1) ^ 1);
+        mbar_expect_tx(full_k(s), kTile);
+        tma_tile(base + kK + s * kTile, &tk, full_k(s), kb * BN, hk, b, BN);
+        mbar_expect_tx(full_v(s), kTile);
+        tma_tile(base + kV + s * kTile, &tv, full_v(s), kb * BN, hk, b, BN);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup cw owns tile rows [64 cw, 64 cw + 64)
+    reg_alloc<240>();
+    const int ci = threadIdx.x - 128;
+    const int cw = ci >> 7;
+    const int warp = (ci >> 5) & 3;
+    const int lane = ci & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int row = q0 + cw * 64 + warp * 16 + g;   // and row + 8
+    const float sl2 = p.scale * kLog2e;
+    const uint32_t qa = base + kQ + cw * 64 * 128;
+
+    float o[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};
+    mbar_wait(full_q, 0);
+
+    for (int kb = 0; kb < upper; ++kb) {
+      const int s = kb % NS;
+      const uint32_t ph = (kb / NS) & 1;
+      const uint32_t ka = base + kK + s * kTile;
+      const uint32_t va = base + kV + s * kTile;
+      const int k0 = kb * BN;
+
+      float sc[64], alpha[2];
+      mbar_wait(full_k(s), ph);
+      wg_fence();
+      gemm_abt<BM, BN>(sc, qa, ka);
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(sc);
+      softmax_block<kMode>(sc, row, t, k0, !all_visible(q0, k0, BN, vis), vis,
+                           sl2, m, l, alpha);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        o[4 * j + 0] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+
+      // O += P.V: p rounded to bf16 in registers
+      mbar_wait(full_v(s), ph);
+      wg_fence();
+      gemm_rs<BN / 16, BN>(o, sc, va);
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(o);
+      if (lane == 0) mbar_arrive(empty(s));
+    }
+
+    // epilogue: o / l, and lse = m + log(l) in natural-log units
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lt = l[r];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      inv[r] = lt > 0.f ? 1.f / lt : 0.f;
+      if (p.lse && t == 0 && row + 8 * r < p.sq)
+        p.lse[((long long)b * p.H + h) * p.sq + row + 8 * r] =
+            lt > 0.f ? m[r] * kLn2 + logf(lt) : kLseInvalid;
+    }
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.out) + b * p.o_s[0] +
+                        h * p.o_s[1];
+    store_rows(o, og, p.o_s[2], row, p.sq, t, inv);
+  }
+}
+
+// ---------------------------------------------------------- backward dq
+namespace dq_cfg {
+constexpr int BM = 128, BN = 64, NS = 2, NT = 384;
+constexpr uint32_t kRes = 128 * D * 2;             // Q or dO [128, 128]
+constexpr uint32_t kTile = 64 * D * 2;             // K or V [64, 128]
+constexpr uint32_t kQ = 0, kDO = kRes, kK = 2 * kRes, kV = kK + NS * kTile;
+constexpr uint32_t kRows = kV + NS * kTile;        // lse, delta [128] f32
+constexpr uint32_t kBar = kRows + 2 * BM * 4;      // full_q, full_k, full_v, empty
+constexpr size_t kSmem = kBar + 8 * (1 + 3 * NS) + 1024;
+}  // namespace dq_cfg
+
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]);
+    const float2 w = __bfloat1622float2(y[i]);
+    acc = fmaf(u.x, w.x, acc);
+    acc = fmaf(u.y, w.y, acc);
+  }
+  return acc;
+}
+
+template <Mode kMode>
+__global__ void __launch_bounds__(dq_cfg::NT, 1)
+    dq_kernel(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tdo,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv, const Params p) {
+  using namespace dq_cfg;
+  extern __shared__ unsigned char smem_sm90[];
+  uint32_t base;
+  unsigned char* smem = align_smem(smem_sm90, &base);
+  float* lse_s = reinterpret_cast<float*>(smem + kRows);
+  float* delta_s = lse_s + BM;
+  const uint32_t full_q = base + kBar;
+  const auto full_k = [&](int s) { return base + kBar + 8 * (1 + s); };
+  const auto full_v = [&](int s) { return base + kBar + 8 * (1 + NS + s); };
+  const auto empty = [&](int s) { return base + kBar + 8 * (1 + 2 * NS + s); };
+
+  const int qb = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qb * BM;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const Vis vis{p.sk, p.sk - p.sq, p.causal};
+  const int upper = key_blocks(q0, BM, BN, vis);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      const int hk = h / p.group;
+      mbar_expect_tx(full_q, 2 * kRes);
+      tma_tile(base + kQ, &tq, full_q, q0, h, b, BM);
+      tma_tile(base + kDO, &tdo, full_q, q0, h, b, BM);
+      for (int kb = 0; kb < upper; ++kb) {
+        const int s = kb % NS;
+        mbar_wait(empty(s), ((kb / NS) & 1) ^ 1);
+        mbar_expect_tx(full_k(s), kTile);
+        tma_tile(base + kK + s * kTile, &tk, full_k(s), kb * BN, hk, b, BN);
+        mbar_expect_tx(full_v(s), kTile);
+        tma_tile(base + kV + s * kTile, &tv, full_v(s), kb * BN, hk, b, BN);
+      }
+    }
+  } else {
+    reg_alloc<240>();
+    const int ci = threadIdx.x - 128;
+    const int cw = ci >> 7;
+    const int warp = (ci >> 5) & 3;
+    const int lane = ci & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const long long row_base = ((long long)b * p.H + h) * p.sq;
+
+    // prologue: delta = rowsum(out * dout) in f32 (written out for the
+    // dk/dv kernel) and lse, for the CTA's 128 rows; rows past Sq take
+    // lse = LSE_INVALID, so their p are 0
+    {
+      const __nv_bfloat16* og = static_cast<const __nv_bfloat16*>(p.o) +
+                                b * p.o_s[0] + h * p.o_s[1];
+      const __nv_bfloat16* dog = static_cast<const __nv_bfloat16*>(p.dout) +
+                                 b * p.do_s[0] + h * p.do_s[1];
+      const int c = (lane & 15) * 8;
+#pragma unroll 2
+      for (int it = 0; it < 8; ++it) {
+        const int r = (ci >> 5) * 16 + it * 2 + (lane >> 4);
+        const int qi = q0 + r;
+        float acc = 0.f;
+        if (qi < p.sq)
+          acc = dot8(*reinterpret_cast<const uint4*>(
+                         og + (long long)qi * p.o_s[2] + c),
+                     *reinterpret_cast<const uint4*>(
+                         dog + (long long)qi * p.do_s[2] + c));
+#pragma unroll
+        for (int o = 8; o > 0; o >>= 1)
+          acc += __shfl_xor_sync(0xffffffffu, acc, o);
+        if ((lane & 15) == 0) {
+          delta_s[r] = acc;
+          lse_s[r] = qi < p.sq ? p.lse[row_base + qi] : kLseInvalid;
+          if (qi < p.sq) p.delta[row_base + qi] = acc;
+        }
+      }
+      consumer_sync(256);
+    }
+    const int tr = cw * 64 + warp * 16 + g;       // tile rows tr, tr + 8
+    const int row = q0 + tr;
+    const float sl2 = p.scale * kLog2e;
+    const float lse2[2] = {lse_s[tr] * kLog2e, lse_s[tr + 8] * kLog2e};
+    const float dlt[2] = {delta_s[tr], delta_s[tr + 8]};
+    const uint32_t qa = base + kQ + cw * 64 * 128;
+    const uint32_t doa = base + kDO + cw * 64 * 128;
+
+    float dq[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    mbar_wait(full_q, 0);
+
+    for (int kb = 0; kb < upper; ++kb) {
+      const int s = kb % NS;
+      const uint32_t ph = (kb / NS) & 1;
+      const uint32_t ka = base + kK + s * kTile;
+      const uint32_t va = base + kV + s * kTile;
+      const int k0 = kb * BN;
+
+      float sc[32], dp[32];
+      mbar_wait(full_k(s), ph);
+      wg_fence();
+      gemm_abt<BM, BN>(sc, qa, ka);
+      wg_commit();
+      mbar_wait(full_v(s), ph);
+      gemm_abt<BM, BN>(dp, doa, va);
+      wg_commit();
+
+      // p = exp(s * scale - lse), 0 where invisible
+      wg_wait<1>();
+      reg_fence(sc);
+      const bool full = all_visible(q0, k0, BN, vis);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float pe = exp2f(fmaf(sc[4 * j + e], sl2, -lse2[r]));
+          sc[4 * j + e] =
+              full || visible<kMode>(row + 8 * r, k0 + 8 * j + 2 * t + (e & 1),
+                                     vis)
+                  ? pe
+                  : 0.f;
+        }
+      // ds = p (dp - delta) scale, rounded to bf16 for dq += ds K
+      wg_wait<0>();
+      reg_fence(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - dlt[e >> 1]) * p.scale;
+      wg_fence();
+      gemm_rs<BN / 16, BN>(dq, dp, ka);
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(dq);
+      if (lane == 0) mbar_arrive(empty(s));
+    }
+
+    __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_s[0] +
+                         h * p.dq_s[1];
+    const float one[2] = {1.f, 1.f};
+    store_rows(dq, dqg, p.dq_s[2], row, p.sq, t, one);
+  }
+}
+
+// --------------------------------------------------------- backward dkv
+namespace dkv_cfg {
+constexpr int BN = 128, BM = 64, NS = 2, NT = 384;
+constexpr uint32_t kKV = BN * D * 2;               // K or V [BN, 128]
+constexpr uint32_t kQT = BM * D * 2;               // Q or dO [BM, 128]
+constexpr uint32_t kK = 0, kV = kKV, kQ = 2 * kKV, kDO = kQ + NS * kQT;
+constexpr uint32_t kRows = kDO + NS * kQT;         // per stage: lse (log2
+                                                   // units), delta [BM]
+constexpr uint32_t kBar = kRows + NS * 2 * BM * 4; // full_kv, full, empty
+constexpr size_t kSmem = kBar + 8 * (1 + 2 * NS) + 1024;
+}  // namespace dkv_cfg
+
+template <Mode kMode>
+__global__ void __launch_bounds__(dkv_cfg::NT, 1)
+    dkv_kernel(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tdo,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const Params p) {
+  using namespace dkv_cfg;
+  extern __shared__ unsigned char smem_sm90[];
+  uint32_t base;
+  unsigned char* smem = align_smem(smem_sm90, &base);
+  float* rows_s = reinterpret_cast<float*>(smem + kRows);
+  const uint32_t full_kv = base + kBar;
+  const auto full = [&](int s) { return base + kBar + 8 * (1 + s); };
+  const auto empty = [&](int s) { return base + kBar + 8 * (1 + NS + s); };
+
+  const int k0 = blockIdx.x * BN;
+  const int hk = blockIdx.y;            // p.H is kvH here
+  const int b = blockIdx.z;
+  const Vis vis{p.sk, p.sk - p.sq, p.causal};
+  const int nq = (p.sq + BM - 1) / BM;
+  int lower = 0;                        // causal lower bound (_k_trip_bounds)
+  if (p.causal) {
+    const int x = k0 - vis.diag;
+    lower = x <= 0 ? 0 : min(x / BM, nq);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full(s), 32);           // the producer warp's lanes
+      mbar_init(empty(s), 8);           // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: lane 0 issues the TMA loads, all 32 lanes stage the
+    // tile's lse and delta rows
+    reg_dealloc<24>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(full_kv, 2 * kKV);
+        tma_tile(base + kK, &tk, full_kv, k0, hk, b, BN);
+        tma_tile(base + kV, &tv, full_kv, k0, hk, b, BN);
+      }
+      int it = 0;
+      for (int j = 0; j < p.group; ++j) {
+        const int h = hk * p.group + j;
+        const long long row_base = ((long long)b * p.H * p.group + h) * p.sq;
+        for (int qb = lower; qb < nq; ++qb, ++it) {
+          const int s = it % NS;
+          mbar_wait(empty(s), ((it / NS) & 1) ^ 1);
+          float* rs = rows_s + s * 2 * BM;
+          for (int i = lane; i < BM; i += 32) {
+            const int qi = qb * BM + i;
+            rs[i] = (qi < p.sq ? p.lse[row_base + qi] : kLseInvalid) * kLog2e;
+            rs[BM + i] = qi < p.sq ? p.delta[row_base + qi] : 0.f;
+          }
+          if (lane == 0) {
+            mbar_expect_tx(full(s), 2 * kQT);
+            tma_tile(base + kQ + s * kQT, &tq, full(s), qb * BM, h, b, BM);
+            tma_tile(base + kDO + s * kQT, &tdo, full(s), qb * BM, h, b, BM);
+          } else {
+            mbar_arrive(full(s));
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup cw owns keys [k0 + 64 cw, k0 + 64 cw + 64)
+    reg_alloc<240>();
+    const int ci = threadIdx.x - 128;
+    const int cw = ci >> 7;
+    const int warp = (ci >> 5) & 3;
+    const int lane = ci & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int kw = k0 + cw * 64;                  // the warpgroup's first key
+    const int key = kw + warp * 16 + g;           // and key + 8
+    const float sl2 = p.scale * kLog2e;
+
+    float dk[64], dv[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      dk[i] = 0.f;
+      dv[i] = 0.f;
+    }
+    mbar_wait(full_kv, 0);
+
+    int it = 0;
+    for (int j = 0; j < p.group; ++j) {
+      for (int qb = lower; qb < nq; ++qb, ++it) {
+        const int s = it % NS;
+        const uint32_t qa = base + kQ + s * kQT;
+        const uint32_t doa = base + kDO + s * kQT;
+        const float* rs = rows_s + s * 2 * BM;
+        const int q0 = qb * BM;
+        mbar_wait(full(s), (it / NS) & 1);
+        if (p.causal && q0 + BM - 1 + vis.diag < kw) {
+          // no row of this tile sees the warpgroup's keys (the CTA's
+          // lower bound is its first warpgroup's)
+          if (lane == 0) mbar_arrive(empty(s));
+          continue;
+        }
+
+        float sc[BM / 2], dp[BM / 2];
+        wg_fence();
+        gemm_abt<BN, BM>(sc, base + kK + cw * 64 * 128, qa);
+        wg_commit();
+        gemm_abt<BN, BM>(dp, base + kV + cw * 64 * 128, doa);
+        wg_commit();
+
+        // p^T = exp(s * scale - lse) per query column, 0 where invisible;
+        // dv += p^T dO (p rounded to bf16) runs while ds^T is made
+        wg_wait<1>();
+        reg_fence(sc);
+        const bool all = all_visible(q0, kw, 64, vis);
+#pragma unroll
+        for (int jj = 0; jj < BM / 8; ++jj) {
+          const int col = 8 * jj + 2 * t;
+          const float2 lse = *reinterpret_cast<const float2*>(rs + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float v = exp2f(fmaf(sc[4 * jj + e], sl2,
+                                       -((e & 1) ? lse.y : lse.x)));
+            sc[4 * jj + e] =
+                all || visible<kMode>(q0 + col + (e & 1), key + 8 * (e >> 1),
+                                      vis)
+                    ? v
+                    : 0.f;
+          }
+        }
+        wg_fence();
+        gemm_rs<BM / 16, BM>(dv, sc, doa);
+        wg_commit();
+
+        // ds^T = p^T (dp^T - delta) scale (f32 p), rounded to bf16 for
+        // dk += ds^T Q
+        wg_wait<1>();
+        reg_fence(dp);
+#pragma unroll
+        for (int jj = 0; jj < BM / 8; ++jj) {
+          const float2 dlt =
+              *reinterpret_cast<const float2*>(rs + BM + 8 * jj + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[4 * jj + e] = sc[4 * jj + e] *
+                             (dp[4 * jj + e] - ((e & 1) ? dlt.y : dlt.x)) *
+                             p.scale;
+        }
+        wg_fence();
+        gemm_rs<BM / 16, BM>(dk, dp, qa);
+        wg_commit();
+        wg_wait<0>();
+        reg_fence(dv);
+        reg_fence(dk);
+        if (lane == 0) mbar_arrive(empty(s));
+      }
+    }
+
+    const float one[2] = {1.f, 1.f};
+    store_rows(dk, static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_s[0] +
+                       hk * p.dk_s[1],
+               p.dk_s[2], key, p.sk, t, one);
+    store_rows(dv, static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_s[0] +
+                       hk * p.dv_s[1],
+               p.dv_s[2], key, p.sk, t, one);
+  }
+}
+
+// ------------------------------------------------------------ host side
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(ptr);
+  }();
+  return fn;
+}
+
+// The tensor map of a [B, H, S, 128] bf16 view with element strides
+// st = (batch, head, sequence): dims (128, S, H, B), boxes of 64
+// columns x ``rows`` rows, 128-byte swizzle, zero fill past S.
+inline bool tile_map(CUtensorMap* map, const void* ptr, const long long* st,
+                     int B, int H, int S, int rows) {
+  const EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2,
+                                 (cuuint64_t)st[0] * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename Kern, typename... Maps>
+int launch(Kern kern, size_t smem, dim3 grid, int threads, cudaStream_t s,
+           const Params& p, const Maps&... maps) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, threads, smem, s>>>(maps..., p);
+  return (int)cudaGetLastError();
+}
+
+// p as the C entries fill it (for dk/dv, p.H is kvH).
+inline int launch_fwd(const Params& p, cudaStream_t s) {
+  const int kvh = p.H / p.group;
+  CUtensorMap tq, tk, tv;
+  if (!tile_map(&tq, p.q, p.q_s, p.B, p.H, p.sq, fwd_cfg::BM) ||
+      !tile_map(&tk, p.k, p.k_s, p.B, kvh, p.sk, fwd_cfg::BN) ||
+      !tile_map(&tv, p.v, p.v_s, p.B, kvh, p.sk, fwd_cfg::BN))
+    return (int)cudaErrorInvalidValue;
+  return launch(fwd_kernel<flash::kPlain>, fwd_cfg::kSmem,
+                dim3((p.sq + fwd_cfg::BM - 1) / fwd_cfg::BM, p.H, p.B), fwd_cfg::NT, s, p,
+                tq, tk, tv);
+}
+
+inline int launch_dq(const Params& p, cudaStream_t s) {
+  const int kvh = p.H / p.group;
+  CUtensorMap tq, tdo, tk, tv;
+  if (!tile_map(&tq, p.q, p.q_s, p.B, p.H, p.sq, dq_cfg::BM) ||
+      !tile_map(&tdo, p.dout, p.do_s, p.B, p.H, p.sq, dq_cfg::BM) ||
+      !tile_map(&tk, p.k, p.k_s, p.B, kvh, p.sk, dq_cfg::BN) ||
+      !tile_map(&tv, p.v, p.v_s, p.B, kvh, p.sk, dq_cfg::BN))
+    return (int)cudaErrorInvalidValue;
+  return launch(dq_kernel<flash::kPlain>, dq_cfg::kSmem,
+                dim3((p.sq + dq_cfg::BM - 1) / dq_cfg::BM, p.H, p.B), dq_cfg::NT, s, p,
+                tq, tdo, tk, tv);
+}
+
+inline int launch_dkv(const Params& p, cudaStream_t s) {
+  const int h = p.H * p.group;
+  CUtensorMap tq, tdo, tk, tv;
+  if (!tile_map(&tq, p.q, p.q_s, p.B, h, p.sq, dkv_cfg::BM) ||
+      !tile_map(&tdo, p.dout, p.do_s, p.B, h, p.sq, dkv_cfg::BM) ||
+      !tile_map(&tk, p.k, p.k_s, p.B, p.H, p.sk, dkv_cfg::BN) ||
+      !tile_map(&tv, p.v, p.v_s, p.B, p.H, p.sk, dkv_cfg::BN))
+    return (int)cudaErrorInvalidValue;
+  return launch(dkv_kernel<flash::kPlain>, dkv_cfg::kSmem,
+                dim3((p.sk + dkv_cfg::BN - 1) / dkv_cfg::BN, p.H, p.B), dkv_cfg::NT, s, p,
+                tq, tdo, tk, tv);
+}
+
+}  // namespace flash_sm90
