@@ -143,7 +143,11 @@ kernel phase 11 runs is also held, with its planted fault, at the shapes
 phase 11 gives it: K4 int8 at 11a's bench-model widths, K7 at 11b's
 dense cache (T 2176), K3 at page 128 with 11b's and 11c's heads and
 lengths, and the K8 forward at the prompt prefills of 11a, 11b and 11c
-(B 8, S 128, 2048 and 8064).  Phase 3 also holds the grouped expert FFN
+(B 8, S 128, 2048 and 8064).  Phase 3 also holds the K8 forward at 10c's
+mask (``window_8192``: b 1, h 16, s 8192, three packed documents and a
+1024-token causal window, nvec 4) with its planted fault, timed beside
+K1 at the same shape without the mask, and prints how many of the key
+tiles it reaches the bf16 forward skips.  Phase 3 also holds the grouped expert FFN
 (K9, forward and backward) in bf16 per row (<= 2^-7) against its plain
 versions at four layers: 13a's routing from a seeded gate, the same
 widths with skewed routing (an expert with no tile, one with half the
@@ -209,6 +213,10 @@ SFT_LENGTHS = (1.0, 1900 / 2048, 1200 / 2048, 517 / 2048)   # of S
 PACKED_DOCS = (0.25, 0.375, 0.375)                          # of S
 # phase 10: the reference bench's long-context rung (bench.py:285-366)
 LONGCTX_SEQ = 8192
+LONGCTX_WINDOW = 1024            # 10c's flashmask_attention window
+# the K8 forward at 10c's mask in phase 3 (name, B, H, S): beside K1 at
+# the same shape without it, to show that hidden key tiles are skipped
+WINDOW_SHAPE = ("window_8192", 1, 16, LONGCTX_SEQ)
 LONGCTX_STEPS = 8                 # bench_longctx's own timed steps (bench.py:301)
 TRAIN_STEPS = 10
 # phase 7, card (f32 kernels, no TF32) vs CPU, ||card - cpu|| / ||cpu||
@@ -403,6 +411,15 @@ def grad_row_err(g, ref):
 def visible_pairs(sq, sk):
     """(query, key) pairs a causal, bottom-right aligned row set sees."""
     return int(np.clip(np.arange(sq) + (sk - sq) + 1, 0, sk).sum())
+
+
+def is_k8_forward(low):
+    """Whether a lower-cased device kernel name (as ``torch.profiler``
+    gives it) is part of the K8 forward: the f32 WMMA instance, the tile
+    table, or a ``flash_sm90::fwd_kernel`` in a K8 mode (K1's is mode 0,
+    ``(flash::Mode)0``)."""
+    return ("masked_fwd" in low or "tile_table_kernel" in low
+            or ("flash_sm90::fwd_kernel<" in low and "mode)0>" not in low))
 
 
 def bound(nbytes, flops):
@@ -628,6 +645,70 @@ def phase_masked(FM, gen, name, B, H, kvh, S, lengths, yardsticks):
     return shape
 
 
+def phase_window(FA, FM, gen, name, B, H, S):
+    """The K8 forward (with lse, as 10c runs it) at 10c's mask, three
+    packed documents and a 1024-token causal window (nvec 4), against its
+    plain version per row with the planted fault (every row loses its
+    last 64 keys: the kernel told 64 keys fewer), and timed beside K1 at
+    the same shape without the mask: the key tiles the intervals hide
+    from a whole query block are skipped, so it must take well under
+    K1's time.  Prints how the forward classes the tiles it reaches."""
+    dev, dt, D = "cuda", torch.bfloat16, 128
+    scale = 1.0 / math.sqrt(D)
+    q, k, v = (torch.randn(B, S, H, D, device=dev, generator=gen).to(dt)
+               .transpose(1, 2) for _ in range(3))
+    vecs = window_intervals(FM, B, S, dev)
+    out, lse = FM._masked_fwd(q, k, v, vecs, None, True, scale, True)
+    torch.cuda.synchronize()
+    ref, ref_lse = FM._masked_fwd_xla(q, k, v, vecs, None, True, scale)
+    require(bool((lse[ref_lse == FM.LSE_INVALID] == FM.LSE_INVALID).all()),
+            f"K8 {name}: rows with no key must get LSE_INVALID")
+    err = (out.float() - ref.float()).abs().max().item()
+    row_err = row_rel_err(out, ref).max().item()
+    require(row_err <= ROW_TOL, f"flash_mha_masked {name}: row error "
+            f"{row_err} > {ROW_TOL}")
+    n = S - FAULT_KEYS
+    fault = row_rel_err(FM._masked_fwd(q, k[:, :, :n], v[:, :, :n],
+                                       vecs[..., :n], None, True, scale,
+                                       True)[0], ref)
+    fault = fault[ref_lse != FM.LSE_INVALID]
+    del ref, ref_lse
+    require(bool((fault > ROW_TOL).all()), f"planted fault (last "
+            f"{FAULT_KEYS} keys dropped) passed the flash_mha_masked check "
+            f"at {name}: min row error {fault.min().item()}")
+    ms = cuda_ms(lambda: FM._masked_fwd(q, k, v, vecs, None, True, scale,
+                                        True))
+    k1_ms = cuda_ms(lambda: FA._flash_fwd(q, k, v, True, scale))
+    plain_ms = cuda_ms(lambda: FM._masked_fwd_xla(q, k, v, vecs, None, True,
+                                                  scale), iters=3, warmup=1)
+    dense = (FM.dense_mask_from_intervals(vecs, S, S)
+             & torch.ones(S, S, dtype=torch.bool, device=dev).tril())
+    library_ms = cuda_ms(lambda: torch.nn.functional.
+                         scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=dense,
+                                                      scale=scale))
+    pairs = int(dense.sum()) * H
+    del dense
+    # the tiles the forward reaches (the causal bound) by class
+    cls = FM._tile_classes(FM._tile_table(vecs), S)
+    reach = torch.ones(cls.shape[-2:], dtype=torch.bool, device=dev).tril()
+    tiles = {c: int(((cls == i) & reach).sum()) * H
+             for i, c in enumerate(("skip", "partial", "clean"))}
+    nbytes = 4 * q.numel() * 2 + B * H * S * 4 + vecs.numel() * 4
+    bound_ms, bound_by = bound(nbytes, 4 * pairs * D)
+    rec = {"kernel": "flash_mha_masked", "shape": name, "dtype": "bfloat16",
+           "B": B, "H": H, "kvh": H, "D": D, "S": S, "causal": True,
+           "nvec": vecs.shape[2], "window": LONGCTX_WINDOW,
+           "visible_pairs": pairs, "tiles": tiles, "max_abs_err": err,
+           "max_row_rel_err": row_err, "row_tol": ROW_TOL,
+           "fault_min_row_rel_err": fault.min().item(), "ms": ms,
+           "k1_unmasked_ms": k1_ms, "ms_over_k1": ms / k1_ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library_ms}
+    emit({"phase": 3, **rec})
+    return rec
+
+
 def phase_flash(FA, gen, name, B, H, kvh, sq, sk):
     """K1 forward and the K2 dq and dk/dv kernels against their plain
     versions in bf16, causal, on [B, S, H, D] tensors passed as the
@@ -802,6 +883,24 @@ def visible_count(FM, vecs, B, H, sq, sk, causal, dev):
     return int(dense.sum()) * (B // dense.shape[0]) * (H // dense.shape[1])
 
 
+def bias_read_bytes(FM, vecs, bias, sq, sk, causal, dev):
+    """Bytes of ``bias`` that a K8 kernel must read: each element at a
+    (query, key) pair that some (batch, head) it serves sees (for a
+    causal call, the lower triangle only)."""
+    seen = torch.ones(sq, sk, dtype=torch.bool, device=dev)
+    if causal:
+        seen = seen.tril(sk - sq)
+    if vecs is None:
+        return int(seen.sum()) * bias.shape[0] * bias.shape[1] \
+            * bias.element_size()
+    seen = FM.dense_mask_from_intervals(vecs, sq, sk) & seen
+    for dim in (0, 1):          # a bias broadcast over a dim the mask is not
+        if bias.shape[dim] == 1 and seen.shape[dim] > 1:
+            seen = seen.any(dim, keepdim=True)
+    return (int(seen.sum()) * (bias.shape[0] // seen.shape[0])
+            * (bias.shape[1] // seen.shape[1]) * bias.element_size())
+
+
 def k8_run(FM, q, k, v, do, vecs, bias, causal, scale):
     """The K8 kernels once: forward with lse, dq (+ delta), dk/dv and, with
     a bias, dbias."""
@@ -922,8 +1021,9 @@ def phase_k8(FM, gen, name, B, H, kvh, S, causal, kind):
     item = 2
     n_q, n_kv = B * H * S * D, B * kvh * S * D
     rows_f32 = B * H * S * 4                             # lse or delta
-    extra = (vecs.numel() * 4 if vecs is not None
-             else bias.numel() * bias.element_size())    # mask or bias read
+    extra = vecs.numel() * 4 if vecs is not None else 0   # intervals read
+    if bias is not None:                 # the bias where some row sees it
+        extra += bias_read_bytes(FM, vecs, bias, S, S, causal, dev)
     bounds = {
         "fwd": bound((2 * n_q + 2 * n_kv) * item + rows_f32 + extra,
                      4 * pairs * D),
@@ -933,7 +1033,8 @@ def phase_k8(FM, gen, name, B, H, kvh, S, causal, kind):
                      8 * pairs * D)}
     if bias is not None:                    # reads the bias, writes dbias
         bounds["dbias"] = bound((2 * n_q + 2 * n_kv) * item + 2 * rows_f32
-                                + 2 * extra, 4 * pairs * D)
+                                + extra + bias.numel() * bias.element_size(),
+                                4 * pairs * D)
     rec = {"kernel": "flash_mask_k8", "shape": name, "dtype": "bfloat16",
            "B": B, "H": H, "kvh": kvh, "D": D, "S": S, "causal": causal,
            "mask": kind, "nvec": vecs.shape[2] if vecs is not None else 0,
@@ -1224,7 +1325,7 @@ def profile_decode(engine, prompts, GenerationConfig, steps=8, phase=4,
         low = name.lower()
         if "paged_attention" in low:
             groups["paged_attention"] += ms
-        elif "masked_fwd" in low:
+        elif is_k8_forward(low):
             groups["flash_mha_masked"] += ms
         elif "wo_gemv" in low or "splitk_reduce" in low:
             groups["weight_only_matmul"] += ms
@@ -1602,6 +1703,10 @@ def profile_train(step, params, opt, ids, phase=6):
                                "flash_bwd_dkv_kernel")}
     for name, ms in per_kernel.items():
         low = name.lower()
+        if is_k8_forward(low):
+            groups["flash_mha_masked"] = groups.get("flash_mha_masked",
+                                                    0.0) + ms
+            continue
         for key, marks in flash.items():
             if any(m in low for m in marks):
                 groups[key] += ms
@@ -1737,6 +1842,14 @@ def longctx_segments(B, S, dev):
     return seg
 
 
+def window_intervals(FM, B, S, dev):
+    """10c's intervals: the three packed documents and a causal
+    LONGCTX_WINDOW-token window, [B, 1, 4, S]."""
+    docs = FM.segment_intervals(longctx_segments(B, S, dev), causal=True)
+    return torch.cat([docs, FM.sliding_window_intervals(
+        S, LONGCTX_WINDOW, B, device=dev)], dim=2)
+
+
 def phase_longctx_masked(FA, FM):
     """10b, bench_longctx_masked (bench.py:323-366) through the port: the
     gradient of sum(sdpa(q, k, v, flashmask=vecs, is_causal=True)
@@ -1816,13 +1929,9 @@ def phase_longctx_window(FA, FM, qkv):
     from paddle_tpu_torch.nn.functional_extra2 import flashmask_attention
     q, k, v = qkv
     B, S = q.shape[0], q.shape[1]
-    window = 1024
-    docs = FM.segment_intervals(longctx_segments(B, S, q.device),
-                                causal=True)               # [B, 1, 2, S]
-    startend = docs.movedim(2, -1).contiguous()           # [B, 1, S, 2]
-    vecs = torch.cat([docs, FM.sliding_window_intervals(S, window, B,
-                                                        device=q.device)],
-                     dim=2)
+    window = LONGCTX_WINDOW
+    vecs = window_intervals(FM, B, S, q.device)
+    startend = vecs[:, :, :2].movedim(2, -1).contiguous()  # [B, 1, S, 2]
     (out, grads), counts = counted(
         FA, FM, lambda: sq_loss_grads(
             lambda *t: flashmask_attention(*t, startend, causal=True,
@@ -1898,10 +2007,11 @@ def gen_call(mods, state, cfg, ids, new, k7=True, **kw):
 
 def group_kernel(name):
     low = name.lower()
+    if is_k8_forward(low):
+        return "flash_mha_masked"
     for key, marks in (("decode_attention", ("decode_partial",
                                              "decode_combine")),
                        ("paged_attention", ("paged_attention",)),
-                       ("flash_mha_masked", ("masked_fwd",)),
                        ("weight_only_matmul", ("wo_gemv", "splitk_reduce")),
                        ("matmul", ("gemm", "gemv", "cutlass", "xmma", "sm90",
                                    "cublas", "nvjet"))):
@@ -2970,6 +3080,8 @@ def main() -> int:
     pageds = [phase_paged(PA, gen, *shape) for shape in PAGED_SHAPES]
     paged = pageds[0]       # phase 4's decode shape: the kernels line's
     masked = [phase_masked(FM, gen, *shape) for shape in MASKED_SHAPES]
+    release()
+    phase_window(FA, FM, gen, *WINDOW_SHAPE)
     release()
     flash = [phase_flash(FA, gen, *shape) for shape in FLASH_SHAPES]
     k8 = [phase_k8(FM, gen, *shape) for shape in K8_SHAPES]

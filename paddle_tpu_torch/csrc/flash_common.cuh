@@ -22,9 +22,10 @@
 // them 4-6 %.
 //
 // These bodies run every float32 flash kernel (K1/K2 and K8) and the
-// bf16 K8 kernels; the bf16 K1/K2 kernels have their own Hopper bodies
-// in flash_sm90.cuh (wgmma, a TMA ring, register accumulators), which
-// is where the K8 modes go when K8 is redesigned.
+// bf16 K8 backward kernels; the bf16 K1/K2 kernels and the bf16 K8
+// forward have their own Hopper bodies in flash_sm90.cuh (wgmma, a TMA
+// ring, register accumulators), which is where the K8 backward's modes
+// go when it is redesigned.
 //
 // The simple design, and what it leaves for later:
 //   * 4 warps per CTA; 64-row tiles staged in shared memory with plain
@@ -138,6 +139,10 @@ struct Params {
   // (batch, head) members (null otherwise).
   void* dbias;
   float* dbias_acc;
+  // The bf16 K8 forward's tile table (flash_sm90.cuh): {min, max} of
+  // each interval vector over each 64-key block, [Bm, Hm, nvec,
+  // ceil(Sk / 64)] with Bm = B where m_s[0] != 0, else 1 (Hm likewise).
+  const int2* tbl;
 };
 
 // The mask and bias of one (batch, q head), resolved once per CTA.

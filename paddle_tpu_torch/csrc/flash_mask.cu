@@ -14,9 +14,15 @@
 // (and the -1e9 bias tail it needs) and its streamed switch past 4096
 // tokens are VMEM limits; here the ragged edge is masked in-kernel.
 //
-// Semantics: the K1/K2 kernel bodies of flash_common.cuh in the
-// kIntervals mode (no bias) or the kBiased mode (a bias, intervals
-// optional): a logit is q.k * scale + bias, and a key is invisible past
+// Bodies: the bf16 forward is flash_sm90.cuh's Hopper forward (wgmma, a
+// TMA ring, register accumulators), which skips the key tiles that the
+// intervals hide from a whole query block, using a tile table that this
+// file's table kernel writes just before (tile_table_kernel, in the same
+// C entry); the float32 forward and every backward kernel are the WMMA
+// bodies of flash_common.cuh.  Each runs in the kIntervals mode (no
+// bias) or the kBiased mode (a bias, intervals optional).
+//
+// Semantics: a logit is q.k * scale + bias, and a key is invisible past
 // Sk, right of the bottom-right aligned causal diagonal, or inside one
 // of its column's masked row intervals.  Rows with no visible key give
 // zero output, lse = LSE_INVALID (the reference's -inf, made safe) and
@@ -27,10 +33,18 @@
 // fixed order and cast to the bias dtype; key blocks past the causal
 // trip count are written as zeros.
 //
+// Numerics: p is rounded to v's dtype before P.V; lse is in natural-log
+// units (the backward kernels read it).  The bf16 forward adds the bias
+// in log2 units (s * scale * log2 e + bias * log2 e), so that the row
+// max and the exp2 see the biased logit.
+//
 // What bounds them on the H100: operations for the forward (4 * pairs
-// * D flops), dq (6) and dk/dv (8); dbias does 4 * pairs * D flops but
-// writes Sq * Sk * 4 bytes per bias (batch, head), so bytes bound it
-// at short head dims or wide broadcast.
+// * D flops; the biased forward reads the bias at the visible pairs,
+// whose bytes bound it: ALiBi's [1, 16, 2048, 2048] f32, causal, with
+// q, k, v, out and lse takes 0.060 ms at 3.35 TB/s), dq (6)
+// and dk/dv (8); dbias does 4 * pairs * D flops but writes Sq * Sk * 4
+// bytes per bias (batch, head), so bytes bound it at short head dims or
+// wide broadcast.
 //
 // The dbias kernel: one CTA per (64-row query block, bias head, bias
 // batch) walks the (batch, head) members that broadcast onto it in
@@ -40,15 +54,54 @@
 // atomics, at the price of one CTA per query block when the bias is
 // [1, 1, Sq, Sk].
 #include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 using namespace flash;
 
 namespace {
 
-template <typename T, Mode kMode>
+// The float32 forward; bfloat16 runs the flash_sm90.cuh forward.
+template <Mode kMode>
 __global__ void __launch_bounds__(NT) masked_fwd_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  fwd_body<T, kMode>(p, smem);
+  fwd_body<float, kMode>(p, smem);
+}
+
+// The bf16 forward's tile table: {min, max} of each interval vector over
+// each 64-key block (columns past Sk left out), [Bm, Hm, nvec, nblk]
+// int2 with Bm = B where the intervals have a batch stride, else 1 (Hm
+// likewise).  One warp per (vector row, block): grid (ceil(nblk / 4),
+// Bm * Hm * nvec), 128 threads.  Reads the intervals once (4 * nvec * Sk
+// bytes per (Bm, Hm) member).
+__global__ void __launch_bounds__(128)
+    tile_table_kernel(const int* mask, int nvec, int hm, long long sb,
+                      long long sh, long long sv, int sk, int nblk,
+                      int2* tbl) {
+  const int blk = blockIdx.x * 4 + (threadIdx.x >> 5);
+  if (blk >= nblk) return;                      // the whole warp
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.y;                     // (bt * hm + ht) * nvec + i
+  const int i = r % nvec, ht = r / nvec % hm, bt = r / nvec / hm;
+  const int* row = mask + bt * sb + ht * sh + i * sv;
+  int lo = INT_MAX, hi = INT_MIN;
+  for (int c = blk * 64 + lane; c < min(blk * 64 + 64, sk); c += 32) {
+    const int x = row[c];
+    lo = min(lo, x);
+    hi = max(hi, x);
+  }
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if (lane == 0) tbl[(long long)r * nblk + blk] = make_int2(lo, hi);
+}
+
+// Launch tile_table_kernel for p's intervals (p.nvec > 0) into p.tbl.
+int launch_tile_table(const Params& p, cudaStream_t s) {
+  const int nblk = (p.sk + 63) / 64;
+  const int bm = p.m_s[0] ? p.B : 1, hm = p.m_s[1] ? p.H : 1;
+  tile_table_kernel<<<dim3((nblk + 3) / 4, bm * hm * p.nvec), 128, 0, s>>>(
+      p.mask, p.nvec, hm, p.m_s[0], p.m_s[1], p.m_s[2], p.sk, nblk,
+      const_cast<int2*>(p.tbl));
+  return (int)cudaGetLastError();
 }
 
 template <typename T, Mode kMode>
@@ -203,14 +256,18 @@ extern "C" {
 // Shapes are validated by the Python wrappers
 // (paddle_tpu_torch/ops/pallas/flash_mask.py).
 
-// strides: q, k, v, out, mask, bias (18); lse may be null (not written)
+// strides: q, k, v, out, mask, bias (18); lse may be null (not written).
+// bfloat16 with intervals needs tbl, an int32 buffer of Bm * Hm * nvec *
+// ceil(Sk / 64) * 2 (Bm = B where the intervals' batch stride is not 0,
+// else 1; Hm likewise): the tile table, written here before the forward.
 int flash_mask_fwd(int dtype, int head_dim, const void* q, const void* k,
                    const void* v, const void* mask, int nvec,
                    const void* bias, int bias_dtype, void* out, void* lse,
-                   int B, int H, int group, int sq, int sk, int causal,
-                   float scale, const long long* strides, void* stream) {
+                   void* tbl, int B, int H, int group, int sq, int sk,
+                   int causal, float scale, const long long* strides,
+                   void* stream) {
   if (bad_args(dtype, head_dim, B, H, group, sq, sk) ||
-      bad_mask(nvec, mask, bias_dtype))
+      bad_mask(nvec, mask, bias_dtype) || (dtype == 1 && nvec && !tbl))
     return (int)cudaErrorInvalidValue;
   Params p = {};
   set_common(p, B, H, group, sq, sk, causal, scale, mask, nvec, bias,
@@ -224,15 +281,35 @@ int flash_mask_fwd(int dtype, int head_dim, const void* q, const void* k,
   set3(p.k_s, strides + 3);
   set3(p.v_s, strides + 6);
   set3(p.o_s, strides + 9);
-  dim3 grid((sq + BM - 1) / BM, H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch(bias ? masked_fwd_kernel<float, kBiased>
-                       : masked_fwd_kernel<float, kIntervals>,
-                  FwdSmem<float>::bytes, grid, p, s);
-  return launch(bias ? masked_fwd_kernel<__nv_bfloat16, kBiased>
-                     : masked_fwd_kernel<__nv_bfloat16, kIntervals>,
-                FwdSmem<__nv_bfloat16>::bytes, grid, p, s);
+    return launch(bias ? masked_fwd_kernel<kBiased>
+                       : masked_fwd_kernel<kIntervals>,
+                  FwdSmem<float>::bytes, dim3((sq + BM - 1) / BM, H, B), p,
+                  s);
+  p.tbl = static_cast<const int2*>(tbl);
+  if (nvec) {
+    const int err = launch_tile_table(p, s);
+    if (err) return err;
+  }
+  return bias ? flash_sm90::launch_fwd<kBiased>(p, s)
+              : flash_sm90::launch_fwd<kIntervals>(p, s);
+}
+
+// The bf16 forward's tile table alone (for its check against the plain
+// version): mask [B|1, H|1, nvec, Sk] with element strides (batch, head,
+// vector) in strides[0..3), 0 on a broadcast dim; tbl as flash_mask_fwd
+// takes it.
+int flash_mask_tile_table(const void* mask, int nvec, int B, int H, int sk,
+                          const long long* strides, void* tbl,
+                          void* stream) {
+  if ((nvec != 2 && nvec != 4) || !mask || !tbl || B < 1 || H < 1 || sk < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long st[6] = {strides[0], strides[1], strides[2], 0, 0, 0};
+  Params p = {};
+  set_common(p, B, H, 1, 1, sk, 0, 1.f, mask, nvec, nullptr, 0, st);
+  p.tbl = static_cast<const int2*>(tbl);
+  return launch_tile_table(p, static_cast<cudaStream_t>(stream));
 }
 
 // strides: q, k, v, out, dout, dq, mask, bias (24); writes dq and delta

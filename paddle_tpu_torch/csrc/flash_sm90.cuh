@@ -1,13 +1,17 @@
-// Flash attention K1 (forward) and K2 (dq, dk/dv) for Hopper: the bf16
+// Flash attention for Hopper: K1 (forward) and K2 (dq, dk/dv), the bf16
 // instances behind flash_attention_fwd, flash_attention_bwd_dq and
-// flash_attention_bwd_dkv (flash_attention.cu).  The float32 instances
-// and every K8 kernel keep the WMMA bodies of flash_common.cuh.
+// flash_attention_bwd_dkv (flash_attention.cu), and the bf16 K8 forward
+// behind flash_mask_fwd (flash_mask.cu), in its two modes: kIntervals
+// (flashmask intervals) and kBiased (an additive bias, intervals
+// optional).  The float32 instances and the K8 dq, dk/dv and dbias
+// kernels keep the WMMA bodies of flash_common.cuh.
 //
 // Each kernel computes what its TPU kernel computes
 // (paddle_tpu/ops/pallas/flash_attention.py _fwd_kernel :523,
-// _bwd_dq_kernel :925, _bwd_dkv_kernel :960), with the numerics listed
-// in flash_attention.cu, and is built the FlashAttention-3 way
-// (Shah et al., 2024):
+// _bwd_dq_kernel :925, _bwd_dkv_kernel :960; flash_mask.py _fwd_kernel
+// :141 and its streamed twin _fwd_kernel_stream :267), with the
+// numerics listed in flash_attention.cu and flash_mask.cu, and is built
+// the FlashAttention-3 way (Shah et al., 2024):
 //   * warp specialisation: warpgroup 0 is the producer (one thread
 //     issues TMA loads; setmaxnreg gives its registers away), the other
 //     warpgroups are consumers, each owning 64 rows of the CTA's tile;
@@ -25,7 +29,8 @@
 //     one multiply, exp2f, row max by __shfl_xor_sync over the quad;
 //   * the visibility test is one function of (query row, key column),
 //     visible<kMode>(), applied only to key blocks that cross the
-//     bottom-right aligned diagonal or the Sk edge;
+//     bottom-right aligned diagonal or the Sk edge (and, in the K8
+//     modes, to blocks that an interval crosses);
 //   * no float atomics: each output element is written by one CTA and
 //     every sum is taken in a fixed order, so runs repeat bit for bit.
 //
@@ -33,7 +38,20 @@
 //   * forward: one CTA per (128-row query block, q head, batch), 3
 //     warpgroups; Q resident, 128-key K and V tiles in the ring (160 KB
 //     of shared memory); O (64 x 128 f32 per warpgroup) stays in
-//     registers until the epilogue divides by l and stores it;
+//     registers until the epilogue divides by l and stores it.  The K8
+//     modes add FlashMask's block skipping (Wang et al., 2024): a table
+//     of the per-64-key-block minimum and maximum of every interval
+//     vector (written by flash_mask.cu's table kernel just before)
+//     classes each key tile of the CTA's query block as skip (an
+//     interval hides all of it from every row: neither loaded nor
+//     computed), clean (no interval touches it: no per-element test) or
+//     partial (the per-element test, with the tile's interval ends
+//     staged in shared memory by the producer warp).  kBiased takes
+//     64-key tiles so that a tile's bias fits the consumers' registers
+//     beside O and the scores; without intervals each thread copies the
+//     next tile's bias pairs to its own shared-memory slots (cp.async)
+//     while it computes this one, so the bias bytes, which bound it,
+//     stream behind the products;
 //   * dq: one CTA per (128-row query block, q head, batch), 3
 //     warpgroups; a prologue takes delta = rowsum(out * dout) in f32 and
 //     writes it out for the dk/dv kernel; Q and dO resident, 64-key K
@@ -57,18 +75,25 @@
 // kernels take block x from the end, the dk/dv kernel's key block 0
 // (which every query sees) is first already.
 //
-// Bounds on the H100 (989 TFLOP/s bf16): operations.  At the training
-// shape (b 8, h 16, s 2048, d 128, causal: 268.6 M visible pairs) the
-// forward does 4 * pairs * D = 137.5 GFLOP (0.139 ms), dq 6 * pairs * D
-// (0.209 ms), dk/dv 8 * pairs * D (0.278 ms).
+// Bounds on the H100 (989 TFLOP/s bf16, 3.35 TB/s): operations for K1,
+// K2 and the interval forward.  At the training shape (b 8, h 16, s
+// 2048, d 128, causal: 268.6 M visible pairs) the forward does 4 *
+// pairs * D = 137.5 GFLOP (0.139 ms), dq 6 * pairs * D (0.209 ms),
+// dk/dv 8 * pairs * D (0.278 ms); the interval forward does 4 * pairs *
+// D on the pairs the mask leaves.  The biased forward is bound by the
+// bias bytes it must read, those of the visible pairs (ALiBi's [1, 16,
+// 2048, 2048] f32, causal: the lower triangle, 134.3 MB; with q, k, v,
+// out and lse 202 MB, 0.060 ms).
 //
 // Left for later: overlapping one warpgroup's softmax with its next
 // wgmma (two score buffers; issuing S of the next key block before P.V
 // of this one, as written here, spilled and ran slower) and pingpong
 // scheduling between the consumer warpgroups; persistent CTAs with a
-// tile scheduler; TMA stores of the outputs; fp8.
+// tile scheduler; TMA stores of the outputs; fp8; the K8 dq and dk/dv
+// on these bodies and the tile table.
 #pragma once
 
+#include <climits>
 #include <cuda.h>   // CUtensorMap (the encoder comes from the runtime's
                     // driver entry point: no -lcuda)
 
@@ -104,6 +129,13 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
                    "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Expect ``bytes`` more from asynchronous copies, without arriving.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
                "r"(bytes)
                : "memory");
 }
@@ -197,6 +229,12 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t addr, uint32_t panel) {
          (static_cast<uint64_t>(panel >> 4) << 16) | (64ull << 32) |
          (1ull << 62);
 }
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -318,19 +356,54 @@ __device__ __forceinline__ void gemm_rs(float (&d)[64],
 }
 
 // ------------------------------------------------------------ visibility
+// A CTA's view of its (batch, q head): kPlain needs the lengths; the K8
+// modes add the flashmask interval rows and their tile table, and the
+// bias rows, resolved as flash_common.cuh's vis_for resolves them
+// (stride 0 on a broadcast dim).
 struct Vis {
   int sk;
-  int diag;     // Sk - Sq: causal row q sees keys <= q + diag
+  int diag;          // Sk - Sq: causal row q sees keys <= q + diag
   int causal;
+  int sq;
+  flash::Vis m;      // the interval rows (mask, m_sv, nvec) and bias rows
+  const int2* tbl;   // [nvec, nblk]: {min, max} of each 64-key block
+  int nblk;
 };
 
-// Whether query row q sees key k: kPlain (K1/K2) is "below Sk and,
-// causal, at or left of the bottom-right aligned diagonal".  The one
-// place where a further mode adds its own test.
+template <Mode kMode>
+__device__ __forceinline__ Vis vis_for(const Params& p, int b, int h) {
+  Vis v{p.sk, p.sk - p.sq, p.causal};
+  if constexpr (kMode != flash::kPlain) {
+    v.sq = p.sq;
+    v.m = flash::vis_for(p, b, h);
+    v.nblk = (p.sk + 63) / 64;
+    const int hm = p.m_s[1] ? p.H : 1;
+    v.tbl = p.tbl + ((long long)((p.m_s[0] ? b : 0) * hm + (p.m_s[1] ? h : 0)) *
+                     v.m.nvec) * v.nblk;
+  }
+  return v;
+}
+
+// Whether query row q sees key k: below Sk and, causal, at or left of
+// the bottom-right aligned diagonal.
 template <Mode kMode>
 __device__ __forceinline__ bool visible(int q, int k, const Vis& v) {
-  static_assert(kMode == flash::kPlain, "only kPlain is instantiated");
   return k < v.sk && (!v.causal || k <= q + v.diag);
+}
+
+// The same in the K8 modes, given the interval ends e[0 .. nvec) of
+// key k's column: also outside each masked row interval [e[2 i],
+// e[2 i + 1]).  (An array reference, not a pointer, so that the ends
+// stay in registers.)
+template <Mode kMode>
+__device__ __forceinline__ bool visible(int q, int k, const Vis& v,
+                                        const int (&e)[4]) {
+  static_assert(kMode != flash::kPlain, "intervals are a K8 mode's");
+  bool vis = visible<kMode>(q, k, v);
+#pragma unroll
+  for (int i = 0; i < 4; i += 2)
+    if (i < v.m.nvec && q >= e[i] && q < e[i + 1]) vis = false;
+  return vis;
 }
 
 // Whether every key of [k0, k0 + n) is visible to every row from q0 on
@@ -347,6 +420,38 @@ __device__ __forceinline__ int key_blocks(int q0, int rows, int n,
   if (!v.causal) return nblk;
   const int last = q0 + rows - 1 + v.diag;
   return last < 0 ? 0 : min(last / n + 1, nblk);
+}
+
+// The class of the BN-key tile kb for query rows [q0, qe), from the
+// per-64-key-block minima and maxima of the interval ends (FlashMask's
+// block skipping, Wang et al., 2024): kSkip when one interval hides
+// every key of the tile from every row (start <= q0 and end >= qe in
+// each column), kClean when none can touch it (start >= qe, end <= q0,
+// or start >= end in every column), kPartial otherwise.  Keys past Sk
+// are not in the table; the causal/Sk test masks them.
+enum TileClass { kSkip, kPartial, kClean };
+
+template <int BN>
+__device__ __forceinline__ int tile_class(int kb, int q0, int qe,
+                                          const Vis& v) {
+  int cls = kClean;
+  const int c0 = kb * (BN / 64), c1 = min(c0 + BN / 64, v.nblk);
+#pragma unroll
+  for (int i = 0; i < 4; i += 2) {
+    if (i >= v.m.nvec) break;
+    int smin = INT_MAX, smax = INT_MIN, emin = INT_MAX, emax = INT_MIN;
+    for (int c = c0; c < c1; ++c) {
+      const int2 st = v.tbl[i * v.nblk + c];
+      const int2 en = v.tbl[(i + 1) * v.nblk + c];
+      smin = min(smin, st.x);
+      smax = max(smax, st.y);
+      emin = min(emin, en.x);
+      emax = max(emax, en.y);
+    }
+    if (smax <= q0 && emin >= qe) return kSkip;
+    if (smin < qe && emax > q0 && smin < emax) cls = kPartial;
+  }
+  return cls;
 }
 
 __device__ __forceinline__ unsigned char* align_smem(unsigned char* raw,
@@ -375,32 +480,101 @@ __device__ __forceinline__ void store_rows(const float (&acc)[64],
 }
 
 // ------------------------------------------------------------- forward
-// Fold one key block (first key k0) of a 64 x 128 score tile into the
-// online softmax of rows ``row`` and ``row`` + 8: mask it where
-// ``masked``, update m (log2 units) and l, turn the scores into p in
-// place and return each row's rescale factor in alpha.  A row that has
-// seen no visible key keeps m = -inf, takes alpha = 1 and m as 0 (its p
-// are all 0).
+// One CTA per (128-row query block, q head, batch), BN-key K and V tiles
+// in the ring.  K1 and kIntervals take 128-key tiles; kBiased takes
+// 64-key tiles, so that a tile's bias (read into registers while its
+// Q.K^T runs) fits the consumers' registers beside O and the scores.
 template <Mode kMode>
-__device__ __forceinline__ void softmax_block(float (&sc)[64], int row, int t,
+struct FwdCfg {
+  static constexpr int BM = 128, BN = kMode == flash::kBiased ? 64 : 128;
+  static constexpr int NS = 2, NT = 384;
+  // registers after setmaxnreg (168 x 384 at launch): K1's producer is
+  // one thread, the K8 producer warp classes tiles and loads ends
+  static constexpr int kProducerRegs = kMode == flash::kPlain ? 24 : 40;
+  static constexpr int kConsumerRegs = kMode == flash::kPlain ? 240 : 232;
+  static constexpr bool kBatchFirst = kMode == flash::kBiased;
+  static constexpr uint32_t kQTile = BM * D * 2;     // Q [128, 128]
+  static constexpr uint32_t kTile = BN * D * 2;      // K or V [BN, 128]
+  static constexpr uint32_t kQ = 0, kK = kQTile, kV = kK + NS * kTile;
+  static constexpr uint32_t kBar = kV + NS * kTile;  // full_q, full_k, full_v, empty
+  // the K8 modes add, per stage, the tile's interval ends [4, BN] and its
+  // key block (2 kb + partial, or -1: no more blocks)
+  static constexpr uint32_t kEnds = kBar + 64;
+  static constexpr uint32_t kMeta = kEnds + NS * 4 * BN * 4;
+  // kBiased: two bias staging areas, 8 bytes per (pair, consumer thread)
+  static constexpr uint32_t kStage = kMeta + 64;
+  static constexpr uint32_t kStageBytes = BN / 4 * 256 * 8;
+  static constexpr size_t kSmem =
+      (kMode == flash::kPlain    ? kBar + 8 * (1 + 3 * NS)
+       : kMode == flash::kBiased ? kStage + 2 * kStageBytes
+                                 : kMeta + NS * 4) +
+      1024;
+};
+
+// Fold one key block (first key k0) of a 64 x (N / 2) score tile into
+// the online softmax of rows ``row`` and ``row`` + 8: mask it where
+// ``masked`` (with the block's interval ends from ``ends`` where it is
+// partial), update m (log2 units) and l, turn the scores into p in
+// place and return each row's rescale factor in alpha.  The logit is
+// sc * sl2 (kBiased passes sl2 = 1: its scores are biased logits in
+// log2 units already).  A row that has seen no visible key keeps m =
+// -inf, takes alpha = 1 and m as 0 (its p are all 0).
+template <Mode kMode, int N>
+__device__ __forceinline__ void softmax_block(float (&sc)[N], int row, int t,
                                               int k0, bool masked,
                                               const Vis& vis, float sl2,
                                               float (&m)[2], float (&l)[2],
-                                              float (&alpha)[2]) {
+                                              float (&alpha)[2],
+                                              const int* ends = nullptr) {
+  constexpr int J = N / 4;              // 8-column groups of the block
   if (masked) {
+    if constexpr (kMode == flash::kPlain) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < J; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (!visible<kMode>(row + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1),
-                            vis))
-          sc[4 * j + e] = -INFINITY;
+        for (int e = 0; e < 4; ++e)
+          if (!visible<kMode>(row + 8 * (e >> 1),
+                              k0 + 8 * j + 2 * t + (e & 1), vis))
+            sc[4 * j + e] = -INFINITY;
+    } else {
+      // the thread's N elements as bits (element 4 j + 2 r + c), each
+      // column's interval ends read once for both rows; the rolled loops
+      // keep the ends out of the registers that the scores hold
+      uint64_t hide = 0;
+      if (ends) {
+#pragma unroll 1
+        for (int j = 0; j < J; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int col = 8 * j + 2 * t + c;
+            int e[4] = {0, 0, 0, 0};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (i < vis.m.nvec) e[i] = ends[i * 8 * J + col];
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              if (!visible<kMode>(row + 8 * r, k0 + col, vis, e))
+                hide |= 1ull << (4 * j + 2 * r + c);
+          }
+      } else {
+#pragma unroll 1
+        for (int j = 0; j < J; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!visible<kMode>(row + 8 * (e >> 1),
+                                k0 + 8 * j + 2 * t + (e & 1), vis))
+              hide |= 1ull << (4 * j + e);
+      }
+#pragma unroll
+      for (int e = 0; e < N; ++e)
+        if ((hide >> e) & 1) sc[e] = -INFINITY;
+    }
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float mx = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < J; ++j)
       mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
@@ -410,7 +584,7 @@ __device__ __forceinline__ void softmax_block(float (&sc)[64], int row, int t,
     const float ms = dead ? 0.f : m_new;
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < J; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const float pe = exp2f(fmaf(sc[4 * j + 2 * r + e], sl2, -ms));
@@ -422,39 +596,244 @@ __device__ __forceinline__ void softmax_block(float (&sc)[64], int row, int t,
   }
 }
 
-namespace fwd_cfg {
-constexpr int BM = 128, BN = 128, NS = 2, NT = 384;
-constexpr uint32_t kTile = 128 * D * 2;            // one [128, 128] tile
-constexpr uint32_t kQ = 0, kK = kTile, kV = kK + NS * kTile;
-constexpr uint32_t kBar = kV + NS * kTile;         // full_q, full_k, full_v, empty
-constexpr size_t kSmem = kBar + 8 * (1 + 3 * NS) + 1024;
-}  // namespace fwd_cfg
+// The bias of query rows row and row + 8 at key columns k0 + 8 j + 2 t
+// (+ 1), in the accumulator layout of a 64 x (N / 2) score tile, as
+// f32.  Rows past Sq read as 0 (the bias has no row there; they are not
+// stored) and so do columns past Sk (their scores are masked).
+// ``pair``: both columns of every pair are below Sk and each pair is
+// aligned for one 8-byte (f32) or 4-byte (bf16, f16) load.
+template <typename T, int N>
+__device__ __forceinline__ void load_bias_t(float (&bz)[N], const Vis& v,
+                                            int row, int k0, int t,
+                                            bool pair) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = row + 8 * r;
+    const T* src = static_cast<const T*>(v.m.bias) +
+                   (long long)min(q, v.sq - 1) * v.m.b_ss + k0 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      float2 x = make_float2(0.f, 0.f);
+      if (q < v.sq) {
+        if (pair) {
+          if constexpr (std::is_same<T, float>::value) {
+            x = *reinterpret_cast<const float2*>(src + 8 * j);
+          } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+            x = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(src + 8 * j));
+          } else {
+            x = __half22float2(*reinterpret_cast<const __half2*>(src + 8 * j));
+          }
+        } else {
+          const int k = k0 + 8 * j + 2 * t;
+          if (k < v.sk) x.x = to_f32(src[8 * j]);
+          if (k + 1 < v.sk) x.y = to_f32(src[8 * j + 1]);
+        }
+      }
+      bz[4 * j + 2 * r] = x.x;
+      bz[4 * j + 2 * r + 1] = x.y;
+    }
+  }
+}
 
+template <int N>
+__device__ __forceinline__ void load_bias(float (&bz)[N], const Vis& v,
+                                          int row, int k0, int t, bool pair) {
+  if (v.m.bias_dt == 0) {
+    load_bias_t<float>(bz, v, row, k0, t, pair);
+  } else if (v.m.bias_dt == 1) {
+    load_bias_t<__nv_bfloat16>(bz, v, row, k0, t, pair);
+  } else {
+    load_bias_t<__half>(bz, v, row, k0, t, pair);
+  }
+}
+
+// cp.async of one bias pair (``w`` = 8 or 4 bytes) into shared memory,
+// zero-filling past ``valid`` bytes; commit and wait by group.
+template <int W>
+__device__ __forceinline__ void cp_pair(uint32_t dst, const void* src,
+                                        int valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+               "l"(src), "n"(W), "r"(valid)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy the thread's bias pairs of the block at key k0 (rows row and row +
+// 8, columns k0 + 8 j + 2 t (+ 1)) to its slots of a staging area at
+// shared address dst: pair (j, r) in slot (2 j + r) * 256 + ci, 8 bytes
+// a slot for f32, 4 for bf16 and f16 (so that a warp reads 32 slots
+// side by side).  Rows past Sq and columns past Sk fill with zeros.
+// Needs aligned pairs.
+template <int BN>
+__device__ __forceinline__ void stage_bias(uint32_t dst, const Vis& v,
+                                           int row, int k0, int t, int ci) {
+  const int es = v.m.bias_dt == 0 ? 4 : 2;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = row + 8 * r;
+    const char* src = static_cast<const char*>(v.m.bias) +
+                      ((long long)min(q, v.sq - 1) * v.m.b_ss + k0 + 2 * t) * es;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int k = k0 + 8 * j + 2 * t;
+      const int valid = q < v.sq ? max(0, min(2, v.sk - k)) * es : 0;
+      const uint32_t slot = (2 * j + r) * 256 + ci;
+      if (es == 4) {
+        cp_pair<8>(dst + slot * 8, src + 8 * j * es, valid);
+      } else {
+        cp_pair<4>(dst + slot * 4, src + 8 * j * es, valid);
+      }
+    }
+  }
+}
+
+// The thread's staged bias pairs as f32, in the accumulator layout.
+template <int N>
+__device__ __forceinline__ void read_staged(float (&bz)[N],
+                                            const unsigned char* stage,
+                                            int dt, int ci) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int slot = (2 * j + r) * 256 + ci;
+      float2 x;
+      if (dt == 0) {
+        x = *reinterpret_cast<const float2*>(stage + slot * 8);
+      } else if (dt == 1) {
+        x = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(stage + slot * 4));
+      } else {
+        x = __half22float2(*reinterpret_cast<const __half2*>(stage + slot * 4));
+      }
+      bz[4 * j + 2 * r] = x.x;
+      bz[4 * j + 2 * r + 1] = x.y;
+    }
+}
+
+// One key block of a K8 consumer warpgroup, its K tile already in
+// (stage at ka, va): S = Q.K^T by wgmma, the mask and online softmax,
+// then O += P.V with p rounded to bf16 in registers.  K1 runs the same
+// steps inline in fwd_kernel.  kBiased adds the bias in log2 units:
+// with kStaged (no intervals, so the blocks come in order up to key
+// kend, and aligned bias pairs) this block's bias is in the thread's
+// slots of the staging area at ``stage`` and the next block's is copied
+// to ``next_stage`` while this one runs; else it is read into registers
+// while Q.K^T runs.
+template <Mode kMode, bool kStaged>
+__device__ __forceinline__ void fwd_block(float (&o)[64], float (&m)[2],
+                                          float (&l)[2], uint32_t qa,
+                                          uint32_t ka, uint32_t va,
+                                          uint32_t full_v, uint32_t ph,
+                                          int row, int t, int q0, int k0,
+                                          const int* ends, const Vis& vis,
+                                          float sl2, bool bias_pair,
+                                          const unsigned char* stage,
+                                          uint32_t next_stage, int ci,
+                                          int kend) {
+  using C = FwdCfg<kMode>;
+  float sc[C::BN / 2], alpha[2];
+  // the per-element test: blocks across the diagonal or Sk, and partial
+  // blocks (whose interval ends are in ``ends``)
+  const bool masked = ends || !all_visible(q0, k0, C::BN, vis);
+  wg_fence();
+  gemm_abt<C::BM, C::BN>(sc, qa, ka);
+  wg_commit();
+  if constexpr (kMode == flash::kBiased) {
+    float bz[C::BN / 2];
+    if constexpr (kStaged) {
+      if (k0 + C::BN < kend)
+        stage_bias<C::BN>(next_stage, vis, row, k0 + C::BN, t, ci);
+      cp_commit();
+      cp_wait<1>();                // this block's copies (the older group)
+      read_staged(bz, stage, vis.m.bias_dt, ci);
+    } else {
+      load_bias(bz, vis, row, k0, t, bias_pair && k0 + C::BN <= vis.sk);
+    }
+    wg_wait<0>();
+    reg_fence(sc);
+#pragma unroll
+    for (int i = 0; i < C::BN / 2; ++i)
+      sc[i] = fmaf(sc[i], sl2, bz[i] * kLog2e);
+    softmax_block<kMode>(sc, row, t, k0, masked, vis, 1.f, m, l, alpha, ends);
+  } else {
+    wg_wait<0>();
+    reg_fence(sc);
+    softmax_block<kMode>(sc, row, t, k0, masked, vis, sl2, m, l, alpha, ends);
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    o[4 * j + 0] *= alpha[0];
+    o[4 * j + 1] *= alpha[0];
+    o[4 * j + 2] *= alpha[1];
+    o[4 * j + 3] *= alpha[1];
+  }
+
+  // O += P.V: p rounded to bf16 in registers
+  mbar_wait(full_v, ph);
+  wg_fence();
+  gemm_rs<C::BN / 16, C::BN>(o, sc, va);
+  wg_commit();
+  wg_wait<0>();
+  reg_fence(o);
+}
+
+// kPlain (K1) walks every key block up to the causal bound.  The K8
+// modes (kIntervals; kBiased, intervals optional) let the producer warp
+// class the key blocks 32 at a time from the tile table (tile_class):
+// it loads K and V only for the blocks that are not skipped, and then
+// the interval ends of partial blocks (its 32 lanes, plain loads: a row
+// of Sk int32 need not be 16-byte aligned for TMA) and the block index
+// into the stage, and ends with an empty stage marked -1; the consumers
+// walk the stages it fills.  A skipped block leaves m, l and O as they
+// were, as one whose p are all 0 would.
 template <Mode kMode>
-__global__ void __launch_bounds__(fwd_cfg::NT, 1)
+__global__ void __launch_bounds__(FwdCfg<kMode>::NT, 1)
     fwd_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, const Params p) {
-  using namespace fwd_cfg;
+  using C = FwdCfg<kMode>;
+  constexpr int BM = C::BM, BN = C::BN, NS = C::NS;
+  constexpr uint32_t kQ = C::kQ, kK = C::kK, kV = C::kV, kBar = C::kBar;
+  constexpr uint32_t kTile = C::kTile;
   extern __shared__ unsigned char smem_sm90[];
   uint32_t base;
-  align_smem(smem_sm90, &base);
+  unsigned char* smem = align_smem(smem_sm90, &base);
   const uint32_t full_q = base + kBar;
   const auto full_k = [&](int s) { return base + kBar + 8 * (1 + s); };
   const auto full_v = [&](int s) { return base + kBar + 8 * (1 + NS + s); };
   const auto empty = [&](int s) { return base + kBar + 8 * (1 + 2 * NS + s); };
 
-  const int qb = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  // grid (query blocks, heads, batch); kBiased's is (batch, query
+  // blocks, heads), so that one (query block, head) of every batch runs
+  // side by side and a bias broadcast over the batch is read from L2
+  // after the first
+  int qb, h, b;
+  if constexpr (C::kBatchFirst) {
+    qb = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+    h = blockIdx.z;
+    b = blockIdx.x;
+  } else {
+    qb = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+    h = blockIdx.y;
+    b = blockIdx.z;
+  }
   const int q0 = qb * BM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const Vis vis{p.sk, p.sk - p.sq, p.causal};
+  const Vis vis = vis_for<kMode>(p, b, h);
   const int upper = key_blocks(q0, BM, BN, vis);
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
     for (int s = 0; s < NS; ++s) {
-      mbar_init(full_k(s), 1);
+      // K8: all 32 lanes of the producer warp arrive on full_k
+      mbar_init(full_k(s), kMode == flash::kPlain ? 1 : 32);
       mbar_init(full_v(s), 1);
       mbar_init(empty(s), 8);     // one arrival per consumer warp
     }
@@ -464,23 +843,74 @@ __global__ void __launch_bounds__(fwd_cfg::NT, 1)
 
   if (threadIdx.x < 128) {
     // ---- producer
-    reg_dealloc<24>();
-    if (threadIdx.x == 0) {
-      const int hk = h / p.group;
-      mbar_expect_tx(full_q, kTile);
-      tma_tile(base + kQ, &tq, full_q, q0, h, b, BM);
-      for (int kb = 0; kb < upper; ++kb) {
-        const int s = kb % NS;
-        mbar_wait(empty(s), ((kb / NS) & 1) ^ 1);
-        mbar_expect_tx(full_k(s), kTile);
-        tma_tile(base + kK + s * kTile, &tk, full_k(s), kb * BN, hk, b, BN);
-        mbar_expect_tx(full_v(s), kTile);
-        tma_tile(base + kV + s * kTile, &tv, full_v(s), kb * BN, hk, b, BN);
+    reg_dealloc<C::kProducerRegs>();
+    if constexpr (kMode == flash::kPlain) {
+      if (threadIdx.x == 0) {
+        const int hk = h / p.group;
+        mbar_expect_tx(full_q, C::kQTile);
+        tma_tile(base + kQ, &tq, full_q, q0, h, b, BM);
+        for (int kb = 0; kb < upper; ++kb) {
+          const int s = kb % NS;
+          mbar_wait(empty(s), ((kb / NS) & 1) ^ 1);
+          mbar_expect_tx(full_k(s), kTile);
+          tma_tile(base + kK + s * kTile, &tk, full_k(s), kb * BN, hk, b, BN);
+          mbar_expect_tx(full_v(s), kTile);
+          tma_tile(base + kV + s * kTile, &tv, full_v(s), kb * BN, hk, b, BN);
+        }
       }
+    } else if (threadIdx.x < 32) {
+      int* ends_s = reinterpret_cast<int*>(smem + C::kEnds);
+      int* meta_s = reinterpret_cast<int*>(smem + C::kMeta);
+      const int lane = threadIdx.x;
+      const int hk = h / p.group;
+      if (lane == 0) {
+        mbar_expect_tx(full_q, C::kQTile);
+        tma_tile(base + kQ, &tq, full_q, q0, h, b, BM);
+      }
+      const int qe = min(q0 + BM, p.sq);
+      int it = 0;                       // stages filled
+      for (int c = 0; c < upper; c += 32) {
+        const int cls = c + lane < upper
+                            ? tile_class<BN>(c + lane, q0, qe, vis)
+                            : kSkip;
+        unsigned live = __ballot_sync(0xffffffffu, cls != kSkip);
+        const unsigned part = __ballot_sync(0xffffffffu, cls == kPartial);
+        for (; live; live &= live - 1, ++it) {
+          const int kb = c + __ffs(live) - 1;
+          const int ivl = (part >> (kb - c)) & 1;
+          const int s = it % NS;
+          mbar_wait(empty(s), ((it / NS) & 1) ^ 1);
+          if (lane == 0) {
+            // the copies first; the lanes' arrivals complete full_k
+            meta_s[s] = 2 * kb + ivl;
+            mbar_expect(full_k(s), kTile);
+            tma_tile(base + kK + s * kTile, &tk, full_k(s), kb * BN, hk, b, BN);
+            mbar_expect_tx(full_v(s), kTile);
+            tma_tile(base + kV + s * kTile, &tv, full_v(s), kb * BN, hk, b, BN);
+          }
+          if (ivl) {
+            int* es = ends_s + s * 4 * BN;
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int u = 0; u < BN / 32; ++u) {
+                const int k = kb * BN + lane + 32 * u;
+                if (i < vis.m.nvec)
+                  es[i * BN + lane + 32 * u] =
+                      k < p.sk ? vis.m.mask[i * vis.m.m_sv + k] : 0;
+              }
+          }
+          mbar_arrive(full_k(s));
+        }
+      }
+      const int s = it % NS;
+      mbar_wait(empty(s), ((it / NS) & 1) ^ 1);
+      if (lane == 0) meta_s[s] = -1;
+      mbar_arrive(full_k(s));
     }
   } else {
     // ---- consumers: warpgroup cw owns tile rows [64 cw, 64 cw + 64)
-    reg_alloc<240>();
+    reg_alloc<C::kConsumerRegs>();
     const int ci = threadIdx.x - 128;
     const int cw = ci >> 7;
     const int warp = (ci >> 5) & 3;
@@ -498,38 +928,87 @@ __global__ void __launch_bounds__(fwd_cfg::NT, 1)
     float l[2] = {0.f, 0.f};
     mbar_wait(full_q, 0);
 
-    for (int kb = 0; kb < upper; ++kb) {
-      const int s = kb % NS;
-      const uint32_t ph = (kb / NS) & 1;
-      const uint32_t ka = base + kK + s * kTile;
-      const uint32_t va = base + kV + s * kTile;
-      const int k0 = kb * BN;
+    if constexpr (kMode == flash::kPlain) {
+      for (int kb = 0; kb < upper; ++kb) {
+        const int s = kb % NS;
+        const uint32_t ph = (kb / NS) & 1;
+        const uint32_t ka = base + kK + s * kTile;
+        const uint32_t va = base + kV + s * kTile;
+        const int k0 = kb * BN;
 
-      float sc[64], alpha[2];
-      mbar_wait(full_k(s), ph);
-      wg_fence();
-      gemm_abt<BM, BN>(sc, qa, ka);
-      wg_commit();
-      wg_wait<0>();
-      reg_fence(sc);
-      softmax_block<kMode>(sc, row, t, k0, !all_visible(q0, k0, BN, vis), vis,
-                           sl2, m, l, alpha);
+        float sc[64], alpha[2];
+        mbar_wait(full_k(s), ph);
+        wg_fence();
+        gemm_abt<BM, BN>(sc, qa, ka);
+        wg_commit();
+        wg_wait<0>();
+        reg_fence(sc);
+        softmax_block<kMode>(sc, row, t, k0, !all_visible(q0, k0, BN, vis),
+                             vis, sl2, m, l, alpha);
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        o[4 * j + 0] *= alpha[0];
-        o[4 * j + 1] *= alpha[0];
-        o[4 * j + 2] *= alpha[1];
-        o[4 * j + 3] *= alpha[1];
-      }
+        for (int j = 0; j < 16; ++j) {
+          o[4 * j + 0] *= alpha[0];
+          o[4 * j + 1] *= alpha[0];
+          o[4 * j + 2] *= alpha[1];
+          o[4 * j + 3] *= alpha[1];
+        }
 
-      // O += P.V: p rounded to bf16 in registers
-      mbar_wait(full_v(s), ph);
-      wg_fence();
-      gemm_rs<BN / 16, BN>(o, sc, va);
-      wg_commit();
-      wg_wait<0>();
-      reg_fence(o);
-      if (lane == 0) mbar_arrive(empty(s));
+        // O += P.V: p rounded to bf16 in registers
+        mbar_wait(full_v(s), ph);
+        wg_fence();
+        gemm_rs<BN / 16, BN>(o, sc, va);
+        wg_commit();
+        wg_wait<0>();
+        reg_fence(o);
+        if (lane == 0) mbar_arrive(empty(s));
+      }
+    } else {
+      const int* ends_s = reinterpret_cast<const int*>(smem + C::kEnds);
+      const int* meta_s = reinterpret_cast<const int*>(smem + C::kMeta);
+      // kBiased: bias pairs load as one word where every row is aligned
+      const bool bias_pair =
+          vis.m.b_ss % 2 == 0 &&
+          reinterpret_cast<uintptr_t>(vis.m.bias) % (vis.m.bias_dt ? 4 : 8) == 0;
+      bool staged = false;
+      if constexpr (kMode == flash::kBiased) {
+        staged = vis.m.nvec == 0 && bias_pair;
+        if (staged) {
+          // no intervals: every block up to the causal bound comes, in
+          // order, so each block's bias is copied to shared memory during
+          // the block before (the stages' meta is not read)
+          const int kend = upper * BN;
+          const uint32_t sa = base + C::kStage;
+          if (upper > 0) stage_bias<BN>(sa, vis, row, 0, t, ci);
+          cp_commit();
+          for (int kb = 0; kb < upper; ++kb) {
+            const int s = kb % NS;
+            const uint32_t ph = (kb / NS) & 1;
+            const int sb = kb & 1;
+            mbar_wait(full_k(s), ph);
+            fwd_block<kMode, true>(
+                o, m, l, qa, base + kK + s * kTile, base + kV + s * kTile,
+                full_v(s), ph, row, t, q0, kb * BN, nullptr, vis, sl2,
+                bias_pair, smem + C::kStage + sb * C::kStageBytes,
+                sa + (sb ^ 1) * C::kStageBytes, ci, kend);
+            if (lane == 0) mbar_arrive(empty(s));
+          }
+        }
+      }
+      if (!staged) {
+        for (int it = 0;; ++it) {
+          const int s = it % NS;
+          const uint32_t ph = (it / NS) & 1;
+          mbar_wait(full_k(s), ph);
+          const int meta = meta_s[s];
+          if (meta < 0) break;
+          fwd_block<kMode, false>(
+              o, m, l, qa, base + kK + s * kTile, base + kV + s * kTile,
+              full_v(s), ph, row, t, q0, (meta >> 1) * BN,
+              (meta & 1) ? ends_s + s * 4 * BN : nullptr, vis, sl2,
+              bias_pair, nullptr, 0, ci, 0);
+          if (lane == 0) mbar_arrive(empty(s));
+        }
+      }
     }
 
     // epilogue: o / l, and lse = m + log(l) in natural-log units
@@ -968,19 +1447,25 @@ int launch(Kern kern, size_t smem, dim3 grid, int threads, cudaStream_t s,
   return (int)cudaGetLastError();
 }
 
-// p as the C entries fill it (for dk/dv, p.H is kvH).
+// p as the C entries fill it (for dk/dv, p.H is kvH).  The forward's
+// K8 modes read p.mask, p.bias and, with intervals, the tile table p.tbl
+// (flash_mask.cu writes it first).
+template <Mode kMode = flash::kPlain>
 inline int launch_fwd(const Params& p, cudaStream_t s) {
   const int kvh = p.H / p.group;
   CUtensorMap tq, tk, tv;
-  if (!tile_map(&tq, p.q, p.q_s, p.B, p.H, p.sq, fwd_cfg::BM) ||
-      !tile_map(&tk, p.k, p.k_s, p.B, kvh, p.sk, fwd_cfg::BN) ||
-      !tile_map(&tv, p.v, p.v_s, p.B, kvh, p.sk, fwd_cfg::BN))
+  if (!tile_map(&tq, p.q, p.q_s, p.B, p.H, p.sq, FwdCfg<kMode>::BM) ||
+      !tile_map(&tk, p.k, p.k_s, p.B, kvh, p.sk, FwdCfg<kMode>::BN) ||
+      !tile_map(&tv, p.v, p.v_s, p.B, kvh, p.sk, FwdCfg<kMode>::BN))
     return (int)cudaErrorInvalidValue;
-  return launch(fwd_kernel<flash::kPlain>, fwd_cfg::kSmem,
-                dim3((p.sq + fwd_cfg::BM - 1) / fwd_cfg::BM, p.H, p.B), fwd_cfg::NT, s, p,
-                tq, tk, tv);
+  using C = FwdCfg<kMode>;
+  const int nqb = (p.sq + C::BM - 1) / C::BM;
+  return launch(fwd_kernel<kMode>, C::kSmem,
+                C::kBatchFirst ? dim3(p.B, nqb, p.H) : dim3(nqb, p.H, p.B),
+                C::NT, s, p, tq, tk, tv);
 }
 
+template <Mode kMode = flash::kPlain>
 inline int launch_dq(const Params& p, cudaStream_t s) {
   const int kvh = p.H / p.group;
   CUtensorMap tq, tdo, tk, tv;
@@ -989,11 +1474,12 @@ inline int launch_dq(const Params& p, cudaStream_t s) {
       !tile_map(&tk, p.k, p.k_s, p.B, kvh, p.sk, dq_cfg::BN) ||
       !tile_map(&tv, p.v, p.v_s, p.B, kvh, p.sk, dq_cfg::BN))
     return (int)cudaErrorInvalidValue;
-  return launch(dq_kernel<flash::kPlain>, dq_cfg::kSmem,
+  return launch(dq_kernel<kMode>, dq_cfg::kSmem,
                 dim3((p.sq + dq_cfg::BM - 1) / dq_cfg::BM, p.H, p.B), dq_cfg::NT, s, p,
                 tq, tdo, tk, tv);
 }
 
+template <Mode kMode = flash::kPlain>
 inline int launch_dkv(const Params& p, cudaStream_t s) {
   const int h = p.H * p.group;
   CUtensorMap tq, tdo, tk, tv;
@@ -1002,7 +1488,7 @@ inline int launch_dkv(const Params& p, cudaStream_t s) {
       !tile_map(&tk, p.k, p.k_s, p.B, p.H, p.sk, dkv_cfg::BN) ||
       !tile_map(&tv, p.v, p.v_s, p.B, p.H, p.sk, dkv_cfg::BN))
     return (int)cudaErrorInvalidValue;
-  return launch(dkv_kernel<flash::kPlain>, dkv_cfg::kSmem,
+  return launch(dkv_kernel<kMode>, dkv_cfg::kSmem,
                 dim3((p.sk + dkv_cfg::BN - 1) / dkv_cfg::BN, p.H, p.B), dkv_cfg::NT, s, p,
                 tq, tdo, tk, tv);
 }

@@ -14,7 +14,12 @@ zero gradients.
 
 Kernels (``csrc/flash_mask.cu``, the port of the TPU kernel K8, both its
 resident and its streamed variants): the forward, which writes lse only
-when a gradient will be taken; the dq kernel, which also writes delta =
+when a gradient will be taken (in bf16 the Hopper forward of
+``csrc/flash_sm90.cuh``, which skips the key tiles that the intervals
+hide from a whole 128-row query block, by a table of each interval
+vector's minimum and maximum over 64-key blocks that the same C entry
+writes first: :func:`_tile_table_xla` and :func:`_tile_classes` are its
+plain versions); the dq kernel, which also writes delta =
 rowsum(out * dout); the dk/dv kernel, one CTA per key block summing its
 GQA group in f32 (the reference rounds per q head, then sums —
 identical in float32); and the dbias kernel, which runs only when the
@@ -50,10 +55,14 @@ __all__ = ["flash_mha_masked", "flash_mha_biased", "flash_mha_masked_xla",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# dtype, head_dim, q, k, v, mask, nvec, bias, bias_dtype, out, lse, B, H,
-# group, sq, sk, causal, scale, strides, stream
-_FWD_ARGS = (_I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I,
-             _I, _F, _P, _P)
+# dtype, head_dim, q, k, v, mask, nvec, bias, bias_dtype, out, lse, tbl,
+# B, H, group, sq, sk, causal, scale, strides, stream
+_FWD_ARGS = (_I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I,
+             _I, _I, _F, _P, _P)
+# mask, nvec, B, H, sk, strides, tbl, stream
+_TABLE_ARGS = (_P, _I, _I, _I, _I, _P, _P, _P)
+TABLE_BLOCK = 64               # keys per block of the tile table
+TILE = 128                     # query rows and keys of a bf16 forward tile
 # dtype, head_dim, q, k, v, out|dout, dout|lse, lse|delta, delta|dk,
 # dq|dv, mask, nvec, bias, bias_dtype, B, H|kvH, group, sq, sk, causal,
 # scale, strides, stream
@@ -141,6 +150,69 @@ def dense_mask_from_intervals(mask_vecs, sq, sk):
         end = mask_vecs[:, :, 2 * i + 1][:, :, None, :]
         allowed &= ~((r[None, None] >= start) & (r[None, None] < end))
     return allowed
+
+
+# ------------------------------------------------------ the tile table
+def _tile_table_xla(mask_vecs, sk):
+    """Plain version of the bf16 forward's tile table: [B|1, H|1, nvec,
+    ceil(Sk / 64), 2] int32, the minimum and maximum of each interval
+    vector over each 64-key block (columns past Sk left out)."""
+    x = mask_vecs[..., :sk].to(torch.int32)
+    nblk = -(-sk // TABLE_BLOCK)
+    pad = nblk * TABLE_BLOCK - sk
+    info = torch.iinfo(torch.int32)
+    lo = torch.nn.functional.pad(x, (0, pad), value=info.max)
+    hi = torch.nn.functional.pad(x, (0, pad), value=info.min)
+    return torch.stack(
+        [lo.unflatten(-1, (nblk, TABLE_BLOCK)).amin(-1),
+         hi.unflatten(-1, (nblk, TABLE_BLOCK)).amax(-1)], dim=-1)
+
+
+def _tile_table(mask_vecs):
+    """The tile table of ``mask_vecs`` [B|1, H|1, nvec, Sk]: CPU tensors
+    take :func:`_tile_table_xla`; CUDA tensors launch the table kernel
+    that the bf16 forward runs first (its own C entry, for its check)."""
+    if mask_vecs.device.type == "cpu":
+        return _tile_table_xla(mask_vecs, mask_vecs.shape[-1])
+    vecs = mask_vecs.to(torch.int32).contiguous()
+    bm, hm, nvec, sk = vecs.shape
+    tbl = torch.empty((bm, hm, nvec, -(-sk // TABLE_BLOCK), 2),
+                      dtype=torch.int32, device=vecs.device)
+    strides = (ctypes.c_longlong * 3)(*_vec_strides(vecs, None)[:3])
+    err = _entry("flash_mask_tile_table", _TABLE_ARGS)(
+        vecs.data_ptr(), nvec, bm, hm, sk, strides, tbl.data_ptr(),
+        _stream(vecs))
+    cuda_lib.check("flash_mask", err, "flash_mask tile table launch")
+    _tile_table.launches += 1
+    return tbl
+
+
+def _tile_classes(table, sq):
+    """How the bf16 interval forward classes each (128-row query block,
+    128-key tile) from a tile table (``flash_sm90.cuh:tile_class``; the
+    biased forward classes 64-key tiles the same way): 0 skip (one
+    interval hides every key of the tile from every row it covers), 1
+    partial, 2 clean (no interval touches it); [Bm, Hm, ceil(Sq / 128),
+    ceil(Sk / 128)] int64.  Keys past Sk and causality are the kernel's
+    per-element test, not the table's."""
+    bm, hm, nvec, nblk, _ = table.shape
+    per = TILE // TABLE_BLOCK
+    pad = -nblk % per
+    info = torch.iinfo(torch.int32)
+    lo = torch.nn.functional.pad(table[..., 0], (0, pad), value=info.max)
+    hi = torch.nn.functional.pad(table[..., 1], (0, pad), value=info.min)
+    lo = lo.unflatten(-1, (-1, per)).amin(-1)[:, :, :, None]
+    hi = hi.unflatten(-1, (-1, per)).amax(-1)[:, :, :, None]
+    q0 = torch.arange(0, sq, TILE, device=table.device)[:, None]
+    qe = torch.clamp(q0 + TILE, max=sq)
+    hidden = touched = torch.zeros((), dtype=torch.bool)
+    for i in range(0, nvec, 2):        # [Bm, Hm, query blocks, tiles]
+        smin, smax, emin, emax = lo[:, :, i], hi[:, :, i], lo[:, :, i + 1], \
+            hi[:, :, i + 1]
+        hidden = hidden | ((smax <= q0) & (emin >= qe))
+        touched = touched | ((smin < qe) & (emax > q0) & (smin < emax))
+    shape = (bm, hm, q0.shape[0], lo.shape[-1])
+    return torch.where(hidden, 0, torch.where(touched, 1, 2)).expand(shape)
 
 
 # ------------------------------------------------------ plain versions
@@ -315,10 +387,17 @@ def _masked_fwd(q, k, v, mask_vecs, bias, causal, sm_scale, need_lse):
     out = _bshd_empty_like(q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if need_lse else None)
+    tbl = None                 # the bf16 forward's tile table, its scratch
+    if mask_vecs is not None and q.dtype == torch.bfloat16:
+        sb, sh, _ = _vec_strides(mask_vecs, None)[:3]
+        tbl = torch.empty(((b if sb else 1) * (h if sh else 1)
+                           * mask_vecs.shape[2] * -(-sk // TABLE_BLOCK) * 2,),
+                          dtype=torch.int32, device=q.device)
     err = _entry("flash_mask_fwd", _FWD_ARGS)(
         _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *_operands(mask_vecs, bias), out.data_ptr(),
-        lse.data_ptr() if need_lse else None, b, h, h // kvh, sq, sk,
+        lse.data_ptr() if need_lse else None,
+        tbl.data_ptr() if tbl is not None else None, b, h, h // kvh, sq, sk,
         int(bool(causal)), float(sm_scale),
         _all_strides((q, k, v, out), mask_vecs, bias), _stream(q))
     cuda_lib.check("flash_mask", err, "flash_mha_masked forward launch")
@@ -479,3 +558,4 @@ flash_mha_masked.lse_launches = 0
 flash_mha_masked.dq_launches = 0
 flash_mha_masked.dkv_launches = 0
 flash_mha_masked.dbias_launches = 0
+_tile_table.launches = 0       # the table kernel alone (its check)

@@ -6,25 +6,34 @@ Usage, on the machine with the card, from any directory::
     python3 paddle_tpu_torch/tools/flash_ab.py PATH_TO_CHECKOUT
 
 It builds that checkout's ``flash_attention`` and ``flash_mask``
-sources and prints, for each kernel of the bf16 K1/K2 entries, its
-ptxas lines (registers, shared memory, spills) and its SASS counts of
-``HGMMA`` (wgmma), ``UTMALDG`` (TMA loads), ``HMMA`` (mma.sync), shared
-and local loads and stores (with ``cuobjdump`` from the CUDA toolkit).
-Then one JSON line per row of ``chip_smoke.py``'s ``FLASH_SHAPES``
-(bf16, causal) with the mean CUDA-event milliseconds of the K1 forward
-and the K2 dq and dk/dv kernels, each kernel's bound (the larger of its
-bytes over 3.35 TB/s and its operations over 989 TFLOP/s) and share of
-it, and the forward and forward + backward of one
-``scaled_dot_product_attention`` call as a yardstick; and one line with
-the K8 forward at the serving 2048 bucket (h 32/8, 1900 real tokens),
-the witness that K8 did not move.  The shapes come from the
-``chip_smoke.py`` beside this tool, so both checkouts of an A/B run
-the same rows.  Run two checkouts in turns in one call (parent,
-change, change, parent): two calls may land on two cards.
+sources and prints, for each bf16 kernel of both (K1/K2 and the K8
+kernels), its ptxas lines (registers, shared memory, spills) and its
+SASS counts of ``HGMMA`` (wgmma), ``UTMALDG`` (TMA loads), ``HMMA``
+(mma.sync), shared and local loads and stores (with ``cuobjdump`` from
+the CUDA toolkit).  Then one JSON line per row of ``chip_smoke.py``'s
+``FLASH_SHAPES`` (bf16, causal) with the mean CUDA-event milliseconds of
+the K1 forward and the K2 dq and dk/dv kernels, each kernel's bound (the
+larger of its bytes over 3.35 TB/s and its operations over 989 TFLOP/s)
+and share of it, and the forward and forward + backward of one
+``scaled_dot_product_attention`` call as a yardstick; then one line per
+K8 forward row: the serving prefill buckets ``serve_2048``,
+``long_decode`` and ``bench_paged`` of ``MASKED_SHAPES`` (no lse, as
+serving runs it), ``packed_docs`` and ``alibi_bias`` of ``K8_SHAPES``
+and ``window_8192`` (with lse, as training runs it; the last beside K1
+at its shape without the mask), and the K8 dq and dk/dv at
+``sft_padding`` (the backward kernels, on an out, lse and delta that the
+tool computes in f32, the same for every checkout); last, at the small
+prefills ``serve_512`` and ``bench_decode``, the CUDA-event time of the
+K8 forward and of the ``scaled_dot_product_attention`` call beside their
+device time (``torch.profiler``, per kernel).  The shapes come from the ``chip_smoke.py`` beside this tool, so
+both checkouts of an A/B run the same rows.  Run two checkouts in turns
+in one call (parent, change, change, parent): two calls may land on two
+cards.
 """
 from __future__ import annotations
 
 import collections
+import hashlib
 import json
 import math
 import os
@@ -65,14 +74,17 @@ def ptxas_lines(log):
 
 
 def sass_counts(lib):
-    """{function: {opcode: count}} of every kernel in ``lib``, or {}
-    without cuobjdump."""
+    """{function: {opcode: count, "sass_sha1": digest}} of every kernel
+    in ``lib`` (the digest of its instructions without addresses: two
+    builds of one kernel agree on it exactly when their SASS is the
+    same), or {} without cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return {}
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
     counts = collections.defaultdict(collections.Counter)
+    digests = collections.defaultdict(hashlib.sha1)
     fn = None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
@@ -83,19 +95,25 @@ def sass_counts(lib):
             r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if m and fn:
             counts[fn][m.group(1).split(".")[0]] += 1
+            ins = re.search(r"/\*[0-9a-f]{4}\*/\s+(.*?);", line)
+            digests[fn].update(" ".join(ins.group(1).split()).encode())
+    for fn, digest in digests.items():
+        counts[fn]["sass_sha1"] = digest.hexdigest()[:16]
     return counts
 
 
-def bf16_k12(name):
-    """Whether a kernel name is one of the bf16 K1/K2 kernels: the sm90
-    ones, or the WMMA bodies' bfloat16 instances of an older checkout."""
+def bf16_flash(name):
+    """Whether a kernel name is a bf16 flash kernel: a flash_sm90.cuh
+    instance, or a bfloat16 instance of the WMMA bodies."""
     return "flash_sm90" in name or "nv_bfloat16" in name
 
 
 def main(root):
     tool_root = str(Path(__file__).resolve().parents[2])
     sys.path.insert(0, tool_root)
-    from chip_smoke import FLASH_SHAPES, bound, visible_pairs
+    from chip_smoke import (FLASH_SHAPES, K8_SHAPES, MASKED_SHAPES,
+                            WINDOW_SHAPE, bound, k8_operands, visible_pairs,
+                            window_intervals)
     sys.path.remove(tool_root)
     sys.path.insert(0, root)
     import torch
@@ -109,13 +127,14 @@ def main(root):
                          text=True).stdout.strip()
     print("checkout", root, "|", smi, flush=True)
     cuda_lib.build(("flash_attention", "flash_mask"))
-    lines = ptxas_lines(cuda_lib.build_log["flash_attention"])
-    sass = sass_counts(str(cuda_lib.BUILD_DIR / "libflash_attention.so"))
-    for fn in sorted(set(lines) | set(sass)):
-        if bf16_k12(fn):
-            print("KERNEL", fn, lines.get(fn), {
-                op: sass.get(fn, {}).get(op, 0) for op in SASS_OPS},
-                flush=True)
+    for src in ("flash_attention", "flash_mask"):
+        lines = ptxas_lines(cuda_lib.build_log[src])
+        sass = sass_counts(str(cuda_lib.BUILD_DIR / f"lib{src}.so"))
+        for fn in sorted(set(lines) | set(sass)):
+            if bf16_flash(fn):
+                print("KERNEL", src, fn, lines.get(fn), {
+                    op: sass.get(fn, {}).get(op, 0)
+                    for op in (*SASS_OPS, "sass_sha1")}, flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     dt, d = torch.bfloat16, 128
@@ -165,12 +184,105 @@ def main(root):
             "sdpa_ms": library}), flush=True)
         del q, k, v, do, out, lse, delta, leaves
 
-    qh, kh, vh = bhsd(1, 2048, 32), bhsd(1, 2048, 8), bhsd(1, 2048, 8)
-    vecs = FM.padding_mask_to_intervals(
-        torch.arange(2048, device="cuda")[None] < 1900, 2048)
-    print(json.dumps({"checkout": root, "k8_fwd_2048": cuda_ms(
-        torch, lambda: FM.flash_mha_masked(qh, kh, vh, vecs, True,
-                                           scale))}), flush=True)
+    def k8_row(name, fn, **extra):
+        print(json.dumps({"checkout": root, "k8": name,
+                          "ms": cuda_ms(torch, fn), **extra}), flush=True)
+
+    masked = {row[0]: row for row in MASKED_SHAPES}
+    for name in ("serve_2048", "long_decode", "bench_paged"):
+        _, B, H, kvh, S, lengths, _ = masked[name]
+        q, k, v = bhsd(B, S, H), bhsd(B, S, kvh), bhsd(B, S, kvh)
+        keep = (torch.arange(S, device="cuda")[None]
+                < torch.tensor(lengths, device="cuda")[:, None])
+        vecs = FM.padding_mask_to_intervals(keep, S)
+        k8_row(name, lambda: FM.flash_mha_masked(q, k, v, vecs, True, scale))
+        del q, k, v
+    for name, B, H, kvh, S, causal, kind in K8_SHAPES:
+        q, k, v, do = bhsd(B, S, H), bhsd(B, S, kvh), bhsd(B, S, kvh), \
+            bhsd(B, S, H)
+        vecs, bias = k8_operands(FM, kind, B, H, S, "cuda")
+        args = (vecs, bias, causal, scale)
+        if name == "sft_padding":         # the backward witnesses
+            out, lse, delta = plain_forward(torch, q, k, v, do, vecs, causal,
+                                            scale, FM.LSE_INVALID)
+            k8_row("sft_padding_dq", lambda: FM._masked_bwd_dq(
+                q, k, v, out, lse, do, *args))
+            k8_row("sft_padding_dkv", lambda: FM._masked_bwd_dkv(
+                q, k, v, lse, delta, do, *args))
+        else:
+            k8_row(name, lambda: FM._masked_fwd(q, k, v, *args, True))
+        del q, k, v, do
+    name, B, H, S = WINDOW_SHAPE
+    q, k, v = bhsd(B, S, H), bhsd(B, S, H), bhsd(B, S, H)
+    vecs = window_intervals(FM, B, S, "cuda")
+    k1_ms = cuda_ms(torch, lambda: FA._flash_fwd(q, k, v, True, scale))
+    k8_row(name, lambda: FM._masked_fwd(q, k, v, vecs, None, True, scale,
+                                        True), k1_unmasked_ms=k1_ms)
+    del q, k, v
+
+    # the small prefills: CUDA-event time against device time
+    for name in ("serve_512", "bench_decode"):
+        _, B, H, kvh, S, lengths, _ = masked[name]
+        q, k, v = bhsd(B, S, H), bhsd(B, S, kvh), bhsd(B, S, kvh)
+        keep = (torch.arange(S, device="cuda")[None]
+                < torch.tensor(lengths, device="cuda")[:, None])
+        vecs = FM.padding_mask_to_intervals(keep, S)
+        dense = (torch.ones(S, S, dtype=torch.bool, device="cuda").tril()
+                 [None] & keep[:, None, :])[:, None]
+        calls = {"k8": lambda: FM.flash_mha_masked(q, k, v, vecs, True,
+                                                   scale),
+                 "sdpa": lambda: sdpa(q, k, v, attn_mask=dense, scale=scale,
+                                      enable_gqa=kvh != H)}
+        print(json.dumps({"checkout": root, "small_prefill": name, **{
+            key: {"event_ms": cuda_ms(torch, fn),
+                  **device_ms(torch, fn)} for key, fn in calls.items()}}),
+              flush=True)
+        del q, k, v, dense
+
+
+def plain_forward(torch, q, k, v, do, vecs, causal, scale, lse_invalid):
+    """(out, lse, delta) of the masked forward in f32 from dense scores,
+    out in q's layout and rounded to bf16 as the kernel's: the K8
+    backward's inputs, made here so that every checkout's backward
+    kernels are timed on the same ones."""
+    B, H, S, _ = q.shape
+    rows = torch.arange(S, device=q.device)[:, None]
+    vis = torch.ones(S, S, dtype=torch.bool, device=q.device)
+    vis = (vis.tril() if causal else vis)[None, None]
+    for i in range(0, vecs.shape[2], 2):          # [start, end) rows masked
+        vis = vis & ~((rows >= vecs[:, :, i, None]) &
+                      (rows < vecs[:, :, i + 1, None]))
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    group = H // k.shape[1]
+    for b in range(B):
+        kb, vb = (t[b].float().repeat_interleave(group, 0) for t in (k, v))
+        s = (q[b].float() @ kb.transpose(-1, -2)) * scale
+        s = s.masked_fill(~vis[b % vis.shape[0]], -math.inf)
+        lb = torch.logsumexp(s, -1)
+        live = torch.isfinite(lb)
+        p = torch.exp(s - torch.where(live, lb, 0)[..., None])
+        out[b] = (p.nan_to_num(0.0) @ vb).to(q.dtype)
+        lse[b] = torch.where(live, lb, lse_invalid)
+    delta = (out.float() * do.float()).sum(-1)
+    return out, lse, delta
+
+
+def device_ms(torch, fn, iters=20):
+    """{"device_ms": summed kernel time per call, "kernels": {name: ms per
+    call}} of ``fn`` under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = collections.Counter()
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[ev.name[:90]] += ev.time_range.elapsed_us() / 1e3 / iters
+    return {"device_ms": sum(kernels.values()), "kernels": dict(kernels)}
 
 
 if __name__ == "__main__":

@@ -365,6 +365,171 @@ def test_k8_autograd_routes(gen):
         assert _k8_counts()[2] == n0[2]          # no lse without grad
 
 
+# ------------------------------------- the bf16 K8 forward (flash_sm90)
+TILE_EDGES = (0, 1, 63, 64, 127)    # offsets within a 128-key tile
+F16 = torch.float16
+K8_FWD_CASES = [  # name, b, h, kvh, sq, sk, causal, intervals, bias
+    *[(f"docs2_edge{o}", 1, 4, 2, 640, 640, True, ("docs", 2, o), None)
+      for o in TILE_EDGES],
+    *[(f"docs4_edge{o}", 1, 4, 4, 640, 640, False, ("docs", 4, o), None)
+      for o in TILE_EDGES],
+    *[(f"pad_edge{o}", 2, 4, 2, 512, 512, True, ("pad", (512, 256 + o)),
+       None) for o in TILE_EDGES],
+    ("hidden_tile", 1, 4, 4, 512, 512, True, "hole", None),
+    ("hidden_from_some_rows", 1, 4, 4, 512, 512, True, "rows", None),
+    ("dead_rows", 1, 4, 4, 512, 512, True, "dead", None),
+    ("per_head", 2, 4, 4, 700, 700, True, "heads", None),
+    ("head_broadcast", 2, 4, 4, 700, 700, True, ("pad", (700, 300)), None),
+    ("window_batch_stride0", 2, 4, 4, 2048, 2048, True, "window", None),
+    ("gqa4", 1, 8, 2, 600, 600, True, ("pad", (450,)), None),
+    ("sq_lt_sk", 1, 4, 2, 300, 700, True, ("pad", (650,)), None),
+    ("sq_gt_sk", 1, 4, 2, 700, 300, True, ("pad", (250,)), None),
+    ("ragged_1000x700", 2, 4, 2, 1000, 700, True, ("docs", 2, 5), None),
+    ("ragged_333", 1, 4, 4, 333, 333, False, ("docs", 4, 7), None),
+    *[(f"bias_{str(dt)[6:]}_{bb}x{hb}", 2, 4, 4, 300, 300, True, None,
+       (bb, hb, dt))
+      for dt in (torch.float32, torch.bfloat16, F16)
+      for bb, hb in ((2, 4), (1, 4), (2, 1), (1, 1))],
+    ("bias_sk1001_f32", 1, 4, 2, 300, 1001, True, None,
+     (1, 4, torch.float32)),
+    ("bias_sk1001_bf16", 1, 4, 2, 300, 1001, True, None,
+     (1, 4, torch.bfloat16)),
+    ("bias_inf_row", 1, 4, 4, 300, 300, True, None, "inf_row"),
+    ("bias_and_docs", 2, 4, 2, 640, 640, True, ("docs", 2, 63),
+     (1, 4, torch.float32)),
+    ("bias_and_padding", 2, 4, 4, 333, 333, False, ("pad", (333, 100)),
+     (2, 1, torch.bfloat16)),
+]
+
+
+def _fwd_intervals(spec, b, h, sq, sk):
+    """mask_vecs of one K8_FWD_CASES interval spec, or None."""
+    cols = torch.arange(sk, device="cuda")
+    full = torch.full((sk,), sq, dtype=torch.int32, device="cuda")
+    if spec is None:
+        return None
+    if spec == "window":            # [B, 1, 2, Sk], batch stride 0
+        return FM.sliding_window_intervals(sk, 300, b, device="cuda")
+    if spec == "heads":             # [1, H, 2, Sk]: a window per head
+        return torch.cat([FM.sliding_window_intervals(
+            sk, 100 + 150 * i, 1, device="cuda") for i in range(h)], dim=1)
+    if spec in ("hole", "rows", "dead"):
+        inside = (cols >= 128) & (cols < 256)
+        start = {"hole": torch.where(inside, 0, full),
+                 "rows": torch.where(inside, 0, full),
+                 "dead": torch.full_like(full, 100)}[spec]
+        end = {"hole": full, "rows": torch.where(inside, 192, full),
+               "dead": torch.full_like(full, 200)}[spec]
+        return torch.stack([start, end]).to(torch.int32)[None, None]
+    if spec[0] == "pad":
+        real = torch.tensor(spec[1], device="cuda")
+        return FM.padding_mask_to_intervals(cols[None] < real[:, None], sq)
+    _, nvec, off = spec             # three documents, cut at 128 + off
+    seg = (cols >= 128 + off).int() + (cols >= 384 + off).int()
+    return FM.segment_intervals(seg[None].expand(b, sk), causal=nvec == 2)
+
+
+def _fwd_bias(gen, spec, h, sq, sk):
+    if spec is None:
+        return None
+    if spec == "inf_row":           # two rows of head 0 see only -inf
+        bias = torch.randn(1, h, sq, sk, device="cuda", generator=gen)
+        bias[0, 0, 7] = bias[0, 0, 200] = -math.inf
+        return bias
+    bb, hb, dt = spec
+    return (torch.randn(bb, hb, sq, sk, device="cuda", generator=gen)
+            * 0.5).to(dt)
+
+
+def _check_k8_fwd(q, k, v, vecs, bias, causal, need_lse=True):
+    """The bf16 K8 forward against its plain version: per row, dead rows
+    zero with lse = LSE_INVALID, live lse to 1e-3, one launch counted.
+    Returns (out, dead rows)."""
+    scale = 1.0 / math.sqrt(128)
+    n0 = _k8_counts()
+    out, lse = FM._masked_fwd(q, k, v, vecs, bias, causal, scale, need_lse)
+    torch.cuda.synchronize()
+    ref, ref_lse = FM._masked_fwd_xla(q, k, v, vecs, bias, causal, scale)
+    assert _close(out, ref, torch.bfloat16)
+    dead = ref_lse == FA.LSE_INVALID
+    assert torch.count_nonzero(out.float().abs().sum(-1)[dead]) == 0
+    if need_lse:
+        assert bool((lse[dead] == FA.LSE_INVALID).all())
+        if bool((~dead).any()):
+            assert (lse[~dead] - ref_lse[~dead]).abs().max().item() <= 1e-3
+    else:
+        assert lse is None
+    masked, biased = (0, 1) if bias is not None else (1, 0)
+    assert _k8_counts() == (n0[0] + masked, n0[1] + biased,
+                            n0[2] + int(need_lse), *n0[3:])
+    return out, dead
+
+
+@pytest.mark.parametrize("case", K8_FWD_CASES, ids=[c[0] for c in
+                                                    K8_FWD_CASES])
+def test_k8_bf16_forward_matches_plain(gen, case):
+    """The bf16 K8 forward (flash_sm90.cuh: tiles skipped, clean or
+    partial by the tile table) at the edges of its tiles and its mask
+    and bias operands."""
+    name, b, h, kvh, sq, sk, causal, ivl, bspec = case
+    q, k, v, _ = _flash_inputs(gen, torch.bfloat16, b, h, kvh, sq, sk)
+    vecs = _fwd_intervals(ivl, b, h, sq, sk)
+    bias = _fwd_bias(gen, bspec, h, sq, sk)
+    _, dead = _check_k8_fwd(q, k, v, vecs, bias, causal)
+    if name in ("dead_rows", "sq_gt_sk", "bias_inf_row"):
+        assert bool(dead.any())
+
+
+def test_k8_bf16_forward_without_lse(gen):
+    q, k, v, _ = _flash_inputs(gen, torch.bfloat16, 2, 8, 2, 640, 640)
+    _check_k8_fwd(q, k, v, _fwd_intervals(("docs", 2, 1), 2, 8, 640, 640),
+                  None, True, need_lse=False)
+    _check_k8_fwd(q, k, v, None, _fwd_bias(gen, (1, 8, torch.float32), 8,
+                                           640, 640), True, need_lse=False)
+
+
+def test_k8_bf16_forward_takes_other_layouts(gen):
+    """Contiguous [B, H, S, D] q/k/v, and a bias whose rows are a slice
+    of wider rows (row stride Sk + 3: neither 16-byte nor pair aligned)."""
+    q, k, v = (torch.randn(2, n, 333, 128, device="cuda", generator=gen)
+               .to(torch.bfloat16) for n in (8, 2, 2))
+    wide = torch.randn(1, 8, 333, 336, device="cuda", generator=gen)
+    bias = wide[..., :333]
+    assert bias.stride(2) == 336 and bias.stride(3) == 1
+    _check_k8_fwd(q, k, v, _fwd_intervals(("pad", (333, 120)), 2, 8, 333,
+                                          333), None, True)
+    _check_k8_fwd(q, k, v, None, bias, True)
+    _check_k8_fwd(q, k, v, None, bias.to(torch.bfloat16), False)
+
+
+def test_k8_bf16_forward_is_deterministic(gen):
+    """Two runs of the bf16 forward give the same bits (out and lse)."""
+    q, k, v, _ = _flash_inputs(gen, torch.bfloat16, 2, 8, 2, 1000, 1000)
+    vecs = _fwd_intervals(("docs", 4, 63), 2, 8, 1000, 1000)
+    bias = _fwd_bias(gen, (1, 8, torch.float32), 8, 1000, 1000)
+    scale = 1.0 / math.sqrt(128)
+    for ivl, b_ in ((vecs, None), (None, bias), (vecs, bias)):
+        first = FM._masked_fwd(q, k, v, ivl, b_, False, scale, True)
+        second = FM._masked_fwd(q, k, v, ivl, b_, False, scale, True)
+        torch.cuda.synchronize()
+        for x, y in zip(first, second):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("spec", [("pad", (333, 100)), ("docs", 2, 64),
+                                  ("docs", 4, 1), "heads", "dead"],
+                         ids=["pad", "docs2", "docs4", "per_head", "dead"])
+def test_k8_tile_table_matches_plain(gen, spec):
+    """The tile-table kernel the bf16 forward runs first, alone, against
+    _tile_table_xla: bit for bit (a ragged last 64-key block at Sk 333)."""
+    vecs = _fwd_intervals(spec, 2, 4, 333, 333)
+    before = FM._tile_table.launches
+    tbl = FM._tile_table(vecs)
+    torch.cuda.synchronize()
+    assert FM._tile_table.launches == before + 1
+    assert torch.equal(tbl.cpu(), FM._tile_table_xla(vecs.cpu(), 333))
+
+
 # ----------------------------------------------------------- K1 / K2
 FLASH_CASES = [  # b, h, kvh, sq, sk, causal
     (1, 4, 4, 256, 256, True),
