@@ -66,8 +66,10 @@ no CUDA ``_weight_int8pack_mm``):
    window_size=1024)`` at 10b's shape (nvec 4); (10d) the dense-bias
    route at 10b's shape, an ALiBi float ``attn_mask`` that requires grad
    (1 biased forward, dq, dk/dv and dbias).  Each is held against the
-   plain versions per row; 10b also prints the streamed K8 backward's
-   bound and the library's fwd+bwd of the same loss;
+   plain versions per row and prints where one call's device time goes
+   (``torch.profiler``: the K8 forward, tile table, dq, dk/dv, dbias,
+   other); 10b also prints the streamed K8 backward's bound and the
+   library's fwd+bwd of the same loss;
 11. the reference bench's decode rungs through the port's ``generate``
    (random bf16 weights from seed 0, greedy): (11a) ``bench_decode``
    (``bench.py:451-482``), the 0.95 B bench model (hidden 2048, 16
@@ -143,11 +145,11 @@ kernel phase 11 runs is also held, with its planted fault, at the shapes
 phase 11 gives it: K4 int8 at 11a's bench-model widths, K7 at 11b's
 dense cache (T 2176), K3 at page 128 with 11b's and 11c's heads and
 lengths, and the K8 forward at the prompt prefills of 11a, 11b and 11c
-(B 8, S 128, 2048 and 8064).  Phase 3 also holds the K8 forward at 10c's
-mask (``window_8192``: b 1, h 16, s 8192, three packed documents and a
-1024-token causal window, nvec 4) with its planted fault, timed beside
-K1 at the same shape without the mask, and prints how many of the key
-tiles it reaches the bf16 forward skips.  Phase 3 also holds the grouped expert FFN
+(B 8, S 128, 2048 and 8064).  Phase 3 also holds the K8 forward, dq and
+dk/dv at 10c's mask (``window_8192``: b 1, h 16, s 8192, three packed
+documents and a 1024-token causal window, nvec 4) with their planted
+fault, timed beside K1 and K2 at the same shape without the mask, and
+prints how many of the tiles each reaches the bf16 kernels skip.  Phase 3 also holds the grouped expert FFN
 (K9, forward and backward) in bf16 per row (<= 2^-7) against its plain
 versions at four layers: 13a's routing from a seeded gate, the same
 widths with skewed routing (an expert with no tile, one with half the
@@ -214,8 +216,9 @@ PACKED_DOCS = (0.25, 0.375, 0.375)                          # of S
 # phase 10: the reference bench's long-context rung (bench.py:285-366)
 LONGCTX_SEQ = 8192
 LONGCTX_WINDOW = 1024            # 10c's flashmask_attention window
-# the K8 forward at 10c's mask in phase 3 (name, B, H, S): beside K1 at
-# the same shape without it, to show that hidden key tiles are skipped
+# the K8 forward, dq and dk/dv at 10c's mask in phase 3 (name, B, H, S):
+# beside K1 and K2 at the same shape without it, to show that hidden
+# tiles are skipped
 WINDOW_SHAPE = ("window_8192", 1, 16, LONGCTX_SEQ)
 LONGCTX_STEPS = 8                 # bench_longctx's own timed steps (bench.py:301)
 TRAIN_STEPS = 10
@@ -420,6 +423,34 @@ def is_k8_forward(low):
     ``(flash::Mode)0``)."""
     return ("masked_fwd" in low or "tile_table_kernel" in low
             or ("flash_sm90::fwd_kernel<" in low and "mode)0>" not in low))
+
+
+def is_k8_backward(low):
+    """Whether a lower-cased device kernel name is a K8 backward kernel:
+    the f32 WMMA dq, dk/dv and the dbias kernel, or a
+    ``flash_sm90::dq_kernel`` / ``dkv_kernel`` in a K8 mode (K2's are mode
+    0).  The tile table the backward entries run first is
+    :func:`is_k8_forward`'s."""
+    return ("masked_bwd_" in low
+            or (("flash_sm90::dq_kernel<" in low
+                 or "flash_sm90::dkv_kernel<" in low)
+                and "mode)0>" not in low))
+
+
+def k8_part(low):
+    """The part of a K8 call a lower-cased device kernel name belongs to:
+    fwd, table, dq, dkv, dbias; K1/K2's kernels are "k1_k2"; anything
+    else "other"."""
+    if "tile_table_kernel" in low:
+        return "table"
+    if is_k8_forward(low):
+        return "fwd"
+    if is_k8_backward(low):
+        return ("dbias" if "dbias" in low else
+                "dkv" if "dkv_kernel" in low else "dq")
+    if "flash_sm90::" in low or "flash_bwd_" in low or "flash_fwd_" in low:
+        return "k1_k2"
+    return "other"
 
 
 def bound(nbytes, flops):
@@ -646,13 +677,14 @@ def phase_masked(FM, gen, name, B, H, kvh, S, lengths, yardsticks):
 
 
 def phase_window(FA, FM, gen, name, B, H, S):
-    """The K8 forward (with lse, as 10c runs it) at 10c's mask, three
-    packed documents and a 1024-token causal window (nvec 4), against its
-    plain version per row with the planted fault (every row loses its
-    last 64 keys: the kernel told 64 keys fewer), and timed beside K1 at
-    the same shape without the mask: the key tiles the intervals hide
-    from a whole query block are skipped, so it must take well under
-    K1's time.  Prints how the forward classes the tiles it reaches."""
+    """The K8 forward (with lse, as 10c runs it), dq and dk/dv at 10c's
+    mask, three packed documents and a 1024-token causal window (nvec
+    4), against their plain versions per row with the planted fault
+    (every row loses its last 64 keys: the kernels told 64 keys fewer),
+    and timed beside K1 and K2 at the same shape without the mask: the
+    tiles the intervals hide whole are skipped, so each must take well
+    under its unmasked twin's time.  Prints how each kernel classes the
+    tiles it reaches (:func:`window_backward`)."""
     dev, dt, D = "cuda", torch.bfloat16, 128
     scale = 1.0 / math.sqrt(D)
     q, k, v = (torch.randn(B, S, H, D, device=dev, generator=gen).to(dt)
@@ -704,9 +736,107 @@ def phase_window(FA, FM, gen, name, B, H, S):
            "fault_min_row_rel_err": fault.min().item(), "ms": ms,
            "k1_unmasked_ms": k1_ms, "ms_over_k1": ms / k1_ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": library_ms}
+           "library_ms": library_ms,
+           "bwd": window_backward(FA, FM, gen, q, k, v, out, lse, vecs,
+                                  pairs)}
     emit({"phase": 3, **rec})
     return rec
+
+
+def window_backward(FA, FM, gen, q, k, v, out, lse, vecs, pairs):
+    """phase_window's backward half: the K8 dq and dk/dv on the kernel
+    forward's out and lse against their plain versions per row
+    (grad_row_err), the planted fault (forward and backward told 64 keys
+    fewer) failing >= FAULT_SHARE of the gradient rows; their times
+    beside K2's dq and dk/dv at the shape without the mask, the plain
+    versions, the bound and the library's forward + backward; and how
+    each walk classes the tiles it reaches (dq: 128-row query blocks x
+    64-key tiles; dk/dv: 64-row query tiles x 64-key blocks)."""
+    B, H, S, D = q.shape
+    scale = 1.0 / math.sqrt(D)
+    do = (torch.randn(B, S, H, D, device=q.device, generator=gen)
+          .to(q.dtype).transpose(1, 2))
+    args = (vecs, None, True, scale)
+    dq, delta = FM._masked_bwd_dq(q, k, v, out, lse, do, *args)
+    dk, dv = FM._masked_bwd_dkv(q, k, v, lse, delta, do, *args)
+    torch.cuda.synchronize()
+    plain = (q, k, v, out, lse, do, *args)
+    refs = {"dq": FM._masked_bwd_dq_xla(*plain)}
+    refs["dk"], refs["dv"] = FM._masked_bwd_dkv_xla(*plain)
+    got = {"dq": dq, "dk": dk, "dv": dv}
+    errs = {key: (got[key].float() - ref.float()).abs().max().item()
+            for key, ref in refs.items()}
+    row_err = {key: grad_row_err(got[key], ref).max().item()
+               for key, ref in refs.items()}
+    for key, err in row_err.items():
+        require(err <= ROW_TOL, f"K8 {key} kernel vs plain at window_8192: "
+                f"row error {err} > {ROW_TOL}")
+    n = S - FAULT_KEYS
+    kf, vf, fvecs = k[:, :, :n], v[:, :, :n], vecs[..., :n]
+    fout, flse = FM._masked_fwd(q, kf, vf, fvecs, None, True, scale, True)
+    bad = {"dq": FM._masked_bwd_dq(q, kf, vf, fout, flse, do, fvecs, None,
+                                   True, scale)}
+    bad["dk"], bad["dv"] = FM._masked_bwd_dkv(q, kf, vf, flse, bad["dq"][1],
+                                              do, fvecs, None, True, scale)
+    bad["dq"] = bad["dq"][0]
+    caught_share, fault = {}, {}
+    for key, ref in refs.items():
+        ref = ref if key == "dq" else ref[:, :, :n]
+        caught_share[key], fault[key] = caught(grad_row_err(bad[key], ref),
+                                               ref)
+        require(caught_share[key] >= FAULT_SHARE, f"planted fault "
+                f"({FAULT_KEYS} keys dropped) failed the K8 {key} check at "
+                f"window_8192 on only {caught_share[key]:.4f} of the rows")
+    del refs, bad, fout, flse, got
+    calls = {
+        "dq": (lambda: FM._masked_bwd_dq(q, k, v, out, lse, do, *args),
+               lambda: FM._masked_bwd_dq_xla(*plain)),
+        "dkv": (lambda: FM._masked_bwd_dkv(q, k, v, lse, delta, do, *args),
+                lambda: FM._masked_bwd_dkv_xla(*plain))}
+    ms = {key: cuda_ms(kern) for key, (kern, _) in calls.items()}
+    plain_ms = {key: cuda_ms(fn, iters=2, warmup=1)
+                for key, (_, fn) in calls.items()}
+    k1_out, k1_lse = FA._flash_fwd(q, k, v, True, scale)
+    _, k1_delta = FA._flash_bwd_dq(q, k, v, k1_out, k1_lse, do, True, scale)
+    k2_ms = {"dq": cuda_ms(lambda: FA._flash_bwd_dq(
+                 q, k, v, k1_out, k1_lse, do, True, scale)),
+             "dkv": cuda_ms(lambda: FA._flash_bwd_dkv(
+                 q, k, v, k1_lse, k1_delta, do, True, scale))}
+    del k1_out, k1_lse, k1_delta
+    dense = (FM.dense_mask_from_intervals(vecs, S, S)
+             & torch.ones(S, S, dtype=torch.bool, device=q.device).tril())
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def lib_fwd_bwd():
+        o = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, attn_mask=dense, scale=scale)
+        torch.autograd.grad(o, leaves, do)
+
+    library_ms = cuda_ms(lib_fwd_bwd, iters=5, warmup=1)
+    del dense, leaves
+    n_q, rows_f32 = B * H * S * D, B * H * S * 4
+    extra = vecs.numel() * 4
+    bounds = {"dq": bound(6 * n_q * 2 + 2 * rows_f32 + extra, 6 * pairs * D),
+              "dkv": bound(6 * n_q * 2 + 2 * rows_f32 + extra,
+                           8 * pairs * D)}
+    table = FM._tile_table(vecs)
+    tiles = {}
+    for key, (rows, keys) in (("dq", FM.DQ_TILE), ("dkv", FM.DKV_TILE)):
+        cls = FM._tile_classes(table, S, rows, keys)
+        r = torch.arange(cls.shape[-2], device=q.device)[:, None] * rows
+        c = torch.arange(cls.shape[-1], device=q.device)[None] * keys
+        reach = c <= r + rows - 1            # causal: the tile has a pair
+        tiles[key] = {name: int(((cls == i) & reach).sum()) * H
+                      for i, name in enumerate(("skip", "partial", "clean"))}
+    return {"max_abs_err": errs, "max_row_rel_err": row_err,
+            "fault_rows_caught": caught_share,
+            "fault_min_row_rel_err": fault, "ms": ms,
+            "k2_unmasked_ms": k2_ms,
+            "ms_over_k2": {key: ms[key] / k2_ms[key] for key in ms},
+            "plain_ms": plain_ms, "library_fwd_bwd_ms": library_ms,
+            "bound_ms": {key: b[0] for key, b in bounds.items()},
+            "bound_by": {key: b[1] for key, b in bounds.items()},
+            "tiles": tiles}
 
 
 def phase_flash(FA, gen, name, B, H, kvh, sq, sk):
@@ -1703,9 +1833,10 @@ def profile_train(step, params, opt, ids, phase=6):
                                "flash_bwd_dkv_kernel")}
     for name, ms in per_kernel.items():
         low = name.lower()
-        if is_k8_forward(low):
-            groups["flash_mha_masked"] = groups.get("flash_mha_masked",
-                                                    0.0) + ms
+        if is_k8_forward(low) or is_k8_backward(low):
+            key = "flash_mha_masked" if is_k8_forward(low) else \
+                "flash_mask_bwd"
+            groups[key] = groups.get(key, 0.0) + ms
             continue
         for key, marks in flash.items():
             if any(m in low for m in marks):
@@ -1834,6 +1965,29 @@ def check_against_plain(FM, name, q, k, v, out, grads, vecs, bias, causal):
     return rows
 
 
+def k8_split(fn, iters=3):
+    """Where a call of ``fn`` spends its device time, by part of the K8
+    call (:func:`k8_part`: forward, tile table, dq, dk/dv, dbias, K1/K2,
+    other): ``torch.profiler`` over ``iters`` calls after one warm-up
+    step of its schedule (a window opened on the call itself lost its
+    first kernels), device ms per call."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=iters,
+                                   repeat=1)) as prof:
+        for _ in range(1 + iters):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    split = dict.fromkeys(("fwd", "table", "dq", "dkv", "dbias", "k1_k2",
+                           "other"), 0.0)
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            split[k8_part(ev.name.lower())] += \
+                ev.time_range.elapsed_us() / 1e3 / iters
+    return {"device_ms": split, "device_busy_ms": sum(split.values())}
+
+
 def longctx_segments(B, S, dev):
     """bench_longctx_masked's three packed documents, [B, S] ids."""
     seg = torch.zeros(B, S, dtype=torch.int32, device=dev)
@@ -1881,6 +2035,7 @@ def phase_longctx_masked(FA, FM):
                            "flash_attention_bwd_dkv": 1}, "10b unmasked")
     masked_ms = cuda_ms(masked, iters=5, warmup=1)
     unmasked_ms = cuda_ms(unmasked, iters=5, warmup=1)
+    profiles = {"masked": k8_split(masked), "unmasked": k8_split(unmasked)}
     rows = check_against_plain(FM, "10b", q, k, v, out, grads, vecs, None,
                                True)
     # the streamed K8 backward's bound (phase 3's operation counts on the
@@ -1916,7 +2071,7 @@ def phase_longctx_masked(FA, FM):
           "bwd_bound_by": bwd_bound[1],
           "fwd_bwd_bound_ms": fwd_bwd_bound[0],
           "fwd_bwd_bound_by": fwd_bwd_bound[1],
-          "library_fwd_bwd_ms": library_ms,
+          "library_fwd_bwd_ms": library_ms, "profile": profiles,
           "max_row_rel_err": rows, "row_tol": ROW_TOL})
     return (q, k, v), masked_counts
 
@@ -1932,17 +2087,24 @@ def phase_longctx_window(FA, FM, qkv):
     window = LONGCTX_WINDOW
     vecs = window_intervals(FM, B, S, q.device)
     startend = vecs[:, :, :2].movedim(2, -1).contiguous()  # [B, 1, S, 2]
-    (out, grads), counts = counted(
-        FA, FM, lambda: sq_loss_grads(
+
+    def call():
+        return sq_loss_grads(
             lambda *t: flashmask_attention(*t, startend, causal=True,
-                                           window_size=window), (q, k, v)),
-        {"flash_mha_masked": 1, "flash_mha_masked_lse": 1,
-         "flash_mask_bwd_dq": 1, "flash_mask_bwd_dkv": 1}, "10c")
+                                           window_size=window), (q, k, v))
+
+    (out, grads), counts = counted(
+        FA, FM, call, {"flash_mha_masked": 1, "flash_mha_masked_lse": 1,
+                       "flash_mask_bwd_dq": 1, "flash_mask_bwd_dkv": 1},
+        "10c")
+    ms = cuda_ms(call, iters=5, warmup=1)
+    profile = k8_split(call)
     rows = check_against_plain(FM, "10c", q, k, v, out, grads, vecs, None,
                                True)
     emit({"phase": "10c", "name": "flashmask_attention", "S": S,
-          "window_size": window, "nvec": vecs.shape[2], "launches": counts,
-          "max_row_rel_err": rows, "row_tol": ROW_TOL})
+          "window_size": window, "nvec": vecs.shape[2], "fwd_bwd_ms": ms,
+          "launches": counts, "profile": profile, "max_row_rel_err": rows,
+          "row_tol": ROW_TOL})
     return counts
 
 
@@ -1962,14 +2124,17 @@ def phase_longctx_bias(FA, FM, qkv):
         {"flash_mha_biased": 1, "flash_mha_masked_lse": 1,
          "flash_mask_bwd_dq": 1, "flash_mask_bwd_dkv": 1,
          "flash_mask_bwd_dbias": 1}, "10d")
-    ms = cuda_ms(lambda: sq_loss_grads(
-        lambda q, k, v, b: FA.sdpa(q, k, v, attn_mask=b, is_causal=True),
-        (q, k, v, bias)), iters=3, warmup=1)
+    def call():
+        return sq_loss_grads(lambda q, k, v, b: FA.sdpa(
+            q, k, v, attn_mask=b, is_causal=True), (q, k, v, bias))
+
+    ms = cuda_ms(call, iters=3, warmup=1)
+    profile = k8_split(call)
     rows = check_against_plain(FM, "10d", q, k, v, out, grads, None, bias,
                                True)
     emit({"phase": "10d", "name": "alibi_bias_route", "S": S, "H": H,
           "bias": list(bias.shape), "fwd_bwd_ms": ms, "launches": counts,
-          "max_row_rel_err": rows, "row_tol": ROW_TOL})
+          "profile": profile, "max_row_rel_err": rows, "row_tol": ROW_TOL})
     return counts
 
 
@@ -2009,6 +2174,8 @@ def group_kernel(name):
     low = name.lower()
     if is_k8_forward(low):
         return "flash_mha_masked"
+    if is_k8_backward(low):
+        return "flash_mask_bwd"
     for key, marks in (("decode_attention", ("decode_partial",
                                              "decode_combine")),
                        ("paged_attention", ("paged_attention",)),
@@ -2358,16 +2525,20 @@ def k8_entries(k8, launches):
     (dq, dk/dv: SFT with padding; the bias forward and dbias: ALiBi),
     errors over every phase-3 K8 shape; launches from phase 10.  The
     backward entries' library time is one forward + backward of
-    scaled_dot_product_attention with the dense mask."""
+    scaled_dot_product_attention with the dense mask.  The bf16 bias
+    forward, dq and dk/dv are flash_sm90.cuh's kernels; dbias is
+    flash_mask.cu's."""
     by = {r["shape"]: r for r in k8}
-    src = "paddle_tpu_torch/csrc/flash_mask.cu"
+    sm90 = "paddle_tpu_torch/csrc/flash_sm90.cuh"
     ref = "paddle_tpu/ops/pallas/flash_mask.py"
     out = []
-    for name, part, line, rep, lib in (
-            ("flash_mha_biased", "fwd", 193, "alibi_bias", "fwd"),
-            ("flash_mask_bwd_dq", "dq", 927, "sft_padding", "fwd_bwd"),
-            ("flash_mask_bwd_dkv", "dkv", 954, "sft_padding", "fwd_bwd"),
-            ("flash_mask_bwd_dbias", "dbias", 976, "alibi_bias", "fwd_bwd")):
+    for name, part, line, rep, lib, src in (
+            ("flash_mha_biased", "fwd", 193, "alibi_bias", "fwd", sm90),
+            ("flash_mask_bwd_dq", "dq", 927, "sft_padding", "fwd_bwd", sm90),
+            ("flash_mask_bwd_dkv", "dkv", 954, "sft_padding", "fwd_bwd",
+             sm90),
+            ("flash_mask_bwd_dbias", "dbias", 976, "alibi_bias", "fwd_bwd",
+             "paddle_tpu_torch/csrc/flash_mask.cu")):
         keys = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv"),
                 "dbias": ("dbias",)}[part]
         recs = [r for r in k8 if all(k in r["max_abs_err"] for k in keys)]
@@ -3210,7 +3381,7 @@ def main() -> int:
          "max_row_rel_err": max(p["max_row_rel_err"] for p in pageds),
          **{k: paged[k] for k in keys}},
         {"name": "flash_mha_masked", "route": "cuda",
-         "source": "paddle_tpu_torch/csrc/flash_mask.cu",
+         "source": "paddle_tpu_torch/csrc/flash_sm90.cuh",
          "replaces": "paddle_tpu/ops/pallas/flash_mask.py:193",
          "launches": launches["flash_mha_masked"],
          "max_abs_err": max(m["max_abs_err"] for m in masked),

@@ -1,6 +1,7 @@
 // Flash-attention building blocks shared by flash_attention.cu (K1/K2)
-// and flash_mask.cu (K8): shared-memory tiles, the WMMA / CUDA-core
-// products, and the forward, dq and dk/dv kernel bodies.
+// and flash_mask.cu (K8): Params and the visibility rules, shared-memory
+// tiles, the WMMA / CUDA-core products, the float32 forward, dq and dk/dv
+// kernel bodies, and what the K8 dbias kernel (flash_mask.cu) builds on.
 //
 // Each body takes a compile-time Mode.  kPlain (K1/K2): a key is visible
 // when it is below Sk and, causal, at or left of the bottom-right
@@ -21,21 +22,17 @@
 // visibility test written other than as a select before the exp cost
 // them 4-6 %.
 //
-// These bodies run every float32 flash kernel (K1/K2 and K8) and the
-// bf16 K8 backward kernels; the bf16 K1/K2 kernels and the bf16 K8
-// forward have their own Hopper bodies in flash_sm90.cuh (wgmma, a TMA
-// ring, register accumulators), which is where the K8 backward's modes
-// go when it is redesigned.
+// The bodies run the float32 flash kernels (K1/K2 and K8); every bf16
+// forward, dq and dk/dv (K1/K2 and K8) has its Hopper body in
+// flash_sm90.cuh (wgmma, a TMA ring, register accumulators).  The bf16
+// K8 dbias kernel is the one bf16 kernel left on WMMA (mm_abt).
 //
 // The simple design, and what it leaves for later:
 //   * 4 warps per CTA; 64-row tiles staged in shared memory with plain
 //     16-byte loads (no cp.async/TMA, no double buffering);
-//   * bf16 products on the tensor cores through WMMA (16x16x16 mma.sync
-//     tiles), not wgmma; score tiles and f32 accumulators round-trip
-//     through shared memory, so the softmax and the elementwise backward
-//     run as plain thread loops;
 //   * float32 uses CUDA-core FMA (no TF32), so card and CPU agree to
-//     f32 rounding;
+//     f32 rounding; the dbias kernel's bf16 products run on WMMA
+//     (16x16x16 mma.sync tiles), its score tiles through shared memory;
 //   * the bias and the intervals are read from device memory per score
 //     element (coalesced along the key axis); key blocks that the
 //     intervals mask for a whole query block are not skipped.
@@ -208,7 +205,6 @@ template <typename T>
 struct Ld {
   static constexpr int T_ = D + 16 / (int)sizeof(T);  // [rows, D] tiles
   static constexpr int S = BN + 4;                     // float score tile
-  static constexpr int P = BN + 8;                     // bf16 p / ds tile
   static constexpr int O = D + 4;                      // float accumulator
 };
 
@@ -218,10 +214,6 @@ constexpr size_t tile_bytes(int rows) {
 }
 constexpr size_t score_bytes(int rows) {
   return (size_t)rows * (BN + 4) * sizeof(float);
-}
-template <typename T>
-constexpr size_t p_bytes(int rows) {
-  return kIsBf16<T> ? (size_t)rows * (BN + 8) * 2 : 0;
 }
 constexpr size_t acc_bytes(int rows) {
   return (size_t)rows * (D + 4) * sizeof(float);
@@ -288,82 +280,38 @@ __device__ __forceinline__ void mm_abt(const T* a_s, const T* b_s,
   }
 }
 
-// c[r][:] += sum_j p[r][j] * b[j][:] for r < 64, j < BN.  bf16 reads p
-// from the bf16 tile pb, float32 from the float tile pf.
-template <typename T>
-__device__ __forceinline__ void mm_acc_ab(const __nv_bfloat16* pb,
-                                          const float* pf, const T* b_s,
+// c[r][:] += sum_j p[r][j] * b[j][:] for r < 64, j < BN (float32: the
+// bf16 kernels' products are wgmma, in flash_sm90.cuh).
+__device__ __forceinline__ void mm_acc_ab(const float* p_s, const float* b_s,
                                           float* c_s) {
-  constexpr int LT = Ld<T>::T_;
-  constexpr int LS = Ld<T>::S;
-  constexpr int LP = Ld<T>::P;
-  constexpr int LO = Ld<T>::O;
-  if constexpr (kIsBf16<T>) {
-    const int warp = threadIdx.x >> 5;
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      float* tile = c_s + warp * 16 * LO + n * 16;
-      wmma::load_matrix_sync(c, tile, LO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BN; kk += 16) {
-        wmma::load_matrix_sync(a, pb + warp * 16 * LP + kk, LP);
-        wmma::load_matrix_sync(b, b_s + kk * LT + n * 16, LT);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(tile, c, LO, wmma::mem_row_major);
-    }
-  } else {
-    for (int e = threadIdx.x; e < BM * D; e += NT) {
-      const int r = e / D;
-      const int d = e % D;
-      float o = c_s[r * LO + d];
+  constexpr int LT = Ld<float>::T_;
+  constexpr int LS = Ld<float>::S;
+  constexpr int LO = Ld<float>::O;
+  for (int e = threadIdx.x; e < BM * D; e += NT) {
+    const int r = e / D;
+    const int d = e % D;
+    float o = c_s[r * LO + d];
 #pragma unroll 8
-      for (int j = 0; j < BN; ++j) o += pf[r * LS + j] * to_f(b_s[j * LT + d]);
-      c_s[r * LO + d] = o;
-    }
+    for (int j = 0; j < BN; ++j) o += p_s[r * LS + j] * b_s[j * LT + d];
+    c_s[r * LO + d] = o;
   }
 }
 
 // c[j][:] += sum_r p[r][j] * b[r][:] for j < BN, r < ROWS (the
-// transposed product of the dk/dv kernel).
-template <typename T, int ROWS>
-__device__ __forceinline__ void mm_acc_atb(const __nv_bfloat16* pb,
-                                           const float* pf, const T* b_s,
+// transposed product of the dk/dv kernel; float32).
+template <int ROWS>
+__device__ __forceinline__ void mm_acc_atb(const float* p_s, const float* b_s,
                                            float* c_s) {
-  constexpr int LT = Ld<T>::T_;
-  constexpr int LS = Ld<T>::S;
-  constexpr int LP = Ld<T>::P;
-  constexpr int LO = Ld<T>::O;
-  if constexpr (kIsBf16<T>) {
-    const int warp = threadIdx.x >> 5;  // output rows [16 warp, +16)
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      float* tile = c_s + warp * 16 * LO + n * 16;
-      wmma::load_matrix_sync(c, tile, LO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < ROWS; kk += 16) {
-        // A(i, j) = p[kk + j][16 warp + i]: p^T read column-major
-        wmma::load_matrix_sync(a, pb + kk * LP + warp * 16, LP);
-        wmma::load_matrix_sync(b, b_s + kk * LT + n * 16, LT);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(tile, c, LO, wmma::mem_row_major);
-    }
-  } else {
-    for (int e = threadIdx.x; e < BN * D; e += NT) {
-      const int j = e / D;
-      const int d = e % D;
-      float o = c_s[j * LO + d];
+  constexpr int LT = Ld<float>::T_;
+  constexpr int LS = Ld<float>::S;
+  constexpr int LO = Ld<float>::O;
+  for (int e = threadIdx.x; e < BN * D; e += NT) {
+    const int j = e / D;
+    const int d = e % D;
+    float o = c_s[j * LO + d];
 #pragma unroll 8
-      for (int r = 0; r < ROWS; ++r) o += pf[r * LS + j] * to_f(b_s[r * LT + d]);
-      c_s[j * LO + d] = o;
-    }
+    for (int r = 0; r < ROWS; ++r) o += p_s[r * LS + j] * b_s[r * LT + d];
+    c_s[j * LO + d] = o;
   }
 }
 
@@ -382,20 +330,19 @@ struct FwdSmem {
   static constexpr size_t kS = score_bytes(BM);
   static constexpr size_t kO = acc_bytes(BM);
   static constexpr size_t kML = 2 * BM * sizeof(float);
-  static constexpr size_t kP = p_bytes<T>(BM);
-  static constexpr size_t bytes = 3 * kT + kS + kO + kML + kP;
+  static constexpr size_t bytes = 3 * kT + kS + kO + kML;
 };
 
 // Grid (ceil(Sq / 64), H, B), 128 threads: online softmax with f32 m, l
-// and accumulator; p rounded to v's dtype before P.V; rows with no
-// visible key give zeros and lse = LSE_INVALID, else lse = m + log(l).
+// and accumulator; rows with no visible key give zeros and lse =
+// LSE_INVALID, else lse = m + log(l).  float32 only (the bodies' T).
 template <typename T, Mode kMode>
 __device__ __forceinline__ void fwd_body(const Params& p,
                                          unsigned char* smem) {
+  static_assert(std::is_same<T, float>::value, "bf16: flash_sm90.cuh");
   using S = FwdSmem<T>;
   constexpr int LS = Ld<T>::S;
   constexpr int LO = Ld<T>::O;
-  constexpr int LP = Ld<T>::P;
   T* q_t = reinterpret_cast<T*>(smem);
   T* k_t = reinterpret_cast<T*>(smem + S::kT);
   T* v_t = reinterpret_cast<T*>(smem + 2 * S::kT);
@@ -403,8 +350,6 @@ __device__ __forceinline__ void fwd_body(const Params& p,
   float* o_t = reinterpret_cast<float*>(smem + 3 * S::kT + S::kS);
   float* m_t = reinterpret_cast<float*>(smem + 3 * S::kT + S::kS + S::kO);
   float* l_t = m_t + BM;
-  __nv_bfloat16* p_t = reinterpret_cast<__nv_bfloat16*>(
-      smem + 3 * S::kT + S::kS + S::kO + S::kML);
 
   const int q0 = blockIdx.x * BM;
   const int h = blockIdx.y;
@@ -428,7 +373,7 @@ __device__ __forceinline__ void fwd_body(const Params& p,
 
   for (int kb = 0; kb < upper; ++kb) {
     const int k0 = kb * BN;
-    __syncthreads();  // the previous block is done with k_t, v_t, s_t, p_t
+    __syncthreads();  // the previous block is done with k_t, v_t, s_t
     load_tile<T, BN>(k_t, kg, p.k_s[2], k0, p.sk);
     load_tile<T, BN>(v_t, vg, p.v_s[2], k0, p.sk);
     __syncthreads();
@@ -465,11 +410,7 @@ __device__ __forceinline__ void fwd_body(const Params& p,
         const int c = lane + 32 * u;
         const float pe = expf(sv[u] - m_safe);
         sum += pe;
-        if constexpr (kIsBf16<T>) {
-          p_t[r * LP + c] = __float2bfloat16(pe);
-        } else {
-          s_t[r * LS + c] = pe;
-        }
+        s_t[r * LS + c] = pe;
       }
       sum = warp_sum(sum);
       for (int d = lane; d < D; d += 32) o_t[r * LO + d] *= alpha;
@@ -479,7 +420,7 @@ __device__ __forceinline__ void fwd_body(const Params& p,
       }
     }
     __syncthreads();
-    mm_acc_ab<T>(p_t, s_t, v_t, o_t);
+    mm_acc_ab(s_t, v_t, o_t);
   }
   __syncthreads();
 
@@ -507,21 +448,20 @@ struct DqSmem {
   static constexpr size_t kS = score_bytes(BM);     // s, dp
   static constexpr size_t kO = acc_bytes(BM);       // dq
   static constexpr size_t kLD = 2 * BM * sizeof(float);
-  static constexpr size_t kP = p_bytes<T>(BM);      // ds (bf16)
-  static constexpr size_t bytes = 4 * kT + 2 * kS + kO + kLD + kP;
+  static constexpr size_t bytes = 4 * kT + 2 * kS + kO + kLD;
 };
 
 // Grid (ceil(Sq / 64), H, B), 128 threads: p = exp(logit - lse)
 // recomputed; delta = rowsum(out * dout) in f32, written for the dk/dv
-// kernel; ds = p * (dp - delta) * scale rounded to k's dtype; dq = ds K.
+// kernel; ds = p * (dp - delta) * scale; dq = ds K.  float32 only.
 template <typename T, Mode kMode>
 __device__ __forceinline__ void dq_body(const Params& p,
                                         unsigned char* smem) {
+  static_assert(std::is_same<T, float>::value, "bf16: flash_sm90.cuh");
   using S = DqSmem<T>;
   constexpr int LT = Ld<T>::T_;
   constexpr int LS = Ld<T>::S;
   constexpr int LO = Ld<T>::O;
-  constexpr int LP = Ld<T>::P;
   T* q_t = reinterpret_cast<T*>(smem);
   T* do_t = reinterpret_cast<T*>(smem + S::kT);
   T* k_t = reinterpret_cast<T*>(smem + 2 * S::kT);
@@ -532,8 +472,6 @@ __device__ __forceinline__ void dq_body(const Params& p,
   float* lse_t = reinterpret_cast<float*>(smem + 4 * S::kT + 2 * S::kS +
                                           S::kO);
   float* delta_t = lse_t + BM;
-  __nv_bfloat16* ds_t = reinterpret_cast<__nv_bfloat16*>(
-      smem + 4 * S::kT + 2 * S::kS + S::kO + S::kLD);
 
   const int q0 = blockIdx.x * BM;
   const int h = blockIdx.y;
@@ -573,7 +511,7 @@ __device__ __forceinline__ void dq_body(const Params& p,
 
   for (int kb = 0; kb < upper; ++kb) {
     const int k0 = kb * BN;
-    __syncthreads();  // the previous block is done with k_t, v_t, s_t, ds_t
+    __syncthreads();  // the previous block is done with k_t, v_t, s_t
     load_tile<T, BN>(k_t, kg, p.k_s[2], k0, p.sk);
     load_tile<T, BN>(v_t, vg, p.v_s[2], k0, p.sk);
     __syncthreads();
@@ -589,15 +527,10 @@ __device__ __forceinline__ void dq_body(const Params& p,
           visible<kMode>(qi, kj, p, m)
               ? expf(scaled<kMode>(s_t[r * LS + c], qi, kj, p, m) - lse_t[r])
               : 0.f;
-      const float ds = pr * (dp_t[r * LS + c] - delta_t[r]) * p.scale;
-      if constexpr (kIsBf16<T>) {
-        ds_t[r * LP + c] = __float2bfloat16(ds);
-      } else {
-        s_t[r * LS + c] = ds;
-      }
+      s_t[r * LS + c] = pr * (dp_t[r * LS + c] - delta_t[r]) * p.scale;
     }
     __syncthreads();
-    mm_acc_ab<T>(ds_t, s_t, k_t, dq_t);
+    mm_acc_ab(s_t, k_t, dq_t);
   }
   __syncthreads();
 
@@ -613,31 +546,29 @@ __device__ __forceinline__ void dq_body(const Params& p,
 // -------------------------------------------------------- backward dkv
 template <typename T>
 struct DkvCfg {
-  static constexpr int QB = kIsBf16<T> ? 64 : 32;   // streamed q rows
+  static constexpr int QB = 32;                       // streamed q rows
   static constexpr size_t kKV = tile_bytes<T>(BN);    // k, v
   static constexpr size_t kQ = tile_bytes<T>(QB);     // q, do
   static constexpr size_t kS = score_bytes(QB);       // s/p, dp/ds
-  static constexpr size_t kP = p_bytes<T>(QB);        // p, ds (bf16)
   static constexpr size_t kO = acc_bytes(BN);         // dk, dv
   static constexpr size_t kLD = 2 * QB * sizeof(float);
-  static constexpr size_t bytes =
-      2 * kKV + 2 * kQ + 2 * kS + 2 * kP + 2 * kO + kLD;
+  static constexpr size_t bytes = 2 * kKV + 2 * kQ + 2 * kS + 2 * kO + kLD;
 };
 
 // Grid (ceil(Sk / 64), kvH, B), 128 threads (p.H is kvH here): one CTA
 // per key block loops over the GQA group's q heads and their query
 // blocks from the causal lower bound (_k_trip_bounds), accumulating dk
 // and dv of the whole group in f32 (the reference rounds per q head,
-// then sums: identical in float32).  The f32 instance streams 32-row
-// query blocks so its shared memory fits the 227 KB a CTA may use.
+// then sums: identical in float32).  It streams 32-row query blocks so
+// its shared memory fits the 227 KB a CTA may use.  float32 only.
 template <typename T, Mode kMode>
 __device__ __forceinline__ void dkv_body(const Params& p,
                                          unsigned char* smem) {
+  static_assert(std::is_same<T, float>::value, "bf16: flash_sm90.cuh");
   using C = DkvCfg<T>;
   constexpr int QB = C::QB;
   constexpr int LS = Ld<T>::S;
   constexpr int LO = Ld<T>::O;
-  constexpr int LP = Ld<T>::P;
   unsigned char* ptr = smem;
   T* k_t = reinterpret_cast<T*>(ptr);             ptr += C::kKV;
   T* v_t = reinterpret_cast<T*>(ptr);             ptr += C::kKV;
@@ -647,8 +578,6 @@ __device__ __forceinline__ void dkv_body(const Params& p,
   float* dp_t = reinterpret_cast<float*>(ptr);    ptr += C::kS;
   float* dk_t = reinterpret_cast<float*>(ptr);    ptr += C::kO;
   float* dv_t = reinterpret_cast<float*>(ptr);    ptr += C::kO;
-  __nv_bfloat16* p_t = reinterpret_cast<__nv_bfloat16*>(ptr);   ptr += C::kP;
-  __nv_bfloat16* ds_t = reinterpret_cast<__nv_bfloat16*>(ptr);  ptr += C::kP;
   float* lse_t = reinterpret_cast<float*>(ptr);
   float* delta_t = lse_t + QB;
 
@@ -682,7 +611,7 @@ __device__ __forceinline__ void dkv_body(const Params& p,
     const long long row_base = ((long long)b * p.H * p.group + h) * p.sq;
     for (int qb = lower; qb < nq; ++qb) {
       const int q0 = qb * QB;
-      __syncthreads();  // the previous block is done with q_t .. ds_t
+      __syncthreads();  // the previous block is done with q_t .. dp_t
       load_tile<T, QB>(q_t, qg, p.q_s[2], q0, p.sq);
       load_tile<T, QB>(do_t, dog, p.do_s[2], q0, p.sq);
       if (t < QB) {
@@ -703,18 +632,12 @@ __device__ __forceinline__ void dkv_body(const Params& p,
                 ? expf(scaled<kMode>(s_t[r * LS + c], qi, k0 + c, p, m) -
                        lse_t[r])
                 : 0.f;
-        const float ds = pr * (dp_t[r * LS + c] - delta_t[r]) * p.scale;
-        if constexpr (kIsBf16<T>) {
-          p_t[r * LP + c] = __float2bfloat16(pr);
-          ds_t[r * LP + c] = __float2bfloat16(ds);
-        } else {
-          s_t[r * LS + c] = pr;
-          dp_t[r * LS + c] = ds;
-        }
+        s_t[r * LS + c] = pr;
+        dp_t[r * LS + c] = pr * (dp_t[r * LS + c] - delta_t[r]) * p.scale;
       }
       __syncthreads();
-      mm_acc_atb<T, QB>(p_t, s_t, do_t, dv_t);
-      mm_acc_atb<T, QB>(ds_t, dp_t, q_t, dk_t);
+      mm_acc_atb<QB>(s_t, do_t, dv_t);
+      mm_acc_atb<QB>(dp_t, q_t, dk_t);
     }
   }
   __syncthreads();

@@ -14,12 +14,12 @@
 // (and the -1e9 bias tail it needs) and its streamed switch past 4096
 // tokens are VMEM limits; here the ragged edge is masked in-kernel.
 //
-// Bodies: the bf16 forward is flash_sm90.cuh's Hopper forward (wgmma, a
-// TMA ring, register accumulators), which skips the key tiles that the
-// intervals hide from a whole query block, using a tile table that this
+// Bodies: the bf16 forward, dq and dk/dv are flash_sm90.cuh's Hopper
+// kernels (wgmma, a TMA ring, register accumulators), which skip the
+// tiles that the intervals hide whole, using a tile table that this
 // file's table kernel writes just before (tile_table_kernel, in the same
-// C entry); the float32 forward and every backward kernel are the WMMA
-// bodies of flash_common.cuh.  Each runs in the kIntervals mode (no
+// C entry); the float32 forward, dq and dk/dv and the dbias kernel are
+// the bodies of flash_common.cuh.  Each runs in the kIntervals mode (no
 // bias) or the kBiased mode (a bias, intervals optional).
 //
 // Semantics: a logit is q.k * scale + bias, and a key is invisible past
@@ -94,26 +94,28 @@ __global__ void __launch_bounds__(128)
   if (lane == 0) tbl[(long long)r * nblk + blk] = make_int2(lo, hi);
 }
 
-// Launch tile_table_kernel for p's intervals (p.nvec > 0) into p.tbl.
-int launch_tile_table(const Params& p, cudaStream_t s) {
+// Launch tile_table_kernel for p's intervals (p.nvec > 0) into p.tbl;
+// ``nh`` is the q-head count (the dk/dv entry's p.H counts kv heads).
+int launch_tile_table(const Params& p, int nh, cudaStream_t s) {
   const int nblk = (p.sk + 63) / 64;
-  const int bm = p.m_s[0] ? p.B : 1, hm = p.m_s[1] ? p.H : 1;
+  const int bm = p.m_s[0] ? p.B : 1, hm = p.m_s[1] ? nh : 1;
   tile_table_kernel<<<dim3((nblk + 3) / 4, bm * hm * p.nvec), 128, 0, s>>>(
       p.mask, p.nvec, hm, p.m_s[0], p.m_s[1], p.m_s[2], p.sk, nblk,
       const_cast<int2*>(p.tbl));
   return (int)cudaGetLastError();
 }
 
-template <typename T, Mode kMode>
+// The float32 dq and dk/dv; bfloat16 runs the flash_sm90.cuh kernels.
+template <Mode kMode>
 __global__ void __launch_bounds__(NT) masked_bwd_dq_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  dq_body<T, kMode>(p, smem);
+  dq_body<float, kMode>(p, smem);
 }
 
-template <typename T, Mode kMode>
+template <Mode kMode>
 __global__ void __launch_bounds__(NT) masked_bwd_dkv_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  dkv_body<T, kMode>(p, smem);
+  dkv_body<float, kMode>(p, smem);
 }
 
 template <typename T>
@@ -289,7 +291,7 @@ int flash_mask_fwd(int dtype, int head_dim, const void* q, const void* k,
                   s);
   p.tbl = static_cast<const int2*>(tbl);
   if (nvec) {
-    const int err = launch_tile_table(p, s);
+    const int err = launch_tile_table(p, H, s);
     if (err) return err;
   }
   return bias ? flash_sm90::launch_fwd<kBiased>(p, s)
@@ -309,19 +311,21 @@ int flash_mask_tile_table(const void* mask, int nvec, int B, int H, int sk,
   Params p = {};
   set_common(p, B, H, 1, 1, sk, 0, 1.f, mask, nvec, nullptr, 0, st);
   p.tbl = static_cast<const int2*>(tbl);
-  return launch_tile_table(p, static_cast<cudaStream_t>(stream));
+  return launch_tile_table(p, H, static_cast<cudaStream_t>(stream));
 }
 
-// strides: q, k, v, out, dout, dq, mask, bias (24); writes dq and delta
+// strides: q, k, v, out, dout, dq, mask, bias (24); writes dq and delta.
+// tbl as flash_mask_fwd takes it (bfloat16 with intervals; written here
+// before dq).
 int flash_mask_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
                       const void* v, const void* out, const void* dout,
                       const void* lse, void* delta, void* dq,
                       const void* mask, int nvec, const void* bias,
-                      int bias_dtype, int B, int H, int group, int sq,
-                      int sk, int causal, float scale,
+                      int bias_dtype, void* tbl, int B, int H, int group,
+                      int sq, int sk, int causal, float scale,
                       const long long* strides, void* stream) {
   if (bad_args(dtype, head_dim, B, H, group, sq, sk) ||
-      bad_mask(nvec, mask, bias_dtype))
+      bad_mask(nvec, mask, bias_dtype) || (dtype == 1 && nvec && !tbl))
     return (int)cudaErrorInvalidValue;
   Params p = {};
   set_common(p, B, H, group, sq, sk, causal, scale, mask, nvec, bias,
@@ -340,31 +344,35 @@ int flash_mask_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
   set3(p.o_s, strides + 9);
   set3(p.do_s, strides + 12);
   set3(p.dq_s, strides + 15);
-  dim3 grid((sq + BM - 1) / BM, H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch(bias ? masked_bwd_dq_kernel<float, kBiased>
-                       : masked_bwd_dq_kernel<float, kIntervals>,
-                  DqSmem<float>::bytes, grid, p, s);
-  return launch(bias ? masked_bwd_dq_kernel<__nv_bfloat16, kBiased>
-                     : masked_bwd_dq_kernel<__nv_bfloat16, kIntervals>,
-                DqSmem<__nv_bfloat16>::bytes, grid, p, s);
+    return launch(bias ? masked_bwd_dq_kernel<kBiased>
+                       : masked_bwd_dq_kernel<kIntervals>,
+                  DqSmem<float>::bytes, dim3((sq + BM - 1) / BM, H, B), p, s);
+  p.tbl = static_cast<const int2*>(tbl);
+  if (nvec) {
+    const int err = launch_tile_table(p, H, s);
+    if (err) return err;
+  }
+  return bias ? flash_sm90::launch_dq<kBiased>(p, s)
+              : flash_sm90::launch_dq<kIntervals>(p, s);
 }
 
 // strides: q, k, v, dout, dk, dv, mask, bias (24); kvH kv heads, group q
-// heads each (the intervals and bias are indexed by q head)
+// heads each (the intervals, the bias and tbl are indexed by q head:
+// tbl as flash_mask_fwd takes it with H = kvH * group)
 int flash_mask_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
                        const void* v, const void* dout, const void* lse,
                        const void* delta, void* dk, void* dv,
                        const void* mask, int nvec, const void* bias,
-                       int bias_dtype, int B, int kvH, int group, int sq,
-                       int sk, int causal, float scale,
+                       int bias_dtype, void* tbl, int B, int kvH, int group,
+                       int sq, int sk, int causal, float scale,
                        const long long* strides, void* stream) {
   if (bad_args(dtype, head_dim, B, kvH, group, sq, sk) ||
-      bad_mask(nvec, mask, bias_dtype))
+      bad_mask(nvec, mask, bias_dtype) || (dtype == 1 && nvec && !tbl))
     return (int)cudaErrorInvalidValue;
   Params p = {};
-  // the kernel indexes lse/delta as (b * kvH * group + h)
+  // the kernels index lse/delta as (b * kvH * group + h)
   set_common(p, B, kvH, group, sq, sk, causal, scale, mask, nvec, bias,
              bias_dtype, strides + 18);
   p.q = q;
@@ -381,15 +389,19 @@ int flash_mask_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
   set3(p.do_s, strides + 9);
   set3(p.dk_s, strides + 12);
   set3(p.dv_s, strides + 15);
-  dim3 grid((sk + BN - 1) / BN, kvH, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch(bias ? masked_bwd_dkv_kernel<float, kBiased>
-                       : masked_bwd_dkv_kernel<float, kIntervals>,
-                  DkvCfg<float>::bytes, grid, p, s);
-  return launch(bias ? masked_bwd_dkv_kernel<__nv_bfloat16, kBiased>
-                     : masked_bwd_dkv_kernel<__nv_bfloat16, kIntervals>,
-                DkvCfg<__nv_bfloat16>::bytes, grid, p, s);
+    return launch(bias ? masked_bwd_dkv_kernel<kBiased>
+                       : masked_bwd_dkv_kernel<kIntervals>,
+                  DkvCfg<float>::bytes, dim3((sk + BN - 1) / BN, kvH, B), p,
+                  s);
+  p.tbl = static_cast<const int2*>(tbl);
+  if (nvec) {
+    const int err = launch_tile_table(p, kvH * group, s);
+    if (err) return err;
+  }
+  return bias ? flash_sm90::launch_dkv<kBiased>(p, s)
+              : flash_sm90::launch_dkv<kIntervals>(p, s);
 }
 
 // strides: q, k, v, dout, mask, bias (18).  dbias: contiguous [Bb, Hb,

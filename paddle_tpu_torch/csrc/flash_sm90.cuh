@@ -1,17 +1,20 @@
 // Flash attention for Hopper: K1 (forward) and K2 (dq, dk/dv), the bf16
 // instances behind flash_attention_fwd, flash_attention_bwd_dq and
-// flash_attention_bwd_dkv (flash_attention.cu), and the bf16 K8 forward
-// behind flash_mask_fwd (flash_mask.cu), in its two modes: kIntervals
+// flash_attention_bwd_dkv (flash_attention.cu), and the bf16 K8 forward,
+// dq and dk/dv behind flash_mask_fwd, flash_mask_bwd_dq and
+// flash_mask_bwd_dkv (flash_mask.cu), in their two modes: kIntervals
 // (flashmask intervals) and kBiased (an additive bias, intervals
-// optional).  The float32 instances and the K8 dq, dk/dv and dbias
-// kernels keep the WMMA bodies of flash_common.cuh.
+// optional).  The float32 instances and the K8 dbias kernel keep the
+// WMMA bodies of flash_common.cuh.
 //
 // Each kernel computes what its TPU kernel computes
 // (paddle_tpu/ops/pallas/flash_attention.py _fwd_kernel :523,
 // _bwd_dq_kernel :925, _bwd_dkv_kernel :960; flash_mask.py _fwd_kernel
-// :141 and its streamed twin _fwd_kernel_stream :267), with the
-// numerics listed in flash_attention.cu and flash_mask.cu, and is built
-// the FlashAttention-3 way (Shah et al., 2024):
+// :141, _bwd_dq_kernel :748, _bwd_dkv_kernel :791 and their streamed
+// twins _fwd_kernel_stream :267, _bwd_dq_kernel_stream :336,
+// _bwd_dkv_kernel_stream :394), with the numerics listed in
+// flash_attention.cu and flash_mask.cu, and is built the
+// FlashAttention-3 way (Shah et al., 2024):
 //   * warp specialisation: warpgroup 0 is the producer (one thread
 //     issues TMA loads; setmaxnreg gives its registers away), the other
 //     warpgroups are consumers, each owning 64 rows of the CTA's tile;
@@ -30,7 +33,8 @@
 //   * the visibility test is one function of (query row, key column),
 //     visible<kMode>(), applied only to key blocks that cross the
 //     bottom-right aligned diagonal or the Sk edge (and, in the K8
-//     modes, to blocks that an interval crosses);
+//     modes, to blocks that an interval crosses: FlashMask's block
+//     skipping, Wang et al., 2024, below);
 //   * no float atomics: each output element is written by one CTA and
 //     every sum is taken in a fixed order, so runs repeat bit for bit.
 //
@@ -56,14 +60,23 @@
 //     warpgroups; a prologue takes delta = rowsum(out * dout) in f32 and
 //     writes it out for the dk/dv kernel; Q and dO resident, 64-key K
 //     and V tiles in the ring; per tile S = Q.K^T, dP = dO.V^T, then
-//     dQ += dS.K;
+//     dQ += dS.K.  The K8 modes class the 64-key tiles from the tile
+//     table as the forward does (skipped tiles are neither loaded nor
+//     computed); kBiased reads each tile's bias into registers while
+//     Q.K^T runs;
 //   * dk/dv: one CTA per (128-key block, kv head, batch), 3
 //     warpgroups, each consumer owning 64 keys; K and V resident, 64-row
 //     Q and dO tiles (with their lse and delta rows) in the ring, over
 //     the GQA group's q heads and each head's query blocks from the
 //     causal lower bound; per tile S^T = K.Q^T, dP^T = V.dO^T, then dV +=
 //     P^T.dO and dK += dS^T.Q; the group's sums stay in f32 registers and
-//     are rounded once.  Its 128 accumulator registers plus the 64 of
+//     are rounded once.  The K8 modes class each (query tile, 64-key
+//     block of a warpgroup) per q head from the tile table: a tile
+//     hidden from both blocks is not loaded, a warpgroup whose block it
+//     hides skips it; kBiased stages the tile's [64 q, 128 k] bias block
+//     in the ring (TMA; the producer warp copies it where TMA cannot
+//     take the bias), since a thread's pairs run along q.  Its 128
+//     accumulator registers plus the 64 of
 //     S^T and dP^T do not fit in 240 without ptxas spilling ~400 bytes
 //     and serialising some wgmma.  64-key CTAs, two per SM at 232
 //     registers (so that llama3_8b's 8 kv heads give 256 CTAs for the
@@ -76,21 +89,22 @@
 // (which every query sees) is first already.
 //
 // Bounds on the H100 (989 TFLOP/s bf16, 3.35 TB/s): operations for K1,
-// K2 and the interval forward.  At the training shape (b 8, h 16, s
+// K2 and the interval kernels.  At the training shape (b 8, h 16, s
 // 2048, d 128, causal: 268.6 M visible pairs) the forward does 4 *
 // pairs * D = 137.5 GFLOP (0.139 ms), dq 6 * pairs * D (0.209 ms),
 // dk/dv 8 * pairs * D (0.278 ms); the interval forward does 4 * pairs *
-// D on the pairs the mask leaves.  The biased forward is bound by the
-// bias bytes it must read, those of the visible pairs (ALiBi's [1, 16,
-// 2048, 2048] f32, causal: the lower triangle, 134.3 MB; with q, k, v,
-// out and lse 202 MB, 0.060 ms).
+// D on the pairs the mask leaves (dq 6, dk/dv 8).  The biased forward is
+// bound by the bias bytes it must read, those of the visible pairs
+// (ALiBi's [1, 16, 2048, 2048] f32, causal: the lower triangle, 134.3
+// MB; with q, k, v, out and lse 202 MB, 0.060 ms); the biased dq and
+// dk/dv read the same bias bytes beside their operations.
 //
 // Left for later: overlapping one warpgroup's softmax with its next
 // wgmma (two score buffers; issuing S of the next key block before P.V
 // of this one, as written here, spilled and ran slower) and pingpong
 // scheduling between the consumer warpgroups; persistent CTAs with a
-// tile scheduler; TMA stores of the outputs; fp8; the K8 dq and dk/dv
-// on these bodies and the tile table.
+// tile scheduler; TMA stores of the outputs; fp8; the K8 dk/dv's spills
+// (its consumers hold 232 registers beside the producer warp's 40).
 #pragma once
 
 #include <climits>
@@ -370,18 +384,27 @@ struct Vis {
   int nblk;
 };
 
+// ``nh`` is the q-head count (the dk/dv kernel's p.H counts kv heads):
+// the table has a row set per q head where the intervals have a head
+// stride.
 template <Mode kMode>
-__device__ __forceinline__ Vis vis_for(const Params& p, int b, int h) {
+__device__ __forceinline__ Vis vis_for(const Params& p, int b, int h,
+                                       int nh) {
   Vis v{p.sk, p.sk - p.sq, p.causal};
   if constexpr (kMode != flash::kPlain) {
     v.sq = p.sq;
     v.m = flash::vis_for(p, b, h);
     v.nblk = (p.sk + 63) / 64;
-    const int hm = p.m_s[1] ? p.H : 1;
+    const int hm = p.m_s[1] ? nh : 1;
     v.tbl = p.tbl + ((long long)((p.m_s[0] ? b : 0) * hm + (p.m_s[1] ? h : 0)) *
                      v.m.nvec) * v.nblk;
   }
   return v;
+}
+
+template <Mode kMode>
+__device__ __forceinline__ Vis vis_for(const Params& p, int b, int h) {
+  return vis_for<kMode>(p, b, h, p.H);
 }
 
 // Whether query row q sees key k: below Sk and, causal, at or left of
@@ -452,6 +475,60 @@ __device__ __forceinline__ int tile_class(int kb, int q0, int qe,
     if (smin < qe && emax > q0 && smin < emax) cls = kPartial;
   }
   return cls;
+}
+
+// The producer warp's copy of the interval ends of keys [k0, k0 + BN)
+// into a stage's [4, BN] area (its 32 lanes, plain loads: a row of Sk
+// int32 need not be 16-byte aligned for TMA); keys past Sk read as 0.
+template <int BN>
+__device__ __forceinline__ void stage_ends(int* es, const Vis& v, int k0,
+                                           int lane) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int u = 0; u < BN / 32; ++u) {
+      const int k = k0 + lane + 32 * u;
+      if (i < v.m.nvec)
+        es[i * BN + lane + 32 * u] = k < v.sk ? v.m.mask[i * v.m.m_sv + k] : 0;
+    }
+}
+
+// The elements of a thread's 64 x (4 J) score tile (query rows row and
+// row + 8, key columns k0 + 8 j + 2 t (+ 1)) that a K8 mode hides, as
+// bits (element 4 j + 2 r + c): with the interval ends of a partial
+// tile's keys in ``ends`` ([nvec, 8 J] from key k0), else the causal/Sk
+// test alone.  Each column's ends are read once for both rows; the
+// rolled loops keep them out of the registers that the scores hold.
+template <Mode kMode, int J>
+__device__ __forceinline__ uint64_t hidden_keys(int row, int t, int k0,
+                                                const Vis& vis,
+                                                const int* ends) {
+  uint64_t hide = 0;
+  if (ends) {
+#pragma unroll 1
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * j + 2 * t + c;
+        int e[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (i < vis.m.nvec) e[i] = ends[i * 8 * J + col];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (!visible<kMode>(row + 8 * r, k0 + col, vis, e))
+            hide |= 1ull << (4 * j + 2 * r + c);
+      }
+  } else {
+#pragma unroll 1
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (!visible<kMode>(row + 8 * (e >> 1), k0 + 8 * j + 2 * t + (e & 1),
+                            vis))
+          hide |= 1ull << (4 * j + e);
+  }
+  return hide;
 }
 
 __device__ __forceinline__ unsigned char* align_smem(unsigned char* raw,
@@ -537,34 +614,7 @@ __device__ __forceinline__ void softmax_block(float (&sc)[N], int row, int t,
                               k0 + 8 * j + 2 * t + (e & 1), vis))
             sc[4 * j + e] = -INFINITY;
     } else {
-      // the thread's N elements as bits (element 4 j + 2 r + c), each
-      // column's interval ends read once for both rows; the rolled loops
-      // keep the ends out of the registers that the scores hold
-      uint64_t hide = 0;
-      if (ends) {
-#pragma unroll 1
-        for (int j = 0; j < J; ++j)
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int col = 8 * j + 2 * t + c;
-            int e[4] = {0, 0, 0, 0};
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-              if (i < vis.m.nvec) e[i] = ends[i * 8 * J + col];
-#pragma unroll
-            for (int r = 0; r < 2; ++r)
-              if (!visible<kMode>(row + 8 * r, k0 + col, vis, e))
-                hide |= 1ull << (4 * j + 2 * r + c);
-          }
-      } else {
-#pragma unroll 1
-        for (int j = 0; j < J; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (!visible<kMode>(row + 8 * (e >> 1),
-                                k0 + 8 * j + 2 * t + (e & 1), vis))
-              hide |= 1ull << (4 * j + e);
-      }
+      const uint64_t hide = hidden_keys<kMode, J>(row, t, k0, vis, ends);
 #pragma unroll
       for (int e = 0; e < N; ++e)
         if ((hide >> e) & 1) sc[e] = -INFINITY;
@@ -888,18 +938,7 @@ __global__ void __launch_bounds__(FwdCfg<kMode>::NT, 1)
             mbar_expect_tx(full_v(s), kTile);
             tma_tile(base + kV + s * kTile, &tv, full_v(s), kb * BN, hk, b, BN);
           }
-          if (ivl) {
-            int* es = ends_s + s * 4 * BN;
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int u = 0; u < BN / 32; ++u) {
-                const int k = kb * BN + lane + 32 * u;
-                if (i < vis.m.nvec)
-                  es[i * BN + lane + 32 * u] =
-                      k < p.sk ? vis.m.mask[i * vis.m.m_sv + k] : 0;
-              }
-          }
+          if (ivl) stage_ends<BN>(ends_s + s * 4 * BN, vis, kb * BN, lane);
           mbar_arrive(full_k(s));
         }
       }
@@ -1038,6 +1077,11 @@ constexpr uint32_t kQ = 0, kDO = kRes, kK = 2 * kRes, kV = kK + NS * kTile;
 constexpr uint32_t kRows = kV + NS * kTile;        // lse, delta [128] f32
 constexpr uint32_t kBar = kRows + 2 * BM * 4;      // full_q, full_k, full_v, empty
 constexpr size_t kSmem = kBar + 8 * (1 + 3 * NS) + 1024;
+// the K8 modes add, per stage, the tile's interval ends [4, BN] and its
+// key block (2 kb + partial, or -1: no more blocks)
+constexpr uint32_t kEnds = kBar + 64;
+constexpr uint32_t kMeta = kEnds + NS * 4 * BN * 4;
+constexpr size_t kSmemK8 = kMeta + NS * 4 + 1024;
 }  // namespace dq_cfg
 
 __device__ __forceinline__ float dot8(uint4 a, uint4 b) {
@@ -1054,97 +1098,146 @@ __device__ __forceinline__ float dot8(uint4 a, uint4 b) {
   return acc;
 }
 
+// The dq prologue of a consumer thread (ci of 256): delta = rowsum(out *
+// dout) in f32 (written out for the dk/dv and dbias kernels) and lse,
+// for the CTA's 128 rows, into shared memory; rows past Sq take lse =
+// LSE_INVALID, so their p are 0.
+__device__ __forceinline__ void dq_rows(const Params& p, int b, int h,
+                                        int q0, int ci, float* lse_s,
+                                        float* delta_s) {
+  const int lane = ci & 31;
+  const long long row_base = ((long long)b * p.H + h) * p.sq;
+  const __nv_bfloat16* og = static_cast<const __nv_bfloat16*>(p.o) +
+                            b * p.o_s[0] + h * p.o_s[1];
+  const __nv_bfloat16* dog = static_cast<const __nv_bfloat16*>(p.dout) +
+                             b * p.do_s[0] + h * p.do_s[1];
+  const int c = (lane & 15) * 8;
+#pragma unroll 2
+  for (int it = 0; it < 8; ++it) {
+    const int r = (ci >> 5) * 16 + it * 2 + (lane >> 4);
+    const int qi = q0 + r;
+    float acc = 0.f;
+    if (qi < p.sq)
+      acc = dot8(*reinterpret_cast<const uint4*>(og + (long long)qi * p.o_s[2] + c),
+                 *reinterpret_cast<const uint4*>(dog + (long long)qi * p.do_s[2] + c));
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if ((lane & 15) == 0) {
+      delta_s[r] = acc;
+      lse_s[r] = qi < p.sq ? p.lse[row_base + qi] : kLseInvalid;
+      if (qi < p.sq) p.delta[row_base + qi] = acc;
+    }
+  }
+  consumer_sync(256);
+}
+
+// The K8 modes of the dq kernel (kIntervals; kBiased, intervals
+// optional).  The producer warp classes the CTA's 64-key tiles 32 at a
+// time from the tile table (tile_class<64>, a lane each, a ballot), as
+// the K8 forward's does: it loads K and V only for the tiles that are
+// not skipped, stages the interval ends of partial tiles and the tile's
+// index (2 kb + partial) and ends the walk with an empty stage marked
+// -1.  A skipped tile leaves dq as it was (all its p are 0).  The
+// per-element test runs on partial tiles (interval ends from the stage)
+// and on tiles that cross the causal diagonal or Sk.  kBiased adds the
+// bias in log2 units to the recomputed logit, its 64 x 64 block per
+// warpgroup read into registers while Q.K^T runs; its grid is (batch,
+// query blocks, heads), so that a bias broadcast over the batch is read
+// from L2 after the first.
 template <Mode kMode>
-__global__ void __launch_bounds__(dq_cfg::NT, 1)
-    dq_kernel(const __grid_constant__ CUtensorMap tq,
-              const __grid_constant__ CUtensorMap tdo,
-              const __grid_constant__ CUtensorMap tk,
-              const __grid_constant__ CUtensorMap tv, const Params p) {
+__device__ __forceinline__ void dq_k8(const CUtensorMap& tq,
+                                      const CUtensorMap& tdo,
+                                      const CUtensorMap& tk,
+                                      const CUtensorMap& tv, const Params& p) {
   using namespace dq_cfg;
   extern __shared__ unsigned char smem_sm90[];
   uint32_t base;
   unsigned char* smem = align_smem(smem_sm90, &base);
   float* lse_s = reinterpret_cast<float*>(smem + kRows);
   float* delta_s = lse_s + BM;
+  int* ends_s = reinterpret_cast<int*>(smem + kEnds);
+  int* meta_s = reinterpret_cast<int*>(smem + kMeta);
   const uint32_t full_q = base + kBar;
   const auto full_k = [&](int s) { return base + kBar + 8 * (1 + s); };
   const auto full_v = [&](int s) { return base + kBar + 8 * (1 + NS + s); };
   const auto empty = [&](int s) { return base + kBar + 8 * (1 + 2 * NS + s); };
 
-  const int qb = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  int qb, h, b;
+  if constexpr (kMode == flash::kBiased) {
+    qb = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+    h = blockIdx.z;
+    b = blockIdx.x;
+  } else {
+    qb = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+    h = blockIdx.y;
+    b = blockIdx.z;
+  }
   const int q0 = qb * BM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const Vis vis{p.sk, p.sk - p.sq, p.causal};
+  const Vis vis = vis_for<kMode>(p, b, h);
   const int upper = key_blocks(q0, BM, BN, vis);
 
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
     for (int s = 0; s < NS; ++s) {
-      mbar_init(full_k(s), 1);
+      mbar_init(full_k(s), 32);         // the producer warp's lanes
       mbar_init(full_v(s), 1);
-      mbar_init(empty(s), 8);
+      mbar_init(empty(s), 8);           // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    reg_dealloc<24>();
-    if (threadIdx.x == 0) {
+    // ---- producer: one warp classes the tiles and fills the stages
+    reg_dealloc<40>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
       const int hk = h / p.group;
-      mbar_expect_tx(full_q, 2 * kRes);
-      tma_tile(base + kQ, &tq, full_q, q0, h, b, BM);
-      tma_tile(base + kDO, &tdo, full_q, q0, h, b, BM);
-      for (int kb = 0; kb < upper; ++kb) {
-        const int s = kb % NS;
-        mbar_wait(empty(s), ((kb / NS) & 1) ^ 1);
-        mbar_expect_tx(full_k(s), kTile);
-        tma_tile(base + kK + s * kTile, &tk, full_k(s), kb * BN, hk, b, BN);
-        mbar_expect_tx(full_v(s), kTile);
-        tma_tile(base + kV + s * kTile, &tv, full_v(s), kb * BN, hk, b, BN);
+      if (lane == 0) {
+        mbar_expect_tx(full_q, 2 * kRes);
+        tma_tile(base + kQ, &tq, full_q, q0, h, b, BM);
+        tma_tile(base + kDO, &tdo, full_q, q0, h, b, BM);
       }
+      const int qe = min(q0 + BM, p.sq);
+      int it = 0;                       // stages filled
+      for (int c = 0; c < upper; c += 32) {
+        const int cls = c + lane < upper
+                            ? tile_class<BN>(c + lane, q0, qe, vis)
+                            : kSkip;
+        unsigned live = __ballot_sync(0xffffffffu, cls != kSkip);
+        const unsigned part = __ballot_sync(0xffffffffu, cls == kPartial);
+        for (; live; live &= live - 1, ++it) {
+          const int kb = c + __ffs(live) - 1;
+          const int ivl = (part >> (kb - c)) & 1;
+          const int s = it % NS;
+          mbar_wait(empty(s), ((it / NS) & 1) ^ 1);
+          if (lane == 0) {
+            // the copies first; the lanes' arrivals complete full_k
+            meta_s[s] = 2 * kb + ivl;
+            mbar_expect(full_k(s), kTile);
+            tma_tile(base + kK + s * kTile, &tk, full_k(s), kb * BN, hk, b, BN);
+            mbar_expect_tx(full_v(s), kTile);
+            tma_tile(base + kV + s * kTile, &tv, full_v(s), kb * BN, hk, b, BN);
+          }
+          if (ivl) stage_ends<BN>(ends_s + s * 4 * BN, vis, kb * BN, lane);
+          mbar_arrive(full_k(s));
+        }
+      }
+      const int s = it % NS;
+      mbar_wait(empty(s), ((it / NS) & 1) ^ 1);
+      if (lane == 0) meta_s[s] = -1;
+      mbar_arrive(full_k(s));
     }
   } else {
-    reg_alloc<240>();
+    // ---- consumers: warpgroup cw owns tile rows [64 cw, 64 cw + 64)
+    reg_alloc<232>();
     const int ci = threadIdx.x - 128;
     const int cw = ci >> 7;
     const int warp = (ci >> 5) & 3;
     const int lane = ci & 31;
     const int g = lane >> 2;
     const int t = lane & 3;
-    const long long row_base = ((long long)b * p.H + h) * p.sq;
-
-    // prologue: delta = rowsum(out * dout) in f32 (written out for the
-    // dk/dv kernel) and lse, for the CTA's 128 rows; rows past Sq take
-    // lse = LSE_INVALID, so their p are 0
-    {
-      const __nv_bfloat16* og = static_cast<const __nv_bfloat16*>(p.o) +
-                                b * p.o_s[0] + h * p.o_s[1];
-      const __nv_bfloat16* dog = static_cast<const __nv_bfloat16*>(p.dout) +
-                                 b * p.do_s[0] + h * p.do_s[1];
-      const int c = (lane & 15) * 8;
-#pragma unroll 2
-      for (int it = 0; it < 8; ++it) {
-        const int r = (ci >> 5) * 16 + it * 2 + (lane >> 4);
-        const int qi = q0 + r;
-        float acc = 0.f;
-        if (qi < p.sq)
-          acc = dot8(*reinterpret_cast<const uint4*>(
-                         og + (long long)qi * p.o_s[2] + c),
-                     *reinterpret_cast<const uint4*>(
-                         dog + (long long)qi * p.do_s[2] + c));
-#pragma unroll
-        for (int o = 8; o > 0; o >>= 1)
-          acc += __shfl_xor_sync(0xffffffffu, acc, o);
-        if ((lane & 15) == 0) {
-          delta_s[r] = acc;
-          lse_s[r] = qi < p.sq ? p.lse[row_base + qi] : kLseInvalid;
-          if (qi < p.sq) p.delta[row_base + qi] = acc;
-        }
-      }
-      consumer_sync(256);
-    }
+    dq_rows(p, b, h, q0, ci, lse_s, delta_s);
     const int tr = cw * 64 + warp * 16 + g;       // tile rows tr, tr + 8
     const int row = q0 + tr;
     const float sl2 = p.scale * kLog2e;
@@ -1152,52 +1245,64 @@ __global__ void __launch_bounds__(dq_cfg::NT, 1)
     const float dlt[2] = {delta_s[tr], delta_s[tr + 8]};
     const uint32_t qa = base + kQ + cw * 64 * 128;
     const uint32_t doa = base + kDO + cw * 64 * 128;
+    // kBiased: bias pairs load as one word where every row is aligned
+    const bool bias_pair =
+        kMode == flash::kBiased && vis.m.b_ss % 2 == 0 &&
+        reinterpret_cast<uintptr_t>(vis.m.bias) % (vis.m.bias_dt ? 4 : 8) == 0;
 
     float dq[64];
 #pragma unroll
     for (int i = 0; i < 64; ++i) dq[i] = 0.f;
     mbar_wait(full_q, 0);
 
-    for (int kb = 0; kb < upper; ++kb) {
-      const int s = kb % NS;
-      const uint32_t ph = (kb / NS) & 1;
+    for (int it = 0;; ++it) {
+      const int s = it % NS;
+      const uint32_t ph = (it / NS) & 1;
+      mbar_wait(full_k(s), ph);
+      const int meta = meta_s[s];
+      if (meta < 0) break;
       const uint32_t ka = base + kK + s * kTile;
       const uint32_t va = base + kV + s * kTile;
-      const int k0 = kb * BN;
+      const int k0 = (meta >> 1) * BN;
+      const int* ends = (meta & 1) ? ends_s + s * 4 * BN : nullptr;
 
       float sc[32], dp[32];
-      mbar_wait(full_k(s), ph);
       wg_fence();
       gemm_abt<BM, BN>(sc, qa, ka);
       wg_commit();
+      // the logit in log2 units less lse, s * scale * log2 e (+ bias *
+      // log2 e) - lse * log2 e, as the forward took it
+      float off[32];
+      if constexpr (kMode == flash::kBiased) {
+        load_bias(off, vis, row, k0, t, bias_pair && k0 + BN <= vis.sk);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          off[i] = fmaf(off[i], kLog2e, -lse2[(i >> 1) & 1]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) off[i] = -lse2[(i >> 1) & 1];
+      }
       mbar_wait(full_v(s), ph);
       gemm_abt<BM, BN>(dp, doa, va);
       wg_commit();
 
-      // p = exp(s * scale - lse), 0 where invisible
+      // p = exp2(logit - lse), 0 where invisible
       wg_wait<1>();
       reg_fence(sc);
-      const bool full = all_visible(q0, k0, BN, vis);
+      uint64_t hide = 0;
+      if (ends || !all_visible(q0, k0, BN, vis))
+        hide = hidden_keys<kMode, 8>(row, t, k0, vis, ends);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const float pe = exp2f(fmaf(sc[4 * j + e], sl2, -lse2[r]));
-          sc[4 * j + e] =
-              full || visible<kMode>(row + 8 * r, k0 + 8 * j + 2 * t + (e & 1),
-                                     vis)
-                  ? pe
-                  : 0.f;
-        }
+      for (int e = 0; e < 32; ++e) {
+        const float pe = exp2f(fmaf(sc[e], sl2, off[e]));
+        sc[e] = (hide >> e) & 1 ? 0.f : pe;
+      }
       // ds = p (dp - delta) scale, rounded to bf16 for dq += ds K
       wg_wait<0>();
       reg_fence(dp);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - dlt[e >> 1]) * p.scale;
+      for (int e = 0; e < 32; ++e)
+        dp[e] = sc[e] * (dp[e] - dlt[(e >> 1) & 1]) * p.scale;
       wg_fence();
       gemm_rs<BN / 16, BN>(dq, dp, ka);
       wg_commit();
@@ -1213,6 +1318,173 @@ __global__ void __launch_bounds__(dq_cfg::NT, 1)
   }
 }
 
+// kPlain (K2) walks every key tile up to the causal bound; the K8 modes
+// are dq_k8.  K2's body is written out here, apart from dq_k8's, so that
+// K2 compiles to the same SASS as before the K8 modes came
+// (tools/flash_ab.py prints each kernel's digest).
+template <Mode kMode>
+__global__ void __launch_bounds__(dq_cfg::NT, 1)
+    dq_kernel(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tdo,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv, const Params p) {
+  if constexpr (kMode != flash::kPlain) {
+    dq_k8<kMode>(tq, tdo, tk, tv, p);
+  } else {
+    using namespace dq_cfg;
+    extern __shared__ unsigned char smem_sm90[];
+    uint32_t base;
+    unsigned char* smem = align_smem(smem_sm90, &base);
+    float* lse_s = reinterpret_cast<float*>(smem + kRows);
+    float* delta_s = lse_s + BM;
+    const uint32_t full_q = base + kBar;
+    const auto full_k = [&](int s) { return base + kBar + 8 * (1 + s); };
+    const auto full_v = [&](int s) { return base + kBar + 8 * (1 + NS + s); };
+    const auto empty = [&](int s) { return base + kBar + 8 * (1 + 2 * NS + s); };
+
+    const int qb = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+    const int q0 = qb * BM;
+    const int h = blockIdx.y;
+    const int b = blockIdx.z;
+    const Vis vis{p.sk, p.sk - p.sq, p.causal};
+    const int upper = key_blocks(q0, BM, BN, vis);
+
+    if (threadIdx.x == 0) {
+      mbar_init(full_q, 1);
+      for (int s = 0; s < NS; ++s) {
+        mbar_init(full_k(s), 1);
+        mbar_init(full_v(s), 1);
+        mbar_init(empty(s), 8);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (threadIdx.x < 128) {
+      reg_dealloc<24>();
+      if (threadIdx.x == 0) {
+        const int hk = h / p.group;
+        mbar_expect_tx(full_q, 2 * kRes);
+        tma_tile(base + kQ, &tq, full_q, q0, h, b, BM);
+        tma_tile(base + kDO, &tdo, full_q, q0, h, b, BM);
+        for (int kb = 0; kb < upper; ++kb) {
+          const int s = kb % NS;
+          mbar_wait(empty(s), ((kb / NS) & 1) ^ 1);
+          mbar_expect_tx(full_k(s), kTile);
+          tma_tile(base + kK + s * kTile, &tk, full_k(s), kb * BN, hk, b, BN);
+          mbar_expect_tx(full_v(s), kTile);
+          tma_tile(base + kV + s * kTile, &tv, full_v(s), kb * BN, hk, b, BN);
+        }
+      }
+    } else {
+      reg_alloc<240>();
+      const int ci = threadIdx.x - 128;
+      const int cw = ci >> 7;
+      const int warp = (ci >> 5) & 3;
+      const int lane = ci & 31;
+      const int g = lane >> 2;
+      const int t = lane & 3;
+      const long long row_base = ((long long)b * p.H + h) * p.sq;
+
+      // prologue: delta = rowsum(out * dout) in f32 (written out for the
+      // dk/dv kernel) and lse, for the CTA's 128 rows; rows past Sq take
+      // lse = LSE_INVALID, so their p are 0
+      {
+        const __nv_bfloat16* og = static_cast<const __nv_bfloat16*>(p.o) +
+                                  b * p.o_s[0] + h * p.o_s[1];
+        const __nv_bfloat16* dog = static_cast<const __nv_bfloat16*>(p.dout) +
+                                   b * p.do_s[0] + h * p.do_s[1];
+        const int c = (lane & 15) * 8;
+  #pragma unroll 2
+        for (int it = 0; it < 8; ++it) {
+          const int r = (ci >> 5) * 16 + it * 2 + (lane >> 4);
+          const int qi = q0 + r;
+          float acc = 0.f;
+          if (qi < p.sq)
+            acc = dot8(*reinterpret_cast<const uint4*>(
+                           og + (long long)qi * p.o_s[2] + c),
+                       *reinterpret_cast<const uint4*>(
+                           dog + (long long)qi * p.do_s[2] + c));
+  #pragma unroll
+          for (int o = 8; o > 0; o >>= 1)
+            acc += __shfl_xor_sync(0xffffffffu, acc, o);
+          if ((lane & 15) == 0) {
+            delta_s[r] = acc;
+            lse_s[r] = qi < p.sq ? p.lse[row_base + qi] : kLseInvalid;
+            if (qi < p.sq) p.delta[row_base + qi] = acc;
+          }
+        }
+        consumer_sync(256);
+      }
+      const int tr = cw * 64 + warp * 16 + g;       // tile rows tr, tr + 8
+      const int row = q0 + tr;
+      const float sl2 = p.scale * kLog2e;
+      const float lse2[2] = {lse_s[tr] * kLog2e, lse_s[tr + 8] * kLog2e};
+      const float dlt[2] = {delta_s[tr], delta_s[tr + 8]};
+      const uint32_t qa = base + kQ + cw * 64 * 128;
+      const uint32_t doa = base + kDO + cw * 64 * 128;
+
+      float dq[64];
+  #pragma unroll
+      for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+      mbar_wait(full_q, 0);
+
+      for (int kb = 0; kb < upper; ++kb) {
+        const int s = kb % NS;
+        const uint32_t ph = (kb / NS) & 1;
+        const uint32_t ka = base + kK + s * kTile;
+        const uint32_t va = base + kV + s * kTile;
+        const int k0 = kb * BN;
+
+        float sc[32], dp[32];
+        mbar_wait(full_k(s), ph);
+        wg_fence();
+        gemm_abt<BM, BN>(sc, qa, ka);
+        wg_commit();
+        mbar_wait(full_v(s), ph);
+        gemm_abt<BM, BN>(dp, doa, va);
+        wg_commit();
+
+        // p = exp(s * scale - lse), 0 where invisible
+        wg_wait<1>();
+        reg_fence(sc);
+        const bool full = all_visible(q0, k0, BN, vis);
+  #pragma unroll
+        for (int j = 0; j < 8; ++j)
+  #pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const float pe = exp2f(fmaf(sc[4 * j + e], sl2, -lse2[r]));
+            sc[4 * j + e] =
+                full || visible<kMode>(row + 8 * r, k0 + 8 * j + 2 * t + (e & 1),
+                                       vis)
+                    ? pe
+                    : 0.f;
+          }
+        // ds = p (dp - delta) scale, rounded to bf16 for dq += ds K
+        wg_wait<0>();
+        reg_fence(dp);
+  #pragma unroll
+        for (int j = 0; j < 8; ++j)
+  #pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - dlt[e >> 1]) * p.scale;
+        wg_fence();
+        gemm_rs<BN / 16, BN>(dq, dp, ka);
+        wg_commit();
+        wg_wait<0>();
+        reg_fence(dq);
+        if (lane == 0) mbar_arrive(empty(s));
+      }
+
+      __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_s[0] +
+                           h * p.dq_s[1];
+      const float one[2] = {1.f, 1.f};
+      store_rows(dq, dqg, p.dq_s[2], row, p.sq, t, one);
+    }
+  }
+}
+
 // --------------------------------------------------------- backward dkv
 namespace dkv_cfg {
 constexpr int BN = 128, BM = 64, NS = 2, NT = 384;
@@ -1223,33 +1495,125 @@ constexpr uint32_t kRows = kDO + NS * kQT;         // per stage: lse (log2
                                                    // units), delta [BM]
 constexpr uint32_t kBar = kRows + NS * 2 * BM * 4; // full_kv, full, empty
 constexpr size_t kSmem = kBar + 8 * (1 + 2 * NS) + 1024;
+// the K8 modes add, per stage, the interval ends of the CTA's keys [4,
+// BN], the tile's meta (query block, or -1: no more tiles; q head of
+// the group; both warpgroups' tile classes) and, kBiased, the tile's
+// [BM, BN] bias block (by TMA in the bias dtype, or copied as f32)
+constexpr uint32_t kEnds = kBar + 64;
+constexpr uint32_t kMeta = kEnds + NS * 4 * BN * 4;
+constexpr uint32_t kBias = (kMeta + NS * 16 + 1023) / 1024 * 1024;
+constexpr uint32_t kBiasTile = BM * BN * 4;
+constexpr size_t kSmemIntervals = kMeta + NS * 16 + 1024;
+constexpr size_t kSmemBiased = kBias + NS * kBiasTile + 1024;
 }  // namespace dkv_cfg
 
+// Whether the dk/dv kernel stages the bias by TMA: a 16-byte aligned
+// base, row, head and batch strides (a broadcast dim's is 0) and rows
+// that do not overlap; else its producer warp copies it.
+__host__ __device__ __forceinline__ bool bias_by_tma(const Params& p) {
+  const long long es = p.bias_dt == 0 ? 4 : 2;
+  return reinterpret_cast<uintptr_t>(p.bias) % 16 == 0 && p.b_s[2] >= p.sk &&
+         p.b_s[2] * es % 16 == 0 && p.b_s[1] * es % 16 == 0 &&
+         p.b_s[0] * es % 16 == 0;
+}
+
+// The producer warp's copy of the [BM, BN] bias block at (q0, k0) into
+// a stage as f32 (its 32 lanes along the keys, plain loads), where TMA
+// cannot take the bias; rows past Sq and keys past Sk read as 0.
+__device__ __forceinline__ void stage_bias_rows(float* dst, const Vis& v,
+                                                int q0, int k0, int lane) {
+  using namespace dkv_cfg;
+#pragma unroll 1
+  for (int r = 0; r < BM; ++r) {
+    const int q = q0 + r;
+#pragma unroll
+    for (int u = 0; u < BN / 32; ++u) {
+      const int k = k0 + lane + 32 * u;
+      dst[r * BN + lane + 32 * u] =
+          q < v.sq && k < v.sk
+              ? flash::load_any(v.m.bias, (long long)q * v.m.b_ss + k,
+                                v.m.bias_dt)
+              : 0.f;
+    }
+  }
+}
+
+// sc = sc * sl2 + bias * log2 e over a thread's S^T elements (key rows kr
+// and kr + 8 of the CTA's block, query columns 8 j + 2 t (+ 1) of the
+// tile) from a staged [BM, BN] bias block of element type T.
+template <typename T>
+__device__ __forceinline__ void add_staged_bias(float (&sc)[32],
+                                                const unsigned char* stage,
+                                                int kr, int t, float sl2) {
+  const T* bz = reinterpret_cast<const T*>(stage);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qc = 8 * j + 2 * t + (e & 1);
+      sc[4 * j + e] = fmaf(sc[4 * j + e], sl2,
+                           to_f32(bz[qc * dkv_cfg::BN + kr + 8 * (e >> 1)]) *
+                               kLog2e);
+    }
+}
+
+// The K8 modes of the dk/dv kernel (kIntervals; kBiased, intervals
+// optional).  The producer warp classes each (64-row query tile, 64-key
+// block of a consumer warpgroup) 32 query tiles at a time, a lane each,
+// from the tile table (tile_class<64> with the tile's rows and the
+// block's keys), for each q head of the GQA group with that head's
+// intervals (the table has a row set per q head where the intervals
+// have a head stride: p.H counts kv heads here, so the head count is
+// p.H * p.group).  A query tile hidden from both blocks is skipped: its
+// Q and dO are not loaded.  Otherwise the stage gets the tile's meta,
+// its lse and delta rows, the interval ends of the CTA's keys where a
+// block is partial, and, kBiased, the tile's bias block ([BM q, BN k]:
+// a thread's pairs run along q, which is not contiguous, so the block
+// goes through shared memory).  A warpgroup whose own block is hidden
+// (by the intervals, or the causal diagonal) arrives and goes on.  The
+// per-element test runs on partial blocks and on blocks that cross the
+// causal diagonal or Sk.  kBiased's grid is (batch, key blocks, kv
+// heads), so that a bias broadcast over the batch is read from L2 after
+// the first.
 template <Mode kMode>
-__global__ void __launch_bounds__(dkv_cfg::NT, 1)
-    dkv_kernel(const __grid_constant__ CUtensorMap tq,
-               const __grid_constant__ CUtensorMap tdo,
-               const __grid_constant__ CUtensorMap tk,
-               const __grid_constant__ CUtensorMap tv, const Params p) {
+__device__ __forceinline__ void dkv_k8(const CUtensorMap& tq,
+                                       const CUtensorMap& tdo,
+                                       const CUtensorMap& tk,
+                                       const CUtensorMap& tv,
+                                       const CUtensorMap& tb,
+                                       const Params& p) {
   using namespace dkv_cfg;
   extern __shared__ unsigned char smem_sm90[];
   uint32_t base;
   unsigned char* smem = align_smem(smem_sm90, &base);
   float* rows_s = reinterpret_cast<float*>(smem + kRows);
+  int* ends_s = reinterpret_cast<int*>(smem + kEnds);
+  int* meta_s = reinterpret_cast<int*>(smem + kMeta);
   const uint32_t full_kv = base + kBar;
   const auto full = [&](int s) { return base + kBar + 8 * (1 + s); };
   const auto empty = [&](int s) { return base + kBar + 8 * (1 + NS + s); };
 
-  const int k0 = blockIdx.x * BN;
-  const int hk = blockIdx.y;            // p.H is kvH here
-  const int b = blockIdx.z;
-  const Vis vis{p.sk, p.sk - p.sq, p.causal};
+  int kb, hk, b;
+  if constexpr (kMode == flash::kBiased) {
+    kb = blockIdx.y;
+    hk = blockIdx.z;
+    b = blockIdx.x;
+  } else {
+    kb = blockIdx.x;
+    hk = blockIdx.y;
+    b = blockIdx.z;
+  }
+  const int k0 = kb * BN;
+  const int nh = p.H * p.group;         // q heads
+  // the lengths and the causal diagonal (the same for every head)
+  const Vis len = vis_for<kMode>(p, b, hk * p.group, nh);
   const int nq = (p.sq + BM - 1) / BM;
   int lower = 0;                        // causal lower bound (_k_trip_bounds)
   if (p.causal) {
-    const int x = k0 - vis.diag;
+    const int x = k0 - len.diag;
     lower = x <= 0 ? 0 : min(x / BM, nq);
   }
+  const bool tma_bias = kMode == flash::kBiased && bias_by_tma(p);
 
   if (threadIdx.x == 0) {
     mbar_init(full_kv, 1);
@@ -1262,9 +1626,8 @@ __global__ void __launch_bounds__(dkv_cfg::NT, 1)
   __syncthreads();
 
   if (threadIdx.x < 128) {
-    // ---- producer: lane 0 issues the TMA loads, all 32 lanes stage the
-    // tile's lse and delta rows
-    reg_dealloc<24>();
+    // ---- producer: one warp classes the tiles and fills the stages
+    reg_dealloc<40>();
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       if (lane == 0) {
@@ -1272,32 +1635,67 @@ __global__ void __launch_bounds__(dkv_cfg::NT, 1)
         tma_tile(base + kK, &tk, full_kv, k0, hk, b, BN);
         tma_tile(base + kV, &tv, full_kv, k0, hk, b, BN);
       }
-      int it = 0;
+      const uint32_t tile_bytes =
+          2 * kQT + (tma_bias ? BM * BN * (p.bias_dt == 0 ? 4 : 2) : 0);
+      const int kb0 = k0 / 64;          // the first warpgroup's table block
+      int it = 0;                       // stages filled
       for (int j = 0; j < p.group; ++j) {
         const int h = hk * p.group + j;
-        const long long row_base = ((long long)b * p.H * p.group + h) * p.sq;
-        for (int qb = lower; qb < nq; ++qb, ++it) {
-          const int s = it % NS;
-          mbar_wait(empty(s), ((it / NS) & 1) ^ 1);
-          float* rs = rows_s + s * 2 * BM;
-          for (int i = lane; i < BM; i += 32) {
-            const int qi = qb * BM + i;
-            rs[i] = (qi < p.sq ? p.lse[row_base + qi] : kLseInvalid) * kLog2e;
-            rs[BM + i] = qi < p.sq ? p.delta[row_base + qi] : 0.f;
+        const Vis vis = vis_for<kMode>(p, b, h, nh);
+        const long long row_base = ((long long)b * nh + h) * p.sq;
+        for (int c = lower; c < nq; c += 32) {
+          // both blocks' classes, two bits each
+          int cls = kSkip;
+          const int q0 = (c + lane) * BM, qe = min(q0 + BM, p.sq);
+          if (c + lane < nq) {
+            cls = tile_class<64>(kb0, q0, qe, vis);
+            if (kb0 + 1 < len.nblk &&
+                !(p.causal && q0 + BM - 1 + len.diag < k0 + 64))
+              cls |= tile_class<64>(kb0 + 1, q0, qe, vis) << 2;
           }
-          if (lane == 0) {
-            mbar_expect_tx(full(s), 2 * kQT);
-            tma_tile(base + kQ + s * kQT, &tq, full(s), qb * BM, h, b, BM);
-            tma_tile(base + kDO + s * kQT, &tdo, full(s), qb * BM, h, b, BM);
-          } else {
+          unsigned live = __ballot_sync(0xffffffffu, cls != kSkip);
+          for (; live; live &= live - 1, ++it) {
+            const int bit = __ffs(live) - 1;
+            const int qb = c + bit;
+            const int tcls = __shfl_sync(0xffffffffu, cls, bit);
+            const int s = it % NS;
+            mbar_wait(empty(s), ((it / NS) & 1) ^ 1);
+            if (lane == 0) {
+              // the copies first; the lanes' arrivals complete full
+              meta_s[4 * s] = qb;
+              meta_s[4 * s + 1] = j;
+              meta_s[4 * s + 2] = tcls;
+              mbar_expect(full(s), tile_bytes);
+              tma_tile(base + kQ + s * kQT, &tq, full(s), qb * BM, h, b, BM);
+              tma_tile(base + kDO + s * kQT, &tdo, full(s), qb * BM, h, b, BM);
+              if (tma_bias)
+                tma_box(base + kBias + s * kBiasTile, &tb, full(s), k0,
+                        qb * BM, p.b_s[1] ? h : 0, p.b_s[0] ? b : 0);
+            }
+            float* rs = rows_s + s * 2 * BM;
+            for (int i = lane; i < BM; i += 32) {
+              const int qi = qb * BM + i;
+              rs[i] = (qi < p.sq ? p.lse[row_base + qi] : kLseInvalid) * kLog2e;
+              rs[BM + i] = qi < p.sq ? p.delta[row_base + qi] : 0.f;
+            }
+            if ((tcls & 3) == kPartial || (tcls >> 2) == kPartial)
+              stage_ends<BN>(ends_s + s * 4 * BN, vis, k0, lane);
+            if (kMode == flash::kBiased && !tma_bias)
+              stage_bias_rows(reinterpret_cast<float*>(smem + kBias +
+                                                       s * kBiasTile),
+                              vis, qb * BM, k0, lane);
             mbar_arrive(full(s));
           }
         }
       }
+      const int s = it % NS;
+      mbar_wait(empty(s), ((it / NS) & 1) ^ 1);
+      if (lane == 0) meta_s[4 * s] = -1;
+      mbar_arrive(full(s));
     }
   } else {
     // ---- consumers: warpgroup cw owns keys [k0 + 64 cw, k0 + 64 cw + 64)
-    reg_alloc<240>();
+    reg_alloc<232>();
     const int ci = threadIdx.x - 128;
     const int cw = ci >> 7;
     const int warp = (ci >> 5) & 3;
@@ -1305,8 +1703,11 @@ __global__ void __launch_bounds__(dkv_cfg::NT, 1)
     const int g = lane >> 2;
     const int t = lane & 3;
     const int kw = k0 + cw * 64;                  // the warpgroup's first key
-    const int key = kw + warp * 16 + g;           // and key + 8
+    const int kr = cw * 64 + warp * 16 + g;       // key rows kr, kr + 8
+    const int key = k0 + kr;
     const float sl2 = p.scale * kLog2e;
+    // the staged bias's element type: the bias's by TMA, else f32
+    const int bdt = tma_bias ? p.bias_dt : 0;
 
     float dk[64], dv[64];
 #pragma unroll
@@ -1316,75 +1717,105 @@ __global__ void __launch_bounds__(dkv_cfg::NT, 1)
     }
     mbar_wait(full_kv, 0);
 
-    int it = 0;
-    for (int j = 0; j < p.group; ++j) {
-      for (int qb = lower; qb < nq; ++qb, ++it) {
-        const int s = it % NS;
-        const uint32_t qa = base + kQ + s * kQT;
-        const uint32_t doa = base + kDO + s * kQT;
-        const float* rs = rows_s + s * 2 * BM;
-        const int q0 = qb * BM;
-        mbar_wait(full(s), (it / NS) & 1);
-        if (p.causal && q0 + BM - 1 + vis.diag < kw) {
-          // no row of this tile sees the warpgroup's keys (the CTA's
-          // lower bound is its first warpgroup's)
-          if (lane == 0) mbar_arrive(empty(s));
-          continue;
-        }
-
-        float sc[BM / 2], dp[BM / 2];
-        wg_fence();
-        gemm_abt<BN, BM>(sc, base + kK + cw * 64 * 128, qa);
-        wg_commit();
-        gemm_abt<BN, BM>(dp, base + kV + cw * 64 * 128, doa);
-        wg_commit();
-
-        // p^T = exp(s * scale - lse) per query column, 0 where invisible;
-        // dv += p^T dO (p rounded to bf16) runs while ds^T is made
-        wg_wait<1>();
-        reg_fence(sc);
-        const bool all = all_visible(q0, kw, 64, vis);
-#pragma unroll
-        for (int jj = 0; jj < BM / 8; ++jj) {
-          const int col = 8 * jj + 2 * t;
-          const float2 lse = *reinterpret_cast<const float2*>(rs + col);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float v = exp2f(fmaf(sc[4 * jj + e], sl2,
-                                       -((e & 1) ? lse.y : lse.x)));
-            sc[4 * jj + e] =
-                all || visible<kMode>(q0 + col + (e & 1), key + 8 * (e >> 1),
-                                      vis)
-                    ? v
-                    : 0.f;
-          }
-        }
-        wg_fence();
-        gemm_rs<BM / 16, BM>(dv, sc, doa);
-        wg_commit();
-
-        // ds^T = p^T (dp^T - delta) scale (f32 p), rounded to bf16 for
-        // dk += ds^T Q
-        wg_wait<1>();
-        reg_fence(dp);
-#pragma unroll
-        for (int jj = 0; jj < BM / 8; ++jj) {
-          const float2 dlt =
-              *reinterpret_cast<const float2*>(rs + BM + 8 * jj + 2 * t);
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            dp[4 * jj + e] = sc[4 * jj + e] *
-                             (dp[4 * jj + e] - ((e & 1) ? dlt.y : dlt.x)) *
-                             p.scale;
-        }
-        wg_fence();
-        gemm_rs<BM / 16, BM>(dk, dp, qa);
-        wg_commit();
-        wg_wait<0>();
-        reg_fence(dv);
-        reg_fence(dk);
+    for (int it = 0;; ++it) {
+      const int s = it % NS;
+      mbar_wait(full(s), (it / NS) & 1);
+      const int qb = meta_s[4 * s];
+      if (qb < 0) break;
+      const int cls = (meta_s[4 * s + 2] >> (2 * cw)) & 3;
+      if (cls == kSkip) {
+        // no row of this tile sees the warpgroup's keys
         if (lane == 0) mbar_arrive(empty(s));
+        continue;
       }
+      const uint32_t qa = base + kQ + s * kQT;
+      const uint32_t doa = base + kDO + s * kQT;
+      const float* rs = rows_s + s * 2 * BM;
+      const int q0 = qb * BM;
+
+      float sc[BM / 2], dp[BM / 2];
+      wg_fence();
+      gemm_abt<BN, BM>(sc, base + kK + cw * 64 * 128, qa);
+      wg_commit();
+      gemm_abt<BN, BM>(dp, base + kV + cw * 64 * 128, doa);
+      wg_commit();
+
+      // p^T = exp2(logit - lse) per query column, 0 where invisible; dv
+      // += p^T dO (p rounded to bf16) runs while ds^T is made
+      wg_wait<1>();
+      reg_fence(sc);
+      float sl = sl2;
+      if constexpr (kMode == flash::kBiased) {
+        const unsigned char* bs = smem + kBias + s * kBiasTile;
+        if (bdt == 0) {
+          add_staged_bias<float>(sc, bs, kr, t, sl2);
+        } else if (bdt == 1) {
+          add_staged_bias<__nv_bfloat16>(sc, bs, kr, t, sl2);
+        } else {
+          add_staged_bias<__half>(sc, bs, kr, t, sl2);
+        }
+        sl = 1.f;
+      }
+      uint32_t hide = 0;
+      if (cls == kPartial) {
+        // the thread's two keys' interval ends, from the stage
+        const int* es = ends_s + s * 4 * BN;
+        int e0[4] = {0, 0, 0, 0}, e1[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (i < len.m.nvec) {
+            e0[i] = es[i * BN + kr];
+            e1[i] = es[i * BN + kr + 8];
+          }
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int q = q0 + 8 * (e >> 2) + 2 * t + (e & 1);
+          if (!visible<kMode>(q, key + 8 * ((e >> 1) & 1), len,
+                              (e >> 1) & 1 ? e1 : e0))
+            hide |= 1u << e;
+        }
+      } else if (!all_visible(q0, kw, 64, len)) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e)
+          if (!visible<kMode>(q0 + 8 * (e >> 2) + 2 * t + (e & 1),
+                              key + 8 * ((e >> 1) & 1), len))
+            hide |= 1u << e;
+      }
+#pragma unroll
+      for (int jj = 0; jj < BM / 8; ++jj) {
+        const float2 lse = *reinterpret_cast<const float2*>(rs + 8 * jj + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float v = exp2f(fmaf(sc[4 * jj + e], sl,
+                                     -((e & 1) ? lse.y : lse.x)));
+          sc[4 * jj + e] = (hide >> (4 * jj + e)) & 1 ? 0.f : v;
+        }
+      }
+      wg_fence();
+      gemm_rs<BM / 16, BM>(dv, sc, doa);
+      wg_commit();
+
+      // ds^T = p^T (dp^T - delta) scale (f32 p), rounded to bf16 for
+      // dk += ds^T Q
+      wg_wait<1>();
+      reg_fence(dp);
+#pragma unroll
+      for (int jj = 0; jj < BM / 8; ++jj) {
+        const float2 dlt =
+            *reinterpret_cast<const float2*>(rs + BM + 8 * jj + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * jj + e] = sc[4 * jj + e] *
+                           (dp[4 * jj + e] - ((e & 1) ? dlt.y : dlt.x)) *
+                           p.scale;
+      }
+      wg_fence();
+      gemm_rs<BM / 16, BM>(dk, dp, qa);
+      wg_commit();
+      wg_wait<0>();
+      reg_fence(dv);
+      reg_fence(dk);
+      if (lane == 0) mbar_arrive(empty(s));
     }
 
     const float one[2] = {1.f, 1.f};
@@ -1394,6 +1825,188 @@ __global__ void __launch_bounds__(dkv_cfg::NT, 1)
     store_rows(dv, static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_s[0] +
                        hk * p.dv_s[1],
                p.dv_s[2], key, p.sk, t, one);
+  }
+}
+
+// kPlain (K2) walks every query tile from the causal lower bound, its
+// body written out apart from dkv_k8's so that K2's SASS stays; the K8
+// modes are dkv_k8, with the bias's tensor map ``tb`` (kBiased, where
+// bias_by_tma; unused otherwise), after p so that K2's parameters keep
+// their offsets.
+template <Mode kMode>
+__global__ void __launch_bounds__(dkv_cfg::NT, 1)
+    dkv_kernel(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tdo,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const Params p,
+               const __grid_constant__ CUtensorMap tb) {
+  if constexpr (kMode != flash::kPlain) {
+    dkv_k8<kMode>(tq, tdo, tk, tv, tb, p);
+  } else {
+    using namespace dkv_cfg;
+    extern __shared__ unsigned char smem_sm90[];
+    uint32_t base;
+    unsigned char* smem = align_smem(smem_sm90, &base);
+    float* rows_s = reinterpret_cast<float*>(smem + kRows);
+    const uint32_t full_kv = base + kBar;
+    const auto full = [&](int s) { return base + kBar + 8 * (1 + s); };
+    const auto empty = [&](int s) { return base + kBar + 8 * (1 + NS + s); };
+
+    const int k0 = blockIdx.x * BN;
+    const int hk = blockIdx.y;            // p.H is kvH here
+    const int b = blockIdx.z;
+    const Vis vis{p.sk, p.sk - p.sq, p.causal};
+    const int nq = (p.sq + BM - 1) / BM;
+    int lower = 0;                        // causal lower bound (_k_trip_bounds)
+    if (p.causal) {
+      const int x = k0 - vis.diag;
+      lower = x <= 0 ? 0 : min(x / BM, nq);
+    }
+
+    if (threadIdx.x == 0) {
+      mbar_init(full_kv, 1);
+      for (int s = 0; s < NS; ++s) {
+        mbar_init(full(s), 32);           // the producer warp's lanes
+        mbar_init(empty(s), 8);           // one arrival per consumer warp
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (threadIdx.x < 128) {
+      // ---- producer: lane 0 issues the TMA loads, all 32 lanes stage the
+      // tile's lse and delta rows
+      reg_dealloc<24>();
+      if (threadIdx.x < 32) {
+        const int lane = threadIdx.x;
+        if (lane == 0) {
+          mbar_expect_tx(full_kv, 2 * kKV);
+          tma_tile(base + kK, &tk, full_kv, k0, hk, b, BN);
+          tma_tile(base + kV, &tv, full_kv, k0, hk, b, BN);
+        }
+        int it = 0;
+        for (int j = 0; j < p.group; ++j) {
+          const int h = hk * p.group + j;
+          const long long row_base = ((long long)b * p.H * p.group + h) * p.sq;
+          for (int qb = lower; qb < nq; ++qb, ++it) {
+            const int s = it % NS;
+            mbar_wait(empty(s), ((it / NS) & 1) ^ 1);
+            float* rs = rows_s + s * 2 * BM;
+            for (int i = lane; i < BM; i += 32) {
+              const int qi = qb * BM + i;
+              rs[i] = (qi < p.sq ? p.lse[row_base + qi] : kLseInvalid) * kLog2e;
+              rs[BM + i] = qi < p.sq ? p.delta[row_base + qi] : 0.f;
+            }
+            if (lane == 0) {
+              mbar_expect_tx(full(s), 2 * kQT);
+              tma_tile(base + kQ + s * kQT, &tq, full(s), qb * BM, h, b, BM);
+              tma_tile(base + kDO + s * kQT, &tdo, full(s), qb * BM, h, b, BM);
+            } else {
+              mbar_arrive(full(s));
+            }
+          }
+        }
+      }
+    } else {
+      // ---- consumers: warpgroup cw owns keys [k0 + 64 cw, k0 + 64 cw + 64)
+      reg_alloc<240>();
+      const int ci = threadIdx.x - 128;
+      const int cw = ci >> 7;
+      const int warp = (ci >> 5) & 3;
+      const int lane = ci & 31;
+      const int g = lane >> 2;
+      const int t = lane & 3;
+      const int kw = k0 + cw * 64;                  // the warpgroup's first key
+      const int key = kw + warp * 16 + g;           // and key + 8
+      const float sl2 = p.scale * kLog2e;
+
+      float dk[64], dv[64];
+  #pragma unroll
+      for (int i = 0; i < 64; ++i) {
+        dk[i] = 0.f;
+        dv[i] = 0.f;
+      }
+      mbar_wait(full_kv, 0);
+
+      int it = 0;
+      for (int j = 0; j < p.group; ++j) {
+        for (int qb = lower; qb < nq; ++qb, ++it) {
+          const int s = it % NS;
+          const uint32_t qa = base + kQ + s * kQT;
+          const uint32_t doa = base + kDO + s * kQT;
+          const float* rs = rows_s + s * 2 * BM;
+          const int q0 = qb * BM;
+          mbar_wait(full(s), (it / NS) & 1);
+          if (p.causal && q0 + BM - 1 + vis.diag < kw) {
+            // no row of this tile sees the warpgroup's keys (the CTA's
+            // lower bound is its first warpgroup's)
+            if (lane == 0) mbar_arrive(empty(s));
+            continue;
+          }
+
+          float sc[BM / 2], dp[BM / 2];
+          wg_fence();
+          gemm_abt<BN, BM>(sc, base + kK + cw * 64 * 128, qa);
+          wg_commit();
+          gemm_abt<BN, BM>(dp, base + kV + cw * 64 * 128, doa);
+          wg_commit();
+
+          // p^T = exp(s * scale - lse) per query column, 0 where invisible;
+          // dv += p^T dO (p rounded to bf16) runs while ds^T is made
+          wg_wait<1>();
+          reg_fence(sc);
+          const bool all = all_visible(q0, kw, 64, vis);
+  #pragma unroll
+          for (int jj = 0; jj < BM / 8; ++jj) {
+            const int col = 8 * jj + 2 * t;
+            const float2 lse = *reinterpret_cast<const float2*>(rs + col);
+  #pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float v = exp2f(fmaf(sc[4 * jj + e], sl2,
+                                         -((e & 1) ? lse.y : lse.x)));
+              sc[4 * jj + e] =
+                  all || visible<kMode>(q0 + col + (e & 1), key + 8 * (e >> 1),
+                                        vis)
+                      ? v
+                      : 0.f;
+            }
+          }
+          wg_fence();
+          gemm_rs<BM / 16, BM>(dv, sc, doa);
+          wg_commit();
+
+          // ds^T = p^T (dp^T - delta) scale (f32 p), rounded to bf16 for
+          // dk += ds^T Q
+          wg_wait<1>();
+          reg_fence(dp);
+  #pragma unroll
+          for (int jj = 0; jj < BM / 8; ++jj) {
+            const float2 dlt =
+                *reinterpret_cast<const float2*>(rs + BM + 8 * jj + 2 * t);
+  #pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dp[4 * jj + e] = sc[4 * jj + e] *
+                               (dp[4 * jj + e] - ((e & 1) ? dlt.y : dlt.x)) *
+                               p.scale;
+          }
+          wg_fence();
+          gemm_rs<BM / 16, BM>(dk, dp, qa);
+          wg_commit();
+          wg_wait<0>();
+          reg_fence(dv);
+          reg_fence(dk);
+          if (lane == 0) mbar_arrive(empty(s));
+        }
+      }
+
+      const float one[2] = {1.f, 1.f};
+      store_rows(dk, static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_s[0] +
+                         hk * p.dk_s[1],
+                 p.dk_s[2], key, p.sk, t, one);
+      store_rows(dv, static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_s[0] +
+                         hk * p.dv_s[1],
+                 p.dv_s[2], key, p.sk, t, one);
+    }
   }
 }
 
@@ -1474,23 +2087,67 @@ inline int launch_dq(const Params& p, cudaStream_t s) {
       !tile_map(&tk, p.k, p.k_s, p.B, kvh, p.sk, dq_cfg::BN) ||
       !tile_map(&tv, p.v, p.v_s, p.B, kvh, p.sk, dq_cfg::BN))
     return (int)cudaErrorInvalidValue;
-  return launch(dq_kernel<kMode>, dq_cfg::kSmem,
-                dim3((p.sq + dq_cfg::BM - 1) / dq_cfg::BM, p.H, p.B), dq_cfg::NT, s, p,
-                tq, tdo, tk, tv);
+  const int nqb = (p.sq + dq_cfg::BM - 1) / dq_cfg::BM;
+  if constexpr (kMode == flash::kPlain) {
+    return launch(dq_kernel<kMode>, dq_cfg::kSmem, dim3(nqb, p.H, p.B),
+                  dq_cfg::NT, s, p, tq, tdo, tk, tv);
+  } else {
+    return launch(dq_kernel<kMode>, dq_cfg::kSmemK8,
+                  kMode == flash::kBiased ? dim3(p.B, nqb, p.H)
+                                          : dim3(nqb, p.H, p.B),
+                  dq_cfg::NT, s, p, tq, tdo, tk, tv);
+  }
 }
 
+// The tensor map of the bias [Bb, Hb, Sq, Sk] (element strides p.b_s, 0
+// on a broadcast dim, which the map gives size 1) for the dk/dv kernel:
+// dims (Sk, Sq, Hb, Bb), boxes of BN keys x BM rows in the bias dtype,
+// no swizzle, zero fill past Sq and Sk.  Needs bias_by_tma(p).
+inline bool bias_map(CUtensorMap* map, const Params& p, int nh) {
+  const EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const cuuint64_t es = p.bias_dt == 0 ? 4 : 2;
+  const cuuint64_t hb = p.b_s[1] ? nh : 1, bb = p.b_s[0] ? p.B : 1;
+  const cuuint64_t dims[4] = {(cuuint64_t)p.sk, (cuuint64_t)p.sq, hb, bb};
+  const cuuint64_t rs = p.b_s[2] * es;
+  const cuuint64_t hs = p.b_s[1] ? p.b_s[1] * es : rs * p.sq;
+  const cuuint64_t strides[3] = {rs, hs, p.b_s[0] ? p.b_s[0] * es : hs * hb};
+  const cuuint32_t box[4] = {dkv_cfg::BN, dkv_cfg::BM, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapDataType dt = p.bias_dt == 0 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                 : p.bias_dt == 1
+                                     ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  return enc(map, dt, 4, const_cast<void*>(p.bias), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// For dk/dv, p.H counts kv heads.  The K8 modes read p.mask, p.bias and,
+// with intervals, the tile table p.tbl of the q heads (p.H * p.group).
 template <Mode kMode = flash::kPlain>
 inline int launch_dkv(const Params& p, cudaStream_t s) {
   const int h = p.H * p.group;
-  CUtensorMap tq, tdo, tk, tv;
+  CUtensorMap tq, tdo, tk, tv, tb = {};
   if (!tile_map(&tq, p.q, p.q_s, p.B, h, p.sq, dkv_cfg::BM) ||
       !tile_map(&tdo, p.dout, p.do_s, p.B, h, p.sq, dkv_cfg::BM) ||
       !tile_map(&tk, p.k, p.k_s, p.B, p.H, p.sk, dkv_cfg::BN) ||
-      !tile_map(&tv, p.v, p.v_s, p.B, p.H, p.sk, dkv_cfg::BN))
+      !tile_map(&tv, p.v, p.v_s, p.B, p.H, p.sk, dkv_cfg::BN) ||
+      (kMode == flash::kBiased && bias_by_tma(p) && !bias_map(&tb, p, h)))
     return (int)cudaErrorInvalidValue;
-  return launch(dkv_kernel<kMode>, dkv_cfg::kSmem,
-                dim3((p.sk + dkv_cfg::BN - 1) / dkv_cfg::BN, p.H, p.B), dkv_cfg::NT, s, p,
-                tq, tdo, tk, tv);
+  const int nkb = (p.sk + dkv_cfg::BN - 1) / dkv_cfg::BN;
+  const size_t smem = kMode == flash::kPlain       ? dkv_cfg::kSmem
+                      : kMode == flash::kIntervals ? dkv_cfg::kSmemIntervals
+                                                   : dkv_cfg::kSmemBiased;
+  const dim3 grid = kMode == flash::kBiased ? dim3(p.B, nkb, p.H)
+                                            : dim3(nkb, p.H, p.B);
+  cudaError_t err = cudaFuncSetAttribute(
+      dkv_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dkv_kernel<kMode><<<grid, dkv_cfg::NT, smem, s>>>(tq, tdo, tk, tv, p, tb);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace flash_sm90

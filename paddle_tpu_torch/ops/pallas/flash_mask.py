@@ -14,17 +14,19 @@ zero gradients.
 
 Kernels (``csrc/flash_mask.cu``, the port of the TPU kernel K8, both its
 resident and its streamed variants): the forward, which writes lse only
-when a gradient will be taken (in bf16 the Hopper forward of
-``csrc/flash_sm90.cuh``, which skips the key tiles that the intervals
-hide from a whole 128-row query block, by a table of each interval
-vector's minimum and maximum over 64-key blocks that the same C entry
-writes first: :func:`_tile_table_xla` and :func:`_tile_classes` are its
-plain versions); the dq kernel, which also writes delta =
+when a gradient will be taken; the dq kernel, which also writes delta =
 rowsum(out * dout); the dk/dv kernel, one CTA per key block summing its
 GQA group in f32 (the reference rounds per q head, then sums —
 identical in float32); and the dbias kernel, which runs only when the
 bias needs a gradient (the reference always emits it and lets XLA drop
-it) and sums over the bias's broadcast dims in-kernel.
+it) and sums over the bias's broadcast dims in-kernel.  In bf16 the
+forward, dq and dk/dv are the Hopper kernels of ``csrc/flash_sm90.cuh``,
+which skip the tiles that the intervals hide whole (the forward's 128-row
+query blocks x 128-key tiles, dq's 128-row blocks x 64-key tiles, dk/dv's
+64-row query tiles x 64-key blocks), by a table of each interval
+vector's minimum and maximum over 64-key blocks that each C entry writes
+first: :func:`_tile_table_xla` and :func:`_tile_classes` are its plain
+versions.
 
 On CPU tensors every entry runs its plain version; on CUDA tensors it
 launches the kernel or raises.  The plain versions
@@ -63,11 +65,14 @@ _FWD_ARGS = (_I, _I, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I,
 _TABLE_ARGS = (_P, _I, _I, _I, _I, _P, _P, _P)
 TABLE_BLOCK = 64               # keys per block of the tile table
 TILE = 128                     # query rows and keys of a bf16 forward tile
+# the bf16 backward's tiles: dq (query rows, keys), dk/dv (query rows,
+# keys of a consumer warpgroup's block)
+DQ_TILE, DKV_TILE = (128, 64), (64, 64)
 # dtype, head_dim, q, k, v, out|dout, dout|lse, lse|delta, delta|dk,
-# dq|dv, mask, nvec, bias, bias_dtype, B, H|kvH, group, sq, sk, causal,
-# scale, strides, stream
-_BWD_ARGS = (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
-             _I, _I, _I, _I, _F, _P, _P)
+# dq|dv, mask, nvec, bias, bias_dtype, tbl, B, H|kvH, group, sq, sk,
+# causal, scale, strides, stream
+_BWD_ARGS = (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I,
+             _I, _I, _I, _I, _I, _F, _P, _P)
 # dtype, head_dim, q, k, v, dout, lse, delta, mask, nvec, bias,
 # bias_dtype, dbias, dbias_acc, B, H, group, Bb, Hb, sq, sk, causal,
 # scale, strides, stream
@@ -187,24 +192,26 @@ def _tile_table(mask_vecs):
     return tbl
 
 
-def _tile_classes(table, sq):
-    """How the bf16 interval forward classes each (128-row query block,
-    128-key tile) from a tile table (``flash_sm90.cuh:tile_class``; the
-    biased forward classes 64-key tiles the same way): 0 skip (one
+def _tile_classes(table, sq, rows=TILE, keys=TILE):
+    """How the bf16 kernels class each (``rows``-row query tile,
+    ``keys``-key tile) from a tile table (``flash_sm90.cuh:tile_class``):
+    the interval forward takes 128 x 128 (the defaults), the biased
+    forward 128 x 64, dq 128 x 64 (``DQ_TILE``) and dk/dv 64 x 64
+    (``DKV_TILE``, a consumer warpgroup's key block).  0 skip (one
     interval hides every key of the tile from every row it covers), 1
-    partial, 2 clean (no interval touches it); [Bm, Hm, ceil(Sq / 128),
-    ceil(Sk / 128)] int64.  Keys past Sk and causality are the kernel's
+    partial, 2 clean (no interval touches it); [Bm, Hm, ceil(Sq / rows),
+    ceil(Sk / keys)] int64.  Keys past Sk and causality are the kernel's
     per-element test, not the table's."""
     bm, hm, nvec, nblk, _ = table.shape
-    per = TILE // TABLE_BLOCK
+    per = keys // TABLE_BLOCK
     pad = -nblk % per
     info = torch.iinfo(torch.int32)
     lo = torch.nn.functional.pad(table[..., 0], (0, pad), value=info.max)
     hi = torch.nn.functional.pad(table[..., 1], (0, pad), value=info.min)
     lo = lo.unflatten(-1, (-1, per)).amin(-1)[:, :, :, None]
     hi = hi.unflatten(-1, (-1, per)).amax(-1)[:, :, :, None]
-    q0 = torch.arange(0, sq, TILE, device=table.device)[:, None]
-    qe = torch.clamp(q0 + TILE, max=sq)
+    q0 = torch.arange(0, sq, rows, device=table.device)[:, None]
+    qe = torch.clamp(q0 + rows, max=sq)
     hidden = touched = torch.zeros((), dtype=torch.bool)
     for i in range(0, nvec, 2):        # [Bm, Hm, query blocks, tiles]
         smin, smax, emin, emax = lo[:, :, i], hi[:, :, i], lo[:, :, i + 1], \
@@ -360,17 +367,33 @@ def _vec_strides(mask_vecs, bias):
     return out
 
 
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
 def _operands(mask_vecs, bias):
     """The kernels' (mask, nvec, bias, bias_dtype) arguments."""
-    return (mask_vecs.data_ptr() if mask_vecs is not None else None,
+    return (_ptr(mask_vecs),
             mask_vecs.shape[2] if mask_vecs is not None else 0,
-            bias.data_ptr() if bias is not None else None,
-            _BIAS_DTYPES[bias.dtype] if bias is not None else 0)
+            _ptr(bias), _BIAS_DTYPES[bias.dtype] if bias is not None else 0)
 
 
 def _all_strides(tensors, mask_vecs, bias):
     return (ctypes.c_longlong * (3 * len(tensors) + 6))(
         *_strides(*tensors), *_vec_strides(mask_vecs, bias))
+
+
+def _table_scratch(q, mask_vecs, b, h, sk):
+    """The tile table's buffer that a bf16 C entry with intervals writes
+    before its kernel (Bm * Hm * nvec * ceil(Sk / 64) int2, Bm = b where
+    the intervals have a batch stride, else 1; Hm likewise, h the q
+    heads), or None."""
+    if mask_vecs is None or q.dtype != torch.bfloat16:
+        return None
+    sb, sh, _ = _vec_strides(mask_vecs, None)[:3]
+    return torch.empty(((b if sb else 1) * (h if sh else 1)
+                        * mask_vecs.shape[2] * -(-sk // TABLE_BLOCK) * 2,),
+                       dtype=torch.int32, device=q.device)
 
 
 def _masked_fwd(q, k, v, mask_vecs, bias, causal, sm_scale, need_lse):
@@ -387,17 +410,11 @@ def _masked_fwd(q, k, v, mask_vecs, bias, causal, sm_scale, need_lse):
     out = _bshd_empty_like(q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if need_lse else None)
-    tbl = None                 # the bf16 forward's tile table, its scratch
-    if mask_vecs is not None and q.dtype == torch.bfloat16:
-        sb, sh, _ = _vec_strides(mask_vecs, None)[:3]
-        tbl = torch.empty(((b if sb else 1) * (h if sh else 1)
-                           * mask_vecs.shape[2] * -(-sk // TABLE_BLOCK) * 2,),
-                          dtype=torch.int32, device=q.device)
+    tbl = _table_scratch(q, mask_vecs, b, h, sk)
     err = _entry("flash_mask_fwd", _FWD_ARGS)(
         _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         *_operands(mask_vecs, bias), out.data_ptr(),
-        lse.data_ptr() if need_lse else None,
-        tbl.data_ptr() if tbl is not None else None, b, h, h // kvh, sq, sk,
+        _ptr(lse), _ptr(tbl), b, h, h // kvh, sq, sk,
         int(bool(causal)), float(sm_scale),
         _all_strides((q, k, v, out), mask_vecs, bias), _stream(q))
     cuda_lib.check("flash_mask", err, "flash_mha_masked forward launch")
@@ -421,11 +438,12 @@ def _masked_bwd_dq(q, k, v, out, lse, dout, mask_vecs, bias, causal,
                          f"got {out.dtype} {tuple(out.shape)} {out.stride()}")
     dq = _bshd_empty_like(q)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    tbl = _table_scratch(q, mask_vecs, b, h, sk)
     err = _entry("flash_mask_bwd_dq", _BWD_ARGS)(
         _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), *_operands(mask_vecs, bias), b, h, h // kvh, sq, sk,
-        int(bool(causal)), float(sm_scale),
+        dq.data_ptr(), *_operands(mask_vecs, bias), _ptr(tbl), b, h,
+        h // kvh, sq, sk, int(bool(causal)), float(sm_scale),
         _all_strides((q, k, v, out, dout, dq), mask_vecs, bias), _stream(q))
     cuda_lib.check("flash_mask", err, "flash_mha_masked dq launch")
     flash_mha_masked.dq_launches += 1
@@ -438,11 +456,12 @@ def _masked_bwd_dkv(q, k, v, lse, delta, dout, mask_vecs, bias, causal,
     (b, h, sq, d, kvh, sk), lse, dout, delta = _bwd_inputs(q, k, v, lse,
                                                            dout, delta)
     dk, dv = _bshd_empty_like(k), _bshd_empty_like(v)
+    tbl = _table_scratch(q, mask_vecs, b, h, sk)
     err = _entry("flash_mask_bwd_dkv", _BWD_ARGS)(
         _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), *_operands(mask_vecs, bias), b, kvh, h // kvh, sq,
-        sk, int(bool(causal)), float(sm_scale),
+        dv.data_ptr(), *_operands(mask_vecs, bias), _ptr(tbl), b, kvh,
+        h // kvh, sq, sk, int(bool(causal)), float(sm_scale),
         _all_strides((q, k, v, dout, dk, dv), mask_vecs, bias), _stream(q))
     cuda_lib.check("flash_mask", err, "flash_mha_masked dkv launch")
     flash_mha_masked.dkv_launches += 1
@@ -466,7 +485,7 @@ def _masked_bwd_dbias(q, k, v, lse, delta, dout, mask_vecs, bias, causal,
         _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         *_operands(mask_vecs, bias), dbias.data_ptr(),
-        acc.data_ptr() if acc is not None else None, b, h, h // kvh, bb, hb,
+        _ptr(acc), b, h, h // kvh, bb, hb,
         sq, sk, int(bool(causal)), float(sm_scale),
         _all_strides((q, k, v, dout), mask_vecs, bias), _stream(q))
     cuda_lib.check("flash_mask", err, "flash_mha_biased dbias launch")

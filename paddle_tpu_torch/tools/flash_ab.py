@@ -21,11 +21,18 @@ K8 forward row: the serving prefill buckets ``serve_2048``,
 serving runs it), ``packed_docs`` and ``alibi_bias`` of ``K8_SHAPES``
 and ``window_8192`` (with lse, as training runs it; the last beside K1
 at its shape without the mask), and the K8 dq and dk/dv at
-``sft_padding`` (the backward kernels, on an out, lse and delta that the
-tool computes in f32, the same for every checkout); last, at the small
-prefills ``serve_512`` and ``bench_decode``, the CUDA-event time of the
-K8 forward and of the ``scaled_dot_product_attention`` call beside their
-device time (``torch.profiler``, per kernel).  The shapes come from the ``chip_smoke.py`` beside this tool, so
+``sft_padding``, ``packed_docs``, ``alibi_bias`` and ``window_8192``
+(the backward kernels, on an out, lse and delta that the tool computes
+in f32, the same for every checkout; beside one forward + backward of
+``scaled_dot_product_attention`` with the dense mask or bias, and at
+``window_8192`` beside K2's dq and dk/dv at its shape without the
+mask); at the small prefills ``serve_512`` and ``bench_decode``, the
+CUDA-event time of the K8 forward and of the
+``scaled_dot_product_attention`` call beside their device time
+(``torch.profiler``, per kernel); last, ``chip_smoke.py``'s phases
+10b-10d (the long-context masked, windowed and ALiBi training calls at s
+8192) on the checkout's kernels, with where each call's device time goes
+per K8 kernel.  The shapes come from the ``chip_smoke.py`` beside this tool, so
 both checkouts of an A/B run the same rows.  Run two checkouts in turns
 in one call (parent, change, change, parent): two calls may land on two
 cards.
@@ -112,7 +119,9 @@ def main(root):
     tool_root = str(Path(__file__).resolve().parents[2])
     sys.path.insert(0, tool_root)
     from chip_smoke import (FLASH_SHAPES, K8_SHAPES, MASKED_SHAPES,
-                            WINDOW_SHAPE, bound, k8_operands, visible_pairs,
+                            WINDOW_SHAPE, bound, k8_operands,
+                            phase_longctx_bias, phase_longctx_masked,
+                            phase_longctx_window, release, visible_pairs,
                             window_intervals)
     sys.path.remove(tool_root)
     sys.path.insert(0, root)
@@ -197,28 +206,43 @@ def main(root):
         vecs = FM.padding_mask_to_intervals(keep, S)
         k8_row(name, lambda: FM.flash_mha_masked(q, k, v, vecs, True, scale))
         del q, k, v
+    def k8_backward(name, q, k, v, do, vecs, bias, causal, **extra):
+        """The K8 dq and dk/dv rows of one shape, on the f32-made out,
+        lse and delta, with the library's forward + backward beside."""
+        args = (vecs, bias, causal, scale)
+        out, lse, delta = plain_forward(torch, q, k, v, do, vecs, bias,
+                                        causal, scale, FM.LSE_INVALID)
+        lib = sdpa_fwd_bwd_ms(torch, sdpa, FM, q, k, v, do, vecs, bias,
+                              causal, scale)
+        k8_row(f"{name}_dq", lambda: FM._masked_bwd_dq(
+            q, k, v, out, lse, do, *args), sdpa_fwd_bwd_ms=lib, **extra)
+        k8_row(f"{name}_dkv", lambda: FM._masked_bwd_dkv(
+            q, k, v, lse, delta, do, *args), sdpa_fwd_bwd_ms=lib, **extra)
+
     for name, B, H, kvh, S, causal, kind in K8_SHAPES:
         q, k, v, do = bhsd(B, S, H), bhsd(B, S, kvh), bhsd(B, S, kvh), \
             bhsd(B, S, H)
         vecs, bias = k8_operands(FM, kind, B, H, S, "cuda")
-        args = (vecs, bias, causal, scale)
-        if name == "sft_padding":         # the backward witnesses
-            out, lse, delta = plain_forward(torch, q, k, v, do, vecs, causal,
-                                            scale, FM.LSE_INVALID)
-            k8_row("sft_padding_dq", lambda: FM._masked_bwd_dq(
-                q, k, v, out, lse, do, *args))
-            k8_row("sft_padding_dkv", lambda: FM._masked_bwd_dkv(
-                q, k, v, lse, delta, do, *args))
-        else:
-            k8_row(name, lambda: FM._masked_fwd(q, k, v, *args, True))
+        if name != "sft_padding":
+            k8_row(name, lambda: FM._masked_fwd(q, k, v, vecs, bias, causal,
+                                                scale, True))
+        k8_backward(name, q, k, v, do, vecs, bias, causal)
         del q, k, v, do
     name, B, H, S = WINDOW_SHAPE
-    q, k, v = bhsd(B, S, H), bhsd(B, S, H), bhsd(B, S, H)
+    q, k, v, do = (bhsd(B, S, H) for _ in range(4))
     vecs = window_intervals(FM, B, S, "cuda")
     k1_ms = cuda_ms(torch, lambda: FA._flash_fwd(q, k, v, True, scale))
     k8_row(name, lambda: FM._masked_fwd(q, k, v, vecs, None, True, scale,
                                         True), k1_unmasked_ms=k1_ms)
-    del q, k, v
+    out, lse = FA._flash_fwd(q, k, v, True, scale)
+    _, delta = FA._flash_bwd_dq(q, k, v, out, lse, do, True, scale)
+    k2 = {"k2_unmasked_dq_ms": cuda_ms(torch, lambda: FA._flash_bwd_dq(
+              q, k, v, out, lse, do, True, scale)),
+          "k2_unmasked_dkv_ms": cuda_ms(torch, lambda: FA._flash_bwd_dkv(
+              q, k, v, lse, delta, do, True, scale))}
+    del out, lse, delta
+    k8_backward(name, q, k, v, do, vecs, None, True, **k2)
+    del q, k, v, do
 
     # the small prefills: CUDA-event time against device time
     for name in ("serve_512", "bench_decode"):
@@ -239,25 +263,43 @@ def main(root):
               flush=True)
         del q, k, v, dense
 
+    # the long-context rung on this checkout's kernels
+    release()
+    qkv, _ = phase_longctx_masked(FA, FM)
+    release()
+    phase_longctx_window(FA, FM, qkv)
+    phase_longctx_bias(FA, FM, qkv)
 
-def plain_forward(torch, q, k, v, do, vecs, causal, scale, lse_invalid):
+
+def dense_visible(torch, vecs, S, causal, device):
+    """[B|1, H|1, S, S] bool: the pairs the intervals and causality leave
+    visible."""
+    rows = torch.arange(S, device=device)[:, None]
+    vis = torch.ones(S, S, dtype=torch.bool, device=device)
+    vis = (vis.tril() if causal else vis)[None, None]
+    if vecs is not None:
+        for i in range(0, vecs.shape[2], 2):      # [start, end) rows masked
+            vis = vis & ~((rows >= vecs[:, :, i, None]) &
+                          (rows < vecs[:, :, i + 1, None]))
+    return vis
+
+
+def plain_forward(torch, q, k, v, do, vecs, bias, causal, scale,
+                  lse_invalid):
     """(out, lse, delta) of the masked forward in f32 from dense scores,
     out in q's layout and rounded to bf16 as the kernel's: the K8
     backward's inputs, made here so that every checkout's backward
     kernels are timed on the same ones."""
     B, H, S, _ = q.shape
-    rows = torch.arange(S, device=q.device)[:, None]
-    vis = torch.ones(S, S, dtype=torch.bool, device=q.device)
-    vis = (vis.tril() if causal else vis)[None, None]
-    for i in range(0, vecs.shape[2], 2):          # [start, end) rows masked
-        vis = vis & ~((rows >= vecs[:, :, i, None]) &
-                      (rows < vecs[:, :, i + 1, None]))
+    vis = dense_visible(torch, vecs, S, causal, q.device)
     out = torch.empty_like(q)
     lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
     group = H // k.shape[1]
     for b in range(B):
         kb, vb = (t[b].float().repeat_interleave(group, 0) for t in (k, v))
         s = (q[b].float() @ kb.transpose(-1, -2)) * scale
+        if bias is not None:
+            s = s + bias[b % bias.shape[0]].float()
         s = s.masked_fill(~vis[b % vis.shape[0]], -math.inf)
         lb = torch.logsumexp(s, -1)
         live = torch.isfinite(lb)
@@ -266,6 +308,25 @@ def plain_forward(torch, q, k, v, do, vecs, causal, scale, lse_invalid):
         lse[b] = torch.where(live, lb, lse_invalid)
     delta = (out.float() * do.float()).sum(-1)
     return out, lse, delta
+
+
+def sdpa_fwd_bwd_ms(torch, sdpa, FM, q, k, v, do, vecs, bias, causal,
+                    scale):
+    """Milliseconds of one forward + backward of
+    ``scaled_dot_product_attention`` with the dense bool mask (or the
+    bias with -inf where invisible, in q's dtype, and its gradient)."""
+    vis = dense_visible(torch, vecs, q.shape[2], causal, q.device)
+    mask = vis if bias is None else bias.masked_fill(
+        ~vis, -math.inf).to(q.dtype).requires_grad_()
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    wrt = leaves + ([mask] if bias is not None else [])
+
+    def run():
+        o = sdpa(*leaves, attn_mask=mask, scale=scale,
+                 enable_gqa=k.shape[1] != q.shape[1])
+        torch.autograd.grad(o, wrt, do)
+
+    return cuda_ms(torch, run, iters=5, warmup=1)
 
 
 def device_ms(torch, fn, iters=20):

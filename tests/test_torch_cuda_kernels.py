@@ -37,7 +37,13 @@ The K8 backward and bias kernels (forward with lse, dq, dk/dv, dbias)
 are held to their plain versions the same way, float32 and bf16 (a bf16
 bias in the bf16 cases, so the dbias kernel's f32 accumulator for a
 broadcast bias runs too), over ragged lengths, GQA, nvec 2 and 4 and
-every bias broadcast shape, with their launch counters.
+every bias broadcast shape, with their launch counters.  The bf16
+forward, dq and dk/dv (flash_sm90.cuh: the tiles the intervals hide are
+skipped) are also held at the edges of their tiles, with per-q-head
+intervals under GQA, a key block hidden from one consumer warpgroup
+only, rows with no visible key, biases of every broadcast shape and
+dtype, unaligned and stride-0 bias rows and an -inf bias row, and must
+repeat bit for bit.
 
 The grouped expert FFN (K9, forward and backward) is held to its plain
 versions in float32 (1e-5 relative to each output's largest entry: f32
@@ -528,6 +534,129 @@ def test_k8_tile_table_matches_plain(gen, spec):
     torch.cuda.synchronize()
     assert FM._tile_table.launches == before + 1
     assert torch.equal(tbl.cpu(), FM._tile_table_xla(vecs.cpu(), 333))
+
+
+# ----------------------------------- the bf16 K8 backward (flash_sm90)
+K8_BWD_CASES = [  # name, b, h, kvh, sq, sk, causal, intervals, bias
+    *[(f"docs2_edge{o}", 1, 4, 2, 640, 640, True, ("docs", 2, o), None)
+      for o in TILE_EDGES],
+    *[(f"docs4_edge{o}", 1, 4, 4, 640, 640, False, ("docs", 4, o), None)
+      for o in TILE_EDGES],
+    ("pad_333", 2, 4, 2, 333, 333, True, ("pad", (333, 100)), None),
+    ("pad_129", 1, 4, 4, 129, 129, True, ("pad", (100,)), None),
+    ("sq_lt_sk", 1, 4, 2, 300, 700, True, ("pad", (650,)), None),
+    ("sq_gt_sk", 1, 4, 2, 700, 300, True, ("pad", (250,)), None),
+    ("ragged_1000x700", 2, 4, 2, 1000, 700, True, ("docs", 2, 5), None),
+    ("ragged_333_nvec4", 1, 4, 4, 333, 333, False, ("docs", 4, 7), None),
+    ("per_head_gqa4", 2, 8, 2, 700, 700, True, "heads", None),
+    ("per_head_gqa8", 1, 8, 1, 512, 512, False, "heads", None),
+    ("hidden_tile", 1, 4, 4, 512, 512, True, "hole", None),
+    ("hidden_from_one_warpgroup", 1, 4, 2, 512, 512, True, "hole64", None),
+    ("hidden_from_some_rows", 1, 4, 4, 512, 512, True, "rows", None),
+    ("dead_rows", 1, 4, 4, 512, 512, True, "dead", None),
+    ("window_batch_stride0", 2, 4, 4, 2048, 2048, True, "window", None),
+    *[(f"bias_{str(dt)[6:]}_{bb}x{hb}", 2, 4, 4, 300, 300, True, None,
+       (bb, hb, dt))
+      for dt in (torch.float32, torch.bfloat16, F16)
+      for bb, hb in ((2, 4), (1, 4), (2, 1), (1, 1))],
+    ("bias_gqa", 2, 8, 2, 333, 333, False, None, (1, 8, torch.float32)),
+    ("bias_sk1001_f16", 1, 4, 2, 300, 1001, True, None, (1, 4, F16)),
+    ("bias_inf_row", 1, 4, 4, 300, 300, True, None, "inf_row"),
+    ("bias_and_docs", 2, 4, 2, 640, 640, True, ("docs", 2, 63),
+     (1, 4, torch.float32)),
+    ("bias_and_padding", 2, 4, 4, 333, 333, False, ("pad", (333, 100)),
+     (2, 1, torch.bfloat16)),
+    ("bias_and_per_head_gqa", 1, 8, 2, 512, 512, True, "heads",
+     (1, 8, F16)),
+]
+
+
+def _bwd_intervals(spec, b, h, sq, sk):
+    """The backward cases' intervals: _fwd_intervals', and a hole of 64
+    key columns (128..191, hidden from every row), which hides the first
+    64-key block of the second dk/dv CTA and not its second."""
+    if spec != "hole64":
+        return _fwd_intervals(spec, b, h, sq, sk)
+    cols = torch.arange(sk, device="cuda")
+    full = torch.full((sk,), sq, dtype=torch.int32, device="cuda")
+    inside = (cols >= 128) & (cols < 192)
+    return torch.stack([torch.where(inside, 0, full),
+                        full]).to(torch.int32)[None, None]
+
+
+def _check_k8_bwd(q, k, v, do, vecs, bias, causal):
+    """The bf16 K8 dq, dk/dv (and, with a bias, dbias on their delta)
+    against their plain versions per row, dq zero on rows with no visible
+    key, one launch of each counted.  Returns (dq, dk, dv, dbias)."""
+    scale = 1.0 / math.sqrt(128)
+    out, lse = FM._masked_fwd(q, k, v, vecs, bias, causal, scale, True)
+    n0 = _k8_counts()
+    grads = FM._masked_bwd(q, k, v, out, lse, do, vecs, bias, causal, scale,
+                           need_dbias=bias is not None)
+    torch.cuda.synchronize()
+    args = (q, k, v, out, lse, do, vecs, bias, causal, scale)
+    refs = (FM._masked_bwd_dq_xla(*args), *FM._masked_bwd_dkv_xla(*args),
+            FM._masked_bwd_dbias_xla(*args) if bias is not None else None)
+    for g, r in zip(grads, refs):
+        if r is None:
+            assert g is None
+            continue
+        assert g.shape == r.shape and g.dtype == r.dtype
+        assert _grad_close(g, r, torch.bfloat16)
+    dead = lse == FA.LSE_INVALID
+    assert torch.count_nonzero(grads[0].float().abs().sum(-1)[dead]) == 0
+    assert _k8_counts() == (*n0[:3], n0[3] + 1, n0[4] + 1,
+                            n0[5] + int(bias is not None))
+    return grads
+
+
+@pytest.mark.parametrize("case", K8_BWD_CASES, ids=[c[0] for c in
+                                                    K8_BWD_CASES])
+def test_k8_bf16_backward_matches_plain(gen, case):
+    """The bf16 K8 dq and dk/dv (flash_sm90.cuh: tiles skipped, clean or
+    partial by the tile table, the bias added in log2 units) at the edges
+    of their tiles and their mask and bias operands; per-q-head intervals
+    under GQA index the table by q head."""
+    name, b, h, kvh, sq, sk, causal, ivl, bspec = case
+    q, k, v, do = _flash_inputs(gen, torch.bfloat16, b, h, kvh, sq, sk)
+    vecs = _bwd_intervals(ivl, b, h, sq, sk)
+    bias = _fwd_bias(gen, bspec, h, sq, sk)
+    _check_k8_bwd(q, k, v, do, vecs, bias, causal)
+
+
+def test_k8_bf16_backward_takes_unaligned_bias_rows(gen):
+    """Biases the dk/dv kernel cannot stage by TMA (its producer warp
+    copies them): an f32 row stride of Sk + 2 (not 16-byte aligned), a
+    contiguous bf16 bias at Sk 333, and rows of stride 0 (one bias row
+    broadcast over the queries)."""
+    q, k, v, do = _flash_inputs(gen, torch.bfloat16, 2, 8, 2, 333, 333)
+    wide = torch.randn(1, 8, 333, 335, device="cuda", generator=gen)
+    bias = wide[..., :333]
+    assert bias.stride(2) * 4 % 16 != 0
+    _check_k8_bwd(q, k, v, do, None, bias, True)
+    _check_k8_bwd(q, k, v, do, _fwd_intervals(("pad", (333, 120)), 2, 8,
+                                              333, 333),
+                  bias.to(torch.bfloat16).contiguous(), False)
+    row = torch.randn(2, 1, 1, 333, device="cuda", generator=gen)
+    _check_k8_bwd(q, k, v, do, None, row.expand(2, 1, 333, 333), True)
+
+
+def test_k8_bf16_backward_is_deterministic(gen):
+    """No float atomics: two runs of the bf16 K8 backward give the same
+    bits in dq, dk, dv and dbias (GQA, intervals, bias, both together)."""
+    q, k, v, do = _flash_inputs(gen, torch.bfloat16, 2, 8, 2, 1000, 1000)
+    vecs = _fwd_intervals(("docs", 4, 63), 2, 8, 1000, 1000)
+    bias = _fwd_bias(gen, (1, 8, torch.float32), 8, 1000, 1000)
+    scale = 1.0 / math.sqrt(128)
+    for ivl, b_ in ((vecs, None), (None, bias), (vecs, bias)):
+        out, lse = FM._masked_fwd(q, k, v, ivl, b_, False, scale, True)
+        first = FM._masked_bwd(q, k, v, out, lse, do, ivl, b_, False, scale,
+                               need_dbias=b_ is not None)
+        second = FM._masked_bwd(q, k, v, out, lse, do, ivl, b_, False,
+                                scale, need_dbias=b_ is not None)
+        torch.cuda.synchronize()
+        for x, y in zip(first, second):
+            assert (x is None and y is None) or torch.equal(x, y)
 
 
 # ----------------------------------------------------------- K1 / K2
