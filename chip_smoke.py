@@ -134,12 +134,23 @@ heads, non-causal, nvec 4) and an ALiBi bias that takes a gradient (B 2,
 by ``grad_row_err``, each with its planted fault (every row loses its
 last 64 keys), and float32 instances of the three at S 512, card vs the
 CPU plain versions by relative norm (1e-4).  Phase 3 also holds the
-dense-cache decode attention (K7) in bf16 per row at the bench decode
-shape (B 8, 16/16 heads, T 256) and the reference's own K7 shape (B 8,
-32/8 heads, T 8192), with the planted fault (the kernel told pos - 64),
-its times beside the plain version's, the bound and
+dense-cache decode attention (K7: mma.sync tensor cores, a cp.async
+ring, one launch) in bf16 per row at the bench decode shape (B 8, 16/16
+heads, T 256), the reference's own K7 shape (B 8, 32/8 heads, T 8192),
+11c's last decode step (every row at T 8192) and the head dims and
+groups no shipped model runs (TinyLlama-1.1B's 32/4 heads at head_dim
+64, head_dim 256 at 16/4, a group of 32), with the planted fault (the
+kernel told pos - 64), one launch per call and bit-equal reruns, its
+times beside the plain version's, the bound and
 ``scaled_dot_product_attention`` with a bool mask, and float32
-instances of both at T 512 card vs CPU; and K4 at the generation
+instances at T 512 card vs CPU (<= 1e-5); the bf16 K8 dbias (wgmma,
+flash_sm90.cuh) at 10d's shape (b 1, h 16, s 8192, ALiBi) against its
+plain version per gradient row with its planted fault and bit-equal
+reruns; the head-dim routes on the card (d 32, llama_tiny's, runs the
+plain versions of sdpa and K7 with no launch and equals the CPU, and
+llama_tiny's greedy generate gives the CPU's tokens; flash, masked
+flash and paged attention at d 64 raise NotImplementedError naming the
+kernel and its ROADMAP item); and K4 at the generation
 path's widths (fused q/k/v, fused gate/up, lm_head; M = 8).  Every
 kernel phase 11 runs is also held, with its planted fault, at the shapes
 phase 11 gives it: K4 int8 at 11a's bench-model widths, K7 at 11b's
@@ -282,16 +293,27 @@ def padded_t(prompt, new):
 # T 256, pos ragged in 128..255), (b) the reference's own K7 measurement
 # shape (decode_attention.py:9: B 8, 32/8 heads, T 8192) with a full
 # row, a short row and pos 0, (c) 11b's dense cache at its last decode
-# step (T 2176: a partial last 256-key chunk)
-K7_SHAPES = (  # name, B, nh, kvh, T, pos
+# step (T 2176), (d) 11c's at its last step (every row full, T 8192),
+# and the head dims and groups no shipped model runs: (e) TinyLlama-
+# 1.1B's 32 q / 4 kv heads at head_dim 64 (its config.json), (f) head_dim
+# 256 at 16/4 heads, (g) a group of 32 q heads on one kv head
+K7_SHAPES = (  # name, B, nh, kvh, T, pos, D
     ("bench_decode", 8, 16, 16, padded_t(DECODE_PROMPT, DECODE_NEW),
-     (128, 255, 140, 200, 173, 129, 254, 191)),
+     (128, 255, 140, 200, 173, 129, 254, 191), 128),
     ("reference_8k", 8, 32, 8, 8192, (8191, 8191, 100, 0, 4095, 4096, 8000,
-                                      257)),
+                                      257), 128),
     ("bench_paged", 8, 16, 16, padded_t(PAGED_PROMPT, PAGED_NEW),
-     tuple(n + PAGED_NEW - 1 for n in PAGED_LENGTHS)),
+     tuple(n + PAGED_NEW - 1 for n in PAGED_LENGTHS), 128),
+    ("long_decode", 8, 32, 8, padded_t(LONG_PROMPT, LONG_NEW),
+     (LONG_PROMPT + LONG_NEW - 1,) * 8, 128),
+    ("tinyllama_d64", 8, 32, 4, 2048, (2047, 1500, 1000, 777, 300, 64, 63,
+                                       0), 64),
+    ("d256", 8, 16, 4, 2048, (2047, 2047, 1024, 1000, 500, 257, 64, 5), 256),
+    ("group32", 8, 32, 1, 2048, (2047, 1800, 1024, 999, 512, 100, 64, 0),
+     128),
 )
 K7_F32_T = 512                     # the f32 instances, card vs CPU
+K7_F32_TOL = 1e-5                  # f32 K7 card vs CPU, relative norm
 # the generation path's new K4 widths at llama3_8b (K, N): fused q/k/v,
 # fused gate/up and the quantized lm_head
 GEN_PROJ_SHAPES = (("qkv_fused", 4096, 6144), ("gateup_fused", 4096, 28672),
@@ -427,11 +449,11 @@ def is_k8_forward(low):
 
 def is_k8_backward(low):
     """Whether a lower-cased device kernel name is a K8 backward kernel:
-    the f32 WMMA dq, dk/dv and the dbias kernel, or a
-    ``flash_sm90::dq_kernel`` / ``dkv_kernel`` in a K8 mode (K2's are mode
-    0).  The tile table the backward entries run first is
+    the f32 dq, dk/dv and dbias kernels, ``flash_sm90::dbias_kernel``, or
+    a ``flash_sm90::dq_kernel`` / ``dkv_kernel`` in a K8 mode (K2's are
+    mode 0).  The tile table the backward entries run first is
     :func:`is_k8_forward`'s."""
-    return ("masked_bwd_" in low
+    return ("masked_bwd_" in low or "flash_sm90::dbias_kernel" in low
             or (("flash_sm90::dq_kernel<" in low
                  or "flash_sm90::dkv_kernel<" in low)
                 and "mode)0>" not in low))
@@ -514,23 +536,29 @@ def phase_paged(PA, gen, name, nh, kvh, ps, W, lens):
     return shape
 
 
-def phase_decode(DA, gen, name, B, nh, kvh, T, pos):
+def phase_decode(DA, gen, name, B, nh, kvh, T, pos, D):
     """K7 against its plain version (``_xla_decode``) in bf16 at one
     phase-3 shape, per output row; the planted fault (the kernel told
     pos - 64, so every long row loses its last 64 keys) must fail every
-    such row.  ``ms``, ``plain_ms`` and ``library_ms`` are device time
-    per call (``device_ms``; ``events_ms`` is CUDA events around
-    back-to-back calls, which the host sets at the short shape); the
-    library yardstick is scaled_dot_product_attention on q [B, nh, 1, D]
-    with the bool mask t <= pos and ``enable_gqa``, never on the port's
+    such row; one launch per call, and two calls give the same bits.
+    ``ms``, ``plain_ms`` and ``library_ms`` are device time per call
+    (``device_ms``; ``events_ms`` is CUDA events around back-to-back
+    calls, which the host sets at the short shape); the library
+    yardstick is scaled_dot_product_attention on q [B, nh, 1, D] with
+    the bool mask t <= pos and ``enable_gqa``, never on the port's
     path."""
-    dev, dt, D = "cuda", torch.bfloat16, 128
+    dev, dt = "cuda", torch.bfloat16
     q = torch.randn(B, nh, D, device=dev, generator=gen).to(dt)
     k = torch.randn(B, kvh, T, D, device=dev, generator=gen).to(dt)
     v = torch.randn(B, kvh, T, D, device=dev, generator=gen).to(dt)
     pos_t = torch.tensor(pos, dtype=torch.int32, device=dev)
+    n0 = DA.decode_attention.launches
     out = DA.decode_attention(q, k, v, pos_t)
     torch.cuda.synchronize()
+    require(DA.decode_attention.launches == n0 + 1,
+            f"decode_attention {name}: one launch per call")
+    require(torch.equal(out, DA.decode_attention(q, k, v, pos_t)),
+            f"decode_attention {name}: two calls differ")
     ref = DA._xla_decode(q, k, v, pos_t)
     rows = row_rel_err(out, ref)                          # [B, nh]
     row_err = rows.max().item()
@@ -559,8 +587,12 @@ def phase_decode(DA, gen, name, B, nh, kvh, T, pos):
     bound_ms, bound_by = bound(2 * visible * kvh * D * item
                                + 2 * q.numel() * item + 4 * B,
                                4 * visible * nh * D)
+    n_split = DA._splits(B * kvh * -(-(nh // kvh) // 16), T,
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count, D)[0]
     rec = {"kernel": "decode_attention", "shape": name, "dtype": "bfloat16",
            "B": B, "nh": nh, "kvh": kvh, "D": D, "T": T, "pos": list(pos),
+           "splits": n_split,
            "max_abs_err": (out.float() - ref.float()).abs().max().item(),
            "max_row_rel_err": row_err, "row_tol": ROW_TOL,
            "fault_min_row_rel_err": fault.min().item(),
@@ -572,23 +604,23 @@ def phase_decode(DA, gen, name, B, nh, kvh, T, pos):
     return rec
 
 
-def phase_decode_f32(DA, name, B, nh, kvh, T, pos):
+def phase_decode_f32(DA, name, B, nh, kvh, T, pos, D):
     """A float32 instance of a phase-3 K7 shape at T ``K7_F32_T`` (pos
     scaled to it): the kernel on the card vs the plain version on the
     CPU from the same inputs made on the host, by relative norm."""
     t = K7_F32_T
     g = torch.Generator().manual_seed(4)
-    q = torch.randn(B, nh, 128, generator=g)
-    k, v = (torch.randn(B, kvh, t, 128, generator=g) for _ in range(2))
+    q = torch.randn(B, nh, D, generator=g)
+    k, v = (torch.randn(B, kvh, t, D, generator=g) for _ in range(2))
     pos_t = torch.tensor([p * t // T for p in pos], dtype=torch.int32)
     cpu = DA._xla_decode(q, k, v, pos_t)
     card = DA.decode_attention(*(x.cuda() for x in (q, k, v, pos_t)))
     err = rel_norm(card, cpu)
     emit({"phase": 3, "kernel": "decode_attention", "shape": name,
-          "dtype": "float32", "T": t, "pos": pos_t.tolist(),
-          "card_vs_cpu_rel_err": err, "tol": PARITY_TOL})
-    require(err <= PARITY_TOL, f"decode_attention f32 {name}: card vs CPU "
-            f"{err} > {PARITY_TOL}")
+          "dtype": "float32", "T": t, "D": D, "pos": pos_t.tolist(),
+          "card_vs_cpu_rel_err": err, "tol": K7_F32_TOL})
+    require(err <= K7_F32_TOL, f"decode_attention f32 {name}: card vs CPU "
+            f"{err} > {K7_F32_TOL}")
 
 
 def phase_masked(FM, gen, name, B, H, kvh, S, lengths, yardsticks):
@@ -1209,6 +1241,176 @@ def phase_k8_f32(FM, name, B, H, kvh, causal, kind, S=512):
         require(err <= PARITY_TOL, f"K8 f32 {key} at {name}: card vs CPU "
                 f"{err} > {PARITY_TOL}")
     return errs
+
+
+def phase_dbias_long(FM, gen):
+    """The K8 dbias at 10d's shape (b 1, h 16, s 8192, causal, the f32
+    ALiBi bias [1, 16, S, S]: one member per CTA, no read-back) in bf16:
+    against its plain version per gradient row, the planted fault
+    (k8_fault: the last 64 keys dropped) failing >= FAULT_SHARE of the
+    rows, two calls bit-identical; its time beside phase_k8's dbias
+    bound, the plain version's and one forward + backward of
+    scaled_dot_product_attention with the bias's gradient."""
+    dev, dt, D, B, H, S = "cuda", torch.bfloat16, 128, 1, 16, LONGCTX_SEQ
+    name, scale = "alibi_8192", 1.0 / math.sqrt(D)
+    q, k, v, do = (torch.randn(B, S, H, D, device=dev, generator=gen)
+                   .to(dt).transpose(1, 2) for _ in range(4))
+    bias = alibi_bias(H, S, dev)
+    got = k8_run(FM, q, k, v, do, None, bias, True, scale)
+    torch.cuda.synchronize()
+    out, lse, delta, dbias = (got[key] for key in ("out", "lse", "delta",
+                                                   "dbias"))
+    del got
+    args = (None, bias, True, scale)
+    require(torch.equal(dbias, FM._masked_bwd_dbias(q, k, v, lse, delta, do,
+                                                    *args)),
+            f"dbias {name}: two calls differ")
+    plain = (q, k, v, out, lse, do, None, bias, True, scale)
+    ref = FM._masked_bwd_dbias_xla(*plain)
+    row_err = grad_row_err(dbias, ref).max().item()
+    err = (dbias.float() - ref.float()).abs().max().item()
+    require(row_err <= ROW_TOL, f"K8 dbias kernel vs plain at {name}: row "
+            f"error {row_err} > {ROW_TOL}")
+    del dbias
+    kf, vf, _, fbias, n = k8_fault(FM, "alibi", k, v, None, bias, S)
+    bad = k8_run(FM, q, kf, vf, do, None, fbias, True, scale)["dbias"]
+    share, fault = caught(grad_row_err(bad, ref[..., :n]), ref[..., :n])
+    del bad, ref
+    require(share >= FAULT_SHARE, f"planted fault ({FAULT_KEYS} keys "
+            f"dropped) failed the K8 dbias check at {name} on only "
+            f"{share:.4f} of the rows (< {FAULT_SHARE})")
+    ms = cuda_ms(lambda: FM._masked_bwd_dbias(q, k, v, lse, delta, do,
+                                              *args), iters=5, warmup=1)
+    plain_ms = cuda_ms(lambda: FM._masked_bwd_dbias_xla(*plain), iters=2,
+                       warmup=1)
+    n_q = B * H * S * D
+    bound_ms, bound_by = bound(
+        4 * n_q * 2 + 2 * B * H * S * 4
+        + bias_read_bytes(FM, None, bias, S, S, True, dev)
+        + bias.numel() * bias.element_size(),
+        4 * visible_count(FM, None, B, H, S, S, True, dev) * D)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    tril = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+    lib_mask = bias.masked_fill(~tril, -math.inf).to(dt).requires_grad_()
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+    def lib_fwd_bwd():
+        o = sdpa(*leaves, attn_mask=lib_mask, scale=scale)
+        torch.autograd.grad(o, leaves + [lib_mask], do)
+
+    library_ms = cuda_ms(lib_fwd_bwd, iters=3, warmup=1)
+    rec = {"kernel": "flash_mask_bwd_dbias", "shape": name,
+           "dtype": "bfloat16", "B": B, "H": H, "D": D, "S": S,
+           "causal": True, "bias": list(bias.shape), "max_abs_err": err,
+           "max_row_rel_err": row_err, "row_tol": ROW_TOL,
+           "fault_min_row_rel_err": fault, "fault_rows_caught": share,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_fwd_bwd_ms": library_ms}
+    emit({"phase": 3, **rec})
+    return rec
+
+
+# the head-dim routes on the card: llama_tiny's head_dim (32), outside the
+# reference's kernel dims {64, 128, 256}
+ROUTE_D = 32
+
+
+def phase_routes(FA, FM, DA, PA, G, init_state):
+    """The head-dim routes on the card, the reference's rule
+    (flash_attention.py:264-269, decode_attention.py:164-172): at d 32,
+    ``sdpa`` unmasked, with flashmask intervals and with a bias (each with
+    its gradients) and ``decode_attention`` run the plain versions on
+    CUDA, launch no kernel and agree with the CPU from the same inputs
+    (f32, relative norm, phase 7's limit), and ``llama_tiny``'s greedy
+    ``generate`` gives the CPU's tokens with no kernel launched; at d 64
+    the flash route (K1/K2), the masked route (K8) and K3 raise
+    ``NotImplementedError`` naming the kernel and its ROADMAP item (K7
+    runs d 64: phase 3's ``tinyllama_d64``)."""
+    from paddle_tpu_torch.models import llama_tiny
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(5)
+    B, S, H, kvh, D = 2, 256, 4, 2, ROUTE_D
+    q, k, v, do = (torch.randn(B, S, n, D, generator=g)
+                   for n in (H, kvh, kvh, H))
+    keep = torch.arange(S)[None] < torch.tensor([S, 100])[:, None]
+    tensors = (q, k, v, FM.padding_mask_to_intervals(keep, S),
+               torch.randn(1, H, S, S, generator=g) * 0.5,
+               torch.randn(B, H, D, generator=g),
+               *(torch.randn(B, kvh, S, D, generator=g) for _ in range(2)),
+               torch.tensor([S - 1, 77], dtype=torch.int32))
+    calls = {
+        "sdpa": lambda t: sq_loss_grads(
+            lambda q, k, v: FA.sdpa(q, k, v, is_causal=True), t[:3]),
+        "flashmask": lambda t: sq_loss_grads(
+            lambda q, k, v: FA.sdpa(q, k, v, flashmask=t[3], is_causal=True),
+            t[:3]),
+        "bias": lambda t: sq_loss_grads(
+            lambda q, k, v, b: FA.sdpa(q, k, v, attn_mask=b, is_causal=True),
+            (*t[:3], t[4])),
+        "decode": lambda t: (DA.decode_attention(*t[5:]), ())}
+    res = {}
+    for dev in ("cuda", "cpu"):
+        on = tuple(t.to(dev) for t in tensors)
+        zero_flash_counts(FA, FM)
+        n7 = DA.decode_attention.launches
+        res[dev] = {key: fn(on) for key, fn in calls.items()}
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched = {k: n for k, n in k8_counts(FA, FM).items() if n}
+            require(not launched and DA.decode_attention.launches == n7,
+                    f"head_dim {D} launched kernels: {launched}, K7 "
+                    f"{DA.decode_attention.launches - n7}")
+    errs = {key: max(rel_norm(a, b) for a, b in zip(
+        (res["cuda"][key][0], *res["cuda"][key][1]),
+        (res["cpu"][key][0], *res["cpu"][key][1]))) for key in calls}
+    for key, err in errs.items():
+        require(err <= PARITY_TOL, f"head_dim {D} {key}: card vs CPU {err} "
+                f"> {PARITY_TOL}")
+    cfg = dataclasses.replace(llama_tiny(), dtype="float32")
+    state = init_state(cfg, torch.Generator().manual_seed(6), device="cpu")
+    ids = np.random.default_rng(6).integers(0, cfg.vocab_size, (3, 40))
+    lengths = np.array([40, 17, 33], np.int32)
+    tokens = {}
+    for dev in ("cuda", "cpu"):
+        zero_flash_counts(FA, FM)
+        n7, n3 = DA.decode_attention.launches, PA.paged_attention.launches
+        tokens[dev] = G.generate({k: t.to(dev) for k, t in state.items()},
+                                 cfg, ids, max_new_tokens=16, lengths=lengths,
+                                 device=dev)[:, 40:].tolist()
+        require(not any(k8_counts(FA, FM).values())
+                and DA.decode_attention.launches == n7
+                and PA.paged_attention.launches == n3,
+                f"llama_tiny generate on {dev} launched a kernel")
+    require(tokens["cuda"] == tokens["cpu"], f"llama_tiny (head_dim "
+            f"{cfg.head_dim}) greedy tokens card {tokens['cuda']} vs CPU "
+            f"{tokens['cpu']}")
+    x = torch.randn(1, 128, 4, 64, device="cuda", dtype=torch.bfloat16)
+    pool = torch.randn(3, 2, 64, 64, device="cuda", dtype=torch.bfloat16)
+    one = torch.ones(1, 1, dtype=torch.int32, device="cuda")
+    cases = {
+        "flash_d64": (lambda: FA.sdpa(x, x, x, is_causal=True), "A1"),
+        "masked_d64": (lambda: FA.sdpa(
+            x, x, x, flashmask=FM.padding_mask_to_intervals(
+                torch.ones(1, 128, dtype=torch.bool, device="cuda"), 128),
+            is_causal=True), "A1"),
+        "paged_d64": (lambda: PA.paged_attention(
+            x[:, 0], pool, pool, one, one[0]), "A3")}
+    raised = {}
+    for key, (fn, item) in cases.items():
+        try:
+            fn()
+            raised[key] = None
+        except NotImplementedError as e:
+            raised[key] = str(e)
+        require(raised[key] is not None and f"queue 2 {item}" in raised[key],
+                f"{key}: want NotImplementedError naming queue 2 {item}, "
+                f"got {raised[key]!r}")
+    rec = {"phase": 3, "routes": {"head_dim": D, "card_vs_cpu_rel_err": errs,
+                                  "tol": PARITY_TOL,
+                                  "llama_tiny_tokens_equal": True,
+                                  "raised": raised}}
+    emit(rec)
+    return rec
 
 
 def int8pack_ms(x, q, scale):
@@ -2176,7 +2378,10 @@ def group_kernel(name):
         return "flash_mha_masked"
     if is_k8_backward(low):
         return "flash_mask_bwd"
-    for key, marks in (("decode_attention", ("decode_partial",
+    # K7: the bf16 and f32 kernels (and the two-pass kernels of older
+    # checkouts, which tools/flash_ab.py may time)
+    for key, marks in (("decode_attention", ("decode_mma", "decode_f32",
+                                             "decode_partial",
                                              "decode_combine")),
                        ("paged_attention", ("paged_attention",)),
                        ("weight_only_matmul", ("wo_gemv", "splitk_reduce")),
@@ -2526,8 +2731,7 @@ def k8_entries(k8, launches):
     errors over every phase-3 K8 shape; launches from phase 10.  The
     backward entries' library time is one forward + backward of
     scaled_dot_product_attention with the dense mask.  The bf16 bias
-    forward, dq and dk/dv are flash_sm90.cuh's kernels; dbias is
-    flash_mask.cu's."""
+    forward, dq, dk/dv and dbias are flash_sm90.cuh's kernels."""
     by = {r["shape"]: r for r in k8}
     sm90 = "paddle_tpu_torch/csrc/flash_sm90.cuh"
     ref = "paddle_tpu/ops/pallas/flash_mask.py"
@@ -2538,7 +2742,7 @@ def k8_entries(k8, launches):
             ("flash_mask_bwd_dkv", "dkv", 954, "sft_padding", "fwd_bwd",
              sm90),
             ("flash_mask_bwd_dbias", "dbias", 976, "alibi_bias", "fwd_bwd",
-             "paddle_tpu_torch/csrc/flash_mask.cu")):
+             sm90)):
         keys = {"fwd": ("out",), "dq": ("dq",), "dkv": ("dk", "dv"),
                 "dbias": ("dbias",)}[part]
         recs = [r for r in k8 if all(k in r["max_abs_err"] for k in keys)]
@@ -3266,6 +3470,10 @@ def main() -> int:
     decode = [phase_decode(DA, gen, *shape) for shape in K7_SHAPES]
     for shape in K7_SHAPES:
         phase_decode_f32(DA, *shape)
+    release()
+    phase_dbias_long(FM, gen)
+    release()
+    phase_routes(FA, FM, DA, PA, G, init_state)
     release()
     k9 = [phase_k9(GF, TM, gen, *shape) for shape in K9_SHAPES]
     release()

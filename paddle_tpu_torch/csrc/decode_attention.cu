@@ -4,59 +4,411 @@
 // (_decode_kernel, the K7 TPU kernel).  One query token per sequence
 // attends over its kv-head-major cache [B, kvh, T, D], keys t <= pos[b];
 // rep = nh / kvh query heads share each kv head's K/V reads (GQA).
+// Head dims 64, 128 and 256 (the reference's kernel dims), any group.
 //
-// Numerics follow the TPU kernel: scores q.k in f32 times 1/sqrt(D),
-// keys past pos[b] masked, an online softmax with m, l and acc in f32,
-// p rounded to v's dtype before the P.V product
-// (decode_attention.py:64-75) while l sums the unrounded p, and the
-// output acc / l in q's dtype.  A row with pos[b] < 0 sees no key and
-// is written as zeros.
+// Numerics follow the TPU kernel: scores q.k in f32 times 1/sqrt(D)
+// (here with log2 e folded in, for exp2), keys past pos[b] masked, an
+// online softmax with m, l and acc in f32, p rounded to v's dtype before
+// the P.V product (decode_attention.py:64-75) while l sums the unrounded
+// p, and the output acc / l in q's dtype.  A row with pos[b] < 0 sees no
+// key and is written as zeros.
 //
 // What bounds it on the H100: bytes.  It reads every visible K/V row
-// once and does ~4 flops per byte, far below the ~295 flop/byte ridge,
-// so the floor is 2 * sum_b(pos_b + 1) * kvh * D * itemsize over
-// 3.35 TB/s.
+// once and does ~4 * rep flops per byte read, far below the ~295
+// flop/byte ridge, so the floor is 2 * sum_b(min(pos_b + 1, T)) * kvh * D
+// * itemsize over 3.35 TB/s.  Everything below serves keeping the HBM
+// busy: many CTAs, loads in flight while the math runs, no second pass.
 //
-// The design (split-T, "flash-decoding"), and what it leaves for later:
-//   * the TPU grid (B, kvh, T / block_t) carries m, l and acc in scratch
-//     along its sequential T axis; blocks on an H100 run in parallel and
-//     carry nothing.  So pass 1 gives each CTA one (T chunk, sequence,
-//     kv head): it walks its kChunk keys in kTile-key tiles and writes
-//     its partial (m, l, acc) in f32; chunks wholly past pos[b] return
-//     at once.  Pass 2, one CTA per (sequence, q head), rescales the
-//     partials to their common max and divides.  At B 8, 8 kv heads and
-//     T 8192 that is 2048 CTAs, not the 64 of one CTA per (b, kv head).
-//   * the ragged edge is masked here: only keys [chunk start,
-//     min(chunk end, pos[b] + 1, T)) are read, so T needs no alignment.
-//   * K and V tiles are staged in shared memory with plain 16-byte
-//     loads; there is no cp.async/TMA double buffering, so a tile's load
-//     does not overlap the previous tile's math (later work).
-//   * scores use one warp per key with a shuffle reduction over D; P.V
-//     gives each thread one head-dim column of the rep accumulators.
+// The bf16 kernel (decode_mma_kernel):
+//   * one CTA per (key split, sequence and kv head, group of 16 query
+//     heads): grid.z runs over the groups of 16, so any group size
+//     works.  The 16 query heads are the M of mma.sync.m16n8k16 (bf16
+//     in, f32 accumulate): Q sits in shared memory and is read as A
+//     fragments by ldmatrix; rows past rep are zero and never stored.
+//     wgmma needs 64 rows per warpgroup and a decode step has at most
+//     16 per kv head, so mma.sync is the instruction that fits; the
+//     tensor cores have ~100x headroom over the bytes either way;
+//   * K and V come in 64-key tiles through a 3-stage cp.async ring
+//     (16-byte copies, XOR-swizzled rows so that ldmatrix reads without
+//     bank conflicts); tile i + 2 is in flight while tile i computes.
+//     Only keys below min(pos[b] + 1, T) are read: tiles past it are
+//     never issued, and the ragged edge is zero-filled by cp.async's
+//     source size and masked, so T needs no alignment;
+//   * each of the 4 warps owns 16 keys of every tile: S = Q.K^T (two
+//     n8 tiles, K by ldmatrix), the online softmax on the accumulator
+//     registers (row max over the quad), then O += P.V with P packed to
+//     bf16 straight from the S accumulators (the m16n8 C layout of two
+//     key tiles is the A layout of one k16 step) and V by
+//     ldmatrix.trans.  The warps' (m, l, O) are merged in shared memory
+//     at the end, in warp order;
+//   * one launch.  The wrapper picks the key splits so that the grid
+//     fills the CTA slots the card holds at once (two per SM at D 128:
+//     two waves of the 132 SMs) without a part-filled last wave, and one
+//     split where the (sequence, kv head, group) CTAs fill them already
+//     or T <= 256: then each CTA writes the output directly.  With more
+//     splits each CTA writes its partial (m, l, acc) in f32 and takes a
+//     ticket from an atomic counter of its (sequence, kv head, group);
+//     the CTA that takes the last one merges the partials in split
+//     order, writes the output and resets the counter for the next
+//     launch.  The merge order is fixed, so results do not depend on
+//     which CTA finishes last.
+//
+// The float32 instance (the card-vs-CPU parity runs) keeps a simple
+// CUDA-core body: split-T partials of 256 keys and a combine pass, one
+// thread per head-dim column, no tensor cores (so that it agrees with
+// the CPU to f32 rounding).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kD = 128;      // head_dim (the only width on the ported path)
-constexpr int kMaxRep = 16;  // query heads per kv head held in registers
-constexpr int kTile = 64;    // keys staged in shared memory at a time
-constexpr int kChunk = 256;  // keys per CTA of pass 1 (_CHUNK in Python)
+constexpr int kTile = 64;        // keys per ring stage
+constexpr int kStages = 3;       // ring depth
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16;        // query heads per CTA (the mma M)
+constexpr int kMaxSplit = 64;    // _MAX_SPLIT in Python
+constexpr int kChunkF32 = 256;   // keys per CTA of the f32 first pass
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
+// ---------------------------------------------------------------- PTX
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// 16 bytes global -> shared, zero-filled when !valid (no read then)
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src,
+                                     bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c (16 x 8 f32) += a (16 x 16 bf16, row) . b (16 x 8 bf16, col)
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ------------------------------------------------------ the bf16 kernel
+// Shared memory: Q [16, D], then the ring of kStages (K, V) tile pairs;
+// each row of D bf16 is D / 8 chunks of 16 bytes, chunk c of row r
+// stored at c ^ (r & 7).  After the key loop the ring holds the warps'
+// (m, l) and O for the merge, then the splits' weights.
+template <int D>
+struct Smem {
+  static constexpr int kRowBytes = D * 2;
+  static constexpr int kTileBytes = kTile * kRowBytes;
+  static constexpr int kQ = 0;
+  static constexpr int kRing = kRows * kRowBytes;
+  static constexpr int kBytes = kRing + kStages * 2 * kTileBytes;
+  static constexpr int kO = kRing;                           // [warp][16][D]
+  static constexpr int kML = kO + kWarps * kRows * D * 4;    // [warp][16][2]
+  static constexpr int kW = kML + kWarps * kRows * 2 * 4;    // [16][splits]
+  static_assert(kW + kRows * kMaxSplit * 4 <= kBytes,
+                "the merge areas fit in the ring");
+};
+
+template <int D>
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * Smem<D>::kRowBytes + ((c ^ (r & 7)) << 4);
+}
+
+// Grid (n_split, B * kvh, ceil(rep / 16)), kThreads threads.  q [B, nh,
+// D]; kc/vc [B, kvh, T, D]; pos [B]; out [B, nh, D].  With n_split > 1:
+// part_ml [ctas, n_split, 16, 2] (m in log2 units, l) and part_o [ctas,
+// n_split, 16, D] (acc, unnormalised), tickets [ctas] int32 zeroed
+// before the first launch (each launch leaves them zero), ctas = B * kvh
+// * gridDim.z.  sl2 = log2(e) / sqrt(D).
+template <int D>
+__global__ void __launch_bounds__(kThreads) decode_mma_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
+    const __nv_bfloat16* __restrict__ vc, const int* __restrict__ pos,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ part_ml,
+    float* __restrict__ part_o, int* __restrict__ tickets, int kvh, int rep,
+    int T_len, int chunk, float sl2) {
+  using S = Smem<D>;
+  constexpr int kChunks = D / 8;            // 16-byte chunks per row
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ int last;
+  const uint32_t sbase = smem_u32(smem);
+  const int split = blockIdx.x, n_split = gridDim.x;
+  const int b = blockIdx.y / kvh, g = blockIdx.y % kvh;
+  const int cta = blockIdx.y * gridDim.z + blockIdx.z;
+  const int h0 = g * rep + blockIdx.z * kRows;   // the CTA's first q head
+  const int nrows = min(kRows, rep - (int)blockIdx.z * kRows);
+  const int nh = kvh * rep;
+  const int vis = max(0, min(pos[b] + 1, T_len));
+  const int n_act = vis > 0 ? (vis + chunk - 1) / chunk : 1;
+  if (split >= n_act) return;               // wholly past pos[b]
+  const int lo = split * chunk, hi = min(lo + chunk, vis);
+  const int ntiles = (hi - lo + kTile - 1) / kTile;   // 0 when vis == 0
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gi = lane >> 2, ti = lane & 3;
+  const size_t head = ((size_t)b * kvh + g) * (size_t)T_len * D;
+
+  for (int e = tid; e < kRows * kChunks; e += kThreads) {
+    const int r = e / kChunks, c = e % kChunks;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < nrows)
+      v = *reinterpret_cast<const uint4*>(q + ((size_t)b * nh + h0 + r) * D +
+                                          c * 8);
+    *reinterpret_cast<uint4*>(smem + S::kQ + swz<D>(r, c)) = v;
+  }
+
+  // tile i of the split into its stage: keys past hi zero-filled, unread
+  const auto load_tile = [&](int i) {
+    const int t0 = lo + i * kTile;
+    const uint32_t ks = sbase + S::kRing + (i % kStages) * 2 * S::kTileBytes;
+    const uint32_t vs = ks + S::kTileBytes;
+#pragma unroll 4
+    for (int e = tid; e < kTile * kChunks; e += kThreads) {
+      const int r = e / kChunks, c = e % kChunks;
+      const bool ok = t0 + r < hi;
+      const size_t off = head + (size_t)(ok ? t0 + r : lo) * D + c * 8;
+      cp16(ks + swz<D>(r, c), kc + off, ok);
+      cp16(vs + swz<D>(r, c), vc + off, ok);
+    }
+  };
+
+  float o[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ntiles) load_tile(s);
+    cp_commit();
+  }
+  const int kw = warp * 16;                 // the warp's keys of a tile
+  for (int i = 0; i < ntiles; ++i) {
+    cp_wait<kStages - 2>();                 // tile i's copies (own)
+    __syncthreads();                        // everyone's; tile i - 1 done
+    if (i + kStages - 1 < ntiles) load_tile(i + kStages - 1);
+    cp_commit();
+    const int t0 = lo + i * kTile;
+    if (t0 + kw >= hi) continue;            // the warp's keys are past pos
+    const uint32_t ks = sbase + S::kRing + (i % kStages) * 2 * S::kTileBytes;
+    const uint32_t vs = ks + S::kTileBytes;
+
+    // S = Q.K^T over the warp's 16 keys: two n8 tiles
+    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4], bk[4];
+      ldsm_x4(a, sbase + S::kQ + swz<D>(lane & 15, 2 * kk + (lane >> 4)));
+      ldsm_x4(bk, ks + swz<D>(kw + (lane & 7) + ((lane >> 4) << 3),
+                              2 * kk + ((lane >> 3) & 1)));
+      mma16816(sc[0], a, bk[0], bk[1]);
+      mma16816(sc[1], a, bk[2], bk[3]);
+    }
+
+    // online softmax of rows gi and gi + 8 (log2 units); keys >= hi masked
+    float alpha[2];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sc[n][e] = t0 + kw + 8 * n + 2 * ti + (e & 1) < hi ? sc[n][e] * sl2
+                                                            : -INFINITY;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = fmaxf(fmaxf(sc[0][2 * r], sc[0][2 * r + 1]),
+                       fmaxf(sc[1][2 * r], sc[1][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m[r], mx);
+      const bool dead = mn == -INFINITY;
+      alpha[r] = dead ? 1.f : exp2f(m[r] - mn);
+      const float ms = dead ? 0.f : mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float p = exp2f(sc[n][2 * r + c] - ms);
+          sc[n][2 * r + c] = p;
+          sum += p;              // l sums the unrounded p (quad partials)
+        }
+      l[r] = l[r] * alpha[r] + sum;
+      m[r] = mn;
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+
+    // O += P.V: P rounded to bf16, the S accumulators as the A fragment
+    const uint32_t pa[4] = {pack_bf16(sc[0][0], sc[0][1]),
+                            pack_bf16(sc[0][2], sc[0][3]),
+                            pack_bf16(sc[1][0], sc[1][1]),
+                            pack_bf16(sc[1][2], sc[1][3])};
+#pragma unroll
+    for (int jj = 0; jj < D / 16; ++jj) {
+      uint32_t bv[4];
+      ldsm_x4_t(bv, vs + swz<D>(kw + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                2 * jj + (lane >> 4)));
+      mma16816(o[2 * jj], pa, bv[0], bv[1]);
+      mma16816(o[2 * jj + 1], pa, bv[2], bv[3]);
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();                          // the ring is free
+
+  // merge the warps' (m, l, O) in warp order
+  float* o_s = reinterpret_cast<float*>(smem + S::kO);
+  float* ml_s = reinterpret_cast<float*>(smem + S::kML);
+  float* w_s = reinterpret_cast<float*>(smem + S::kW);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      *reinterpret_cast<float2*>(o_s + (warp * kRows + gi + 8 * r) * D +
+                                 8 * j + 2 * ti) =
+          make_float2(o[j][2 * r], o[j][2 * r + 1]);
+  if (ti == 0)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      ml_s[(warp * kRows + gi + 8 * r) * 2] = m[r];
+      ml_s[(warp * kRows + gi + 8 * r) * 2 + 1] = l[r];
+    }
+  __syncthreads();
+  // per row: the merged max and each warp's weight e^(m_w - M), over L
+  // when this split is the only one
+  if (tid < kRows) {
+    float mx = -INFINITY, sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, ml_s[(w * kRows + tid) * 2]);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float wt =
+          mx == -INFINITY ? 0.f : exp2f(ml_s[(w * kRows + tid) * 2] - mx);
+      w_s[tid * kWarps + w] = wt;
+      sum += ml_s[(w * kRows + tid) * 2 + 1] * wt;
+    }
+    if (n_split == 1) {
+      const float inv = sum > 0.f ? 1.f / sum : 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) w_s[tid * kWarps + w] *= inv;
+    } else {
+      float* pml = part_ml + (((size_t)cta * n_split + split) * kRows + tid) * 2;
+      pml[0] = mx;
+      pml[1] = sum;
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < nrows * D; e += kThreads) {
+    const int r = e / D, c = e % D;
+    float acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w)
+      acc += o_s[(w * kRows + r) * D + c] * w_s[r * kWarps + w];
+    if (n_split == 1) {
+      out[((size_t)b * nh + h0 + r) * D + c] = __float2bfloat16(acc);
+    } else {
+      part_o[(((size_t)cta * n_split + split) * kRows + r) * D + c] = acc;
+    }
+  }
+  if (n_split == 1) return;
+
+  // the ticket: the last of the n_act active splits merges them
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(tickets + cta, 1) == n_act - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* pml = part_ml + (size_t)cta * n_split * kRows * 2;
+  if (tid < nrows) {
+    float mx = -INFINITY, sum = 0.f;
+    for (int s = 0; s < n_act; ++s)
+      mx = fmaxf(mx, __ldcg(pml + (s * kRows + tid) * 2));
+    for (int s = 0; s < n_act; ++s) {
+      const float wt =
+          mx == -INFINITY ? 0.f
+                          : exp2f(__ldcg(pml + (s * kRows + tid) * 2) - mx);
+      w_s[tid * kMaxSplit + s] = wt;
+      sum += __ldcg(pml + (s * kRows + tid) * 2 + 1) * wt;
+    }
+    const float inv = sum > 0.f ? 1.f / sum : 0.f;
+    for (int s = 0; s < n_act; ++s) w_s[tid * kMaxSplit + s] *= inv;
+  }
+  __syncthreads();
+  const float* po = part_o + (size_t)cta * n_split * kRows * D;
+  for (int e = tid; e < nrows * D; e += kThreads) {
+    const int r = e / D, c = e % D;
+    float acc = 0.f;
+    for (int s = 0; s < n_act; ++s)
+      acc += __ldcg(po + ((size_t)s * kRows + r) * D + c) *
+             w_s[r * kMaxSplit + s];
+    out[((size_t)b * nh + h0 + r) * D + c] = __float2bfloat16(acc);
+  }
+  if (tid == 0) tickets[cta] = 0;           // ready for the next launch
+}
+
+template <int D>
+int launch_mma(const void* q, const void* kc, const void* vc, const void* pos,
+               void* out, void* part_ml, void* part_o, void* tickets, int B,
+               int kvh, int rep, int T_len, int n_split, int chunk,
+               float sm_scale, cudaStream_t stream) {
+  const int smem = Smem<D>::kBytes;
+  auto kern = decode_mma_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(n_split, B * kvh, (rep + kRows - 1) / kRows);
+  kern<<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(kc),
+      static_cast<const __nv_bfloat16*>(vc), static_cast<const int*>(pos),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(part_ml),
+      static_cast<float*>(part_o), static_cast<int*>(tickets), kvh, rep,
+      T_len, chunk, sm_scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+// ----------------------------------------------------- the f32 kernels
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -70,81 +422,76 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Keys [0, visible(b)) attend: pos[b] + 1, clipped to the cache.
-__device__ __forceinline__ int visible(const int* pos, int b, int T) {
-  return min(pos[b] + 1, T);
-}
-
-// Pass 1.  q [B, nh, D]; kc/vc [B, kvh, T, D]; pos [B]; partials
-// part_m/part_l [B, nh, n_chunks], part_acc [B, nh, n_chunks, D] (f32,
-// acc unnormalised).  Grid (n_chunks, B * kvh), block kD threads.
-template <typename T>
-__global__ void __launch_bounds__(kD) decode_partial_kernel(
-    const T* __restrict__ q, const T* __restrict__ kc,
-    const T* __restrict__ vc, const int* __restrict__ pos,
-    float* __restrict__ part_m, float* __restrict__ part_l,
-    float* __restrict__ part_acc, int kvh, int rep, int T_len,
-    int n_chunks, float sm_scale) {
+// Pass 1.  Grid (n_chunks, B * kvh, ceil(rep / 16)), D threads: each CTA
+// takes one 256-key chunk of one (sequence, kv head) for up to 16 query
+// heads, in 64-key tiles (one warp per key for the scores, one thread
+// per head-dim column for P.V), and writes its partial (m, l, acc) to
+// part_ml [B * nh, n_chunks, 2] and part_o [B * nh, n_chunks, D].
+template <int D>
+__global__ void __launch_bounds__(D) decode_f32_partial_kernel(
+    const float* __restrict__ q, const float* __restrict__ kc,
+    const float* __restrict__ vc, const int* __restrict__ pos,
+    float* __restrict__ part_ml, float* __restrict__ part_o, int kvh, int rep,
+    int T_len, int n_chunks, float sm_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* k_s = reinterpret_cast<T*>(smem);                   // [kTile][kD]
-  T* v_s = k_s + kTile * kD;                             // [kTile][kD]
-  float* q_s = reinterpret_cast<float*>(v_s + kTile * kD);  // [rep][kD]
-  float* p_s = q_s + rep * kD;                           // [rep][kTile]
-  float* m_s = p_s + rep * kTile;                        // [rep]
-  float* l_s = m_s + rep;                                // [rep]
-  float* a_s = l_s + rep;                                // [rep] alpha
+  float* k_s = reinterpret_cast<float*>(smem);           // [kTile][D]
+  float* v_s = k_s + kTile * D;                          // [kTile][D]
+  float* q_s = v_s + kTile * D;                          // [16][D]
+  float* p_s = q_s + kRows * D;                          // [16][kTile]
+  float* m_s = p_s + kRows * kTile;                      // [16]
+  float* l_s = m_s + kRows;                              // [16]
+  float* a_s = l_s + kRows;                              // [16] alpha
 
-  constexpr int kWarps = kD / 32;
-  constexpr int kPer = kD / 32;            // head-dim elements per lane
-  constexpr int kVec = 16 / sizeof(T);     // elements per 16-byte load
+  constexpr int kW = D / 32;               // warps
+  constexpr int kPer = D / 32;             // head-dim elements per lane
   const int c = blockIdx.x;
   const int b = blockIdx.y / kvh;
   const int g = blockIdx.y % kvh;
+  const int r0 = blockIdx.z * kRows;       // first head of the group
+  const int nr = min(kRows, rep - r0);
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
   const int nh = kvh * rep;
-  const int lo = c * kChunk;
-  const int hi = min(lo + kChunk, visible(pos, b, T_len));
+  const int lo = c * kChunkF32;
+  const int hi = min(lo + kChunkF32, min(pos[b] + 1, T_len));
   if (lo >= hi) return;  // wholly past pos[b]: pass 2 never reads it
 
-  for (int r = 0; r < rep; ++r)
-    q_s[r * kD + t] = to_f(q[((size_t)b * nh + g * rep + r) * kD + t]);
-  if (t < rep) {
+  for (int r = 0; r < nr; ++r)
+    q_s[r * D + t] = q[((size_t)b * nh + g * rep + r0 + r) * D + t];
+  if (t < nr) {
     m_s[t] = -INFINITY;
     l_s[t] = 0.f;
   }
-  float acc[kMaxRep];
+  float acc[kRows];
 #pragma unroll
-  for (int r = 0; r < kMaxRep; ++r) acc[r] = 0.f;
+  for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
   __syncthreads();
 
-  const size_t head = ((size_t)b * kvh + g) * (size_t)T_len * kD;
+  const size_t head = ((size_t)b * kvh + g) * (size_t)T_len * D;
   for (int t0 = lo; t0 < hi; t0 += kTile) {
     const int n = min(kTile, hi - t0);  // keys of this tile, all visible
-    const uint4* ksrc =
-        reinterpret_cast<const uint4*>(kc + head + (size_t)t0 * kD);
-    const uint4* vsrc =
-        reinterpret_cast<const uint4*>(vc + head + (size_t)t0 * kD);
-    uint4* kdst = reinterpret_cast<uint4*>(k_s);
-    uint4* vdst = reinterpret_cast<uint4*>(v_s);
-    for (int e = t; e < n * (kD / kVec); e += kD) {
+    const float4* ksrc =
+        reinterpret_cast<const float4*>(kc + head + (size_t)t0 * D);
+    const float4* vsrc =
+        reinterpret_cast<const float4*>(vc + head + (size_t)t0 * D);
+    float4* kdst = reinterpret_cast<float4*>(k_s);
+    float4* vdst = reinterpret_cast<float4*>(v_s);
+    for (int e = t; e < n * (D / 4); e += D) {
       kdst[e] = ksrc[e];
       vdst[e] = vsrc[e];
     }
     __syncthreads();
 
     // scores s[r][j] = q_r . k_j * scale, one warp per key
-    for (int j = warp; j < n; j += kWarps) {
+    for (int j = warp; j < n; j += kW) {
       float kf[kPer];
 #pragma unroll
-      for (int e = 0; e < kPer; ++e)
-        kf[e] = to_f(k_s[j * kD + lane * kPer + e]);
-      for (int r = 0; r < rep; ++r) {
+      for (int e = 0; e < kPer; ++e) kf[e] = k_s[j * D + lane * kPer + e];
+      for (int r = 0; r < nr; ++r) {
         float s = 0.f;
 #pragma unroll
-        for (int e = 0; e < kPer; ++e)
-          s += q_s[r * kD + lane * kPer + e] * kf[e];
+        for (int e = 0; e < kPer; ++e) s += q_s[r * D + lane * kPer + e] * kf[e];
         s = warp_sum(s);
         if (lane == 0) p_s[r * kTile + j] = s * sm_scale;
       }
@@ -152,7 +499,7 @@ __global__ void __launch_bounds__(kD) decode_partial_kernel(
     __syncthreads();
 
     // online softmax, one warp per query row; n >= 1, so m_cur is finite
-    for (int r = warp; r < rep; r += kWarps) {
+    for (int r = warp; r < nr; r += kW) {
       float mx = -INFINITY;
       for (int j = lane; j < n; j += 32) mx = fmaxf(mx, p_s[r * kTile + j]);
       mx = warp_max(mx);
@@ -162,7 +509,7 @@ __global__ void __launch_bounds__(kD) decode_partial_kernel(
       for (int j = lane; j < n; j += 32) {
         const float p = expf(p_s[r * kTile + j] - m_cur);
         sum += p;
-        p_s[r * kTile + j] = to_f(from_f<T>(p));  // p in v's dtype for P.V
+        p_s[r * kTile + j] = p;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
@@ -176,11 +523,10 @@ __global__ void __launch_bounds__(kD) decode_partial_kernel(
 
     // acc[r][t] = acc * alpha + sum_j p[r][j] * v[j][t]
 #pragma unroll
-    for (int r = 0; r < kMaxRep; ++r) {
-      if (r < rep) {
+    for (int r = 0; r < kRows; ++r) {
+      if (r < nr) {
         float o = acc[r] * a_s[r];
-        for (int j = 0; j < n; ++j)
-          o += p_s[r * kTile + j] * to_f(v_s[j * kD + t]);
+        for (int j = 0; j < n; ++j) o += p_s[r * kTile + j] * v_s[j * D + t];
         acc[r] = o;
       }
     }
@@ -188,66 +534,67 @@ __global__ void __launch_bounds__(kD) decode_partial_kernel(
   }
 
 #pragma unroll
-  for (int r = 0; r < kMaxRep; ++r) {
-    if (r < rep) {
-      const size_t row = ((size_t)b * nh + g * rep + r) * n_chunks + c;
-      part_acc[row * kD + t] = acc[r];
+  for (int r = 0; r < kRows; ++r) {
+    if (r < nr) {
+      const size_t row = ((size_t)b * nh + g * rep + r0 + r) * n_chunks + c;
+      part_o[row * D + t] = acc[r];
       if (t == 0) {
-        part_m[row] = m_s[r];
-        part_l[row] = l_s[r];
+        part_ml[row * 2] = m_s[r];
+        part_ml[row * 2 + 1] = l_s[r];
       }
     }
   }
 }
 
-// Pass 2.  Grid B * nh, block kD threads: out[b, h] = sum_c acc_c *
-// e^(m_c - m) / sum_c l_c * e^(m_c - m) over the chunks pass 1 wrote.
-template <typename T>
-__global__ void __launch_bounds__(kD) decode_combine_kernel(
-    const float* __restrict__ part_m, const float* __restrict__ part_l,
-    const float* __restrict__ part_acc, const int* __restrict__ pos,
-    T* __restrict__ out, int nh, int T_len, int n_chunks) {
+// Pass 2.  Grid B * nh, D threads: out[b, h] = sum_c acc_c * e^(m_c - m) /
+// sum_c l_c * e^(m_c - m) over the chunks pass 1 wrote.
+template <int D>
+__global__ void __launch_bounds__(D) decode_f32_combine_kernel(
+    const float* __restrict__ part_ml, const float* __restrict__ part_o,
+    const int* __restrict__ pos, float* __restrict__ out, int nh, int T_len,
+    int n_chunks) {
   const int bh = blockIdx.x;
   const int t = threadIdx.x;
-  const int hi = visible(pos, bh / nh, T_len);
-  const int nc = hi > 0 ? (hi + kChunk - 1) / kChunk : 0;
-  const float* pm = part_m + (size_t)bh * n_chunks;
-  const float* pl = part_l + (size_t)bh * n_chunks;
-  const float* pa = part_acc + (size_t)bh * n_chunks * kD;
+  const int hi = min(pos[bh / nh] + 1, T_len);
+  const int nc = hi > 0 ? (hi + kChunkF32 - 1) / kChunkF32 : 0;
+  const float* pml = part_ml + (size_t)bh * n_chunks * 2;
+  const float* pa = part_o + (size_t)bh * n_chunks * D;
   float m = -INFINITY;
-  for (int c = 0; c < nc; ++c) m = fmaxf(m, pm[c]);
+  for (int c = 0; c < nc; ++c) m = fmaxf(m, pml[2 * c]);
   float l = 0.f, o = 0.f;
   for (int c = 0; c < nc; ++c) {
-    const float w = expf(pm[c] - m);
-    l += pl[c] * w;
-    o += pa[(size_t)c * kD + t] * w;
+    const float w = expf(pml[2 * c] - m);
+    l += pml[2 * c + 1] * w;
+    o += pa[(size_t)c * D + t] * w;
   }
-  out[(size_t)bh * kD + t] = from_f<T>(nc > 0 ? o / l : 0.f);
+  out[(size_t)bh * D + t] = nc > 0 ? o / l : 0.f;
 }
 
-template <typename T>
-int launch(const void* q, const void* kc, const void* vc, const void* pos,
-           void* out, void* part_m, void* part_l, void* part_acc, int B,
-           int kvh, int rep, int T_len, int n_chunks, float sm_scale,
-           cudaStream_t stream) {
-  const size_t smem =
-      2 * (size_t)kTile * kD * sizeof(T) +
-      ((size_t)rep * kD + (size_t)rep * kTile + 3 * rep) * sizeof(float);
-  auto partial = decode_partial_kernel<T>;
+template <int D>
+int launch_f32(const void* q, const void* kc, const void* vc, const void* pos,
+               void* out, void* part_ml, void* part_o, int B, int kvh,
+               int rep, int T_len, int n_chunks, float sm_scale,
+               cudaStream_t stream) {
+  const int smem =
+      (2 * kTile * D + kRows * D + kRows * kTile + 3 * kRows) * 4;
+  auto partial = decode_f32_partial_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
-      partial, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      partial, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  partial<<<dim3(n_chunks, B * kvh), kD, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), static_cast<const int*>(pos),
-      static_cast<float*>(part_m), static_cast<float*>(part_l),
-      static_cast<float*>(part_acc), kvh, rep, T_len, n_chunks, sm_scale);
+  partial<<<dim3(n_chunks, B * kvh, (rep + kRows - 1) / kRows), D, smem,
+            stream>>>(static_cast<const float*>(q),
+                      static_cast<const float*>(kc),
+                      static_cast<const float*>(vc),
+                      static_cast<const int*>(pos),
+                      static_cast<float*>(part_ml),
+                      static_cast<float*>(part_o), kvh, rep, T_len, n_chunks,
+                      sm_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  decode_combine_kernel<T><<<B * kvh * rep, kD, 0, stream>>>(
-      static_cast<const float*>(part_m), static_cast<const float*>(part_l),
-      static_cast<const float*>(part_acc), static_cast<const int*>(pos),
-      static_cast<T*>(out), kvh * rep, T_len, n_chunks);
+  decode_f32_combine_kernel<D><<<B * kvh * rep, D, 0, stream>>>(
+      static_cast<const float*>(part_ml), static_cast<const float*>(part_o),
+      static_cast<const int*>(pos), static_cast<float*>(out), kvh * rep,
+      T_len, n_chunks);
   return (int)cudaGetLastError();
 }
 
@@ -255,29 +602,48 @@ int launch(const void* q, const void* kc, const void* vc, const void* pos,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim must be 128.  Returns a
+// dtype: 0 = float32, 1 = bfloat16; head_dim 64, 128 or 256.  Returns a
 // cudaError_t code (0 = launched).  Shapes are validated by the Python
-// wrapper; n_chunks = ceil(T / 256).
+// wrapper (paddle_tpu_torch/ops/pallas/decode_attention.py), which also
+// picks n_split and chunk.  bfloat16: n_split key splits of ``chunk``
+// keys (a multiple of 64; n_split = ceil(T / chunk) <= 64), part_ml /
+// part_o / tickets as decode_mma_kernel takes them (unused with one
+// split).  float32: n_split = ceil(T / 256) chunks of 256, part_ml [B *
+// nh, n_split, 2] and part_o [B * nh, n_split, D] f32; tickets unused.
 int decode_attention_fwd(int dtype, int head_dim, const void* q,
                          const void* kc, const void* vc, const void* pos,
-                         void* out, void* part_m, void* part_l,
-                         void* part_acc, int B, int kvh, int rep, int T_len,
-                         int n_chunks, float sm_scale, void* stream) {
+                         void* out, void* part_ml, void* part_o,
+                         void* tickets, int B, int kvh, int rep, int T_len,
+                         int n_split, int chunk, float sm_scale,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (rep < 1 || rep > kMaxRep || head_dim != kD) {
+  if (rep < 1 || B < 1 || kvh < 1 || T_len < 1 || B * kvh > 65535 ||
+      (head_dim != 64 && head_dim != 128 && head_dim != 256))
     return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (chunk != kChunkF32 || n_split != (T_len + kChunkF32 - 1) / kChunkF32)
+      return (int)cudaErrorInvalidValue;
+    if (head_dim == 64)
+      return launch_f32<64>(q, kc, vc, pos, out, part_ml, part_o, B, kvh, rep,
+                            T_len, n_split, sm_scale, s);
+    if (head_dim == 128)
+      return launch_f32<128>(q, kc, vc, pos, out, part_ml, part_o, B, kvh,
+                             rep, T_len, n_split, sm_scale, s);
+    return launch_f32<256>(q, kc, vc, pos, out, part_ml, part_o, B, kvh, rep,
+                           T_len, n_split, sm_scale, s);
   }
-  if (n_chunks != (T_len + kChunk - 1) / kChunk || B * kvh > 65535) {
+  if (dtype != 1 || chunk < 1 || chunk % kTile || n_split < 1 ||
+      n_split > kMaxSplit || n_split != (T_len + chunk - 1) / chunk ||
+      (n_split > 1 && (!part_ml || !part_o || !tickets)))
     return (int)cudaErrorInvalidValue;
-  }
-  if (dtype == 0)
-    return launch<float>(q, kc, vc, pos, out, part_m, part_l, part_acc, B,
-                         kvh, rep, T_len, n_chunks, sm_scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, kc, vc, pos, out, part_m, part_l,
-                                 part_acc, B, kvh, rep, T_len, n_chunks,
-                                 sm_scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (head_dim == 64)
+    return launch_mma<64>(q, kc, vc, pos, out, part_ml, part_o, tickets, B,
+                          kvh, rep, T_len, n_split, chunk, sm_scale, s);
+  if (head_dim == 128)
+    return launch_mma<128>(q, kc, vc, pos, out, part_ml, part_o, tickets, B,
+                           kvh, rep, T_len, n_split, chunk, sm_scale, s);
+  return launch_mma<256>(q, kc, vc, pos, out, part_ml, part_o, tickets, B,
+                         kvh, rep, T_len, n_split, chunk, sm_scale, s);
 }
 
 const char* decode_attention_error_string(int err) {

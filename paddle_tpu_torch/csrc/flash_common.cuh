@@ -1,7 +1,8 @@
 // Flash-attention building blocks shared by flash_attention.cu (K1/K2)
 // and flash_mask.cu (K8): Params and the visibility rules, shared-memory
-// tiles, the WMMA / CUDA-core products, the float32 forward, dq and dk/dv
-// kernel bodies, and what the K8 dbias kernel (flash_mask.cu) builds on.
+// tiles, the CUDA-core products, the float32 forward, dq and dk/dv
+// kernel bodies, and what the f32 K8 dbias kernel (flash_mask.cu) builds
+// on.
 //
 // Each body takes a compile-time Mode.  kPlain (K1/K2): a key is visible
 // when it is below Sk and, causal, at or left of the bottom-right
@@ -22,17 +23,16 @@
 // visibility test written other than as a select before the exp cost
 // them 4-6 %.
 //
-// The bodies run the float32 flash kernels (K1/K2 and K8); every bf16
-// forward, dq and dk/dv (K1/K2 and K8) has its Hopper body in
-// flash_sm90.cuh (wgmma, a TMA ring, register accumulators).  The bf16
-// K8 dbias kernel is the one bf16 kernel left on WMMA (mm_abt).
+// The bodies run the float32 flash kernels (K1/K2 and K8, the dbias
+// kernel's included); every bf16 kernel (K1/K2 and the K8 forward, dq,
+// dk/dv and dbias) has its Hopper body in flash_sm90.cuh (wgmma, a TMA
+// ring, register accumulators).
 //
 // The simple design, and what it leaves for later:
 //   * 4 warps per CTA; 64-row tiles staged in shared memory with plain
 //     16-byte loads (no cp.async/TMA, no double buffering);
 //   * float32 uses CUDA-core FMA (no TF32), so card and CPU agree to
-//     f32 rounding; the dbias kernel's bf16 products run on WMMA
-//     (16x16x16 mma.sync tiles), its score tiles through shared memory;
+//     f32 rounding;
 //   * the bias and the intervals are read from device memory per score
 //     element (coalesced along the key axis); key blocks that the
 //     intervals mask for a whole query block are not skipped.
@@ -42,23 +42,17 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
 namespace flash {
 
-using namespace nvcuda;
-
 constexpr int D = 128;     // head dim (the only one of a ported model)
 constexpr int BM = 64;     // rows of the CTA's own tile
 constexpr int BN = 64;     // rows of a streamed K/V tile
 constexpr int NT = 128;    // threads per CTA (4 warps)
 constexpr float kLseInvalid = FLT_MAX * 0.5f;   // LSE_INVALID
-
-template <typename T>
-constexpr bool kIsBf16 = std::is_same<T, __nv_bfloat16>::value;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -239,44 +233,21 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src,
   }
 }
 
-// c[r][j] = a_r . b_j (raw dot, f32) for r < ROWS, j < BN.
+// c[r][j] = a_r . b_j (raw dot, f32) for r < ROWS, j < BN (CUDA cores:
+// the bf16 kernels' products are wgmma, in flash_sm90.cuh).
 template <typename T, int ROWS>
 __device__ __forceinline__ void mm_abt(const T* a_s, const T* b_s,
                                        float* c_s) {
   constexpr int LT = Ld<T>::T_;
   constexpr int LS = Ld<T>::S;
-  if constexpr (kIsBf16<T>) {
-    static_assert(ROWS == 64, "bf16 tiles: one 16-row strip per warp");
-    const int warp = threadIdx.x >> 5;
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[BN / 16];
-#pragma unroll
-    for (int n = 0; n < BN / 16; ++n) wmma::fill_fragment(c[n], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      wmma::load_matrix_sync(a, a_s + warp * 16 * LT + kk, LT);
-#pragma unroll
-      for (int n = 0; n < BN / 16; ++n) {
-        // B^T as a column-major [D, BN] operand is B row-major [BN, D]
-        wmma::load_matrix_sync(b, b_s + n * 16 * LT + kk, LT);
-        wmma::mma_sync(c[n], a, b, c[n]);
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < BN / 16; ++n)
-      wmma::store_matrix_sync(c_s + warp * 16 * LS + n * 16, c[n], LS,
-                              wmma::mem_row_major);
-  } else {
-    for (int e = threadIdx.x; e < ROWS * BN; e += NT) {
-      const int r = e / BN;
-      const int j = e % BN;
-      float s = 0.f;
+  for (int e = threadIdx.x; e < ROWS * BN; e += NT) {
+    const int r = e / BN;
+    const int j = e % BN;
+    float s = 0.f;
 #pragma unroll 8
-      for (int d = 0; d < D; ++d)
-        s += to_f(a_s[r * LT + d]) * to_f(b_s[j * LT + d]);
-      c_s[r * LS + j] = s;
-    }
+    for (int d = 0; d < D; ++d)
+      s += to_f(a_s[r * LT + d]) * to_f(b_s[j * LT + d]);
+    c_s[r * LS + j] = s;
   }
 }
 

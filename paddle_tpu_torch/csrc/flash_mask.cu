@@ -14,13 +14,13 @@
 // (and the -1e9 bias tail it needs) and its streamed switch past 4096
 // tokens are VMEM limits; here the ragged edge is masked in-kernel.
 //
-// Bodies: the bf16 forward, dq and dk/dv are flash_sm90.cuh's Hopper
-// kernels (wgmma, a TMA ring, register accumulators), which skip the
-// tiles that the intervals hide whole, using a tile table that this
+// Bodies: the bf16 forward, dq, dk/dv and dbias are flash_sm90.cuh's
+// Hopper kernels (wgmma, a TMA ring, register accumulators), which skip
+// the tiles that the intervals hide whole, using a tile table that this
 // file's table kernel writes just before (tile_table_kernel, in the same
-// C entry); the float32 forward, dq and dk/dv and the dbias kernel are
-// the bodies of flash_common.cuh.  Each runs in the kIntervals mode (no
-// bias) or the kBiased mode (a bias, intervals optional).
+// C entry); the float32 forward, dq, dk/dv and dbias are the bodies of
+// flash_common.cuh.  Each runs in the kIntervals mode (no bias) or the
+// kBiased mode (a bias, intervals optional).
 //
 // Semantics: a logit is q.k * scale + bias, and a key is invisible past
 // Sk, right of the bottom-right aligned causal diagonal, or inside one
@@ -46,13 +46,12 @@
 // bytes per bias (batch, head), so bytes bound it at short head dims or
 // wide broadcast.
 //
-// The dbias kernel: one CTA per (64-row query block, bias head, bias
-// batch) walks the (batch, head) members that broadcast onto it in
-// order, recomputing S and dP per member and key block, and adds each
-// member's ds into the output (or an f32 accumulator for a bf16/f16
-// bias) at the same elements from the same thread: deterministic, no
-// atomics, at the price of one CTA per query block when the bias is
-// [1, 1, Sq, Sk].
+// The dbias kernels (the float32 one here, the bf16 one in
+// flash_sm90.cuh): one CTA per (query block, bias head, bias batch)
+// walks the (batch, head) members that broadcast onto it in order,
+// recomputing S and dP per member and key block, and adds each member's
+// ds into the output (or an f32 accumulator for a bf16/f16 bias) at the
+// same elements from the same thread: deterministic, no atomics.
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
 
@@ -118,19 +117,19 @@ __global__ void __launch_bounds__(NT) masked_bwd_dkv_kernel(Params p) {
   dkv_body<float, kMode>(p, smem);
 }
 
-template <typename T>
 struct DbiasSmem {
-  static constexpr size_t kT = tile_bytes<T>(BM);   // q, do, k, v
-  static constexpr size_t kS = score_bytes(BM);     // s, dp
+  static constexpr size_t kT = tile_bytes<float>(BM);   // q, do, k, v
+  static constexpr size_t kS = score_bytes(BM);         // s, dp
   static constexpr size_t kLD = 2 * BM * sizeof(float);
   static constexpr size_t bytes = 4 * kT + 2 * kS + kLD;
 };
 
-// Grid (ceil(Sq / 64), Hb, Bb), 128 threads; Hb/Bb are the bias's head
-// and batch dims (1 = broadcast over p.H / p.B).
-template <typename T>
+// The float32 dbias; bfloat16 runs flash_sm90.cuh's dbias_kernel.  Grid
+// (ceil(Sq / 64), Hb, Bb), 128 threads; Hb/Bb are the bias's head and
+// batch dims (1 = broadcast over p.H / p.B).
 __global__ void __launch_bounds__(NT) masked_bwd_dbias_kernel(Params p) {
-  using S = DbiasSmem<T>;
+  using T = float;
+  using S = DbiasSmem;
   constexpr int LS = Ld<T>::S;
   extern __shared__ __align__(128) unsigned char smem[];
   T* q_t = reinterpret_cast<T*>(smem);
@@ -407,19 +406,22 @@ int flash_mask_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
 // strides: q, k, v, dout, mask, bias (18).  dbias: contiguous [Bb, Hb,
 // Sq, Sk] of bias_dtype (Bb in {1, B}, Hb in {1, H}); dbias_acc: a
 // contiguous f32 buffer of the same shape when bias_dtype != 0 and Bb *
-// Hb < B * H, else null.  Reads the delta the dq entry wrote.
+// Hb < B * H, else null.  Reads the delta the dq entry wrote.  tbl as
+// flash_mask_fwd takes it (bfloat16 with intervals; written here before
+// dbias).
 int flash_mask_bwd_dbias(int dtype, int head_dim, const void* q,
                          const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta,
                          const void* mask, int nvec, const void* bias,
                          int bias_dtype, void* dbias, void* dbias_acc,
-                         int B, int H, int group, int Bb, int Hb, int sq,
-                         int sk, int causal, float scale,
+                         void* tbl, int B, int H, int group, int Bb, int Hb,
+                         int sq, int sk, int causal, float scale,
                          const long long* strides, void* stream) {
   if (bad_args(dtype, head_dim, B, H, group, sq, sk) ||
       bad_mask(nvec, mask, bias_dtype) || !bias || !dbias ||
       (Bb != 1 && Bb != B) || (Hb != 1 && Hb != H) ||
-      (bias_dtype != 0 && Bb * Hb < B * H && !dbias_acc))
+      (bias_dtype != 0 && Bb * Hb < B * H && !dbias_acc) ||
+      (dtype == 1 && nvec && !tbl))
     return (int)cudaErrorInvalidValue;
   Params p = {};
   set_common(p, B, H, group, sq, sk, causal, scale, mask, nvec, bias,
@@ -438,13 +440,16 @@ int flash_mask_bwd_dbias(int dtype, int head_dim, const void* q,
   set3(p.do_s, strides + 9);
   // Bb / Hb == 1 makes the kernel loop over the broadcast members; with
   // B == 1 (or H == 1) that loop has one member either way
-  dim3 grid((sq + BM - 1) / BM, Hb, Bb);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch(masked_bwd_dbias_kernel<float>, DbiasSmem<float>::bytes,
-                  grid, p, s);
-  return launch(masked_bwd_dbias_kernel<__nv_bfloat16>,
-                DbiasSmem<__nv_bfloat16>::bytes, grid, p, s);
+    return launch(masked_bwd_dbias_kernel, DbiasSmem::bytes,
+                  dim3((sq + BM - 1) / BM, Hb, Bb), p, s);
+  p.tbl = static_cast<const int2*>(tbl);
+  if (nvec) {
+    const int err = launch_tile_table(p, H, s);
+    if (err) return err;
+  }
+  return flash_sm90::launch_dbias(p, Hb, Bb, s);
 }
 
 const char* flash_mask_error_string(int err) {

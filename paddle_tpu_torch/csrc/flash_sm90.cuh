@@ -1,18 +1,19 @@
 // Flash attention for Hopper: K1 (forward) and K2 (dq, dk/dv), the bf16
 // instances behind flash_attention_fwd, flash_attention_bwd_dq and
 // flash_attention_bwd_dkv (flash_attention.cu), and the bf16 K8 forward,
-// dq and dk/dv behind flash_mask_fwd, flash_mask_bwd_dq and
-// flash_mask_bwd_dkv (flash_mask.cu), in their two modes: kIntervals
-// (flashmask intervals) and kBiased (an additive bias, intervals
-// optional).  The float32 instances and the K8 dbias kernel keep the
-// WMMA bodies of flash_common.cuh.
+// dq, dk/dv and dbias behind flash_mask_fwd, flash_mask_bwd_dq,
+// flash_mask_bwd_dkv and flash_mask_bwd_dbias (flash_mask.cu), in their
+// two modes: kIntervals (flashmask intervals) and kBiased (an additive
+// bias, intervals optional; dbias is kBiased only).  The float32
+// instances keep the CUDA-core bodies of flash_common.cuh.
 //
 // Each kernel computes what its TPU kernel computes
 // (paddle_tpu/ops/pallas/flash_attention.py _fwd_kernel :523,
 // _bwd_dq_kernel :925, _bwd_dkv_kernel :960; flash_mask.py _fwd_kernel
-// :141, _bwd_dq_kernel :748, _bwd_dkv_kernel :791 and their streamed
-// twins _fwd_kernel_stream :267, _bwd_dq_kernel_stream :336,
-// _bwd_dkv_kernel_stream :394), with the numerics listed in
+// :141, _bwd_dq_kernel :748, _bwd_dkv_kernel :791, _bwd_dbias_kernel
+// :843 and their streamed twins _fwd_kernel_stream :267,
+// _bwd_dq_kernel_stream :336, _bwd_dkv_kernel_stream :394,
+// _bwd_dbias_kernel_stream :455), with the numerics listed in
 // flash_attention.cu and flash_mask.cu, and is built the
 // FlashAttention-3 way (Shah et al., 2024):
 //   * warp specialisation: warpgroup 0 is the producer (one thread
@@ -84,6 +85,15 @@
 //     tools/flash_ab.py, llama3_8b's included (NVIDIA H100 80GB HBM3,
 //     700 W: 1.60 against 1.20 ms at b 8, h 16, s 2048; 0.66 against
 //     0.52 at llama3_8b's b 1, h 32/8, s 2048).
+//   * dbias: one CTA per (128-row query block, bias head, bias batch) on
+//     dq's layout, walking the (batch, head) members that broadcast onto
+//     the bias in order; per 64-key tile S = Q.K^T and dP = dO.V^T by
+//     wgmma, ds = p (dP - delta) in registers; the running sum of the
+//     members in f32 in device memory, the last member's ds rounded to
+//     the bias dtype and stored by TMA from a staging box; tiles past the
+//     causal trip count written as zeros by a second producer warp.  It
+//     is bound by the bytes it writes (the whole [Sq, Sk] plane per bias
+//     head and batch) and the bias it reads at visible pairs.
 // Causal grids launch the heaviest blocks first: the query-block
 // kernels take block x from the end, the dk/dv kernel's key block 0
 // (which every query sees) is first already.
@@ -2010,6 +2020,394 @@ __global__ void __launch_bounds__(dkv_cfg::NT, 1)
   }
 }
 
+// ------------------------------------------------------------- dbias
+// The bf16 K8 dbias: dbias = p (dP - delta) at visible pairs (no scale),
+// zero at hidden ones, summed over the bias's broadcast batch and head
+// dims in a fixed order, in the bias dtype.  One CTA per (128-row query
+// block, bias head, bias batch) walks the (batch, head) members that
+// broadcast onto it in order, on the dq kernel's layout (dq_cfg): Q and
+// dO of the member resident by TMA, 64-key K and V tiles in the ring,
+// the producer warp classing the tiles from the tile table as dq_k8's
+// does.  Per tile each consumer warpgroup takes S = Q.K^T and dP = dO.V^T
+// by wgmma into registers; with dP in, K and V are released (there is no
+// dS.K product and no dq accumulator).  The bias block is read into
+// registers while the products run, as dq_k8 reads it.  A tile that the
+// intervals hide from the member is neither loaded nor computed (its ds
+// is 0).  The running sum of the earlier members lives in f32 in device
+// memory (the output itself for an f32 bias, else dbias_acc), written
+// and read back by the thread that owns each element, so no atomics and
+// no cross-thread ordering are needed; with one member nothing is read
+// back.  The last member's ds, rounded to the bias dtype, goes through a
+// [64, 64] staging box per warpgroup and a TMA store (where the output's
+// rows are 16-byte multiples; else plain stores).  Key tiles past the
+// causal trip count are written as zeros once per CTA by a second
+// producer warp (TMA stores of a zero box, or plain stores).
+namespace dbias_cfg {
+using namespace dq_cfg;
+constexpr uint32_t kEmptyQ = kBar + 8 * (1 + 3 * NS);  // consumers free Q, dO
+constexpr uint32_t kBox = 64 * 64 * 4;                  // [64 q, 64 k] f32
+constexpr uint32_t kStore = (kMeta + NS * 4 + 1023) / 1024 * 1024;
+constexpr uint32_t kZero = kStore + 2 * kBox;           // a box of zeros
+constexpr size_t kSmem = kZero + kBox + 1024;
+}  // namespace dbias_cfg
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int k0, int row, int h, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(k0), "r"(row), "r"(h), "r"(b)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until the committed stores have read their shared-memory source.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Make this thread's shared-memory writes visible to the TMA (async
+// proxy), and its earlier global writes ordered before the TMA's.
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+__device__ __forceinline__ void warpgroup_sync(int cw) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");
+}
+
+// The thread's 32 elements of a 64 x 64 tile (rows row and row + 8,
+// columns k0 + 8 j + 2 t (+ 1)) in an f32 [Sq, Sk] plane at ``plane``,
+// read or written as pairs where Sk is even; rows past Sq and columns
+// past Sk are left alone (read as 0).
+__device__ __forceinline__ void acc_rw(float (&x)[32], float* plane, int row,
+                                       int k0, int t, int sq, int sk,
+                                       bool write) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = row + 8 * r;
+    if (q >= sq) continue;
+    float* src = plane + (long long)q * sk;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int k = k0 + 8 * j + 2 * t;
+      float& e0 = x[4 * j + 2 * r];
+      float& e1 = x[4 * j + 2 * r + 1];
+      if (sk % 2 == 0 && k + 1 < sk) {
+        if (write) {
+          __stcg(reinterpret_cast<float2*>(src + k), make_float2(e0, e1));
+        } else {
+          const float2 v = __ldcg(reinterpret_cast<const float2*>(src + k));
+          e0 = v.x;
+          e1 = v.y;
+        }
+      } else {
+        if (write) {
+          if (k < sk) __stcg(src + k, e0);
+          if (k + 1 < sk) __stcg(src + k + 1, e1);
+        } else {
+          e0 = k < sk ? __ldcg(src + k) : 0.f;
+          e1 = k + 1 < sk ? __ldcg(src + k + 1) : 0.f;
+        }
+      }
+    }
+  }
+}
+
+// The thread's 32 elements as the bias dtype ``dt``: into the staging box
+// ([64 rows, 64 keys], ``tr`` the warpgroup-local row), or, without TMA,
+// straight to the [Sq, Sk] output plane at ``plane``.
+__device__ __forceinline__ void put_pair(void* base, long long i, float x,
+                                         float y, int dt) {
+  if (dt == 0) {
+    *reinterpret_cast<float2*>(static_cast<float*>(base) + i) =
+        make_float2(x, y);
+  } else if (dt == 1) {
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(base) +
+                                       i) = __floats2bfloat162_rn(x, y);
+  } else {
+    *reinterpret_cast<__half2*>(static_cast<__half*>(base) + i) =
+        __floats2half2_rn(x, y);
+  }
+}
+
+__device__ __forceinline__ void stage_box(const float (&x)[32], void* box,
+                                          int tr, int t, int dt) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      put_pair(box, (tr + 8 * r) * 64 + 8 * j + 2 * t, x[4 * j + 2 * r],
+               x[4 * j + 2 * r + 1], dt);
+}
+
+__device__ __forceinline__ void store_plane(const float (&x)[32], void* plane,
+                                            int row, int k0, int t, int sq,
+                                            int sk, int dt) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q = row + 8 * r;
+    if (q >= sq) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int k = k0 + 8 * j + 2 * t;
+      const long long i = (long long)q * sk + k;
+      if (sk % 2 == 0 && k + 1 < sk) {
+        put_pair(plane, i, x[4 * j + 2 * r], x[4 * j + 2 * r + 1], dt);
+      } else {
+        if (k < sk) flash::store_any(plane, i, x[4 * j + 2 * r], dt);
+        if (k + 1 < sk) flash::store_any(plane, i + 1, x[4 * j + 2 * r + 1], dt);
+      }
+    }
+  }
+}
+
+// Grid (ceil(Sq / 128), Hb, Bb), 384 threads; Hb/Bb are the bias's head
+// and batch dims (1 = broadcast over p.H / p.B).  tdb: the output's
+// tensor map (dbias_map), used where ``tma``.  A template (kBiased
+// only), so that only the source that launches it compiles it.
+template <Mode kMode>
+__global__ void __launch_bounds__(dq_cfg::NT, 1)
+    dbias_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const Params p,
+                 const __grid_constant__ CUtensorMap tdb, const int tma) {
+  using namespace dbias_cfg;
+  static_assert(kMode == flash::kBiased, "dbias needs a bias");
+  extern __shared__ unsigned char smem_sm90[];
+  uint32_t base;
+  unsigned char* smem = align_smem(smem_sm90, &base);
+  float* lse_s = reinterpret_cast<float*>(smem + kRows);
+  float* delta_s = lse_s + BM;
+  int* ends_s = reinterpret_cast<int*>(smem + kEnds);
+  int* meta_s = reinterpret_cast<int*>(smem + kMeta);
+  const uint32_t full_q = base + kBar;
+  const uint32_t empty_q = base + kEmptyQ;
+  const auto full_k = [&](int s) { return base + kBar + 8 * (1 + s); };
+  const auto full_v = [&](int s) { return base + kBar + 8 * (1 + NS + s); };
+  const auto empty = [&](int s) { return base + kBar + 8 * (1 + 2 * NS + s); };
+
+  const int qb = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qb * BM;
+  const int hb = blockIdx.y, bb = blockIdx.z;
+  const int n_h = gridDim.y == 1 ? p.H : 1;
+  const int h_first = gridDim.y == 1 ? 0 : hb;
+  const int n_b = gridDim.z == 1 ? p.B : 1;
+  const int b_first = gridDim.z == 1 ? 0 : bb;
+  const int members = n_b * n_h;
+  const Vis plain{p.sk, p.sk - p.sq, p.causal};
+  const int upper = key_blocks(q0, BM, BN, plain);
+  const long long out_base = ((long long)bb * gridDim.y + hb) * p.sq * p.sk;
+  // the running sum: an f32 output is its own accumulator
+  float* acc = (p.bias_dt == 0 ? static_cast<float*>(p.dbias) : p.dbias_acc) +
+               out_base;
+  void* plane = static_cast<char*>(p.dbias) +
+                out_base * (p.bias_dt == 0 ? 4 : 2);
+
+  for (int i = threadIdx.x; i < (int)(kBox / 16); i += NT)
+    reinterpret_cast<uint4*>(smem + kZero)[i] = make_uint4(0u, 0u, 0u, 0u);
+  fence_async();
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    mbar_init(empty_q, 8);              // one arrival per consumer warp
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full_k(s), 32);         // the producer warp's lanes
+      mbar_init(full_v(s), 1);
+      mbar_init(empty(s), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    reg_dealloc<40>();
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    if (warp == 0) {
+      // ---- the walk: per member, Q and dO, then the live key tiles
+      int it = 0;                       // stages filled
+      const int qe = min(q0 + BM, p.sq);
+      for (int mi = 0; mi < members; ++mi) {
+        const int b = b_first + mi / n_h, h = h_first + mi % n_h;
+        const int hk = h / p.group;
+        const Vis vis = vis_for<kMode>(p, b, h);
+        if (lane == 0) {
+          mbar_wait(empty_q, (mi & 1) ^ 1);
+          mbar_expect_tx(full_q, 2 * kRes);
+          tma_tile(base + kQ, &tq, full_q, q0, h, b, BM);
+          tma_tile(base + kDO, &tdo, full_q, q0, h, b, BM);
+        }
+        for (int c = 0; c < upper; c += 32) {
+          const int cls = c + lane < upper
+                              ? tile_class<BN>(c + lane, q0, qe, vis)
+                              : kClean;
+          const unsigned part = __ballot_sync(0xffffffffu, cls == kPartial);
+          const unsigned skip = __ballot_sync(0xffffffffu, cls == kSkip);
+          for (int u = 0; u < min(32, upper - c); ++u, ++it) {
+            const int kb = c + u;
+            const int ivl = (part >> u) & 1, skp = (skip >> u) & 1;
+            const int s = it % NS;
+            mbar_wait(empty(s), ((it / NS) & 1) ^ 1);
+            if (lane == 0) {
+              // the copies first; the lanes' arrivals complete full_k
+              meta_s[s] = 4 * kb + 2 * ivl + skp;
+              if (skp) {
+                mbar_arrive(full_v(s));
+              } else {
+                mbar_expect(full_k(s), kTile);
+                tma_tile(base + kK + s * kTile, &tk, full_k(s), kb * BN, hk, b,
+                         BN);
+                mbar_expect_tx(full_v(s), kTile);
+                tma_tile(base + kV + s * kTile, &tv, full_v(s), kb * BN, hk, b,
+                         BN);
+              }
+            }
+            if (ivl) stage_ends<BN>(ends_s + s * 4 * BN, vis, kb * BN, lane);
+            mbar_arrive(full_k(s));
+          }
+        }
+        const int s = it % NS;          // the member's end: a -1 stage
+        mbar_wait(empty(s), ((it / NS) & 1) ^ 1);
+        if (lane == 0) {
+          meta_s[s] = -1;
+          mbar_arrive(full_v(s));
+        }
+        mbar_arrive(full_k(s));
+        ++it;
+      }
+    } else {
+      // ---- zeros past the causal trip count, once per CTA
+      const int nblk = (p.sk + BN - 1) / BN;
+      if (tma) {
+        if (threadIdx.x == 32) {
+          for (int kb = upper; kb < nblk; ++kb)
+            for (int r = q0; r < min(q0 + BM, p.sq); r += 64)
+              tma_store(&tdb, base + kZero, kb * BN, r, hb, bb);
+          bulk_commit();
+          bulk_wait_read();
+        }
+      } else {
+        const int k_lo = upper * BN, width = p.sk - min(k_lo, p.sk);
+        const int rows = max(0, min(BM, p.sq - q0));
+        for (long long e = threadIdx.x - 32; e < (long long)rows * width;
+             e += 96)
+          flash::store_any(plane, (long long)(q0 + e / width) * p.sk + k_lo +
+                                      e % width,
+                           0.f, p.bias_dt);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup cw owns tile rows [64 cw, 64 cw + 64)
+    reg_alloc<232>();
+    const int ci = threadIdx.x - 128;
+    const int cw = ci >> 7;
+    const int warp = (ci >> 5) & 3;
+    const int lane = ci & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int tr = cw * 64 + warp * 16 + g;       // tile rows tr, tr + 8
+    const int row = q0 + tr;
+    const float sl2 = p.scale * kLog2e;
+    const uint32_t qa = base + kQ + cw * 64 * 128;
+    const uint32_t doa = base + kDO + cw * 64 * 128;
+    const bool elect = (ci & 127) == 0;
+    unsigned char* box = smem + kStore + cw * kBox;
+    int it = 0;
+    for (int mi = 0; mi < members; ++mi) {
+      const int b = b_first + mi / n_h, h = h_first + mi % n_h;
+      const bool last = mi == members - 1;
+      const Vis vis = vis_for<kMode>(p, b, h);
+      const bool bias_pair =
+          vis.m.b_ss % 2 == 0 &&
+          reinterpret_cast<uintptr_t>(vis.m.bias) % (vis.m.bias_dt ? 4 : 8) == 0;
+      const long long row_base = ((long long)b * p.H + h) * p.sq;
+      consumer_sync(256);               // the last member's rows are read
+      if (ci < BM) {
+        const int qi = q0 + ci;
+        lse_s[ci] = qi < p.sq ? p.lse[row_base + qi] : kLseInvalid;
+        delta_s[ci] = qi < p.sq ? p.delta[row_base + qi] : 0.f;
+      }
+      consumer_sync(256);
+      const float lse2[2] = {lse_s[tr] * kLog2e, lse_s[tr + 8] * kLog2e};
+      const float dlt[2] = {delta_s[tr], delta_s[tr + 8]};
+      mbar_wait(full_q, mi & 1);
+
+      for (;; ++it) {
+        const int s = it % NS;
+        const uint32_t ph = (it / NS) & 1;
+        mbar_wait(full_k(s), ph);
+        const int meta = meta_s[s];
+        if (meta < 0) {
+          if (lane == 0) mbar_arrive(empty(s));
+          ++it;
+          break;
+        }
+        const int k0 = (meta >> 2) * BN;
+        const int* ends = (meta & 2) ? ends_s + s * 4 * BN : nullptr;
+        float ds[32], prev[32];
+        if (mi > 0) acc_rw(prev, acc, row, k0, t, p.sq, p.sk, false);
+        if (meta & 1) {                 // hidden from this member: ds = 0
+          if (lane == 0) mbar_arrive(empty(s));
+#pragma unroll
+          for (int e = 0; e < 32; ++e) ds[e] = 0.f;
+        } else {
+          const uint32_t ka = base + kK + s * kTile;
+          const uint32_t va = base + kV + s * kTile;
+          float sc[32], off[32];
+          wg_fence();
+          gemm_abt<BM, BN>(sc, qa, ka);
+          wg_commit();
+          // the logit in log2 units less lse, as the forward took it
+          load_bias(off, vis, row, k0, t, bias_pair && k0 + BN <= vis.sk);
+#pragma unroll
+          for (int i = 0; i < 32; ++i)
+            off[i] = fmaf(off[i], kLog2e, -lse2[(i >> 1) & 1]);
+          mbar_wait(full_v(s), ph);
+          gemm_abt<BM, BN>(ds, doa, va);
+          wg_commit();
+          wg_wait<1>();
+          reg_fence(sc);
+          uint64_t hide = 0;
+          if (ends || !all_visible(q0, k0, BN, vis))
+            hide = hidden_keys<kMode, 8>(row, t, k0, vis, ends);
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            const float pe = exp2f(fmaf(sc[e], sl2, off[e]));
+            sc[e] = (hide >> e) & 1 ? 0.f : pe;
+          }
+          wg_wait<0>();
+          reg_fence(ds);
+          if (lane == 0) mbar_arrive(empty(s));   // K and V are done
+          // ds = p (dp - delta), without the scale
+#pragma unroll
+          for (int e = 0; e < 32; ++e)
+            ds[e] = sc[e] * (ds[e] - dlt[(e >> 1) & 1]);
+        }
+        if (mi > 0)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) ds[e] += prev[e];
+        if (!last) {
+          acc_rw(ds, acc, row, k0, t, p.sq, p.sk, true);
+        } else if (tma) {
+          if (elect) bulk_wait_read();  // the last box has left the stage
+          warpgroup_sync(cw);
+          stage_box(ds, box, tr - cw * 64, t, p.bias_dt);
+          fence_async();
+          warpgroup_sync(cw);
+          if (elect && q0 + cw * 64 < p.sq) {
+            tma_store(&tdb, base + kStore + cw * kBox, k0, q0 + cw * 64, hb,
+                      bb);
+            bulk_commit();
+          }
+        } else {
+          store_plane(ds, plane, row, k0, t, p.sq, p.sk, p.bias_dt);
+        }
+      }
+      if (lane == 0) mbar_arrive(empty_q);  // done with this Q and dO
+    }
+    if (elect && tma) bulk_wait_read();
+  }
+}
+
 // ------------------------------------------------------------ host side
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -2147,6 +2545,58 @@ inline int launch_dkv(const Params& p, cudaStream_t s) {
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dkv_kernel<kMode><<<grid, dkv_cfg::NT, smem, s>>>(tq, tdo, tk, tv, p, tb);
+  return (int)cudaGetLastError();
+}
+
+// The tensor map of the dbias output, a contiguous [Bb, Hb, Sq, Sk] of
+// the bias dtype: dims (Sk, Sq, Hb, Bb), boxes of 64 keys x 64 rows, no
+// swizzle; stores past Sq and Sk are dropped.  Needs rows of a 16-byte
+// multiple.
+inline bool dbias_map(CUtensorMap* map, const Params& p, int hb, int bb) {
+  const EncodeTiled enc = encoder();
+  if (!enc) return false;
+  const cuuint64_t es = p.bias_dt == 0 ? 4 : 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)p.sk, (cuuint64_t)p.sq,
+                              (cuuint64_t)hb, (cuuint64_t)bb};
+  const cuuint64_t rs = p.sk * es;
+  const cuuint64_t strides[3] = {rs, rs * p.sq, rs * p.sq * hb};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapDataType dt = p.bias_dt == 0 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                 : p.bias_dt == 1
+                                     ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  return enc(map, dt, 4, p.dbias, dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_NONE,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The bf16 dbias (p.H q heads; Hb, Bb the bias's head and batch dims).
+// With intervals it reads the tile table p.tbl (flash_mask.cu writes it
+// first).  A template, as the kernel is, so that a source that does not
+// call it does not compile the kernel.
+template <Mode kMode = flash::kBiased>
+inline int launch_dbias(const Params& p, int hb, int bb, cudaStream_t s) {
+  const int kvh = p.H / p.group;
+  CUtensorMap tq, tdo, tk, tv, tdb = {};
+  if (!tile_map(&tq, p.q, p.q_s, p.B, p.H, p.sq, dq_cfg::BM) ||
+      !tile_map(&tdo, p.dout, p.do_s, p.B, p.H, p.sq, dq_cfg::BM) ||
+      !tile_map(&tk, p.k, p.k_s, p.B, kvh, p.sk, dq_cfg::BN) ||
+      !tile_map(&tv, p.v, p.v_s, p.B, kvh, p.sk, dq_cfg::BN))
+    return (int)cudaErrorInvalidValue;
+  const long long es = p.bias_dt == 0 ? 4 : 2;
+  const int tma = p.sk * es % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(p.dbias) % 16 == 0 &&
+                  dbias_map(&tdb, p, hb, bb);
+  const int nqb = (p.sq + dq_cfg::BM - 1) / dq_cfg::BM;
+  const auto kern = dbias_kernel<kMode>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)dbias_cfg::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3(nqb, hb, bb), dq_cfg::NT, dbias_cfg::kSmem, s>>>(
+      tq, tdo, tk, tv, p, tdb, tma);
   return (int)cudaGetLastError();
 }
 

@@ -5,13 +5,18 @@ sequence attends over its kv-head-major cache ``[B, kvh, T, D]``, keys
 ``t <= pos[b]``; rep = nh / kvh query heads share each kv head (GQA).
 Inference only.
 
+Routes, as the reference's ``decode_attention`` (``:164-172``) takes
+them: head dims 64, 128 and 256 with ``nh % kvh == 0`` reach the kernel,
+any GQA group; every other head dim runs the plain version
+:func:`_xla_decode` (the reference's XLA path, whose name it keeps), on
+the card too.  :func:`_route` is that rule.
+
 :func:`decode_attention` is the wrapper of the CUDA kernel
 ``csrc/decode_attention.cu`` (the port of the TPU kernel K7,
-``_pallas_decode``).  On CPU tensors it runs :func:`_xla_decode`, the
-plain version (the reference's XLA path, whose name it keeps).  On CUDA
-tensors it launches the kernel or raises, unless the caller turned the
-kernel off with ``PALLAS_DECODE = False``: then the plain version runs
-on the card too.
+``_pallas_decode``).  On CPU tensors it runs the plain version.  On CUDA
+tensors it launches the kernel or raises, unless the head dim routes to
+the plain version or the caller turned the kernel off with
+``PALLAS_DECODE = False``: then the plain version runs on the card too.
 
 The default differs from the reference's, on purpose.  The reference
 keeps its kernel off because on a v5e the TPU's sequential grid lost to
@@ -19,6 +24,14 @@ XLA's fused einsum.  On the H100 the alternative is the plain eager
 version, which writes the whole cache ``rep`` times (the head repeat)
 and runs an f32 einsum and a softmax over it; so the port's kernel is
 on by default and off is the explicit opt-out.
+
+The kernel makes one launch per call.  It splits the keys of each
+(sequence, kv head, group of 16 query heads) over :func:`_splits` CTAs,
+chosen from the CTA count, the head dim and the cache length T (the
+longest visible length the host knows without a sync), and the last CTA
+of a row merges the splits, using a counter per row
+(``_tickets``) that it leaves at zero.  Calls on one device share those
+counters, so they must run on one stream at a time.
 
 The kernel rounds the unnormalised probabilities to v's dtype before
 P.V (as the TPU kernel does), the plain version rounds the normalised
@@ -39,15 +52,62 @@ from .. import cuda_lib
 __all__ = ["decode_attention"]
 
 PALLAS_DECODE = True           # False: the plain version runs on the card
-_MAX_REP = 16                  # kMaxRep in the kernel
-_HEAD_DIM = 128                # the one head_dim the kernel is built for
-_CHUNK = 256                   # kChunk: keys per CTA of the first pass
+# head dims the reference's decode_attention sends to its kernel
+# (decode_attention.py:164-172); the port's kernel is built for each
+KERNEL_HEAD_DIMS = (64, 128, 256)
+_TILE = 64                     # kTile: keys per ring stage
+_MIN_CHUNK = 256               # keys of a split, at least
+_MAX_SPLIT = 64                # kMaxSplit
+_F32_CHUNK = 256               # kChunkF32: keys per CTA of the f32 pass
+_SMEM_PER_SM = 228 * 1024      # shared memory of an sm_90 SM
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+_ARGTYPES = (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
              ctypes.c_float, _P)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _launch = None                 # the C entry, resolved at first CUDA use
+_tickets = {}                  # (device, stream) -> zeroed int32 counters
+_sms = {}                      # device index -> SM count
+
+
+def _route(head_dim):
+    """"kernel" or "plain": how a CUDA call at ``head_dim`` runs, by the
+    reference's rule (any GQA group goes to the kernel)."""
+    return "kernel" if head_dim in KERNEL_HEAD_DIMS else "plain"
+
+
+def _splits(ctas, t, sms, d=128):
+    """(n_split, chunk): key splits of ``chunk`` keys (a multiple of 64)
+    for ``ctas`` (sequence, kv head, group) rows over a cache of ``t``
+    keys, as many as the card holds at once: ``sms`` times the CTAs an
+    SM takes at head_dim ``d`` (by shared memory: 4, 2 and 1 at d 64,
+    128 and 256, so that at d 128 the grid covers two waves of the SMs);
+    one split where the rows fill those slots already or t fits one
+    chunk.  A last wave that only part of the card runs would set the
+    time."""
+    slots = sms * (_SMEM_PER_SM // (_smem(d) + 1024))
+    if ctas * 2 > slots or t <= _MIN_CHUNK:
+        return 1, -(-t // _TILE) * _TILE
+    want = min(slots // ctas, -(-t // _MIN_CHUNK), _MAX_SPLIT)
+    chunk = -(-(-(-t // want)) // _TILE) * _TILE
+    return -(-t // chunk), chunk
+
+
+def _smem(d):
+    """The bf16 kernel's shared memory at head_dim d (Smem<D>::kBytes):
+    Q [16, d] and three stages of K and V [64, d] tiles."""
+    return (16 + 3 * 2 * _TILE) * d * 2
+
+
+def _ticket_buffer(device, stream, n):
+    """At least ``n`` zeroed int32 counters for launches on ``stream``
+    (each launch leaves them zero)."""
+    key = (device, stream)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _tickets[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                          device=device)
+    return buf
 
 
 def decode_attention(q, kcache, vcache, pos):
@@ -55,30 +115,50 @@ def decode_attention(q, kcache, vcache, pos):
     (kv-head-major), pos [B] int32, the index of the CURRENT token
     (entries t <= pos attend).  Returns [B, nh, D] in q's dtype."""
     global _launch
-    if q.device.type == "cpu" or not PALLAS_DECODE:
+    if (q.device.type == "cpu" or not PALLAS_DECODE
+            or _route(q.shape[-1]) == "plain"):
         return _xla_decode(q, kcache, vcache, pos)
     b, nh, d, kvh, t = _check(q, kcache, vcache, pos)
-    n_chunks = -(-t // _CHUNK)
+    rep = nh // kvh
+    dev = q.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
     out = torch.empty_like(q)
-    part_m = torch.empty((b, nh, n_chunks), dtype=torch.float32,
-                         device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b, nh, n_chunks, d), dtype=torch.float32,
-                           device=q.device)
+    part_ml = part_o = tickets = None
+    if q.dtype == torch.float32:
+        n_split, chunk = -(-t // _F32_CHUNK), _F32_CHUNK
+        part_ml = torch.empty((b * nh, n_split, 2), dtype=torch.float32,
+                              device=dev)
+        part_o = torch.empty((b * nh, n_split, d), dtype=torch.float32,
+                             device=dev)
+    else:
+        ctas = b * kvh * -(-rep // 16)
+        if dev.index not in _sms:
+            _sms[dev.index] = torch.cuda.get_device_properties(
+                dev).multi_processor_count
+        n_split, chunk = _splits(ctas, t, _sms[dev.index], d)
+        if n_split > 1:
+            part_ml = torch.empty((ctas, n_split, 16, 2),
+                                  dtype=torch.float32, device=dev)
+            part_o = torch.empty((ctas, n_split, 16, d), dtype=torch.float32,
+                                 device=dev)
+            tickets = _ticket_buffer(dev, stream, ctas)
     if _launch is None:
         _launch = cuda_lib.kernel("decode_attention", "decode_attention_fwd",
                                   _ARGTYPES)
     err = _launch(_DTYPES[q.dtype], d, q.data_ptr(), kcache.data_ptr(),
                   vcache.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                  part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
-                  b, kvh, nh // kvh, t, n_chunks, 1.0 / math.sqrt(d),
-                  torch.cuda.current_stream(q.device).cuda_stream)
+                  _ptr(part_ml), _ptr(part_o), _ptr(tickets), b, kvh, rep,
+                  t, n_split, chunk, 1.0 / math.sqrt(d), stream)
     cuda_lib.check("decode_attention", err, "decode_attention launch")
     decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0  # kernel launches (the main-path witness)
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
 
 
 def _check(q, kcache, vcache, pos):
@@ -102,18 +182,22 @@ def _check(q, kcache, vcache, pos):
             "[B, kvh, T, D]")
     b, nh, d = q.shape
     kvh, t = kcache.shape[1], kcache.shape[2]
-    if d != _HEAD_DIM or kcache.shape[3] != d:
+    if d not in KERNEL_HEAD_DIMS or kcache.shape[3] != d:
         raise ValueError(f"decode_attention kernel takes head_dim "
-                         f"{_HEAD_DIM}, got q {d} / cache {kcache.shape[3]}")
+                         f"{KERNEL_HEAD_DIMS}, got q {d} / cache "
+                         f"{kcache.shape[3]}")
     if kcache.shape[0] != b or tuple(pos.shape) != (b,):
         raise ValueError(
             f"decode_attention: caches {tuple(kcache.shape)} and pos "
             f"{tuple(pos.shape)} must have B={b} rows")
-    if nh % kvh or not 1 <= nh // kvh <= _MAX_REP:
+    if nh % kvh:
         raise ValueError(f"decode_attention: {nh} q heads must group onto "
-                         f"{kvh} kv heads, at most {_MAX_REP} per group")
+                         f"{kvh} kv heads")
     if t < 1:
         raise ValueError("decode_attention: the cache holds no position")
+    if b * kvh > 65535:
+        raise ValueError(f"decode_attention: B * kvh = {b * kvh} rows, at "
+                         "most 65535")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("decode_attention kernel takes contiguous inputs")
     if q.data_ptr() % 16 or kcache.data_ptr() % 16 \

@@ -37,6 +37,13 @@ difference from the Pallas path: dk/dv of a GQA group are summed in f32
 before the one rounding to k's dtype (the reference rounds per q head,
 then sums) — identical in float32.
 
+Head dims route as the reference's ``sdpa`` routes them
+(``:264-269``), by :func:`_route`: on CUDA tensors d in {64, 128, 256}
+goes to the kernels and every other d to the plain versions (the
+reference's XLA route, chosen by the same shape rule: exactly what a CPU
+tensor runs).  The kernels are built for d = 128; d = 64 and 256 raise
+``NotImplementedError`` naming the kernel (ROADMAP queue 2, A1).
+
 The reference's ``S >= 128`` floor, its padding to 128 and its
 streamed-variant switch past 4096 tokens are TPU tiling and VMEM
 limits: on the card one kernel of each kind takes every length, with the
@@ -282,8 +289,24 @@ _FWD_ARGS = (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P)
 _BWD_ARGS = (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
              _F, _P, _P)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIM = 128                # the one head_dim the kernels are built for
+# head dims the reference's sdpa sends to its kernels (:264-269); the
+# port's kernels are built for _HEAD_DIM
+KERNEL_HEAD_DIMS = (64, 128, 256)
+_HEAD_DIM = 128
 _entries = {}                  # C entry name -> ctypes function
+
+
+def _route(head_dim, kernel="flash_mha (K1/K2)"):
+    """"kernel" or "plain": how a CUDA call at ``head_dim`` runs, by the
+    reference's rule; raises ``NotImplementedError`` naming ``kernel``
+    where the reference runs a kernel that the port has not built."""
+    if head_dim not in KERNEL_HEAD_DIMS:
+        return "plain"
+    if head_dim != _HEAD_DIM:
+        raise NotImplementedError(
+            f"{kernel} at head_dim {head_dim}: the Hopper kernels are built "
+            f"for head_dim {_HEAD_DIM} (ROADMAP queue 2 A1)")
+    return "kernel"
 
 
 def _entry(symbol, argtypes):
@@ -318,6 +341,8 @@ def _check(q, k, v, *more, name="flash_mha"):
                          f"{tuple(v.shape)} equal [B, kvH, Sk, D]")
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
+    if d != _HEAD_DIM and d in KERNEL_HEAD_DIMS:
+        _route(d, name)                 # raises: not built yet
     if d != _HEAD_DIM or k.shape[3] != d or k.shape[0] != b:
         raise ValueError(f"{name} kernels take head_dim {_HEAD_DIM} and "
                          f"matching batch, got q {tuple(q.shape)} k "
@@ -353,8 +378,9 @@ def _stream(t):
 
 def _flash_fwd(q, k, v, causal, sm_scale):
     """K1 forward: (out [B, H, Sq, D], lse [B, H, Sq] f32).  CPU tensors
-    take :func:`_flash_fwd_xla`; CUDA tensors launch the kernel."""
-    if q.device.type == "cpu":
+    and head dims that :func:`_route` sends to the plain version take
+    :func:`_flash_fwd_xla`; other CUDA tensors launch the kernel."""
+    if q.device.type == "cpu" or _route(q.shape[-1]) == "plain":
         return _flash_fwd_xla(q, k, v, causal, sm_scale)
     b, h, sq, d, kvh, sk = _check(q, k, v)
     out = _bshd_empty_like(q)
@@ -429,7 +455,7 @@ def _flash_bwd(q, k, v, out, lse, dout, causal, sm_scale):
     """K2 backward: (dq, dk, dv).  CPU tensors take
     :func:`_flash_bwd_xla`; CUDA tensors launch the dq kernel, then the
     dk/dv kernel (which reads the delta the first one wrote)."""
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or _route(q.shape[-1]) == "plain":
         return _flash_bwd_xla(q, k, v, out, lse, dout, causal, sm_scale)
     dq, delta = _flash_bwd_dq(q, k, v, out, lse, dout, causal, sm_scale)
     dk, dv = _flash_bwd_dkv(q, k, v, lse, delta, dout, causal, sm_scale)
@@ -462,8 +488,8 @@ def flash_mha(q, k, v, causal, sm_scale):
     [B, kvH, Sk, D] with H % kvH == 0 (GQA, no repeat).  Any Sq, Sk;
     causal is bottom-right aligned.  CUDA inputs run the K1 forward and
     the K2 backward kernels (float32 or bfloat16, head_dim 128, strided
-    views with a contiguous head dim); CPU inputs run the plain
-    versions."""
+    views with a contiguous head dim); CPU inputs, and head dims outside
+    {64, 128, 256}, run the plain versions."""
     return _FlashMHA.apply(q, k, v, bool(causal), float(sm_scale))
 
 

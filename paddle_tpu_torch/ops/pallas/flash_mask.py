@@ -20,16 +20,19 @@ GQA group in f32 (the reference rounds per q head, then sums —
 identical in float32); and the dbias kernel, which runs only when the
 bias needs a gradient (the reference always emits it and lets XLA drop
 it) and sums over the bias's broadcast dims in-kernel.  In bf16 the
-forward, dq and dk/dv are the Hopper kernels of ``csrc/flash_sm90.cuh``,
-which skip the tiles that the intervals hide whole (the forward's 128-row
-query blocks x 128-key tiles, dq's 128-row blocks x 64-key tiles, dk/dv's
-64-row query tiles x 64-key blocks), by a table of each interval
+forward, dq, dk/dv and dbias are the Hopper kernels of
+``csrc/flash_sm90.cuh``, which skip the tiles that the intervals hide
+whole (the forward's 128-row query blocks x 128-key tiles, dq's and
+dbias's 128-row blocks x 64-key tiles, dk/dv's 64-row query tiles x
+64-key blocks), by a table of each interval
 vector's minimum and maximum over 64-key blocks that each C entry writes
 first: :func:`_tile_table_xla` and :func:`_tile_classes` are its plain
 versions.
 
 On CPU tensors every entry runs its plain version; on CUDA tensors it
-launches the kernel or raises.  The plain versions
+launches the kernel or raises, except for the head dims that the
+reference routes to XLA (``flash_attention._route``: d outside {64,
+128, 256}), which run the plain versions on the card too.  The plain versions
 (:func:`_masked_fwd_xla`, :func:`_masked_bwd_dq_xla`,
 :func:`_masked_bwd_dkv_xla`, :func:`_masked_bwd_dbias_xla`) follow the
 Pallas bodies, not the XLA path: f32 logits with -inf at masked keys;
@@ -46,8 +49,8 @@ import torch
 
 from .. import cuda_lib
 from .flash_attention import (LSE_INVALID, _bshd_empty_like, _bwd_inputs,
-                              _check, _expand_kv, _group_sum, _stream,
-                              _strided_ok, _strides)
+                              _check, _expand_kv, _group_sum, _route,
+                              _stream, _strided_ok, _strides)
 
 __all__ = ["flash_mha_masked", "flash_mha_biased", "flash_mha_masked_xla",
            "padding_mask_to_intervals", "sliding_window_intervals",
@@ -74,11 +77,12 @@ DQ_TILE, DKV_TILE = (128, 64), (64, 64)
 _BWD_ARGS = (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I,
              _I, _I, _I, _I, _I, _F, _P, _P)
 # dtype, head_dim, q, k, v, dout, lse, delta, mask, nvec, bias,
-# bias_dtype, dbias, dbias_acc, B, H, group, Bb, Hb, sq, sk, causal,
+# bias_dtype, dbias, dbias_acc, tbl, B, H, group, Bb, Hb, sq, sk, causal,
 # scale, strides, stream
-_DBIAS_ARGS = (_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _I, _I,
-               _I, _I, _I, _I, _I, _I, _F, _P, _P)
+_DBIAS_ARGS = (_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I,
+               _I, _I, _I, _I, _I, _I, _I, _F, _P, _P)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL = "flash_mha_masked (K8)"    # the name the head-dim rule raises with
 _BIAS_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _entries = {}                  # C entry name -> ctypes function
 
@@ -400,11 +404,11 @@ def _masked_fwd(q, k, v, mask_vecs, bias, causal, sm_scale, need_lse):
     """K8 forward: (out [B, H, Sq, D], lse [B, H, Sq] f32 or None).  CPU
     tensors take :func:`_masked_fwd_xla`; CUDA tensors launch the kernel,
     which writes lse only when ``need_lse``."""
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or _route(q.shape[-1], _KERNEL) == "plain":
         out, lse = _masked_fwd_xla(q, k, v, mask_vecs, bias, causal,
                                    sm_scale)
         return out, (lse if need_lse else None)
-    b, h, sq, d, kvh, sk = _check(q, k, v, name="flash_mha_masked")
+    b, h, sq, d, kvh, sk = _check(q, k, v, name=_KERNEL)
     _check_mask(mask_vecs, b, h, sk)
     bias = _check_bias(bias, b, h, sq, sk)
     out = _bshd_empty_like(q)
@@ -481,11 +485,12 @@ def _masked_bwd_dbias(q, k, v, lse, delta, dout, mask_vecs, bias, causal,
     if bias.dtype != torch.float32 and bb * hb < b * h:
         acc = torch.empty((bb, hb, sq, sk), dtype=torch.float32,
                           device=q.device)
+    tbl = _table_scratch(q, mask_vecs, b, h, sk)
     err = _entry("flash_mask_bwd_dbias", _DBIAS_ARGS)(
         _DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         *_operands(mask_vecs, bias), dbias.data_ptr(),
-        _ptr(acc), b, h, h // kvh, bb, hb,
+        _ptr(acc), _ptr(tbl), b, h, h // kvh, bb, hb,
         sq, sk, int(bool(causal)), float(sm_scale),
         _all_strides((q, k, v, dout), mask_vecs, bias), _stream(q))
     cuda_lib.check("flash_mask", err, "flash_mha_biased dbias launch")
@@ -499,7 +504,7 @@ def _masked_bwd(q, k, v, out, lse, dout, mask_vecs, bias, causal, sm_scale,
     plain versions; CUDA tensors launch the dq kernel (which writes
     delta), the dk/dv kernel and, when ``need_dbias``, the dbias
     kernel."""
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" or _route(q.shape[-1], _KERNEL) == "plain":
         full = (q, k, v, out, lse, dout, mask_vecs, bias, causal, sm_scale)
         return (_masked_bwd_dq_xla(*full), *_masked_bwd_dkv_xla(*full),
                 _masked_bwd_dbias_xla(*full) if need_dbias else None)

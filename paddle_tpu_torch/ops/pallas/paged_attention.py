@@ -12,7 +12,12 @@ int32, lens [B] int32 = tokens visible per sequence.  Inference only.
 :func:`paged_attention` is the wrapper of the CUDA kernel
 ``csrc/paged_attention.cu`` (the port of the TPU kernel K3).  On CPU
 tensors it runs :func:`paged_attention_xla`, the plain dense-gather
-version; on CUDA tensors it launches the kernel or raises.
+version; on CUDA tensors it launches the kernel or raises.  The
+reference runs its kernel at every head dim and group
+(``select_paged_attention``, ``:58-61``); the port's is built for
+head_dim 128 and groups of at most 16, so :func:`_route` raises
+``NotImplementedError`` elsewhere (ROADMAP queue 2, A3) rather than
+return a result that no kernel of the card computes.
 
 The two differ where the reference's two paths differ: the kernel
 rounds the unnormalised probabilities to v's dtype before P.V (as the
@@ -88,6 +93,18 @@ def paged_attention(q, kpool, vpool, table, lens):
 paged_attention.launches = 0   # kernel launches (the main-path witness)
 
 
+def _route(head_dim, group):
+    """"kernel" where the port's K3 kernel is built (head_dim 128, GQA
+    groups of at most 16); raises ``NotImplementedError`` elsewhere: the
+    reference runs its kernel at every shape, so no plain route exists."""
+    if head_dim != _HEAD_DIM or not 1 <= group <= _MAX_REP:
+        raise NotImplementedError(
+            f"paged_attention (K3) at head_dim {head_dim}, group {group}: "
+            f"the kernel is built for head_dim {_HEAD_DIM} and groups of at "
+            f"most {_MAX_REP} (ROADMAP queue 2 A3)")
+    return "kernel"
+
+
 def _check(q, kpool, vpool, table, lens):
     """Validate what the kernel takes; raise on anything else."""
     tensors = (q, kpool, vpool, table, lens)
@@ -109,12 +126,11 @@ def _check(q, kpool, vpool, table, lens):
             "[P, kvH, page_size, D]")
     b, nh, d = q.shape
     kvh, ps = kpool.shape[1], kpool.shape[2]
-    if d != _HEAD_DIM or kpool.shape[3] != d:
-        raise ValueError(f"paged_attention kernel takes head_dim "
-                         f"{_HEAD_DIM}, got q {d} / pool {kpool.shape[3]}")
-    if nh % kvh or not 1 <= nh // kvh <= _MAX_REP:
-        raise ValueError(f"paged_attention: {nh} q heads must group onto "
-                         f"{kvh} kv heads, at most {_MAX_REP} per group")
+    if kpool.shape[3] != d or nh % kvh:
+        raise ValueError(f"paged_attention: q {tuple(q.shape)} must match "
+                         f"the pools' head_dim and group onto their kv "
+                         f"heads, got pools {tuple(kpool.shape)}")
+    _route(d, nh // kvh)                 # raises where no kernel is built
     if table.dim() != 2 or table.shape[0] != b or tuple(lens.shape) != (b,):
         raise ValueError(
             f"paged_attention: table {tuple(table.shape)} must be [B, W] "

@@ -3,14 +3,31 @@ of two checkouts on one card.
 
 Usage, on the machine with the card, from any directory::
 
-    python3 paddle_tpu_torch/tools/flash_ab.py PATH_TO_CHECKOUT
+    python3 paddle_tpu_torch/tools/flash_ab.py PATH_TO_CHECKOUT [PARTS]
 
-It builds that checkout's ``flash_attention`` and ``flash_mask``
-sources and prints, for each bf16 kernel of both (K1/K2 and the K8
-kernels), its ptxas lines (registers, shared memory, spills) and its
-SASS counts of ``HGMMA`` (wgmma), ``UTMALDG`` (TMA loads), ``HMMA``
-(mma.sync), shared and local loads and stores (with ``cuobjdump`` from
-the CUDA toolkit).  Then one JSON line per row of ``chip_smoke.py``'s
+PARTS is a comma-separated subset of
+``flash,k8,small,longctx,k7,dbias,decode`` (default: all of them); the
+kernel lines below are printed always.
+
+It builds that checkout's ``flash_attention``, ``flash_mask`` and
+``decode_attention`` sources and prints, for each bf16 kernel of them
+(K1/K2, the K8 kernels, K7), its ptxas lines (registers, shared memory,
+spills) and its SASS counts of ``HGMMA`` (wgmma), ``UTMALDG`` (TMA
+loads), ``UTMASTG`` (TMA stores), ``HMMA`` (mma.sync), shared and local
+loads and stores (with ``cuobjdump`` from the CUDA toolkit) and a digest
+of its instructions.  Part ``k7`` prints one line per row of
+``chip_smoke.py``'s ``K7_SHAPES`` (the decode attention's device ms by
+``torch.profiler`` and CUDA-event ms, its bound and
+``scaled_dot_product_attention``'s device ms with the bool mask; a row
+the checkout's kernel does not take prints the error); part ``dbias``
+the K8 dbias at ``alibi_bias`` and at 10d's shape (b 1, h 16, s 8192)
+on an out, lse and delta the tool computes in f32, beside its bound and
+one forward + backward of ``scaled_dot_product_attention`` with the
+bias's gradient; part ``decode`` runs ``chip_smoke.py``'s 11c (llama3_8b
+``generate`` at 8 x 8064 + 128, K7 on and off, paged) and a profile of
+one of its decode steps with K7 on.  Part ``flash`` prints one JSON line
+per row of
+``chip_smoke.py``'s
 ``FLASH_SHAPES`` (bf16, causal) with the mean CUDA-event milliseconds of
 the K1 forward and the K2 dq and dk/dv kernels, each kernel's bound (the
 larger of its bytes over 3.35 TB/s and its operations over 989 TFLOP/s)
@@ -50,7 +67,9 @@ import subprocess
 import sys
 from pathlib import Path
 
-SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDS", "STS", "LDL", "STL", "MUFU")
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA", "LDS", "STS", "LDL",
+            "STL", "MUFU")
+PARTS = ("flash", "k8", "small", "longctx", "k7", "dbias", "decode")
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3):
@@ -110,16 +129,19 @@ def sass_counts(lib):
 
 
 def bf16_flash(name):
-    """Whether a kernel name is a bf16 flash kernel: a flash_sm90.cuh
-    instance, or a bfloat16 instance of the WMMA bodies."""
-    return "flash_sm90" in name or "nv_bfloat16" in name
+    """Whether a kernel name is a bf16 attention kernel: a flash_sm90.cuh
+    instance, K7's decode_mma_kernel, or a bfloat16 instance of the
+    CUDA-core bodies."""
+    return ("flash_sm90" in name or "nv_bfloat16" in name
+            or "decode_mma" in name)
 
 
-def main(root):
+def main(root, parts=PARTS):
     tool_root = str(Path(__file__).resolve().parents[2])
     sys.path.insert(0, tool_root)
-    from chip_smoke import (FLASH_SHAPES, K8_SHAPES, MASKED_SHAPES,
-                            WINDOW_SHAPE, bound, k8_operands,
+    from chip_smoke import (FLASH_SHAPES, K7_SHAPES, K8_SHAPES,
+                            LONGCTX_SEQ, MASKED_SHAPES, WINDOW_SHAPE,
+                            alibi_bias, bias_read_bytes, bound, k8_operands,
                             phase_longctx_bias, phase_longctx_masked,
                             phase_longctx_window, release, visible_pairs,
                             window_intervals)
@@ -127,6 +149,7 @@ def main(root):
     sys.path.insert(0, root)
     import torch
     from paddle_tpu_torch.ops import cuda_lib
+    from paddle_tpu_torch.ops.pallas import decode_attention as DA
     from paddle_tpu_torch.ops.pallas import flash_attention as FA
     from paddle_tpu_torch.ops.pallas import flash_mask as FM
     assert cuda_lib.__file__.startswith(root), cuda_lib.__file__
@@ -135,8 +158,9 @@ def main(root):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print("checkout", root, "|", smi, flush=True)
-    cuda_lib.build(("flash_attention", "flash_mask"))
-    for src in ("flash_attention", "flash_mask"):
+    srcs = ("flash_attention", "flash_mask", "decode_attention")
+    cuda_lib.build(srcs)
+    for src in srcs:
         lines = ptxas_lines(cuda_lib.build_log[src])
         sass = sass_counts(str(cuda_lib.BUILD_DIR / f"lib{src}.so"))
         for fn in sorted(set(lines) | set(sass)):
@@ -154,7 +178,14 @@ def main(root):
         return torch.randn(b, s, h, d, device="cuda",
                            generator=gen).to(dt).transpose(1, 2)
 
-    for name, B, H, kvh, sq, sk in FLASH_SHAPES:
+    if "k7" in parts:
+        k7_rows(torch, DA, root, gen, K7_SHAPES, bound)
+    if "dbias" in parts:
+        dbias_rows(torch, FM, root, bhsd, K8_SHAPES, LONGCTX_SEQ,
+                   alibi_bias, bias_read_bytes, bound, visible_pairs, scale,
+                   sdpa)
+    for name, B, H, kvh, sq, sk in (FLASH_SHAPES if "flash" in parts
+                                    else ()):
         q, k, v, do = bhsd(B, sq, H), bhsd(B, sk, kvh), bhsd(B, sk, kvh), \
             bhsd(B, sq, H)
         out, lse = FA._flash_fwd(q, k, v, True, scale)
@@ -198,7 +229,8 @@ def main(root):
                           "ms": cuda_ms(torch, fn), **extra}), flush=True)
 
     masked = {row[0]: row for row in MASKED_SHAPES}
-    for name in ("serve_2048", "long_decode", "bench_paged"):
+    for name in (("serve_2048", "long_decode", "bench_paged")
+                 if "k8" in parts else ()):
         _, B, H, kvh, S, lengths, _ = masked[name]
         q, k, v = bhsd(B, S, H), bhsd(B, S, kvh), bhsd(B, S, kvh)
         keep = (torch.arange(S, device="cuda")[None]
@@ -219,7 +251,8 @@ def main(root):
         k8_row(f"{name}_dkv", lambda: FM._masked_bwd_dkv(
             q, k, v, lse, delta, do, *args), sdpa_fwd_bwd_ms=lib, **extra)
 
-    for name, B, H, kvh, S, causal, kind in K8_SHAPES:
+    for name, B, H, kvh, S, causal, kind in (K8_SHAPES if "k8" in parts
+                                             else ()):
         q, k, v, do = bhsd(B, S, H), bhsd(B, S, kvh), bhsd(B, S, kvh), \
             bhsd(B, S, H)
         vecs, bias = k8_operands(FM, kind, B, H, S, "cuda")
@@ -228,7 +261,18 @@ def main(root):
                                                 scale, True))
         k8_backward(name, q, k, v, do, vecs, bias, causal)
         del q, k, v, do
-    name, B, H, S = WINDOW_SHAPE
+    if "k8" in parts:
+        k8_window(torch, FA, FM, bhsd, k8_row, k8_backward, window_intervals,
+                  WINDOW_SHAPE, scale)
+    small_and_longctx(torch, FA, FM, root, bhsd, masked, scale, sdpa, parts,
+                      release, phase_longctx_masked, phase_longctx_window,
+                      phase_longctx_bias)
+
+
+def k8_window(torch, FA, FM, bhsd, k8_row, k8_backward, window_intervals,
+              window_shape, scale):
+    """The K8 forward, dq and dk/dv at 10c's mask, beside K1/K2 unmasked."""
+    name, B, H, S = window_shape
     q, k, v, do = (bhsd(B, S, H) for _ in range(4))
     vecs = window_intervals(FM, B, S, "cuda")
     k1_ms = cuda_ms(torch, lambda: FA._flash_fwd(q, k, v, True, scale))
@@ -244,8 +288,13 @@ def main(root):
     k8_backward(name, q, k, v, do, vecs, None, True, **k2)
     del q, k, v, do
 
-    # the small prefills: CUDA-event time against device time
-    for name in ("serve_512", "bench_decode"):
+
+def small_and_longctx(torch, FA, FM, root, bhsd, masked, scale, sdpa, parts,
+                      release, phase_longctx_masked, phase_longctx_window,
+                      phase_longctx_bias):
+    """The small prefills' event and device time, then 10b-10d."""
+    for name in (("serve_512", "bench_decode") if "small" in parts
+                 else ()):
         _, B, H, kvh, S, lengths, _ = masked[name]
         q, k, v = bhsd(B, S, H), bhsd(B, S, kvh), bhsd(B, S, kvh)
         keep = (torch.arange(S, device="cuda")[None]
@@ -263,6 +312,10 @@ def main(root):
               flush=True)
         del q, k, v, dense
 
+    if "decode" in parts:
+        decode_e2e(torch, release)
+    if "longctx" not in parts:
+        return
     # the long-context rung on this checkout's kernels
     release()
     qkv, _ = phase_longctx_masked(FA, FM)
@@ -346,5 +399,93 @@ def device_ms(torch, fn, iters=20):
     return {"device_ms": sum(kernels.values()), "kernels": dict(kernels)}
 
 
+def decode_e2e(torch, release):
+    """11c on this checkout's kernels, and one decode step's profile."""
+    import numpy as np
+    from chip_smoke import (LONG_PROMPT, bench_model, phase_long_decode,
+                            profile_generate_step)
+    from paddle_tpu_torch.models import generation as G
+    from paddle_tpu_torch.models import init_state, llama3_8b
+    from paddle_tpu_torch.ops.pallas import decode_attention as DA
+    from paddle_tpu_torch.ops.pallas import flash_mask as FM
+    from paddle_tpu_torch.ops.pallas import lora_matmul as LM
+    from paddle_tpu_torch.ops.pallas import paged_attention as PA
+    from paddle_tpu_torch.ops.pallas import quant_matmul as QM
+    mods = {"G": G, "DA": DA, "PA": PA, "FM": FM, "QM": QM, "LM": LM,
+            "init_state": init_state}
+    cfg = llama3_8b()
+    release()
+    phase_long_decode(mods, cfg)
+    state, _ = bench_model(mods, cfg)
+    ids = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (8, LONG_PROMPT))).cuda()
+    profile_generate_step(mods, state, cfg, ids, "11c", "dense_k7_on")
+    del state
+    release()
+
+
+def k7_rows(torch, DA, root, gen, shapes, bound):
+    """One line per K7 shape: device ms (``torch.profiler``) and
+    CUDA-event ms of the decode attention, its bound, and SDPA's device
+    ms with the bool mask t <= pos; a row the checkout's kernel does not
+    take prints the error."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name, B, nh, kvh, T, pos, D in shapes:
+        q = torch.randn(B, nh, D, device="cuda", generator=gen).bfloat16()
+        k, v = (torch.randn(B, kvh, T, D, device="cuda", generator=gen)
+                .bfloat16() for _ in range(2))
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        visible = int(torch.clamp(pos_t + 1, max=T).sum())
+        row = {"checkout": root, "k7": name, "bound_ms": bound(
+            2 * visible * kvh * D * 2 + 4 * q.numel() + 4 * B,
+            4 * visible * nh * D)[0]}
+        try:
+            fn = lambda: DA.decode_attention(q, k, v, pos_t)  # noqa: E731
+            fn()
+            row.update(event_ms=cuda_ms(torch, fn, iters=50),
+                       **device_ms(torch, fn))
+        except (ValueError, NotImplementedError) as e:
+            row["error"] = str(e)
+        mask = (torch.arange(T, device="cuda")[None, :]
+                <= pos_t[:, None])[:, None, None, :]
+        row["sdpa_device_ms"] = device_ms(torch, lambda: sdpa(
+            q[:, :, None], k, v, attn_mask=mask,
+            enable_gqa=kvh != nh))["device_ms"]
+        print(json.dumps(row), flush=True)
+        del q, k, v
+
+
+def dbias_rows(torch, FM, root, bhsd, k8_shapes, longctx_seq, alibi_bias,
+               bias_read_bytes, bound, visible_pairs, scale, sdpa):
+    """The K8 dbias at ``alibi_bias`` (b 2, h 16, s 2048: two members per
+    CTA) and at 10d's shape (b 1, h 16, s 8192), on an f32-made out, lse
+    and delta, beside its bound and SDPA's forward + backward with the
+    bias's gradient."""
+    shapes = [row for row in k8_shapes if row[0] == "alibi_bias"]
+    shapes.append(("alibi_8192", 1, 16, 16, longctx_seq, True, "alibi"))
+    for name, B, H, kvh, S, causal, _ in shapes:
+        q, k, v, do = bhsd(B, S, H), bhsd(B, S, kvh), bhsd(B, S, kvh), \
+            bhsd(B, S, H)
+        bias = alibi_bias(H, S, "cuda")
+        out, lse, delta = plain_forward(torch, q, k, v, do, None, bias,
+                                        causal, scale, FM.LSE_INVALID)
+        fn = lambda: FM._masked_bwd_dbias(  # noqa: E731
+            q, k, v, lse, delta, do, None, bias, causal, scale)
+        n_q = B * H * S * 128
+        b_ms = bound(4 * n_q * 2 + 2 * B * H * S * 4
+                     + bias_read_bytes(FM, None, bias, S, S, causal, "cuda")
+                     + bias.numel() * 4, 4 * visible_pairs(S, S) * B * H
+                     * 128)[0]
+        ms = cuda_ms(torch, fn, iters=10, warmup=2)
+        del out
+        lib = sdpa_fwd_bwd_ms(torch, sdpa, FM, q, k, v, do, None, bias,
+                              causal, scale)
+        print(json.dumps({"checkout": root, "dbias": name, "ms": ms,
+                          "bound_ms": b_ms, "sdpa_fwd_bwd_ms": lib}),
+              flush=True)
+        del q, k, v, do, bias, lse, delta
+
+
 if __name__ == "__main__":
-    main(os.path.abspath(sys.argv[1]))
+    main(os.path.abspath(sys.argv[1]),
+         tuple(sys.argv[2].split(",")) if len(sys.argv) > 2 else PARTS)

@@ -58,10 +58,18 @@ version per row (float32 1e-5 absolute on O(1) entries, bf16 and fp16
 read one column off).
 
 The dense-cache decode attention (K7) is held to its plain version the
-same way as K3 (float32 1e-5 absolute, bf16 2^-6 per row) at the two
-shapes of ``chip_smoke.py`` phase 3 (the bench's decode shape and the
-reference's own K7 measurement shape at T 8192), with a planted fault
-(every row told 64 keys fewer) and the wrapper's rejections.
+same way as K3 (float32 1e-5 absolute, bf16 2^-6 per row) at the bench's
+decode shape, the reference's own K7 measurement shape at T 8192,
+head_dim 64 (TinyLlama-1.1B's 32/4 heads) and 256, groups of 20 and 32,
+one split and many, and a row with no key, with a planted fault (every
+row told 64 keys fewer), bit-equal reruns and the wrapper's rejections.
+
+The head-dim routes: d outside {64, 128, 256} runs the plain versions on
+the card (K7 here, K1/K2 and K8 through ``sdpa`` in the CPU tests);
+flash at d 64 and K3 off d 128 raise ``NotImplementedError`` naming the
+kernel and its ROADMAP item.  The bf16 K8 dbias (flash_sm90.cuh) is held
+through the K8 backward cases (every bias broadcast shape and dtype, Sk
+1001, intervals with a bias) and a planted fault (64 keys dropped).
 """
 import math
 
@@ -177,7 +185,7 @@ def test_paged_wrapper_rejects(gen):
     with pytest.raises(ValueError):
         PA.paged_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
                            kp, vp, table, lens)
-    with pytest.raises(ValueError):
+    with pytest.raises(NotImplementedError, match=r"K3.*queue 2 A3"):
         PA.paged_attention(q[..., :64].contiguous(), kp[..., :64].contiguous(),
                            vp[..., :64].contiguous(), table, lens)
 
@@ -257,7 +265,7 @@ def test_masked_wrapper_rejects(gen):
         FM.flash_mha_biased(q, k, v, bias[:, :, :32], True, 0.1)
     with pytest.raises(ValueError):
         FM.flash_mha_masked(q, k, v, vecs.long().int()[..., :10], True, 0.1)
-    with pytest.raises(ValueError):
+    with pytest.raises(NotImplementedError, match=r"K8.*queue 2 A1"):
         FM.flash_mha_masked(q[..., :64], k[..., :64], v[..., :64], vecs,
                             True, 0.1)
 
@@ -659,6 +667,41 @@ def test_k8_bf16_backward_is_deterministic(gen):
             assert (x is None and y is None) or torch.equal(x, y)
 
 
+DBIAS_FAULT_CASES = [  # name, b, h, kvh, s, causal, intervals, bias
+    ("bias_11_f32", 2, 4, 4, 300, True, None, (1, 1, torch.float32)),
+    ("bias_1x4_bf16", 2, 4, 4, 300, True, None, (1, 4, torch.bfloat16)),
+    ("bias_and_docs", 2, 4, 2, 640, False, ("docs", 2, 63),
+     (1, 4, torch.float32)),
+]
+
+
+@pytest.mark.parametrize("case", DBIAS_FAULT_CASES,
+                         ids=[c[0] for c in DBIAS_FAULT_CASES])
+def test_k8_bf16_dbias_check_catches_dropped_keys(gen, case):
+    """The bf16 dbias (flash_sm90.cuh) at a bias broadcast over batch and
+    head, a bf16 bias summed over the batch (its f32 accumulator) and
+    intervals with a bias: the kernels run on inputs that lost their
+    last 64 keys (k, v, the bias and the intervals cut) must fail the
+    per-row check against the full reference on >= 99 % of its rows."""
+    name, b, h, kvh, s, causal, ivl, bspec = case
+    q, k, v, do = _flash_inputs(gen, torch.bfloat16, b, h, kvh, s, s)
+    vecs = _bwd_intervals(ivl, b, h, s, s)
+    bias = _fwd_bias(gen, bspec, h, s, s)
+    ref = _check_k8_bwd(q, k, v, do, vecs, bias, causal)[3]
+    n = s - 64
+    cut = vecs[..., :n] if vecs is not None else None
+    scale = 1.0 / math.sqrt(128)
+    out, lse = FM._masked_fwd(q, k[:, :, :n], v[:, :, :n], cut,
+                              bias[..., :n], causal, scale, True)
+    bad = FM._masked_bwd(q, k[:, :, :n], v[:, :, :n], out, lse, do, cut,
+                         bias[..., :n], causal, scale, need_dbias=True)[3]
+    want = ref[..., :n]
+    err = _grad_row_err(bad, want)
+    norm = want.float().norm(dim=-1)
+    live = norm > 2 ** -6 * norm.square().mean().sqrt()
+    assert (err[live] > BF16_ROW_TOL).float().mean().item() >= 0.99
+
+
 # ----------------------------------------------------------- K1 / K2
 FLASH_CASES = [  # b, h, kvh, sq, sk, causal
     (1, 4, 4, 256, 256, True),
@@ -817,8 +860,10 @@ def test_flash_wrapper_rejects(gen):
     q, k, v, _ = _flash_inputs(gen, torch.float32, 1, 4, 2, 64, 64)
     with pytest.raises(TypeError):
         FA._flash_fwd(q.half(), k.half(), v.half(), True, 0.1)
-    with pytest.raises(ValueError):
+    with pytest.raises(NotImplementedError, match=r"K1.*queue 2 A1"):
         FA._flash_fwd(q[..., :64], k[..., :64], v[..., :64], True, 0.1)
+    with pytest.raises(ValueError, match="head_dim"):
+        FA._check(q[..., :96], k[..., :96], v[..., :96])
     with pytest.raises(ValueError):
         FA._flash_fwd(q, k[:, :1].expand(1, 3, 64, 128), v[:, :1].expand(
             1, 3, 64, 128), True, 0.1)
@@ -943,30 +988,57 @@ def test_lora_check_catches_planted_fault(gen):
 
 
 # ------------------------------------------------ K7: dense-cache decode
-K7_SHAPES = {  # name: B, nh, kvh, T, pos
+K7_SHAPES = {  # name: B, nh, kvh, T, pos, D
     "bench_decode": (8, 16, 16, 256, [128, 255, 140, 200, 173, 129, 254,
-                                      191]),
+                                      191], 128),
     "reference_8k": (8, 32, 8, 8192, [8191, 8191, 100, 0, 4095, 4096,
-                                      8000, 257]),
+                                      8000, 257], 128),
+    # TinyLlama-1.1B's heads (32 q / 4 kv, head_dim 64)
+    "tinyllama_d64": (8, 32, 4, 2048, [2047, 1000, 0, 63, 64, 1500, 2046,
+                                       777], 64),
+    "d256": (4, 16, 4, 2048, [2047, 100, 1024, 5], 256),
+    # a group of 32 (two CTAs of 16 heads per kv head), T unaligned
+    "group32": (4, 32, 1, 1000, [999, 0, 500, 64], 128),
+    "group20_d64": (2, 20, 1, 300, [299, 17], 64),
+    # one kv head row over many key splits (the merge by ticket)
+    "splits_8k": (1, 8, 8, 8192, [8191], 128),
+    "dead_row": (2, 8, 2, 512, [-1, 300], 128),
 }
 
 
-def _k7_inputs(gen, dt, b, nh, kvh, t, pos):
-    q = torch.randn(b, nh, 128, device="cuda", generator=gen).to(dt)
-    k = torch.randn(b, kvh, t, 128, device="cuda", generator=gen).to(dt)
-    v = torch.randn(b, kvh, t, 128, device="cuda", generator=gen).to(dt)
+def _k7_inputs(gen, dt, b, nh, kvh, t, pos, d=128):
+    q = torch.randn(b, nh, d, device="cuda", generator=gen).to(dt)
+    k = torch.randn(b, kvh, t, d, device="cuda", generator=gen).to(dt)
+    v = torch.randn(b, kvh, t, d, device="cuda", generator=gen).to(dt)
     return q, k, v, torch.tensor(pos, dtype=torch.int32, device="cuda")
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", sorted(K7_SHAPES))
 def test_decode_kernel_matches_plain(gen, dt, shape):
+    """K7 at head dims 64/128/256, groups of 1 to 32, one split and many;
+    a row with pos < 0 is zero (the plain version gives NaN there)."""
     args = _k7_inputs(gen, dt, *K7_SHAPES[shape])
     before = DA.decode_attention.launches
     out = DA.decode_attention(*args)
     torch.cuda.synchronize()
     assert DA.decode_attention.launches == before + 1
-    assert _close(out, DA._xla_decode(*args), dt)
+    live = args[3] >= 0
+    assert torch.count_nonzero(out[~live]) == 0
+    assert _close(out[live], DA._xla_decode(*args)[live], dt)
+
+
+def test_decode_kernel_is_deterministic(gen):
+    """The last split's CTA merges the splits in split order: two calls
+    give the same bits, and the ticket counters are left at zero."""
+    for shape in ("reference_8k", "group32", "splits_8k"):
+        args = _k7_inputs(gen, torch.bfloat16, *K7_SHAPES[shape])
+        first = DA.decode_attention(*args)
+        second = DA.decode_attention(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+    for buf in DA._tickets.values():
+        assert torch.count_nonzero(buf) == 0
 
 
 def test_decode_kernel_off_runs_the_plain_version(gen, monkeypatch):
@@ -978,31 +1050,36 @@ def test_decode_kernel_off_runs_the_plain_version(gen, monkeypatch):
     torch.testing.assert_close(out, DA._xla_decode(*args), atol=0, rtol=0)
 
 
+def test_decode_head_dim_32_runs_the_plain_version(gen):
+    """d outside {64, 128, 256} takes the reference's XLA route: the
+    plain version on the card, no launch."""
+    args = _k7_inputs(gen, torch.bfloat16, 2, 8, 2, 300, [5, 299], d=32)
+    before = DA.decode_attention.launches
+    out = DA.decode_attention(*args)
+    assert DA.decode_attention.launches == before
+    torch.testing.assert_close(out, DA._xla_decode(*args), atol=0, rtol=0)
+
+
 def test_bf16_check_catches_dropped_decode_keys(gen):
     """The kernel told pos - 64 (every long row loses its last 64 keys)
-    must fail the bf16 check on every head of every such row."""
-    q, k, v, pos = _k7_inputs(gen, torch.bfloat16,
-                              *K7_SHAPES["reference_8k"])
-    ref = DA._xla_decode(q, k, v, pos)
-    short = torch.clamp(pos - 64, min=0).to(torch.int32)
-    err = _row_rel_err(DA.decode_attention(q, k, v, short), ref)
-    assert bool((err[pos >= 64] > BF16_ROW_TOL).all())
+    must fail the bf16 check on every head of every such row, at each
+    head dim."""
+    for shape in ("reference_8k", "tinyllama_d64", "d256", "group32"):
+        q, k, v, pos = _k7_inputs(gen, torch.bfloat16, *K7_SHAPES[shape])
+        ref = DA._xla_decode(q, k, v, pos)
+        short = torch.clamp(pos - 64, min=0).to(torch.int32)
+        err = _row_rel_err(DA.decode_attention(q, k, v, short), ref)
+        assert bool((err[pos >= 64] > BF16_ROW_TOL).all())
 
 
 def test_decode_wrapper_rejects(gen):
     q, k, v, pos = _k7_inputs(gen, torch.float32, 2, 8, 2, 300, [5, 299])
-    with pytest.raises(ValueError, match="head_dim"):
-        DA.decode_attention(q[..., :64].contiguous(),
-                            k[..., :64].contiguous(),
-                            v[..., :64].contiguous(), pos)
     with pytest.raises(TypeError):
         DA.decode_attention(q.bfloat16(), k, v, pos)
     with pytest.raises(TypeError):
         DA.decode_attention(q, k, v, pos.long())
-    with pytest.raises(ValueError, match="at most 16"):
-        DA.decode_attention(torch.randn(2, 34, 128, device="cuda"),
-                            k[:, :1].contiguous(), v[:, :1].contiguous(),
-                            pos)
+    with pytest.raises(ValueError, match="group"):
+        DA.decode_attention(torch.randn(2, 9, 128, device="cuda"), k, v, pos)
     with pytest.raises(ValueError, match="contiguous"):
         DA.decode_attention(q, k.transpose(2, 3).contiguous()
                             .transpose(2, 3), v, pos)

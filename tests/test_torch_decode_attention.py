@@ -6,7 +6,9 @@ The port's ``decode_attention`` on CPU tensors runs its plain version
 interpret mode (``DA._INTERPRET = True``, as
 ``tests/test_decode_attention.py`` runs it) and against the reference's
 ``_xla_decode``, in float32 at atol 2e-5 (the reference's own
-tolerance: summation order over T and D).  bf16 is held against the
+tolerance: summation order over T and D), at head dims 64, 128 and 256
+and groups of 1, 4 and 32; head_dim 32, which the reference routes to
+``_xla_decode``, against that.  bf16 is held against the
 reference's ``_xla_decode`` at one bf16 rounding of the output
 (2^-8 relative, plus 2^-10 absolute for entries near zero): both round
 the probabilities and the output to bf16, in a different order of
@@ -55,8 +57,8 @@ def _torch(*arrays):
     return [torch.from_numpy(np.array(a)) for a in arrays]
 
 
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("nh,kvh", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("nh,kvh", [(4, 4), (8, 2), (32, 1)])
 def test_plain_matches_jax_kernel_and_xla(interpret, nh, kvh, d):
     q, k, v, pos = _inputs(nh, kvh, d, seed=nh + d)
     got = TDA.decode_attention(*_torch(q, k, v, pos)).numpy()
@@ -65,6 +67,19 @@ def test_plain_matches_jax_kernel_and_xla(interpret, nh, kvh, d):
     xla = np.asarray(JDA._xla_decode(*jargs))
     np.testing.assert_allclose(got, kernel, atol=F32_ATOL, rtol=0)
     np.testing.assert_allclose(got, xla, atol=F32_ATOL, rtol=0)
+
+
+def test_head_dim_32_takes_the_reference_xla_route(interpret):
+    """d 32 is outside the reference's kernel dims: its decode_attention
+    runs _xla_decode even in interpret mode, and so does the port's rule
+    on the card (``_route``); the plain versions agree."""
+    q, k, v, pos = _inputs(8, 2, 32, seed=32)
+    jargs = [jnp.asarray(a) for a in (q, k, v, pos)]
+    want = np.asarray(JDA.decode_attention(*jargs))
+    np.testing.assert_array_equal(want, np.asarray(JDA._xla_decode(*jargs)))
+    assert TDA._route(32) == "plain"
+    got = TDA.decode_attention(*_torch(q, k, v, pos)).numpy()
+    np.testing.assert_allclose(got, want, atol=F32_ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("nh,kvh", [(4, 4), (8, 2)])
