@@ -122,7 +122,8 @@ five shapes (the training shape, llama3_8b widths, a ragged sq > sk
 case, seq 8192 and 13a's MoE rung), per row of out, dq, dk and dv, with
 the same kind of planted fault (the kernels told 64 keys fewer than
 there are); and the weight-only GEMV (K4, int8
-and int4) and the gather-LoRA matmul (K5) at the llama3_8b decode
+and int4; bf16 on mma.sync tensor cores, one launch) and the
+gather-LoRA matmul (K5) at the llama3_8b decode
 projection shapes, per output row (<= 2^-7), each with a planted fault
 (int8: the last 64 K rows of q zeroed; int4: nibbles swapped; K5: every
 adapter row reads the next adapter).  Phase 3 also holds the K8
@@ -147,10 +148,20 @@ instances at T 512 card vs CPU (<= 1e-5); the bf16 K8 dbias (wgmma,
 flash_sm90.cuh) at 10d's shape (b 1, h 16, s 8192, ALiBi) against its
 plain version per gradient row with its planted fault and bit-equal
 reruns; the head-dim routes on the card (d 32, llama_tiny's, runs the
-plain versions of sdpa and K7 with no launch and equals the CPU, and
-llama_tiny's greedy generate gives the CPU's tokens; flash, masked
-flash and paged attention at d 64 raise NotImplementedError naming the
-kernel and its ROADMAP item); and K4 at the generation
+plain versions of sdpa and K7 with no launch and equals the CPU,
+llama_tiny's greedy generate gives the CPU's tokens, and its engine
+launches K3 at d 32 and gives the CPU's tokens; flash and masked flash
+at d 64 raise NotImplementedError naming the kernel and its ROADMAP
+item, and K3 at d 64 launches and agrees with its plain version); the
+paged attention (K3: mma.sync tensor cores, a cp.async ring over the
+block table, one launch) in bf16 per row at phase 4's decode shape,
+11b's and 11c's paged caches and the head dims and groups no shipped
+model runs at the engine's pages (TinyLlama-1.1B's 32/4 heads at
+head_dim 64, head_dim 256 at 16/4, a group of 32, llama_tiny's 4/2 at
+head_dim 32 in pages of 16), with the planted fault (the kernel told
+lens - 64), one launch per call and bit-equal reruns, its device time
+beside the plain version's and the bound, and float32 instances (lens
+up to 512) card vs CPU (<= 1e-5); and K4 at the generation
 path's widths (fused q/k/v, fused gate/up, lm_head; M = 8).  Every
 kernel phase 11 runs is also held, with its planted fault, at the shapes
 phase 11 gives it: K4 int8 at 11a's bench-model widths, K7 at 11b's
@@ -324,16 +335,29 @@ BENCH_PROJ_SHAPES = (("bench_qkv_fused", 2048, 6144), ("bench_o", 2048, 2048),
                      ("bench_gateup_fused", 2048, 11264),
                      ("bench_down", 5632, 2048),
                      ("bench_lm_head", 2048, 32000))
-# K3 in phase 3 (name, nh, kvh, page size, table width, lens): phase 4's
-# decode shape, then 11b's and 11c's paged caches at their last decode
-# step (generate's pool: page 128, the prompt's pages at least)
+# K3 in phase 3 (name, nh, kvh, page size, table width, lens, head_dim):
+# phase 4's decode shape, then 11b's and 11c's paged caches at their last
+# decode step (generate's pool: page 128, the prompt's pages at least),
+# then the engine's pages (64) at the head dims and groups no shipped
+# model runs: TinyLlama-1.1B's 32/4 heads at head_dim 64 (its config.json),
+# head_dim 256 at 16/4, a group of 32, and llama_tiny's 4/2 heads at
+# head_dim 32 (its table spans max_position_embeddings, 256, in pages of
+# 16)
 PAGED_SHAPES = (
-    ("serve", 32, 8, 64, 128, (1, 64, 65, 300, 1000, 2047, 4096, 8192)),
+    ("serve", 32, 8, 64, 128, (1, 64, 65, 300, 1000, 2047, 4096, 8192), 128),
     ("bench_paged", 16, 16, 128, -(-(max(PAGED_LENGTHS) + PAGED_NEW) // 128),
-     tuple(n + PAGED_NEW for n in PAGED_LENGTHS)),
+     tuple(n + PAGED_NEW for n in PAGED_LENGTHS), 128),
     ("long_decode", 32, 8, 128, (LONG_PROMPT + LONG_NEW) // 128,
-     (LONG_PROMPT + LONG_NEW,) * 8),
+     (LONG_PROMPT + LONG_NEW,) * 8, 128),
+    ("tinyllama_d64", 32, 4, 64, 32, (2048, 1500, 1000, 777, 300, 65, 64, 1),
+     64),
+    ("d256", 16, 4, 64, 32, (2048, 2047, 1024, 1000, 500, 257, 64, 5), 256),
+    ("group32", 32, 1, 64, 32, (2048, 1800, 1024, 999, 512, 100, 65, 1),
+     128),
+    ("llama_tiny_d32", 4, 2, 16, 16, (256, 200, 129, 100, 65, 64, 16, 1), 32),
 )
+K3_F32_LEN = 512                   # the f32 instances' longest row
+K3_F32_TOL = 1e-5                  # f32 K3 card vs CPU, relative norm
 # the K8 forward in phase 3 (name, B, H, kvH, S, lengths, yardsticks):
 # phase 4's prefill buckets (one prompt each), then the prompt prefills
 # of 11a, 11b and 11c (at 11c's size the plain version's time is not
@@ -483,23 +507,52 @@ def bound(nbytes, flops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_paged(PA, gen, name, nh, kvh, ps, W, lens):
-    """K3 at one ``PAGED_SHAPES`` decode shape: 8 slots, ragged lens, a
-    table of width ``W`` over one pool row per page + the dump page."""
-    dev, dt = "cuda", torch.bfloat16
-    B, D = len(lens), 128
+def paged_inputs(gen, B, nh, kvh, ps, W, lens, D, dev="cuda",
+                 dt=torch.bfloat16):
+    """q, pools, table and lens of one K3 shape: a table of width ``W``
+    over one pool row per page, shuffled, padded with the dump page (the
+    last row), as the engine's pool is."""
     lens = torch.tensor(lens, dtype=torch.int32, device=dev)
     P = B * W + 1
-    dump = P - 1
     q = torch.randn(B, nh, D, device=dev, generator=gen).to(dt)
     kp = torch.randn(P, kvh, ps, D, device=dev, generator=gen).to(dt)
     vp = torch.randn(P, kvh, ps, D, device=dev, generator=gen).to(dt)
     perm = torch.randperm(B * W, device=dev, generator=gen).reshape(B, W)
     need = (lens + ps - 1) // ps
     table = torch.where(torch.arange(W, device=dev)[None] < need[:, None],
-                        perm, dump).to(torch.int32).contiguous()
+                        perm, P - 1).to(torch.int32).contiguous()
+    return q, kp, vp, table, lens
+
+
+def paged_bound(q, kvh, ps, lens):
+    """(bound_ms, bound_by) of one K3 call: q and out, the visible K/V
+    rows, their table entries and lens; ~4 flops per q head and key per
+    head-dim element."""
+    B, nh, D = q.shape
+    toks = int(lens.sum())
+    pages = int(((lens + ps - 1) // ps).sum())
+    item = q.element_size()
+    return bound(2 * q.numel() * item + 2 * toks * kvh * D * item
+                 + 4 * (pages + B), 4 * toks * D * nh)
+
+
+def phase_paged(PA, gen, name, nh, kvh, ps, W, lens, D):
+    """K3 at one ``PAGED_SHAPES`` decode shape against its plain version
+    (``paged_attention_xla``) in bf16, per output row; the planted fault
+    (the kernel told lens - 64, so every long row loses its last 64
+    keys) must fail every such row; one launch per call, and two calls
+    give the same bits.  ``ms``, ``plain_ms`` are device time per call
+    (``device_ms``); ``events_ms`` is CUDA events around back-to-back
+    calls, which the host's per-call work sets at the short shapes."""
+    B = len(lens)
+    q, kp, vp, table, lens = paged_inputs(gen, B, nh, kvh, ps, W, lens, D)
+    n0 = PA.paged_attention.launches
     out = PA.paged_attention(q, kp, vp, table, lens)
     torch.cuda.synchronize()
+    require(PA.paged_attention.launches == n0 + 1,
+            f"paged_attention {name}: one launch per call")
+    require(torch.equal(out, PA.paged_attention(q, kp, vp, table, lens)),
+            f"paged_attention {name}: two calls differ")
     ref = PA.paged_attention_xla(q, kp, vp, table, lens)
     err = (out.float() - ref.float()).abs().max().item()
     rows = row_rel_err(out, ref)                         # [B, nh]
@@ -516,24 +569,47 @@ def phase_paged(PA, gen, name, nh, kvh, ps, W, lens):
             f"planted fault (last {FAULT_KEYS} keys dropped) passed the "
             f"paged_attention check at {name}: min row error "
             f"{fault.min().item()}")
-    ms = cuda_ms(lambda: PA.paged_attention(q, kp, vp, table, lens))
-    plain_ms = cuda_ms(lambda: PA.paged_attention_xla(q, kp, vp, table, lens))
-    toks = int(lens.sum())
-    item = q.element_size()
-    nbytes = (2 * q.numel() * item + 2 * toks * kvh * D * item
-              + 4 * (table.numel() + lens.numel()))
-    bound_ms, bound_by = bound(nbytes, 4 * toks * D * nh)
+    ms = device_ms(lambda: PA.paged_attention(q, kp, vp, table, lens))
+    events_ms = cuda_ms(lambda: PA.paged_attention(q, kp, vp, table, lens),
+                        iters=50)
+    plain_ms = device_ms(lambda: PA.paged_attention_xla(q, kp, vp, table,
+                                                        lens), iters=5)
+    bound_ms, bound_by = paged_bound(q, kvh, ps, lens)
+    n_split = PA._splits(B * kvh * -(-(nh // kvh) // 16), W * ps,
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count, D)[0]
     shape = {"kernel": "paged_attention", "shape": name,
              "dtype": "bfloat16", "B": B,
              "nh": nh, "kvh": kvh, "D": D, "page_size": ps, "W": W,
-             "lens": lens.tolist(), "max_abs_err": err,
+             "lens": lens.tolist(), "splits": n_split, "max_abs_err": err,
              "max_row_rel_err": row_err, "row_tol": ROW_TOL,
              "worst_row_lens": worst_lens,
              "fault_min_row_rel_err": fault.min().item(),
-             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-             "bound_by": bound_by, "library_ms": None}
+             "ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     emit({"phase": 3, **shape})
     return shape
+
+
+def phase_paged_f32(PA, name, nh, kvh, ps, W, lens, D):
+    """A float32 instance of a phase-3 K3 shape, its lens scaled to at
+    most ``K3_F32_LEN`` and its table to match: the kernel on the card
+    vs the plain version on the CPU from the same inputs made on the
+    host, by relative norm."""
+    top = max(lens)
+    lens = [max(1, n * K3_F32_LEN // top) if top > K3_F32_LEN else n
+            for n in lens]
+    W = min(W, -(-max(lens) // ps) + 1)
+    cpu = paged_inputs(torch.Generator().manual_seed(4), len(lens), nh, kvh,
+                       ps, W, lens, D, dev="cpu", dt=torch.float32)
+    want = PA.paged_attention_xla(*cpu)
+    card = PA.paged_attention(*(x.cuda() for x in cpu))
+    err = rel_norm(card, want)
+    emit({"phase": 3, "kernel": "paged_attention", "shape": name,
+          "dtype": "float32", "D": D, "page_size": ps, "W": W, "lens": lens,
+          "card_vs_cpu_rel_err": err, "tol": K3_F32_TOL})
+    require(err <= K3_F32_TOL, f"paged_attention f32 {name}: card vs CPU "
+            f"{err} > {K3_F32_TOL}")
 
 
 def phase_decode(DA, gen, name, B, nh, kvh, T, pos, D):
@@ -1315,17 +1391,21 @@ def phase_dbias_long(FM, gen):
 ROUTE_D = 32
 
 
-def phase_routes(FA, FM, DA, PA, G, init_state):
+def phase_routes(FA, FM, DA, PA, G, init_state, create_engine,
+                 GenerationConfig):
     """The head-dim routes on the card, the reference's rule
-    (flash_attention.py:264-269, decode_attention.py:164-172): at d 32,
-    ``sdpa`` unmasked, with flashmask intervals and with a bias (each with
-    its gradients) and ``decode_attention`` run the plain versions on
-    CUDA, launch no kernel and agree with the CPU from the same inputs
-    (f32, relative norm, phase 7's limit), and ``llama_tiny``'s greedy
-    ``generate`` gives the CPU's tokens with no kernel launched; at d 64
-    the flash route (K1/K2), the masked route (K8) and K3 raise
-    ``NotImplementedError`` naming the kernel and its ROADMAP item (K7
-    runs d 64: phase 3's ``tinyllama_d64``)."""
+    (flash_attention.py:264-269, decode_attention.py:164-172,
+    paged_attention.py:58-61): at d 32, ``sdpa`` unmasked, with flashmask
+    intervals and with a bias (each with its gradients) and
+    ``decode_attention`` run the plain versions on CUDA, launch no kernel
+    and agree with the CPU from the same inputs (f32, relative norm,
+    phase 7's limit), and ``llama_tiny``'s greedy ``generate`` gives the
+    CPU's tokens with no kernel launched; ``llama_tiny``'s engine (paged
+    decode) launches K3 at d 32 and gives the CPU's tokens; at d 64 the
+    flash route (K1/K2) and the masked route (K8) raise
+    ``NotImplementedError`` naming the kernel and its ROADMAP item, and
+    K3 launches and agrees with its plain version per row (K7 runs d 64:
+    phase 3's ``tinyllama_d64``)."""
     from paddle_tpu_torch.models import llama_tiny
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(5)
@@ -1384,17 +1464,31 @@ def phase_routes(FA, FM, DA, PA, G, init_state):
     require(tokens["cuda"] == tokens["cpu"], f"llama_tiny (head_dim "
             f"{cfg.head_dim}) greedy tokens card {tokens['cuda']} vs CPU "
             f"{tokens['cpu']}")
+    engine_tokens, engine_k3 = {}, {}
+    prompts = [ids[0, :40], ids[1, :17], ids[2, :33]]
+    for dev in ("cuda", "cpu"):
+        engine = create_engine(cfg, {k: t.to(dev) for k, t in state.items()},
+                               device=dev, max_slots=2, page_size=8,
+                               max_model_len=128)
+        n3 = PA.paged_attention.launches
+        reqs = [engine.submit(p, GenerationConfig(max_new_tokens=12))
+                for p in prompts]
+        engine.run_until_complete()
+        engine_tokens[dev] = [r.output_tokens for r in reqs]
+        engine_k3[dev] = PA.paged_attention.launches - n3
+    require(engine_k3["cuda"] > 0 and engine_k3["cpu"] == 0,
+            f"llama_tiny engine K3 launches {engine_k3}")
+    require(engine_tokens["cuda"] == engine_tokens["cpu"],
+            f"llama_tiny engine (head_dim {cfg.head_dim}, K3) tokens card "
+            f"{engine_tokens['cuda']} vs CPU {engine_tokens['cpu']}")
     x = torch.randn(1, 128, 4, 64, device="cuda", dtype=torch.bfloat16)
-    pool = torch.randn(3, 2, 64, 64, device="cuda", dtype=torch.bfloat16)
     one = torch.ones(1, 1, dtype=torch.int32, device="cuda")
     cases = {
         "flash_d64": (lambda: FA.sdpa(x, x, x, is_causal=True), "A1"),
         "masked_d64": (lambda: FA.sdpa(
             x, x, x, flashmask=FM.padding_mask_to_intervals(
                 torch.ones(1, 128, dtype=torch.bool, device="cuda"), 128),
-            is_causal=True), "A1"),
-        "paged_d64": (lambda: PA.paged_attention(
-            x[:, 0], pool, pool, one, one[0]), "A3")}
+            is_causal=True), "A1")}
     raised = {}
     for key, (fn, item) in cases.items():
         try:
@@ -1405,9 +1499,21 @@ def phase_routes(FA, FM, DA, PA, G, init_state):
         require(raised[key] is not None and f"queue 2 {item}" in raised[key],
                 f"{key}: want NotImplementedError naming queue 2 {item}, "
                 f"got {raised[key]!r}")
+    pool = torch.randn(3, 2, 64, 64, device="cuda", dtype=torch.bfloat16)
+    lens = torch.full((1,), 50, dtype=torch.int32, device="cuda")
+    n3 = PA.paged_attention.launches
+    paged = PA.paged_attention(x[:, 0], pool, pool, one, lens)
+    require(PA.paged_attention.launches == n3 + 1, "paged_d64: no launch")
+    paged_err = row_rel_err(paged, PA.paged_attention_xla(
+        x[:, 0], pool, pool, one, lens)).max().item()
+    require(paged_err <= ROW_TOL, f"paged_d64: row error {paged_err}")
     rec = {"phase": 3, "routes": {"head_dim": D, "card_vs_cpu_rel_err": errs,
                                   "tol": PARITY_TOL,
                                   "llama_tiny_tokens_equal": True,
+                                  "llama_tiny_engine_tokens_equal": True,
+                                  "llama_tiny_engine_k3_launches":
+                                      engine_k3["cuda"],
+                                  "paged_d64_row_err": paged_err,
                                   "raised": raised}}
     emit(rec)
     return rec
@@ -1654,20 +1760,8 @@ def profile_decode(engine, prompts, GenerationConfig, steps=8, phase=4,
               "weight_only_matmul": 0.0, "lora_gather_matmul": 0.0,
               "matmul": 0.0, "other": 0.0}
     for name, ms in per_kernel.items():
-        low = name.lower()
-        if "paged_attention" in low:
-            groups["paged_attention"] += ms
-        elif is_k8_forward(low):
-            groups["flash_mha_masked"] += ms
-        elif "wo_gemv" in low or "splitk_reduce" in low:
-            groups["weight_only_matmul"] += ms
-        elif "lora_gather" in low:
-            groups["lora_gather_matmul"] += ms
-        elif any(s in low for s in ("gemm", "gemv", "cutlass", "xmma",
-                                    "sm90", "cublas", "nvjet")):
-            groups["matmul"] += ms
-        else:
-            groups["other"] += ms
+        key = group_kernel(name)
+        groups[key] = groups.get(key, 0.0) + ms
     busy = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     emit({"phase": phase, "profile": "decode", "steps": steps,
@@ -2378,13 +2472,16 @@ def group_kernel(name):
         return "flash_mha_masked"
     if is_k8_backward(low):
         return "flash_mask_bwd"
-    # K7: the bf16 and f32 kernels (and the two-pass kernels of older
+    # K7, K3 and K4: the bf16 and f32 kernels (and the kernels of older
     # checkouts, which tools/flash_ab.py may time)
     for key, marks in (("decode_attention", ("decode_mma", "decode_f32",
                                              "decode_partial",
                                              "decode_combine")),
-                       ("paged_attention", ("paged_attention",)),
-                       ("weight_only_matmul", ("wo_gemv", "splitk_reduce")),
+                       ("paged_attention", ("paged_mma", "paged_f32",
+                                            "paged_attention")),
+                       ("weight_only_matmul", ("wo_mma", "wo_gemv",
+                                               "splitk_reduce")),
+                       ("lora_gather_matmul", ("lora_gather",)),
                        ("matmul", ("gemm", "gemv", "cutlass", "xmma", "sm90",
                                    "cublas", "nvjet"))):
         if any(m in low for m in marks):
@@ -3454,6 +3551,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     pageds = [phase_paged(PA, gen, *shape) for shape in PAGED_SHAPES]
     paged = pageds[0]       # phase 4's decode shape: the kernels line's
+    for shape in PAGED_SHAPES:
+        phase_paged_f32(PA, *shape)
+    release()
     masked = [phase_masked(FM, gen, *shape) for shape in MASKED_SHAPES]
     release()
     phase_window(FA, FM, gen, *WINDOW_SHAPE)
@@ -3473,7 +3573,8 @@ def main() -> int:
     release()
     phase_dbias_long(FM, gen)
     release()
-    phase_routes(FA, FM, DA, PA, G, init_state)
+    phase_routes(FA, FM, DA, PA, G, init_state, create_engine,
+                 GenerationConfig)
     release()
     k9 = [phase_k9(GF, TM, gen, *shape) for shape in K9_SHAPES]
     release()

@@ -6,7 +6,8 @@ with ``ctypes``.  The build happens at the first CUDA use of a kernel
 (or an explicit :func:`build`), never at import, into
 ``paddle_tpu_torch/csrc/build/`` (listed in ``.gitignore``).  All
 sources build in parallel: one ``nvcc`` process per source, started
-together.
+together.  :func:`scratch` keeps the device buffers that kernels reuse
+from launch to launch (split partials, merge tickets).
 """
 from __future__ import annotations
 
@@ -18,8 +19,10 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 __all__ = ["BUILD_DIR", "SOURCES", "build", "build_log", "check",
-           "kernel"]
+           "kernel", "scratch", "sm_count"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -32,6 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 build_log: dict[str, str] = {}      # source name -> nvcc/ptxas output
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_scratch: dict = {}                 # (name, device, stream) -> tensor
+_sms: dict = {}                     # device -> SM count
 
 
 def _nvcc() -> str:
@@ -110,3 +115,29 @@ def check(name: str, err: int, what: str):
         msg = getattr(_libs[name], f"{name}_error_string")(err)
         raise RuntimeError(
             f"{what}: CUDA error {err} ({msg.decode(errors='replace')})")
+
+
+def scratch(name: str, device, stream: int, n: int, dtype,
+            zeroed: bool = False):
+    """A device buffer of at least ``n`` elements, kept per (``name``,
+    device, stream) and reused by every launch on that stream: launches
+    on one stream run in order, so no two use it at once, and a call
+    allocates nothing once the buffer has grown to its shapes (a CUDA
+    graph that captures the call finds no allocation).  ``zeroed``
+    buffers are made with zeros, for counters that every launch leaves
+    at zero."""
+    key = (name, device, stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < n or buf.dtype != dtype:
+        make = torch.zeros if zeroed else torch.empty
+        buf = _scratch[key] = make(max(n, 1024), dtype=dtype, device=device)
+    return buf
+
+
+def sm_count(device) -> int:
+    """The streaming multiprocessors of ``device``."""
+    key = torch.device(device).index
+    if key not in _sms:
+        _sms[key] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sms[key]

@@ -29,9 +29,10 @@ The kernel makes one launch per call.  It splits the keys of each
 (sequence, kv head, group of 16 query heads) over :func:`_splits` CTAs,
 chosen from the CTA count, the head dim and the cache length T (the
 longest visible length the host knows without a sync), and the last CTA
-of a row merges the splits, using a counter per row
-(``_tickets``) that it leaves at zero.  Calls on one device share those
-counters, so they must run on one stream at a time.
+of a row merges the splits, using a counter per row that it leaves at
+zero.  The partials and counters live in buffers kept per device and
+stream (:func:`cuda_lib.scratch`), so calls on one device must run on
+one stream at a time.
 
 The kernel rounds the unnormalised probabilities to v's dtype before
 P.V (as the TPU kernel does), the plain version rounds the normalised
@@ -66,8 +67,6 @@ _ARGTYPES = (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
              ctypes.c_float, _P)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _launch = None                 # the C entry, resolved at first CUDA use
-_tickets = {}                  # (device, stream) -> zeroed int32 counters
-_sms = {}                      # device index -> SM count
 
 
 def _route(head_dim):
@@ -99,17 +98,6 @@ def _smem(d):
     return (16 + 3 * 2 * _TILE) * d * 2
 
 
-def _ticket_buffer(device, stream, n):
-    """At least ``n`` zeroed int32 counters for launches on ``stream``
-    (each launch leaves them zero)."""
-    key = (device, stream)
-    buf = _tickets.get(key)
-    if buf is None or buf.numel() < n:
-        buf = _tickets[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
-                                          device=device)
-    return buf
-
-
 def decode_attention(q, kcache, vcache, pos):
     """One-token cache attention: q [B, nh, D], caches [B, kvh, T, D]
     (kv-head-major), pos [B] int32, the index of the CURRENT token
@@ -126,39 +114,32 @@ def decode_attention(q, kcache, vcache, pos):
     part_ml = part_o = tickets = None
     if q.dtype == torch.float32:
         n_split, chunk = -(-t // _F32_CHUNK), _F32_CHUNK
-        part_ml = torch.empty((b * nh, n_split, 2), dtype=torch.float32,
-                              device=dev)
-        part_o = torch.empty((b * nh, n_split, d), dtype=torch.float32,
-                             device=dev)
+        n_ml, n_o = b * nh * n_split * 2, b * nh * n_split * d
     else:
         ctas = b * kvh * -(-rep // 16)
-        if dev.index not in _sms:
-            _sms[dev.index] = torch.cuda.get_device_properties(
-                dev).multi_processor_count
-        n_split, chunk = _splits(ctas, t, _sms[dev.index], d)
+        n_split, chunk = _splits(ctas, t, cuda_lib.sm_count(dev), d)
+        n_ml, n_o = ctas * n_split * 16 * 2, ctas * n_split * 16 * d
         if n_split > 1:
-            part_ml = torch.empty((ctas, n_split, 16, 2),
-                                  dtype=torch.float32, device=dev)
-            part_o = torch.empty((ctas, n_split, 16, d), dtype=torch.float32,
-                                 device=dev)
-            tickets = _ticket_buffer(dev, stream, ctas)
+            tickets = cuda_lib.scratch("decode_attention.tickets", dev,
+                                       stream, ctas, torch.int32,
+                                       zeroed=True).data_ptr()
+    if q.dtype == torch.float32 or n_split > 1:
+        part = cuda_lib.scratch("decode_attention.partials", dev, stream,
+                                n_ml + n_o, torch.float32)
+        part_ml, part_o = part.data_ptr(), part.data_ptr() + 4 * n_ml
     if _launch is None:
         _launch = cuda_lib.kernel("decode_attention", "decode_attention_fwd",
                                   _ARGTYPES)
     err = _launch(_DTYPES[q.dtype], d, q.data_ptr(), kcache.data_ptr(),
                   vcache.data_ptr(), pos.data_ptr(), out.data_ptr(),
-                  _ptr(part_ml), _ptr(part_o), _ptr(tickets), b, kvh, rep,
-                  t, n_split, chunk, 1.0 / math.sqrt(d), stream)
+                  part_ml, part_o, tickets, b, kvh, rep, t, n_split, chunk,
+                  1.0 / math.sqrt(d), stream)
     cuda_lib.check("decode_attention", err, "decode_attention launch")
     decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0  # kernel launches (the main-path witness)
-
-
-def _ptr(t):
-    return t.data_ptr() if t is not None else None
 
 
 def _check(q, kcache, vcache, pos):

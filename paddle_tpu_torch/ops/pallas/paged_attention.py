@@ -14,10 +14,28 @@ int32, lens [B] int32 = tokens visible per sequence.  Inference only.
 tensors it runs :func:`paged_attention_xla`, the plain dense-gather
 version; on CUDA tensors it launches the kernel or raises.  The
 reference runs its kernel at every head dim and group
-(``select_paged_attention``, ``:58-61``); the port's is built for
-head_dim 128 and groups of at most 16, so :func:`_route` raises
-``NotImplementedError`` elsewhere (ROADMAP queue 2, A3) rather than
-return a result that no kernel of the card computes.
+(``select_paged_attention``, ``:58-61``); the port's is built for head
+dims 32, 64, 128 and 256 at any GQA group and page size, and
+:func:`_route` raises ``NotImplementedError`` at other head dims
+(ROADMAP queue 2 A3) rather than return a result that no kernel of the
+card computes.
+
+The kernel makes one launch per call.  It splits the table span W *
+page_size of each (sequence, kv head, group of 16 query heads) into
+:func:`_splits` chunks; the last CTA of a row to finish merges the
+splits of that row, using a counter per row that it leaves at zero.
+The split count comes from shapes only, never from ``lens``, which stays
+on the device (no sync, so a CUDA graph can capture the call): enough
+splits that the grid holds ``_WAVES`` (4) times the CTAs the card runs
+at once, in chunks of at least 256 keys.  That serves the serving path,
+whose table spans the model's whole length (8192 keys at llama3_8b)
+while its rows hold a few hundred to a few thousand tokens: short
+chunks let a ragged batch spread its live keys over the card, the
+splits past a row's ``lens`` return at once, and a batch of full rows
+still runs in about four waves with a small last one.  The partials and
+counters live in buffers kept per device and stream
+(:func:`cuda_lib.scratch`), so calls on one device must run on one
+stream at a time.
 
 The two differ where the reference's two paths differ: the kernel
 rounds the unnormalised probabilities to v's dtype before P.V (as the
@@ -46,13 +64,20 @@ __all__ = ["paged_attention", "paged_attention_xla", "PagedPool",
            "gather_kv_pages_quant", "gather_scale_pages",
            "paged_attention_quant", "quantize_kv_rows"]
 
-_MAX_REP = 16                  # kMaxRep in the kernel
-_HEAD_DIM = 128                # the one head_dim the kernel is built for
-_SMEM_LIMIT = 227 * 1024       # dynamic shared memory per block on sm_90
+KERNEL_HEAD_DIMS = (32, 64, 128, 256)   # the kernel's instances
+_TILE = 64                     # kTile: keys per ring stage
+_MIN_CHUNK = 256               # keys of a split, at least
+_MAX_SPLIT = 64                # kMaxSplit
+_WAVES = 4                     # grid CTAs per CTA slot of the card
+_F32_CHUNK = 256               # kChunkF32: keys per CTA of the f32 pass
+_SMEM_PER_SM = 228 * 1024      # shared memory of an sm_90 SM
+_SMEM_STATIC = 2 * 1024        # per CTA beside it: the page-row table, and
+                               # the 1 KB the card reserves
+_MAX_SPAN = 1 << 30            # W * page_size, at most
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-             ctypes.c_float, _P)
+_ARGTYPES = (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+             _I, _I, ctypes.c_float, _P)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _launch = None                 # the C entry, resolved at first CUDA use
 
@@ -75,16 +100,35 @@ def paged_attention(q, kpool, vpool, table, lens):
     if q.device.type == "cpu":
         return paged_attention_xla(q, kpool, vpool, table, lens)
     b, nh, d = _check(q, kpool, vpool, table, lens)
-    kvh, ps = kpool.shape[1], kpool.shape[2]
+    kvh, ps, w = kpool.shape[1], kpool.shape[2], table.shape[1]
+    rep = nh // kvh
+    dev = q.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    span = w * ps
     out = torch.empty_like(q)
+    part_ml = part_o = tickets = None
+    if q.dtype == torch.float32:
+        n_split, chunk = -(-span // _F32_CHUNK), _F32_CHUNK
+        n_ml, n_o = b * nh * n_split * 2, b * nh * n_split * d
+    else:
+        ctas = b * kvh * -(-rep // 16)
+        n_split, chunk = _splits(ctas, span, cuda_lib.sm_count(dev), d)
+        n_ml, n_o = ctas * n_split * 16 * 2, ctas * n_split * 16 * d
+        if n_split > 1:
+            tickets = cuda_lib.scratch("paged_attention.tickets", dev,
+                                       stream, ctas, torch.int32,
+                                       zeroed=True).data_ptr()
+    if q.dtype == torch.float32 or n_split > 1:
+        part = cuda_lib.scratch("paged_attention.partials", dev, stream,
+                                n_ml + n_o, torch.float32)
+        part_ml, part_o = part.data_ptr(), part.data_ptr() + 4 * n_ml
     if _launch is None:
         _launch = cuda_lib.kernel("paged_attention", "paged_attention_fwd",
                                   _ARGTYPES)
     err = _launch(_DTYPES[q.dtype], d, q.data_ptr(), kpool.data_ptr(),
-             vpool.data_ptr(), table.data_ptr(), lens.data_ptr(),
-             out.data_ptr(), b, kvh, nh // kvh, ps, table.shape[1],
-             1.0 / math.sqrt(d),
-             torch.cuda.current_stream(q.device).cuda_stream)
+                  vpool.data_ptr(), table.data_ptr(), lens.data_ptr(),
+                  out.data_ptr(), part_ml, part_o, tickets, b, kvh, rep, ps,
+                  w, n_split, chunk, 1.0 / math.sqrt(d), stream)
     cuda_lib.check("paged_attention", err, "paged_attention launch")
     paged_attention.launches += 1
     return out
@@ -94,15 +138,40 @@ paged_attention.launches = 0   # kernel launches (the main-path witness)
 
 
 def _route(head_dim, group):
-    """"kernel" where the port's K3 kernel is built (head_dim 128, GQA
-    groups of at most 16); raises ``NotImplementedError`` elsewhere: the
-    reference runs its kernel at every shape, so no plain route exists."""
-    if head_dim != _HEAD_DIM or not 1 <= group <= _MAX_REP:
+    """"kernel" where the port's K3 kernel is built (head dims 32, 64,
+    128 and 256, any GQA group); raises ``NotImplementedError``
+    elsewhere: the reference runs its kernel at every shape, so no plain
+    route exists."""
+    if head_dim not in KERNEL_HEAD_DIMS or group < 1:
         raise NotImplementedError(
             f"paged_attention (K3) at head_dim {head_dim}, group {group}: "
-            f"the kernel is built for head_dim {_HEAD_DIM} and groups of at "
-            f"most {_MAX_REP} (ROADMAP queue 2 A3)")
+            f"the kernel is built for head_dim {KERNEL_HEAD_DIMS} at any "
+            "group (ROADMAP queue 2 A3)")
     return "kernel"
+
+
+def _smem(d):
+    """The bf16 kernel's dynamic shared memory at head_dim d, whatever
+    the page size (Smem<D>::kBytes): Q [16, d] and three stages of K and
+    V [64, d] tiles; at most 200 KB (d 256), within the 227 KB a block
+    may take."""
+    return (16 + 3 * 2 * _TILE) * d * 2
+
+
+def _splits(ctas, span, sms, d):
+    """(n_split, chunk) for the bf16 kernel: key splits of ``chunk``
+    keys (a multiple of 64) over a table span of ``span`` keys for
+    ``ctas`` (sequence, kv head, group) rows.  As many splits as put
+    ``_WAVES`` times the card's CTA slots in the grid (``sms`` times the
+    CTAs an SM holds at head_dim ``d``, by shared memory: 8, 4, 2 and 1
+    at d 32, 64, 128 and 256), chunks of at least ``_MIN_CHUNK`` keys,
+    at most ``_MAX_SPLIT`` splits; one split where the rows fill that
+    many slots already."""
+    slots = sms * (_SMEM_PER_SM // (_smem(d) + _SMEM_STATIC))
+    want = max(1, min(_WAVES * slots // ctas, -(-span // _MIN_CHUNK),
+                      _MAX_SPLIT))
+    chunk = -(-(-(-span // want)) // _TILE) * _TILE
+    return -(-span // chunk), chunk
 
 
 def _check(q, kpool, vpool, table, lens):
@@ -135,15 +204,21 @@ def _check(q, kpool, vpool, table, lens):
         raise ValueError(
             f"paged_attention: table {tuple(table.shape)} must be [B, W] "
             f"and lens {tuple(lens.shape)} [B] for B={b}")
+    if table.shape[1] * ps > _MAX_SPAN or table.shape[1] < 1:
+        raise ValueError(f"paged_attention: a table of {table.shape[1]} "
+                         f"pages of {ps} tokens: 1 to {_MAX_SPAN} tokens")
+    if kpool.shape[0] * kvh * ps >= 1 << 32:
+        raise ValueError(f"paged_attention: pools of {kpool.shape[0]} "
+                         f"pages x {kvh} heads x {ps} rows: fewer than "
+                         "2^32 rows")
+    if q.dtype == torch.float32 and b * kvh > 65535:
+        raise ValueError(f"paged_attention: B * kvH = {b * kvh} rows, at "
+                         "most 65535 in float32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention kernel takes contiguous inputs")
-    if kpool.data_ptr() % 16 or vpool.data_ptr() % 16:
-        raise ValueError("paged_attention: pools must be 16-byte aligned")
-    rep = nh // kvh
-    smem = 2 * ps * d * q.element_size() + (rep * d + rep * ps + 3 * rep) * 4
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"paged_attention: page_size {ps} needs {smem} "
-                         f"bytes of shared memory (limit {_SMEM_LIMIT})")
+    if q.data_ptr() % 16 or kpool.data_ptr() % 16 or vpool.data_ptr() % 16:
+        raise ValueError("paged_attention: q and pools must be 16-byte "
+                         "aligned")
     return b, nh, d
 
 

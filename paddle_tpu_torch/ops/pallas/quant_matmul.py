@@ -20,10 +20,19 @@ others the dequant-matmul path.
     f32 scale on the result, cast back (the reference's XLA route;
     counted in ``weight_only_matmul.matmul_calls``).
 
-An int8 or int4 value is exact in bf16 and in f32, so the kernel's f32
-FMAs on x and the converted weights compute the Pallas body's product;
-the kernel and the plain version differ only in summation order (and,
-for bf16 x, in the one rounding of the output).
+An int8 or int4 value is exact in bf16 and in f32.  For bf16 x the
+kernel widens the weights to bf16 and runs them through the tensor cores
+with an f32 accumulator, as the Pallas body's bf16 dot does; for f32 x
+it runs f32 FMAs on the CUDA cores.  Either way the kernel and the plain
+version differ only in summation order (and, for bf16 x, in the one
+rounding of the output).
+
+The kernel makes one launch per call.  The wrapper splits K (:func:`
+_mma_splits`) until the grid holds about two CTAs per SM; the last CTA
+of a column block sums the splits in order, using a counter per block
+that it leaves at zero.  The partial sums and counters live in buffers
+kept per device and stream (:func:`cuda_lib.scratch`), so calls on one
+device must run on one stream at a time.
 """
 from __future__ import annotations
 
@@ -39,13 +48,16 @@ __all__ = ["QuantizedWeight", "pack_int4", "unpack_int4",
 # decode-shaped calls (M rows at most this) take the GEMV kernel;
 # larger M is compute-bound and runs the dequant-matmul path
 _GEMV_MAX_ROWS = 64
-_SM_COUNT = 132                # H100 SXM
-_BN = 128                      # kBN in the kernel: columns per CTA
-_MT = 8                        # kMT: rows of x per CTA
-_MIN_SPLIT_ROWS = 64           # the fewest q rows a K split takes
+_BN = 128                      # kBN / kMmaBN in the kernel: columns per CTA
+_MT = 8                        # kMT: rows of x per CTA (f32)
+_MIN_SPLIT_ROWS = 64           # the fewest q rows a K split takes (f32)
+_STAGE_ROWS = 64               # kQRows: q rows per ring stage (bf16)
+_MIN_SPLIT_STAGES = 2          # the fewest stages a K split takes (bf16)
+_CTAS_PER_SM = 2               # the bf16 grid's aim
+_MAX_SPLIT = 16                # K splits at most (bf16)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
+_ARGTYPES = (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _launch = None                 # the C entry, resolved at first CUDA use
 
@@ -116,14 +128,32 @@ def _xla_fallback(x, w: QuantizedWeight):
     return (out * w.scale.float()).to(x.dtype)
 
 
-def _splits(m, rows, n):
-    """K splits so that one call puts >= 2 CTAs per SM in flight (the
-    k/v projections have only N/128 = 8 column blocks at llama3_8b),
-    each split taking at least ``_MIN_SPLIT_ROWS`` q rows."""
+def _splits(m, rows, n, sms):
+    """K splits of the f32 kernel, so that one call puts >= 2 CTAs per SM
+    in flight (the k/v projections have only N/128 = 8 column blocks at
+    llama3_8b), each split taking at least ``_MIN_SPLIT_ROWS`` q rows."""
     blocks = (n // _BN) * -(-m // _MT)
-    want = -(-2 * _SM_COUNT // blocks)
+    want = -(-2 * sms // blocks)
     splits = max(1, min(want, rows // _MIN_SPLIT_ROWS))
     return splits, -(-rows // splits)
+
+
+def _mma_splits(m, rows, n, sms):
+    """(splits, rows_per_split) of the bf16 kernel: enough K splits that
+    the grid holds ``_CTAS_PER_SM`` CTAs per SM (one CTA per 128 columns
+    and split, whatever M is), each split a whole number of 64-row
+    stages and at least ``_MIN_SPLIT_STAGES`` of them, at most
+    ``_MAX_SPLIT``, and so few that the f32 partial sums (written and
+    read back: 8 * M bytes per column and split) stay within half the
+    weight bytes (``rows`` per column).  The constants are a sweep's
+    best on the H100 (``PERF.md`` §6)."""
+    blocks = n // _BN
+    stages = -(-rows // _STAGE_ROWS)
+    want = max(1, min(-(-_CTAS_PER_SM * sms // blocks),
+                      stages // _MIN_SPLIT_STAGES, _MAX_SPLIT,
+                      rows // (16 * m)))
+    per = -(-stages // want) * _STAGE_ROWS
+    return -(-rows // per), per
 
 
 def _check(x2, w):
@@ -148,8 +178,9 @@ def _check(x2, w):
             and scale.is_contiguous()):
         raise ValueError("weight_only_matmul kernel takes contiguous x, q "
                          "and scale")
-    if q.data_ptr() % 16:
-        raise ValueError("weight_only_matmul: q must be 16-byte aligned")
+    if q.data_ptr() % 16 or scale.data_ptr() % 16:
+        raise ValueError("weight_only_matmul: q and scale must be 16-byte "
+                         "aligned")
     return rows
 
 
@@ -159,17 +190,33 @@ def _kernel(x2, w):
     rows = _check(x2, w)
     m, k = x2.shape
     n = w.q.shape[1]
-    out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
-    splits, per_split = _splits(m, rows, n)
-    ws = (torch.empty((splits, m, n), dtype=torch.float32,
-                      device=x2.device) if splits > 1 else None)
+    dev = x2.device
+    out = torch.empty((m, n), dtype=x2.dtype, device=dev)
+    if m == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws = tickets = None
+    if x2.dtype == torch.float32:
+        splits, per_split = _splits(m, rows, n, cuda_lib.sm_count(dev))
+    else:
+        splits, per_split = _mma_splits(m, rows, n, cuda_lib.sm_count(dev))
+        if k % 8 or x2.data_ptr() % 16:      # 16-byte rows for cp.async
+            xp = torch.zeros((m, k + -k % 8), dtype=x2.dtype, device=dev)
+            xp[:, :k] = x2
+            x2, k = xp, xp.shape[1]
+        if splits > 1:
+            tickets = cuda_lib.scratch("quant_matmul.tickets", dev, stream,
+                                       n // _BN, torch.int32,
+                                       zeroed=True).data_ptr()
+    if splits > 1:
+        ws = cuda_lib.scratch("quant_matmul.partials", dev, stream,
+                              splits * m * n, torch.float32).data_ptr()
     if _launch is None:
         _launch = cuda_lib.kernel("quant_matmul", "quant_matmul_fwd",
                                   _ARGTYPES)
     err = _launch(_DTYPES[x2.dtype], int(w.kind == "int4"), x2.data_ptr(),
-                  w.q.data_ptr(), w.scale.data_ptr(), out.data_ptr(),
-                  0 if ws is None else ws.data_ptr(), m, k, n, splits,
-                  per_split, torch.cuda.current_stream(x2.device).cuda_stream)
+                  w.q.data_ptr(), w.scale.data_ptr(), out.data_ptr(), ws,
+                  tickets, m, k, rows, n, splits, per_split, stream)
     cuda_lib.check("quant_matmul", err, "weight_only_matmul launch")
     if w.kind == "int4":
         weight_only_matmul.int4_launches += 1

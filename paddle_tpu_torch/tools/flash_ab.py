@@ -1,17 +1,18 @@
-"""Time the flash-attention kernels of one checkout, for A/B comparisons
-of two checkouts on one card.
+"""Time the attention and GEMV kernels of one checkout, for A/B
+comparisons of two checkouts on one card.
 
 Usage, on the machine with the card, from any directory::
 
     python3 paddle_tpu_torch/tools/flash_ab.py PATH_TO_CHECKOUT [PARTS]
 
 PARTS is a comma-separated subset of
-``flash,k8,small,longctx,k7,dbias,decode`` (default: all of them); the
-kernel lines below are printed always.
+``flash,k8,small,longctx,k7,dbias,decode,k3,k4,serve`` (default: all of
+them); the kernel lines below are printed always.
 
-It builds that checkout's ``flash_attention``, ``flash_mask`` and
-``decode_attention`` sources and prints, for each bf16 kernel of them
-(K1/K2, the K8 kernels, K7), its ptxas lines (registers, shared memory,
+It builds that checkout's ``flash_attention``, ``flash_mask``,
+``decode_attention``, ``paged_attention`` and ``quant_matmul`` sources
+and prints, for each bf16 kernel of them (K1/K2, the K8 kernels, K7, K3,
+K4), its ptxas lines (registers, shared memory,
 spills) and its SASS counts of ``HGMMA`` (wgmma), ``UTMALDG`` (TMA
 loads), ``UTMASTG`` (TMA stores), ``HMMA`` (mma.sync), shared and local
 loads and stores (with ``cuobjdump`` from the CUDA toolkit) and a digest
@@ -25,7 +26,16 @@ on an out, lse and delta the tool computes in f32, beside its bound and
 one forward + backward of ``scaled_dot_product_attention`` with the
 bias's gradient; part ``decode`` runs ``chip_smoke.py``'s 11c (llama3_8b
 ``generate`` at 8 x 8064 + 128, K7 on and off, paged) and a profile of
-one of its decode steps with K7 on.  Part ``flash`` prints one JSON line
+one of its decode steps with K7 on.  Part ``k3`` prints one line per row
+of ``chip_smoke.py``'s ``PAGED_SHAPES`` (the paged attention's device ms
+and CUDA-event ms, its bound, and K7's device ms on the same keys in a
+dense cache, where K7 takes the head dim; a row the checkout's kernel
+does not take prints the error); part ``k4`` one line per phase-3 K4
+shape, int8 and int4 (device ms, the bound, a dense bf16
+``torch.matmul`` of the same shape and ``torch._weight_int8pack_mm``);
+part ``serve`` a profile of phase 4's decode step (llama3_8b, 8 slots,
+pages of 64): K3's device ms per step and the device's busy share.
+Part ``flash`` prints one JSON line
 per row of
 ``chip_smoke.py``'s
 ``FLASH_SHAPES`` (bf16, causal) with the mean CUDA-event milliseconds of
@@ -69,7 +79,8 @@ from pathlib import Path
 
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA", "LDS", "STS", "LDL",
             "STL", "MUFU")
-PARTS = ("flash", "k8", "small", "longctx", "k7", "dbias", "decode")
+PARTS = ("flash", "k8", "small", "longctx", "k7", "dbias", "decode", "k3",
+         "k4", "serve")
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3):
@@ -128,23 +139,25 @@ def sass_counts(lib):
     return counts
 
 
-def bf16_flash(name):
-    """Whether a kernel name is a bf16 attention kernel: a flash_sm90.cuh
-    instance, K7's decode_mma_kernel, or a bfloat16 instance of the
+def bf16_kernel(name):
+    """Whether a kernel name is a bf16 kernel of the port: a
+    flash_sm90.cuh instance, K7's decode_mma_kernel, K3's
+    paged_mma_kernel, K4's wo_mma_kernel, or a bfloat16 instance of the
     CUDA-core bodies."""
-    return ("flash_sm90" in name or "nv_bfloat16" in name
-            or "decode_mma" in name)
+    return any(mark in name for mark in ("flash_sm90", "nv_bfloat16",
+                                         "decode_mma", "paged_mma",
+                                         "wo_mma"))
 
 
 def main(root, parts=PARTS):
     tool_root = str(Path(__file__).resolve().parents[2])
     sys.path.insert(0, tool_root)
     from chip_smoke import (FLASH_SHAPES, K7_SHAPES, K8_SHAPES,
-                            LONGCTX_SEQ, MASKED_SHAPES, WINDOW_SHAPE,
-                            alibi_bias, bias_read_bytes, bound, k8_operands,
-                            phase_longctx_bias, phase_longctx_masked,
-                            phase_longctx_window, release, visible_pairs,
-                            window_intervals)
+                            LONGCTX_SEQ, MASKED_SHAPES, PAGED_SHAPES,
+                            WINDOW_SHAPE, alibi_bias, bias_read_bytes, bound,
+                            k8_operands, phase_longctx_bias,
+                            phase_longctx_masked, phase_longctx_window,
+                            release, visible_pairs, window_intervals)
     sys.path.remove(tool_root)
     sys.path.insert(0, root)
     import torch
@@ -158,13 +171,14 @@ def main(root, parts=PARTS):
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print("checkout", root, "|", smi, flush=True)
-    srcs = ("flash_attention", "flash_mask", "decode_attention")
+    srcs = ("flash_attention", "flash_mask", "decode_attention",
+            "paged_attention", "quant_matmul")
     cuda_lib.build(srcs)
     for src in srcs:
         lines = ptxas_lines(cuda_lib.build_log[src])
         sass = sass_counts(str(cuda_lib.BUILD_DIR / f"lib{src}.so"))
         for fn in sorted(set(lines) | set(sass)):
-            if bf16_flash(fn):
+            if bf16_kernel(fn):
                 print("KERNEL", src, fn, lines.get(fn), {
                     op: sass.get(fn, {}).get(op, 0)
                     for op in (*SASS_OPS, "sass_sha1")}, flush=True)
@@ -180,6 +194,12 @@ def main(root, parts=PARTS):
 
     if "k7" in parts:
         k7_rows(torch, DA, root, gen, K7_SHAPES, bound)
+    if "k3" in parts:
+        k3_rows(torch, DA, root, gen, PAGED_SHAPES)
+    if "k4" in parts:
+        k4_rows(torch, root, gen)
+    if "serve" in parts:
+        serve_profile(torch, release)
     if "dbias" in parts:
         dbias_rows(torch, FM, root, bhsd, K8_SHAPES, LONGCTX_SEQ,
                    alibi_bias, bias_read_bytes, bound, visible_pairs, scale,
@@ -453,6 +473,102 @@ def k7_rows(torch, DA, root, gen, shapes, bound):
             enable_gqa=kvh != nh))["device_ms"]
         print(json.dumps(row), flush=True)
         del q, k, v
+
+
+def k3_rows(torch, DA, root, gen, shapes):
+    """One line per K3 shape: device ms (``torch.profiler``) and
+    CUDA-event ms of the paged attention, its bound, and K7's device ms on
+    the same keys gathered into a dense cache (where the checkout's K7
+    takes the head dim); a row the checkout's K3 does not take prints
+    the error."""
+    from chip_smoke import paged_bound, paged_inputs
+    from paddle_tpu_torch.ops.pallas import paged_attention as PA
+    for name, nh, kvh, ps, W, lens, D in shapes:
+        q, kp, vp, table, lens_t = paged_inputs(gen, len(lens), nh, kvh, ps,
+                                                W, lens, D)
+        row = {"checkout": root, "k3": name,
+               "bound_ms": paged_bound(q, kvh, ps, lens_t)[0]}
+        try:
+            fn = lambda: PA.paged_attention(  # noqa: E731
+                q, kp, vp, table, lens_t)
+            fn()
+            row.update(event_ms=cuda_ms(torch, fn, iters=50),
+                       **device_ms(torch, fn))
+        except (ValueError, NotImplementedError) as e:
+            row["error"] = str(e)
+        kd, vd = (PA.gather_kv_pages(p, table).transpose(1, 2).contiguous()
+                  for p in (kp, vp))
+        if DA._route(D) == "kernel":
+            pos = lens_t - 1
+            row["k7_dense_device_ms"] = device_ms(
+                torch, lambda: DA.decode_attention(q, kd, vd, pos))[
+                    "device_ms"]
+        print(json.dumps(row), flush=True)
+        del q, kp, vp, kd, vd
+
+
+def k4_rows(torch, root, gen):
+    """One line per phase-3 K4 shape (``chip_smoke.phase_quant``'s), int8
+    and int4: the kernel's device ms, its bound, a dense bf16
+    ``torch.matmul`` of the same shape and, for int8,
+    ``torch._weight_int8pack_mm``."""
+    from chip_smoke import (BENCH_PROJ_SHAPES, GEN_PROJ_SHAPES, PROJ_SHAPES,
+                            bound, int8pack_ms)
+    from paddle_tpu_torch.ops.pallas import quant_matmul as QM
+    shapes = [(name, 8, k, n) for name, k, n in PROJ_SHAPES]
+    shapes += [("gate/up", 1, 4096, 14336), ("gate/up", 64, 4096, 14336)]
+    shapes += [(name, 8, k, n) for name, k, n in GEN_PROJ_SHAPES]
+    for kind in ("int8", "int4"):
+        bench = [(name, 8, k, n) for name, k, n in BENCH_PROJ_SHAPES]
+        for name, m, k, n in shapes + (bench if kind == "int8" else []):
+            top = 127 if kind == "int8" else 7
+            x = torch.randn(m, k, device="cuda", generator=gen).bfloat16()
+            q = torch.randint(-top, top + 1, (k, n), device="cuda",
+                              generator=gen).to(torch.int8)
+            sc = torch.rand(n, device="cuda", generator=gen) * 0.02 + 1e-3
+            w = (QM.QuantizedWeight(QM.pack_int4(q), sc, "int4", k)
+                 if kind == "int4" else QM.QuantizedWeight(q, sc))
+            dense = torch.randn(k, n, device="cuda",
+                                generator=gen).bfloat16()
+            nbytes = w.q.numel() + 4 * n + 2 * x.numel() + 2 * m * n
+            print(json.dumps({
+                "checkout": root, "k4": kind, "shape": name, "M": m,
+                **device_ms(torch, lambda: QM.weight_only_matmul(x, w)),
+                "bound_ms": bound(nbytes, 2 * m * k * n)[0],
+                "dense_bf16_device_ms": device_ms(
+                    torch, lambda: x @ dense)["device_ms"],
+                "int8pack_device_ms": (int8pack_ms(x, q, sc)[0]
+                                       if kind == "int8" else None)}),
+                  flush=True)
+            del x, q, w, dense
+
+
+def serve_profile(torch, release):
+    """Phase 4's decode step on this checkout's kernels: llama3_8b with
+    random bf16 weights from seed 0, the engine of ``phase_serve`` (8
+    slots, pages of 64, 8192 tokens a row), a warm-up request, then
+    ``profile_decode`` over 8 decode steps of phase 4's 8 prompt lengths
+    (K3's device ms per step and the busy share)."""
+    import numpy as np
+    from chip_smoke import profile_decode
+    from paddle_tpu_torch.models import (GenerationConfig, init_state,
+                                         llama3_8b)
+    from paddle_tpu_torch.serving import create_engine
+    cfg = llama3_8b()
+    release()
+    state = init_state(cfg, torch.Generator(device="cuda").manual_seed(0),
+                       device="cuda")
+    engine = create_engine(cfg, state, max_slots=8, page_size=64,
+                           max_model_len=8192, enable_prefix_cache=True,
+                           sync_interval=8)
+    rng = np.random.default_rng(0)
+    engine.submit(rng.integers(0, cfg.vocab_size, 100),
+                  GenerationConfig(max_new_tokens=8)).result()
+    lens = [128, 2048, 700, 1500, 333, 1524, 1324, 1900]
+    profile_decode(engine, [rng.integers(0, cfg.vocab_size, n)
+                            for n in lens], GenerationConfig, phase="serve")
+    del engine, state
+    release()
 
 
 def dbias_rows(torch, FM, root, bhsd, k8_shapes, longctx_seq, alibi_bias,

@@ -66,16 +66,26 @@ row told 64 keys fewer), bit-equal reruns and the wrapper's rejections.
 
 The head-dim routes: d outside {64, 128, 256} runs the plain versions on
 the card (K7 here, K1/K2 and K8 through ``sdpa`` in the CPU tests);
-flash at d 64 and K3 off d 128 raise ``NotImplementedError`` naming the
-kernel and its ROADMAP item.  The bf16 K8 dbias (flash_sm90.cuh) is held
-through the K8 backward cases (every bias broadcast shape and dtype, Sk
-1001, intervals with a bias) and a planted fault (64 keys dropped).
+flash at d 64 and K3 off d 32/64/128/256 raise ``NotImplementedError``
+naming the kernel and its ROADMAP item.  The bf16 K8 dbias
+(flash_sm90.cuh) is held through the K8 backward cases (every bias
+broadcast shape and dtype, Sk 1001, intervals with a bias) and a planted
+fault (64 keys dropped).
+
+The paged attention (K3) is held at head dims 32, 64, 128 and 256,
+groups of 1, 4 and 32 and pages of 8, 16, 24, 64 and 128 tokens, with
+rows of 0 and 1 keys, a page edge and a full table, and a dropped page
+must fail the bf16 check at each head dim; its reruns (several key
+splits merged by ticket) repeat bit for bit.  K4 is also held at M 1,
+8, 17 and 64 in both kinds, one split and many, and repeats bit for
+bit.
 """
 import math
 
 import pytest
 import torch
 
+from paddle_tpu_torch.ops import cuda_lib
 from paddle_tpu_torch.ops.pallas import decode_attention as DA
 from paddle_tpu_torch.ops.pallas import flash_attention as FA
 from paddle_tpu_torch.ops.pallas import flash_mask as FM
@@ -138,26 +148,45 @@ def _paged_inputs(gen, dt, b, nh, kvh, d, ps, lens):
     return q, kp, vp, table, lens_t
 
 
+K3_DIMS = (32, 64, 128, 256)
+K3_GROUPS = ((8, 8), (16, 4), (32, 1))   # nh, kvh: groups 1, 4 and 32
+K3_PAGES = (8, 16, 24, 64, 128)
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("nh,kvh,d,ps", [(32, 8, 128, 64), (8, 8, 128, 16),
-                                         (4, 1, 128, 8)])
-def test_paged_kernel_matches_plain(gen, dt, nh, kvh, d, ps):
-    args = _paged_inputs(gen, dt, 4, nh, kvh, d, ps, [1, ps, 3 * ps + 5, 700])
+@pytest.mark.parametrize("ps", K3_PAGES)
+@pytest.mark.parametrize("nh,kvh", K3_GROUPS)
+@pytest.mark.parametrize("d", K3_DIMS)
+def test_paged_kernel_matches_plain(gen, dt, d, nh, kvh, ps):
+    """Rows of 0 and 1 keys, a page edge, a ragged row and a full table
+    (one page of padding past the longest row, which the kernel must not
+    read); a row with no key is zero (the plain version gives NaN)."""
+    full = 8 * ps + 64
+    lens = [0, 1, ps, 3 * ps + 7, -(-full // ps) * ps]
+    args = _paged_inputs(gen, dt, 5, nh, kvh, d, ps, lens)
     before = PA.paged_attention.launches
     out = PA.paged_attention(*args)
     torch.cuda.synchronize()
     assert PA.paged_attention.launches == before + 1
+    assert out.shape == args[0].shape and out.dtype == dt
+    assert torch.count_nonzero(out[0]) == 0
     ref = PA.paged_attention_xla(*args)
-    assert _close(out, ref, dt)
+    assert _close(out[1:], ref[1:], dt)
 
 
-def test_bf16_check_catches_a_dropped_page(gen):
+@pytest.mark.parametrize("d,nh,kvh,ps,lens", [
+    (128, 32, 8, 64, [1, 64, 65, 1000, 4096, 8192]),
+    (32, 4, 2, 24, [64, 65, 1000, 2048]),
+    (64, 32, 4, 24, [64, 65, 1000, 2048]),
+    (256, 16, 4, 24, [64, 65, 1000, 2048]),
+    (128, 32, 1, 24, [64, 65, 1000, 2048])])
+def test_bf16_check_catches_a_dropped_page(gen, d, nh, kvh, ps, lens):
     """A kernel that skipped each row's last page (64 of 8192 keys, an
     absolute change of ~1e-3 on outputs of ~1e-2) must fail the bf16
-    check on every head of every slot that loses keys."""
-    lens = [1, 64, 65, 1000, 4096, 8192]
-    q, kp, vp, table, lens_t = _paged_inputs(gen, torch.bfloat16, 6, 32, 8,
-                                             128, 64, lens)
+    check on every head of every slot that loses keys, at each head dim
+    and a group of 32."""
+    q, kp, vp, table, lens_t = _paged_inputs(gen, torch.bfloat16, len(lens),
+                                             nh, kvh, d, ps, lens)
     ref = PA.paged_attention_xla(q, kp, vp, table, lens_t)
     assert _close(PA.paged_attention(q, kp, vp, table, lens_t), ref,
                   torch.bfloat16)
@@ -186,8 +215,28 @@ def test_paged_wrapper_rejects(gen):
         PA.paged_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
                            kp, vp, table, lens)
     with pytest.raises(NotImplementedError, match=r"K3.*queue 2 A3"):
-        PA.paged_attention(q[..., :64].contiguous(), kp[..., :64].contiguous(),
-                           vp[..., :64].contiguous(), table, lens)
+        PA.paged_attention(q[..., :96].contiguous(), kp[..., :96].contiguous(),
+                           vp[..., :96].contiguous(), table, lens)
+
+
+def test_paged_kernel_is_deterministic(gen):
+    """The last split's CTA merges the splits in split order: two calls
+    give the same bits, and the ticket counters are left at zero."""
+    for d, nh, kvh, ps, lens in ((128, 32, 8, 64, [8192, 100, 0, 4096]),
+                                 (32, 32, 1, 24, [5000, 24, 1, 777]),
+                                 (256, 16, 4, 16, [2048, 2047, 3, 900])):
+        args = _paged_inputs(gen, torch.bfloat16, len(lens), nh, kvh, d, ps,
+                             lens)
+        first = PA.paged_attention(*args)
+        second = PA.paged_attention(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        live = args[4] > 0
+        assert _close(first[live], PA.paged_attention_xla(*args)[live],
+                      torch.bfloat16)
+    tickets = [buf for key, buf in cuda_lib._scratch.items()
+               if key[0] == "paged_attention.tickets"]
+    assert tickets and all(torch.count_nonzero(buf) == 0 for buf in tickets)
 
 
 def _masked(gen, dt, b, h, kvh, sq, sk, d, causal, real=None, nvec4=False):
@@ -887,8 +936,14 @@ def _quant_inputs(gen, dt, m, k, n, kind):
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", ["int8", "int4"])
 @pytest.mark.parametrize("m,k,n", [(8, 4096, 1024), (1, 4096, 14336),
-                                   (64, 14336, 256), (3, 999, 384)])
+                                   (64, 14336, 256), (3, 999, 384),
+                                   (1, 4096, 1024), (17, 4096, 1024),
+                                   (64, 4096, 1024), (1, 2048, 2816),
+                                   (8, 2048, 2816), (17, 2048, 2816),
+                                   (64, 2048, 2816)])
 def test_quant_kernel_matches_plain(gen, dt, kind, m, k, n):
+    """M 1, 8, 17 and 64 reach each x-row instance of the bf16 kernel (8,
+    8, 32 and 64 rows), N 1024 many K splits and N 2816 few."""
     if kind == "int4" and k % 2:
         pytest.skip("int4 takes an even K (the route sends odd K to the "
                     "matmul)")
@@ -901,6 +956,25 @@ def test_quant_kernel_matches_plain(gen, dt, kind, m, k, n):
     assert out.dtype == dt and out.shape == (m, n)
     ref = QM._xla_fallback(x, w)
     assert _row_rel_err(out, ref).max().item() <= QUANT_ROW_TOL[dt]
+
+
+def test_quant_kernel_is_deterministic(gen):
+    """The last split of a column block sums the splits in split order:
+    two calls give the same bits, the counters are left at zero, and an
+    x that is not a whole number of 16-byte rows is padded, not read
+    past its end."""
+    for kind, m, k, n in (("int8", 8, 4096, 1024), ("int4", 17, 14336, 4096),
+                          ("int8", 5, 4100, 384)):
+        x, w = _quant_inputs(gen, torch.bfloat16, m, k, n, kind)
+        first = QM.weight_only_matmul(x, w)
+        second = QM.weight_only_matmul(x, w)
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        assert _row_rel_err(first, QM._xla_fallback(x, w)).max().item() \
+            <= QUANT_ROW_TOL[torch.bfloat16]
+    tickets = [buf for key, buf in cuda_lib._scratch.items()
+               if key[0] == "quant_matmul.tickets"]
+    assert tickets and all(torch.count_nonzero(buf) == 0 for buf in tickets)
 
 
 def test_quant_check_catches_planted_faults(gen):
@@ -1037,8 +1111,9 @@ def test_decode_kernel_is_deterministic(gen):
         second = DA.decode_attention(*args)
         torch.cuda.synchronize()
         assert torch.equal(first, second)
-    for buf in DA._tickets.values():
-        assert torch.count_nonzero(buf) == 0
+    tickets = [buf for key, buf in cuda_lib._scratch.items()
+               if key[0] == "decode_attention.tickets"]
+    assert tickets and all(torch.count_nonzero(buf) == 0 for buf in tickets)
 
 
 def test_decode_kernel_off_runs_the_plain_version(gen, monkeypatch):

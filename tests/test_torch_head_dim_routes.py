@@ -12,9 +12,10 @@ these tests hold each against the reference's own choice, observed by
 calling the reference's dispatcher with its kernel entries replaced by
 recorders (the reference keeps its head-dim sets inline, not as
 constants).  ``llama_tiny`` (head_dim 32) then runs through the port's
-``generate`` and engine on the routes the card would take there: the
-plain versions, to the reference's tokens.  On the card the same routes
-are shown by ``chip_smoke.py`` phase 3.
+``generate`` and engine on the routes the card would take there (the
+plain versions of K8 and K7; K3's kernel, whose CPU route is its plain
+version), to the reference's tokens.  On the card the same routes are
+shown by ``chip_smoke.py`` phase 3.
 """
 import numpy as np
 import pytest
@@ -122,14 +123,15 @@ def test_decode_rule_follows_the_reference(monkeypatch):
 
 def test_paged_rule_follows_the_reference(monkeypatch):
     """The reference runs its K3 kernel at every shape
-    (``select_paged_attention``); the port's is built for head_dim 128
-    and groups up to 16, and raises elsewhere instead of answering with
-    a plain result that no card route computes."""
+    (``select_paged_attention``); the port's is built for head dims 32,
+    64, 128 and 256 at any group, and raises at other head dims instead
+    of answering with a plain result that no card route computes."""
     monkeypatch.setattr(JPA, "_INTERPRET", True)
     assert JPA.select_paged_attention() is JPA.paged_attention
+    assert TPA.KERNEL_HEAD_DIMS == (32, 64, 128, 256)
     for d in HEAD_DIMS:
         for group in (1, 4, 16, 32):
-            if d == 128 and group <= 16:
+            if d in TPA.KERNEL_HEAD_DIMS:
                 assert TPA._route(d, group) == "kernel"
             else:
                 with pytest.raises(NotImplementedError,
@@ -181,8 +183,9 @@ def test_llama_tiny_generate_takes_the_plain_routes(tiny, monkeypatch):
 
 def test_llama_tiny_engine_matches_the_reference(tiny):
     """The engine at head_dim 32: its prefill takes the plain K8 route,
-    as on the card; its decode is K3, which the card would refuse
-    (ROADMAP queue 2 A3), so the CPU engine holds the tokens here."""
+    as on the card; its decode is K3, whose kernel the card runs at
+    head_dim 32 (``chip_smoke.py`` phase 3 holds its tokens to the
+    CPU's); the CPU engine holds them to the reference's here."""
     jm, np_state = tiny
     kw = dict(max_slots=2, page_size=8, max_model_len=64, preempt=False)
     je = j_create_engine(jm, **kw)
@@ -197,5 +200,6 @@ def test_llama_tiny_engine_matches_the_reference(tiny):
             engine.step()
         outs.append([r.output_tokens for r in reqs])
     assert outs[0] == outs[1]
-    with pytest.raises(NotImplementedError, match="K3"):
-        TPA._route(TL.llama_tiny().head_dim, 2)
+    cfg = TL.llama_tiny()
+    assert TPA._route(cfg.head_dim, cfg.num_attention_heads
+                      // cfg.num_key_value_heads) == "kernel"

@@ -4,8 +4,10 @@ The same numpy inputs (from a seed) go through the JAX Pallas kernel in
 interpret mode, the JAX dense-gather reference ``paged_attention_xla``
 and the port's ``paged_attention`` (on CPU tensors: its plain version).
 float32 throughout; tolerance 1e-5 absolute — the paths differ only in
-summation order and in online vs. one-pass softmax.  The CUDA kernel is
-held against the same plain version on the card (chip_smoke.py and
+summation order and in online vs. one-pass softmax.  The cases cover the
+head dims the port's kernel is built for (32, 64, 128, 256), GQA groups
+of 1 to 32 and pages of 8, 16 and 24 tokens.  The CUDA kernel is held
+against the same plain version on the card (chip_smoke.py and
 tests/test_torch_cuda_kernels.py).
 """
 import numpy as np
@@ -18,14 +20,17 @@ from paddle_tpu.ops.pallas import paged_attention as JPA
 from paddle_tpu_torch.ops.pallas import paged_attention as TPA
 
 ATOL = 1e-5
+HEAD_DIMS = (32, 64, 128, 256)     # the port kernel's instances
+GROUPS = (1, 4, 8, 32)
+PAGES = (8, 16, 24)
 
 
-def _case(rep, ps, seed):
+def _case(rep, ps, seed, d=64):
     """B=4 sequences whose lens cover 1 token, exactly one page, a
     ragged middle and the full table; unused table slots point at the
     dump page (the last pool row)."""
     rng = np.random.RandomState(seed)
-    kvh, d, w = 2, 64, 4
+    kvh, w = 2, 4
     nh = kvh * rep
     lens = np.array([1, ps, 2 * ps + 3, w * ps], np.int32)
     n_pool = 4 * w + 1
@@ -47,9 +52,11 @@ def interpret():
     JPA._INTERPRET = saved
 
 
-@pytest.mark.parametrize("rep,ps", [(1, 8), (4, 8), (1, 16), (4, 16)])
-def test_matches_jax_kernel_and_reference(interpret, rep, ps):
-    args = _case(rep, ps, seed=rep * 100 + ps)
+@pytest.mark.parametrize("ps", PAGES)
+@pytest.mark.parametrize("rep", GROUPS)
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_matches_jax_kernel_and_reference(interpret, d, rep, ps):
+    args = _case(rep, ps, seed=rep * 100 + ps + d, d=d)
     jargs = [jnp.asarray(a) for a in args]
     j_kernel = np.asarray(JPA.paged_attention(*jargs))
     j_xla = np.asarray(JPA.paged_attention_xla(*jargs))
