@@ -111,9 +111,34 @@ no CUDA ``_weight_int8pack_mm``):
    every param agree by relative norm (1e-4); and the grouped
    ``moe_dispatch_combine`` (K9 in float32) with its grads.  Routing must
    agree except at a tie of the CPU's f32 probabilities (within 1e-6),
-   which the run names.
+   which the run names;
+15. TinyLlama-1.1B training (its config.json: the bench rung's widths
+   with 22 layers, 32 q / 4 kv heads at head_dim 64, rms eps 1e-5;
+   random bf16 weights from seed 0): phase 6's path at 8 x 2048, remat, 1
+   warm-up and 10 timed steps, exactly 2 K1 forwards and one K2 dq and
+   dk/dv per layer per step at head_dim 64, no call of an attention
+   plain version (counted by wrapping them), a loss that falls; then
+   phase 7's f32 step at 2 of its layers, card vs CPU;
+16. TinyLlama-1.1B served: phase 4's engine and traffic, each prompt cut
+   to its 2048 positions less the 64 new tokens (prefill: the K8 forward
+   at head_dim 64; decode: K3 at head_dim 64, both launched); TTFT,
+   decode tokens/s and the decode step's profile; then phase 5's greedy
+   tokens at 2 of its layers in f32, card vs CPU.
 
 Every phase prints its wall seconds.
+
+The K1/K2 and K8 kernels are built for head dims 64, 128 and 256; phase
+3 holds the 64 and 256 instances as it holds the 128 ones: K1/K2 at
+TinyLlama-1.1B's training attention (b 8, 32/4 heads, s 2048, d 64) and
+Gemma-2B's (8/1 heads, d 256), both with the pairs x head_dim of the
+training shape, and the exponentials beside each bound; the K8 forward
+at TinyLlama's 2048 prefill bucket (no lse, as serving runs it); the K8
+backward at SFT padding (TinyLlama's and Gemma-2B's heads) and ALiBi
+with dbias (both); float32 instances of each, card vs CPU; and
+``phase_routes`` requires ``sdpa`` at d 64 and 256 (unmasked, flashmask,
+bias, each with gradients) to launch the kernels once and agree per row
+with the plain versions.  Every K1/K2 and K8 record also requires two
+runs to give the same bits.
 
 Phase 3 also holds the flash-attention kernels (K1 forward, K2 dq and
 dk/dv; in bf16 the Hopper kernels of ``csrc/flash_sm90.cuh``: wgmma,
@@ -151,8 +176,8 @@ reruns; the head-dim routes on the card (d 32, llama_tiny's, runs the
 plain versions of sdpa and K7 with no launch and equals the CPU,
 llama_tiny's greedy generate gives the CPU's tokens, and its engine
 launches K3 at d 32 and gives the CPU's tokens; flash and masked flash
-at d 64 raise NotImplementedError naming the kernel and its ROADMAP
-item, and K3 at d 64 launches and agrees with its plain version); the
+at d 64 and 256 launch their kernels, and K3 at d 64 launches and
+agrees with its plain version); the
 paged attention (K3: mma.sync tensor cores, a cp.async ring over the
 block table, one launch) in bf16 per row at phase 4's decode shape,
 11b's and 11c's paged caches and the head dims and groups no shipped
@@ -215,23 +240,40 @@ MOE_BATCH, MOE_SEQ, MOE_STEPS = 16, 512, 10
 MOE_HEADS = 8
 # flash attention (K1/K2) in phase 3: the training shape first (the one
 # the kernels line reports), then llama3_8b widths, a ragged cross-length
-# case whose first 300 rows see no key, a long sequence, and 13a's MoE
-# rung (every layer of its step launches K1, dq and dk/dv at this shape)
-FLASH_SHAPES = (  # name, B, H, kvH, Sq, Sk
-    ("train", 8, 16, 16, 2048, 2048),
-    ("llama3_8b", 1, 32, 8, 2048, 2048),
-    ("ragged", 2, 16, 4, 1000, 700),
-    ("long", 1, 16, 16, 8192, 8192),
-    ("moe_train", MOE_BATCH, MOE_HEADS, MOE_HEADS, MOE_SEQ, MOE_SEQ),
+# case whose first 300 rows see no key, a long sequence, 13a's MoE rung
+# (every layer of its step launches K1, dq and dk/dv at this shape), and
+# the head dims 64 and 256 at the training shape's batch and length:
+# TinyLlama-1.1B's heads (its config.json: 32 q / 4 kv, head_dim 64;
+# phase 15 trains it) and Gemma-2B's (8 q / 1 kv, head_dim 256), whose
+# pairs x head_dim, and so whose operations, equal the training shape's
+FLASH_SHAPES = (  # name, B, H, kvH, Sq, Sk, D
+    ("train", 8, 16, 16, 2048, 2048, 128),
+    ("llama3_8b", 1, 32, 8, 2048, 2048, 128),
+    ("ragged", 2, 16, 4, 1000, 700, 128),
+    ("long", 1, 16, 16, 8192, 8192, 128),
+    ("moe_train", MOE_BATCH, MOE_HEADS, MOE_HEADS, MOE_SEQ, MOE_SEQ, 128),
+    ("tinyllama_train", 8, 32, 4, 2048, 2048, 64),
+    ("gemma2b_d256", 8, 8, 1, 2048, 2048, 256),
 )
+# softmax's exponentials (one per visible pair and pass): at head_dim 64
+# the MUFU rate, 16 a clock on each of the 132 SMs at the 1.98 GHz boost
+# clock (NVIDIA's H100 SXM data sheet), weighs as much as the tensor
+# cores; printed beside the bound, not folded into it
+EXP_PER_S = 16 * 132 * 1.98e9
 FAULT_SHARE = 0.99            # gradient rows the planted fault must fail
 # the K8 backward and bias kernels in phase 3: SFT with key padding at
 # llama3_8b widths (GQA), packed documents (non-causal, nvec 4) and an
-# ALiBi bias that takes a gradient (dbias summed over the batch)
-K8_SHAPES = (  # name, B, H, kvH, S, causal, mask
-    ("sft_padding", 4, 32, 8, 2048, True, "padding"),
-    ("packed_docs", 1, 16, 16, 4096, False, "segments"),
-    ("alibi_bias", 2, 16, 16, 2048, True, "alibi"),
+# ALiBi bias that takes a gradient (dbias summed over the batch); then
+# the head dims 64 and 256: SFT padding at TinyLlama-1.1B's heads and at
+# Gemma-2B's, and ALiBi with dbias at both
+K8_SHAPES = (  # name, B, H, kvH, S, causal, mask, D
+    ("sft_padding", 4, 32, 8, 2048, True, "padding", 128),
+    ("packed_docs", 1, 16, 16, 4096, False, "segments", 128),
+    ("alibi_bias", 2, 16, 16, 2048, True, "alibi", 128),
+    ("tinyllama_sft", 4, 32, 4, 2048, True, "padding", 64),
+    ("alibi_d64", 2, 32, 4, 2048, True, "alibi", 64),
+    ("alibi_d256", 2, 8, 1, 2048, True, "alibi", 256),
+    ("gemma2b_sft", 4, 8, 1, 2048, True, "padding", 256),
 )
 SFT_LENGTHS = (1.0, 1900 / 2048, 1200 / 2048, 517 / 2048)   # of S
 PACKED_DOCS = (0.25, 0.375, 0.375)                          # of S
@@ -358,18 +400,25 @@ PAGED_SHAPES = (
 )
 K3_F32_LEN = 512                   # the f32 instances' longest row
 K3_F32_TOL = 1e-5                  # f32 K3 card vs CPU, relative norm
-# the K8 forward in phase 3 (name, B, H, kvH, S, lengths, yardsticks):
+# the K8 forward in phase 3 (name, B, H, kvH, S, lengths, yardsticks, D):
 # phase 4's prefill buckets (one prompt each), then the prompt prefills
 # of 11a, 11b and 11c (at 11c's size the plain version's time is not
-# taken, and the library call gets k/v repeated to the q heads)
+# taken, and the library call gets k/v repeated to the q heads), then
+# phase 16's 2048 bucket (TinyLlama-1.1B, 32/4 heads, head_dim 64)
 MASKED_SHAPES = (
-    ("serve_512", 1, 32, 8, 512, (448,), True),
-    ("serve_2048", 1, 32, 8, 2048, (1900,), True),
-    ("serve_6144", 1, 32, 8, 6144, (5000,), True),
-    ("bench_decode", 8, 16, 16, DECODE_PROMPT, (DECODE_PROMPT,) * 8, True),
-    ("bench_paged", 8, 16, 16, PAGED_PROMPT, PAGED_LENGTHS, True),
-    ("long_decode", 8, 32, 8, LONG_PROMPT, (LONG_PROMPT,) * 8, "library"),
+    ("serve_512", 1, 32, 8, 512, (448,), True, 128),
+    ("serve_2048", 1, 32, 8, 2048, (1900,), True, 128),
+    ("serve_6144", 1, 32, 8, 6144, (5000,), True, 128),
+    ("bench_decode", 8, 16, 16, DECODE_PROMPT, (DECODE_PROMPT,) * 8, True,
+     128),
+    ("bench_paged", 8, 16, 16, PAGED_PROMPT, PAGED_LENGTHS, True, 128),
+    ("long_decode", 8, 32, 8, LONG_PROMPT, (LONG_PROMPT,) * 8, "library",
+     128),
+    ("tinyllama_2048", 1, 32, 4, 2048, (1900,), True, 64),
 )
+# the head dims of the K1/K2 and K8 kernels besides 128 (ROADMAP queue 2
+# A1): phase 3's f32 rows and phase_routes run each
+NEW_HEAD_DIMS = (64, 256)
 
 
 def require(cond, what):
@@ -466,9 +515,10 @@ def is_k8_forward(low):
     """Whether a lower-cased device kernel name (as ``torch.profiler``
     gives it) is part of the K8 forward: the f32 WMMA instance, the tile
     table, or a ``flash_sm90::fwd_kernel`` in a K8 mode (K1's is mode 0,
-    ``(flash::Mode)0``)."""
+    ``(flash::Mode)0``, at any head dim)."""
     return ("masked_fwd" in low or "tile_table_kernel" in low
-            or ("flash_sm90::fwd_kernel<" in low and "mode)0>" not in low))
+            or ("flash_sm90::fwd_kernel<" in low
+                and "(flash::mode)0," not in low))
 
 
 def is_k8_backward(low):
@@ -480,7 +530,7 @@ def is_k8_backward(low):
     return ("masked_bwd_" in low or "flash_sm90::dbias_kernel" in low
             or (("flash_sm90::dq_kernel<" in low
                  or "flash_sm90::dkv_kernel<" in low)
-                and "mode)0>" not in low))
+                and "(flash::mode)0," not in low))
 
 
 def k8_part(low):
@@ -699,7 +749,7 @@ def phase_decode_f32(DA, name, B, nh, kvh, T, pos, D):
             f"{err} > {K7_F32_TOL}")
 
 
-def phase_masked(FM, gen, name, B, H, kvh, S, lengths, yardsticks):
+def phase_masked(FM, gen, name, B, H, kvh, S, lengths, yardsticks, D):
     """K8 forward at one ``MASKED_SHAPES`` prefill shape: B prompts
     right-padded to S with ``lengths`` real tokens, causal + key
     padding, q/k/v as the transposed [B, S, H, D] views the dispatcher
@@ -709,8 +759,9 @@ def phase_masked(FM, gen, name, B, H, kvh, S, lengths, yardsticks):
     with k/v repeated to the q heads outside the timed call, on the
     memory-efficient backend (with ``enable_gqa`` and a mask,
     ``scaled_dot_product_attention`` takes its math path, whose [B, H, S,
-    S] scores do not fit at 11c's size)."""
-    dev, dt, D = "cuda", torch.bfloat16, 128
+    S] scores do not fit at 11c's size).  Two calls must give the same
+    bits."""
+    dev, dt = "cuda", torch.bfloat16
     q = torch.randn(B, S, H, D, device=dev, generator=gen).to(dt)
     k = torch.randn(B, S, kvh, D, device=dev, generator=gen).to(dt)
     v = torch.randn(B, S, kvh, D, device=dev, generator=gen).to(dt)
@@ -745,6 +796,9 @@ def phase_masked(FM, gen, name, B, H, kvh, S, lengths, yardsticks):
             f"planted fault (last {FAULT_KEYS} keys dropped) passed the "
             f"flash_mha_masked check at {name}: min row error "
             f"{fault.min().item()}")
+    require(torch.equal(out, FM.flash_mha_masked(qh, kh, vh, vecs, True,
+                                                 scale)),
+            f"flash_mha_masked {name}: two calls differ")
     ms = cuda_ms(lambda: FM.flash_mha_masked(qh, kh, vh, vecs, True, scale))
     plain_ms = library_ms = None
     if yardsticks:
@@ -777,7 +831,8 @@ def phase_masked(FM, gen, name, B, H, kvh, S, lengths, yardsticks):
              "S": S, "lengths": list(lengths),
              "max_abs_err": err, "max_row_rel_err": row_err,
              "row_tol": ROW_TOL, "worst_row_keys": worst_keys,
-             "fault_min_row_rel_err": fault.min().item(), "ms": ms,
+             "fault_min_row_rel_err": fault.min().item(),
+             "rerun_bit_equal": True, "ms": ms,
              "plain_ms": plain_ms, "bound_ms": bound_ms,
              "bound_by": bound_by, "library_ms": library_ms}
     emit({"phase": 3, **shape})
@@ -947,13 +1002,13 @@ def window_backward(FA, FM, gen, q, k, v, out, lse, vecs, pairs):
             "tiles": tiles}
 
 
-def phase_flash(FA, gen, name, B, H, kvh, sq, sk):
+def phase_flash(FA, gen, name, B, H, kvh, sq, sk, D):
     """K1 forward and the K2 dq and dk/dv kernels against their plain
     versions in bf16, causal, on [B, S, H, D] tensors passed as the
     transposed views ``sdpa`` hands over.  The backward kernels and
     their plain versions take the same (q, k, v, out, lse, dout): the
-    kernel forward's out and lse."""
-    dev, dt, D = "cuda", torch.bfloat16, 128
+    kernel forward's out and lse.  Two runs must give the same bits."""
+    dev, dt = "cuda", torch.bfloat16
     scale = 1.0 / math.sqrt(D)
     q, k, v, do = (torch.randn(B, s, n, D, device=dev, generator=gen)
                    .to(dt).transpose(1, 2)
@@ -981,6 +1036,13 @@ def phase_flash(FA, gen, name, B, H, kvh, sq, sk):
     for key, err in row_err.items():
         require(err <= ROW_TOL, f"flash {key} kernel vs plain at {name}: "
                 f"row error {err} > {ROW_TOL}")
+    again = (*FA._flash_fwd(q, k, v, True, scale),
+             *FA._flash_bwd_dq(q, k, v, out, lse, do, True, scale),
+             *FA._flash_bwd_dkv(q, k, v, lse, delta, do, True, scale))
+    require(all(torch.equal(a, b) for a, b in zip(
+        again, (out, lse, dq, delta, dk, dv))),
+        f"flash kernels at {name}: two runs differ")
+    del again
     # planted fault: every kernel told 64 keys fewer than there are
     kf, vf = k[:, :, :-FAULT_KEYS], v[:, :, :-FAULT_KEYS]
     f_out, _ = FA._flash_fwd(q, kf, vf, True, scale)
@@ -1052,10 +1114,12 @@ def phase_flash(FA, gen, name, B, H, kvh, sq, sk):
              "causal": True, "dead_rows": int((~live).sum()),
              "max_abs_err": errs, "max_row_rel_err": row_err,
              "row_tol": ROW_TOL, "fault_min_row_rel_err": fault,
-             "fault_rows_caught": caught, "ms": ms,
+             "fault_rows_caught": caught, "rerun_bit_equal": True, "ms": ms,
              "plain_ms": plain, "library_ms": library,
              "bound_ms": {key: b[0] for key, b in bounds.items()},
-             "bound_by": {key: b[1] for key, b in bounds.items()}}
+             "bound_by": {key: b[1] for key, b in bounds.items()},
+             "exp_count": pairs, "exp_ms_at_mufu_rate":
+                 pairs / EXP_PER_S * 1e3}
     emit({"phase": 3, **shape})
     return shape
 
@@ -1163,13 +1227,14 @@ def caught(err, ref):
     return (e > ROW_TOL).float().mean().item(), e.min().item()
 
 
-def phase_k8(FM, gen, name, B, H, kvh, S, causal, kind):
+def phase_k8(FM, gen, name, B, H, kvh, S, causal, kind, D):
     """The K8 forward (with lse), dq, dk/dv and (ALiBi) dbias kernels
     against their plain versions in bf16, per row, on the transposed
     [B, S, H, D] views ``sdpa`` passes; the planted fault (k8_fault) must
-    fail every live out row and >= FAULT_SHARE of the gradient rows; the
-    times of kernel, plain version, bound and library."""
-    dev, dt, D = "cuda", torch.bfloat16, 128
+    fail every live out row and >= FAULT_SHARE of the gradient rows; two
+    runs give the same bits; the times of kernel, plain version, bound
+    and library."""
+    dev, dt = "cuda", torch.bfloat16
     scale = 1.0 / math.sqrt(D)
     q, k, v, do = (torch.randn(B, S, n, D, device=dev, generator=gen)
                    .to(dt).transpose(1, 2) for n in (H, kvh, kvh, H))
@@ -1193,6 +1258,10 @@ def phase_k8(FM, gen, name, B, H, kvh, S, causal, kind):
     for key, err in row_err.items():
         require(err <= ROW_TOL, f"K8 {key} kernel vs plain at {name}: row "
                 f"error {err} > {ROW_TOL}")
+    again = k8_run(FM, q, k, v, do, vecs, bias, causal, scale)
+    require(all(got[key] is None or torch.equal(got[key], again[key])
+                for key in got), f"K8 kernels at {name}: two runs differ")
+    del again
     kf, vf, fvecs, fbias, n = k8_fault(FM, kind, k, v, vecs, bias, S)
     bad = k8_run(FM, q, kf, vf, do, fvecs, fbias, causal, scale)
     fault_rows = {"out": row_rel_err(bad["out"], ref_out)[live]}
@@ -1280,22 +1349,22 @@ def phase_k8(FM, gen, name, B, H, kvh, S, causal, kind):
            "visible_pairs": pairs, "dead_rows": int((~live).sum()),
            "max_abs_err": errs, "max_row_rel_err": row_err,
            "row_tol": ROW_TOL, "fault_min_row_rel_err": fault,
-           "fault_rows_caught": caught_share, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library,
+           "fault_rows_caught": caught_share, "rerun_bit_equal": True,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library,
            "bound_ms": {key: b[0] for key, b in bounds.items()},
            "bound_by": {key: b[1] for key, b in bounds.items()}}
     emit({"phase": 3, **rec})
     return rec
 
 
-def phase_k8_f32(FM, name, B, H, kvh, causal, kind, S=512):
+def phase_k8_f32(FM, name, B, H, kvh, causal, kind, D, S=512):
     """A float32 instance of a phase-3 K8 shape at S 512: the kernels on
     the card vs the plain versions on the CPU from the same inputs (made
     on the host from a seed), by relative norm (phase 7's limit)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(3)
-    scale = 1.0 / math.sqrt(128)
-    q, k, v, do = (torch.randn(B, S, n, 128, generator=gen).transpose(1, 2)
+    scale = 1.0 / math.sqrt(D)
+    q, k, v, do = (torch.randn(B, S, n, D, generator=gen).transpose(1, 2)
                    for n in (H, kvh, kvh, H))
     vecs, bias = k8_operands(FM, kind, B, H, S, "cpu")
     res = {}
@@ -1311,11 +1380,38 @@ def phase_k8_f32(FM, name, B, H, kvh, causal, kind, S=512):
     errs = {key: rel_norm(res["cuda"][key], res["cpu"][key])
             for key in res["cpu"] if res["cpu"][key] is not None}
     emit({"phase": 3, "kernel": "flash_mask_k8", "shape": name,
-          "dtype": "float32", "S": S, "B": B, "H": H, "kvh": kvh,
+          "dtype": "float32", "S": S, "B": B, "H": H, "kvh": kvh, "D": D,
           "card_vs_cpu_rel_err": errs, "tol": PARITY_TOL})
     for key, err in errs.items():
         require(err <= PARITY_TOL, f"K8 f32 {key} at {name}: card vs CPU "
                 f"{err} > {PARITY_TOL}")
+    return errs
+
+
+def phase_flash_f32(FA, D, B=2, H=8, kvh=2, S=512):
+    """The float32 K1 forward and K2 dq and dk/dv at head dim ``D`` (B 2,
+    8 q over 2 kv heads, S 512, causal): the kernels on the card vs the
+    plain versions on the CPU from the same inputs (made on the host from
+    a seed), by relative norm (phase 7's limit)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(4)
+    scale = 1.0 / math.sqrt(D)
+    q, k, v, do = (torch.randn(B, S, n, D, generator=gen).transpose(1, 2)
+                   for n in (H, kvh, kvh, H))
+    res = {}
+    for device in ("cuda", "cpu"):
+        on = [t.to(device) for t in (q, k, v, do)]
+        out, lse = FA._flash_fwd(*on[:3], True, scale)
+        grads = FA._flash_bwd(*on[:3], out, lse, on[3], True, scale)
+        res[device] = dict(zip(("out", "dq", "dk", "dv"), (out, *grads)))
+    errs = {key: rel_norm(res["cuda"][key], res["cpu"][key])
+            for key in res["cpu"]}
+    emit({"phase": 3, "kernel": "flash_attention", "shape": f"f32_d{D}",
+          "dtype": "float32", "S": S, "B": B, "H": H, "kvh": kvh, "D": D,
+          "card_vs_cpu_rel_err": errs, "tol": PARITY_TOL})
+    for key, err in errs.items():
+        require(err <= PARITY_TOL, f"K1/K2 f32 {key} at head_dim {D}: card "
+                f"vs CPU {err} > {PARITY_TOL}")
     return errs
 
 
@@ -1401,11 +1497,12 @@ def phase_routes(FA, FM, DA, PA, G, init_state, create_engine,
     and agree with the CPU from the same inputs (f32, relative norm,
     phase 7's limit), and ``llama_tiny``'s greedy ``generate`` gives the
     CPU's tokens with no kernel launched; ``llama_tiny``'s engine (paged
-    decode) launches K3 at d 32 and gives the CPU's tokens; at d 64 the
-    flash route (K1/K2) and the masked route (K8) raise
-    ``NotImplementedError`` naming the kernel and its ROADMAP item, and
-    K3 launches and agrees with its plain version per row (K7 runs d 64:
-    phase 3's ``tinyllama_d64``)."""
+    decode) launches K3 at d 32 and gives the CPU's tokens; at d 64 and
+    256 the same three ``sdpa`` calls in bf16 (:func:`kernel_routes`)
+    launch K1/K2 or K8, once each, and agree per row with the plain
+    versions, and K3 launches at d 64 and agrees with its plain version
+    per row (K7 runs d 64: phase 3's ``tinyllama_d64``).  Returns the
+    launches of the d 64 and d 256 calls."""
     from paddle_tpu_torch.models import llama_tiny
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(5)
@@ -1481,24 +1578,11 @@ def phase_routes(FA, FM, DA, PA, G, init_state, create_engine,
     require(engine_tokens["cuda"] == engine_tokens["cpu"],
             f"llama_tiny engine (head_dim {cfg.head_dim}, K3) tokens card "
             f"{engine_tokens['cuda']} vs CPU {engine_tokens['cpu']}")
+    kernel_errs, kernel_launches = {}, {}
+    for d in NEW_HEAD_DIMS:
+        kernel_errs[d], kernel_launches[d] = kernel_routes(FA, FM, d)
     x = torch.randn(1, 128, 4, 64, device="cuda", dtype=torch.bfloat16)
     one = torch.ones(1, 1, dtype=torch.int32, device="cuda")
-    cases = {
-        "flash_d64": (lambda: FA.sdpa(x, x, x, is_causal=True), "A1"),
-        "masked_d64": (lambda: FA.sdpa(
-            x, x, x, flashmask=FM.padding_mask_to_intervals(
-                torch.ones(1, 128, dtype=torch.bool, device="cuda"), 128),
-            is_causal=True), "A1")}
-    raised = {}
-    for key, (fn, item) in cases.items():
-        try:
-            fn()
-            raised[key] = None
-        except NotImplementedError as e:
-            raised[key] = str(e)
-        require(raised[key] is not None and f"queue 2 {item}" in raised[key],
-                f"{key}: want NotImplementedError naming queue 2 {item}, "
-                f"got {raised[key]!r}")
     pool = torch.randn(3, 2, 64, 64, device="cuda", dtype=torch.bfloat16)
     lens = torch.full((1,), 50, dtype=torch.int32, device="cuda")
     n3 = PA.paged_attention.launches
@@ -1514,9 +1598,79 @@ def phase_routes(FA, FM, DA, PA, G, init_state, create_engine,
                                   "llama_tiny_engine_k3_launches":
                                       engine_k3["cuda"],
                                   "paged_d64_row_err": paged_err,
-                                  "raised": raised}}
+                                  "kernel_row_err": kernel_errs,
+                                  "kernel_launches": kernel_launches}}
     emit(rec)
-    return rec
+    return kernel_launches
+
+
+def kernel_routes(FA, FM, D):
+    """``sdpa`` at head dim ``D`` on the card in bf16 (B 2, S 256, 8 q
+    over 2 kv heads, causal): unmasked, with flashmask key padding and
+    with a float bias that takes a gradient, each with the gradients of
+    sum(out.float() ** 2).  Each must launch its kernels once (K1 and K2;
+    the K8 forward with lse, dq and dk/dv; the biased forward, dq, dk/dv
+    and dbias) and agree per row with the plain versions fed the same
+    inputs, the kernel forward's out and lse and the loss's cotangent
+    (:func:`check_against_plain`).  Returns (worst row error per call,
+    launches)."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    B, S, H, kvh, dt = 2, 256, 8, 2, torch.bfloat16
+    q, k, v = (torch.randn(B, S, n, D, device="cuda", generator=g).to(dt)
+               for n in (H, kvh, kvh))
+    keep = (torch.arange(S, device="cuda")[None]
+            < torch.tensor([S, 150], device="cuda")[:, None])
+    vecs = FM.padding_mask_to_intervals(keep, S)
+    bias = (torch.randn(1, H, S, S, device="cuda", generator=g)
+            * 0.5).to(dt)
+    calls = {
+        "sdpa": (lambda: sq_loss_grads(
+            lambda q, k, v: FA.sdpa(q, k, v, is_causal=True), (q, k, v)),
+            None, None,
+            {"flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+             "flash_attention_bwd_dkv": 1}),
+        "flashmask": (lambda: sq_loss_grads(
+            lambda q, k, v: FA.sdpa(q, k, v, flashmask=vecs, is_causal=True),
+            (q, k, v)), vecs, None,
+            {"flash_mha_masked": 1, "flash_mha_masked_lse": 1,
+             "flash_mask_bwd_dq": 1, "flash_mask_bwd_dkv": 1}),
+        "bias": (lambda: sq_loss_grads(
+            lambda q, k, v, b: FA.sdpa(q, k, v, attn_mask=b, is_causal=True),
+            (q, k, v, bias)), None, bias,
+            {"flash_mha_biased": 1, "flash_mha_masked_lse": 1,
+             "flash_mask_bwd_dq": 1, "flash_mask_bwd_dkv": 1,
+             "flash_mask_bwd_dbias": 1})}
+    errs, launches = {}, {}
+    for key, (fn, mvecs, mbias, want) in calls.items():
+        (out, grads), launches[key] = counted(
+            FA, FM, fn, want, f"sdpa {key} at head_dim {D}")
+        if key == "sdpa":
+            rows = flash_against_plain(FA, f"sdpa d{D}", q, k, v, out, grads)
+        else:
+            rows = check_against_plain(FM, f"sdpa {key} d{D}", q, k, v, out,
+                                       grads, mvecs, mbias, True)
+        errs[key] = max(rows.values())
+    return errs, launches
+
+
+def flash_against_plain(FA, name, q, k, v, out, grads):
+    """:func:`check_against_plain` for an unmasked causal ``sdpa`` run (K1
+    and K2): out, dq, dk and dv per row against the plain versions fed
+    the same q/k/v, the kernel forward's out and lse and the cotangent
+    2 * out."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    o, lse = FA._flash_fwd(qh, kh, vh, True, scale)
+    do = (2 * o.float()).to(o.dtype)
+    ref_out, _ = FA._flash_fwd_xla(qh, kh, vh, True, scale)
+    rows = {"out": row_rel_err(out.transpose(1, 2), ref_out).max().item()}
+    refs = FA._flash_bwd_xla(qh, kh, vh, o, lse, do, True, scale)
+    for key, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        rows[key] = grad_row_err(got.transpose(1, 2), ref).max().item()
+    for key, err in rows.items():
+        require(err <= ROW_TOL, f"{name} {key} vs plain: row error {err} > "
+                f"{ROW_TOL}")
+    return rows
 
 
 def int8pack_ms(x, q, scale):
@@ -1658,18 +1812,23 @@ def phase_lora(LM, gen):
     return records
 
 
-def phase_serve(cfg, PA, FM, create_engine, init_state, GenerationConfig):
-    """The main path at llama3_8b width and depth."""
+def phase_serve(cfg, PA, FM, create_engine, init_state, GenerationConfig,
+                phase=4):
+    """The main path at full width and depth (phase 4: llama3_8b): 8
+    requests of 128-2048 tokens + 64 (phase 16, TinyLlama-1.1B, whose
+    2048 positions hold prompt and output: each prompt cut to 2048 - 64
+    tokens, which leaves the 2048 prefill bucket)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     state = init_state(cfg, gen, device="cuda")
     torch.cuda.synchronize()
-    emit({"phase": 4, "layers": cfg.num_hidden_layers,
+    emit({"phase": phase, "layers": cfg.num_hidden_layers,
           "init_state_s": time.perf_counter() - t0,
           "weight_bytes": sum(t.numel() * t.element_size()
                               for t in state.values())})
+    max_len = min(8192, cfg.max_position_embeddings)
     engine = create_engine(cfg, state, max_slots=8, page_size=64,
-                           max_model_len=8192, enable_prefix_cache=True,
+                           max_model_len=max_len, enable_prefix_cache=True,
                            sync_interval=8)
     rng = np.random.default_rng(0)
     # warm-up (cuBLAS handles, allocator): one short request
@@ -1678,7 +1837,8 @@ def phase_serve(cfg, PA, FM, create_engine, init_state, GenerationConfig):
     torch.cuda.synchronize()
 
     shared = rng.integers(0, cfg.vocab_size, 1024)
-    lens = [128, 2048, 700, 1500, 333, 1024 + 500, 1024 + 300, 1900]
+    lens = [min(n, max_len - 64) for n in
+            (128, 2048, 700, 1500, 333, 1024 + 500, 1024 + 300, 1900)]
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in lens]
     prompts[5] = np.concatenate([shared, prompts[5][1024:]])
     prompts[6] = np.concatenate([shared, prompts[6][1024:]])
@@ -1712,7 +1872,7 @@ def phase_serve(cfg, PA, FM, create_engine, init_state, GenerationConfig):
     decode_s = (engine.timings["decode_s"] - timings0["decode_s"]
                 + engine.timings["host_sync_s"] - timings0["host_sync_s"])
     decode_tokens = sum(len(r.output_tokens) - 1 for r in reqs)
-    emit({"phase": 4, "requests": len(reqs), "prompt_lens": lens,
+    emit({"phase": phase, "requests": len(reqs), "prompt_lens": lens,
           "max_new_tokens": 64, "finished_by_length": len(reqs),
           "wall_s": wall, "ttft_s_mean": float(np.mean(ttft)),
           "ttft_s_max": float(np.max(ttft)),
@@ -1726,7 +1886,7 @@ def phase_serve(cfg, PA, FM, create_engine, init_state, GenerationConfig):
           "launches": launches,
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
     profile_decode(engine, [rng.integers(0, cfg.vocab_size, n) for n in lens],
-                   GenerationConfig)
+                   GenerationConfig, phase=phase)
     return launches
 
 
@@ -1772,8 +1932,10 @@ def profile_decode(engine, prompts, GenerationConfig, steps=8, phase=4,
           "top_kernels_ms_per_step": [[n[:80], ms / steps] for n, ms in top]})
 
 
-def phase_parity(cfg8b, create_engine, init_state, GenerationConfig):
-    """2 layers at llama3_8b widths, f32, card vs CPU from one state."""
+def phase_parity(cfg8b, create_engine, init_state, GenerationConfig,
+                 phase=5):
+    """2 layers at the widths of ``cfg8b`` (phase 5: llama3_8b; phase 16:
+    TinyLlama-1.1B), f32, card vs CPU from one state."""
     cfg = dataclasses.replace(cfg8b, num_hidden_layers=2, dtype="float32")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -1796,7 +1958,7 @@ def phase_parity(cfg8b, create_engine, init_state, GenerationConfig):
         engine.run_until_complete()
         outs[device] = [r.output_tokens for r in reqs]
     same = outs["cuda"] == outs["cpu"]
-    emit({"phase": 5, "layers": 2, "dtype": "float32",
+    emit({"phase": phase, "layers": 2, "dtype": "float32",
           "prompt_lens": [len(p) for p in prompts], "new_tokens": 16,
           "tokens_identical": same})
     require(same, outs)
@@ -2051,10 +2213,13 @@ def bench_config(LlamaConfig, **kw):
     return LlamaConfig(**cfg)
 
 
-def phase_train(cfg, TH, FA, batch=8, seq=2048, steps=TRAIN_STEPS, phase=6):
+def phase_train(cfg, TH, FA, batch=8, seq=2048, steps=TRAIN_STEPS, phase=6,
+                plain=None):
     """The training path at full width and depth: setup -> step, as
     bench.py's _llama_throughput drives the reference (one warm-up step,
-    then timed steps on one batch)."""
+    then timed steps on one batch).  ``plain``: the calls of the
+    attention plain versions (:func:`count_plain_calls`), which the timed
+    steps must not make."""
     t0 = time.perf_counter()
     params, opt = TH.setup(cfg, seed=0, dtype=torch.bfloat16)
     step = TH.build_train_step(cfg, remat=True)
@@ -2070,6 +2235,7 @@ def phase_train(cfg, TH, FA, batch=8, seq=2048, steps=TRAIN_STEPS, phase=6):
     FA.flash_mha.fwd_launches = 0
     FA.flash_mha.dq_launches = 0
     FA.flash_mha.dkv_launches = 0
+    plain0 = dict(plain or {})
     t0 = time.perf_counter()
     losses = []
     for _ in range(steps):
@@ -2080,6 +2246,9 @@ def phase_train(cfg, TH, FA, batch=8, seq=2048, steps=TRAIN_STEPS, phase=6):
     launches = {"flash_attention_fwd": FA.flash_mha.fwd_launches,
                 "flash_attention_bwd_dq": FA.flash_mha.dq_launches,
                 "flash_attention_bwd_dkv": FA.flash_mha.dkv_launches}
+    plain_calls = {k: n - plain0[k] for k, n in (plain or {}).items()}
+    require(not any(plain_calls.values()),
+            f"the timed steps called plain attention: {plain_calls}")
     losses = [float(x) for x in losses]
     layers = cfg.num_hidden_layers
     require(all(math.isfinite(x) for x in losses), f"loss {losses}")
@@ -2096,10 +2265,50 @@ def phase_train(cfg, TH, FA, batch=8, seq=2048, steps=TRAIN_STEPS, phase=6):
           "wall_s": wall, "s_per_step": wall / steps,
           "tokens_per_s": tps, "mfu": mfu, "loss_first": losses[0],
           "loss_last": losses[-1], "losses": losses, "launches": launches,
-          "resident_bytes": resident,
+          "plain_attention_calls": plain_calls, "resident_bytes": resident,
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
     profile_train(step, params, opt, ids, phase)
     return launches
+
+
+def count_plain_calls(FA, FM):
+    """Wrap the attention plain versions (K1/K2's, K8's and the XLA-path
+    ``_xla_sdpa``) so that each call is counted: returns (the counts by
+    name, a function that puts the originals back).  The wrappers look
+    their plain versions up by module name, so the counts see every
+    call."""
+    counts, saved = {}, []
+    for mod, names in ((FA, ("_flash_fwd_xla", "_flash_bwd_xla",
+                             "_xla_sdpa")),
+                       (FM, ("_masked_fwd_xla", "_masked_bwd_dq_xla",
+                             "_masked_bwd_dkv_xla",
+                             "_masked_bwd_dbias_xla"))):
+        for name in names:
+            fn = getattr(mod, name)
+            counts[name] = 0
+
+            def counting(*args, _fn=fn, _name=name, **kw):
+                counts[_name] += 1
+                return _fn(*args, **kw)
+
+            setattr(mod, name, counting)
+            saved.append((mod, name, fn))
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return counts, restore
+
+
+def tinyllama_config(LlamaConfig, **kw):
+    """TinyLlama-1.1B (TinyLlama/TinyLlama-1.1B-intermediate-step-1431k-
+    3T, its config.json): the bench rung's widths (vocab 32000, hidden
+    2048, FFN 5632, 2048 positions) with 22 layers, 32 q / 4 kv heads
+    (head_dim 64) and rms eps 1e-5."""
+    cfg = dict(num_hidden_layers=22, num_attention_heads=32,
+               num_key_value_heads=4, rms_norm_eps=1e-5)
+    cfg.update(kw)
+    return bench_config(LlamaConfig, **cfg)
 
 
 def profile_train(step, params, opt, ids, phase=6):
@@ -2158,7 +2367,7 @@ def rel_norm(a, b):
     return ((a - b).norm() / b.norm().clamp_min(1e-300)).item()
 
 
-def phase_train_parity(cfg, TH, seq=256):
+def phase_train_parity(cfg, TH, seq=256, phase=7):
     """One f32 training step, card (kernels) vs CPU (plain versions),
     from one set of params: loss, every grad, every param after it."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2183,7 +2392,8 @@ def phase_train_parity(cfg, TH, seq=256):
     errs = {"loss": rel_norm(gl, cl),
             "grads": max(rel_norm(a, b) for a, b in zip(gg, cg)),
             "params": max(rel_norm(a, b) for a, b in zip(gp, cp))}
-    emit({"phase": 7, "layers": cfg.num_hidden_layers, "dtype": "float32",
+    emit({"phase": phase, "layers": cfg.num_hidden_layers,
+          "dtype": "float32",
           "seq": seq, "loss_cuda": float(gl), "loss_cpu": float(cl),
           "rel_err": errs, "tol": PARITY_TOL, "cuda_s": gs, "cpu_s": cs})
     for key, err in errs.items():
@@ -2886,6 +3096,69 @@ def flash_entries(flash, launches):
     return out
 
 
+def head_dim_entries(flash, k8, masked, routes, train15, serve16):
+    """The kernels-line entries of the K1/K2 and K8 instances at head dims
+    64 and 256: times and errors from their phase-3 records (K1/K2:
+    ``tinyllama_train``, ``gemma2b_d256``; the K8 forward under intervals:
+    the ``tinyllama_2048`` prefill and ``gemma2b_sft``; dq and dk/dv under
+    intervals: ``tinyllama_sft``, ``gemma2b_sft``; the biased forward and
+    dbias: ``alibi_d64``, ``alibi_d256``); launches from the main paths
+    that run them (phase 15's training for K1/K2 at d 64, phase 16's
+    prefills for the K8 forward at d 64), else from phase 3's ``sdpa``
+    calls at that head dim (``kernel_routes``).  Library times as in
+    :func:`flash_entries` and :func:`k8_entries`."""
+    sm90 = "paddle_tpu_torch/csrc/flash_sm90.cuh"
+    fa_ref = "paddle_tpu/ops/pallas/flash_attention.py"
+    fm_ref = "paddle_tpu/ops/pallas/flash_mask.py"
+    recs = {r["shape"]: r for r in (*flash, *k8)}
+    by_mask = {m["shape"]: m for m in masked}
+    out = []
+
+    def entry(name, replaces, rec, part, errs, lib, launches):
+        out.append({
+            "name": name, "route": "cuda", "source": sm90,
+            "replaces": replaces, "launches": launches, "shape": rec["shape"],
+            "max_abs_err": max(rec["max_abs_err"][e] for e in errs),
+            "max_row_rel_err": max(rec["max_row_rel_err"][e] for e in errs),
+            "ms": rec["ms"][part], "plain_ms": rec["plain_ms"][part],
+            "bound_ms": rec["bound_ms"][part],
+            "bound_by": rec["bound_by"][part],
+            "library_ms": rec["library_ms"][lib]})
+
+    for d, shape, train in ((64, "tinyllama_train", train15),
+                            (256, "gemma2b_d256", None)):
+        for name, part, line, errs, lib in (
+                ("flash_attention_fwd", "fwd", 576, ("out",), "fwd"),
+                ("flash_attention_bwd_dq", "dq", 1036, ("dq",), "fwd_bwd"),
+                ("flash_attention_bwd_dkv", "dkv", 1053, ("dk", "dv"),
+                 "fwd_bwd")):
+            n = train[name] if train else routes[d]["sdpa"][name]
+            entry(f"{name}_d{d}", f"{fa_ref}:{line}", recs[shape], part,
+                  errs, lib, n)
+    rep = by_mask["tinyllama_2048"]
+    out.append({"name": "flash_mha_masked_d64", "route": "cuda",
+                "source": sm90, "replaces": f"{fm_ref}:193",
+                "launches": serve16["flash_mha_masked"],
+                "shape": rep["shape"], "max_abs_err": rep["max_abs_err"],
+                "max_row_rel_err": rep["max_row_rel_err"],
+                **{k: rep[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}})
+    entry("flash_mha_masked_d256", f"{fm_ref}:193", recs["gemma2b_sft"],
+          "fwd", ("out",), "fwd", routes[256]["flashmask"]["flash_mha_masked"])
+    for d, sft, alibi in ((64, "tinyllama_sft", "alibi_d64"),
+                          (256, "gemma2b_sft", "alibi_d256")):
+        mask, bias = routes[d]["flashmask"], routes[d]["bias"]
+        entry(f"flash_mha_biased_d{d}", f"{fm_ref}:193", recs[alibi], "fwd",
+              ("out",), "fwd", bias["flash_mha_biased"])
+        entry(f"flash_mask_bwd_dq_d{d}", f"{fm_ref}:927", recs[sft], "dq",
+              ("dq",), "fwd_bwd", mask["flash_mask_bwd_dq"])
+        entry(f"flash_mask_bwd_dkv_d{d}", f"{fm_ref}:954", recs[sft], "dkv",
+              ("dk", "dv"), "fwd_bwd", mask["flash_mask_bwd_dkv"])
+        entry(f"flash_mask_bwd_dbias_d{d}", f"{fm_ref}:976", recs[alibi],
+              "dbias", ("dbias",), "fwd_bwd", bias["flash_mask_bwd_dbias"])
+    return out
+
+
 # ------------------------------------------------- K9, K6 and the MoE rung
 def moe_routing(TM, gen, tokens, E, k, D, routing):
     """(x [tokens, D] bf16, expert ids, gate values) from a seeded gate;
@@ -3561,8 +3834,10 @@ def main() -> int:
     flash = [phase_flash(FA, gen, *shape) for shape in FLASH_SHAPES]
     k8 = [phase_k8(FM, gen, *shape) for shape in K8_SHAPES]
     release()
-    for name, B, H, kvh, _, causal, kind in K8_SHAPES:
-        phase_k8_f32(FM, name, B, H, kvh, causal, kind)
+    for name, B, H, kvh, _, causal, kind, D in K8_SHAPES:
+        phase_k8_f32(FM, name, B, H, kvh, causal, kind, D)
+    for D in NEW_HEAD_DIMS:
+        phase_flash_f32(FA, D)
     release()
     quant = phase_quant(QM, gen)
     lora = phase_lora(LM, gen)
@@ -3573,8 +3848,8 @@ def main() -> int:
     release()
     phase_dbias_long(FM, gen)
     release()
-    phase_routes(FA, FM, DA, PA, G, init_state, create_engine,
-                 GenerationConfig)
+    route_launches = phase_routes(FA, FM, DA, PA, G, init_state,
+                                  create_engine, GenerationConfig)
     release()
     k9 = [phase_k9(GF, TM, gen, *shape) for shape in K9_SHAPES]
     release()
@@ -3679,6 +3954,32 @@ def main() -> int:
     release()
     laps(14)
 
+    # phase 15: TinyLlama-1.1B training (head_dim 64: K1/K2 at d 64), no
+    # plain attention on the way; then its f32 step, card vs CPU
+    plain, restore = count_plain_calls(FA, FM)
+    try:
+        tiny_train = phase_train(tinyllama_config(LlamaConfig), TH, FA,
+                                 phase=15, plain=plain)
+    finally:
+        restore()
+    release()
+    phase_train_parity(tinyllama_config(LlamaConfig, num_hidden_layers=2,
+                                        dtype="float32"), TH, phase=15)
+    release()
+    laps(15)
+
+    # phase 16: TinyLlama-1.1B served (prefill: the K8 forward at d 64;
+    # decode: K3 at d 64), phase 4's traffic; then its greedy tokens at
+    # 2 layers, f32, card vs CPU
+    tiny_serve = phase_serve(tinyllama_config(LlamaConfig), PA, FM,
+                             create_engine, init_state, GenerationConfig,
+                             phase=16)
+    release()
+    phase_parity(tinyllama_config(LlamaConfig), create_engine, init_state,
+                 GenerationConfig, phase=16)
+    release()
+    laps(16)
+
     rep = masked[1]     # the 2048 bucket: the longest prompts of phase 4
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
@@ -3717,6 +4018,8 @@ def main() -> int:
                    modes["8a"]["lora_gather_matmul"],
                    next(r for r in lora if r["shape"] == "gate/up")),
         *k8_entries(k8, k8_launches),
+        *head_dim_entries(flash, k8, masked, route_launches, tiny_train,
+                          tiny_serve),
         decode_entry(decode, decode_launches["decode_attention"]),
         *k9_entries(k9, k9_launches),
         {"name": "rms_norm", "route": "cuda",

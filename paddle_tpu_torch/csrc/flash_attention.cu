@@ -22,6 +22,10 @@
 //     to the input dtype before dq = ds K and dk = ds^T Q; dv = p^T dO
 //     with p rounded to dO's dtype.
 //
+// Head dims 64, 128 and 256 (the reference's sdpa sends these to its
+// kernels), each its own set of instances; the C entries dispatch on
+// head_dim (by_head_dim).
+//
 // What bounds them on the H100: operations.  At a training shape
 // (seq 2048, head_dim 128) the forward does 4 * pairs * D flops per
 // head against O(S * D) bytes, the dq kernel 6 * pairs * D and the
@@ -42,7 +46,8 @@
 //     kernels of flash_mask.cu), whose float32 products run on
 //     CUDA-core FMA, so card and CPU agree to f32 rounding.  Forward and
 //     dq run one CTA per (64-row query block, q head, batch); dk/dv one
-//     CTA per (64-key block, kv head, batch).
+//     CTA per (64-key block, kv head, batch); 32 rows or keys at head_dim
+//     256.
 // Both write delta [B, H, Sq] from the dq kernel (so the dk/dv kernel
 // never reads O) and sum the GQA group's dk/dv in f32 in place of the
 // reference's per-q-head [B, H, Sk, D] intermediates (fewer CTAs under
@@ -54,27 +59,31 @@ using namespace flash;
 
 namespace {
 
-// The float32 kernels; bfloat16 runs the flash_sm90.cuh kernels.
+// The float32 kernels, one instance per head dim D; bfloat16 runs the
+// flash_sm90.cuh kernels.
+template <int D>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  fwd_body<float, kPlain>(p, smem);
+  fwd_body<float, kPlain, D>(p, smem);
 }
 
+template <int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  dq_body<float, kPlain>(p, smem);
+  dq_body<float, kPlain, D>(p, smem);
 }
 
+template <int D>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  dkv_body<float, kPlain>(p, smem);
+  dkv_body<float, kPlain, D>(p, smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// All entries: dtype 0 = float32, 1 = bfloat16; head_dim must be 128;
+// All entries: dtype 0 = float32, 1 = bfloat16; head_dim 64, 128 or 256;
 // strides are int64 element strides (batch, head, sequence) per tensor
 // in the order of the tensor arguments; lse/delta are contiguous
 // [B, H, Sq] float32.  Each returns a cudaError_t code (0 = launched).
@@ -106,11 +115,14 @@ int flash_attention_fwd(int dtype, int head_dim, const void* q,
   set3(p.k_s, strides + 3);
   set3(p.v_s, strides + 6);
   set3(p.o_s, strides + 9);
-  dim3 grid((sq + BM - 1) / BM, H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch(flash_fwd_kernel, FwdSmem<float>::bytes, grid, p, s);
-  return flash_sm90::launch_fwd(p, s);
+  return by_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 0)
+      return launch(flash_fwd_kernel<D>, FwdSmem<float, D>::bytes,
+                    dim3((sq + kBM<D> - 1) / kBM<D>, H, B), p, s);
+    return flash_sm90::launch_fwd<kPlain, D>(p, s);
+  });
 }
 
 // strides: q, k, v, out, dout, dq (18); writes dq and delta
@@ -144,11 +156,14 @@ int flash_attention_bwd_dq(int dtype, int head_dim, const void* q,
   set3(p.o_s, strides + 9);
   set3(p.do_s, strides + 12);
   set3(p.dq_s, strides + 15);
-  dim3 grid((sq + BM - 1) / BM, H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch(flash_bwd_dq_kernel, DqSmem<float>::bytes, grid, p, s);
-  return flash_sm90::launch_dq(p, s);
+  return by_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 0)
+      return launch(flash_bwd_dq_kernel<D>, DqSmem<float, D>::bytes,
+                    dim3((sq + kBM<D> - 1) / kBM<D>, H, B), p, s);
+    return flash_sm90::launch_dq<kPlain, D>(p, s);
+  });
 }
 
 // strides: q, k, v, dout, dk, dv (18); kvH kv heads, group q heads each
@@ -182,11 +197,14 @@ int flash_attention_bwd_dkv(int dtype, int head_dim, const void* q,
   set3(p.do_s, strides + 9);
   set3(p.dk_s, strides + 12);
   set3(p.dv_s, strides + 15);
-  dim3 grid((sk + BN - 1) / BN, kvH, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch(flash_bwd_dkv_kernel, DkvCfg<float>::bytes, grid, p, s);
-  return flash_sm90::launch_dkv(p, s);
+  return by_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 0)
+      return launch(flash_bwd_dkv_kernel<D>, DkvCfg<float, D>::bytes,
+                    dim3((sk + kBM<D> - 1) / kBM<D>, kvH, B), p, s);
+    return flash_sm90::launch_dkv<kPlain, D>(p, s);
+  });
 }
 
 const char* flash_attention_error_string(int err) {

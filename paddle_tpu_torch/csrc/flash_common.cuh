@@ -29,8 +29,10 @@
 // ring, register accumulators).
 //
 // The simple design, and what it leaves for later:
-//   * 4 warps per CTA; 64-row tiles staged in shared memory with plain
-//     16-byte loads (no cp.async/TMA, no double buffering);
+//   * 4 warps per CTA; 64-row tiles (32-row at head_dim 256, to fit 227
+//     KB of shared memory) staged with plain 16-byte loads (no
+//     cp.async/TMA, no double buffering); every body is a template on
+//     the head dim, with instances at 64, 128 and 256;
 //   * float32 uses CUDA-core FMA (no TF32), so card and CPU agree to
 //     f32 rounding;
 //   * the bias and the intervals are read from device memory per score
@@ -48,9 +50,11 @@
 
 namespace flash {
 
-constexpr int D = 128;     // head dim (the only one of a ported model)
-constexpr int BM = 64;     // rows of the CTA's own tile
-constexpr int BN = 64;     // rows of a streamed K/V tile
+// The bodies' tiles per head dim D (64, 128 or 256): kBM<D> rows of the
+// CTA's own tile and of a streamed K/V tile.  At 256 a 64-row f32 tile
+// is 66 KB, so the tiles halve to fit the 227 KB a CTA may use.
+template <int D>
+constexpr int kBM = D == 256 ? 32 : 64;
 constexpr int NT = 128;    // threads per CTA (4 warps)
 constexpr float kLseInvalid = FLT_MAX * 0.5f;   // LSE_INVALID
 
@@ -195,20 +199,22 @@ __device__ __forceinline__ float scaled(float dot, int qi, int kj,
 
 // Padded leading dimensions (16 bytes of padding against bank conflicts;
 // every WMMA operand starts 32-byte aligned).
-template <typename T>
+template <typename T, int D>
 struct Ld {
   static constexpr int T_ = D + 16 / (int)sizeof(T);  // [rows, D] tiles
-  static constexpr int S = BN + 4;                     // float score tile
+  static constexpr int S = kBM<D> + 4;                 // float score tile
   static constexpr int O = D + 4;                      // float accumulator
 };
 
-template <typename T>
+template <typename T, int D>
 constexpr size_t tile_bytes(int rows) {
-  return (size_t)rows * Ld<T>::T_ * sizeof(T);
+  return (size_t)rows * Ld<T, D>::T_ * sizeof(T);
 }
+template <int D>
 constexpr size_t score_bytes(int rows) {
-  return (size_t)rows * (BN + 4) * sizeof(float);
+  return (size_t)rows * (kBM<D> + 4) * sizeof(float);
 }
+template <int D>
 constexpr size_t acc_bytes(int rows) {
   return (size_t)rows * (D + 4) * sizeof(float);
 }
@@ -216,7 +222,7 @@ constexpr size_t acc_bytes(int rows) {
 // Load rows [row0, row0 + ROWS) of a [S, D] operand into a padded tile,
 // zero-filling rows >= n (they must be finite: 0 * NaN would poison a
 // product even where p == 0).
-template <typename T, int ROWS>
+template <typename T, int D, int ROWS>
 __device__ __forceinline__ void load_tile(T* dst, const T* src,
                                           long long stride, int row0,
                                           int n) {
@@ -229,17 +235,18 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src,
     if (row0 + r < n)
       val = *reinterpret_cast<const uint4*>(
           src + (long long)(row0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * Ld<T>::T_ + c) = val;
+    *reinterpret_cast<uint4*>(dst + r * Ld<T, D>::T_ + c) = val;
   }
 }
 
 // c[r][j] = a_r . b_j (raw dot, f32) for r < ROWS, j < BN (CUDA cores:
 // the bf16 kernels' products are wgmma, in flash_sm90.cuh).
-template <typename T, int ROWS>
+template <typename T, int D, int ROWS>
 __device__ __forceinline__ void mm_abt(const T* a_s, const T* b_s,
                                        float* c_s) {
-  constexpr int LT = Ld<T>::T_;
-  constexpr int LS = Ld<T>::S;
+  constexpr int BN = kBM<D>;
+  constexpr int LT = Ld<T, D>::T_;
+  constexpr int LS = Ld<T, D>::S;
   for (int e = threadIdx.x; e < ROWS * BN; e += NT) {
     const int r = e / BN;
     const int j = e % BN;
@@ -251,13 +258,15 @@ __device__ __forceinline__ void mm_abt(const T* a_s, const T* b_s,
   }
 }
 
-// c[r][:] += sum_j p[r][j] * b[j][:] for r < 64, j < BN (float32: the
+// c[r][:] += sum_j p[r][j] * b[j][:] for r < BM, j < BN (float32: the
 // bf16 kernels' products are wgmma, in flash_sm90.cuh).
+template <int D>
 __device__ __forceinline__ void mm_acc_ab(const float* p_s, const float* b_s,
                                           float* c_s) {
-  constexpr int LT = Ld<float>::T_;
-  constexpr int LS = Ld<float>::S;
-  constexpr int LO = Ld<float>::O;
+  constexpr int BM = kBM<D>, BN = kBM<D>;
+  constexpr int LT = Ld<float, D>::T_;
+  constexpr int LS = Ld<float, D>::S;
+  constexpr int LO = Ld<float, D>::O;
   for (int e = threadIdx.x; e < BM * D; e += NT) {
     const int r = e / D;
     const int d = e % D;
@@ -270,12 +279,13 @@ __device__ __forceinline__ void mm_acc_ab(const float* p_s, const float* b_s,
 
 // c[j][:] += sum_r p[r][j] * b[r][:] for j < BN, r < ROWS (the
 // transposed product of the dk/dv kernel; float32).
-template <int ROWS>
+template <int D, int ROWS>
 __device__ __forceinline__ void mm_acc_atb(const float* p_s, const float* b_s,
                                            float* c_s) {
-  constexpr int LT = Ld<float>::T_;
-  constexpr int LS = Ld<float>::S;
-  constexpr int LO = Ld<float>::O;
+  constexpr int BN = kBM<D>;
+  constexpr int LT = Ld<float, D>::T_;
+  constexpr int LS = Ld<float, D>::S;
+  constexpr int LO = Ld<float, D>::O;
   for (int e = threadIdx.x; e < BN * D; e += NT) {
     const int j = e / D;
     const int d = e % D;
@@ -287,7 +297,9 @@ __device__ __forceinline__ void mm_acc_atb(const float* p_s, const float* b_s,
 }
 
 // K-block trip count of a query block (flash_attention._q_trip_count).
+template <int D>
 __device__ __forceinline__ int q_trip_count(int q0, const Params& p) {
+  constexpr int BM = kBM<D>, BN = kBM<D>;
   const int nblk = (p.sk + BN - 1) / BN;
   if (!p.causal) return nblk;
   const int num = q0 + BM + (p.sk - p.sq) + BN - 1;
@@ -295,25 +307,27 @@ __device__ __forceinline__ int q_trip_count(int q0, const Params& p) {
 }
 
 // ------------------------------------------------------------- forward
-template <typename T>
+template <typename T, int D>
 struct FwdSmem {
-  static constexpr size_t kT = tile_bytes<T>(BM);
-  static constexpr size_t kS = score_bytes(BM);
-  static constexpr size_t kO = acc_bytes(BM);
+  static constexpr int BM = kBM<D>;
+  static constexpr size_t kT = tile_bytes<T, D>(BM);
+  static constexpr size_t kS = score_bytes<D>(BM);
+  static constexpr size_t kO = acc_bytes<D>(BM);
   static constexpr size_t kML = 2 * BM * sizeof(float);
   static constexpr size_t bytes = 3 * kT + kS + kO + kML;
 };
 
-// Grid (ceil(Sq / 64), H, B), 128 threads: online softmax with f32 m, l
-// and accumulator; rows with no visible key give zeros and lse =
+// Grid (ceil(Sq / kBM<D>), H, B), 128 threads: online softmax with f32
+// m, l and accumulator; rows with no visible key give zeros and lse =
 // LSE_INVALID, else lse = m + log(l).  float32 only (the bodies' T).
-template <typename T, Mode kMode>
+template <typename T, Mode kMode, int D>
 __device__ __forceinline__ void fwd_body(const Params& p,
                                          unsigned char* smem) {
   static_assert(std::is_same<T, float>::value, "bf16: flash_sm90.cuh");
-  using S = FwdSmem<T>;
-  constexpr int LS = Ld<T>::S;
-  constexpr int LO = Ld<T>::O;
+  using S = FwdSmem<T, D>;
+  constexpr int BM = kBM<D>, BN = kBM<D>;
+  constexpr int LS = Ld<T, D>::S;
+  constexpr int LO = Ld<T, D>::O;
   T* q_t = reinterpret_cast<T*>(smem);
   T* k_t = reinterpret_cast<T*>(smem + S::kT);
   T* v_t = reinterpret_cast<T*>(smem + 2 * S::kT);
@@ -333,9 +347,9 @@ __device__ __forceinline__ void fwd_body(const Params& p,
   const T* kg = static_cast<const T*>(p.k) + b * p.k_s[0] + hk * p.k_s[1];
   const T* vg = static_cast<const T*>(p.v) + b * p.v_s[0] + hk * p.v_s[1];
   const Vis m = kMode == kPlain ? Vis{} : vis_for(p, b, h);
-  const int upper = q_trip_count(q0, p);
+  const int upper = q_trip_count<D>(q0, p);
 
-  load_tile<T, BM>(q_t, qg, p.q_s[2], q0, p.sq);
+  load_tile<T, D, BM>(q_t, qg, p.q_s[2], q0, p.sq);
   for (int e = t; e < BM * D; e += NT) o_t[(e / D) * LO + e % D] = 0.f;
   if (t < BM) {
     m_t[t] = -INFINITY;
@@ -345,17 +359,17 @@ __device__ __forceinline__ void fwd_body(const Params& p,
   for (int kb = 0; kb < upper; ++kb) {
     const int k0 = kb * BN;
     __syncthreads();  // the previous block is done with k_t, v_t, s_t
-    load_tile<T, BN>(k_t, kg, p.k_s[2], k0, p.sk);
-    load_tile<T, BN>(v_t, vg, p.v_s[2], k0, p.sk);
+    load_tile<T, D, BN>(k_t, kg, p.k_s[2], k0, p.sk);
+    load_tile<T, D, BN>(v_t, vg, p.v_s[2], k0, p.sk);
     __syncthreads();
-    mm_abt<T, BM>(q_t, k_t, s_t);
+    mm_abt<T, D, BM>(q_t, k_t, s_t);
     __syncthreads();
 
-    // online softmax: warp w owns query rows [16 w, 16 w + 16); -inf
-    // stands for MASK_VAL, guarded (alpha = 1 and m taken as 0 while a
-    // row has seen no visible key)
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = warp * 16 + rr;
+    // online softmax: warp w owns query rows [BM / 4 w, BM / 4 (w + 1));
+    // -inf stands for MASK_VAL, guarded (alpha = 1 and m taken as 0 while
+    // a row has seen no visible key)
+    for (int rr = 0; rr < BM / 4; ++rr) {
+      const int r = warp * (BM / 4) + rr;
       float sv[BN / 32];
       float mx = -INFINITY;
 #pragma unroll
@@ -391,7 +405,7 @@ __device__ __forceinline__ void fwd_body(const Params& p,
       }
     }
     __syncthreads();
-    mm_acc_ab(s_t, v_t, o_t);
+    mm_acc_ab<D>(s_t, v_t, o_t);
   }
   __syncthreads();
 
@@ -413,26 +427,28 @@ __device__ __forceinline__ void fwd_body(const Params& p,
 }
 
 // --------------------------------------------------------- backward dq
-template <typename T>
+template <typename T, int D>
 struct DqSmem {
-  static constexpr size_t kT = tile_bytes<T>(BM);   // q, do, k, v
-  static constexpr size_t kS = score_bytes(BM);     // s, dp
-  static constexpr size_t kO = acc_bytes(BM);       // dq
+  static constexpr int BM = kBM<D>;
+  static constexpr size_t kT = tile_bytes<T, D>(BM);   // q, do, k, v
+  static constexpr size_t kS = score_bytes<D>(BM);     // s, dp
+  static constexpr size_t kO = acc_bytes<D>(BM);       // dq
   static constexpr size_t kLD = 2 * BM * sizeof(float);
   static constexpr size_t bytes = 4 * kT + 2 * kS + kO + kLD;
 };
 
-// Grid (ceil(Sq / 64), H, B), 128 threads: p = exp(logit - lse)
+// Grid (ceil(Sq / kBM<D>), H, B), 128 threads: p = exp(logit - lse)
 // recomputed; delta = rowsum(out * dout) in f32, written for the dk/dv
 // kernel; ds = p * (dp - delta) * scale; dq = ds K.  float32 only.
-template <typename T, Mode kMode>
+template <typename T, Mode kMode, int D>
 __device__ __forceinline__ void dq_body(const Params& p,
                                         unsigned char* smem) {
   static_assert(std::is_same<T, float>::value, "bf16: flash_sm90.cuh");
-  using S = DqSmem<T>;
-  constexpr int LT = Ld<T>::T_;
-  constexpr int LS = Ld<T>::S;
-  constexpr int LO = Ld<T>::O;
+  using S = DqSmem<T, D>;
+  constexpr int BM = kBM<D>, BN = kBM<D>;
+  constexpr int LT = Ld<T, D>::T_;
+  constexpr int LS = Ld<T, D>::S;
+  constexpr int LO = Ld<T, D>::O;
   T* q_t = reinterpret_cast<T*>(smem);
   T* do_t = reinterpret_cast<T*>(smem + S::kT);
   T* k_t = reinterpret_cast<T*>(smem + 2 * S::kT);
@@ -458,15 +474,15 @@ __device__ __forceinline__ void dq_body(const Params& p,
   const T* vg = static_cast<const T*>(p.v) + b * p.v_s[0] + hk * p.v_s[1];
   const Vis m = kMode == kPlain ? Vis{} : vis_for(p, b, h);
   const long long row_base = ((long long)b * p.H + h) * p.sq;
-  const int upper = q_trip_count(q0, p);
+  const int upper = q_trip_count<D>(q0, p);
 
-  load_tile<T, BM>(q_t, qg, p.q_s[2], q0, p.sq);
-  load_tile<T, BM>(do_t, dog, p.do_s[2], q0, p.sq);
+  load_tile<T, D, BM>(q_t, qg, p.q_s[2], q0, p.sq);
+  load_tile<T, D, BM>(do_t, dog, p.do_s[2], q0, p.sq);
   for (int e = t; e < BM * D; e += NT) dq_t[(e / D) * LO + e % D] = 0.f;
   __syncthreads();
   // delta = rowsum(out * dout) in f32; lse of rows past Sq is invalid
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = warp * 16 + rr;
+  for (int rr = 0; rr < BM / 4; ++rr) {
+    const int r = warp * (BM / 4) + rr;
     const int qi = q0 + r;
     float acc = 0.f;
     if (qi < p.sq)
@@ -483,11 +499,11 @@ __device__ __forceinline__ void dq_body(const Params& p,
   for (int kb = 0; kb < upper; ++kb) {
     const int k0 = kb * BN;
     __syncthreads();  // the previous block is done with k_t, v_t, s_t
-    load_tile<T, BN>(k_t, kg, p.k_s[2], k0, p.sk);
-    load_tile<T, BN>(v_t, vg, p.v_s[2], k0, p.sk);
+    load_tile<T, D, BN>(k_t, kg, p.k_s[2], k0, p.sk);
+    load_tile<T, D, BN>(v_t, vg, p.v_s[2], k0, p.sk);
     __syncthreads();
-    mm_abt<T, BM>(q_t, k_t, s_t);
-    mm_abt<T, BM>(do_t, v_t, dp_t);
+    mm_abt<T, D, BM>(q_t, k_t, s_t);
+    mm_abt<T, D, BM>(do_t, v_t, dp_t);
     __syncthreads();
     for (int e = t; e < BM * BN; e += NT) {
       const int r = e / BN;
@@ -501,7 +517,7 @@ __device__ __forceinline__ void dq_body(const Params& p,
       s_t[r * LS + c] = pr * (dp_t[r * LS + c] - delta_t[r]) * p.scale;
     }
     __syncthreads();
-    mm_acc_ab(s_t, k_t, dq_t);
+    mm_acc_ab<D>(s_t, k_t, dq_t);
   }
   __syncthreads();
 
@@ -515,31 +531,32 @@ __device__ __forceinline__ void dq_body(const Params& p,
 }
 
 // -------------------------------------------------------- backward dkv
-template <typename T>
+template <typename T, int D>
 struct DkvCfg {
-  static constexpr int QB = 32;                       // streamed q rows
-  static constexpr size_t kKV = tile_bytes<T>(BN);    // k, v
-  static constexpr size_t kQ = tile_bytes<T>(QB);     // q, do
-  static constexpr size_t kS = score_bytes(QB);       // s/p, dp/ds
-  static constexpr size_t kO = acc_bytes(BN);         // dk, dv
+  static constexpr int BN = kBM<D>;
+  static constexpr int QB = BN / 2;                      // streamed q rows
+  static constexpr size_t kKV = tile_bytes<T, D>(BN);    // k, v
+  static constexpr size_t kQ = tile_bytes<T, D>(QB);     // q, do
+  static constexpr size_t kS = score_bytes<D>(QB);       // s/p, dp/ds
+  static constexpr size_t kO = acc_bytes<D>(BN);         // dk, dv
   static constexpr size_t kLD = 2 * QB * sizeof(float);
   static constexpr size_t bytes = 2 * kKV + 2 * kQ + 2 * kS + 2 * kO + kLD;
 };
 
-// Grid (ceil(Sk / 64), kvH, B), 128 threads (p.H is kvH here): one CTA
+// Grid (ceil(Sk / kBM<D>), kvH, B), 128 threads (p.H is kvH here): one CTA
 // per key block loops over the GQA group's q heads and their query
 // blocks from the causal lower bound (_k_trip_bounds), accumulating dk
 // and dv of the whole group in f32 (the reference rounds per q head,
 // then sums: identical in float32).  It streams 32-row query blocks so
 // its shared memory fits the 227 KB a CTA may use.  float32 only.
-template <typename T, Mode kMode>
+template <typename T, Mode kMode, int D>
 __device__ __forceinline__ void dkv_body(const Params& p,
                                          unsigned char* smem) {
   static_assert(std::is_same<T, float>::value, "bf16: flash_sm90.cuh");
-  using C = DkvCfg<T>;
-  constexpr int QB = C::QB;
-  constexpr int LS = Ld<T>::S;
-  constexpr int LO = Ld<T>::O;
+  using C = DkvCfg<T, D>;
+  constexpr int BN = C::BN, QB = C::QB;
+  constexpr int LS = Ld<T, D>::S;
+  constexpr int LO = Ld<T, D>::O;
   unsigned char* ptr = smem;
   T* k_t = reinterpret_cast<T*>(ptr);             ptr += C::kKV;
   T* v_t = reinterpret_cast<T*>(ptr);             ptr += C::kKV;
@@ -566,8 +583,8 @@ __device__ __forceinline__ void dkv_body(const Params& p,
     lower = x <= 0 ? 0 : min(x / QB, nq);
   }
 
-  load_tile<T, BN>(k_t, kg, p.k_s[2], k0, p.sk);
-  load_tile<T, BN>(v_t, vg, p.v_s[2], k0, p.sk);
+  load_tile<T, D, BN>(k_t, kg, p.k_s[2], k0, p.sk);
+  load_tile<T, D, BN>(v_t, vg, p.v_s[2], k0, p.sk);
   for (int e = t; e < BN * D; e += NT) {
     dk_t[(e / D) * LO + e % D] = 0.f;
     dv_t[(e / D) * LO + e % D] = 0.f;
@@ -583,16 +600,16 @@ __device__ __forceinline__ void dkv_body(const Params& p,
     for (int qb = lower; qb < nq; ++qb) {
       const int q0 = qb * QB;
       __syncthreads();  // the previous block is done with q_t .. dp_t
-      load_tile<T, QB>(q_t, qg, p.q_s[2], q0, p.sq);
-      load_tile<T, QB>(do_t, dog, p.do_s[2], q0, p.sq);
+      load_tile<T, D, QB>(q_t, qg, p.q_s[2], q0, p.sq);
+      load_tile<T, D, QB>(do_t, dog, p.do_s[2], q0, p.sq);
       if (t < QB) {
         const int qi = q0 + t;
         lse_t[t] = qi < p.sq ? p.lse[row_base + qi] : kLseInvalid;
         delta_t[t] = qi < p.sq ? p.delta[row_base + qi] : 0.f;
       }
       __syncthreads();
-      mm_abt<T, QB>(q_t, k_t, s_t);
-      mm_abt<T, QB>(do_t, v_t, dp_t);
+      mm_abt<T, D, QB>(q_t, k_t, s_t);
+      mm_abt<T, D, QB>(do_t, v_t, dp_t);
       __syncthreads();
       for (int e = t; e < QB * BN; e += NT) {
         const int r = e / BN;
@@ -607,8 +624,8 @@ __device__ __forceinline__ void dkv_body(const Params& p,
         dp_t[r * LS + c] = pr * (dp_t[r * LS + c] - delta_t[r]) * p.scale;
       }
       __syncthreads();
-      mm_acc_atb<QB>(s_t, do_t, dv_t);
-      mm_acc_atb<QB>(dp_t, q_t, dk_t);
+      mm_acc_atb<D, QB>(s_t, do_t, dv_t);
+      mm_acc_atb<D, QB>(dp_t, q_t, dk_t);
     }
   }
   __syncthreads();
@@ -642,10 +659,29 @@ inline void set3(long long* dst, const long long* src) {
   dst[2] = src[2];
 }
 
+// The head dims the kernels are built for: 64, 128 and 256, the ones the
+// reference's sdpa sends to its Pallas kernels.
 inline bool bad_args(int dtype, int head_dim, int B, int H, int group,
                      int sq, int sk) {
-  return (dtype != 0 && dtype != 1) || head_dim != D || B < 1 || H < 1 ||
-         group < 1 || sq < 1 || sk < 1;
+  return (dtype != 0 && dtype != 1) ||
+         (head_dim != 64 && head_dim != 128 && head_dim != 256) || B < 1 ||
+         H < 1 || group < 1 || sq < 1 || sk < 1;
+}
+
+// ``launch(std::integral_constant<int, D>())`` for the head dim D that
+// ``head_dim`` names (64, 128 or 256), else cudaErrorInvalidValue.
+template <typename F>
+inline int by_head_dim(int head_dim, F launch) {
+  switch (head_dim) {
+    case 64:
+      return launch(std::integral_constant<int, 64>());
+    case 128:
+      return launch(std::integral_constant<int, 128>());
+    case 256:
+      return launch(std::integral_constant<int, 256>());
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace flash

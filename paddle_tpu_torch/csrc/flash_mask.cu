@@ -22,6 +22,10 @@
 // flash_common.cuh.  Each runs in the kIntervals mode (no bias) or the
 // kBiased mode (a bias, intervals optional).
 //
+// Head dims 64, 128 and 256, each its own set of instances (the C entries
+// dispatch on head_dim); flash_sm90.cuh states how the bf16 kernels
+// change with it.
+//
 // Semantics: a logit is q.k * scale + bias, and a key is invisible past
 // Sk, right of the bottom-right aligned causal diagonal, or inside one
 // of its column's masked row intervals.  Rows with no visible key give
@@ -59,11 +63,12 @@ using namespace flash;
 
 namespace {
 
-// The float32 forward; bfloat16 runs the flash_sm90.cuh forward.
-template <Mode kMode>
+// The float32 forward, one instance per mode and head dim D; bfloat16
+// runs the flash_sm90.cuh forward.
+template <Mode kMode, int D>
 __global__ void __launch_bounds__(NT) masked_fwd_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  fwd_body<float, kMode>(p, smem);
+  fwd_body<float, kMode, D>(p, smem);
 }
 
 // The bf16 forward's tile table: {min, max} of each interval vector over
@@ -105,32 +110,36 @@ int launch_tile_table(const Params& p, int nh, cudaStream_t s) {
 }
 
 // The float32 dq and dk/dv; bfloat16 runs the flash_sm90.cuh kernels.
-template <Mode kMode>
+template <Mode kMode, int D>
 __global__ void __launch_bounds__(NT) masked_bwd_dq_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  dq_body<float, kMode>(p, smem);
+  dq_body<float, kMode, D>(p, smem);
 }
 
-template <Mode kMode>
+template <Mode kMode, int D>
 __global__ void __launch_bounds__(NT) masked_bwd_dkv_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  dkv_body<float, kMode>(p, smem);
+  dkv_body<float, kMode, D>(p, smem);
 }
 
+template <int D>
 struct DbiasSmem {
-  static constexpr size_t kT = tile_bytes<float>(BM);   // q, do, k, v
-  static constexpr size_t kS = score_bytes(BM);         // s, dp
+  static constexpr int BM = kBM<D>;
+  static constexpr size_t kT = tile_bytes<float, D>(BM);   // q, do, k, v
+  static constexpr size_t kS = score_bytes<D>(BM);         // s, dp
   static constexpr size_t kLD = 2 * BM * sizeof(float);
   static constexpr size_t bytes = 4 * kT + 2 * kS + kLD;
 };
 
 // The float32 dbias; bfloat16 runs flash_sm90.cuh's dbias_kernel.  Grid
-// (ceil(Sq / 64), Hb, Bb), 128 threads; Hb/Bb are the bias's head and
+// (ceil(Sq / kBM<D>), Hb, Bb), 128 threads; Hb/Bb are the bias's head and
 // batch dims (1 = broadcast over p.H / p.B).
+template <int D>
 __global__ void __launch_bounds__(NT) masked_bwd_dbias_kernel(Params p) {
   using T = float;
-  using S = DbiasSmem;
-  constexpr int LS = Ld<T>::S;
+  using S = DbiasSmem<D>;
+  constexpr int BM = kBM<D>, BN = kBM<D>;
+  constexpr int LS = Ld<T, D>::S;
   extern __shared__ __align__(128) unsigned char smem[];
   T* q_t = reinterpret_cast<T*>(smem);
   T* do_t = reinterpret_cast<T*>(smem + S::kT);
@@ -152,7 +161,7 @@ __global__ void __launch_bounds__(NT) masked_bwd_dbias_kernel(Params p) {
       ((long long)blockIdx.z * gridDim.y + blockIdx.y) * p.sq * p.sk;
   // f32 bias: the output is its own accumulator
   float* acc = p.bias_dt == 0 ? static_cast<float*>(p.dbias) : p.dbias_acc;
-  const int upper = q_trip_count(q0, p);
+  const int upper = q_trip_count<D>(q0, p);
   const int nblk = (p.sk + BN - 1) / BN;
 
   for (int kb = upper; kb < nblk; ++kb) {  // past the causal trip count
@@ -177,8 +186,8 @@ __global__ void __launch_bounds__(NT) masked_bwd_dbias_kernel(Params p) {
     const Vis m = vis_for(p, b, h);
     const long long row_base = ((long long)b * p.H + h) * p.sq;
     __syncthreads();  // the previous member is done with q_t, do_t, lse_t
-    load_tile<T, BM>(q_t, qg, p.q_s[2], q0, p.sq);
-    load_tile<T, BM>(do_t, dog, p.do_s[2], q0, p.sq);
+    load_tile<T, D, BM>(q_t, qg, p.q_s[2], q0, p.sq);
+    load_tile<T, D, BM>(do_t, dog, p.do_s[2], q0, p.sq);
     if (t < BM) {
       const int qi = q0 + t;
       lse_t[t] = qi < p.sq ? p.lse[row_base + qi] : kLseInvalid;
@@ -187,11 +196,11 @@ __global__ void __launch_bounds__(NT) masked_bwd_dbias_kernel(Params p) {
     for (int kb = 0; kb < upper; ++kb) {
       const int k0 = kb * BN;
       __syncthreads();  // the previous block is done with k_t, v_t, s_t
-      load_tile<T, BN>(k_t, kg, p.k_s[2], k0, p.sk);
-      load_tile<T, BN>(v_t, vg, p.v_s[2], k0, p.sk);
+      load_tile<T, D, BN>(k_t, kg, p.k_s[2], k0, p.sk);
+      load_tile<T, D, BN>(v_t, vg, p.v_s[2], k0, p.sk);
       __syncthreads();
-      mm_abt<T, BM>(q_t, k_t, s_t);
-      mm_abt<T, BM>(do_t, v_t, dp_t);
+      mm_abt<T, D, BM>(q_t, k_t, s_t);
+      mm_abt<T, D, BM>(do_t, v_t, dp_t);
       __syncthreads();
       // element (r, c) belongs to the same thread for every member, so
       // the running sum needs no synchronisation
@@ -248,7 +257,7 @@ bool bad_mask(int nvec, const void* mask, int bias_dt) {
 extern "C" {
 
 // All entries: dtype 0 = float32, 1 = bfloat16 (q/k/v/out/dout); head_dim
-// must be 128; nvec 0 (no intervals), 2 or 4; bias null or of bias_dtype
+// 64, 128 or 256; nvec 0 (no intervals), 2 or 4; bias null or of bias_dtype
 // 0 = float32, 1 = bfloat16, 2 = float16.  strides are int64 element
 // strides (batch, head, sequence) per tensor in the order of the tensor
 // arguments, then the intervals' (batch, head, vector) and the bias's
@@ -283,18 +292,21 @@ int flash_mask_fwd(int dtype, int head_dim, const void* q, const void* k,
   set3(p.v_s, strides + 6);
   set3(p.o_s, strides + 9);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch(bias ? masked_fwd_kernel<kBiased>
-                       : masked_fwd_kernel<kIntervals>,
-                  FwdSmem<float>::bytes, dim3((sq + BM - 1) / BM, H, B), p,
-                  s);
   p.tbl = static_cast<const int2*>(tbl);
-  if (nvec) {
+  if (dtype == 1 && nvec) {
     const int err = launch_tile_table(p, H, s);
     if (err) return err;
   }
-  return bias ? flash_sm90::launch_fwd<kBiased>(p, s)
-              : flash_sm90::launch_fwd<kIntervals>(p, s);
+  return by_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 0)
+      return launch(bias ? masked_fwd_kernel<kBiased, D>
+                         : masked_fwd_kernel<kIntervals, D>,
+                    FwdSmem<float, D>::bytes,
+                    dim3((sq + kBM<D> - 1) / kBM<D>, H, B), p, s);
+    return bias ? flash_sm90::launch_fwd<kBiased, D>(p, s)
+                : flash_sm90::launch_fwd<kIntervals, D>(p, s);
+  });
 }
 
 // The bf16 forward's tile table alone (for its check against the plain
@@ -344,17 +356,21 @@ int flash_mask_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
   set3(p.do_s, strides + 12);
   set3(p.dq_s, strides + 15);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch(bias ? masked_bwd_dq_kernel<kBiased>
-                       : masked_bwd_dq_kernel<kIntervals>,
-                  DqSmem<float>::bytes, dim3((sq + BM - 1) / BM, H, B), p, s);
   p.tbl = static_cast<const int2*>(tbl);
-  if (nvec) {
+  if (dtype == 1 && nvec) {
     const int err = launch_tile_table(p, H, s);
     if (err) return err;
   }
-  return bias ? flash_sm90::launch_dq<kBiased>(p, s)
-              : flash_sm90::launch_dq<kIntervals>(p, s);
+  return by_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 0)
+      return launch(bias ? masked_bwd_dq_kernel<kBiased, D>
+                         : masked_bwd_dq_kernel<kIntervals, D>,
+                    DqSmem<float, D>::bytes,
+                    dim3((sq + kBM<D> - 1) / kBM<D>, H, B), p, s);
+    return bias ? flash_sm90::launch_dq<kBiased, D>(p, s)
+                : flash_sm90::launch_dq<kIntervals, D>(p, s);
+  });
 }
 
 // strides: q, k, v, dout, dk, dv, mask, bias (24); kvH kv heads, group q
@@ -389,18 +405,21 @@ int flash_mask_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
   set3(p.dk_s, strides + 12);
   set3(p.dv_s, strides + 15);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch(bias ? masked_bwd_dkv_kernel<kBiased>
-                       : masked_bwd_dkv_kernel<kIntervals>,
-                  DkvCfg<float>::bytes, dim3((sk + BN - 1) / BN, kvH, B), p,
-                  s);
   p.tbl = static_cast<const int2*>(tbl);
-  if (nvec) {
+  if (dtype == 1 && nvec) {
     const int err = launch_tile_table(p, kvH * group, s);
     if (err) return err;
   }
-  return bias ? flash_sm90::launch_dkv<kBiased>(p, s)
-              : flash_sm90::launch_dkv<kIntervals>(p, s);
+  return by_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 0)
+      return launch(bias ? masked_bwd_dkv_kernel<kBiased, D>
+                         : masked_bwd_dkv_kernel<kIntervals, D>,
+                    DkvCfg<float, D>::bytes,
+                    dim3((sk + kBM<D> - 1) / kBM<D>, kvH, B), p, s);
+    return bias ? flash_sm90::launch_dkv<kBiased, D>(p, s)
+                : flash_sm90::launch_dkv<kIntervals, D>(p, s);
+  });
 }
 
 // strides: q, k, v, dout, mask, bias (18).  dbias: contiguous [Bb, Hb,
@@ -441,15 +460,18 @@ int flash_mask_bwd_dbias(int dtype, int head_dim, const void* q,
   // Bb / Hb == 1 makes the kernel loop over the broadcast members; with
   // B == 1 (or H == 1) that loop has one member either way
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch(masked_bwd_dbias_kernel, DbiasSmem::bytes,
-                  dim3((sq + BM - 1) / BM, Hb, Bb), p, s);
   p.tbl = static_cast<const int2*>(tbl);
-  if (nvec) {
+  if (dtype == 1 && nvec) {
     const int err = launch_tile_table(p, H, s);
     if (err) return err;
   }
-  return flash_sm90::launch_dbias(p, Hb, Bb, s);
+  return by_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 0)
+      return launch(masked_bwd_dbias_kernel<D>, DbiasSmem<D>::bytes,
+                    dim3((sq + kBM<D> - 1) / kBM<D>, Hb, Bb), p, s);
+    return flash_sm90::launch_dbias<kBiased, D>(p, Hb, Bb, s);
+  });
 }
 
 const char* flash_mask_error_string(int err) {

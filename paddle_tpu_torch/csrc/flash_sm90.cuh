@@ -4,7 +4,10 @@
 // dq, dk/dv and dbias behind flash_mask_fwd, flash_mask_bwd_dq,
 // flash_mask_bwd_dkv and flash_mask_bwd_dbias (flash_mask.cu), in their
 // two modes: kIntervals (flashmask intervals) and kBiased (an additive
-// bias, intervals optional; dbias is kBiased only).  The float32
+// bias, intervals optional; dbias is kBiased only).  Every kernel is a
+// template on the head dim D, with instances at 64, 128 and 256 (the
+// head dims the reference's sdpa sends to its Pallas kernels); the
+// D-128 instances are the ones the text below measures.  The float32
 // instances keep the CUDA-core bodies of flash_common.cuh.
 //
 // Each kernel computes what its TPU kernel computes
@@ -38,6 +41,23 @@
 //     skipping, Wang et al., 2024, below);
 //   * no float atomics: each output element is written by one CTA and
 //     every sum is taken in a fixed order, so runs repeat bit for bit.
+//
+// Head dims: tiles come in as D / 64 panels of 64 columns (128 bytes, the
+// swizzle's span), the Q.K^T and dO.V^T products take D / 16 k-steps and
+// the P.V, dS.K, P^T.dO and dS^T.Q products N = D (m64nDk16).  D 64 keeps
+// the D-128 tiling with every buffer halved.  At D 256 the budgets break:
+// the forward takes 64-key tiles (O is 128 registers a consumer thread;
+// Q [128, 256] is 64 KB), kBiased reads its bias into registers; dq and
+// dk/dv let both consumer warpgroups share the CTA's 64 rows (keys) and
+// split the head dim, 128 columns of dq (dk and dv) each, since one
+// warpgroup owning 256 columns would hold 128 (256) accumulator
+// registers; each warpgroup computes the tile's S and dP itself, so the
+// score tiles still never pass through shared memory, at 1.67x (dq) and
+// 1.5x (dk/dv) the ideal tensor work (FlashAttention-3 computes them
+// once, split by query columns, and hands P and dS to the other
+// warpgroup through shared memory: not done here); the dbias kernel
+// keeps one stage and plain stores.  The D-256 forward and dk/dv spill
+// (ptxas: 368-900 bytes), as the D-128 dk/dv does.
 //
 // Kernels:
 //   * forward: one CTA per (128-row query block, q head, batch), 3
@@ -129,7 +149,6 @@ using flash::kLseInvalid;
 using flash::Mode;
 using flash::Params;
 
-constexpr int D = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -199,13 +218,15 @@ __device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
-// A [rows, 128] tile as two 64-column panels, panel 1 at rows * 128
-// bytes: both boxes complete on ``bar``.
+// A [rows, D] tile as D / 64 panels of 64 columns, panel c at c * rows *
+// 128 bytes: every box completes on ``bar``.
+template <int D>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int row, int h, int b,
                                          int rows) {
-  tma_box(dst, map, bar, 0, row, h, b);
-  tma_box(dst + rows * 128, map, bar, 64, row, h, b);
+#pragma unroll
+  for (int c = 0; c < D / 64; ++c)
+    tma_box(dst + c * rows * 128, map, bar, 64 * c, row, h, b);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -308,9 +329,11 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
 // d[64] += A . B, m64n128k16: A [64, 16] bf16 in registers (the
 // accumulator layout of a score tile, packed in pairs), B [16, 128] in
 // shared memory, MN-major (128-byte swizzle, the transpose bit set).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
-                                        uint32_t a1, uint32_t a2,
-                                        uint32_t a3, uint64_t db) {
+// The d[32] (n64) and d[128] (n256) overloads below are the same product
+// at head_dim 64 and 256.
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -330,6 +353,56 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
 // Add N (16-byte units) to the address field of a wgmma descriptor, in
 // program order between the steps of a product, so that a product holds
 // two descriptors live.
@@ -338,20 +411,21 @@ __device__ __forceinline__ void advance(uint64_t& desc) {
   asm volatile("add.s64 %0, %0, %1;\n" : "+l"(desc) : "n"(N));
 }
 
-// d (+)= A . B^T over the 128 head-dim columns (eight k16 steps; the
-// first overwrites d): A and B K-major tiles of AR and BR rows (two
+// d (+)= A . B^T over the D head-dim columns (D / 16 k16 steps; the
+// first overwrites d): A and B K-major tiles of AR and BR rows (D / 64
 // swizzled panels each), at shared addresses a and b.
-template <int AR, int BR, int N>
+template <int AR, int BR, int D, int N>
 __device__ __forceinline__ void gemm_abt(float (&d)[N], uint32_t a,
                                          uint32_t b) {
   uint64_t da = desc_k(a), db = desc_k(b);
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     wgmma_ss(d, da, db, kk);
-    if (kk == 3) {               // from column 48 of panel 0 to panel 1
+    if (kk == D / 16 - 1) {
+    } else if (kk % 4 == 3) {    // from column 48 of a panel to the next
       advance<(AR * 128 - 96) / 16>(da);
       advance<(BR * 128 - 96) / 16>(db);
-    } else if (kk < D / 16 - 1) {
+    } else {
       advance<2>(da);
       advance<2>(db);
     }
@@ -360,21 +434,22 @@ __device__ __forceinline__ void gemm_abt(float (&d)[N], uint32_t a,
 
 // d += A . B: A from a score accumulator s in registers (STEPS k16
 // steps, rounded to bf16 as each step is issued), B an MN-major tile of
-// 16 STEPS rows by 128 columns at shared address b, its two panels ROWS
-// rows apart.  In the m64nN accumulator layout thread (g = lane / 4, t =
-// lane % 4) of warp w holds rows 16 w + g (+ 8), columns 8 j + 2 t (+ 1)
-// in s[4 j .. 4 j + 3], which are the rows and columns that the A
-// operand of a k16 step wants of it: step kk packs s[8 kk .. 8 kk + 7].
-template <int STEPS, int ROWS>
-__device__ __forceinline__ void gemm_rs(float (&d)[64],
+// 16 STEPS rows by 2 N columns (d holds N) at shared address b, its
+// 64-column panels ROWS rows apart.  In the m64nN accumulator layout
+// thread (g = lane / 4, t = lane % 4) of warp w holds rows 16 w + g (+
+// 8), columns 8 j + 2 t (+ 1) in s[4 j .. 4 j + 3], which are the rows
+// and columns that the A operand of a k16 step wants of it: step kk
+// packs s[8 kk .. 8 kk + 7].
+template <int STEPS, int ROWS, int N>
+__device__ __forceinline__ void gemm_rs(float (&d)[N],
                                         const float (&s)[8 * STEPS],
                                         uint32_t b) {
   uint64_t db = desc_mn(b, ROWS * 128);
 #pragma unroll
   for (int kk = 0; kk < STEPS; ++kk) {
     const float* a = s + 8 * kk;
-    wgmma_rs_n128(d, pack_bf16(a[0], a[1]), pack_bf16(a[2], a[3]),
-                  pack_bf16(a[4], a[5]), pack_bf16(a[6], a[7]), db);
+    wgmma_rs(d, pack_bf16(a[0], a[1]), pack_bf16(a[2], a[3]),
+             pack_bf16(a[4], a[5]), pack_bf16(a[6], a[7]), db);
     if (kk < STEPS - 1) advance<16 * 128 / 16>(db);
   }
 }
@@ -548,10 +623,11 @@ __device__ __forceinline__ unsigned char* align_smem(unsigned char* raw,
   return raw + (*base - r);
 }
 
-// Store the thread's two rows of a 64 x 128 f32 accumulator (times
+// Store the thread's two rows of a 64 x (N / 2) f32 accumulator (times
 // ``mul``), as bf16, to rows row and row + 8 of ``dst`` (row stride
 // ``rs``), skipping rows >= n.
-__device__ __forceinline__ void store_rows(const float (&acc)[64],
+template <int N>
+__device__ __forceinline__ void store_rows(const float (&acc)[N],
                                            __nv_bfloat16* dst, long long rs,
                                            int row, int n, int t,
                                            const float (&mul)[2]) {
@@ -560,7 +636,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[64],
     if (row + 8 * r >= n) continue;
     __nv_bfloat16* d = dst + (long long)(row + 8 * r) * rs + 2 * t;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < N / 4; ++j)
       *reinterpret_cast<uint32_t*>(d + 8 * j) =
           pack_bf16(acc[4 * j + 2 * r] * mul[r], acc[4 * j + 2 * r + 1] * mul[r]);
   }
@@ -570,18 +646,25 @@ __device__ __forceinline__ void store_rows(const float (&acc)[64],
 // One CTA per (128-row query block, q head, batch), BN-key K and V tiles
 // in the ring.  K1 and kIntervals take 128-key tiles; kBiased takes
 // 64-key tiles, so that a tile's bias (read into registers while its
-// Q.K^T runs) fits the consumers' registers beside O and the scores.
-template <Mode kMode>
+// Q.K^T runs) fits the consumers' registers beside O and the scores.  At
+// head_dim 256 every mode takes 64-key tiles (Q [128, 256] is 64 KB, so
+// two stages of 128-key K and V would need 320 KB; O is 128 registers a
+// consumer thread, the scores 32) and kBiased reads the bias into
+// registers (two staging areas of 32 KB would not fit beside the ring).
+template <Mode kMode, int D>
 struct FwdCfg {
-  static constexpr int BM = 128, BN = kMode == flash::kBiased ? 64 : 128;
+  static constexpr int BM = 128;
+  static constexpr int BN = kMode == flash::kBiased || D == 256 ? 64 : 128;
   static constexpr int NS = 2, NT = 384;
   // registers after setmaxnreg (168 x 384 at launch): K1's producer is
   // one thread, the K8 producer warp classes tiles and loads ends
   static constexpr int kProducerRegs = kMode == flash::kPlain ? 24 : 40;
   static constexpr int kConsumerRegs = kMode == flash::kPlain ? 240 : 232;
   static constexpr bool kBatchFirst = kMode == flash::kBiased;
-  static constexpr uint32_t kQTile = BM * D * 2;     // Q [128, 128]
-  static constexpr uint32_t kTile = BN * D * 2;      // K or V [BN, 128]
+  // kBiased stages each block's bias in shared memory (not at D 256)
+  static constexpr bool kStaging = kMode == flash::kBiased && D != 256;
+  static constexpr uint32_t kQTile = BM * D * 2;     // Q [128, D]
+  static constexpr uint32_t kTile = BN * D * 2;      // K or V [BN, D]
   static constexpr uint32_t kQ = 0, kK = kQTile, kV = kK + NS * kTile;
   static constexpr uint32_t kBar = kV + NS * kTile;  // full_q, full_k, full_v, empty
   // the K8 modes add, per stage, the tile's interval ends [4, BN] and its
@@ -592,10 +675,11 @@ struct FwdCfg {
   static constexpr uint32_t kStage = kMeta + 64;
   static constexpr uint32_t kStageBytes = BN / 4 * 256 * 8;
   static constexpr size_t kSmem =
-      (kMode == flash::kPlain    ? kBar + 8 * (1 + 3 * NS)
-       : kMode == flash::kBiased ? kStage + 2 * kStageBytes
-                                 : kMeta + NS * 4) +
+      (kMode == flash::kPlain ? kBar + 8 * (1 + 3 * NS)
+       : kStaging             ? kStage + 2 * kStageBytes
+                              : kMeta + NS * 4) +
       1024;
+  static_assert(kSmem <= 232448, "a CTA has 227 KB of shared memory");
 };
 
 // Fold one key block (first key k0) of a 64 x (N / 2) score tile into
@@ -787,8 +871,8 @@ __device__ __forceinline__ void read_staged(float (&bz)[N],
 // slots of the staging area at ``stage`` and the next block's is copied
 // to ``next_stage`` while this one runs; else it is read into registers
 // while Q.K^T runs.
-template <Mode kMode, bool kStaged>
-__device__ __forceinline__ void fwd_block(float (&o)[64], float (&m)[2],
+template <Mode kMode, int D, bool kStaged>
+__device__ __forceinline__ void fwd_block(float (&o)[D / 2], float (&m)[2],
                                           float (&l)[2], uint32_t qa,
                                           uint32_t ka, uint32_t va,
                                           uint32_t full_v, uint32_t ph,
@@ -798,13 +882,13 @@ __device__ __forceinline__ void fwd_block(float (&o)[64], float (&m)[2],
                                           const unsigned char* stage,
                                           uint32_t next_stage, int ci,
                                           int kend) {
-  using C = FwdCfg<kMode>;
+  using C = FwdCfg<kMode, D>;
   float sc[C::BN / 2], alpha[2];
   // the per-element test: blocks across the diagonal or Sk, and partial
   // blocks (whose interval ends are in ``ends``)
   const bool masked = ends || !all_visible(q0, k0, C::BN, vis);
   wg_fence();
-  gemm_abt<C::BM, C::BN>(sc, qa, ka);
+  gemm_abt<C::BM, C::BN, D>(sc, qa, ka);
   wg_commit();
   if constexpr (kMode == flash::kBiased) {
     float bz[C::BN / 2];
@@ -829,7 +913,7 @@ __device__ __forceinline__ void fwd_block(float (&o)[64], float (&m)[2],
     softmax_block<kMode>(sc, row, t, k0, masked, vis, sl2, m, l, alpha, ends);
   }
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < D / 8; ++j) {
     o[4 * j + 0] *= alpha[0];
     o[4 * j + 1] *= alpha[0];
     o[4 * j + 2] *= alpha[1];
@@ -854,12 +938,12 @@ __device__ __forceinline__ void fwd_block(float (&o)[64], float (&m)[2],
 // into the stage, and ends with an empty stage marked -1; the consumers
 // walk the stages it fills.  A skipped block leaves m, l and O as they
 // were, as one whose p are all 0 would.
-template <Mode kMode>
-__global__ void __launch_bounds__(FwdCfg<kMode>::NT, 1)
+template <Mode kMode, int D>
+__global__ void __launch_bounds__(FwdCfg<kMode, D>::NT, 1)
     fwd_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, const Params p) {
-  using C = FwdCfg<kMode>;
+  using C = FwdCfg<kMode, D>;
   constexpr int BM = C::BM, BN = C::BN, NS = C::NS;
   constexpr uint32_t kQ = C::kQ, kK = C::kK, kV = C::kV, kBar = C::kBar;
   constexpr uint32_t kTile = C::kTile;
@@ -908,14 +992,14 @@ __global__ void __launch_bounds__(FwdCfg<kMode>::NT, 1)
       if (threadIdx.x == 0) {
         const int hk = h / p.group;
         mbar_expect_tx(full_q, C::kQTile);
-        tma_tile(base + kQ, &tq, full_q, q0, h, b, BM);
+        tma_tile<D>(base + kQ, &tq, full_q, q0, h, b, BM);
         for (int kb = 0; kb < upper; ++kb) {
           const int s = kb % NS;
           mbar_wait(empty(s), ((kb / NS) & 1) ^ 1);
           mbar_expect_tx(full_k(s), kTile);
-          tma_tile(base + kK + s * kTile, &tk, full_k(s), kb * BN, hk, b, BN);
+          tma_tile<D>(base + kK + s * kTile, &tk, full_k(s), kb * BN, hk, b, BN);
           mbar_expect_tx(full_v(s), kTile);
-          tma_tile(base + kV + s * kTile, &tv, full_v(s), kb * BN, hk, b, BN);
+          tma_tile<D>(base + kV + s * kTile, &tv, full_v(s), kb * BN, hk, b, BN);
         }
       }
     } else if (threadIdx.x < 32) {
@@ -925,7 +1009,7 @@ __global__ void __launch_bounds__(FwdCfg<kMode>::NT, 1)
       const int hk = h / p.group;
       if (lane == 0) {
         mbar_expect_tx(full_q, C::kQTile);
-        tma_tile(base + kQ, &tq, full_q, q0, h, b, BM);
+        tma_tile<D>(base + kQ, &tq, full_q, q0, h, b, BM);
       }
       const int qe = min(q0 + BM, p.sq);
       int it = 0;                       // stages filled
@@ -944,9 +1028,9 @@ __global__ void __launch_bounds__(FwdCfg<kMode>::NT, 1)
             // the copies first; the lanes' arrivals complete full_k
             meta_s[s] = 2 * kb + ivl;
             mbar_expect(full_k(s), kTile);
-            tma_tile(base + kK + s * kTile, &tk, full_k(s), kb * BN, hk, b, BN);
+            tma_tile<D>(base + kK + s * kTile, &tk, full_k(s), kb * BN, hk, b, BN);
             mbar_expect_tx(full_v(s), kTile);
-            tma_tile(base + kV + s * kTile, &tv, full_v(s), kb * BN, hk, b, BN);
+            tma_tile<D>(base + kV + s * kTile, &tv, full_v(s), kb * BN, hk, b, BN);
           }
           if (ivl) stage_ends<BN>(ends_s + s * 4 * BN, vis, kb * BN, lane);
           mbar_arrive(full_k(s));
@@ -970,9 +1054,9 @@ __global__ void __launch_bounds__(FwdCfg<kMode>::NT, 1)
     const float sl2 = p.scale * kLog2e;
     const uint32_t qa = base + kQ + cw * 64 * 128;
 
-    float o[64];
+    float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY};
     float l[2] = {0.f, 0.f};
     mbar_wait(full_q, 0);
@@ -985,17 +1069,17 @@ __global__ void __launch_bounds__(FwdCfg<kMode>::NT, 1)
         const uint32_t va = base + kV + s * kTile;
         const int k0 = kb * BN;
 
-        float sc[64], alpha[2];
+        float sc[BN / 2], alpha[2];
         mbar_wait(full_k(s), ph);
         wg_fence();
-        gemm_abt<BM, BN>(sc, qa, ka);
+        gemm_abt<BM, BN, D>(sc, qa, ka);
         wg_commit();
         wg_wait<0>();
         reg_fence(sc);
         softmax_block<kMode>(sc, row, t, k0, !all_visible(q0, k0, BN, vis),
                              vis, sl2, m, l, alpha);
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < D / 8; ++j) {
           o[4 * j + 0] *= alpha[0];
           o[4 * j + 1] *= alpha[0];
           o[4 * j + 2] *= alpha[1];
@@ -1019,7 +1103,7 @@ __global__ void __launch_bounds__(FwdCfg<kMode>::NT, 1)
           vis.m.b_ss % 2 == 0 &&
           reinterpret_cast<uintptr_t>(vis.m.bias) % (vis.m.bias_dt ? 4 : 8) == 0;
       bool staged = false;
-      if constexpr (kMode == flash::kBiased) {
+      if constexpr (C::kStaging) {
         staged = vis.m.nvec == 0 && bias_pair;
         if (staged) {
           // no intervals: every block up to the causal bound comes, in
@@ -1034,7 +1118,7 @@ __global__ void __launch_bounds__(FwdCfg<kMode>::NT, 1)
             const uint32_t ph = (kb / NS) & 1;
             const int sb = kb & 1;
             mbar_wait(full_k(s), ph);
-            fwd_block<kMode, true>(
+            fwd_block<kMode, D, true>(
                 o, m, l, qa, base + kK + s * kTile, base + kV + s * kTile,
                 full_v(s), ph, row, t, q0, kb * BN, nullptr, vis, sl2,
                 bias_pair, smem + C::kStage + sb * C::kStageBytes,
@@ -1050,7 +1134,7 @@ __global__ void __launch_bounds__(FwdCfg<kMode>::NT, 1)
           mbar_wait(full_k(s), ph);
           const int meta = meta_s[s];
           if (meta < 0) break;
-          fwd_block<kMode, false>(
+          fwd_block<kMode, D, false>(
               o, m, l, qa, base + kK + s * kTile, base + kV + s * kTile,
               full_v(s), ph, row, t, q0, (meta >> 1) * BN,
               (meta & 1) ? ends_s + s * 4 * BN : nullptr, vis, sl2,
@@ -1079,20 +1163,36 @@ __global__ void __launch_bounds__(FwdCfg<kMode>::NT, 1)
 }
 
 // ---------------------------------------------------------- backward dq
-namespace dq_cfg {
-constexpr int BM = 128, BN = 64, NS = 2, NT = 384;
-constexpr uint32_t kRes = 128 * D * 2;             // Q or dO [128, 128]
-constexpr uint32_t kTile = 64 * D * 2;             // K or V [64, 128]
-constexpr uint32_t kQ = 0, kDO = kRes, kK = 2 * kRes, kV = kK + NS * kTile;
-constexpr uint32_t kRows = kV + NS * kTile;        // lse, delta [128] f32
-constexpr uint32_t kBar = kRows + 2 * BM * 4;      // full_q, full_k, full_v, empty
-constexpr size_t kSmem = kBar + 8 * (1 + 3 * NS) + 1024;
-// the K8 modes add, per stage, the tile's interval ends [4, BN] and its
-// key block (2 kb + partial, or -1: no more blocks)
-constexpr uint32_t kEnds = kBar + 64;
-constexpr uint32_t kMeta = kEnds + NS * 4 * BN * 4;
-constexpr size_t kSmemK8 = kMeta + NS * 4 + 1024;
-}  // namespace dq_cfg
+// One CTA per (BM-row query block, q head, batch), 64-key K and V tiles in
+// the ring.  At head_dim 64 and 128 each consumer warpgroup owns 64 of
+// the 128 rows.  At head_dim 256 (kSplit) the two warpgroups share the
+// CTA's 64 rows and each owns 128 columns of dq: a warpgroup owning all
+// 256 would hold 128 accumulator registers beside the 64 of S and dP.
+// Each warpgroup then computes the tile's S and dP itself (twice the
+// work of those two products; the dS.K product is split, not repeated).
+template <int D>
+struct DqCfg {
+  static constexpr bool kSplit = D == 256;
+  static constexpr int BM = kSplit ? 64 : 128, BN = 64, NS = 2, NT = 384;
+  static constexpr int kAcc = kSplit ? 64 : D / 2;   // dq registers a thread
+  static constexpr uint32_t kRes = BM * D * 2;       // Q or dO [BM, D]
+  static constexpr uint32_t kTile = 64 * D * 2;      // K or V [64, D]
+  static constexpr uint32_t kQ = 0, kDO = kRes, kK = 2 * kRes,
+                            kV = kK + NS * kTile;
+  static constexpr uint32_t kRows = kV + NS * kTile; // lse, delta [BM] f32
+  static constexpr uint32_t kBar = kRows + 2 * BM * 4;  // full_q, full_k, full_v, empty
+  static constexpr size_t kSmem = kBar + 8 * (1 + 3 * NS) + 1024;
+  // the K8 modes add, per stage, the tile's interval ends [4, BN] and its
+  // key block (2 kb + partial, or -1: no more blocks)
+  static constexpr uint32_t kEnds = kBar + 64;
+  static constexpr uint32_t kMeta = kEnds + NS * 4 * BN * 4;
+  static constexpr size_t kSmemK8 = kMeta + NS * 4 + 1024;
+  static_assert(kSmemK8 <= 232448, "a CTA has 227 KB of shared memory");
+};
+
+// log2 of the lanes that share a row of D bf16 columns, 8 columns a lane
+template <int D>
+constexpr int kRowLanesLog2 = D == 64 ? 3 : D == 128 ? 4 : 5;
 
 __device__ __forceinline__ float dot8(uint4 a, uint4 b) {
   const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
@@ -1110,29 +1210,32 @@ __device__ __forceinline__ float dot8(uint4 a, uint4 b) {
 
 // The dq prologue of a consumer thread (ci of 256): delta = rowsum(out *
 // dout) in f32 (written out for the dk/dv and dbias kernels) and lse,
-// for the CTA's 128 rows, into shared memory; rows past Sq take lse =
+// for the CTA's BM rows, into shared memory; rows past Sq take lse =
 // LSE_INVALID, so their p are 0.
+template <int D, int BM>
 __device__ __forceinline__ void dq_rows(const Params& p, int b, int h,
                                         int q0, int ci, float* lse_s,
                                         float* delta_s) {
+  constexpr int kL2 = kRowLanesLog2<D>, LPR = 1 << kL2;   // lanes a row
   const int lane = ci & 31;
   const long long row_base = ((long long)b * p.H + h) * p.sq;
   const __nv_bfloat16* og = static_cast<const __nv_bfloat16*>(p.o) +
                             b * p.o_s[0] + h * p.o_s[1];
   const __nv_bfloat16* dog = static_cast<const __nv_bfloat16*>(p.dout) +
                              b * p.do_s[0] + h * p.do_s[1];
-  const int c = (lane & 15) * 8;
+  const int c = (lane & (LPR - 1)) * 8;
 #pragma unroll 2
-  for (int it = 0; it < 8; ++it) {
-    const int r = (ci >> 5) * 16 + it * 2 + (lane >> 4);
+  for (int it = 0; it < BM / 8 / (32 / LPR); ++it) {
+    const int r = (ci >> 5) * (BM / 8) + it * (32 / LPR) + (lane >> kL2);
     const int qi = q0 + r;
     float acc = 0.f;
     if (qi < p.sq)
       acc = dot8(*reinterpret_cast<const uint4*>(og + (long long)qi * p.o_s[2] + c),
                  *reinterpret_cast<const uint4*>(dog + (long long)qi * p.do_s[2] + c));
 #pragma unroll
-    for (int o = 8; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if ((lane & 15) == 0) {
+    for (int o = LPR / 2; o > 0; o >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if ((lane & (LPR - 1)) == 0) {
       delta_s[r] = acc;
       lse_s[r] = qi < p.sq ? p.lse[row_base + qi] : kLseInvalid;
       if (qi < p.sq) p.delta[row_base + qi] = acc;
@@ -1154,12 +1257,16 @@ __device__ __forceinline__ void dq_rows(const Params& p, int b, int h,
 // warpgroup read into registers while Q.K^T runs; its grid is (batch,
 // query blocks, heads), so that a bias broadcast over the batch is read
 // from L2 after the first.
-template <Mode kMode>
+template <Mode kMode, int D>
 __device__ __forceinline__ void dq_k8(const CUtensorMap& tq,
                                       const CUtensorMap& tdo,
                                       const CUtensorMap& tk,
                                       const CUtensorMap& tv, const Params& p) {
-  using namespace dq_cfg;
+  using C = DqCfg<D>;
+  constexpr int BM = C::BM, BN = C::BN, NS = C::NS;
+  constexpr uint32_t kRes = C::kRes, kTile = C::kTile, kQ = C::kQ,
+                     kDO = C::kDO, kK = C::kK, kV = C::kV, kRows = C::kRows,
+                     kBar = C::kBar, kEnds = C::kEnds, kMeta = C::kMeta;
   extern __shared__ unsigned char smem_sm90[];
   uint32_t base;
   unsigned char* smem = align_smem(smem_sm90, &base);
@@ -1205,8 +1312,8 @@ __device__ __forceinline__ void dq_k8(const CUtensorMap& tq,
       const int hk = h / p.group;
       if (lane == 0) {
         mbar_expect_tx(full_q, 2 * kRes);
-        tma_tile(base + kQ, &tq, full_q, q0, h, b, BM);
-        tma_tile(base + kDO, &tdo, full_q, q0, h, b, BM);
+        tma_tile<D>(base + kQ, &tq, full_q, q0, h, b, BM);
+        tma_tile<D>(base + kDO, &tdo, full_q, q0, h, b, BM);
       }
       const int qe = min(q0 + BM, p.sq);
       int it = 0;                       // stages filled
@@ -1225,9 +1332,9 @@ __device__ __forceinline__ void dq_k8(const CUtensorMap& tq,
             // the copies first; the lanes' arrivals complete full_k
             meta_s[s] = 2 * kb + ivl;
             mbar_expect(full_k(s), kTile);
-            tma_tile(base + kK + s * kTile, &tk, full_k(s), kb * BN, hk, b, BN);
+            tma_tile<D>(base + kK + s * kTile, &tk, full_k(s), kb * BN, hk, b, BN);
             mbar_expect_tx(full_v(s), kTile);
-            tma_tile(base + kV + s * kTile, &tv, full_v(s), kb * BN, hk, b, BN);
+            tma_tile<D>(base + kV + s * kTile, &tv, full_v(s), kb * BN, hk, b, BN);
           }
           if (ivl) stage_ends<BN>(ends_s + s * 4 * BN, vis, kb * BN, lane);
           mbar_arrive(full_k(s));
@@ -1247,22 +1354,26 @@ __device__ __forceinline__ void dq_k8(const CUtensorMap& tq,
     const int lane = ci & 31;
     const int g = lane >> 2;
     const int t = lane & 3;
-    dq_rows(p, b, h, q0, ci, lse_s, delta_s);
-    const int tr = cw * 64 + warp * 16 + g;       // tile rows tr, tr + 8
+    dq_rows<D, BM>(p, b, h, q0, ci, lse_s, delta_s);
+    // kSplit: both warpgroups take rows [0, 64), warpgroup cw dq's columns
+    // [128 cw, 128 cw + 128)
+    const int rw = C::kSplit ? 0 : cw * 64;       // the warpgroup's rows
+    const int tr = rw + warp * 16 + g;            // tile rows tr, tr + 8
     const int row = q0 + tr;
     const float sl2 = p.scale * kLog2e;
     const float lse2[2] = {lse_s[tr] * kLog2e, lse_s[tr + 8] * kLog2e};
     const float dlt[2] = {delta_s[tr], delta_s[tr + 8]};
-    const uint32_t qa = base + kQ + cw * 64 * 128;
-    const uint32_t doa = base + kDO + cw * 64 * 128;
+    const uint32_t qa = base + kQ + rw * 128;
+    const uint32_t doa = base + kDO + rw * 128;
+    const int dcol = C::kSplit ? cw * 128 : 0;    // the warpgroup's dq columns
     // kBiased: bias pairs load as one word where every row is aligned
     const bool bias_pair =
         kMode == flash::kBiased && vis.m.b_ss % 2 == 0 &&
         reinterpret_cast<uintptr_t>(vis.m.bias) % (vis.m.bias_dt ? 4 : 8) == 0;
 
-    float dq[64];
+    float dq[C::kAcc];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+    for (int i = 0; i < C::kAcc; ++i) dq[i] = 0.f;
     mbar_wait(full_q, 0);
 
     for (int it = 0;; ++it) {
@@ -1278,7 +1389,7 @@ __device__ __forceinline__ void dq_k8(const CUtensorMap& tq,
 
       float sc[32], dp[32];
       wg_fence();
-      gemm_abt<BM, BN>(sc, qa, ka);
+      gemm_abt<BM, BN, D>(sc, qa, ka);
       wg_commit();
       // the logit in log2 units less lse, s * scale * log2 e (+ bias *
       // log2 e) - lse * log2 e, as the forward took it
@@ -1293,7 +1404,7 @@ __device__ __forceinline__ void dq_k8(const CUtensorMap& tq,
         for (int i = 0; i < 32; ++i) off[i] = -lse2[(i >> 1) & 1];
       }
       mbar_wait(full_v(s), ph);
-      gemm_abt<BM, BN>(dp, doa, va);
+      gemm_abt<BM, BN, D>(dp, doa, va);
       wg_commit();
 
       // p = exp2(logit - lse), 0 where invisible
@@ -1314,7 +1425,7 @@ __device__ __forceinline__ void dq_k8(const CUtensorMap& tq,
       for (int e = 0; e < 32; ++e)
         dp[e] = sc[e] * (dp[e] - dlt[(e >> 1) & 1]) * p.scale;
       wg_fence();
-      gemm_rs<BN / 16, BN>(dq, dp, ka);
+      gemm_rs<BN / 16, BN>(dq, dp, ka + dcol / 64 * BN * 128);
       wg_commit();
       wg_wait<0>();
       reg_fence(dq);
@@ -1322,7 +1433,7 @@ __device__ __forceinline__ void dq_k8(const CUtensorMap& tq,
     }
 
     __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_s[0] +
-                         h * p.dq_s[1];
+                         h * p.dq_s[1] + dcol;
     const float one[2] = {1.f, 1.f};
     store_rows(dq, dqg, p.dq_s[2], row, p.sq, t, one);
   }
@@ -1332,16 +1443,21 @@ __device__ __forceinline__ void dq_k8(const CUtensorMap& tq,
 // are dq_k8.  K2's body is written out here, apart from dq_k8's, so that
 // K2 compiles to the same SASS as before the K8 modes came
 // (tools/flash_ab.py prints each kernel's digest).
-template <Mode kMode>
-__global__ void __launch_bounds__(dq_cfg::NT, 1)
+template <Mode kMode, int D>
+__global__ void __launch_bounds__(DqCfg<D>::NT, 1)
     dq_kernel(const __grid_constant__ CUtensorMap tq,
               const __grid_constant__ CUtensorMap tdo,
               const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv, const Params p) {
   if constexpr (kMode != flash::kPlain) {
-    dq_k8<kMode>(tq, tdo, tk, tv, p);
+    dq_k8<kMode, D>(tq, tdo, tk, tv, p);
   } else {
-    using namespace dq_cfg;
+    using C = DqCfg<D>;
+    constexpr int BM = C::BM, BN = C::BN, NS = C::NS;
+    constexpr uint32_t kRes = C::kRes, kTile = C::kTile, kQ = C::kQ,
+                       kDO = C::kDO, kK = C::kK, kV = C::kV,
+                       kRows = C::kRows, kBar = C::kBar;
+    constexpr int kL2 = kRowLanesLog2<D>, LPR = 1 << kL2;  // lanes a row
     extern __shared__ unsigned char smem_sm90[];
     uint32_t base;
     unsigned char* smem = align_smem(smem_sm90, &base);
@@ -1375,15 +1491,15 @@ __global__ void __launch_bounds__(dq_cfg::NT, 1)
       if (threadIdx.x == 0) {
         const int hk = h / p.group;
         mbar_expect_tx(full_q, 2 * kRes);
-        tma_tile(base + kQ, &tq, full_q, q0, h, b, BM);
-        tma_tile(base + kDO, &tdo, full_q, q0, h, b, BM);
+        tma_tile<D>(base + kQ, &tq, full_q, q0, h, b, BM);
+        tma_tile<D>(base + kDO, &tdo, full_q, q0, h, b, BM);
         for (int kb = 0; kb < upper; ++kb) {
           const int s = kb % NS;
           mbar_wait(empty(s), ((kb / NS) & 1) ^ 1);
           mbar_expect_tx(full_k(s), kTile);
-          tma_tile(base + kK + s * kTile, &tk, full_k(s), kb * BN, hk, b, BN);
+          tma_tile<D>(base + kK + s * kTile, &tk, full_k(s), kb * BN, hk, b, BN);
           mbar_expect_tx(full_v(s), kTile);
-          tma_tile(base + kV + s * kTile, &tv, full_v(s), kb * BN, hk, b, BN);
+          tma_tile<D>(base + kV + s * kTile, &tv, full_v(s), kb * BN, hk, b, BN);
         }
       }
     } else {
@@ -1397,17 +1513,17 @@ __global__ void __launch_bounds__(dq_cfg::NT, 1)
       const long long row_base = ((long long)b * p.H + h) * p.sq;
 
       // prologue: delta = rowsum(out * dout) in f32 (written out for the
-      // dk/dv kernel) and lse, for the CTA's 128 rows; rows past Sq take
+      // dk/dv kernel) and lse, for the CTA's BM rows; rows past Sq take
       // lse = LSE_INVALID, so their p are 0
       {
         const __nv_bfloat16* og = static_cast<const __nv_bfloat16*>(p.o) +
                                   b * p.o_s[0] + h * p.o_s[1];
         const __nv_bfloat16* dog = static_cast<const __nv_bfloat16*>(p.dout) +
                                    b * p.do_s[0] + h * p.do_s[1];
-        const int c = (lane & 15) * 8;
+        const int c = (lane & (LPR - 1)) * 8;
   #pragma unroll 2
-        for (int it = 0; it < 8; ++it) {
-          const int r = (ci >> 5) * 16 + it * 2 + (lane >> 4);
+        for (int it = 0; it < BM / 8 / (32 / LPR); ++it) {
+          const int r = (ci >> 5) * (BM / 8) + it * (32 / LPR) + (lane >> kL2);
           const int qi = q0 + r;
           float acc = 0.f;
           if (qi < p.sq)
@@ -1416,9 +1532,9 @@ __global__ void __launch_bounds__(dq_cfg::NT, 1)
                        *reinterpret_cast<const uint4*>(
                            dog + (long long)qi * p.do_s[2] + c));
   #pragma unroll
-          for (int o = 8; o > 0; o >>= 1)
+          for (int o = LPR / 2; o > 0; o >>= 1)
             acc += __shfl_xor_sync(0xffffffffu, acc, o);
-          if ((lane & 15) == 0) {
+          if ((lane & (LPR - 1)) == 0) {
             delta_s[r] = acc;
             lse_s[r] = qi < p.sq ? p.lse[row_base + qi] : kLseInvalid;
             if (qi < p.sq) p.delta[row_base + qi] = acc;
@@ -1426,17 +1542,21 @@ __global__ void __launch_bounds__(dq_cfg::NT, 1)
         }
         consumer_sync(256);
       }
-      const int tr = cw * 64 + warp * 16 + g;       // tile rows tr, tr + 8
+      // kSplit: both warpgroups take rows [0, 64), warpgroup cw dq's
+      // columns [128 cw, 128 cw + 128)
+      const int rw = C::kSplit ? 0 : cw * 64;       // the warpgroup's rows
+      const int tr = rw + warp * 16 + g;            // tile rows tr, tr + 8
       const int row = q0 + tr;
       const float sl2 = p.scale * kLog2e;
       const float lse2[2] = {lse_s[tr] * kLog2e, lse_s[tr + 8] * kLog2e};
       const float dlt[2] = {delta_s[tr], delta_s[tr + 8]};
-      const uint32_t qa = base + kQ + cw * 64 * 128;
-      const uint32_t doa = base + kDO + cw * 64 * 128;
+      const uint32_t qa = base + kQ + rw * 128;
+      const uint32_t doa = base + kDO + rw * 128;
+      const int dcol = C::kSplit ? cw * 128 : 0;    // its dq columns
 
-      float dq[64];
+      float dq[C::kAcc];
   #pragma unroll
-      for (int i = 0; i < 64; ++i) dq[i] = 0.f;
+      for (int i = 0; i < C::kAcc; ++i) dq[i] = 0.f;
       mbar_wait(full_q, 0);
 
       for (int kb = 0; kb < upper; ++kb) {
@@ -1449,10 +1569,10 @@ __global__ void __launch_bounds__(dq_cfg::NT, 1)
         float sc[32], dp[32];
         mbar_wait(full_k(s), ph);
         wg_fence();
-        gemm_abt<BM, BN>(sc, qa, ka);
+        gemm_abt<BM, BN, D>(sc, qa, ka);
         wg_commit();
         mbar_wait(full_v(s), ph);
-        gemm_abt<BM, BN>(dp, doa, va);
+        gemm_abt<BM, BN, D>(dp, doa, va);
         wg_commit();
 
         // p = exp(s * scale - lse), 0 where invisible
@@ -1480,7 +1600,7 @@ __global__ void __launch_bounds__(dq_cfg::NT, 1)
           for (int e = 0; e < 4; ++e)
             dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - dlt[e >> 1]) * p.scale;
         wg_fence();
-        gemm_rs<BN / 16, BN>(dq, dp, ka);
+        gemm_rs<BN / 16, BN>(dq, dp, ka + dcol / 64 * BN * 128);
         wg_commit();
         wg_wait<0>();
         reg_fence(dq);
@@ -1488,7 +1608,7 @@ __global__ void __launch_bounds__(dq_cfg::NT, 1)
       }
 
       __nv_bfloat16* dqg = static_cast<__nv_bfloat16*>(p.dq) + b * p.dq_s[0] +
-                           h * p.dq_s[1];
+                           h * p.dq_s[1] + dcol;
       const float one[2] = {1.f, 1.f};
       store_rows(dq, dqg, p.dq_s[2], row, p.sq, t, one);
     }
@@ -1496,26 +1616,44 @@ __global__ void __launch_bounds__(dq_cfg::NT, 1)
 }
 
 // --------------------------------------------------------- backward dkv
-namespace dkv_cfg {
-constexpr int BN = 128, BM = 64, NS = 2, NT = 384;
-constexpr uint32_t kKV = BN * D * 2;               // K or V [BN, 128]
-constexpr uint32_t kQT = BM * D * 2;               // Q or dO [BM, 128]
-constexpr uint32_t kK = 0, kV = kKV, kQ = 2 * kKV, kDO = kQ + NS * kQT;
-constexpr uint32_t kRows = kDO + NS * kQT;         // per stage: lse (log2
-                                                   // units), delta [BM]
-constexpr uint32_t kBar = kRows + NS * 2 * BM * 4; // full_kv, full, empty
-constexpr size_t kSmem = kBar + 8 * (1 + 2 * NS) + 1024;
-// the K8 modes add, per stage, the interval ends of the CTA's keys [4,
-// BN], the tile's meta (query block, or -1: no more tiles; q head of
-// the group; both warpgroups' tile classes) and, kBiased, the tile's
-// [BM, BN] bias block (by TMA in the bias dtype, or copied as f32)
-constexpr uint32_t kEnds = kBar + 64;
-constexpr uint32_t kMeta = kEnds + NS * 4 * BN * 4;
-constexpr uint32_t kBias = (kMeta + NS * 16 + 1023) / 1024 * 1024;
-constexpr uint32_t kBiasTile = BM * BN * 4;
-constexpr size_t kSmemIntervals = kMeta + NS * 16 + 1024;
-constexpr size_t kSmemBiased = kBias + NS * kBiasTile + 1024;
-}  // namespace dkv_cfg
+// One CTA per (BN-key block, kv head, batch), 64-row Q and dO tiles in
+// the ring.  At head_dim 64 and 128 each consumer warpgroup owns 64 of
+// the 128 keys.  At head_dim 256 (kSplit) the two warpgroups share the
+// CTA's 64 keys and each owns 128 columns of dk and dv: a warpgroup
+// owning all 256 would need 2 x 128 accumulator registers.  Each then
+// computes the tile's S^T and dP^T itself (the dV and dK products are
+// split, not repeated), and kBiased keeps one stage (two would pass 227
+// KB beside the bias blocks).
+template <Mode kMode, int D>
+struct DkvCfg {
+  static constexpr bool kSplit = D == 256;
+  static constexpr int BN = kSplit ? 64 : 128, BM = 64, NT = 384;
+  static constexpr int NS = kSplit && kMode == flash::kBiased ? 1 : 2;
+  static constexpr int kAcc = kSplit ? 64 : D / 2;  // dk, dv registers
+  static constexpr uint32_t kKV = BN * D * 2;        // K or V [BN, D]
+  static constexpr uint32_t kQT = BM * D * 2;        // Q or dO [BM, D]
+  static constexpr uint32_t kK = 0, kV = kKV, kQ = 2 * kKV,
+                            kDO = kQ + NS * kQT;
+  static constexpr uint32_t kRows = kDO + NS * kQT;  // per stage: lse (log2
+                                                     // units), delta [BM]
+  static constexpr uint32_t kBar = kRows + NS * 2 * BM * 4;  // full_kv, full, empty
+  static constexpr size_t kSmem = kBar + 8 * (1 + 2 * NS) + 1024;
+  // the K8 modes add, per stage, the interval ends of the CTA's keys [4,
+  // BN], the tile's meta (query block, or -1: no more tiles; q head of
+  // the group; both warpgroups' tile classes) and, kBiased, the tile's
+  // [BM, BN] bias block (by TMA in the bias dtype, or copied as f32)
+  static constexpr uint32_t kEnds = kBar + 64;
+  static constexpr uint32_t kMeta = kEnds + NS * 4 * BN * 4;
+  static constexpr uint32_t kBias = (kMeta + NS * 16 + 1023) / 1024 * 1024;
+  static constexpr uint32_t kBiasTile = BM * BN * 4;
+  static constexpr size_t kSmemIntervals = kMeta + NS * 16 + 1024;
+  static constexpr size_t kSmemBiased = kBias + NS * kBiasTile + 1024;
+  static constexpr size_t kSmemMode = kMode == flash::kPlain ? kSmem
+                                      : kMode == flash::kIntervals
+                                          ? kSmemIntervals
+                                          : kSmemBiased;
+  static_assert(kSmemMode <= 232448, "a CTA has 227 KB of shared memory");
+};
 
 // Whether the dk/dv kernel stages the bias by TMA: a 16-byte aligned
 // base, row, head and batch strides (a broadcast dim's is 0) and rows
@@ -1530,9 +1668,9 @@ __host__ __device__ __forceinline__ bool bias_by_tma(const Params& p) {
 // The producer warp's copy of the [BM, BN] bias block at (q0, k0) into
 // a stage as f32 (its 32 lanes along the keys, plain loads), where TMA
 // cannot take the bias; rows past Sq and keys past Sk read as 0.
+template <int BM, int BN>
 __device__ __forceinline__ void stage_bias_rows(float* dst, const Vis& v,
                                                 int q0, int k0, int lane) {
-  using namespace dkv_cfg;
 #pragma unroll 1
   for (int r = 0; r < BM; ++r) {
     const int q = q0 + r;
@@ -1551,7 +1689,7 @@ __device__ __forceinline__ void stage_bias_rows(float* dst, const Vis& v,
 // sc = sc * sl2 + bias * log2 e over a thread's S^T elements (key rows kr
 // and kr + 8 of the CTA's block, query columns 8 j + 2 t (+ 1) of the
 // tile) from a staged [BM, BN] bias block of element type T.
-template <typename T>
+template <typename T, int BN>
 __device__ __forceinline__ void add_staged_bias(float (&sc)[32],
                                                 const unsigned char* stage,
                                                 int kr, int t, float sl2) {
@@ -1562,7 +1700,7 @@ __device__ __forceinline__ void add_staged_bias(float (&sc)[32],
     for (int e = 0; e < 4; ++e) {
       const int qc = 8 * j + 2 * t + (e & 1);
       sc[4 * j + e] = fmaf(sc[4 * j + e], sl2,
-                           to_f32(bz[qc * dkv_cfg::BN + kr + 8 * (e >> 1)]) *
+                           to_f32(bz[qc * BN + kr + 8 * (e >> 1)]) *
                                kLog2e);
     }
 }
@@ -1585,14 +1723,19 @@ __device__ __forceinline__ void add_staged_bias(float (&sc)[32],
 // causal diagonal or Sk.  kBiased's grid is (batch, key blocks, kv
 // heads), so that a bias broadcast over the batch is read from L2 after
 // the first.
-template <Mode kMode>
+template <Mode kMode, int D>
 __device__ __forceinline__ void dkv_k8(const CUtensorMap& tq,
                                        const CUtensorMap& tdo,
                                        const CUtensorMap& tk,
                                        const CUtensorMap& tv,
                                        const CUtensorMap& tb,
                                        const Params& p) {
-  using namespace dkv_cfg;
+  using C = DkvCfg<kMode, D>;
+  constexpr int BN = C::BN, BM = C::BM, NS = C::NS;
+  constexpr uint32_t kKV = C::kKV, kQT = C::kQT, kK = C::kK, kV = C::kV,
+                     kQ = C::kQ, kDO = C::kDO, kRows = C::kRows,
+                     kBar = C::kBar, kEnds = C::kEnds, kMeta = C::kMeta,
+                     kBias = C::kBias, kBiasTile = C::kBiasTile;
   extern __shared__ unsigned char smem_sm90[];
   uint32_t base;
   unsigned char* smem = align_smem(smem_sm90, &base);
@@ -1642,8 +1785,8 @@ __device__ __forceinline__ void dkv_k8(const CUtensorMap& tq,
       const int lane = threadIdx.x;
       if (lane == 0) {
         mbar_expect_tx(full_kv, 2 * kKV);
-        tma_tile(base + kK, &tk, full_kv, k0, hk, b, BN);
-        tma_tile(base + kV, &tv, full_kv, k0, hk, b, BN);
+        tma_tile<D>(base + kK, &tk, full_kv, k0, hk, b, BN);
+        tma_tile<D>(base + kV, &tv, full_kv, k0, hk, b, BN);
       }
       const uint32_t tile_bytes =
           2 * kQT + (tma_bias ? BM * BN * (p.bias_dt == 0 ? 4 : 2) : 0);
@@ -1659,8 +1802,10 @@ __device__ __forceinline__ void dkv_k8(const CUtensorMap& tq,
           const int q0 = (c + lane) * BM, qe = min(q0 + BM, p.sq);
           if (c + lane < nq) {
             cls = tile_class<64>(kb0, q0, qe, vis);
-            if (kb0 + 1 < len.nblk &&
-                !(p.causal && q0 + BM - 1 + len.diag < k0 + 64))
+            if (C::kSplit)          // one block, both warpgroups'
+              cls |= cls << 2;
+            else if (kb0 + 1 < len.nblk &&
+                     !(p.causal && q0 + BM - 1 + len.diag < k0 + 64))
               cls |= tile_class<64>(kb0 + 1, q0, qe, vis) << 2;
           }
           unsigned live = __ballot_sync(0xffffffffu, cls != kSkip);
@@ -1676,8 +1821,8 @@ __device__ __forceinline__ void dkv_k8(const CUtensorMap& tq,
               meta_s[4 * s + 1] = j;
               meta_s[4 * s + 2] = tcls;
               mbar_expect(full(s), tile_bytes);
-              tma_tile(base + kQ + s * kQT, &tq, full(s), qb * BM, h, b, BM);
-              tma_tile(base + kDO + s * kQT, &tdo, full(s), qb * BM, h, b, BM);
+              tma_tile<D>(base + kQ + s * kQT, &tq, full(s), qb * BM, h, b, BM);
+              tma_tile<D>(base + kDO + s * kQT, &tdo, full(s), qb * BM, h, b, BM);
               if (tma_bias)
                 tma_box(base + kBias + s * kBiasTile, &tb, full(s), k0,
                         qb * BM, p.b_s[1] ? h : 0, p.b_s[0] ? b : 0);
@@ -1691,9 +1836,9 @@ __device__ __forceinline__ void dkv_k8(const CUtensorMap& tq,
             if ((tcls & 3) == kPartial || (tcls >> 2) == kPartial)
               stage_ends<BN>(ends_s + s * 4 * BN, vis, k0, lane);
             if (kMode == flash::kBiased && !tma_bias)
-              stage_bias_rows(reinterpret_cast<float*>(smem + kBias +
-                                                       s * kBiasTile),
-                              vis, qb * BM, k0, lane);
+              stage_bias_rows<BM, BN>(reinterpret_cast<float*>(
+                                          smem + kBias + s * kBiasTile),
+                                      vis, qb * BM, k0, lane);
             mbar_arrive(full(s));
           }
         }
@@ -1705,6 +1850,8 @@ __device__ __forceinline__ void dkv_k8(const CUtensorMap& tq,
     }
   } else {
     // ---- consumers: warpgroup cw owns keys [k0 + 64 cw, k0 + 64 cw + 64)
+    // (kSplit: both own keys [k0, k0 + 64), warpgroup cw columns [128 cw,
+    // 128 cw + 128) of dk and dv)
     reg_alloc<232>();
     const int ci = threadIdx.x - 128;
     const int cw = ci >> 7;
@@ -1712,16 +1859,18 @@ __device__ __forceinline__ void dkv_k8(const CUtensorMap& tq,
     const int lane = ci & 31;
     const int g = lane >> 2;
     const int t = lane & 3;
-    const int kw = k0 + cw * 64;                  // the warpgroup's first key
-    const int kr = cw * 64 + warp * 16 + g;       // key rows kr, kr + 8
+    const int rw = C::kSplit ? 0 : cw * 64;      // the warpgroup's key rows
+    const int kw = k0 + rw;                       // the warpgroup's first key
+    const int kr = rw + warp * 16 + g;            // key rows kr, kr + 8
     const int key = k0 + kr;
+    const int dcol = C::kSplit ? cw * 128 : 0;    // its dk, dv columns
     const float sl2 = p.scale * kLog2e;
     // the staged bias's element type: the bias's by TMA, else f32
     const int bdt = tma_bias ? p.bias_dt : 0;
 
-    float dk[64], dv[64];
+    float dk[C::kAcc], dv[C::kAcc];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < C::kAcc; ++i) {
       dk[i] = 0.f;
       dv[i] = 0.f;
     }
@@ -1745,9 +1894,9 @@ __device__ __forceinline__ void dkv_k8(const CUtensorMap& tq,
 
       float sc[BM / 2], dp[BM / 2];
       wg_fence();
-      gemm_abt<BN, BM>(sc, base + kK + cw * 64 * 128, qa);
+      gemm_abt<BN, BM, D>(sc, base + kK + rw * 128, qa);
       wg_commit();
-      gemm_abt<BN, BM>(dp, base + kV + cw * 64 * 128, doa);
+      gemm_abt<BN, BM, D>(dp, base + kV + rw * 128, doa);
       wg_commit();
 
       // p^T = exp2(logit - lse) per query column, 0 where invisible; dv
@@ -1758,11 +1907,11 @@ __device__ __forceinline__ void dkv_k8(const CUtensorMap& tq,
       if constexpr (kMode == flash::kBiased) {
         const unsigned char* bs = smem + kBias + s * kBiasTile;
         if (bdt == 0) {
-          add_staged_bias<float>(sc, bs, kr, t, sl2);
+          add_staged_bias<float, BN>(sc, bs, kr, t, sl2);
         } else if (bdt == 1) {
-          add_staged_bias<__nv_bfloat16>(sc, bs, kr, t, sl2);
+          add_staged_bias<__nv_bfloat16, BN>(sc, bs, kr, t, sl2);
         } else {
-          add_staged_bias<__half>(sc, bs, kr, t, sl2);
+          add_staged_bias<__half, BN>(sc, bs, kr, t, sl2);
         }
         sl = 1.f;
       }
@@ -1802,7 +1951,7 @@ __device__ __forceinline__ void dkv_k8(const CUtensorMap& tq,
         }
       }
       wg_fence();
-      gemm_rs<BM / 16, BM>(dv, sc, doa);
+      gemm_rs<BM / 16, BM>(dv, sc, doa + dcol / 64 * BM * 128);
       wg_commit();
 
       // ds^T = p^T (dp^T - delta) scale (f32 p), rounded to bf16 for
@@ -1820,7 +1969,7 @@ __device__ __forceinline__ void dkv_k8(const CUtensorMap& tq,
                            p.scale;
       }
       wg_fence();
-      gemm_rs<BM / 16, BM>(dk, dp, qa);
+      gemm_rs<BM / 16, BM>(dk, dp, qa + dcol / 64 * BM * 128);
       wg_commit();
       wg_wait<0>();
       reg_fence(dv);
@@ -1830,10 +1979,10 @@ __device__ __forceinline__ void dkv_k8(const CUtensorMap& tq,
 
     const float one[2] = {1.f, 1.f};
     store_rows(dk, static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_s[0] +
-                       hk * p.dk_s[1],
+                       hk * p.dk_s[1] + dcol,
                p.dk_s[2], key, p.sk, t, one);
     store_rows(dv, static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_s[0] +
-                       hk * p.dv_s[1],
+                       hk * p.dv_s[1] + dcol,
                p.dv_s[2], key, p.sk, t, one);
   }
 }
@@ -1843,17 +1992,21 @@ __device__ __forceinline__ void dkv_k8(const CUtensorMap& tq,
 // modes are dkv_k8, with the bias's tensor map ``tb`` (kBiased, where
 // bias_by_tma; unused otherwise), after p so that K2's parameters keep
 // their offsets.
-template <Mode kMode>
-__global__ void __launch_bounds__(dkv_cfg::NT, 1)
+template <Mode kMode, int D>
+__global__ void __launch_bounds__(DkvCfg<kMode, D>::NT, 1)
     dkv_kernel(const __grid_constant__ CUtensorMap tq,
                const __grid_constant__ CUtensorMap tdo,
                const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, const Params p,
                const __grid_constant__ CUtensorMap tb) {
   if constexpr (kMode != flash::kPlain) {
-    dkv_k8<kMode>(tq, tdo, tk, tv, tb, p);
+    dkv_k8<kMode, D>(tq, tdo, tk, tv, tb, p);
   } else {
-    using namespace dkv_cfg;
+    using C = DkvCfg<kMode, D>;
+    constexpr int BN = C::BN, BM = C::BM, NS = C::NS;
+    constexpr uint32_t kKV = C::kKV, kQT = C::kQT, kK = C::kK, kV = C::kV,
+                       kQ = C::kQ, kDO = C::kDO, kRows = C::kRows,
+                       kBar = C::kBar;
     extern __shared__ unsigned char smem_sm90[];
     uint32_t base;
     unsigned char* smem = align_smem(smem_sm90, &base);
@@ -1891,8 +2044,8 @@ __global__ void __launch_bounds__(dkv_cfg::NT, 1)
         const int lane = threadIdx.x;
         if (lane == 0) {
           mbar_expect_tx(full_kv, 2 * kKV);
-          tma_tile(base + kK, &tk, full_kv, k0, hk, b, BN);
-          tma_tile(base + kV, &tv, full_kv, k0, hk, b, BN);
+          tma_tile<D>(base + kK, &tk, full_kv, k0, hk, b, BN);
+          tma_tile<D>(base + kV, &tv, full_kv, k0, hk, b, BN);
         }
         int it = 0;
         for (int j = 0; j < p.group; ++j) {
@@ -1909,8 +2062,8 @@ __global__ void __launch_bounds__(dkv_cfg::NT, 1)
             }
             if (lane == 0) {
               mbar_expect_tx(full(s), 2 * kQT);
-              tma_tile(base + kQ + s * kQT, &tq, full(s), qb * BM, h, b, BM);
-              tma_tile(base + kDO + s * kQT, &tdo, full(s), qb * BM, h, b, BM);
+              tma_tile<D>(base + kQ + s * kQT, &tq, full(s), qb * BM, h, b, BM);
+              tma_tile<D>(base + kDO + s * kQT, &tdo, full(s), qb * BM, h, b, BM);
             } else {
               mbar_arrive(full(s));
             }
@@ -1919,6 +2072,8 @@ __global__ void __launch_bounds__(dkv_cfg::NT, 1)
       }
     } else {
       // ---- consumers: warpgroup cw owns keys [k0 + 64 cw, k0 + 64 cw + 64)
+      // (kSplit: both own keys [k0, k0 + 64), warpgroup cw columns [128
+      // cw, 128 cw + 128) of dk and dv)
       reg_alloc<240>();
       const int ci = threadIdx.x - 128;
       const int cw = ci >> 7;
@@ -1926,13 +2081,15 @@ __global__ void __launch_bounds__(dkv_cfg::NT, 1)
       const int lane = ci & 31;
       const int g = lane >> 2;
       const int t = lane & 3;
-      const int kw = k0 + cw * 64;                  // the warpgroup's first key
+      const int rw = C::kSplit ? 0 : cw * 64;      // the warpgroup's key rows
+      const int kw = k0 + rw;                       // the warpgroup's first key
       const int key = kw + warp * 16 + g;           // and key + 8
+      const int dcol = C::kSplit ? cw * 128 : 0;    // its dk, dv columns
       const float sl2 = p.scale * kLog2e;
 
-      float dk[64], dv[64];
+      float dk[C::kAcc], dv[C::kAcc];
   #pragma unroll
-      for (int i = 0; i < 64; ++i) {
+      for (int i = 0; i < C::kAcc; ++i) {
         dk[i] = 0.f;
         dv[i] = 0.f;
       }
@@ -1956,9 +2113,9 @@ __global__ void __launch_bounds__(dkv_cfg::NT, 1)
 
           float sc[BM / 2], dp[BM / 2];
           wg_fence();
-          gemm_abt<BN, BM>(sc, base + kK + cw * 64 * 128, qa);
+          gemm_abt<BN, BM, D>(sc, base + kK + rw * 128, qa);
           wg_commit();
-          gemm_abt<BN, BM>(dp, base + kV + cw * 64 * 128, doa);
+          gemm_abt<BN, BM, D>(dp, base + kV + rw * 128, doa);
           wg_commit();
 
           // p^T = exp(s * scale - lse) per query column, 0 where invisible;
@@ -1982,7 +2139,7 @@ __global__ void __launch_bounds__(dkv_cfg::NT, 1)
             }
           }
           wg_fence();
-          gemm_rs<BM / 16, BM>(dv, sc, doa);
+          gemm_rs<BM / 16, BM>(dv, sc, doa + dcol / 64 * BM * 128);
           wg_commit();
 
           // ds^T = p^T (dp^T - delta) scale (f32 p), rounded to bf16 for
@@ -2000,7 +2157,7 @@ __global__ void __launch_bounds__(dkv_cfg::NT, 1)
                                p.scale;
           }
           wg_fence();
-          gemm_rs<BM / 16, BM>(dk, dp, qa);
+          gemm_rs<BM / 16, BM>(dk, dp, qa + dcol / 64 * BM * 128);
           wg_commit();
           wg_wait<0>();
           reg_fence(dv);
@@ -2011,10 +2168,10 @@ __global__ void __launch_bounds__(dkv_cfg::NT, 1)
 
       const float one[2] = {1.f, 1.f};
       store_rows(dk, static_cast<__nv_bfloat16*>(p.dk) + b * p.dk_s[0] +
-                         hk * p.dk_s[1],
+                         hk * p.dk_s[1] + dcol,
                  p.dk_s[2], key, p.sk, t, one);
       store_rows(dv, static_cast<__nv_bfloat16*>(p.dv) + b * p.dv_s[0] +
-                         hk * p.dv_s[1],
+                         hk * p.dv_s[1] + dcol,
                  p.dv_s[2], key, p.sk, t, one);
     }
   }
@@ -2025,7 +2182,7 @@ __global__ void __launch_bounds__(dkv_cfg::NT, 1)
 // zero at hidden ones, summed over the bias's broadcast batch and head
 // dims in a fixed order, in the bias dtype.  One CTA per (128-row query
 // block, bias head, bias batch) walks the (batch, head) members that
-// broadcast onto it in order, on the dq kernel's layout (dq_cfg): Q and
+// broadcast onto it in order, on the dq kernel's layout (DqCfg): Q and
 // dO of the member resident by TMA, 64-key K and V tiles in the ring,
 // the producer warp classing the tiles from the tile table as dq_k8's
 // does.  Per tile each consumer warpgroup takes S = Q.K^T and dP = dO.V^T
@@ -2042,14 +2199,29 @@ __global__ void __launch_bounds__(dkv_cfg::NT, 1)
 // rows are 16-byte multiples; else plain stores).  Key tiles past the
 // causal trip count are written as zeros once per CTA by a second
 // producer warp (TMA stores of a zero box, or plain stores).
-namespace dbias_cfg {
-using namespace dq_cfg;
-constexpr uint32_t kEmptyQ = kBar + 8 * (1 + 3 * NS);  // consumers free Q, dO
-constexpr uint32_t kBox = 64 * 64 * 4;                  // [64 q, 64 k] f32
-constexpr uint32_t kStore = (kMeta + NS * 4 + 1023) / 1024 * 1024;
-constexpr uint32_t kZero = kStore + 2 * kBox;           // a box of zeros
-constexpr size_t kSmem = kZero + kBox + 1024;
-}  // namespace dbias_cfg
+template <int D>
+struct DbiasCfg {
+  static constexpr int BM = 128, BN = 64, NT = 384;
+  // head_dim 256: one stage, and plain stores for ds and the zeros (Q and
+  // dO are 128 KB; two stages or the staging boxes would pass 227 KB)
+  static constexpr int NS = D == 256 ? 1 : 2;
+  static constexpr bool kTmaStore = D != 256;
+  static constexpr uint32_t kRes = BM * D * 2;       // Q or dO [128, D]
+  static constexpr uint32_t kTile = BN * D * 2;      // K or V [64, D]
+  static constexpr uint32_t kQ = 0, kDO = kRes, kK = 2 * kRes,
+                            kV = kK + NS * kTile;
+  static constexpr uint32_t kRows = kV + NS * kTile; // lse, delta [128] f32
+  static constexpr uint32_t kBar = kRows + 2 * BM * 4;
+  static constexpr uint32_t kEmptyQ = kBar + 8 * (1 + 3 * NS);  // consumers free Q, dO
+  static constexpr uint32_t kEnds = kBar + 64;
+  static constexpr uint32_t kMeta = kEnds + NS * 4 * BN * 4;
+  static constexpr uint32_t kBox = 64 * 64 * 4;      // [64 q, 64 k] f32
+  static constexpr uint32_t kStore = (kMeta + NS * 4 + 1023) / 1024 * 1024;
+  static constexpr uint32_t kZero = kStore + 2 * kBox;  // a box of zeros
+  static constexpr size_t kSmem =
+      (kTmaStore ? kZero + kBox : kMeta + NS * 4) + 1024;
+  static_assert(kSmem <= 232448, "a CTA has 227 KB of shared memory");
+};
 
 __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
                                           int k0, int row, int h, int b) {
@@ -2165,14 +2337,20 @@ __device__ __forceinline__ void store_plane(const float (&x)[32], void* plane,
 // and batch dims (1 = broadcast over p.H / p.B).  tdb: the output's
 // tensor map (dbias_map), used where ``tma``.  A template (kBiased
 // only), so that only the source that launches it compiles it.
-template <Mode kMode>
-__global__ void __launch_bounds__(dq_cfg::NT, 1)
+template <Mode kMode, int D>
+__global__ void __launch_bounds__(DbiasCfg<D>::NT, 1)
     dbias_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tdo,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, const Params p,
                  const __grid_constant__ CUtensorMap tdb, const int tma) {
-  using namespace dbias_cfg;
+  using C = DbiasCfg<D>;
+  constexpr int BM = C::BM, BN = C::BN, NS = C::NS, NT = C::NT;
+  constexpr uint32_t kRes = C::kRes, kTile = C::kTile, kQ = C::kQ,
+                     kDO = C::kDO, kK = C::kK, kV = C::kV, kRows = C::kRows,
+                     kBar = C::kBar, kEmptyQ = C::kEmptyQ, kEnds = C::kEnds,
+                     kMeta = C::kMeta, kBox = C::kBox, kStore = C::kStore,
+                     kZero = C::kZero;
   static_assert(kMode == flash::kBiased, "dbias needs a bias");
   extern __shared__ unsigned char smem_sm90[];
   uint32_t base;
@@ -2204,9 +2382,11 @@ __global__ void __launch_bounds__(dq_cfg::NT, 1)
   void* plane = static_cast<char*>(p.dbias) +
                 out_base * (p.bias_dt == 0 ? 4 : 2);
 
-  for (int i = threadIdx.x; i < (int)(kBox / 16); i += NT)
-    reinterpret_cast<uint4*>(smem + kZero)[i] = make_uint4(0u, 0u, 0u, 0u);
-  fence_async();
+  if constexpr (C::kTmaStore) {
+    for (int i = threadIdx.x; i < (int)(kBox / 16); i += NT)
+      reinterpret_cast<uint4*>(smem + kZero)[i] = make_uint4(0u, 0u, 0u, 0u);
+    fence_async();
+  }
   if (threadIdx.x == 0) {
     mbar_init(full_q, 1);
     mbar_init(empty_q, 8);              // one arrival per consumer warp
@@ -2233,8 +2413,8 @@ __global__ void __launch_bounds__(dq_cfg::NT, 1)
         if (lane == 0) {
           mbar_wait(empty_q, (mi & 1) ^ 1);
           mbar_expect_tx(full_q, 2 * kRes);
-          tma_tile(base + kQ, &tq, full_q, q0, h, b, BM);
-          tma_tile(base + kDO, &tdo, full_q, q0, h, b, BM);
+          tma_tile<D>(base + kQ, &tq, full_q, q0, h, b, BM);
+          tma_tile<D>(base + kDO, &tdo, full_q, q0, h, b, BM);
         }
         for (int c = 0; c < upper; c += 32) {
           const int cls = c + lane < upper
@@ -2254,10 +2434,10 @@ __global__ void __launch_bounds__(dq_cfg::NT, 1)
                 mbar_arrive(full_v(s));
               } else {
                 mbar_expect(full_k(s), kTile);
-                tma_tile(base + kK + s * kTile, &tk, full_k(s), kb * BN, hk, b,
+                tma_tile<D>(base + kK + s * kTile, &tk, full_k(s), kb * BN, hk, b,
                          BN);
                 mbar_expect_tx(full_v(s), kTile);
-                tma_tile(base + kV + s * kTile, &tv, full_v(s), kb * BN, hk, b,
+                tma_tile<D>(base + kV + s * kTile, &tv, full_v(s), kb * BN, hk, b,
                          BN);
               }
             }
@@ -2354,7 +2534,7 @@ __global__ void __launch_bounds__(dq_cfg::NT, 1)
           const uint32_t va = base + kV + s * kTile;
           float sc[32], off[32];
           wg_fence();
-          gemm_abt<BM, BN>(sc, qa, ka);
+          gemm_abt<BM, BN, D>(sc, qa, ka);
           wg_commit();
           // the logit in log2 units less lse, as the forward took it
           load_bias(off, vis, row, k0, t, bias_pair && k0 + BN <= vis.sk);
@@ -2362,7 +2542,7 @@ __global__ void __launch_bounds__(dq_cfg::NT, 1)
           for (int i = 0; i < 32; ++i)
             off[i] = fmaf(off[i], kLog2e, -lse2[(i >> 1) & 1]);
           mbar_wait(full_v(s), ph);
-          gemm_abt<BM, BN>(ds, doa, va);
+          gemm_abt<BM, BN, D>(ds, doa, va);
           wg_commit();
           wg_wait<1>();
           reg_fence(sc);
@@ -2429,11 +2609,11 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// The tensor map of a [B, H, S, 128] bf16 view with element strides
-// st = (batch, head, sequence): dims (128, S, H, B), boxes of 64
-// columns x ``rows`` rows, 128-byte swizzle, zero fill past S.
+// The tensor map of a [B, H, S, D] bf16 view with element strides
+// st = (batch, head, sequence): dims (D, S, H, B), boxes of 64 columns x
+// ``rows`` rows, 128-byte swizzle, zero fill past S.
 inline bool tile_map(CUtensorMap* map, const void* ptr, const long long* st,
-                     int B, int H, int S, int rows) {
+                     int B, int H, int S, int rows, int D) {
   const EncodeTiled enc = encoder();
   if (!enc) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H,
@@ -2460,40 +2640,41 @@ int launch(Kern kern, size_t smem, dim3 grid, int threads, cudaStream_t s,
 
 // p as the C entries fill it (for dk/dv, p.H is kvH).  The forward's
 // K8 modes read p.mask, p.bias and, with intervals, the tile table p.tbl
-// (flash_mask.cu writes it first).
-template <Mode kMode = flash::kPlain>
+// (flash_mask.cu writes it first).  D is the head dim (64, 128 or 256).
+template <Mode kMode, int D>
 inline int launch_fwd(const Params& p, cudaStream_t s) {
+  using C = FwdCfg<kMode, D>;
   const int kvh = p.H / p.group;
   CUtensorMap tq, tk, tv;
-  if (!tile_map(&tq, p.q, p.q_s, p.B, p.H, p.sq, FwdCfg<kMode>::BM) ||
-      !tile_map(&tk, p.k, p.k_s, p.B, kvh, p.sk, FwdCfg<kMode>::BN) ||
-      !tile_map(&tv, p.v, p.v_s, p.B, kvh, p.sk, FwdCfg<kMode>::BN))
+  if (!tile_map(&tq, p.q, p.q_s, p.B, p.H, p.sq, C::BM, D) ||
+      !tile_map(&tk, p.k, p.k_s, p.B, kvh, p.sk, C::BN, D) ||
+      !tile_map(&tv, p.v, p.v_s, p.B, kvh, p.sk, C::BN, D))
     return (int)cudaErrorInvalidValue;
-  using C = FwdCfg<kMode>;
   const int nqb = (p.sq + C::BM - 1) / C::BM;
-  return launch(fwd_kernel<kMode>, C::kSmem,
+  return launch(fwd_kernel<kMode, D>, C::kSmem,
                 C::kBatchFirst ? dim3(p.B, nqb, p.H) : dim3(nqb, p.H, p.B),
                 C::NT, s, p, tq, tk, tv);
 }
 
-template <Mode kMode = flash::kPlain>
+template <Mode kMode, int D>
 inline int launch_dq(const Params& p, cudaStream_t s) {
+  using C = DqCfg<D>;
   const int kvh = p.H / p.group;
   CUtensorMap tq, tdo, tk, tv;
-  if (!tile_map(&tq, p.q, p.q_s, p.B, p.H, p.sq, dq_cfg::BM) ||
-      !tile_map(&tdo, p.dout, p.do_s, p.B, p.H, p.sq, dq_cfg::BM) ||
-      !tile_map(&tk, p.k, p.k_s, p.B, kvh, p.sk, dq_cfg::BN) ||
-      !tile_map(&tv, p.v, p.v_s, p.B, kvh, p.sk, dq_cfg::BN))
+  if (!tile_map(&tq, p.q, p.q_s, p.B, p.H, p.sq, C::BM, D) ||
+      !tile_map(&tdo, p.dout, p.do_s, p.B, p.H, p.sq, C::BM, D) ||
+      !tile_map(&tk, p.k, p.k_s, p.B, kvh, p.sk, C::BN, D) ||
+      !tile_map(&tv, p.v, p.v_s, p.B, kvh, p.sk, C::BN, D))
     return (int)cudaErrorInvalidValue;
-  const int nqb = (p.sq + dq_cfg::BM - 1) / dq_cfg::BM;
+  const int nqb = (p.sq + C::BM - 1) / C::BM;
   if constexpr (kMode == flash::kPlain) {
-    return launch(dq_kernel<kMode>, dq_cfg::kSmem, dim3(nqb, p.H, p.B),
-                  dq_cfg::NT, s, p, tq, tdo, tk, tv);
+    return launch(dq_kernel<kMode, D>, C::kSmem, dim3(nqb, p.H, p.B), C::NT,
+                  s, p, tq, tdo, tk, tv);
   } else {
-    return launch(dq_kernel<kMode>, dq_cfg::kSmemK8,
+    return launch(dq_kernel<kMode, D>, C::kSmemK8,
                   kMode == flash::kBiased ? dim3(p.B, nqb, p.H)
                                           : dim3(nqb, p.H, p.B),
-                  dq_cfg::NT, s, p, tq, tdo, tk, tv);
+                  C::NT, s, p, tq, tdo, tk, tv);
   }
 }
 
@@ -2501,7 +2682,8 @@ inline int launch_dq(const Params& p, cudaStream_t s) {
 // on a broadcast dim, which the map gives size 1) for the dk/dv kernel:
 // dims (Sk, Sq, Hb, Bb), boxes of BN keys x BM rows in the bias dtype,
 // no swizzle, zero fill past Sq and Sk.  Needs bias_by_tma(p).
-inline bool bias_map(CUtensorMap* map, const Params& p, int nh) {
+inline bool bias_map(CUtensorMap* map, const Params& p, int nh, int BN,
+                     int BM) {
   const EncodeTiled enc = encoder();
   if (!enc) return false;
   const cuuint64_t es = p.bias_dt == 0 ? 4 : 2;
@@ -2510,7 +2692,7 @@ inline bool bias_map(CUtensorMap* map, const Params& p, int nh) {
   const cuuint64_t rs = p.b_s[2] * es;
   const cuuint64_t hs = p.b_s[1] ? p.b_s[1] * es : rs * p.sq;
   const cuuint64_t strides[3] = {rs, hs, p.b_s[0] ? p.b_s[0] * es : hs * hb};
-  const cuuint32_t box[4] = {dkv_cfg::BN, dkv_cfg::BM, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)BN, (cuuint32_t)BM, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUtensorMapDataType dt = p.bias_dt == 0 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                                  : p.bias_dt == 1
@@ -2524,27 +2706,27 @@ inline bool bias_map(CUtensorMap* map, const Params& p, int nh) {
 
 // For dk/dv, p.H counts kv heads.  The K8 modes read p.mask, p.bias and,
 // with intervals, the tile table p.tbl of the q heads (p.H * p.group).
-template <Mode kMode = flash::kPlain>
+template <Mode kMode, int D>
 inline int launch_dkv(const Params& p, cudaStream_t s) {
+  using C = DkvCfg<kMode, D>;
   const int h = p.H * p.group;
   CUtensorMap tq, tdo, tk, tv, tb = {};
-  if (!tile_map(&tq, p.q, p.q_s, p.B, h, p.sq, dkv_cfg::BM) ||
-      !tile_map(&tdo, p.dout, p.do_s, p.B, h, p.sq, dkv_cfg::BM) ||
-      !tile_map(&tk, p.k, p.k_s, p.B, p.H, p.sk, dkv_cfg::BN) ||
-      !tile_map(&tv, p.v, p.v_s, p.B, p.H, p.sk, dkv_cfg::BN) ||
-      (kMode == flash::kBiased && bias_by_tma(p) && !bias_map(&tb, p, h)))
+  if (!tile_map(&tq, p.q, p.q_s, p.B, h, p.sq, C::BM, D) ||
+      !tile_map(&tdo, p.dout, p.do_s, p.B, h, p.sq, C::BM, D) ||
+      !tile_map(&tk, p.k, p.k_s, p.B, p.H, p.sk, C::BN, D) ||
+      !tile_map(&tv, p.v, p.v_s, p.B, p.H, p.sk, C::BN, D) ||
+      (kMode == flash::kBiased && bias_by_tma(p) &&
+       !bias_map(&tb, p, h, C::BN, C::BM)))
     return (int)cudaErrorInvalidValue;
-  const int nkb = (p.sk + dkv_cfg::BN - 1) / dkv_cfg::BN;
-  const size_t smem = kMode == flash::kPlain       ? dkv_cfg::kSmem
-                      : kMode == flash::kIntervals ? dkv_cfg::kSmemIntervals
-                                                   : dkv_cfg::kSmemBiased;
+  const int nkb = (p.sk + C::BN - 1) / C::BN;
   const dim3 grid = kMode == flash::kBiased ? dim3(p.B, nkb, p.H)
                                             : dim3(nkb, p.H, p.B);
   cudaError_t err = cudaFuncSetAttribute(
-      dkv_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      dkv_kernel<kMode, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)C::kSmemMode);
   if (err != cudaSuccess) return (int)err;
-  dkv_kernel<kMode><<<grid, dkv_cfg::NT, smem, s>>>(tq, tdo, tk, tv, p, tb);
+  dkv_kernel<kMode, D><<<grid, C::NT, C::kSmemMode, s>>>(tq, tdo, tk, tv, p,
+                                                         tb);
   return (int)cudaGetLastError();
 }
 
@@ -2576,27 +2758,27 @@ inline bool dbias_map(CUtensorMap* map, const Params& p, int hb, int bb) {
 // With intervals it reads the tile table p.tbl (flash_mask.cu writes it
 // first).  A template, as the kernel is, so that a source that does not
 // call it does not compile the kernel.
-template <Mode kMode = flash::kBiased>
+template <Mode kMode, int D>
 inline int launch_dbias(const Params& p, int hb, int bb, cudaStream_t s) {
+  using C = DbiasCfg<D>;
   const int kvh = p.H / p.group;
   CUtensorMap tq, tdo, tk, tv, tdb = {};
-  if (!tile_map(&tq, p.q, p.q_s, p.B, p.H, p.sq, dq_cfg::BM) ||
-      !tile_map(&tdo, p.dout, p.do_s, p.B, p.H, p.sq, dq_cfg::BM) ||
-      !tile_map(&tk, p.k, p.k_s, p.B, kvh, p.sk, dq_cfg::BN) ||
-      !tile_map(&tv, p.v, p.v_s, p.B, kvh, p.sk, dq_cfg::BN))
+  if (!tile_map(&tq, p.q, p.q_s, p.B, p.H, p.sq, C::BM, D) ||
+      !tile_map(&tdo, p.dout, p.do_s, p.B, p.H, p.sq, C::BM, D) ||
+      !tile_map(&tk, p.k, p.k_s, p.B, kvh, p.sk, C::BN, D) ||
+      !tile_map(&tv, p.v, p.v_s, p.B, kvh, p.sk, C::BN, D))
     return (int)cudaErrorInvalidValue;
   const long long es = p.bias_dt == 0 ? 4 : 2;
-  const int tma = p.sk * es % 16 == 0 &&
+  const int tma = C::kTmaStore && p.sk * es % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(p.dbias) % 16 == 0 &&
                   dbias_map(&tdb, p, hb, bb);
-  const int nqb = (p.sq + dq_cfg::BM - 1) / dq_cfg::BM;
-  const auto kern = dbias_kernel<kMode>;
+  const int nqb = (p.sq + C::BM - 1) / C::BM;
+  const auto kern = dbias_kernel<kMode, D>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)dbias_cfg::kSmem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(nqb, hb, bb), dq_cfg::NT, dbias_cfg::kSmem, s>>>(
-      tq, tdo, tk, tv, p, tdb, tma);
+  kern<<<dim3(nqb, hb, bb), C::NT, C::kSmem, s>>>(tq, tdo, tk, tv, p, tdb,
+                                                  tma);
   return (int)cudaGetLastError();
 }
 

@@ -38,11 +38,11 @@ before the one rounding to k's dtype (the reference rounds per q head,
 then sums) — identical in float32.
 
 Head dims route as the reference's ``sdpa`` routes them
-(``:264-269``), by :func:`_route`: on CUDA tensors d in {64, 128, 256}
-goes to the kernels and every other d to the plain versions (the
-reference's XLA route, chosen by the same shape rule: exactly what a CPU
-tensor runs).  The kernels are built for d = 128; d = 64 and 256 raise
-``NotImplementedError`` naming the kernel (ROADMAP queue 2, A1).
+(``:264-269``), by :func:`_route`: on CUDA tensors d in
+``KERNEL_HEAD_DIMS`` = {64, 128, 256} goes to the kernels, which are
+built for each of the three, and every other d to the plain versions
+(the reference's XLA route, chosen by the same shape rule: exactly what
+a CPU tensor runs).
 
 The reference's ``S >= 128`` floor, its padding to 128 and its
 streamed-variant switch past 4096 tokens are TPU tiling and VMEM
@@ -289,24 +289,16 @@ _FWD_ARGS = (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P)
 _BWD_ARGS = (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
              _F, _P, _P)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# head dims the reference's sdpa sends to its kernels (:264-269); the
-# port's kernels are built for _HEAD_DIM
+# head dims the reference's sdpa sends to its kernels (:264-269), each
+# of which the port's kernels are built for
 KERNEL_HEAD_DIMS = (64, 128, 256)
-_HEAD_DIM = 128
 _entries = {}                  # C entry name -> ctypes function
 
 
-def _route(head_dim, kernel="flash_mha (K1/K2)"):
+def _route(head_dim):
     """"kernel" or "plain": how a CUDA call at ``head_dim`` runs, by the
-    reference's rule; raises ``NotImplementedError`` naming ``kernel``
-    where the reference runs a kernel that the port has not built."""
-    if head_dim not in KERNEL_HEAD_DIMS:
-        return "plain"
-    if head_dim != _HEAD_DIM:
-        raise NotImplementedError(
-            f"{kernel} at head_dim {head_dim}: the Hopper kernels are built "
-            f"for head_dim {_HEAD_DIM} (ROADMAP queue 2 A1)")
-    return "kernel"
+    reference's rule (K1/K2, and K8 through ``flash_mask``)."""
+    return "kernel" if head_dim in KERNEL_HEAD_DIMS else "plain"
 
 
 def _entry(symbol, argtypes):
@@ -341,10 +333,9 @@ def _check(q, k, v, *more, name="flash_mha"):
                          f"{tuple(v.shape)} equal [B, kvH, Sk, D]")
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
-    if d != _HEAD_DIM and d in KERNEL_HEAD_DIMS:
-        _route(d, name)                 # raises: not built yet
-    if d != _HEAD_DIM or k.shape[3] != d or k.shape[0] != b:
-        raise ValueError(f"{name} kernels take head_dim {_HEAD_DIM} and "
+    if d not in KERNEL_HEAD_DIMS or k.shape[3] != d or k.shape[0] != b:
+        raise ValueError(f"{name} kernels take head_dim "
+                         f"{sorted(KERNEL_HEAD_DIMS)} (k's as q's) and "
                          f"matching batch, got q {tuple(q.shape)} k "
                          f"{tuple(k.shape)}")
     if h % kvh or sq < 1 or sk < 1:
@@ -487,9 +478,9 @@ def flash_mha(q, k, v, causal, sm_scale):
     """[B, H, Sq, D] flash attention, differentiable, O(S) memory; k/v
     [B, kvH, Sk, D] with H % kvH == 0 (GQA, no repeat).  Any Sq, Sk;
     causal is bottom-right aligned.  CUDA inputs run the K1 forward and
-    the K2 backward kernels (float32 or bfloat16, head_dim 128, strided
-    views with a contiguous head dim); CPU inputs, and head dims outside
-    {64, 128, 256}, run the plain versions."""
+    the K2 backward kernels (float32 or bfloat16, head_dim 64, 128 or
+    256, strided views with a contiguous head dim); CPU inputs, and head
+    dims outside {64, 128, 256}, run the plain versions."""
     return _FlashMHA.apply(q, k, v, bool(causal), float(sm_scale))
 
 

@@ -22,17 +22,19 @@ bias needs a gradient (the reference always emits it and lets XLA drop
 it) and sums over the bias's broadcast dims in-kernel.  In bf16 the
 forward, dq, dk/dv and dbias are the Hopper kernels of
 ``csrc/flash_sm90.cuh``, which skip the tiles that the intervals hide
-whole (the forward's 128-row query blocks x 128-key tiles, dq's and
-dbias's 128-row blocks x 64-key tiles, dk/dv's 64-row query tiles x
-64-key blocks), by a table of each interval
+whole (the forward's 128-row query blocks x 128-key tiles, 64-key at
+head_dim 256; dq's 128-row blocks x 64-key tiles, 64-row at head_dim
+256; dbias's 128 x 64; dk/dv's 64-row query tiles x 64-key blocks), by
+a table of each interval
 vector's minimum and maximum over 64-key blocks that each C entry writes
 first: :func:`_tile_table_xla` and :func:`_tile_classes` are its plain
 versions.
 
 On CPU tensors every entry runs its plain version; on CUDA tensors it
-launches the kernel or raises, except for the head dims that the
-reference routes to XLA (``flash_attention._route``: d outside {64,
-128, 256}), which run the plain versions on the card too.  The plain versions
+launches the kernel (built for head dims 64, 128 and 256) or raises,
+except for the head dims that the reference routes to XLA
+(``flash_attention._route``: d outside {64, 128, 256}), which run the
+plain versions on the card too.  The plain versions
 (:func:`_masked_fwd_xla`, :func:`_masked_bwd_dq_xla`,
 :func:`_masked_bwd_dkv_xla`, :func:`_masked_bwd_dbias_xla`) follow the
 Pallas bodies, not the XLA path: f32 logits with -inf at masked keys;
@@ -82,7 +84,7 @@ _BWD_ARGS = (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I,
 _DBIAS_ARGS = (_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _I,
                _I, _I, _I, _I, _I, _I, _I, _F, _P, _P)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_KERNEL = "flash_mha_masked (K8)"    # the name the head-dim rule raises with
+_KERNEL = "flash_mha_masked (K8)"    # the name its checks raise with
 _BIAS_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _entries = {}                  # C entry name -> ctypes function
 
@@ -199,9 +201,10 @@ def _tile_table(mask_vecs):
 def _tile_classes(table, sq, rows=TILE, keys=TILE):
     """How the bf16 kernels class each (``rows``-row query tile,
     ``keys``-key tile) from a tile table (``flash_sm90.cuh:tile_class``):
-    the interval forward takes 128 x 128 (the defaults), the biased
-    forward 128 x 64, dq 128 x 64 (``DQ_TILE``) and dk/dv 64 x 64
-    (``DKV_TILE``, a consumer warpgroup's key block).  0 skip (one
+    the interval forward takes 128 x 128 (the defaults; 128 x 64 at
+    head_dim 256), the biased forward 128 x 64, dq 128 x 64 (``DQ_TILE``;
+    64 x 64 at head_dim 256) and dk/dv 64 x 64 (``DKV_TILE``, a consumer
+    warpgroup's key block).  0 skip (one
     interval hides every key of the tile from every row it covers), 1
     partial, 2 clean (no interval touches it); [Bm, Hm, ceil(Sq / rows),
     ceil(Sk / keys)] int64.  Keys past Sk and causality are the kernel's
@@ -404,7 +407,7 @@ def _masked_fwd(q, k, v, mask_vecs, bias, causal, sm_scale, need_lse):
     """K8 forward: (out [B, H, Sq, D], lse [B, H, Sq] f32 or None).  CPU
     tensors take :func:`_masked_fwd_xla`; CUDA tensors launch the kernel,
     which writes lse only when ``need_lse``."""
-    if q.device.type == "cpu" or _route(q.shape[-1], _KERNEL) == "plain":
+    if q.device.type == "cpu" or _route(q.shape[-1]) == "plain":
         out, lse = _masked_fwd_xla(q, k, v, mask_vecs, bias, causal,
                                    sm_scale)
         return out, (lse if need_lse else None)
@@ -504,7 +507,7 @@ def _masked_bwd(q, k, v, out, lse, dout, mask_vecs, bias, causal, sm_scale,
     plain versions; CUDA tensors launch the dq kernel (which writes
     delta), the dk/dv kernel and, when ``need_dbias``, the dbias
     kernel."""
-    if q.device.type == "cpu" or _route(q.shape[-1], _KERNEL) == "plain":
+    if q.device.type == "cpu" or _route(q.shape[-1]) == "plain":
         full = (q, k, v, out, lse, dout, mask_vecs, bias, causal, sm_scale)
         return (_masked_bwd_dq_xla(*full), *_masked_bwd_dkv_xla(*full),
                 _masked_bwd_dbias_xla(*full) if need_dbias else None)
@@ -560,9 +563,9 @@ def flash_mha_masked(q, k, v, mask_vecs, causal, sm_scale):
     kvH, Sk, D] with H % kvH == 0 (GQA).  Any Sq, Sk; causal is
     bottom-right aligned.  Inputs may be strided views whose head dim is
     contiguous (the dispatcher passes transposed [B, S, H, D] tensors).
-    CUDA inputs run the K8 kernels (float32 or bfloat16, head_dim 128);
-    CPU inputs run the plain versions.  Returns [B, H, Sq, D] in q's
-    dtype."""
+    CUDA inputs run the K8 kernels (float32 or bfloat16, head_dim 64, 128
+    or 256); CPU inputs, and other head dims, run the plain versions.
+    Returns [B, H, Sq, D] in q's dtype."""
     return _attention(q, k, v, mask_vecs, None, causal, sm_scale)
 
 

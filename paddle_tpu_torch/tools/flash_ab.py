@@ -42,15 +42,18 @@ per row of
 the K1 forward and the K2 dq and dk/dv kernels, each kernel's bound (the
 larger of its bytes over 3.35 TB/s and its operations over 989 TFLOP/s)
 and share of it, and the forward and forward + backward of one
-``scaled_dot_product_attention`` call as a yardstick; then one line per
+``scaled_dot_product_attention`` call as a yardstick (the rows at head
+dims 64 and 256 too; a row the checkout's kernels do not take prints the
+error); then one line per
 K8 forward row: the serving prefill buckets ``serve_2048``,
-``long_decode`` and ``bench_paged`` of ``MASKED_SHAPES`` (no lse, as
-serving runs it), ``packed_docs`` and ``alibi_bias`` of ``K8_SHAPES``
+``long_decode``, ``bench_paged`` and ``tinyllama_2048`` (head_dim 64) of
+``MASKED_SHAPES`` (no lse, as
+serving runs it), every ``K8_SHAPES`` row but ``sft_padding``
 and ``window_8192`` (with lse, as training runs it; the last beside K1
-at its shape without the mask), and the K8 dq and dk/dv at
-``sft_padding``, ``packed_docs``, ``alibi_bias`` and ``window_8192``
-(the backward kernels, on an out, lse and delta that the tool computes
-in f32, the same for every checkout; beside one forward + backward of
+at its shape without the mask), and the K8 dq and dk/dv at every
+``K8_SHAPES`` row and ``window_8192`` (the backward kernels, on an out,
+lse and delta that the tool computes in f32, the same for every
+checkout; beside one forward + backward of
 ``scaled_dot_product_attention`` with the dense mask or bias, and at
 ``window_8192`` beside K2's dq and dk/dv at its shape without the
 mask); at the small prefills ``serve_512`` and ``bench_decode``, the
@@ -184,11 +187,11 @@ def main(root, parts=PARTS):
                     for op in (*SASS_OPS, "sass_sha1")}, flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    dt, d = torch.bfloat16, 128
-    scale = 1 / math.sqrt(d)
+    dt = torch.bfloat16
+    scale = 1 / math.sqrt(128)
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    def bhsd(b, s, h):
+    def bhsd(b, s, h, d=128):
         return torch.randn(b, s, h, d, device="cuda",
                            generator=gen).to(dt).transpose(1, 2)
 
@@ -204,18 +207,24 @@ def main(root, parts=PARTS):
         dbias_rows(torch, FM, root, bhsd, K8_SHAPES, LONGCTX_SEQ,
                    alibi_bias, bias_read_bytes, bound, visible_pairs, scale,
                    sdpa)
-    for name, B, H, kvh, sq, sk in (FLASH_SHAPES if "flash" in parts
-                                    else ()):
-        q, k, v, do = bhsd(B, sq, H), bhsd(B, sk, kvh), bhsd(B, sk, kvh), \
-            bhsd(B, sq, H)
-        out, lse = FA._flash_fwd(q, k, v, True, scale)
-        _, delta = FA._flash_bwd_dq(q, k, v, out, lse, do, True, scale)
+    for name, B, H, kvh, sq, sk, d in (FLASH_SHAPES if "flash" in parts
+                                       else ()):
+        q, k, v, do = bhsd(B, sq, H, d), bhsd(B, sk, kvh, d), \
+            bhsd(B, sk, kvh, d), bhsd(B, sq, H, d)
+        sm = 1 / math.sqrt(d)
+        try:
+            out, lse = FA._flash_fwd(q, k, v, True, sm)
+            _, delta = FA._flash_bwd_dq(q, k, v, out, lse, do, True, sm)
+        except (ValueError, NotImplementedError) as e:   # not built there
+            print(json.dumps({"checkout": root, "shape": name,
+                              "error": str(e)}), flush=True)
+            continue
         ms = {"fwd": cuda_ms(torch, lambda: FA._flash_fwd(q, k, v, True,
-                                                          scale)),
+                                                          sm)),
               "dq": cuda_ms(torch, lambda: FA._flash_bwd_dq(
-                  q, k, v, out, lse, do, True, scale)),
+                  q, k, v, out, lse, do, True, sm)),
               "dkv": cuda_ms(torch, lambda: FA._flash_bwd_dkv(
-                  q, k, v, lse, delta, do, True, scale))}
+                  q, k, v, lse, delta, do, True, sm))}
         pairs = visible_pairs(sq, sk) * B * H
         n_q, n_kv, rows = B * H * sq * d, B * kvh * sk * d, B * H * sq * 4
         bounds = {
@@ -228,12 +237,12 @@ def main(root, parts=PARTS):
 
         def lib_fwd_bwd():
             o = sdpa(*leaves, attn_mask=mask, is_causal=mask is None,
-                     scale=scale, enable_gqa=kvh != H)
+                     scale=sm, enable_gqa=kvh != H)
             torch.autograd.grad(o, leaves, do)
 
         library = {
             "fwd": cuda_ms(torch, lambda: sdpa(
-                q, k, v, attn_mask=mask, is_causal=mask is None, scale=scale,
+                q, k, v, attn_mask=mask, is_causal=mask is None, scale=sm,
                 enable_gqa=kvh != H)),
             "fwd_bwd": cuda_ms(torch, lib_fwd_bwd)}
         print(json.dumps({
@@ -245,40 +254,46 @@ def main(root, parts=PARTS):
         del q, k, v, do, out, lse, delta, leaves
 
     def k8_row(name, fn, **extra):
-        print(json.dumps({"checkout": root, "k8": name,
-                          "ms": cuda_ms(torch, fn), **extra}), flush=True)
+        try:
+            row = {"ms": cuda_ms(torch, fn)}
+        except (ValueError, NotImplementedError) as e:   # not built there
+            row = {"error": str(e)}
+        print(json.dumps({"checkout": root, "k8": name, **row, **extra}),
+              flush=True)
 
     masked = {row[0]: row for row in MASKED_SHAPES}
-    for name in (("serve_2048", "long_decode", "bench_paged")
-                 if "k8" in parts else ()):
-        _, B, H, kvh, S, lengths, _ = masked[name]
-        q, k, v = bhsd(B, S, H), bhsd(B, S, kvh), bhsd(B, S, kvh)
+    for name in (("serve_2048", "long_decode", "bench_paged",
+                  "tinyllama_2048") if "k8" in parts else ()):
+        _, B, H, kvh, S, lengths, _, d = masked[name]
+        q, k, v = bhsd(B, S, H, d), bhsd(B, S, kvh, d), bhsd(B, S, kvh, d)
         keep = (torch.arange(S, device="cuda")[None]
                 < torch.tensor(lengths, device="cuda")[:, None])
         vecs = FM.padding_mask_to_intervals(keep, S)
-        k8_row(name, lambda: FM.flash_mha_masked(q, k, v, vecs, True, scale))
+        k8_row(name, lambda: FM.flash_mha_masked(q, k, v, vecs, True,
+                                                 1 / math.sqrt(d)))
         del q, k, v
     def k8_backward(name, q, k, v, do, vecs, bias, causal, **extra):
         """The K8 dq and dk/dv rows of one shape, on the f32-made out,
         lse and delta, with the library's forward + backward beside."""
-        args = (vecs, bias, causal, scale)
+        sm = 1 / math.sqrt(q.shape[-1])
+        args = (vecs, bias, causal, sm)
         out, lse, delta = plain_forward(torch, q, k, v, do, vecs, bias,
-                                        causal, scale, FM.LSE_INVALID)
+                                        causal, sm, FM.LSE_INVALID)
         lib = sdpa_fwd_bwd_ms(torch, sdpa, FM, q, k, v, do, vecs, bias,
-                              causal, scale)
+                              causal, sm)
         k8_row(f"{name}_dq", lambda: FM._masked_bwd_dq(
             q, k, v, out, lse, do, *args), sdpa_fwd_bwd_ms=lib, **extra)
         k8_row(f"{name}_dkv", lambda: FM._masked_bwd_dkv(
             q, k, v, lse, delta, do, *args), sdpa_fwd_bwd_ms=lib, **extra)
 
-    for name, B, H, kvh, S, causal, kind in (K8_SHAPES if "k8" in parts
-                                             else ()):
-        q, k, v, do = bhsd(B, S, H), bhsd(B, S, kvh), bhsd(B, S, kvh), \
-            bhsd(B, S, H)
+    for name, B, H, kvh, S, causal, kind, d in (K8_SHAPES if "k8" in parts
+                                                else ()):
+        q, k, v, do = bhsd(B, S, H, d), bhsd(B, S, kvh, d), \
+            bhsd(B, S, kvh, d), bhsd(B, S, H, d)
         vecs, bias = k8_operands(FM, kind, B, H, S, "cuda")
         if name != "sft_padding":
             k8_row(name, lambda: FM._masked_fwd(q, k, v, vecs, bias, causal,
-                                                scale, True))
+                                                1 / math.sqrt(d), True))
         k8_backward(name, q, k, v, do, vecs, bias, causal)
         del q, k, v, do
     if "k8" in parts:
@@ -315,7 +330,7 @@ def small_and_longctx(torch, FA, FM, root, bhsd, masked, scale, sdpa, parts,
     """The small prefills' event and device time, then 10b-10d."""
     for name in (("serve_512", "bench_decode") if "small" in parts
                  else ()):
-        _, B, H, kvh, S, lengths, _ = masked[name]
+        _, B, H, kvh, S, lengths, _, _ = masked[name]
         q, k, v = bhsd(B, S, H), bhsd(B, S, kvh), bhsd(B, S, kvh)
         keep = (torch.arange(S, device="cuda")[None]
                 < torch.tensor(lengths, device="cuda")[:, None])
@@ -578,8 +593,8 @@ def dbias_rows(torch, FM, root, bhsd, k8_shapes, longctx_seq, alibi_bias,
     and delta, beside its bound and SDPA's forward + backward with the
     bias's gradient."""
     shapes = [row for row in k8_shapes if row[0] == "alibi_bias"]
-    shapes.append(("alibi_8192", 1, 16, 16, longctx_seq, True, "alibi"))
-    for name, B, H, kvh, S, causal, _ in shapes:
+    shapes.append(("alibi_8192", 1, 16, 16, longctx_seq, True, "alibi", 128))
+    for name, B, H, kvh, S, causal, _, _ in shapes:
         q, k, v, do = bhsd(B, S, H), bhsd(B, S, kvh), bhsd(B, S, kvh), \
             bhsd(B, S, H)
         bias = alibi_bias(H, S, "cuda")

@@ -65,9 +65,11 @@ one split and many, and a row with no key, with a planted fault (every
 row told 64 keys fewer), bit-equal reruns and the wrapper's rejections.
 
 The head-dim routes: d outside {64, 128, 256} runs the plain versions on
-the card (K7 here, K1/K2 and K8 through ``sdpa`` in the CPU tests);
-flash at d 64 and K3 off d 32/64/128/256 raise ``NotImplementedError``
-naming the kernel and its ROADMAP item.  The bf16 K8 dbias
+the card (K7 here, K1/K2 and K8 through ``sdpa`` in the CPU tests); K3
+off d 32/64/128/256 raises ``NotImplementedError`` naming the kernel
+and its ROADMAP item.  The K1/K2 and K8 cases (kernel vs plain in f32
+and bf16, planted faults, bit-equal reruns) run at each of the head
+dims 64, 128 and 256 that the kernels are built for.  The bf16 K8 dbias
 (flash_sm90.cuh) is held through the K8 backward cases (every bias
 broadcast shape and dtype, Sk 1001, intervals with a bias) and a planted
 fault (64 keys dropped).
@@ -98,6 +100,9 @@ from paddle_tpu_torch.ops.pallas import rms_norm as RN
 pytestmark = pytest.mark.cuda
 F32_TOL = 1e-5
 BF16_ROW_TOL = 2 ** -6
+# the head dims of the K1/K2 and K8 kernels (the reference's sdpa sends
+# these to its Pallas kernels)
+FLASH_DIMS = (64, 128, 256)
 
 
 @pytest.fixture
@@ -314,9 +319,8 @@ def test_masked_wrapper_rejects(gen):
         FM.flash_mha_biased(q, k, v, bias[:, :, :32], True, 0.1)
     with pytest.raises(ValueError):
         FM.flash_mha_masked(q, k, v, vecs.long().int()[..., :10], True, 0.1)
-    with pytest.raises(NotImplementedError, match=r"K8.*queue 2 A1"):
-        FM.flash_mha_masked(q[..., :64], k[..., :64], v[..., :64], vecs,
-                            True, 0.1)
+    with pytest.raises(ValueError, match="head_dim"):
+        FM.flash_mha_masked(q[..., :64], k, v, vecs, True, 0.1)
 
 
 # ------------------------------------------- K8 backward and the bias
@@ -356,16 +360,17 @@ def _k8_counts():
             FM.flash_mha_masked.dbias_launches)
 
 
+@pytest.mark.parametrize("d", FLASH_DIMS)
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", K8_CASES)
-def test_k8_kernels_match_plain(gen, dt, case):
+def test_k8_kernels_match_plain(gen, dt, case, d):
     """The K8 forward (with lse), dq, dk/dv and dbias kernels against
     their plain versions, and one launch of each (no dbias without a
-    bias)."""
+    bias), at each head dim."""
     b, h, kvh, sq, sk, causal, kind, bshape = case
-    q, k, v, do = _flash_inputs(gen, dt, b, h, kvh, sq, sk)
+    q, k, v, do = _flash_inputs(gen, dt, b, h, kvh, sq, sk, d)
     vecs, bias = _k8_operands(gen, dt, b, h, sq, sk, kind, bshape)
-    scale = 1.0 / math.sqrt(128)
+    scale = 1.0 / math.sqrt(d)
     n0 = _k8_counts()
     out, lse = FM._masked_fwd(q, k, v, vecs, bias, causal, scale, True)
     torch.cuda.synchronize()
@@ -508,7 +513,7 @@ def _check_k8_fwd(q, k, v, vecs, bias, causal, need_lse=True):
     """The bf16 K8 forward against its plain version: per row, dead rows
     zero with lse = LSE_INVALID, live lse to 1e-3, one launch counted.
     Returns (out, dead rows)."""
-    scale = 1.0 / math.sqrt(128)
+    scale = 1.0 / math.sqrt(q.shape[-1])
     n0 = _k8_counts()
     out, lse = FM._masked_fwd(q, k, v, vecs, bias, causal, scale, need_lse)
     torch.cuda.synchronize()
@@ -528,14 +533,15 @@ def _check_k8_fwd(q, k, v, vecs, bias, causal, need_lse=True):
     return out, dead
 
 
+@pytest.mark.parametrize("d", FLASH_DIMS)
 @pytest.mark.parametrize("case", K8_FWD_CASES, ids=[c[0] for c in
                                                     K8_FWD_CASES])
-def test_k8_bf16_forward_matches_plain(gen, case):
+def test_k8_bf16_forward_matches_plain(gen, case, d):
     """The bf16 K8 forward (flash_sm90.cuh: tiles skipped, clean or
     partial by the tile table) at the edges of its tiles and its mask
-    and bias operands."""
+    and bias operands, at each head dim."""
     name, b, h, kvh, sq, sk, causal, ivl, bspec = case
-    q, k, v, _ = _flash_inputs(gen, torch.bfloat16, b, h, kvh, sq, sk)
+    q, k, v, _ = _flash_inputs(gen, torch.bfloat16, b, h, kvh, sq, sk, d)
     vecs = _fwd_intervals(ivl, b, h, sq, sk)
     bias = _fwd_bias(gen, bspec, h, sq, sk)
     _, dead = _check_k8_fwd(q, k, v, vecs, bias, causal)
@@ -565,12 +571,13 @@ def test_k8_bf16_forward_takes_other_layouts(gen):
     _check_k8_fwd(q, k, v, None, bias.to(torch.bfloat16), False)
 
 
-def test_k8_bf16_forward_is_deterministic(gen):
+@pytest.mark.parametrize("d", FLASH_DIMS)
+def test_k8_bf16_forward_is_deterministic(gen, d):
     """Two runs of the bf16 forward give the same bits (out and lse)."""
-    q, k, v, _ = _flash_inputs(gen, torch.bfloat16, 2, 8, 2, 1000, 1000)
+    q, k, v, _ = _flash_inputs(gen, torch.bfloat16, 2, 8, 2, 1000, 1000, d)
     vecs = _fwd_intervals(("docs", 4, 63), 2, 8, 1000, 1000)
     bias = _fwd_bias(gen, (1, 8, torch.float32), 8, 1000, 1000)
-    scale = 1.0 / math.sqrt(128)
+    scale = 1.0 / math.sqrt(d)
     for ivl, b_ in ((vecs, None), (None, bias), (vecs, bias)):
         first = FM._masked_fwd(q, k, v, ivl, b_, False, scale, True)
         second = FM._masked_fwd(q, k, v, ivl, b_, False, scale, True)
@@ -645,7 +652,7 @@ def _check_k8_bwd(q, k, v, do, vecs, bias, causal):
     """The bf16 K8 dq, dk/dv (and, with a bias, dbias on their delta)
     against their plain versions per row, dq zero on rows with no visible
     key, one launch of each counted.  Returns (dq, dk, dv, dbias)."""
-    scale = 1.0 / math.sqrt(128)
+    scale = 1.0 / math.sqrt(q.shape[-1])
     out, lse = FM._masked_fwd(q, k, v, vecs, bias, causal, scale, True)
     n0 = _k8_counts()
     grads = FM._masked_bwd(q, k, v, out, lse, do, vecs, bias, causal, scale,
@@ -667,15 +674,16 @@ def _check_k8_bwd(q, k, v, do, vecs, bias, causal):
     return grads
 
 
+@pytest.mark.parametrize("d", FLASH_DIMS)
 @pytest.mark.parametrize("case", K8_BWD_CASES, ids=[c[0] for c in
                                                     K8_BWD_CASES])
-def test_k8_bf16_backward_matches_plain(gen, case):
+def test_k8_bf16_backward_matches_plain(gen, case, d):
     """The bf16 K8 dq and dk/dv (flash_sm90.cuh: tiles skipped, clean or
     partial by the tile table, the bias added in log2 units) at the edges
-    of their tiles and their mask and bias operands; per-q-head intervals
-    under GQA index the table by q head."""
+    of their tiles and their mask and bias operands, at each head dim;
+    per-q-head intervals under GQA index the table by q head."""
     name, b, h, kvh, sq, sk, causal, ivl, bspec = case
-    q, k, v, do = _flash_inputs(gen, torch.bfloat16, b, h, kvh, sq, sk)
+    q, k, v, do = _flash_inputs(gen, torch.bfloat16, b, h, kvh, sq, sk, d)
     vecs = _bwd_intervals(ivl, b, h, sq, sk)
     bias = _fwd_bias(gen, bspec, h, sq, sk)
     _check_k8_bwd(q, k, v, do, vecs, bias, causal)
@@ -698,13 +706,14 @@ def test_k8_bf16_backward_takes_unaligned_bias_rows(gen):
     _check_k8_bwd(q, k, v, do, None, row.expand(2, 1, 333, 333), True)
 
 
-def test_k8_bf16_backward_is_deterministic(gen):
+@pytest.mark.parametrize("d", FLASH_DIMS)
+def test_k8_bf16_backward_is_deterministic(gen, d):
     """No float atomics: two runs of the bf16 K8 backward give the same
     bits in dq, dk, dv and dbias (GQA, intervals, bias, both together)."""
-    q, k, v, do = _flash_inputs(gen, torch.bfloat16, 2, 8, 2, 1000, 1000)
+    q, k, v, do = _flash_inputs(gen, torch.bfloat16, 2, 8, 2, 1000, 1000, d)
     vecs = _fwd_intervals(("docs", 4, 63), 2, 8, 1000, 1000)
     bias = _fwd_bias(gen, (1, 8, torch.float32), 8, 1000, 1000)
-    scale = 1.0 / math.sqrt(128)
+    scale = 1.0 / math.sqrt(d)
     for ivl, b_ in ((vecs, None), (None, bias), (vecs, bias)):
         out, lse = FM._masked_fwd(q, k, v, ivl, b_, False, scale, True)
         first = FM._masked_bwd(q, k, v, out, lse, do, ivl, b_, False, scale,
@@ -724,22 +733,23 @@ DBIAS_FAULT_CASES = [  # name, b, h, kvh, s, causal, intervals, bias
 ]
 
 
+@pytest.mark.parametrize("d", FLASH_DIMS)
 @pytest.mark.parametrize("case", DBIAS_FAULT_CASES,
                          ids=[c[0] for c in DBIAS_FAULT_CASES])
-def test_k8_bf16_dbias_check_catches_dropped_keys(gen, case):
+def test_k8_bf16_dbias_check_catches_dropped_keys(gen, case, d):
     """The bf16 dbias (flash_sm90.cuh) at a bias broadcast over batch and
     head, a bf16 bias summed over the batch (its f32 accumulator) and
     intervals with a bias: the kernels run on inputs that lost their
     last 64 keys (k, v, the bias and the intervals cut) must fail the
     per-row check against the full reference on >= 99 % of its rows."""
     name, b, h, kvh, s, causal, ivl, bspec = case
-    q, k, v, do = _flash_inputs(gen, torch.bfloat16, b, h, kvh, s, s)
+    q, k, v, do = _flash_inputs(gen, torch.bfloat16, b, h, kvh, s, s, d)
     vecs = _bwd_intervals(ivl, b, h, s, s)
     bias = _fwd_bias(gen, bspec, h, s, s)
     ref = _check_k8_bwd(q, k, v, do, vecs, bias, causal)[3]
     n = s - 64
     cut = vecs[..., :n] if vecs is not None else None
-    scale = 1.0 / math.sqrt(128)
+    scale = 1.0 / math.sqrt(d)
     out, lse = FM._masked_fwd(q, k[:, :, :n], v[:, :, :n], cut,
                               bias[..., :n], causal, scale, True)
     bad = FM._masked_bwd(q, k[:, :, :n], v[:, :, :n], out, lse, do, cut,
@@ -790,12 +800,13 @@ def _grad_close(out, ref, dt):
     return _grad_row_err(out, ref).max().item() <= BF16_ROW_TOL
 
 
+@pytest.mark.parametrize("d", FLASH_DIMS)
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", FLASH_CASES)
-def test_flash_kernels_match_plain(gen, dt, case):
+def test_flash_kernels_match_plain(gen, dt, case, d):
     b, h, kvh, sq, sk, causal = case
-    q, k, v, do = _flash_inputs(gen, dt, b, h, kvh, sq, sk)
-    scale = 1.0 / math.sqrt(128)
+    q, k, v, do = _flash_inputs(gen, dt, b, h, kvh, sq, sk, d)
+    scale = 1.0 / math.sqrt(d)
     n0 = (FA.flash_mha.fwd_launches, FA.flash_mha.dq_launches,
           FA.flash_mha.dkv_launches)
     out, lse = FA._flash_fwd(q, k, v, causal, scale)
@@ -827,11 +838,12 @@ def test_flash_kernels_match_plain(gen, dt, case):
             FA.flash_mha.dkv_launches) == (n0[0] + 1, n0[1] + 1, n0[2] + 1)
 
 
-def test_flash_bf16_backward_is_deterministic(gen):
+@pytest.mark.parametrize("d", FLASH_DIMS)
+def test_flash_bf16_backward_is_deterministic(gen, d):
     """No float atomics: two bf16 backward runs on the same inputs give
     the same bits in dq, dk and dv (GQA, ragged edges, causal)."""
-    q, k, v, do = _flash_inputs(gen, torch.bfloat16, 2, 8, 2, 1000, 1000)
-    scale = 1.0 / math.sqrt(128)
+    q, k, v, do = _flash_inputs(gen, torch.bfloat16, 2, 8, 2, 1000, 1000, d)
+    scale = 1.0 / math.sqrt(d)
     out, lse = FA._flash_fwd(q, k, v, True, scale)
     first = FA._flash_bwd(q, k, v, out, lse, do, True, scale)
     second = FA._flash_bwd(q, k, v, out, lse, do, True, scale)
@@ -883,11 +895,12 @@ def test_flash_autograd_and_sdpa_route(gen):
         assert _grad_close(g.transpose(1, 2), r, torch.float32)
 
 
-def test_bf16_check_catches_dropped_flash_keys(gen):
+@pytest.mark.parametrize("d", FLASH_DIMS)
+def test_bf16_check_catches_dropped_flash_keys(gen, d):
     """K1/K2 told 64 keys fewer than there are must fail the bf16 check
     on every live row of out and dq, and on every key row of dk/dv."""
-    q, k, v, do = _flash_inputs(gen, torch.bfloat16, 1, 8, 2, 1000, 700)
-    scale = 1.0 / math.sqrt(128)
+    q, k, v, do = _flash_inputs(gen, torch.bfloat16, 1, 8, 2, 1000, 700, d)
+    scale = 1.0 / math.sqrt(d)
     out, lse = FA._flash_fwd(q, k, v, True, scale)
     ref, _ = FA._flash_fwd_xla(q, k, v, True, scale)
     assert _close(out, ref, torch.bfloat16)
@@ -909,8 +922,8 @@ def test_flash_wrapper_rejects(gen):
     q, k, v, _ = _flash_inputs(gen, torch.float32, 1, 4, 2, 64, 64)
     with pytest.raises(TypeError):
         FA._flash_fwd(q.half(), k.half(), v.half(), True, 0.1)
-    with pytest.raises(NotImplementedError, match=r"K1.*queue 2 A1"):
-        FA._flash_fwd(q[..., :64], k[..., :64], v[..., :64], True, 0.1)
+    with pytest.raises(ValueError, match="head_dim"):
+        FA._check(q[..., :64], k, v)          # k/v's head dim is not q's
     with pytest.raises(ValueError, match="head_dim"):
         FA._check(q[..., :96], k[..., :96], v[..., :96])
     with pytest.raises(ValueError):

@@ -5,7 +5,8 @@ On a CUDA tensor each attention wrapper takes the route the reference
 takes at that shape: its kernel where the reference runs a Pallas kernel,
 the plain version where the reference runs XLA, and
 ``NotImplementedError`` naming the kernel where the reference runs a
-kernel that the port has not built.  The rule is one function per
+kernel that the port has not built (K3 at head dims outside 32, 64, 128
+and 256).  The rule is one function per
 wrapper (``flash_attention._route`` for K1/K2 and K8,
 ``decode_attention._route`` for K7, ``paged_attention._route`` for K3);
 these tests hold each against the reference's own choice, observed by
@@ -75,18 +76,15 @@ def _reference_sdpa_kernel_dims(monkeypatch, route):
                                           ("masked", "K8"),
                                           ("biased", "K8")])
 def test_flash_rule_follows_the_reference(monkeypatch, route, kernel):
+    """Every head dim at which the reference runs a Pallas kernel (64,
+    128 and 256) takes the port's kernel (``kernel``: K1/K2 unmasked, K8
+    masked or biased); every other one the plain version."""
     kernel_dims = _reference_sdpa_kernel_dims(monkeypatch, route)
     assert kernel_dims == {64, 128, 256}
-    name = "flash_mha (K1/K2)" if kernel == "K1/K2" else TFM._KERNEL
+    assert set(TFA.KERNEL_HEAD_DIMS) == kernel_dims, kernel
     for d in HEAD_DIMS:
-        if d not in kernel_dims:
-            assert TFA._route(d, name) == "plain"
-        elif d == TFA._HEAD_DIM:
-            assert TFA._route(d, name) == "kernel"
-        else:
-            with pytest.raises(NotImplementedError,
-                               match=rf"{kernel}.*queue 2 A1"):
-                TFA._route(d, name)
+        want = "kernel" if d in kernel_dims else "plain"
+        assert TFA._route(d) == want, (kernel, d)
 
 
 def _reference_decode_kernel_dims(monkeypatch, groups):
@@ -155,7 +153,7 @@ def test_llama_tiny_generate_takes_the_plain_routes(tiny, monkeypatch):
     jm, np_state = tiny
     cfg = TL.llama_tiny()
     assert cfg.head_dim == 32
-    assert TFA._route(cfg.head_dim, TFM._KERNEL) == "plain"
+    assert TFA._route(cfg.head_dim) == "plain"
     assert TDA._route(cfg.head_dim) == "plain"
     calls = {"prefill": 0, "decode": 0}
     real_fwd, real_dec = TFM._masked_fwd_xla, TDA._xla_decode
