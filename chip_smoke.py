@@ -12,7 +12,9 @@ no CUDA ``_weight_int8pack_mm``):
 
 1. print the card's name and power limit; require compute capability 9.0;
 2. build the CUDA kernels from ``paddle_tpu_torch/csrc`` (one nvcc per
-   source, in parallel) and print the build seconds;
+   source, in parallel) and print the build seconds, ptxas's register
+   and spill lines, and the spill-store bytes of the kernels of
+   ``NEW_INSTANCES`` (K5's and K9's bf16 kernels, PR 14);
 3. hold each kernel against its plain PyTorch version on the card, in
    bf16 at llama3_8b widths (32 q heads, 8 kv heads, head_dim 128), per
    output row (||out - ref|| / ||ref|| <= 2^-6), and show that the check
@@ -148,10 +150,11 @@ case, seq 8192 and 13a's MoE rung), per row of out, dq, dk and dv, with
 the same kind of planted fault (the kernels told 64 keys fewer than
 there are); and the weight-only GEMV (K4, int8
 and int4; bf16 on mma.sync tensor cores, one launch) and the
-gather-LoRA matmul (K5) at the llama3_8b decode
+gather-LoRA matmul (K5: a shrink split over K, then an expand by
+column blocks) at the llama3_8b decode
 projection shapes, per output row (<= 2^-7), each with a planted fault
 (int8: the last 64 K rows of q zeroed; int4: nibbles swapped; K5: every
-adapter row reads the next adapter).  Phase 3 also holds the K8
+adapter row reads the next adapter), K5's two runs bit-equal.  Phase 3 also holds the K8
 backward and bias kernels (forward with lse, dq, dk/dv, dbias) in bf16
 at three shapes: SFT with key padding at llama3_8b widths (B 4, S 2048,
 lengths 2048/1900/1200/517, causal), packed documents (B 1, S 4096, 16
@@ -202,8 +205,8 @@ versions at four layers: 13a's routing from a seeded gate, the same
 widths with skewed routing (an expert with no tile, one with half the
 rows), DeepSeekMoE-16B's layer and the gated (swiglu) variant with
 float32 biases, each with a planted fault (tile 0 computed as the next
-expert's) and the sort path's two expert einsums as the yardstick, plus
-float32 instances card vs CPU; and RMSNorm (K6) at llama3_8b width (16,384
+expert's), two runs bit-equal and the sort path's two expert einsums as
+the yardstick, plus float32 instances card vs CPU; and RMSNorm (K6) at llama3_8b width (16,384
 rows of 4096, bf16, per row <= 2^-7, planted fault: the weight one
 column off) beside ``torch.nn.functional.rms_norm``.
 
@@ -217,6 +220,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -419,6 +423,27 @@ MASKED_SHAPES = (
 # the head dims of the K1/K2 and K8 kernels besides 128 (ROADMAP queue 2
 # A1): phase 3's f32 rows and phase_routes run each
 NEW_HEAD_DIMS = (64, 256)
+
+
+# the kernels this slice redesigned (PR 14), by source and a mark of
+# their (mangled) names: phase 2 prints their ptxas spill bytes
+NEW_INSTANCES = {"lora_matmul": ("lora_shrink", "lora_expand"),
+                 "grouped_ffn": ("4sm90",)}
+
+
+def spill_bytes(log, marks):
+    """{kernel: bytes of spill stores} from ptxas's -v output, for the
+    kernels whose name holds one of ``marks``."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and fn and any(mark in fn for mark in marks):
+            out[fn] = int(m.group(1))
+    return out
 
 
 def require(cond, what):
@@ -1774,7 +1799,10 @@ def phase_lora(LM, gen):
         b[0] = 0
         sc = torch.rand(5, device=dev, generator=gen) + 0.5
         out = LM.lora_gather_matmul(x, a, b, sc, idx)
+        again = LM.lora_gather_matmul(x, a, b, sc, idx)
         torch.cuda.synchronize()
+        require(torch.equal(out, again),
+                f"K5 {name}: two runs must be bit-equal")
         ref = LM._xla_gather_matmul(x, a, b, sc, idx)
         require(int(torch.count_nonzero(out[zero])) == 0,
                 f"K5 {name}: rows with idx 0 must be exactly zero")
@@ -1803,7 +1831,8 @@ def phase_lora(LM, gen):
                "idx": list(LORA_IDX), "dtype": "bfloat16 x, float32 bank",
                "max_abs_err": (out.float() - ref.float()).abs().max().item(),
                "max_row_rel_err": row_err, "row_tol": GEMV_ROW_TOL,
-               "fault_min_row_rel_err": fault.min().item(), "ms": ms,
+               "fault_min_row_rel_err": fault.min().item(),
+               "rerun_bit_equal": True, "ms": ms,
                "events_ms": wall_ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None}
@@ -2682,8 +2711,8 @@ def group_kernel(name):
         return "flash_mha_masked"
     if is_k8_backward(low):
         return "flash_mask_bwd"
-    # K7, K3 and K4: the bf16 and f32 kernels (and the kernels of older
-    # checkouts, which tools/flash_ab.py may time)
+    # K7, K3, K4, K5 and K9: the bf16 and f32 kernels (and the kernels of
+    # older checkouts, which tools/flash_ab.py may time)
     for key, marks in (("decode_attention", ("decode_mma", "decode_f32",
                                              "decode_partial",
                                              "decode_combine")),
@@ -2691,7 +2720,12 @@ def group_kernel(name):
                                             "paged_attention")),
                        ("weight_only_matmul", ("wo_mma", "wo_gemv",
                                                "splitk_reduce")),
-                       ("lora_gather_matmul", ("lora_gather",)),
+                       ("lora_gather_matmul", ("lora_gather", "lora_shrink",
+                                               "lora_expand")),
+                       ("grouped_ffn", ("::sm90::", "fwd_act_kernel",
+                                        "fwd_out_kernel", "bwd_act_kernel",
+                                        "bwd_dx_kernel", "bwd_dw_kernel",
+                                        "colsum_kernel")),
                        ("matmul", ("gemm", "gemv", "cutlass", "xmma", "sm90",
                                    "cublas", "nvjet"))):
         if any(m in low for m in marks):
@@ -3223,6 +3257,50 @@ def k9_row_errs(got, want):
     return errs
 
 
+def k9_yardstick(TM, gen, tokens, E, k, F, gated, args):
+    """(capacity, {"fwd", "fwd_bwd": device ms}) of the sort path's expert
+    FFN (two einsums, cuBLAS) on the capacity buffer this routing gives
+    at capacity_factor 1.25, with K9's weights."""
+    _, w1, b1, w2, b2 = args
+    D = w1.shape[1]
+    cap = TM._capacity(tokens, k, 1.25, E, None)
+    xe = torch.randn(E, cap, D, device="cuda", generator=gen).bfloat16()
+    ys = [t.detach().clone().bfloat16().requires_grad_()
+          for t in (xe, w1, b1, w2, b2)]
+
+    def einsums():
+        h = torch.einsum("ecm,emf->ecf", ys[0], ys[1]) + ys[2][:, None, :]
+        h = (torch.nn.functional.silu(h[..., :F]) * h[..., F:] if gated
+             else torch.nn.functional.silu(h))
+        return torch.einsum("ecf,efm->ecm", h, ys[3]) + ys[4][:, None, :]
+
+    def einsums_fwd_bwd():
+        out = einsums()
+        torch.autograd.grad(out, ys, torch.ones_like(out))
+
+    with torch.no_grad():
+        yard = {"fwd": device_ms(einsums)}
+    yard["fwd_bwd"] = device_ms(einsums_fwd_bwd)
+    return cap, yard
+
+
+def k9_bounds(args, emap, dy, n, F):
+    """{"fwd", "bwd": (bound ms, "bytes" or "operations")} of K9 at these
+    operands, counting the ``n`` real (token, expert) rows' operations;
+    each input read once, each output written once (the bwd writes a
+    gradient of each of x_buf, w1, b1, w2, b2 and reads all but b2)."""
+    x_buf, w1, _, _, b2 = args
+    R, D = x_buf.shape
+    f2 = w1.shape[2]
+    flops = {"fwd": 2 * n * D * f2 + 2 * n * F * D,
+             "bwd": 6 * n * D * f2 + 4 * n * F * D}
+    arg_bytes = sum(t.numel() * t.element_size() for t in args)
+    nbytes = {"fwd": arg_bytes + emap.numel() * 4 + R * D * 2,
+              "bwd": 2 * arg_bytes - b2.numel() * b2.element_size()
+              + dy.numel() * 2 + emap.numel() * 4}
+    return {p: bound(nbytes[p], flops[p]) for p in ("fwd", "bwd")}
+
+
 def phase_k9(GF, TM, gen, name, tokens, E, k, D, F, gated, routing):
     """K9 forward and backward against their plain versions at one MoE
     layer's routing, bf16 (float32 biases in the gated record), per row
@@ -3245,6 +3323,10 @@ def phase_k9(GF, TM, gen, name, tokens, E, k, D, F, gated, routing):
     require((GF.grouped_ffn.fwd_launches - f0,
              GF.grouped_ffn.bwd_launches - b0) == (1, 1),
             f"K9 {name}: one forward and one backward launch")
+    again = k9_kernel(GF, args, emap, dy, gated)
+    require(all(torch.equal(g, h) for g, h in zip(got, again)),
+            f"K9 {name}: two runs must be bit-equal")
+    del again
     want = k9_plain(GF, args, emap, dy, gated)
     errs = k9_row_errs(got, want)
     row_err = {o: errs[o].max().item() for o in K9_OUTPUTS}
@@ -3285,43 +3367,15 @@ def phase_k9(GF, TM, gen, name, tokens, E, k, D, F, gated, routing):
                 "bwd": cuda_ms(lambda: GF._plain_bwd(x_buf, dy, w1, b1, w2,
                                                      b2.dtype, emap, gated),
                                iters=3, warmup=1)}
-    # the yardstick: the sort path's expert FFN (two einsums) on the
-    # capacity buffer this routing gives at capacity_factor 1.25
-    cap = TM._capacity(tokens, k, 1.25, E, None)
-    xe = torch.randn(E, cap, D, device="cuda", generator=gen).bfloat16()
-    ys = [t.detach().clone().bfloat16().requires_grad_()
-          for t in (xe, w1, b1, w2, b2)]
-
-    def einsums():
-        h = torch.einsum("ecm,emf->ecf", ys[0], ys[1]) + ys[2][:, None, :]
-        h = (torch.nn.functional.silu(h[..., :F]) * h[..., F:] if gated
-             else torch.nn.functional.silu(h))
-        return torch.einsum("ecf,efm->ecm", h, ys[3]) + ys[4][:, None, :]
-
-    def einsums_fwd_bwd():
-        out = einsums()
-        torch.autograd.grad(out, ys, torch.ones_like(out))
-
-    with torch.no_grad():
-        yard = {"fwd": device_ms(einsums)}
-    yard["fwd_bwd"] = device_ms(einsums_fwd_bwd)
-    f2 = w1.shape[2]
-    flops = {"fwd": 2 * n * D * f2 + 2 * n * F * D,
-             "bwd": 6 * n * D * f2 + 4 * n * F * D}
-    # each input read once, each output written once (the bwd writes a
-    # gradient of each of x_buf, w1, b1, w2, b2 and reads all but b2)
-    arg_bytes = sum(t.numel() * t.element_size() for t in args)
-    nbytes = {"fwd": arg_bytes + emap.numel() * 4 + R * D * 2,
-              "bwd": 2 * arg_bytes - b2.numel() * b2.element_size()
-              + dy.numel() * 2 + emap.numel() * 4}
-    bounds = {p: bound(nbytes[p], flops[p]) for p in ("fwd", "bwd")}
+    cap, yard = k9_yardstick(TM, gen, tokens, E, k, F, gated, args)
+    bounds = k9_bounds(args, emap, dy, n, F)
     rec = {"kernel": "grouped_ffn", "shape": name, "tokens": tokens, "E": E,
            "top_k": k, "D": D, "F": F, "gated": gated,
            "bias_dtype": str(bdt).split(".")[-1], "R": R, "real_rows": n,
            "entries_per_expert": counts.tolist(), "unvisited": unvisited,
            "max_abs_err": abs_err, "max_row_rel_err": row_err,
-           "row_tol": K9_ROW_TOL, "fault": {"tile": 0, "experts":
-                                            [e0, e0 + 1], **fault},
+           "row_tol": K9_ROW_TOL, "rerun_bit_equal": True,
+           "fault": {"tile": 0, "experts": [e0, e0 + 1], **fault},
            "ms": ms, "plain_ms": plain_ms,
            "bound_ms": {p: b[0] for p, b in bounds.items()},
            "bound_by": {p: b[1] for p, b in bounds.items()},
@@ -3818,6 +3872,9 @@ def main() -> int:
         name: [line.strip() for line in log.splitlines()
                if "registers" in line or "spill" in line]
         for name, log in cuda_lib.build_log.items()}})
+    emit({"phase": 2, "spill_store_bytes": {
+        src: spill_bytes(cuda_lib.build_log[src], marks)
+        for src, marks in NEW_INSTANCES.items()}})
     laps(2)
 
     # phase 3: kernels vs plain versions

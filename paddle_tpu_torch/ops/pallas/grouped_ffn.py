@@ -30,7 +30,12 @@ and :func:`_plain_bwd`, which repeats ``_bwd_kernel``'s numerics:
   in its primal's dtype (biases may be float32 beside bf16 weights).
 
 The kernels and the plain versions differ only in the order of their
-f32 sums.
+f32 sums (and, in bf16, the last bits of the f32 sigmoid, which the
+kernels take from the card's fast exp and reciprocal before rounding h
+and ds to bf16).  On the card a forward call is two kernel launches and
+a backward call eight (seven in float32; ``csrc/grouped_ffn.cu``);
+``grouped_ffn.fwd_launches`` and ``grouped_ffn.bwd_launches`` count
+calls, one per forward and one per backward.
 """
 from __future__ import annotations
 
@@ -48,7 +53,7 @@ _I = ctypes.c_int
 _FWD_ARGTYPES = (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                  _I, _I, _P)
 _BWD_ARGTYPES = (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                 _P, _P, _P, _I, _I, _I, _I, _I, _P)
+                 _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _launch = {}                   # C entries, resolved at first CUDA use
 
@@ -204,6 +209,8 @@ def _kernel_bwd(x_buf, dy, w1, b1, w2, b2, emap, gated):
     dsx = torch.empty((r, f2), dtype=x_buf.dtype, device=dev)
     hx = torch.empty((r, f), dtype=x_buf.dtype, device=dev)
     db1_part = torch.empty((r // TILE, f2), dtype=torch.float32, device=dev)
+    db2_part = torch.empty((r // TILE, dout), dtype=torch.float32, device=dev)
+    tiles = torch.empty(e * (r // TILE + 1), dtype=torch.int32, device=dev)
     dx = torch.empty_like(x_buf)
     dw1 = torch.empty_like(w1)
     dw2 = torch.empty_like(w2)
@@ -213,8 +220,9 @@ def _kernel_bwd(x_buf, dy, w1, b1, w2, b2, emap, gated):
         _DTYPES[x_buf.dtype], _DTYPES[b1.dtype], _DTYPES[b2.dtype],
         int(gated), x_buf.data_ptr(), dy.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), emap.data_ptr(), dsx.data_ptr(),
-        hx.data_ptr(), db1_part.data_ptr(), dx.data_ptr(), dw1.data_ptr(),
-        dw2.data_ptr(), db1.data_ptr(), db2.data_ptr(), r, d, f, dout, e,
+        hx.data_ptr(), db1_part.data_ptr(), db2_part.data_ptr(),
+        tiles.data_ptr(), dx.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
+        db1.data_ptr(), db2.data_ptr(), r, d, f, dout, e,
         torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check("grouped_ffn", err, "grouped_ffn backward launch")
     grouped_ffn.bwd_launches += 1
@@ -257,5 +265,5 @@ def grouped_ffn(x_buf, w1, b1, w2, b2, emap, gated=False):
     return _GroupedFFN.apply(x_buf, w1, b1, w2, b2, emap, gated)
 
 
-grouped_ffn.fwd_launches = 0   # forward kernel launches (main-path witness)
-grouped_ffn.bwd_launches = 0   # backward kernel launches
+grouped_ffn.fwd_launches = 0   # forward calls on the card (main-path witness)
+grouped_ffn.bwd_launches = 0   # backward calls on the card

@@ -7,13 +7,16 @@ all-zero "no adapter" row)::
 
     delta[s] = (x[s] @ A[idx[s]].T) @ B[idx[s]] * scale[idx[s]]
 
-:func:`lora_gather_matmul` is the wrapper of the CUDA kernel
+:func:`lora_gather_matmul` is the wrapper of the CUDA kernels
 ``csrc/lora_matmul.cu`` (the port of the TPU kernel K5).  On CPU tensors
 it runs :func:`_xla_gather_matmul`, the plain version (the reference's
 XLA path, whose name it keeps); on CUDA tensors with at most 64 rows it
-launches the kernel or raises (no probe, no quiet fallback); more rows
+launches the kernels or raises (no probe, no quiet fallback); more rows
 are prefill-shaped and take the plain version on the card too, as they
-take XLA in the reference.
+take XLA in the reference.  A call on the card is two launches, the
+shrink h = x A^T split over K (:func:`_splits`, a rule of shapes) and
+the expand h B by column blocks; ``lora_gather_matmul.launches`` counts
+calls that launched them, one per call.
 
 The two differ where the reference's two paths differ: the kernel
 rounds h = x A^T to the bank's dtype before the second product (the
@@ -35,9 +38,12 @@ __all__ = ["lora_delta", "lora_gather_matmul"]
 # larger row counts are prefill-shaped
 _GATHER_MAX_ROWS = 64
 _MAX_RANK = 64                 # kMaxRank in the kernel
+_MIN_CHUNK = 256               # K elements a shrink CTA reads at least
+_CHUNK_ALIGN = 128             # 32 lanes x 4-element vectors
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+_ARGTYPES = (_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+             _I, _P)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _launch = None                 # the C entry, resolved at first CUDA use
 
@@ -51,6 +57,24 @@ def _xla_gather_matmul(x, a, b, scale, idx):
     h = torch.einsum("sk,srk->sr", xf, aw)
     out = torch.einsum("sr,srm->sm", h, bw)
     return (out * scale[il].float()[:, None]).to(x.dtype)
+
+
+def _splits(k, s, sms):
+    """(splits, chunk) of the shrink over K for ``s`` slots on ``sms``
+    SMs: about two (split, slot) CTAs per SM (only the first slot of each
+    adapter works, and a decode batch's slots name fewer adapters than
+    slots), chunks of at least ``_MIN_CHUNK`` elements, each a multiple
+    of ``_CHUNK_ALIGN``, and no empty split."""
+    want = max(1, -(-2 * sms // s))
+    most = max(1, -(-k // _MIN_CHUNK))
+    chunk = -(-k // min(want, most))
+    chunk = -(-chunk // _CHUNK_ALIGN) * _CHUNK_ALIGN
+    return -(-k // chunk), chunk
+
+
+def _aligned(t, elems):
+    """Whether ``t``'s data lies on a boundary of ``elems`` elements."""
+    return t.data_ptr() % (elems * t.element_size()) == 0
 
 
 def _kernel(x, a, b, scale, idx):
@@ -79,13 +103,19 @@ def _kernel(x, a, b, scale, idx):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("lora_gather_matmul kernel takes contiguous inputs")
     out = torch.empty((s, m), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    splits, chunk = _splits(k, s, cuda_lib.sm_count(x.device))
+    part = cuda_lib.scratch("lora_part", x.device, stream, splits * s * r,
+                            torch.float32)
+    vec_x = k % 4 == 0 and _aligned(x, 4) and _aligned(a, 4)
+    vec_b = m % 4 == 0 and _aligned(b, 4) and _aligned(out, 4)
     if _launch is None:
         _launch = cuda_lib.kernel("lora_matmul", "lora_gather_fwd",
                                   _ARGTYPES)
     err = _launch(_DTYPES[x.dtype], _DTYPES[a.dtype], x.data_ptr(),
                   a.data_ptr(), b.data_ptr(), scale.data_ptr(),
-                  idx.data_ptr(), out.data_ptr(), s, k, r, m,
-                  torch.cuda.current_stream(x.device).cuda_stream)
+                  idx.data_ptr(), part.data_ptr(), out.data_ptr(), s, k, r,
+                  m, splits, chunk, int(vec_x), int(vec_b), stream)
     cuda_lib.check("lora_matmul", err, "lora_gather_matmul launch")
     lora_gather_matmul.launches += 1
     return out
@@ -108,7 +138,8 @@ def lora_gather_matmul(x, a, b, scale, idx):
     return _kernel(x, a, b, scale, idx)
 
 
-lora_gather_matmul.launches = 0   # kernel launches (the main-path witness)
+lora_gather_matmul.launches = 0   # calls that launched the kernels
+#                                   (the main-path witness)
 
 
 def lora_delta(lora, key, li, x, idx):

@@ -1,18 +1,19 @@
-"""Time the attention and GEMV kernels of one checkout, for A/B
-comparisons of two checkouts on one card.
+"""Time the attention, GEMV, gather-LoRA and grouped-FFN kernels of one
+checkout, for A/B comparisons of two checkouts on one card.
 
 Usage, on the machine with the card, from any directory::
 
     python3 paddle_tpu_torch/tools/flash_ab.py PATH_TO_CHECKOUT [PARTS]
 
 PARTS is a comma-separated subset of
-``flash,k8,small,longctx,k7,dbias,decode,k3,k4,serve`` (default: all of
-them); the kernel lines below are printed always.
+``flash,k8,small,longctx,k7,dbias,decode,k3,k4,serve,k5,k9`` (default:
+all of them); the kernel lines below are printed always.
 
 It builds that checkout's ``flash_attention``, ``flash_mask``,
-``decode_attention``, ``paged_attention`` and ``quant_matmul`` sources
-and prints, for each bf16 kernel of them (K1/K2, the K8 kernels, K7, K3,
-K4), its ptxas lines (registers, shared memory,
+``decode_attention``, ``paged_attention``, ``quant_matmul``,
+``lora_matmul`` and ``grouped_ffn`` sources and prints, for each bf16
+kernel of them (K1/K2, the K8 kernels, K7, K3, K4, K5, K9), its ptxas
+lines (registers, shared memory,
 spills) and its SASS counts of ``HGMMA`` (wgmma), ``UTMALDG`` (TMA
 loads), ``UTMASTG`` (TMA stores), ``HMMA`` (mma.sync), shared and local
 loads and stores (with ``cuobjdump`` from the CUDA toolkit) and a digest
@@ -35,6 +36,14 @@ shape, int8 and int4 (device ms, the bound, a dense bf16
 ``torch.matmul`` of the same shape and ``torch._weight_int8pack_mm``);
 part ``serve`` a profile of phase 4's decode step (llama3_8b, 8 slots,
 pages of 64): K3's device ms per step and the device's busy share.
+Part ``k5`` prints one line per ``PROJ_SHAPES`` row of phase 3's
+gather-LoRA record (8 slots, rank 16, a 5-row f32 bank, bf16 x: the
+kernels' device ms, their bound and the plain version's device ms);
+part ``k9`` one line per ``K9_SHAPES`` row (the grouped FFN's forward
+and backward device ms, their bounds and the sort path's two expert
+einsums, forward and forward + backward, as the cuBLAS yardstick), then
+``chip_smoke.py``'s 13b (one MoE layer, fwd + bwd device ms by dispatch
+mode) on the checkout's kernels.
 Part ``flash`` prints one JSON line
 per row of
 ``chip_smoke.py``'s
@@ -83,7 +92,7 @@ from pathlib import Path
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA", "LDS", "STS", "LDL",
             "STL", "MUFU")
 PARTS = ("flash", "k8", "small", "longctx", "k7", "dbias", "decode", "k3",
-         "k4", "serve")
+         "k4", "serve", "k5", "k9")
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3):
@@ -145,11 +154,11 @@ def sass_counts(lib):
 def bf16_kernel(name):
     """Whether a kernel name is a bf16 kernel of the port: a
     flash_sm90.cuh instance, K7's decode_mma_kernel, K3's
-    paged_mma_kernel, K4's wo_mma_kernel, or a bfloat16 instance of the
-    CUDA-core bodies."""
+    paged_mma_kernel, K4's wo_mma_kernel, a K9 kernel of grouped_ffn.cu's
+    namespace sm90, or a bfloat16 instance of the CUDA-core bodies."""
     return any(mark in name for mark in ("flash_sm90", "nv_bfloat16",
                                          "decode_mma", "paged_mma",
-                                         "wo_mma"))
+                                         "wo_mma", "4sm90"))
 
 
 def main(root, parts=PARTS):
@@ -175,7 +184,7 @@ def main(root, parts=PARTS):
                          text=True).stdout.strip()
     print("checkout", root, "|", smi, flush=True)
     srcs = ("flash_attention", "flash_mask", "decode_attention",
-            "paged_attention", "quant_matmul")
+            "paged_attention", "quant_matmul", "lora_matmul", "grouped_ffn")
     cuda_lib.build(srcs)
     for src in srcs:
         lines = ptxas_lines(cuda_lib.build_log[src])
@@ -195,6 +204,10 @@ def main(root, parts=PARTS):
         return torch.randn(b, s, h, d, device="cuda",
                            generator=gen).to(dt).transpose(1, 2)
 
+    if "k5" in parts:
+        k5_rows(torch, root, gen)
+    if "k9" in parts:
+        k9_rows(torch, root, gen, release)
     if "k7" in parts:
         k7_rows(torch, DA, root, gen, K7_SHAPES, bound)
     if "k3" in parts:
@@ -556,6 +569,64 @@ def k4_rows(torch, root, gen):
                                        if kind == "int8" else None)}),
                   flush=True)
             del x, q, w, dense
+
+
+def k5_rows(torch, root, gen):
+    """One line per ``PROJ_SHAPES`` row at phase 3's K5 operands: the
+    gather-LoRA's device ms (``torch.profiler``: both kernels of a call),
+    its bound and the plain version's device ms."""
+    from chip_smoke import (LORA_IDX, LORA_RANK, PROJ_SHAPES, bound,
+                            device_ms as smoke_device_ms)
+    from paddle_tpu_torch.ops.pallas import lora_matmul as LM
+    idx = torch.tensor(LORA_IDX, dtype=torch.int32, device="cuda")
+    s, rows = len(LORA_IDX), 5
+    for name, k, m in PROJ_SHAPES:
+        x = torch.randn(s, k, device="cuda", generator=gen).bfloat16()
+        a = torch.randn(rows, LORA_RANK, k, device="cuda", generator=gen)
+        b = torch.randn(rows, LORA_RANK, m, device="cuda", generator=gen)
+        sc = torch.rand(rows, device="cuda", generator=gen) + 0.5
+        nbytes = (len(set(LORA_IDX)) * LORA_RANK * (k + m) * 4
+                  + 2 * x.numel() + 2 * s * m + 4 * s + 4 * rows)
+        print(json.dumps({
+            "checkout": root, "k5": name, "K": k, "M": m,
+            **device_ms(torch, lambda: LM.lora_gather_matmul(x, a, b, sc,
+                                                             idx), iters=50),
+            "bound_ms": bound(nbytes, 2 * s * LORA_RANK * (k + m))[0],
+            "plain_device_ms": smoke_device_ms(
+                lambda: LM._xla_gather_matmul(x, a, b, sc, idx),
+                iters=10)}), flush=True)
+        del x, a, b
+
+
+def k9_rows(torch, root, gen, release):
+    """One line per ``K9_SHAPES`` row at phase 3's K9 operands (routing
+    from a seeded gate): the grouped FFN's forward and backward device ms
+    (``torch.profiler``), their bounds and the sort path's expert einsums
+    as the yardstick; then 13b on the checkout's kernels."""
+    from chip_smoke import (K9_SHAPES, MOE_LAYER_SHAPES, device_ms as dms,
+                            k9_bounds, k9_operands, k9_yardstick,
+                            moe_routing, phase_moe_layer)
+    from paddle_tpu_torch.distributed import moe as TM
+    from paddle_tpu_torch.ops.pallas import grouped_ffn as GF
+    for name, tokens, E, k, D, F, gated, routing in K9_SHAPES:
+        bdt = torch.float32 if gated else torch.bfloat16
+        x, idx, gv = moe_routing(TM, gen, tokens, E, k, D, routing)
+        args, emap, dy, n, _ = k9_operands(TM, gen, x, idx, gv, E, F, gated,
+                                           bdt)
+        x_buf, w1, b1, w2, b2 = args
+        ms = {"fwd": dms(lambda: GF._kernel_fwd(*args, emap, gated)),
+              "bwd": dms(lambda: GF._kernel_bwd(x_buf, dy, w1, b1, w2, b2,
+                                                emap, gated))}
+        bounds = k9_bounds(args, emap, dy, n, F)
+        _, yard = k9_yardstick(TM, gen, tokens, E, k, F, gated, args)
+        print(json.dumps({"checkout": root, "k9": name, "ms": ms,
+                          "bound_ms": {p: b[0] for p, b in bounds.items()},
+                          "einsums_ms": yard}), flush=True)
+        del x, args, dy, x_buf, w1, b1, w2, b2
+        release()
+    for shape in MOE_LAYER_SHAPES:
+        phase_moe_layer(TM, GF, gen, *shape)
+        release()
 
 
 def serve_profile(torch, release):

@@ -1074,6 +1074,59 @@ def test_lora_check_catches_planted_fault(gen):
     assert bool((_row_rel_err(bad[live], ref[live]) > BF16_ROW_TOL).all())
 
 
+# (S, bank rows, rank, K, M, idx, x dtype, bank dtype): 64 slots over 64
+# distinct adapters at rank 64; one adapter for all 64 slots (several
+# slot groups per pass); a bf16 bank; K 14336 (the down projection, many
+# splits); every row idx 0; K and M off the 4-element vectors
+LORA_CASES = {
+    "distinct64": (64, 65, 64, 4096, 1024, list(range(1, 65)),
+                   torch.bfloat16, torch.float32),
+    "shared64": (64, 3, 16, 4096, 1024, [2] * 64, torch.bfloat16,
+                 torch.float32),
+    "bf16_bank": (8, 5, 16, 4096, 4096, LORA_IDX, torch.bfloat16,
+                  torch.bfloat16),
+    "k14336": (8, 5, 16, 14336, 4096, LORA_IDX, torch.bfloat16,
+               torch.float32),
+    "all_idx0": (8, 5, 16, 4096, 14336, [0] * 8, torch.bfloat16,
+                 torch.float32),
+    "unaligned": (5, 4, 12, 1001, 301, [3, 0, 1, 3, 2], torch.float32,
+                  torch.float32),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LORA_CASES))
+def test_lora_kernel_cases(gen, case):
+    """Each case against the plain version per row (f32 1e-5, else 2^-7),
+    rows with idx 0 exactly zero, two runs bit-equal, and every slot
+    pointed at another bank row must fail the check (idx 0 rows: must
+    come out non-zero)."""
+    s, rows, r, k, m, idx, xdt, bdt = LORA_CASES[case]
+    x = torch.randn(s, k, device="cuda", generator=gen).to(xdt)
+    a = (torch.randn(rows, r, k, device="cuda", generator=gen)
+         / k ** 0.5).to(bdt)
+    b = (torch.randn(rows, r, m, device="cuda", generator=gen)
+         / r ** 0.5).to(bdt)
+    a[0] = 0
+    b[0] = 0
+    scale = torch.rand(rows, device="cuda", generator=gen) + 0.5
+    idx_t = torch.tensor(idx, dtype=torch.int32, device="cuda")
+    out = LM.lora_gather_matmul(x, a, b, scale, idx_t)
+    again = LM.lora_gather_matmul(x, a, b, scale, idx_t)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    ref = LM._xla_gather_matmul(x, a, b, scale, idx_t)
+    zero = idx_t == 0
+    assert torch.count_nonzero(out[zero]) == 0
+    tol = 1e-5 if xdt == bdt == torch.float32 else 2 ** -7
+    if bool((~zero).any()):
+        assert _row_rel_err(out[~zero], ref[~zero]).max().item() <= tol
+    other = (idx_t % (rows - 1) + 1).to(torch.int32)
+    bad = LM.lora_gather_matmul(x, a, b, scale, other)
+    if bool((~zero).any()):
+        assert bool((_row_rel_err(bad[~zero], ref[~zero]) > tol).all())
+    assert bool((bad[zero].float().abs().amax(dim=-1) > 0).all())
+
+
 # ------------------------------------------------ K7: dense-cache decode
 K7_SHAPES = {  # name: B, nh, kvh, T, pos, D
     "bench_decode": (8, 16, 16, 256, [128, 255, 140, 200, 173, 129, 254,
@@ -1287,6 +1340,49 @@ def test_grouped_ffn_wrapper_rejects(gen):
     with pytest.raises(ValueError, match="multiples of 8"):
         GF.grouped_ffn(x[:, :60].contiguous(), w1[:, :60].contiguous(), b1,
                        w2, b2, em)
+
+
+def _e64_emap():
+    """64 experts with ragged runs of 0-3 tiles (a top-6 routing's
+    skew), experts 5 and 40 owning none, and two trailing padding tiles
+    clipped to expert 63."""
+    tiles = [(e * 7 + 3) % 4 for e in range(64)]
+    tiles[5] = tiles[40] = 0
+    tiles[63] = max(tiles[63], 1)
+    emap = [e for e in range(64) for _ in range(tiles[e])]
+    return emap + [63, 63]
+
+
+GFFN_E64 = (64, 256, 200, 264, _e64_emap())
+
+
+@pytest.mark.parametrize("bdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gated", [False, True])
+def test_grouped_ffn_e64_ragged(gen, bdt, gated):
+    """bf16 at 64 experts with ragged runs, experts with no tile and
+    trailing padding: every output per row within 2^-7 of the plain
+    versions, zeros for the experts with no tile, two runs bit-equal,
+    and tile 0 computed as the next expert's must fail its rows."""
+    e, d, f, dout, emap = GFFN_E64
+    args = _gffn_inputs(gen, torch.bfloat16, bdt, e, d, f, dout, emap, gated)
+    got = _gffn_run(*args, gated)
+    again = _gffn_run(*args, gated)
+    torch.cuda.synchronize()
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
+    want = _gffn_plain(*args, gated)
+    errs = _gffn_errs(got, want, torch.bfloat16)
+    assert max(errs) <= GFFN_ROW_TOL, errs
+    for g in got[2:]:
+        for ex in (5, 40):
+            assert not g[ex].float().abs().any()
+    x, w1, b1, w2, b2, em, dy = args
+    bad = em.clone()
+    bad[0] += 1
+    wrong = _gffn_run(x, w1, b1, w2, b2, bad, dy, gated)
+    rows = slice(0, GF.TILE)
+    for g, w in zip(wrong[:2], want[:2]):
+        assert bool((_row_rel_err(g[rows], w[rows]) > GFFN_ROW_TOL).all())
 
 
 def test_grouped_dispatch_matches_undropped_sort(gen):

@@ -138,3 +138,21 @@ def test_lora_delta_matches_reference(idx):
                                atol=1e-5 * max(np.abs(want).max(), 1e-30))
     if idx == 0:
         assert not got.numpy().any()
+
+
+@pytest.mark.parametrize("s,k", [(8, 4096), (8, 14336), (8, 1024),
+                                 (64, 4096), (64, 14336), (1, 4096),
+                                 (3, 1001), (8, 100)])
+def test_shrink_splits_rule(s, k):
+    """The CUDA shrink's split of K (a rule of shapes, so a call never
+    reads idx on the host): chunks of 128-element multiples that cover K
+    once with no empty split, at least 256 elements long where K allows,
+    and about two (split, slot) CTAs per SM on 132 SMs."""
+    sms = 132
+    splits, chunk = TLM._splits(k, s, sms)
+    assert chunk % 128 == 0 and splits >= 1
+    assert (splits - 1) * chunk < k <= splits * chunk
+    assert chunk >= min(256, -(-k // 128) * 128)
+    assert splits <= max(1, -(-2 * sms // s))
+    if k >= 256 * -(-2 * sms // s):     # K long enough to fill the card
+        assert splits * s > sms
