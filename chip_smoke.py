@@ -125,7 +125,36 @@ no CUDA ``_weight_int8pack_mm``):
    to its 2048 positions less the 64 new tokens (prefill: the K8 forward
    at head_dim 64; decode: K3 at head_dim 64, both launched); TTFT,
    decode tokens/s and the decode step's profile; then phase 5's greedy
-   tokens at 2 of its layers in f32, card vs CPU.
+   tokens at 2 of its layers in f32, card vs CPU;
+17. speculative serving at llama3_8b full width and depth (one random
+   bf16 state from seed 0 for phases 17 and 18): phase 4's engine
+   settings, 8 requests of random prompts of 512-2048 tokens + 128 new
+   tokens, at ``spec_k=0``, then at ``spec_k=4`` with the n-gram
+   drafter, with drafts replayed from the plain run, and with drafts
+   replayed from that replay run (``ReplayProposer``; random weights
+   give the n-gram drafter almost nothing to draft): decode tokens/s of
+   each, tokens per step, verify steps, acceptance, K3 launches (L per
+   decode or verify step, counted from 0 over the window) and a profile
+   of verify steps; each spec run's tokens equal the plain run's up to
+   each request's first parting, with logits rows up to it within 2^-3
+   (two bf16 runs round apart; this limit cannot see a verify step one
+   key short, which phase 19 checks in f32);
+18. preemption at llama3_8b: 8 slots, a pool of pages for six priority-0
+   requests of 2048 tokens (+ 2 pages), two priority-1 requests of 512
+   arriving after 8 steps; dense pages, then int8 pages (their f32
+   scales spill too), each with ``preempt=False`` (the uninterrupted
+   run) and ``True``: preemptions, spilled and restored pages and bytes,
+   read_page / write_page ms per page, the priority-1 TTFT both ways;
+   the other requests bit for bit as in the uninterrupted run, the
+   victims' tokens up to their first parting with logits rows within
+   2^-3, and a restore that swaps k and v (a planted fault) must fail;
+19. 2 layers of llama3_8b width in float32, card vs CPU: ``spec_k=4``
+   with drafts replayed from the CPU's own plain run (accepted: more
+   than one a verify step, tokens equal to the plain run's, logits rows
+   within 1e-4, and a verify step one key short must fail that check),
+   ``spec_k=4`` with the n-gram drafter, a preempt -> spill -> resume,
+   and a ``step_raise`` fault at decode step 3 recovered through
+   ``EngineSupervisor``: identical tokens and counters.
 
 Every phase prints its wall seconds.
 
@@ -186,7 +215,9 @@ block table, one launch) in bf16 per row at phase 4's decode shape,
 11b's and 11c's paged caches and the head dims and groups no shipped
 model runs at the engine's pages (TinyLlama-1.1B's 32/4 heads at
 head_dim 64, head_dim 256 at 16/4, a group of 32, llama_tiny's 4/2 at
-head_dim 32 in pages of 16), with the planted fault (the kernel told
+head_dim 32 in pages of 16) and at phase 17's verify step (8 slots x 5
+rows sharing each slot's table row, lens pos + 1 ... pos + 5, beside K7
+on the same keys), with the planted fault (the kernel told
 lens - 64), one launch per call and bit-equal reruns, its device time
 beside the plain version's and the bound, and float32 instances (lens
 up to 512) card vs CPU (<= 1e-5); and K4 at the generation
@@ -402,6 +433,11 @@ PAGED_SHAPES = (
      128),
     ("llama_tiny_d32", 4, 2, 16, 16, (256, 200, 129, 100, 65, 64, 16, 1), 32),
 )
+# phase 17's speculative engine: k drafts per slot, and the verify
+# step's K3 record in phase 3 (8 slots at ragged positions, k + 1 rows
+# each, lens pos + 1 ... pos + k + 1)
+SPEC_K = 4
+VERIFY_POS = (2047, 159, 94, 222, 127, 190, 63, 1500)
 K3_F32_LEN = 512                   # the f32 instances' longest row
 K3_F32_TOL = 1e-5                  # f32 K3 card vs CPU, relative norm
 # the K8 forward in phase 3 (name, B, H, kvH, S, lengths, yardsticks, D):
@@ -619,8 +655,18 @@ def phase_paged(PA, gen, name, nh, kvh, ps, W, lens, D):
     give the same bits.  ``ms``, ``plain_ms`` are device time per call
     (``device_ms``); ``events_ms`` is CUDA events around back-to-back
     calls, which the host's per-call work sets at the short shapes."""
-    B = len(lens)
-    q, kp, vp, table, lens = paged_inputs(gen, B, nh, kvh, ps, W, lens, D)
+    q, kp, vp, table, lens = paged_inputs(gen, len(lens), nh, kvh, ps, W,
+                                          lens, D)
+    return paged_record(PA, name, q, kp, vp, table, lens)
+
+
+def paged_record(PA, name, q, kp, vp, table, lens, bound_ms=None):
+    """The phase-3 checks and times of K3 on prepared inputs (see
+    :func:`phase_paged`); ``bound_ms`` overrides :func:`paged_bound`'s
+    ``(bound_ms, bound_by)`` where rows share their keys."""
+    B, nh, D = q.shape
+    kvh, ps = kp.shape[1], kp.shape[2]
+    W = table.shape[1]
     n0 = PA.paged_attention.launches
     out = PA.paged_attention(q, kp, vp, table, lens)
     torch.cuda.synchronize()
@@ -649,7 +695,7 @@ def phase_paged(PA, gen, name, nh, kvh, ps, W, lens, D):
                         iters=50)
     plain_ms = device_ms(lambda: PA.paged_attention_xla(q, kp, vp, table,
                                                         lens), iters=5)
-    bound_ms, bound_by = paged_bound(q, kvh, ps, lens)
+    bound_ms, bound_by = bound_ms or paged_bound(q, kvh, ps, lens)
     n_split = PA._splits(B * kvh * -(-(nh // kvh) // 16), W * ps,
                          torch.cuda.get_device_properties(0)
                          .multi_processor_count, D)[0]
@@ -664,6 +710,45 @@ def phase_paged(PA, gen, name, nh, kvh, ps, W, lens, D):
              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     emit({"phase": 3, **shape})
     return shape
+
+
+def phase_paged_verify(PA, DA, gen):
+    """K3 at the speculative verify step's shape (phase 17's engine at
+    llama3_8b heads: 32/8, head_dim 128, pages of 64): ``VERIFY_POS``
+    slots x (k + 1) rows, each slot's rows sharing its table row, row j
+    attending ``lens = pos + j + 1`` — held per row as
+    :func:`phase_paged` holds the decode shapes, its planted fault
+    failing every row, beside K7 on the same keys in a dense cache (no
+    single PyTorch call computes a paged attention)."""
+    m = SPEC_K + 1
+    ps, nh, kvh, D = 64, 32, 8, 128
+    last = [p + m for p in VERIFY_POS]
+    W = -(-max(last) // ps)
+    _, kp, vp, table, _ = paged_inputs(gen, len(last), nh, kvh, ps, W,
+                                       last, D)
+    table = table.repeat_interleave(m, dim=0).contiguous()
+    lens = torch.tensor([p + j + 1 for p in VERIFY_POS for j in range(m)],
+                        dtype=torch.int32, device="cuda")
+    q = torch.randn(lens.numel(), nh, D, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    # a slot's rows read its keys once: the K/V bytes are each slot's
+    # longest row's; the operations count every row's keys
+    item = q.element_size()
+    keys = sum(last)
+    verify_bound = bound(2 * q.numel() * item + 2 * keys * kvh * D * item
+                     + 4 * (sum(-(-n // ps) for n in last) + lens.numel()),
+                     4 * int(lens.sum()) * D * nh)
+    rec = paged_record(PA, f"verify_k{SPEC_K}", q, kp, vp, table, lens,
+                       bound_ms=verify_bound)
+    kd, vd = (PA.gather_kv_pages(p, table).transpose(1, 2).contiguous()
+              for p in (kp, vp))
+    pos = lens - 1
+    rec["k7_same_keys_ms"] = device_ms(
+        lambda: DA.decode_attention(q, kd, vd, pos))
+    rec["slots"], rec["rows_per_slot"] = len(VERIFY_POS), m
+    emit({"phase": 3, "kernel": "paged_attention", "shape": rec["shape"],
+          "k7_same_keys_ms": rec["k7_same_keys_ms"]})
+    return rec
 
 
 def phase_paged_f32(PA, name, nh, kvh, ps, W, lens, D):
@@ -1920,18 +2005,21 @@ def phase_serve(cfg, PA, FM, create_engine, init_state, GenerationConfig,
 
 
 def profile_decode(engine, prompts, GenerationConfig, steps=8, phase=4,
-                   adapters=None):
+                   adapters=None, new=None, counters=None):
     """Where the decode time goes: ``torch.profiler`` over ``steps``
     lockstep decode steps of 8 fresh requests (their prefill runs before
-    the window; ``adapters`` gives each request's adapter).  Device time
-    is summed per kernel and grouped; the idle share is 1 - device busy
-    time / the window's wall time."""
+    the window; ``adapters`` gives each request's adapter; ``new`` their
+    new tokens, 2 x steps + 2 by default).  Device time is summed per
+    kernel and grouped; the idle share is 1 - device busy time / the
+    window's wall time.  ``counters()`` returns counts whose growth over
+    the window is printed too."""
     from torch.profiler import ProfilerActivity, profile
     for i, p in enumerate(prompts):
-        engine.submit(p, GenerationConfig(max_new_tokens=2 * steps + 2),
+        engine.submit(p, GenerationConfig(max_new_tokens=new or 2 * steps + 2),
                       adapter=adapters[i] if adapters else None)
     engine.step()                       # admission + prefill of all 8
     torch.cuda.synchronize()
+    before = counters() if counters else {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1939,6 +2027,8 @@ def profile_decode(engine, prompts, GenerationConfig, steps=8, phase=4,
             engine.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    grown = {k: v - before[k] for k, v in counters().items()} \
+        if counters else None
     engine.run_until_complete()
     per_kernel: dict[str, float] = {}
     for ev in prof.events():
@@ -1953,12 +2043,16 @@ def profile_decode(engine, prompts, GenerationConfig, steps=8, phase=4,
         groups[key] = groups.get(key, 0.0) + ms
     busy = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    emit({"phase": phase, "profile": "decode", "steps": steps,
-          "wall_ms_per_step": wall * 1e3 / steps,
-          "device_ms_per_step": {k: v / steps for k, v in groups.items()},
-          "device_busy_share": busy / (wall * 1e3) if wall else None,
-          "kernels_seen": len(per_kernel),
-          "top_kernels_ms_per_step": [[n[:80], ms / steps] for n, ms in top]})
+    rec = {"phase": phase, "profile": "decode", "steps": steps,
+           "wall_ms_per_step": wall * 1e3 / steps,
+           "device_ms_per_step": {k: v / steps for k, v in groups.items()},
+           "device_busy_share": busy / (wall * 1e3) if wall else None,
+           "kernels_seen": len(per_kernel),
+           "top_kernels_ms_per_step": [[n[:80], ms / steps]
+                                       for n, ms in top],
+           "window_counts": grown}
+    emit(rec)
+    return rec
 
 
 def phase_parity(cfg8b, create_engine, init_state, GenerationConfig,
@@ -2216,6 +2310,604 @@ def phase_modes_parity(cfg8b, create_engine, init_state, GenerationConfig,
               "parted_at_tie": parts, "tie_tol": TIE_TOL})
         require(all(p["margin_over_std"] <= TIE_TOL for p in parts),
                 (name, parts, outs))
+    return result
+
+
+# ------------------------------------------ phases 17-19: the serving engine
+# phase 17: 8 requests of random prompts, 512-2048 tokens, + 128 new
+# tokens each.  Random weights never repeat themselves nor copy, so the
+# n-gram drafter finds almost nothing to draft (a repeated 64-token span
+# gave no proposal in 1,016 tokens, random prompts or prompts drawn from
+# the model's own outputs one: PERF.md §6); the verify path is also
+# driven with drafts replayed from recorded runs (:class:`ReplayProposer`).
+SPEC_NEW = 128
+SPEC_LENS = (512, 2048, 768, 1536, 1024, 1280, 640, 1792)
+SPEC_VOCAB = 512     # phase 19's speculation case: llama3_8b width, 2 layers
+# phase 19's spec_replay case: f32 logits rows, card vs CPU (relative L2)
+F32_LOGITS_TOL = 1e-4
+# two bf16 runs of the same prefix, one rounded apart from the other (a
+# verify row at M = slots x (k + 1), a resumed request's re-prefilled
+# tail), must give logits rows this close (relative L2); rows of
+# unrelated prefixes are ~2^0.5 apart.  Random weights amplify rounding
+# over a request's tokens: 0.035-0.054 after up to 128 tokens on an H100
+# (PERF.md §6), where the runs part at logits 0-4 bf16 ulps apart.  A
+# gross fault (k and v swapped) reads ~1.41, but a verify step one key
+# short read 0.060: this limit cannot see it, phase 19's f32 check does.
+BF16_LOGITS_TOL = 2 ** -3
+# phase 18: six priority-0 requests of 2048 tokens fill a pool sized for
+# them; two priority-1 requests of 512 arrive after PREEMPT_AFTER steps
+PREEMPT_LO, PREEMPT_HI, PREEMPT_NEW, PREEMPT_AFTER = 2048, 512, 64, 8
+
+
+def stash_logits(engine, RequestState):
+    """Keep, by ``(request id, token index)``, the f32 logits row behind
+    each token the engine emits: the first token's from ``_pick_token``,
+    each plain decode step's row at the request's slot, and each verify
+    step's k + 1 rows (a later step's row replaces a rejected one).  The
+    rows stay on the card; no launch is added to the steps."""
+    rows = {}
+    runner, seen = engine.runner, {}
+    layers, step, verify = runner._layers, runner.decode_step, \
+        runner.verify_step
+    pick = engine._pick_token
+
+    def at():
+        """Token index each active slot's next row produces: emitted
+        tokens + the request's unsynced ring rows."""
+        pending = {}
+        for _, entries, _ in engine._pending:
+            for _, r in entries:
+                pending[r.id] = pending.get(r.id, 0) + 1
+        return {slot: (r.id, r.num_generated + pending.get(r.id, 0))
+                for slot, r in enumerate(engine.scheduler.slots)
+                if r is not None and r.state == RequestState.DECODE}
+
+    def layers_hook(*a):
+        seen["logits"] = layers(*a)
+        return seen["logits"]
+
+    def step_hook():
+        idx = at()
+        out = step()
+        for slot, key in idx.items():
+            rows[key] = seen["logits"][slot]
+        return out
+
+    def verify_hook(draft, dlen):
+        idx = at()
+        verify(draft, dlen)
+        m = draft.shape[1] + 1
+        for slot, (rid, t) in idx.items():
+            for j in range(m):
+                rows[(rid, t + j)] = seen["logits"][slot * m + j]
+
+    def pick_hook(req, logits):
+        if not req.num_generated:
+            rows[(req.id, 0)] = torch.as_tensor(logits)
+        return pick(req, logits)
+
+    runner._layers, runner.decode_step = layers_hook, step_hook
+    runner.verify_step, engine._pick_token = verify_hook, pick_hook
+    return rows
+
+
+def compare_runs(got, want, got_rows, want_rows):
+    """Hold two runs of the same requests token for token: where a
+    request of ``got`` first parts from ``want`` (the rest of it is not
+    compared), and the two runs' logits rows per request at every
+    token up to that one, ||got - want|| / ||want|| (the rows are one
+    function of one prefix, rounded apart in bf16).  Each parting also
+    carries phase 9's tie margin: ``want``'s gap between the two picks
+    over its row's std, and in bf16 units of the last place."""
+    out, worst = [], 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        require(len(g.output_tokens) == len(w.output_tokens),
+                f"request {i}: {len(g.output_tokens)} tokens against "
+                f"{len(w.output_tokens)}")
+        t = next((j for j, (a, b) in enumerate(zip(g.output_tokens,
+                                                   w.output_tokens))
+                  if a != b), None)
+        last = len(w.output_tokens) - 1 if t is None else t
+        err = max(row_rel_err(got_rows[(g.id, j)][None].float(),
+                              want_rows[(w.id, j)][None].float().to(
+                                  got_rows[(g.id, j)].device)).item()
+                  for j in range(last + 1))
+        worst = max(worst, err)
+        rec = {"request": i, "max_row_rel_err": err}
+        if t is not None:
+            lg = want_rows[(w.id, t)].float().cpu()
+            a, b = g.output_tokens[t], w.output_tokens[t]
+            top = max(abs(lg[a].item()), abs(lg[b].item()), 1e-30)
+            rec.update(token=t, got=a, want=b,
+                       tie_margin_over_std=float(abs(lg[a] - lg[b])
+                                                 / lg.std()),
+                       # the gap in units of bf16's last place there
+                       tie_bf16_ulps=float(abs(lg[a] - lg[b]) / 2.0 ** (
+                           math.floor(math.log2(top)) - 7)))
+        out.append(rec)
+    return out, worst
+
+
+def serve_window(engine, PA, FM, submit, GenerationConfig):
+    """Zero the kernels' counters, run ``submit(engine)``'s requests to
+    the end, and read what the window used: its requests, wall s,
+    launches, and ``stats()`` / ``timings`` before and after."""
+    torch.cuda.synchronize()
+    timings0, stats0 = dict(engine.timings), engine.stats()
+    PA.paged_attention.launches = 0
+    FM.flash_mha_masked.launches = 0
+    t0 = time.perf_counter()
+    reqs = submit(engine)
+    engine.run_until_complete()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_attention": PA.paged_attention.launches,
+                "flash_mha_masked": FM.flash_mha_masked.launches}
+    stats = engine.stats()
+    decode_s = (engine.timings["decode_s"] - timings0["decode_s"]
+                + engine.timings["host_sync_s"] - timings0["host_sync_s"])
+    decode_tokens = sum(len(r.output_tokens) - 1 for r in reqs)
+    grown = {k: v - stats0[k] for k, v in stats.items()
+             if isinstance(v, (int, float)) and not isinstance(v, bool)
+             and k in stats0}
+    pool = engine.blocks.pool_accounting()
+    require(pool["leak"] == 0 and stats["pages_in_use"] == 0, pool)
+    return {"reqs": reqs, "wall_s": wall, "launches": launches,
+            "stats": stats, "grown": grown, "decode_s": decode_s,
+            "decode_tokens": decode_tokens,
+            "decode_tokens_per_s": decode_tokens / decode_s,
+            "ttft_s": [r.first_token_at - r.arrival_time for r in reqs]}
+
+
+class ReplayProposer:
+    """A perfect draft model for phase 17: drafts each request's next
+    tokens from a recorded run of the same traffic (``records``: each
+    prompt with the tokens that run gave it), behind the engine's
+    drafter hooks (``register`` / ``extend`` / ``propose`` / ``drop``).
+    A prompt it has no record of gets no draft; drafts stay the recorded
+    ones after a run parts from its record, and verify rejects them."""
+
+    def __init__(self, k, records):
+        self.k = k
+        self.future = {np.asarray(p, np.int32).tobytes(): list(t)
+                       for p, t in records}
+        self.live = {}
+
+    def register(self, req_id, tokens):
+        key = np.asarray(tokens, np.int32).tobytes()
+        self.live[req_id] = [self.future.get(key, []), 0]
+
+    def extend(self, req_id, token):
+        self.live[req_id][1] += 1       # tokens emitted so far
+
+    def propose(self, req_id, max_tokens=None):
+        future, done = self.live[req_id]
+        n = self.k if max_tokens is None else min(self.k, max_tokens)
+        return future[done:done + n]
+
+    def drop(self, req_id):
+        self.live.pop(req_id, None)
+
+
+def phase_spec(cfg, state, PA, FM, create_engine, GenerationConfig,
+               RequestState):
+    """Phase 17: speculative serving at full width and depth (8 slots,
+    pages of 64, prefix cache, ``sync_interval=8``): the traffic at
+    ``spec_k=0``, at ``SPEC_K`` with the engine's n-gram drafter, at
+    ``SPEC_K`` with drafts replayed from the plain run
+    (:class:`ReplayProposer`), and at ``SPEC_K`` with drafts replayed
+    from that replay run (a perfect draft model: its verify rows round
+    as the recorded ones did, so only a change of step pattern can part
+    the two), all on the same engine settings.  K3 must launch L times
+    per decode step, a verify
+    step included (it runs the paged layers once, at slots x (k + 1)
+    rows).  Each spec run's tokens are held to the plain run's up to
+    each request's first parting, and their logits rows up to it within
+    ``BF16_LOGITS_TOL`` (each verify row is a product at M = slots x
+    (k + 1), rounded apart in bf16 from the plain step's M = slots)."""
+    L = cfg.num_hidden_layers
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in SPEC_LENS]
+    warm = rng.integers(0, cfg.vocab_size, min(SPEC_LENS) // 2)
+    kw = dict(max_slots=8, page_size=64,
+              max_model_len=max(SPEC_LENS) + SPEC_NEW,
+              enable_prefix_cache=True, sync_interval=8)
+    runs = {}
+    for name, k, record in (("plain", 0, None), ("ngram", SPEC_K, None),
+                            ("replay", SPEC_K, "plain"),
+                            ("self_replay", SPEC_K, "replay")):
+        engine = create_engine(cfg, state, spec_k=k, **kw)
+        # warm-up (cuBLAS handles, the verify path): one short request
+        engine.submit(warm, GenerationConfig(max_new_tokens=16)).result()
+        rows = stash_logits(engine, RequestState)
+
+        if record:
+            engine._proposer = ReplayProposer(SPEC_K, [
+                (r.prompt, r.output_tokens) for r in runs[record]["reqs"]])
+        run = runs[name] = serve_window(engine, PA, FM, lambda e: [
+            e.submit(p, GenerationConfig(max_new_tokens=SPEC_NEW))
+            for p in prompts], GenerationConfig)
+        run["rows"] = rows
+        g, st = run["grown"], run["stats"]
+        for r in run["reqs"]:
+            require(r.finish_reason == "length"
+                    and len(r.output_tokens) == SPEC_NEW, r)
+        require(run["launches"]["paged_attention"]
+                == L * g["decode_steps"],
+                f"{name}: K3 launches {run['launches']} != {L} x "
+                f"{g['decode_steps']} decode steps")
+        rec = {"phase": 17, "run": name, "spec_k": k,
+               "prompt_lens": list(SPEC_LENS), "new_tokens": SPEC_NEW,
+               "wall_s": run["wall_s"], "decode_s": run["decode_s"],
+               "decode_tokens": run["decode_tokens"],
+               "decode_tokens_per_s": run["decode_tokens_per_s"],
+               "decode_steps": g["decode_steps"],
+               "tokens_per_decode_step": (run["decode_tokens"]
+                                          / g["decode_steps"]),
+               "host_syncs": g["host_syncs"],
+               "ttft_s_mean": float(np.mean(run["ttft_s"])),
+               "launches": run["launches"],
+               "decode_traces": st["decode_traces"],
+               "verify_traces": st["verify_traces"]}
+        if k:
+            rec.update(
+                verify_steps=g["spec_verify_steps"],
+                spec_proposed=g["spec_proposed"],
+                spec_accepted=g["spec_accepted"],
+                acceptance_rate=(g["spec_accepted"] / g["spec_proposed"]
+                                 if g["spec_proposed"] else None),
+                # accepted + 1 per drafted slot, summed over a step
+                committed_per_verify_step=(
+                    g["spec_committed_tokens"] / g["spec_verify_steps"]
+                    if g["spec_verify_steps"] else None),
+                verify_k3_launches=L * g["spec_verify_steps"])
+        if name == "self_replay":
+            require(g["spec_proposed"] > 0 and g["spec_verify_steps"] > 0,
+                    f"{name}: nothing drafted or verified: {g}")
+            require(st["decode_traces"] == 2 and st["verify_traces"] == 1,
+                    st)
+            # the same traffic again (its prefill from the prefix cache):
+            # where a verify step's time goes
+            rec["profile"] = profile_decode(
+                engine, prompts, GenerationConfig, steps=6, phase=17,
+                new=SPEC_NEW, counters=lambda: {
+                    "decode_steps": engine.decode_steps,
+                    "verify_steps": engine.stats()["spec_verify_steps"],
+                    "paged_attention": PA.paged_attention.launches})
+        emit(rec)
+        del engine
+        release()
+    for name in ("ngram", "replay", "self_replay"):
+        parts, err = compare_runs(runs[name]["reqs"], runs["plain"]["reqs"],
+                                  runs[name]["rows"], runs["plain"]["rows"])
+        emit({"phase": 17, "run": name,
+              "tokens_identical": all("token" not in p for p in parts),
+              "requests": parts, "max_logits_row_rel_err": err,
+              "logits_tol": BF16_LOGITS_TOL,
+              "speedup_decode_tokens_per_s": (
+                  runs[name]["decode_tokens_per_s"]
+                  / runs["plain"]["decode_tokens_per_s"])})
+        require(err <= BF16_LOGITS_TOL,
+                f"{name} vs plain logits rows {err} > {BF16_LOGITS_TOL}: "
+                f"{parts}")
+    launches = {k: sum(runs[n]["launches"][k]
+                       for n in ("ngram", "replay", "self_replay"))
+                for k in runs["plain"]["launches"]}
+    del runs
+    release()
+    return launches
+
+
+def time_pages(runner):
+    """Wall seconds of each ``read_page`` / ``write_page`` call (a
+    synchronize on both sides: each moves one page pair across PCIe)."""
+    times = {"read_page": [], "write_page": []}
+    for name, acc in times.items():
+        def timed(*a, _fn=getattr(runner, name), _acc=acc):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*a)
+            torch.cuda.synchronize()
+            _acc.append(time.perf_counter() - t0)
+            return out
+        setattr(runner, name, timed)
+    return times
+
+
+def phase_preempt(cfg, state, create_engine, GenerationConfig, RequestState,
+                  PA, FM):
+    """Phase 18: preempt -> spill -> resume at full width and depth: 8
+    slots, a pool of pages for the six 2048-token priority-0 requests
+    (+ 2), which the two 512-token priority-1 arrivals cannot get
+    without a preemption.  Dense pages, then int8 pages (their f32
+    scales spill with them); each with ``preempt=False`` first (the
+    uninterrupted run: its tokens, logits and the priority-1 TTFT when
+    the arrivals wait) and ``preempt=True``.  Every request but the
+    victim must give the uninterrupted run's tokens and logits bit for
+    bit; the victim's tokens are held to them up to its first parting,
+    and its logits rows up to it within ``BF16_LOGITS_TOL`` (the resume
+    re-prefills its partial last page, rounded apart in bf16 from the
+    decode steps that wrote it); with dense pages a third run, whose
+    restore swaps k and v (a planted fault), must fail that check."""
+    rng = np.random.default_rng(18)
+    lo = [rng.integers(0, cfg.vocab_size, PREEMPT_LO) for _ in range(6)]
+    hi = [rng.integers(0, cfg.vocab_size, PREEMPT_HI) for _ in range(2)]
+    warm = rng.integers(0, cfg.vocab_size, 100)
+    ps = 64
+    num_pages = 6 * -(-(PREEMPT_LO + PREEMPT_NEW) // ps) + 2
+
+    def traffic(engine):
+        reqs = [engine.submit(p, GenerationConfig(
+            max_new_tokens=PREEMPT_NEW)) for p in lo]
+        for _ in range(PREEMPT_AFTER):
+            engine.step()
+        return reqs + [engine.submit(p, GenerationConfig(
+            max_new_tokens=PREEMPT_NEW), priority=1) for p in hi]
+
+    def run_once(kv_quant, preempt, fault=False):
+        engine = create_engine(
+            cfg, state, max_slots=8, page_size=ps, num_pages=num_pages,
+            max_model_len=PREEMPT_LO + PREEMPT_NEW, sync_interval=8,
+            preempt=preempt, kv_quant=kv_quant)
+        engine.submit(warm, GenerationConfig(max_new_tokens=8)).result()
+        rows = stash_logits(engine, RequestState)
+        times = time_pages(engine.runner)
+        if fault:
+            write = engine.runner.write_page
+            engine.runner.write_page = \
+                lambda page, k, v, *sc: write(page, v, k, *sc)
+        run = serve_window(engine, PA, FM, traffic, GenerationConfig)
+        run.update(rows=rows, times=times, page_bytes=engine._page_bytes())
+        for r in run["reqs"]:
+            require(r.finish_reason == "length"
+                    and len(r.output_tokens) == PREEMPT_NEW, r)
+        del engine
+        release()
+        return run
+
+    out = {}
+    for kv_quant in (False, True):
+        runs = {p: run_once(kv_quant, p) for p in (False, True)}
+        if not kv_quant:        # the planted fault, once
+            runs["fault"] = run_once(kv_quant, True, fault=True)
+        g = runs[True]["grown"]
+        require(g["preemptions"] >= 1 and g["spilled_pages"] >= 1
+                and g["restored_pages"] >= 1, g)
+        require(runs[False]["grown"]["preemptions"] == 0,
+                runs[False]["grown"])
+        require(g["spill_bytes"] == g["spilled_pages"]
+                * runs[True]["page_bytes"], (g, runs[True]["page_bytes"]))
+        victims = [i for i, r in enumerate(runs[True]["reqs"])
+                   if r.preemptions]
+        parts, _ = compare_runs(runs[True]["reqs"], runs[False]["reqs"],
+                                runs[True]["rows"], runs[False]["rows"])
+        times = runs[True]["times"]
+        name = "int8_pages" if kv_quant else "dense"
+        rec = {"phase": 18, "mode": name, "kv_quant": kv_quant,
+               "num_pages": num_pages, "lo": [6, PREEMPT_LO],
+               "hi": [2, PREEMPT_HI], "new_tokens": PREEMPT_NEW,
+               "arrive_after_steps": PREEMPT_AFTER,
+               **{k: g[k] for k in ("preemptions", "spill_aborts",
+                                    "spilled_pages", "restored_pages",
+                                    "spill_bytes")},
+               "page_bytes": runs[True]["page_bytes"], "victims": victims,
+               "read_page_ms": 1e3 * float(np.mean(times["read_page"])),
+               "write_page_ms": 1e3 * float(np.mean(times["write_page"])),
+               "pages_read": len(times["read_page"]),
+               "pages_written": len(times["write_page"]),
+               "hi_ttft_s_preempt": runs[True]["ttft_s"][6:],
+               "hi_ttft_s_no_preempt": runs[False]["ttft_s"][6:],
+               "decode_tokens_per_s_preempt":
+                   runs[True]["decode_tokens_per_s"],
+               "decode_tokens_per_s_no_preempt":
+                   runs[False]["decode_tokens_per_s"],
+               "tokens_identical": all("token" not in p for p in parts),
+               "requests": parts}
+        rec["victim_logits_row_rel_err"] = max(
+            parts[i]["max_row_rel_err"] for i in victims)
+        rec["logits_tol"] = BF16_LOGITS_TOL
+        fparts = None
+        if "fault" in runs:
+            fparts, _ = compare_runs(runs["fault"]["reqs"],
+                                     runs[False]["reqs"],
+                                     runs["fault"]["rows"],
+                                     runs[False]["rows"])
+            rec["fault_victim_logits_row_rel_err"] = min(
+                fparts[i]["max_row_rel_err"]
+                for i, r in enumerate(runs["fault"]["reqs"])
+                if r.preemptions)
+        out[name] = g
+        del runs
+        emit(rec)
+        others = [p for i, p in enumerate(parts) if i not in victims]
+        require(all("token" not in p and p["max_row_rel_err"] == 0.0
+                    for p in others),
+                f"{name}: a request that was not preempted changed: {parts}")
+        require(rec["victim_logits_row_rel_err"] <= BF16_LOGITS_TOL,
+                f"{name}: the victims' logits rows part from the "
+                f"uninterrupted run's: {rec}")
+        require(fparts is None
+                or rec["fault_victim_logits_row_rel_err"] > BF16_LOGITS_TOL,
+                f"{name}: planted fault (k and v swapped on restore) passed "
+                f"the resume check: {fparts}")
+    # int8 pages park their values and f32 scales: (hd + 4) / (item hd)
+    # of the checkpoint-dtype pages' bytes (bf16: item 2), page for page
+    hd = cfg.head_dim
+    item = state["llama.embed_tokens.weight"].element_size()
+    per_page = {k: g["spill_bytes"] / g["spilled_pages"]
+                for k, g in out.items()}
+    require(per_page["int8_pages"] * item * hd
+            == per_page["dense"] * (hd + 4), per_page)
+    return out
+
+
+def verify_key_short(G, verify_rows):
+    """Plant a fault in the verify step: its batch (``verify_rows``
+    rows) attends one key short of each row's prefix, the kind of
+    off-by-one a verify ``lens`` can carry.  Returns the undo."""
+    select = G.select_paged_attention
+
+    def faulty():
+        attend = select()
+
+        def call(q, kpool, vpool, table, lens):
+            if q.shape[0] == verify_rows:
+                lens = (lens - 1).clamp_min(1)
+            return attend(q, kpool, vpool, table, lens)
+        return call
+
+    G.select_paged_attention = faulty
+    return lambda: setattr(G, "select_paged_attention", select)
+
+
+def phase_serving_parity(cfg8b, create_engine, init_state, GenerationConfig,
+                         EngineSupervisor, FaultPlan, RequestState, G):
+    """Phase 19: 2 layers at llama3_8b width in float32, card (kernels)
+    vs CPU (plain versions) from one state — identical tokens and
+    counters in each case:
+
+    - ``spec_replay``: ``spec_k=SPEC_K`` with drafts replayed from the
+      CPU engine's own plain run (:class:`ReplayProposer`), so that
+      verify accepts them: pos advancing by acc + 1, the token taken
+      from the accepted row, multi-token ring rows.  Drafts must be
+      accepted (more than one a verify step), the tokens must equal the
+      plain run's, and every logits row, card vs CPU, must agree within
+      ``F32_LOGITS_TOL``; a planted fault (verify rows one key short,
+      :func:`verify_key_short`) must fail that check;
+    - ``spec_ngram``: ``spec_k=SPEC_K`` with the engine's n-gram
+      drafter, on random prompts over a vocabulary cut to
+      ``SPEC_VOCAB`` (so that random weights repeat tokens the drafter
+      can look up);
+    - ``preempt``: a preempt -> spill -> resume;
+    - ``step_raise``: a ``step_raise`` at decode step 3 recovered
+      through ``EngineSupervisor``."""
+    cfg = dataclasses.replace(cfg8b, num_hidden_layers=2, dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    state_cpu = init_state(cfg, torch.Generator().manual_seed(19),
+                           device="cpu")
+    state_gpu = {k: v.to("cuda") for k, v in state_cpu.items()}
+    rng = np.random.default_rng(19)
+    lows = [rng.integers(0, cfg.vocab_size, 100) for _ in range(2)]
+    high = rng.integers(0, cfg.vocab_size, 70)
+    spec_cfg = dataclasses.replace(cfg, vocab_size=SPEC_VOCAB)
+    spec_cpu = init_state(spec_cfg, torch.Generator().manual_seed(19),
+                          device="cpu")
+    spec_states = {"cuda": {k: v.to("cuda") for k, v in spec_cpu.items()},
+                   "cpu": spec_cpu}
+    spec_prompts = [rng.integers(0, SPEC_VOCAB, n) for n in (120, 60)]
+    replay_prompts = [rng.integers(0, cfg.vocab_size, n) for n in (120, 60)]
+    slots, new = 2, 16
+    kw = dict(max_slots=slots, page_size=64, max_model_len=512)
+    spec_kw = dict(enable_prefix_cache=True, sync_interval=4)
+
+    # the drafts: the CPU engine's own plain run of the replayed traffic
+    plain = create_engine(cfg, state_cpu, device="cpu", spec_k=0,
+                          **spec_kw, **kw)
+    plain_reqs = [plain.submit(p, GenerationConfig(max_new_tokens=new))
+                  for p in replay_prompts]
+    plain.run_until_complete()
+    records = [(r.prompt, r.output_tokens) for r in plain_reqs]
+    del plain
+
+    def replay(engine):
+        engine._proposer = ReplayProposer(SPEC_K, records)
+        rows = stash_logits(engine, RequestState)
+        return [engine.submit(p, GenerationConfig(max_new_tokens=new))
+                for p in replay_prompts], rows
+
+    def spec(engine):
+        return [engine.submit(p, GenerationConfig(max_new_tokens=new))
+                for p in spec_prompts], None
+
+    def preempt(engine):
+        reqs = [engine.submit(p, GenerationConfig(max_new_tokens=12))
+                for p in lows]
+        for _ in range(4):
+            engine.step()
+        return reqs + [engine.submit(high, GenerationConfig(
+            max_new_tokens=12), priority=1)], None
+
+    def poisoned(engine):
+        sup = EngineSupervisor(engine, max_recoveries=3)
+        reqs = [engine.submit(p, GenerationConfig(max_new_tokens=12))
+                for p in lows]
+        while not all(r.is_finished() for r in reqs):
+            sup.step()
+        return reqs, None
+
+    spec_keys = ("spec_proposed", "spec_accepted", "spec_verify_steps",
+                 "spec_committed_tokens", "decode_steps")
+    cases = (
+        ("spec_replay", replay, dict(spec_kw, spec_k=SPEC_K), spec_keys),
+        ("spec_ngram", spec, dict(spec_kw, spec_k=SPEC_K), spec_keys),
+        ("preempt", preempt, dict(preempt=True),
+         ("preemptions", "spilled_pages", "restored_pages", "spill_bytes",
+          "decode_steps")),
+        ("step_raise", poisoned, dict(enable_prefix_cache=True),
+         ("recoveries", "replayed_requests", "quarantines",
+          "faults_injected", "decode_steps")))
+
+    def run(name, script, device, engine_kw):
+        faults = (FaultPlan(seed=0).add("step_raise", at=1, step=3)
+                  if name == "step_raise" else None)
+        ngram = name == "spec_ngram"
+        engine = create_engine(
+            spec_cfg if ngram else cfg,
+            spec_states[device] if ngram else
+            (state_gpu if device == "cuda" else state_cpu),
+            device=device, faults=faults, **engine_kw, **kw)
+        reqs, rows = script(engine)
+        engine.run_until_complete()
+        require(all(r.finish_reason == "length" for r in reqs),
+                (name, device, [r.finish_reason for r in reqs]))
+        return reqs, rows, engine.stats()
+
+    result = {}
+    for name, script, engine_kw, keys in cases:
+        runs = {d: run(name, script, d, engine_kw) for d in ("cuda", "cpu")}
+        outs = {d: [r.output_tokens for r in v[0]] for d, v in runs.items()}
+        stats = {d: {k: v[2][k] for k in keys} for d, v in runs.items()}
+        result[name] = stats["cuda"]
+        rec = {"phase": 19, "case": name, "layers": 2, "dtype": "float32",
+               "tokens_identical": outs["cuda"] == outs["cpu"],
+               "stats_card": stats["cuda"], "stats_cpu": stats["cpu"]}
+        if name == "spec_replay":
+            _, err = compare_runs(runs["cuda"][0], runs["cpu"][0],
+                                  runs["cuda"][1], runs["cpu"][1])
+            # the planted fault: the card's verify rows one key short
+            undo = verify_key_short(G, slots * (SPEC_K + 1))
+            try:
+                faulty = run(name, script, "cuda", engine_kw)
+            finally:
+                undo()
+            fparts, ferr = compare_runs(faulty[0], runs["cpu"][0],
+                                        faulty[1], runs["cpu"][1])
+            rec.update(tokens_equal_plain=outs["cpu"] == [
+                           t for _, t in records],
+                       max_logits_row_rel_err=err,
+                       logits_tol=F32_LOGITS_TOL,
+                       fault_max_logits_row_rel_err=ferr,
+                       fault_tokens_identical=all("token" not in p
+                                                  for p in fparts))
+        emit(rec)
+        require(outs["cuda"] == outs["cpu"] and stats["cuda"] == stats["cpu"],
+                (name, outs, stats))
+        if name == "spec_replay":
+            require(rec["tokens_equal_plain"], (outs, records))
+            require(err <= F32_LOGITS_TOL, rec)
+            require(ferr > F32_LOGITS_TOL,
+                    f"planted fault (verify rows one key short) passed the "
+                    f"logits check: {rec}")
+        del runs
+        release()
+    st = result["spec_replay"]
+    require(st["spec_verify_steps"] > 0
+            and st["spec_accepted"] > st["spec_verify_steps"], st)
+    require(result["spec_ngram"]["spec_verify_steps"] > 0, result)
+    require(result["preempt"]["preemptions"] == 1
+            and result["preempt"]["restored_pages"] >= 1, result)
+    require(result["step_raise"]["recoveries"] == 1, result)
     return result
 
 
@@ -3849,8 +4541,10 @@ def main() -> int:
     from paddle_tpu_torch.ops.pallas import paged_attention as PA
     from paddle_tpu_torch.ops.pallas import quant_matmul as QM
     from paddle_tpu_torch.ops.pallas import rms_norm as RN
-    from paddle_tpu_torch.serving import (AdapterStore, create_engine,
-                                          quantize_state, random_adapter)
+    from paddle_tpu_torch.serving import (AdapterStore, EngineSupervisor,
+                                          FaultPlan, RequestState,
+                                          create_engine, quantize_state,
+                                          random_adapter)
 
     laps = Laps()
     # phase 1: the card
@@ -3881,6 +4575,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     pageds = [phase_paged(PA, gen, *shape) for shape in PAGED_SHAPES]
     paged = pageds[0]       # phase 4's decode shape: the kernels line's
+    verify = phase_paged_verify(PA, DA, gen)    # phase 17's verify step
     for shape in PAGED_SHAPES:
         phase_paged_f32(PA, *shape)
     release()
@@ -4037,15 +4732,40 @@ def main() -> int:
     release()
     laps(16)
 
+    # phases 17-18: the serving engine's speculative decoding and
+    # preemption at llama3_8b full width and depth, on one state
+    gen8b = torch.Generator(device="cuda").manual_seed(0)
+    state8b = init_state(llama3_8b(), gen8b, device="cuda")
+    spec_launches = phase_spec(llama3_8b(), state8b, PA, FM, create_engine,
+                               GenerationConfig, RequestState)
+    laps(17)
+    phase_preempt(llama3_8b(), state8b, create_engine, GenerationConfig,
+                  RequestState, PA, FM)
+    del state8b
+    release()
+    laps(18)
+
+    # phase 19: both, and a recovered poisoned step, card vs CPU in f32
+    phase_serving_parity(llama3_8b(), create_engine, init_state,
+                         GenerationConfig, EngineSupervisor, FaultPlan,
+                         RequestState, G)
+    release()
+    laps(19)
+
     rep = masked[1]     # the 2048 bucket: the longest prompts of phase 4
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
         {"name": "paged_attention", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/paged_attention.cu",
          "replaces": "paddle_tpu/ops/pallas/paged_attention.py:123",
-         "launches": launches["paged_attention"],
-         "max_abs_err": max(p["max_abs_err"] for p in pageds),
-         "max_row_rel_err": max(p["max_row_rel_err"] for p in pageds),
+         # phase 4's decode steps and phase 17's decode and verify steps
+         "launches": (launches["paged_attention"]
+                      + spec_launches["paged_attention"]),
+         "max_abs_err": max(p["max_abs_err"] for p in pageds + [verify]),
+         "max_row_rel_err": max(p["max_row_rel_err"]
+                                for p in pageds + [verify]),
+         "shapes": [p["shape"] for p in pageds + [verify]],
+         "verify": {k: verify[k] for k in keys + ("k7_same_keys_ms",)},
          **{k: paged[k] for k in keys}},
         {"name": "flash_mha_masked", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_sm90.cuh",

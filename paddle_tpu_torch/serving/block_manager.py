@@ -1,10 +1,12 @@
 """KV-page allocator + automatic prefix cache for the serving engine.
 
-Ports ``paddle_tpu/serving/block_manager.py`` by copy (host-side, numpy
-only; the flight-recorder, usage-meter and fault-injection hooks come
-with the slices that port those features).  Each sequence owns a list
-of fixed-size pages in one shared pool, so device memory scales with
-the tokens actually resident, not batch * max_len.
+Ports ``paddle_tpu/serving/block_manager.py`` by copy (host-side; the
+flight-recorder and usage-meter hooks come with the slices that port
+those features).  Each sequence owns a list of fixed-size pages in one
+shared pool, so device memory scales with the tokens actually
+resident, not batch * max_len.  The host spill tier holds whatever
+``ModelRunner.read_page`` returns (CPU tensors: numpy has no bfloat16)
+and prices it by ``nbytes``, as the reference prices its numpy pages.
 
 Unlike :class:`~paddle_tpu_torch.ops.pallas.paged_attention.PagedPool` (which
 reserves pages for ONE static batch up front), this manager serves a
@@ -48,6 +50,7 @@ from collections import OrderedDict, deque
 import numpy as np
 
 from .. import observability as _obs
+from ..flags import FLAGS
 
 __all__ = ["BlockManager"]
 
@@ -96,7 +99,7 @@ _M_SPILL_BYTES = _obs.counter(
 _M_HOST_PARKED = _obs.gauge(
     "serving_host_spill_pages",
     "KV pages currently parked in the host-RAM spill tier "
-    "(content-addressed, LRU-bounded by host_pages)")
+    "(content-addressed, LRU-bounded by FLAGS_serving_host_pages)")
 
 _ROOT = -1          # chain parent of the first chunk of every prompt
 
@@ -108,7 +111,8 @@ def _root(adapter):
     root per adapter name otherwise.  KV depends on the adapter (its
     k/v deltas), so requests share prefix pages only when both their
     tokens and their adapter match — the reference keys by tokens alone
-    and would hand one adapter's KV to another."""
+    and would hand one adapter's KV to another.  The host spill tier
+    keys its pages the same way (:meth:`BlockManager.spill_digest`)."""
     return _ROOT if adapter is None else (_ROOT, str(adapter))
 
 
@@ -122,16 +126,20 @@ class BlockManager:
     """
 
     def __init__(self, num_pages: int, page_size: int,
-                 enable_prefix_cache: bool = False, host_pages: int = 0):
+                 enable_prefix_cache: bool = False, faults=None,
+                 host_pages: int | None = None):
         if num_pages < 1:
             raise ValueError(f"num_pages must be >= 1, got {num_pages}")
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
+        if host_pages is None:
+            host_pages = int(FLAGS.get("FLAGS_serving_host_pages") or 0)
         self.num_pages = int(num_pages)
         self.page_size = int(page_size)
         self.host_pages = max(int(host_pages), 0)
         self.dump_page = self.num_pages       # pool row past the real pages
         self.prefix_cache = bool(enable_prefix_cache)
+        self.faults = faults                  # chaos harness (None = off)
         # FIFO reuse keeps page churn spread across the pool; a deque
         # makes both ends O(1) (popping the head of a plain list shifts
         # the whole tail on every acquisition)
@@ -442,10 +450,11 @@ class BlockManager:
         self._update_pool_gauges()
         return dropped
 
-    def replay_plan(self, seq_id: int, tokens) -> dict:
+    def replay_plan(self, seq_id: int, tokens, adapter=None) -> dict:
         """Prefill plan for re-running ``seq_id``'s committed ``tokens``
-        through the model after a runner rebuild (the sequence still
-        owns its pages; only device KV content was lost).
+        (prefilled under ``adapter``, ``None`` = dense) through the
+        model after a runner rebuild (the sequence still owns its
+        pages; only device KV content was lost).
 
         Walks the chain index like admission, but a chunk only counts
         as cached when the index maps it to **this sequence's own
@@ -466,7 +475,7 @@ class BlockManager:
         ps = self.page_size
         full = len(tokens) // ps
         matched = 0
-        parent = _ROOT
+        parent = _root(adapter)
         for c in range(full):
             page = self._index.get((parent, tokens[c * ps:(c + 1) * ps]))
             if page is None or page != pages[c]:
@@ -504,17 +513,22 @@ class BlockManager:
                 "misses": full - matched}
 
     # ------------------------------------ host spill tier (preemption)
-    def spill_digest(self, tokens, chunk: int) -> str:
+    def spill_digest(self, tokens, chunk: int, adapter=None) -> str:
         """Content address of page ``chunk``'s KV: sha1 over the int32
         bytes of the absolute token prefix the page covers.  Greedy
-        causal attention makes KV a pure function of that prefix, so
-        the digest is valid across sequences and across preempt/resume
-        cycles of the same request."""
+        causal attention makes KV a pure function of that prefix and
+        the adapter (its k/v deltas), so the digest is valid across
+        sequences and across preempt/resume cycles of the same request;
+        an adapter's name is hashed after the tokens (the dense digest
+        is the reference's)."""
         ps = self.page_size
         data = np.asarray(tokens, np.int32).reshape(-1)[:(chunk + 1) * ps]
-        return hashlib.sha1(data.tobytes()).hexdigest()
+        h = hashlib.sha1(data.tobytes())
+        if adapter is not None:
+            h.update(b"\0adapter:" + str(adapter).encode())
+        return h.hexdigest()
 
-    def spill_plan(self, seq_id: int, tokens) -> list:
+    def spill_plan(self, seq_id: int, tokens, adapter=None) -> list:
         """``(page, digest)`` pairs worth copying to host before
         ``seq_id`` is preempted: exclusive (refcount-1) pages holding a
         *complete* chunk of committed KV.  After a sync the device KV
@@ -536,7 +550,7 @@ class BlockManager:
             page = pages[c]
             if self._ref.get(page, 0) != 1:
                 continue
-            digest = self.spill_digest(toks, c)
+            digest = self.spill_digest(toks, c, adapter)
             if digest in self._host:
                 self._host.move_to_end(digest)
                 continue
@@ -550,8 +564,10 @@ class BlockManager:
         ``(k, v, kscale, vscale)`` — the quantized bytes plus their f32
         scales, never a dequantized copy, which is what makes
         ``spill_bytes`` genuinely shrink under ``kv_quant``.  The byte
-        ledger sums the actual itemsize of whatever was parked."""
-        arrays = tuple(np.asarray(a) for a in arrays)
+        ledger sums the actual itemsize of whatever was parked (torch
+        tensors, from the runner, are kept as they are)."""
+        arrays = tuple(a if hasattr(a, "nbytes") else np.asarray(a)
+                       for a in arrays)
         self._host[digest] = arrays
         self._host.move_to_end(digest)
         while len(self._host) > self.host_pages:
@@ -590,11 +606,12 @@ class BlockManager:
         self.restored_pages += n
         _M_RESTORED.inc(n)
 
-    def release_preempted(self, seq_id: int, tokens):
+    def release_preempted(self, seq_id: int, tokens, adapter=None):
         """Release a preempted sequence's pages after its exclusive KV
         was spilled to host.  With the prefix cache on, the complete
-        committed chunks are first (re-)registered in the chain index —
-        replay_plan-style, on the sequence's own pages — so they park
+        committed chunks are first (re-)registered in the chain index
+        under ``adapter``'s root — replay_plan-style, on the sequence's
+        own pages — so they park
         in the LRU instead of the free list and the resume admission
         matches them without recomputing.  Partial tails are never
         registered (past the prompt they hold generated tokens, which
@@ -605,7 +622,7 @@ class BlockManager:
                          for t in np.asarray(tokens).reshape(-1))
             ps = self.page_size
             full = min(max(0, (len(toks) - 1) // ps), len(pages))
-            parent = _ROOT
+            parent = _root(adapter)
             for c in range(full):
                 key = (parent, toks[c * ps:(c + 1) * ps])
                 existing = self._index.get(key)
@@ -832,6 +849,9 @@ class BlockManager:
         """Take ``n`` pages: free list first, then LRU eviction of
         cached refcount-0 pages (leaf-first, so a chain parent is never
         recycled while children could still match through it)."""
+        if (n > 0 and self.faults is not None
+                and self.faults.check("page_alloc", need=n) is not None):
+            return None        # synthetic device-OOM -> backpressure
         got: list[int] = []
         while len(got) < n:
             if self._free:

@@ -1,7 +1,7 @@
 """Continuous-batching inference engine over the paged KV pool.
 
-Ports ``paddle_tpu/serving/engine.py`` at tp=1 with dense weights
-(Orca's iteration-level scheduling over vLLM-style PagedAttention):
+Ports ``paddle_tpu/serving/engine.py`` at tp=1 (Orca's iteration-level
+scheduling over vLLM-style PagedAttention):
 
   * ONE decode-step program over a fixed number of decode slots and one
     shared page pool.  Slot occupancy, positions and block tables are
@@ -32,9 +32,7 @@ Ports ``paddle_tpu/serving/engine.py`` at tp=1 with dense weights
 
 Sampling is host-side per request (greedy = argmax of the f32 logits;
 stochastic requests draw from a per-request numpy RNG, so results do not
-depend on batch composition).  A kernel or prefill failure propagates
-out of :meth:`Engine.step`; per-request quarantine comes back with the
-supervisor slice.
+depend on batch composition).
 
 Serving modes: ``quant="int8"|"int4"`` converts the dense checkpoint at
 construction (``quantize_state``: the projections run the K4 GEMV);
@@ -42,10 +40,21 @@ construction (``quantize_state``: the projections run the K4 GEMV);
 ``lora=AdapterStore(...)`` arms a packed adapter bank, and
 ``submit(..., adapter="name")`` pins that adapter's bank row from submit
 to finalize (the decode step's deltas run the K5 kernel).  Prefix pages
-are shared only between requests of one adapter.  Speculative decoding,
-preemption, recovery, fault injection, usage metering, request logs,
-SLO tracking and tensor parallelism come with later slices: their
-constructor arguments raise ``NotImplementedError`` when set.
+and host-parked pages are shared only between requests of one adapter.
+
+``spec_k=K`` turns on speculative decoding (a host-side n-gram drafter;
+one verify step scores K+1 positions per slot through the same paged
+layers, so K3 runs at slots x (K+1) rows); ``preempt`` (default
+``FLAGS_serving_preempt``, True) lets a higher-priority request evict
+the lowest-class resident, whose exclusive KV pages spill to the host
+tier and come back on resume; ``faults=FaultPlan(...)`` injects faults
+at the reference's sites, and :meth:`Engine.recover` (driven by the
+:class:`~.supervisor.EngineSupervisor`) rebuilds the runner and replays
+every in-flight request.  A failed prefill or a non-finite logits row
+fails only its request (``finish_reason="error"``).  Usage metering,
+request logs, SLO tracking and tensor parallelism come with later
+slices: their constructor arguments raise ``NotImplementedError`` when
+set.
 """
 from __future__ import annotations
 
@@ -55,13 +64,16 @@ import numpy as np
 
 from .. import observability as _obs
 from .. import resolve_device
+from ..flags import FLAGS
 from ..models.generation import GenerationConfig
 from ..models.llama import LlamaConfig
 from .block_manager import BlockManager
+from .faults import InjectedFault, fault_plan_from_flags
 from .parallel.runner import ModelRunner
 from .quantize import quantize_state
 from .request import Request, RequestState
 from .scheduler import Scheduler
+from .spec import NgramProposer, SpecStats
 
 __all__ = ["Engine", "NonFiniteLogitsError", "create_engine"]
 
@@ -75,6 +87,13 @@ _M_FINISH = _obs.counter(
     "serving_finish_total",
     "finished requests by finish_reason "
     "(length|eos|cancelled|deadline|error)", ("reason",))
+_M_RECOVERY = _obs.counter(
+    "serving_recovery_total",
+    "self-healing events: 'quarantine' = one request failed in place "
+    "(finish_reason='error', batch kept running), 'rebuild' = runner "
+    "rebuilt + in-flight requests replayed, 'stall' = rebuild declared "
+    "by the watchdog, 'drain' = restart budget exhausted, escalated",
+    ("kind",))
 _M_HOST_SYNCS = _obs.counter(
     "serving_host_syncs_total",
     "device->host transfers on the serving hot path: 'ring' = sampled-"
@@ -95,15 +114,15 @@ _M_CHUNKS = _obs.counter(
 
 # constructor arguments of the reference engine whose features come with
 # later slices: a set value raises instead of being silently ignored
-_LATER = {"spec_k": "speculative decoding", "preempt": "preemption",
-          "faults": "fault injection", "usage": "usage metering",
-          "requestlog": "request logs", "slo": "SLO tracking",
-          "mesh": "tensor parallelism"}
+_LATER = {"usage": "usage metering", "requestlog": "request logs",
+          "slo": "SLO tracking", "mesh": "tensor parallelism"}
 
 
 class NonFiniteLogitsError(ValueError):
     """A request's logits hold no usable probability mass (NaN/Inf from
-    the model, or top_k/top_p masked every candidate)."""
+    the model, or top_k/top_p masked every candidate).  A per-request
+    failure: the engine quarantines the offending request
+    (finish_reason='error') and keeps the rest of the batch running."""
 
 
 def _serving_hists():
@@ -118,6 +137,26 @@ def _serving_hists():
         "serving_e2e_seconds", "request arrival -> completion",
         buckets=buckets)
     return ttft, tpot, e2e
+
+
+def _check_later(later: dict):
+    """Raise for a reference option whose feature is not ported yet
+    (``mesh`` 1, or unset with ``FLAGS_serving_mesh_tp`` 1, is tp=1)."""
+    for name, value in later.items():
+        if name not in _LATER:
+            raise TypeError(f"Engine got an unexpected argument {name!r}")
+        unset = value is None or value is False or (
+            isinstance(value, (int, str)) and value in (0, ""))
+        if not unset and not (name == "mesh" and value == 1):
+            raise NotImplementedError(
+                f"{name}={value!r}: {_LATER[name]} is not ported to "
+                "paddle_tpu_torch yet")
+    if later.get("mesh") is None:
+        tp = int(FLAGS.get("FLAGS_serving_mesh_tp") or 1)
+        if tp != 1:
+            raise NotImplementedError(
+                f"FLAGS_serving_mesh_tp={tp}: tensor parallelism is not "
+                "ported to paddle_tpu_torch yet")
 
 
 class Engine:
@@ -136,23 +175,21 @@ class Engine:
                  emit_logits: bool = False,
                  enable_prefix_cache: bool = False,
                  sync_interval: int = 1, clock=time.monotonic,
+                 spec_k: int | None = None,
                  prefill_chunk: int | None = None,
+                 preempt: bool | None = None, faults=None,
                  quant: str | None = None, kv_quant: bool | None = None,
                  lora=None, **later):
-        for name, value in later.items():
-            if name not in _LATER:
-                raise TypeError(f"Engine got an unexpected argument {name!r}")
-            unset = value is None or value is False or (
-                isinstance(value, (int, str)) and value in (0, ""))
-            if not unset and not (name == "mesh" and value == 1):
-                raise NotImplementedError(
-                    f"{name}={value!r}: {_LATER[name]} is not ported to "
-                    "paddle_tpu_torch yet")
+        _check_later(later)
         self.device = resolve_device(device)
         # quantized serving: convert the dense checkpoint before
         # placement (embeddings/norms/lm_head stay dense, so the dtype
-        # the pools take still is the checkpoint's).  None means off.
-        quant = quant or ""
+        # the pools take still is the checkpoint's).  quant off (the
+        # default) leaves the state untouched.
+        if quant is None:
+            quant = str(FLAGS.get("FLAGS_serving_quant") or "")
+        if kv_quant is None:
+            kv_quant = bool(FLAGS.get("FLAGS_serving_kv_quant"))
         if quant not in ("", "int8", "int4"):
             raise ValueError(
                 f"quant must be '', 'int8', or 'int4', got {quant!r}")
@@ -169,6 +206,8 @@ class Engine:
                 "rank= — the runner cannot size the bank (register "
                 "one adapter first, or pass AdapterStore(rank=...))")
         self.config = config
+        # kept for recover(): a rebuilt runner places the same weights
+        self.state = state
         self.max_slots = int(max_slots)
         self.page_size = int(page_size)
         self.max_model_len = int(max_model_len
@@ -187,34 +226,65 @@ class Engine:
             raise ValueError(
                 f"sync_interval must be >= 1, got {sync_interval}")
         self._clock = clock
-        self.prefill_chunk = max(int(prefill_chunk or 0), 0)
+        if spec_k is None:
+            spec_k = int(FLAGS.get("FLAGS_serving_spec_k") or 0)
+        self.spec_k = int(spec_k)
+        if self.spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if self.spec_k:
+            self._proposer = NgramProposer(self.spec_k)
+            self._spec = SpecStats()
+        else:
+            self._proposer = None
+            self._spec = None
+        if prefill_chunk is None:
+            prefill_chunk = int(
+                FLAGS.get("FLAGS_serving_prefill_chunk") or 0)
+        self.prefill_chunk = max(int(prefill_chunk), 0)
+        if preempt is None:
+            preempt = bool(FLAGS.get("FLAGS_serving_preempt"))
+        self.preempt = bool(preempt)
+        # chaos harness: None (the default when FLAGS_serving_fault_plan
+        # is empty) keeps every injection site to a single None test
+        self.faults = fault_plan_from_flags() if faults is None else faults
 
         self.blocks = BlockManager(
             num_pages, self.page_size,
-            enable_prefix_cache=self.enable_prefix_cache)
+            enable_prefix_cache=self.enable_prefix_cache,
+            faults=self.faults)
         # chunked admissions must not be cache-matchable until their KV
         # has actually been written: allocate_seq defers registration
         # past this many fresh tokens and the engine publishes after the
         # last chunk lands
         self.blocks.defer_publish = self.prefill_chunk
         self.scheduler = Scheduler(self.blocks, self.max_slots,
-                                   clock=self._clock)
+                                   clock=self._clock,
+                                   preempt_enabled=self.preempt)
         self.scheduler._finalize = self._finalize
+        # preempt-and-swap: the scheduler picks the victim, the engine
+        # owns the device side (spill exclusive KV pages to the host
+        # tier, release the pages, park the slot)
+        self.scheduler._preempt = self._preempt
         # every eviction parks its slot: a cancel/deadline eviction would
         # otherwise leave the slot's table/pos pointing at freed pages,
         # and the lockstep decode step (which writes KV for every slot)
         # would corrupt them once reallocated
         self.scheduler._on_evict = self._park
 
-        self.runner = ModelRunner(
-            config, state, device=self.device, max_slots=self.max_slots,
+        # the device half; the kwargs are kept so recover() can rebuild
+        # an identical runner after a poisoned step (fresh pools, same
+        # static shapes)
+        self._runner_kw = dict(
+            device=self.device, max_slots=self.max_slots,
             page_size=self.page_size, table_width=self.table_width,
             num_pages=self.blocks.num_pages,
             dump_page=self.blocks.dump_page,
             sync_interval=self.sync_interval,
-            emit_logits=self.emit_logits, kv_quant=self.kv_quant,
+            emit_logits=self.emit_logits, spec_k=self.spec_k,
+            kv_quant=self.kv_quant,
             lora_slots=lora.capacity if lora is not None else 0,
             lora_rank=lora.rank if lora is not None else 0)
+        self.runner = ModelRunner(config, state, **self._runner_kw)
         if lora is not None:
             # bind the store to the bank: resident adapters (if any)
             # upload now; later acquires patch single rows in place
@@ -233,8 +303,10 @@ class Engine:
         self._aidx = np.zeros((self.max_slots,), np.int32)
         self._ring_cursor = 0           # host mirror of the ring index
         # ring rows the host has not consumed yet, in decode order:
-        # [(ring row, [(slot, request), ...]), ...]
-        self._pending: list[tuple[int, list]] = []
+        # [(ring row, [(slot, request), ...], drafts-or-None), ...] —
+        # the third element is the verify step's {slot: draft tokens}
+        # (a verify row syncs immediately, so it is always solitary)
+        self._pending: list[tuple[int, list, dict | None]] = []
         self._last_logits = None        # device tensor, fetched lazily
 
         self.decode_steps = 0       # mirror of serving_decode_steps_total
@@ -244,10 +316,16 @@ class Engine:
         # chunk per engine step — {slot: state dict}
         self._chunking: dict[int, dict] = {}
         self.prefill_chunks = 0     # mirror of serving_prefill_chunks_total
+        self.preemptions = 0        # successful preempt-and-swap spills
+        self.spill_aborts = 0       # preemptions aborted by a failed spill
         # the most prompt tokens prefilled between two decode steps —
         # bounded by prefill_chunk when chunking is on
         self._prefill_since_decode = 0
         self.max_prefill_gap = 0
+        # self-healing mirrors of serving_recovery_total
+        self.recoveries = 0         # runner rebuilds (recover() calls)
+        self.quarantines = 0        # requests failed in place
+        self.replayed_requests = 0  # in-flight requests re-prefilled
         # per-phase wall seconds (mirror of serving_step_phase_seconds_
         # total)
         self.timings = {"prefill_s": 0.0, "decode_s": 0.0,
@@ -275,7 +353,8 @@ class Engine:
             ).set(8 if self.kv_quant else self._embed_itemsize * 8)
             _obs.gauge(
                 "serving_quant_kv_page_bytes",
-                "bytes one KV page pair (k + v + scales) occupies"
+                "bytes one KV page pair (k + v + scales) occupies — "
+                "what each spill/restore moves"
             ).set(self._page_bytes())
         if self.lora is not None:
             _obs.gauge(
@@ -303,7 +382,8 @@ class Engine:
                arrival_time: float | None = None,
                priority: int = 0, adapter: str | None = None) -> Request:
         """Queue one request; ``priority`` sets its scheduling class
-        (higher admits first).  ``adapter`` names a LoRA adapter
+        (higher admits first and, with preemption on, may preempt
+        lower-priority residents).  ``adapter`` names a LoRA adapter
         registered with the engine's AdapterStore (None = dense); its
         bank row is pinned from here to the request's finalize."""
         req = Request(prompt, gen, deadline=deadline, on_token=on_token,
@@ -331,8 +411,10 @@ class Engine:
             raise ValueError(
                 "do_sample requests need an engine built with "
                 "emit_logits=True (host-side sampling reads the logits)")
-        # unknown names KeyError here; a full bank (every row pinned)
-        # RuntimeErrors
+        # pin the adapter's bank row for the request's whole lifetime
+        # (preemption parks KV, never the adapter, so a resume re-enters
+        # decode on the same row).  Unknown names KeyError here; a full
+        # bank (every row pinned) RuntimeErrors.
         req._adapter_row = (self.lora.acquire(req.adapter)
                             if self.lora is not None else 0)
         req._engine = self
@@ -394,47 +476,92 @@ class Engine:
 
     # ----------------------------------------------------------- prefill
     def _prefill(self, slot: int, req: Request):
+        if req.admitted_at is not None:
+            # ledger: queue-wait seconds — every wait (first admission
+            # and each preemption re-queue) sums into the same field
+            req.queue_seconds += max(
+                0.0, req.admitted_at - req._queued_since)
+            req._queued_since = req.admitted_at
+        if req.num_generated:
+            # re-admission of a preempted request: rebuild device KV
+            # from the prefix cache + host spill tier + a re-prefill of
+            # the remainder; no token is emitted
+            self._resume(slot, req)
+            return
         t0 = time.perf_counter()
         ps = self.page_size
         plen = req.prompt.size
         meta = self.blocks.seq_meta(req.id)
         cached = int(meta["cached_len"])
         row = self.blocks.table_row(req.id, self.table_width)
-        if meta["cow_src"] is not None:
-            # copy-on-write: duplicate the matching tail page into this
-            # request's own tail before any writes land there
-            self.runner.copy_page(int(meta["cow_src"]),
-                                  int(row[cached // ps]))
-        req.num_cached_tokens = cached
-        req.prefill_cached_tokens += cached
-        req.prefill_computed_tokens += plen - cached
         if self.prefill_chunk and plen - cached > self.prefill_chunk:
-            # chunked admission: one chunk per engine step so decoding
-            # slots keep stepping in between
+            # chunked admission: CoW once up front, then one chunk per
+            # engine step so decoding slots keep stepping in between
+            try:
+                if meta["cow_src"] is not None:
+                    self.runner.copy_page(int(meta["cow_src"]),
+                                          int(row[cached // ps]))
+            except Exception as e:
+                self._note_phase("prefill", time.perf_counter() - t0)
+                self._quarantine(slot, req, e, self._clock())
+                return
+            req.num_cached_tokens = cached
+            req.prefill_cached_tokens += cached
+            req.prefill_computed_tokens += plen - cached
             self._note_phase("prefill", time.perf_counter() - t0)
             self._begin_chunks(slot, req, req.prompt, cached, row)
             return
-        if cached == 0:
-            bucket = -(-plen // ps) * ps
-            ids = np.zeros((1, bucket), np.int32)
-            ids[0, :plen] = req.prompt
-            logits = self.runner.prefill(ids, plen, row,
-                                         adapter_row=req._adapter_row)
-        else:
-            suffix = plen - cached
-            bucket = -(-suffix // ps) * ps
-            ids = np.zeros((1, bucket), np.int32)
-            ids[0, :suffix] = req.prompt[cached:]
-            logits = self.runner.prefill_cached(
-                ids, suffix, cached, row, adapter_row=req._adapter_row)
-        self._note_gap(plen - cached)
-        _M_HOST_SYNCS.labels("prefill").inc()
-        tok = self._pick_token(req, logits.cpu().numpy()[0])
+        try:
+            if meta["cow_src"] is not None:
+                # copy-on-write: duplicate the matching tail page into
+                # this request's own tail before any writes land there
+                self.runner.copy_page(int(meta["cow_src"]),
+                                      int(row[cached // ps]))
+            if cached == 0:
+                bucket = -(-plen // ps) * ps
+                ids = np.zeros((1, bucket), np.int32)
+                ids[0, :plen] = req.prompt
+                logits = self.runner.prefill(
+                    ids, plen, row, adapter_row=req._adapter_row)
+            else:
+                suffix = plen - cached
+                bucket = -(-suffix // ps) * ps
+                ids = np.zeros((1, bucket), np.int32)
+                ids[0, :suffix] = req.prompt[cached:]
+                logits = self.runner.prefill_cached(
+                    ids, suffix, cached, row,
+                    adapter_row=req._adapter_row)
+            req.num_cached_tokens = cached
+            req.prefill_cached_tokens += cached
+            req.prefill_computed_tokens += plen - cached
+            self._note_gap(plen - cached)
+            _M_HOST_SYNCS.labels("prefill").inc()
+            tok = self._pick_token(req, self._fault_logits(
+                logits.cpu().numpy()[0], req, slot, "prefill"))
+        except Exception as e:
+            # a failed prefill kills ONE request, never the process:
+            # pages release, the slot parks, the batch keeps running
+            self._note_phase("prefill", time.perf_counter() - t0)
+            self._quarantine(slot, req, e, self._clock())
+            return
         now = self._clock()
         self._ttft.observe(now - req.arrival_time)
         self._note_phase("prefill", time.perf_counter() - t0)
         self._enter_decode(slot, req, row, plen, tok)
+        if self._proposer is not None:
+            # seed the drafter with the prompt; emitted tokens extend
+            # the history through _emit
+            self._proposer.register(req.id, req.prompt)
         self._emit(slot, req, tok, now)
+
+    def _fault_logits(self, row: np.ndarray, req: Request, slot: int,
+                      phase: str) -> np.ndarray:
+        """The ``nan_logits`` chaos site: a firing poisons this row."""
+        if (self.faults is not None
+                and self.faults.check("nan_logits", req=req.id, slot=slot,
+                                      phase=phase) is not None):
+            return np.full_like(row, np.nan)
+        return row
 
     # --------------------------------------------------- chunked prefill
     def _note_gap(self, tokens: int):
@@ -445,11 +572,15 @@ class Engine:
             self.max_prefill_gap = self._prefill_since_decode
 
     def _begin_chunks(self, slot: int, req: Request, ids_all, done: int,
-                      row):
-        """Arm chunked prefill for ``slot`` and run its first chunk."""
+                      row, *, resume_tok: int | None = None):
+        """Arm chunked prefill for ``slot`` and run its first chunk.
+        ``resume_tok`` marks a preempted-request resume — the final
+        chunk's logits are discarded and decode re-enters with that
+        token instead of sampling a new one."""
         self._chunking[slot] = {
             "req": req, "ids": np.asarray(ids_all, np.int32).reshape(-1),
-            "done": int(done), "row": row, "chunks": 0}
+            "done": int(done), "row": row, "resume_tok": resume_tok,
+            "chunks": 0}
         self._advance_chunk(slot)
 
     def _advance_chunk(self, slot: int):
@@ -462,39 +593,58 @@ class Engine:
         n = int(ids_all.size)
         done = st["done"]
         this = min(self.prefill_chunk, n - done)
+        last = done + this >= n
         ps = self.page_size
         t0 = time.perf_counter()
-        bucket = -(-this // ps) * ps
-        ids = np.zeros((1, bucket), np.int32)
-        ids[0, :this] = ids_all[done:done + this]
-        if done == 0:
-            logits = self.runner.prefill(ids, this, st["row"],
-                                         adapter_row=req._adapter_row)
-        else:
-            logits = self.runner.prefill_cached(
-                ids, this, done, st["row"], adapter_row=req._adapter_row)
-        st["chunks"] += 1
-        self.prefill_chunks += 1
-        req.prefill_chunks += 1
-        _M_CHUNKS.inc()
-        self._note_gap(this)
-        if done + this < n:
-            st["done"] = done + this
+        try:
+            bucket = -(-this // ps) * ps
+            ids = np.zeros((1, bucket), np.int32)
+            ids[0, :this] = ids_all[done:done + this]
+            if done == 0:
+                logits = self.runner.prefill(
+                    ids, this, st["row"], adapter_row=req._adapter_row)
+            else:
+                logits = self.runner.prefill_cached(
+                    ids, this, done, st["row"],
+                    adapter_row=req._adapter_row)
+            st["chunks"] += 1
+            self.prefill_chunks += 1
+            req.prefill_chunks += 1
+            _M_CHUNKS.inc()
+            self._note_gap(this)
+            if not last:
+                st["done"] = done + this
+                self._note_phase("prefill", time.perf_counter() - t0)
+                return
+            if st["resume_tok"] is None:
+                # admission: the first output token comes from the final
+                # chunk's last-position logits
+                _M_HOST_SYNCS.labels("prefill").inc()
+                tok = self._pick_token(req, self._fault_logits(
+                    logits.cpu().numpy()[0], req, slot, "prefill"))
+            else:
+                # resume: the last emitted token re-enters as the next
+                # decode input; the replay logits are discarded
+                tok = int(st["resume_tok"])
+        except Exception as e:
             self._note_phase("prefill", time.perf_counter() - t0)
+            self._chunking.pop(slot, None)
+            self._quarantine(slot, req, e, self._clock())
             return
-        # admission: the first output token comes from the final chunk's
-        # last-position logits
-        _M_HOST_SYNCS.labels("prefill").inc()
-        tok = self._pick_token(req, logits.cpu().numpy()[0])
-        self._chunking.pop(slot)
+        self._chunking.pop(slot, None)
         # the full chunked prefix is device-resident now — register it
         # in the prefix-cache chain (deferred at allocate_seq)
         self.blocks.publish_seq(req.id, ids_all, adapter=req.adapter)
         now = self._clock()
         self._note_phase("prefill", time.perf_counter() - t0)
         self._enter_decode(slot, req, st["row"], n, tok)
-        self._ttft.observe(now - req.arrival_time)
-        self._emit(slot, req, tok, now)
+        if st["resume_tok"] is None:
+            self._ttft.observe(now - req.arrival_time)
+            if self._proposer is not None:
+                self._proposer.register(req.id, req.prompt)
+            self._emit(slot, req, tok, now)
+        elif self._proposer is not None:
+            self._proposer.register(req.id, np.append(ids_all, tok))
 
     def _enter_decode(self, slot: int, req: Request, row, pos: int,
                       tok: int):
@@ -508,9 +658,152 @@ class Engine:
         self._push_slot(slot)
         req.state = RequestState.DECODE
 
+    # -------------------------------------------------------- preemption
+    def _preempt(self, slot: int) -> bool:
+        """Scheduler callback behind preempt-and-swap: spill ``slot``'s
+        exclusive committed KV pages to the BlockManager host tier,
+        release its pages (complete chunks re-register in the prefix-
+        cache chain when the cache is on), and park the slot.  Returns
+        False — victim untouched, preemption aborted — when a page copy
+        fails (the ``spill_fail`` chaos site); parked copies from the
+        aborted attempt are discarded, so the pool census stays exact."""
+        req = self.scheduler.slots[slot]
+        if req is None or req.state != RequestState.DECODE:
+            return False
+        tokens = req.resume_tokens()
+        parked: list[str] = []
+        for page, digest in self.blocks.spill_plan(req.id, tokens,
+                                                   req.adapter):
+            if (self.faults is not None
+                    and self.faults.check("spill_fail", req=req.id,
+                                          page=page) is not None):
+                self.blocks.host_discard(parked)
+                self.spill_aborts += 1
+                return False
+            arrays = self.runner.read_page(page)
+            self.blocks.host_put(digest, *arrays)
+            # ledger: charged per page parked, mirroring host_put's
+            # global counters (an abort on a LATER page keeps both) —
+            # int8 pages park (k, v, kscale, vscale)
+            req.spilled_pages += 1
+            req.spill_bytes += sum(a.nbytes for a in arrays)
+            parked.append(digest)
+        self.blocks.release_preempted(req.id, tokens, adapter=req.adapter)
+        self._park(slot)
+        # the victim's unsynced ring rows die with its slot: the resume
+        # recomputes those tokens, and a resume before the next sync
+        # must not emit them as well (the reference keeps the rows, and
+        # emits them again when the victim is back in DECODE by then)
+        self._pending = [(ridx, [(s, r) for s, r in entries if r is not req],
+                          drafts) for ridx, entries, drafts in self._pending]
+        self.preemptions += 1
+        # back to the queue: the ledger's queue-wait anchor restarts so
+        # queue_seconds sums this wait too
+        req._queued_since = self._clock()
+        if self._proposer is not None:
+            self._proposer.drop(req.id)  # resume re-registers history
+        return True
+
+    def _resume(self, slot: int, req: Request):
+        """Re-admit a preempted request.  Its effective prompt is
+        prompt + generated-so-far; device KV rebuilds from, in order,
+        the prefix-cache match recorded at allocate_seq, the host spill
+        tier (page-granular, content-addressed), and a re-prefill of
+        whatever remains — then decode continues with the last emitted
+        token as the next input, token-for-token identical to an
+        uninterrupted greedy run."""
+        t0 = time.perf_counter()
+        ps = self.page_size
+        tokens = req.resume_tokens()
+        ids_all = tokens[:-1]
+        n = int(ids_all.size)
+        meta = self.blocks.seq_meta(req.id)
+        # ledger: the uncapped match length is what allocate_seq added
+        # to the global cached_tokens counter for this resume
+        req.prefill_cached_tokens += int(meta["cached_len"])
+        cached = min(int(meta["cached_len"]), n)
+        row = self.blocks.table_row(req.id, self.table_width)
+        try:
+            if meta["cow_src"] is not None:
+                # tail CoW page from the admission match: duplicate it
+                # before any writes land (same rule as fresh admission)
+                self.runner.copy_page(int(meta["cow_src"]),
+                                      int(row[cached // ps]))
+            else:
+                # host-tier unpark: extend coverage page by page past
+                # the cache match while parked complete chunks exist
+                while cached % ps == 0 and cached + ps <= n:
+                    c = cached // ps
+                    entry = self.blocks.host_get(self.blocks.spill_digest(
+                        tokens, c, req.adapter))
+                    if entry is None:
+                        break
+                    self.runner.write_page(int(row[c]), *entry)
+                    self.blocks.note_restored()
+                    req.restored_pages += 1
+                    req.restore_bytes += sum(a.nbytes for a in entry)
+                    cached += ps
+        except Exception as e:
+            self._note_phase("prefill", time.perf_counter() - t0)
+            self._quarantine(slot, req, e, self._clock())
+            return
+        suffix = n - cached
+        tok = int(tokens[-1])
+        # ledger: the re-prefilled remainder runs on the device (chunked
+        # or single-shot alike)
+        req.prefill_computed_tokens += suffix
+        if self.prefill_chunk and suffix > self.prefill_chunk:
+            # a long replay suffix chunks exactly like a long prompt
+            self._note_phase("prefill", time.perf_counter() - t0)
+            self._begin_chunks(slot, req, ids_all, cached, row,
+                               resume_tok=tok)
+            return
+        try:
+            if suffix > 0:
+                bucket = -(-suffix // ps) * ps
+                ids = np.zeros((1, bucket), np.int32)
+                ids[0, :suffix] = ids_all[cached:]
+                if cached == 0:
+                    self.runner.prefill(ids, suffix, row,
+                                        adapter_row=req._adapter_row)
+                else:
+                    self.runner.prefill_cached(
+                        ids, suffix, cached, row,
+                        adapter_row=req._adapter_row)
+                self._note_gap(suffix)
+            # the resume logits are discarded (the last token is
+            # already known) — no host sync happens here
+        except Exception as e:
+            self._note_phase("prefill", time.perf_counter() - t0)
+            self._quarantine(slot, req, e, self._clock())
+            return
+        # allocate_seq defers on plen while the chunk test above uses
+        # the replay suffix, so a resume can be deferred yet single-shot
+        # — publish here too (no-op when registration wasn't deferred)
+        self.blocks.publish_seq(req.id, ids_all, adapter=req.adapter)
+        self._note_phase("prefill", time.perf_counter() - t0)
+        self._enter_decode(slot, req, row, n, tok)
+        if self._proposer is not None:
+            self._proposer.register(req.id, tokens)
+
     # ------------------------------------------------------------ decode
     def _decode(self, active: list[int]):
+        if self.faults is not None:
+            f = self.faults.check("slow_step", step=self.decode_steps)
+            if f is not None:
+                time.sleep(float(f.get("seconds", 0.05)))
+            # raise BEFORE any dispatch, so recovery sees a consistent
+            # host mirror
+            if self.faults.check("step_raise",
+                                 step=self.decode_steps) is not None:
+                raise InjectedFault(
+                    f"injected poisoned decode step "
+                    f"(step {self.decode_steps})")
         reqs = [(s, self.scheduler.slots[s]) for s in active]
+        drafts = self._propose(reqs)
+        if drafts:
+            self._decode_spec(reqs, drafts)
+            return
         step_t0 = time.perf_counter()
         logits = self.runner.decode_step()
         self._note_phase("decode", time.perf_counter() - step_t0)
@@ -520,7 +813,7 @@ class Engine:
         self._pages_hist.observe(self.blocks.pages_in_use)
         for slot in active:
             self._pos[slot] += 1            # mirror of pos + active
-        self._pending.append((self._ring_cursor, reqs))
+        self._pending.append((self._ring_cursor, reqs, None))
         self._ring_cursor = (self._ring_cursor + 1) % self.sync_interval
         self._last_logits = logits
         # any active sampling request needs its token fed back before
@@ -530,6 +823,58 @@ class Engine:
         if len(self._pending) >= eff:
             self._sync()
 
+    def _propose(self, reqs) -> dict:
+        """Collect this step's drafts: ``{slot: [tokens]}``.  Empty —
+        take the plain step — when speculation is off, when unsynced
+        ring rows are outstanding (the drafter indexes only tokens the
+        host has seen; a verify step always syncs immediately, so the
+        mirrors it needs are exact), or when an active request samples
+        (greedy verification only)."""
+        if (self._proposer is None or self._pending
+                or any(r.gen.do_sample for _, r in reqs)):
+            return {}
+        drafts = {}
+        for slot, req in reqs:
+            # cap so even a fully-accepted draft commits at most the
+            # tokens the request may still emit, keeping every KV write
+            # inside the admission reservation
+            cap = req.gen.max_new_tokens - req.num_generated - 1
+            if cap <= 0:
+                continue
+            ds = self._proposer.propose(req.id, cap)
+            if ds:
+                drafts[slot] = ds
+        return drafts
+
+    def _decode_spec(self, reqs, drafts: dict):
+        """One verify step: upload the draft grid, score k+1 positions
+        per slot, then sync immediately — acceptance needs the ring row
+        before the next proposal anyway, and the step commits up to k+1
+        tokens, so the sync amortizes like deferred plain steps."""
+        draft_arr = np.zeros((self.max_slots, self.spec_k), np.int32)
+        dlen = np.zeros((self.max_slots,), np.int32)
+        for slot, ds in drafts.items():
+            draft_arr[slot, :len(ds)] = ds
+            dlen[slot] = len(ds)
+        step_t0 = time.perf_counter()
+        self.runner.verify_step(draft_arr, dlen)
+        self._note_phase("decode", time.perf_counter() - step_t0)
+        self.decode_steps += 1
+        self._prefill_since_decode = 0      # gap witness: decode ran
+        _M_STEPS.inc()
+        self._spec.record_step()
+        self._pages_hist.observe(self.blocks.pages_in_use)
+        # speculative multi-token append: charge the whole candidate
+        # span now; the rejected suffix rolls back at the sync below
+        for slot, req in reqs:
+            ds = drafts.get(slot)
+            if ds:
+                self.blocks.append(req.id, len(ds) + 1)
+        self._pending.append((self._ring_cursor, reqs, drafts))
+        self._ring_cursor = (self._ring_cursor + 1) % self.sync_interval
+        self._last_logits = None
+        self._sync()
+
     def _sync(self):
         """Drain the device token ring: ONE [sync_interval, slots] int32
         transfer covers every decode step since the previous sync."""
@@ -538,15 +883,38 @@ class Engine:
         self.host_syncs += 1
         self._note_phase("host_sync", time.perf_counter() - sync_t0)
         _M_HOST_SYNCS.labels("ring").inc()
+        # wide-ring rows: [slots, k+1] candidate grids (speculation on);
+        # narrow rows: [slots] sampled tokens.  Re-derive each verify
+        # row's acceptance from the drafts the host already holds — the
+        # same integer comparison the device ran, no extra transfer.
+        wide = ring.ndim == 3
+        accepted: dict[int, tuple[int, int]] = {}
+        for ridx, entries, drafts in self._pending:
+            if drafts is None:
+                continue
+            for slot, req in entries:
+                if req.is_finished() or req.state != RequestState.DECODE:
+                    continue
+                a = 0
+                for j, d in enumerate(drafts.get(slot, ())):
+                    if int(ring[ridx, slot, j]) != int(d):
+                        break
+                    a += 1
+                accepted[slot] = (len(drafts.get(slot, ())), a)
         logits_np = None
         now = self._clock()
         n_rows = len(self._pending)
         corrections = []
-        for row_i, (ridx, entries) in enumerate(self._pending):
+        for row_i, (ridx, entries, drafts) in enumerate(self._pending):
             for slot, req in entries:
                 if req.is_finished() or req.state != RequestState.DECODE:
                     continue        # evicted/finished: overrun discarded
-                tok = raw = int(ring[ridx, slot])
+                if drafts is not None:
+                    self._accept(slot, req, ring[ridx, slot],
+                                 *accepted[slot], now)
+                    continue
+                tok = raw = int(ring[ridx, slot, 0]) if wide \
+                    else int(ring[ridx, slot])
                 if req.gen.do_sample:
                     # sampling rows only exist under eff-interval 1, so
                     # the step's logits are always the right row
@@ -554,7 +922,14 @@ class Engine:
                         logits_np = self._last_logits.cpu().numpy()
                         self.logit_fetches += 1
                         _M_HOST_SYNCS.labels("logits").inc()
-                    tok = self._pick_token(req, logits_np[slot])
+                    try:
+                        tok = self._pick_token(req, self._fault_logits(
+                            logits_np[slot], req, slot, "decode"))
+                    except NonFiniteLogitsError as e:
+                        # fail ONLY the offending request — the other
+                        # slots in this sync keep their tokens
+                        self._quarantine(slot, req, e, now)
+                        continue
                     if tok != raw:
                         corrections.append((slot, tok))
                 prev = req.last_token_at
@@ -568,6 +943,35 @@ class Engine:
         if corrections:
             self.runner.correct_tokens(corrections)
 
+    def _accept(self, slot: int, req: Request, row, proposed: int,
+                a: int, now: float):
+        """Commit one verify-row slot: roll back the rejected draft
+        suffix (the ledger then charges pages for accepted tokens
+        only), advance the pos mirror by the accepted prefix + the
+        correction/bonus token, and emit those ``a + 1`` tokens in
+        order — stopping at max_new/EOS exactly where sequential decode
+        would have stopped."""
+        if proposed:
+            self.blocks.rollback(req.id, proposed - a)
+            self._spec.record(proposed, a)
+            req.spec_proposed_tokens += proposed
+            req.spec_accepted_tokens += a
+        self._pos[slot] += a + 1        # mirror of pos + (acc+1)*active
+        prev = req.last_token_at
+        dt = None if prev is None else (now - prev) / (a + 1)
+        for j in range(a + 1):
+            tok = int(row[j])
+            if dt is not None:
+                # one verify step emitted a+1 tokens: spread the
+                # interval so TPOT keeps per-token semantics
+                self._tpot.observe(dt)
+            self._tok[slot] = tok
+            # drafted slots were charged up front at dispatch;
+            # ride-along slots (no draft) charge per emit as usual
+            self._emit(slot, req, tok, now, charge=proposed == 0)
+            if req.is_finished():
+                break
+
     def _note_phase(self, phase: str, seconds: float):
         """Charge engine wall time to a phase (the per-engine mirror and
         the serving_step_phase_seconds_total counter)."""
@@ -575,11 +979,17 @@ class Engine:
         self.timings[phase + "_s"] += seconds
         _M_PHASE_SECONDS.labels(phase).inc(seconds)
 
-    def _emit(self, slot: int, req: Request, tok: int, now: float):
+    def _emit(self, slot: int, req: Request, tok: int, now: float,
+              charge: bool = True):
         req._emit(tok, now)
         _M_TOKENS.inc()
-        # committed-token ledger: one durable token per emit
-        self.blocks.append(req.id, 1)
+        if charge:
+            # committed-token ledger: one durable token per emit (the
+            # speculative path charges its whole span at dispatch and
+            # rolls the rejected suffix back instead)
+            self.blocks.append(req.id, 1)
+        if self._proposer is not None:
+            self._proposer.extend(req.id, tok)
         eos = req.gen.eos_token_id
         if req.num_generated >= req.gen.max_new_tokens:
             self._finalize(req, "length", now)
@@ -658,14 +1068,130 @@ class Engine:
             # resident until LRU pressure evicts them
             self.lora.release(req.adapter)
         self._rngs.pop(req.id, None)
+        if self._proposer is not None:
+            self._proposer.drop(req.id)
         self._e2e.observe(now - req.arrival_time)
         _M_REQUESTS.labels(reason).inc()
         _M_FINISH.labels(reason).inc()
 
+    # -------------------------------------------------------- self-healing
+    def _quarantine(self, slot: int, req: Request, why, now: float):
+        """Fail ONE request in place: finish_reason='error', pages
+        released, slot parked — the batch keeps running.  The failure
+        detail lands on ``req.error``."""
+        req.error = str(why)
+        self.quarantines += 1
+        _M_RECOVERY.labels("quarantine").inc()
+        self._finalize(req, "error", now)
+        self.scheduler.evict(slot, "error", now)
+
+    def recover(self) -> dict:
+        """Rebuild the ModelRunner after a poisoned step and replay
+        every in-flight request.
+
+        The BlockManager is entirely host-side, so page ownership, block
+        tables and the committed-token ledger all survive — only the
+        device KV *content* is gone.  Each DECODE-state request re-runs
+        its committed tokens (prompt + generated so far, minus the last
+        token, which re-enters as the next decode input) through the
+        prefill path; the prefix-cache chain is flushed first (it
+        described dead KV) and re-registered by the replays themselves,
+        so sequences sharing prefix pages replay the shared part once.
+        Requests that cannot be replayed are quarantined.  The dead
+        runner's pools are freed before the new runner allocates its
+        own, so a full-size pool is never held twice.  Typically called
+        by the :class:`~.supervisor.EngineSupervisor`, not user code."""
+        now = self._clock()
+        # drop un-synced device state: the ring rows and logits belong
+        # to the dead runner (the pos mirrors they would have advanced
+        # are recomputed from request state below)
+        self._pending.clear()
+        self._ring_cursor = 0
+        self._last_logits = None
+        flushed = self.blocks.flush_prefix_cache()
+        # on a failed rebuild the released runner stays in place: its
+        # decode-state rows still take the quarantines' slot parks
+        self.runner.release()
+        self.runner = ModelRunner(self.config, self.state,
+                                  **self._runner_kw)
+        if self.lora is not None:
+            # the fresh runner's bank is zeroed — re-upload every
+            # resident adapter before any replayed prefill reads it
+            self.lora.attach(self.runner)
+        replayed = 0
+        for slot, req in enumerate(self.scheduler.slots):
+            if req is None:
+                self._park(slot)        # sync the fresh decode state
+                continue
+            if req.state != RequestState.DECODE or not req.output_tokens:
+                self._quarantine(slot, req,
+                                 "not replayable at runner rebuild", now)
+                continue
+            try:
+                self._replay(slot, req)
+                replayed += 1
+                self.replayed_requests += 1
+            except Exception as e:
+                self._quarantine(slot, req, f"replay failed: {e}", now)
+        self.recoveries += 1
+        return {"replayed": replayed, "flushed_cached_pages": flushed}
+
+    def _replay(self, slot: int, req: Request):
+        """Re-prefill one in-flight request's committed tokens into the
+        rebuilt runner.  Restores the decode invariant exactly: device
+        KV covers positions ``0..pos-1`` where ``pos = prompt +
+        generated - 1``, and the last generated token re-enters as the
+        next step's input — decode then continues token-for-token as if
+        the fault never happened."""
+        t0 = time.perf_counter()
+        tokens = [int(t) for t in req.prompt] + list(req.output_tokens)
+        ids_all = tokens[:-1]
+        n = len(ids_all)
+        plan = self.blocks.replay_plan(req.id, ids_all, adapter=req.adapter)
+        cached = int(plan["cached_len"])
+        # ledger: recovery replays re-run committed tokens; the cache
+        # match mirrors replay_plan's global cached_tokens bump
+        req.replays += 1
+        req.prefill_cached_tokens += cached
+        req.prefill_computed_tokens += n - cached
+        row = self.blocks.table_row(req.id, self.table_width)
+        ps = self.page_size
+        if cached == 0:
+            bucket = -(-n // ps) * ps
+            ids = np.zeros((1, bucket), np.int32)
+            ids[0, :n] = ids_all
+            self.runner.prefill(ids, n, row, adapter_row=req._adapter_row)
+        else:
+            suffix = n - cached
+            bucket = -(-suffix // ps) * ps
+            ids = np.zeros((1, bucket), np.int32)
+            ids[0, :suffix] = ids_all[cached:]
+            self.runner.prefill_cached(ids, suffix, cached, row,
+                                       adapter_row=req._adapter_row)
+        # the replay's logits are discarded (the last token is already
+        # known), so no host sync happens here
+        drift = self.blocks.committed_tokens(req.id) - len(tokens)
+        if drift > 0:
+            # a fault between a speculative dispatch and its sync left
+            # uncommitted draft positions charged — roll them back
+            self.blocks.rollback(req.id, drift)
+        self.table[slot] = row
+        self._pos[slot] = n
+        self._tok[slot] = tokens[-1]
+        self._active[slot] = 1
+        self._aidx[slot] = req._adapter_row
+        self._push_slot(slot)
+        self._note_phase("prefill", time.perf_counter() - t0)
+
     # -------------------------------------------------------------- info
     def stats(self) -> dict:
         b = self.blocks
+        spec = {"spec_k": self.spec_k,
+                "verify_traces": self.runner.verify_traces}
+        if self._spec is not None:
+            spec.update(self._spec.snapshot())
         return {
+            **spec,
             "queued": len(self.scheduler.queue),
             "active": self.scheduler.active_count,
             "pages_in_use": b.pages_in_use,
@@ -687,6 +1213,12 @@ class Engine:
             "prefill_chunk": self.prefill_chunk,
             "prefill_chunks": self.prefill_chunks,
             "max_prefill_gap": self.max_prefill_gap,
+            "preemptions": self.preemptions,
+            "spill_aborts": self.spill_aborts,
+            "spilled_pages": b.spilled_pages,
+            "restored_pages": b.restored_pages,
+            "spill_bytes": b.spill_bytes,
+            "host_parked_pages": b.host_parked,
             "mesh_tp": 1,
             "quant": self.quant,
             "kv_quant": self.kv_quant,
@@ -694,13 +1226,19 @@ class Engine:
                      if self.lora is not None else None),
             "timings": {k: round(v, 6) for k, v in self.timings.items()},
             "progress": self.progress,
+            "recoveries": self.recoveries,
+            "quarantines": self.quarantines,
+            "replayed_requests": self.replayed_requests,
+            "faults_injected": (dict(self.faults.injected)
+                                if self.faults is not None else {}),
         }
 
     def _page_bytes(self, *, dense: bool = False) -> int:
         """Bytes one KV page pair (k + v, all layers and heads)
-        occupies: under ``kv_quant`` the int8 elements plus the
-        per-(page-row, head) f32 scale rows; ``dense=True`` prices the
-        same page at the checkpoint dtype (the savings baseline)."""
+        occupies — the unit every spill/restore moves.  Under
+        ``kv_quant`` that is the int8 elements plus the per-(page-row,
+        head) f32 scale rows; ``dense=True`` prices the same page at the
+        checkpoint dtype (the savings baseline)."""
         cfg = self.config
         rows = (cfg.num_hidden_layers * cfg.num_key_value_heads
                 * self.page_size)
@@ -710,13 +1248,19 @@ class Engine:
         return 2 * elems * self._embed_itemsize
 
     def quant_snapshot(self) -> dict:
-        """What is quantized and the per-page byte math (the spill-tier
-        figures of the reference come with preemption)."""
+        """What is quantized, the per-page byte math, and the spill-tier
+        bytes against what the same traffic would have moved with dense
+        pages."""
+        b = self.blocks
+        dense_page = self._page_bytes(dense=True)
         return {
             "weight_kind": self.quant or "dense",
             "kv_quant": self.kv_quant,
             "page_bytes": self._page_bytes(),
-            "dense_page_bytes": self._page_bytes(dense=True),
+            "dense_page_bytes": dense_page,
+            "spilled_pages": b.spilled_pages,
+            "spill_bytes": b.spill_bytes,
+            "spill_bytes_dense_estimate": b.spilled_pages * dense_page,
         }
 
     def lora_snapshot(self) -> dict:
@@ -750,7 +1294,9 @@ def create_engine(config: LlamaConfig, state: dict, *, device=None,
                   emit_logits: bool = False,
                   enable_prefix_cache: bool = False,
                   sync_interval: int = 1, clock=time.monotonic,
+                  spec_k: int | None = None,
                   prefill_chunk: int | None = None,
+                  preempt: bool | None = None, faults=None,
                   quant: str | None = None, kv_quant: bool | None = None,
                   lora=None, **later) -> Engine:
     """Build a continuous-batching engine over a Llama state dict (see
@@ -761,8 +1307,15 @@ def create_engine(config: LlamaConfig, state: dict, *, device=None,
     ``device="cpu"`` runs every kernel's plain PyTorch version.
     ``enable_prefix_cache=True`` turns on automatic prefix caching;
     ``sync_interval=N`` lets the greedy decode loop run N device steps
-    between host syncs; ``prefill_chunk=N`` splits admission prefill
-    into N-token chunks interleaved with decode steps.  ``quant``
+    between host syncs; ``prefill_chunk=N`` (default
+    ``FLAGS_serving_prefill_chunk``) splits admission prefill into
+    N-token chunks interleaved with decode steps.  ``spec_k=K`` (default
+    ``FLAGS_serving_spec_k``) turns on speculative decoding: the n-gram
+    drafter proposes up to K tokens per slot and one verify step scores
+    all K+1 positions — greedy outputs are identical to ``spec_k=0``.
+    ``preempt`` (default ``FLAGS_serving_preempt``, True) enables
+    priority preempt-and-swap.  ``faults`` takes a :class:`FaultPlan`
+    (default: ``FLAGS_serving_fault_plan``, empty = none).  ``quant``
     ("int8"/"int4") quantizes the projection weights, ``kv_quant=True``
     the KV pages, and ``lora`` takes an :class:`AdapterStore` (requests
     then pick an adapter with ``submit(..., adapter=name)``).
@@ -770,7 +1323,8 @@ def create_engine(config: LlamaConfig, state: dict, *, device=None,
     Example::
 
         engine = create_engine(llama3_8b(), state, max_slots=8,
-                               enable_prefix_cache=True, sync_interval=8)
+                               enable_prefix_cache=True, sync_interval=8,
+                               spec_k=4)
         req = engine.submit([1, 2, 3], GenerationConfig(max_new_tokens=32))
         for tok in req.stream():
             ...
@@ -780,6 +1334,7 @@ def create_engine(config: LlamaConfig, state: dict, *, device=None,
                   num_pages=num_pages, max_model_len=max_model_len,
                   emit_logits=emit_logits,
                   enable_prefix_cache=enable_prefix_cache,
-                  sync_interval=sync_interval, clock=clock,
-                  prefill_chunk=prefill_chunk, quant=quant,
-                  kv_quant=kv_quant, lora=lora, **later)
+                  sync_interval=sync_interval, clock=clock, spec_k=spec_k,
+                  prefill_chunk=prefill_chunk, preempt=preempt,
+                  faults=faults, quant=quant, kv_quant=kv_quant, lora=lora,
+                  **later)

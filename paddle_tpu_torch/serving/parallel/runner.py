@@ -5,17 +5,20 @@ Ports the ``tp == 1`` branch of
 owns the state dict on its device, the paged KV pools, the rope tables,
 the device-resident decode state (table/pos/tok/active + the
 sampled-token ring) and the programs the engine calls through a narrow
-seam: :meth:`decode_step`, :meth:`prefill`, :meth:`prefill_cached`,
-:meth:`copy_page`, :meth:`push_slot`, :meth:`fetch_ring`,
+seam: :meth:`decode_step`, :meth:`verify_step`, :meth:`prefill`,
+:meth:`prefill_cached`, :meth:`copy_page`, :meth:`read_page`,
+:meth:`write_page`, :meth:`push_slot`, :meth:`fetch_ring`,
 :meth:`correct_tokens`.
 
 The KV pools ``[L, num_pages + 1, kvH, page_size, D]`` (the extra row
 is the dump page) are updated IN PLACE by prefill, decode and the CoW
 page copy; the reference threads them functionally through donated jit
 arguments.  PyTorch runs eagerly, so there is no trace to count:
-``decode_traces`` counts builds of the decode-step program — one per
-runner, the reference's "one decode trace per engine" — so ``stats()``
-stays comparable.  Decode attention runs the CUDA paged kernel and full
+``decode_traces`` counts first calls of a built decode-step or verify
+program (the moment the reference traces its jit) — one per runner, two
+with speculation, as the reference's — so ``stats()`` stays comparable,
+and ``verify_traces`` the verify program's.  Decode attention runs the
+CUDA paged kernel (the verify step too, at slots x (k+1) rows) and full
 prefill the CUDA masked flash forward (through ``sdpa``); the cached-
 suffix prefill's arbitrary bool mask runs plain PyTorch attention, as
 it runs XLA on the TPU.
@@ -36,8 +39,10 @@ The serving modes:
     request's scalar row (plain matmuls).
 
 Off modes (dense weights, ``kv_quant=False``, ``lora_slots=0``) run the
-dense path unchanged.  ``read_page``/``write_page`` come with
-preemption (ROADMAP queue 1, serving engine: the rest at tp=1).
+dense path unchanged.  ``spec_k > 0`` adds the verify program and widens
+the ring to ``[sync_interval, slots, k+1]``.  ``read_page`` returns CPU
+tensors (numpy has no bfloat16); the host spill tier keeps them as
+they are.
 """
 from __future__ import annotations
 
@@ -59,8 +64,12 @@ __all__ = ["ModelRunner"]
 
 _M_STEP_TRACES = _obs.counter(
     "serving_decode_step_traces_total",
-    "decode-step program builds — continuous batching keeps this at 1 "
-    "per engine; growth means admissions are rebuilding the step")
+    "decode-step programs first run — continuous batching keeps this at "
+    "1 per engine (2 with speculative decoding: the plain step + the "
+    "verify program); growth means admissions are rebuilding the step")
+_M_VERIFY_TRACES = _obs.counter(
+    "serving_spec_verify_traces_total",
+    "verify programs first run — exactly 1 per speculative engine")
 _M_PREFILL_TRACES = _obs.counter(
     "serving_prefill_traces_total",
     "prefill programs first used, one per prompt-length bucket",
@@ -73,8 +82,9 @@ class ModelRunner:
     def __init__(self, config, state: dict, *, device: torch.device,
                  max_slots: int, page_size: int, table_width: int,
                  num_pages: int, dump_page: int, sync_interval: int = 1,
-                 emit_logits: bool = False, kv_quant: bool = False,
-                 lora_slots: int = 0, lora_rank: int = 0):
+                 emit_logits: bool = False, spec_k: int = 0,
+                 kv_quant: bool = False, lora_slots: int = 0,
+                 lora_rank: int = 0):
         self.config = config
         self.device = device
         self.max_slots = int(max_slots)
@@ -84,6 +94,7 @@ class ModelRunner:
         self.dump_page = int(dump_page)
         self.sync_interval = int(sync_interval)
         self.emit_logits = bool(emit_logits)
+        self.spec_k = int(spec_k)
         self.kv_quant = bool(kv_quant)
         self.lora_slots = int(lora_slots)
         self.lora_rank = int(lora_rank)
@@ -121,12 +132,19 @@ class ModelRunner:
         # per-slot adapter bank rows (None when off)
         self._aidx_dev = (torch.zeros((self.max_slots,), **i32)
                           if self.lora_slots else None)
-        self._ring_dev = torch.zeros((self.sync_interval, self.max_slots),
-                                     **i32)
+        # with speculation the ring rows are WIDE ([slots, k+1]: a verify
+        # step deposits every candidate token; the plain step uses column
+        # 0) so the host sync stays ONE transfer either way
+        ring_shape = ((self.sync_interval, self.max_slots)
+                      if self.spec_k == 0 else
+                      (self.sync_interval, self.max_slots, self.spec_k + 1))
+        self._ring_dev = torch.zeros(ring_shape, **i32)
         self._ridx = 0              # ring row the next step writes
 
         self.decode_traces = 0      # python mirror of _M_STEP_TRACES
+        self.verify_traces = 0      # python mirror of _M_VERIFY_TRACES
         self._step_fn = self._build_step()
+        self._verify_fn = self._build_verify() if self.spec_k else None
         self.prefill_buckets: set[int] = set()
         self.cached_prefill_buckets: set[int] = set()
 
@@ -207,49 +225,137 @@ class ModelRunner:
         return sum(t.numel() * t.element_size() for t in leaves)
 
     # ------------------------------------------------------------ programs
+    def _first_run(self, verify: bool = False):
+        """Count a built program's first run (the reference traces its
+        jit then): the plain step and the verify program each add one
+        to ``decode_traces``, the verify program to ``verify_traces``."""
+        self.decode_traces += 1
+        _M_STEP_TRACES.inc()
+        if verify:
+            self.verify_traces += 1
+            _M_VERIFY_TRACES.inc()
+
+    def _layers(self, h, table, cos1, sin1, posc, aidx):
+        """Every decoder layer of one paged decode batch: ``h`` [B, H],
+        one token per row at position ``posc`` through ``table``
+        [B, W]; the pools update in place (KV written at ``posc``, then
+        attention with lens ``posc + 1``)."""
+        cfg, lora = self.config, self.lora
+        for i in range(cfg.num_hidden_layers):
+            w = _layer_weights(self.state, i)
+            if self.kv_quant:
+                h = decode_layer_paged_quant(
+                    w, h, self.kpool[i], self.vpool[i], self.kscale[i],
+                    self.vscale[i], table, cos1, sin1, posc, cfg, None,
+                    lora, aidx, i)
+            else:
+                h = _decode_layer_paged(
+                    w, h, self.kpool[i], self.vpool[i], table, cos1, sin1,
+                    posc, cfg, lora, aidx, i)
+        h = _rms(h, self.state["llama.norm.weight"], cfg.rms_norm_eps)
+        return _logits_of(self.state, h).float()
+
     def _build_step(self):
         """The lockstep decode step over every slot.  Slot occupancy,
         positions and tables are data, so one build serves the engine's
         whole life."""
-        self.decode_traces += 1
-        _M_STEP_TRACES.inc()
-        cfg = self.config
-        L = cfg.num_hidden_layers
         rope_len = self._rope_len
-        state = self.state
+        fresh = [True]
+        wide_ring = self.spec_k > 0
 
         @torch.no_grad()
         def step():
+            if fresh[0]:
+                fresh[0] = False
+                self._first_run()
             # a finished slot keeps decoding until the next host sync
             # (deferred-sync overrun); clamp so its rope/table lookups
             # stay in range — overrun writes land in the slot's own
             # reserved tail or the dump page, never another sequence
             posc = self._pos_dev.clamp(max=rope_len - 1)
-            h = state["llama.embed_tokens.weight"][self._tok_dev.long()]
+            h = self.state["llama.embed_tokens.weight"][
+                self._tok_dev.long()]
             cos1, sin1 = _rope_at(self._cos, self._sin, posc.long())
-            lora, aidx = self.lora, self._aidx_dev
-            for i in range(L):
-                w = _layer_weights(state, i)
-                if self.kv_quant:
-                    h = decode_layer_paged_quant(
-                        w, h, self.kpool[i], self.vpool[i], self.kscale[i],
-                        self.vscale[i], self._table_dev, cos1, sin1, posc,
-                        cfg, None, lora, aidx, i)
-                else:
-                    h = _decode_layer_paged(
-                        w, h, self.kpool[i], self.vpool[i], self._table_dev,
-                        cos1, sin1, posc, cfg, lora, aidx, i)
-            h = _rms(h, state["llama.norm.weight"], cfg.rms_norm_eps)
-            logits = _logits_of(state, h).float()
+            logits = self._layers(h, self._table_dev, cos1, sin1, posc,
+                                  self._aidx_dev)
             nxt = logits.argmax(dim=-1).to(torch.int32)
             self._pos_dev += self._active_dev      # idle slots stay parked
             self._tok_dev = torch.where(self._active_dev.bool(), nxt,
                                         self._tok_dev)
-            self._ring_dev[self._ridx] = nxt
+            if wide_ring:
+                self._ring_dev[self._ridx, :, 0] = nxt
+            else:
+                self._ring_dev[self._ridx] = nxt
             self._ridx = (self._ridx + 1) % self.sync_interval
             return logits
 
         return step
+
+    def _build_verify(self):
+        """The speculative verify program: score ``k+1`` candidate
+        positions per slot in ONE step.
+
+        The ``[slots, k+1]`` token grid (the slot's current token + its
+        ``k`` draft tokens) flattens to a ``[slots*(k+1)]`` batch that
+        runs the SAME paged decode layers as the plain step, so the
+        paged attention kernel runs once per layer at slots x (k+1)
+        rows, each slot's rows sharing its table row.  Every row writes
+        its token's KV at ``pos + j`` first, then attends with ``lens =
+        pos + j + 1``: row ``j`` sees exactly the prefix a sequential
+        decode would have seen (its own slot's writes ``j' <= j``; later
+        rows' writes sit past ``lens``, and rejected rows' stale KV is
+        masked the same way until a later step overwrites it in place).
+        The rows of one slot write distinct offsets (possibly across a
+        page boundary); rows of different slots write distinct pages,
+        except idle slots and rows clamped at the rope end past the
+        reservation, which all land on the dump page or past every
+        visible length.  Acceptance stays on the device: the longest
+        prefix where the draft matches the target argmax, ``+1`` for
+        the correction/bonus token, advances pos/tok, and the full
+        candidate row lands in the wide ring for the host to re-derive
+        the same acceptance without an extra transfer.  Slots with no
+        draft (``dlen == 0``) reduce exactly to the plain step."""
+        rope_len = self._rope_len
+        k = self.spec_k
+        M = k + 1
+        fresh = [True]
+
+        @torch.no_grad()
+        def verify(draft, dlen):
+            if fresh[0]:
+                fresh[0] = False
+                self._first_run(verify=True)
+            S = self.max_slots
+            dev = self._tok_dev.device
+            # [S, M] candidate grid: column 0 is the slot's current token
+            # (the plain step's input), columns 1..k its drafts
+            grid = torch.cat([self._tok_dev[:, None], draft], dim=1)
+            offs = torch.arange(M, dtype=torch.int32, device=dev)
+            pos_f = (self._pos_dev[:, None] + offs[None, :]).reshape(-1)
+            posc = pos_f.clamp(max=rope_len - 1)
+            table_f = self._table_dev.repeat_interleave(M, dim=0)
+            # every candidate row of a slot shares its adapter
+            aidx_f = (self._aidx_dev.repeat_interleave(M)
+                      if self.lora_slots else None)
+            h = self.state["llama.embed_tokens.weight"][
+                grid.reshape(-1).long()]
+            cos1, sin1 = _rope_at(self._cos, self._sin, posc.long())
+            logits = self._layers(h, table_f, cos1, sin1, posc, aidx_f)
+            y = logits.argmax(dim=-1).to(torch.int32).reshape(S, M)
+            # longest matching prefix: draft[:, j] proposed what the
+            # target's own argmax y[:, j] confirms (or not)
+            m = ((draft == y[:, :k])
+                 & (offs[None, :k] < dlen[:, None])).to(torch.int32)
+            # cast back: cumprod/sum promote to int64
+            acc = torch.cumprod(m, dim=1).sum(dim=1).to(torch.int32)
+            self._pos_dev += (acc + 1) * self._active_dev   # idle: 0
+            tok_new = y.gather(1, acc[:, None].long())[:, 0]
+            self._tok_dev = torch.where(self._active_dev.bool(), tok_new,
+                                        self._tok_dev)
+            self._ring_dev[self._ridx] = y
+            self._ridx = (self._ridx + 1) % self.sync_interval
+
+        return verify
 
     # ------------------------------------------------------------ the seam
     def decode_step(self):
@@ -257,6 +363,20 @@ class ModelRunner:
         [slots, V] f32 logits when the runner emits logits, else None."""
         logits = self._step_fn()
         return logits if self.emit_logits else None
+
+    def verify_step(self, draft: np.ndarray, dlen: np.ndarray):
+        """One speculative verify step: ``draft`` [slots, k] int32
+        candidate tokens, ``dlen`` [slots] int32 drafted counts (0 =
+        the slot takes the plain-step path inside the program).
+        Acceptance happens on the device (pos/tok advance by the
+        accepted count + 1); the host re-derives it from the wide ring
+        row at the next sync."""
+        if self._verify_fn is None:
+            raise RuntimeError("runner built with spec_k=0 has no "
+                               "verify program")
+        i32 = dict(dtype=torch.int32, device=self.device)
+        self._verify_fn(torch.as_tensor(draft, **i32),
+                        torch.as_tensor(dlen, **i32))
 
     def _write_pages(self, i, pages, k, v):
         """Page one layer's prompt KV ``k``/``v`` [bucket, kvh, D] into
@@ -374,6 +494,44 @@ class ModelRunner:
             self.kscale[:, dst] = self.kscale[:, src]
             self.vscale[:, dst] = self.vscale[:, src]
 
+    def read_page(self, page: int):
+        """Device -> host copy of one KV page: ``(k, v)`` CPU tensors of
+        shape [L, kvh, page_size, hd] in the pool dtype, plus ``(kscale,
+        vscale)`` [L, kvh, page_size] f32 when the pools are int8 — the
+        spill tier moves the quantized bytes, never a dequantized copy.
+        Preemption-spill only: a host sync per call, never on the steady
+        decode path."""
+        pools = (self.kpool, self.vpool)
+        if self.kv_quant:
+            pools += (self.kscale, self.vscale)
+        return tuple(p[:, page].to("cpu", copy=True) for p in pools)
+
+    @torch.no_grad()
+    def write_page(self, page: int, k, v, kscale=None, vscale=None):
+        """Host -> device copy of one KV page (preempted-request resume
+        unparking a host-tier copy); int8 pages restore with their
+        scales."""
+        if self.kv_quant and (kscale is None or vscale is None):
+            raise ValueError(
+                "int8 KV pages restore with their scales: "
+                "write_page(page, k, v, kscale, vscale)")
+        dev = self.device
+        self.kpool[:, page] = torch.as_tensor(k).to(dev, self.kpool.dtype)
+        self.vpool[:, page] = torch.as_tensor(v).to(dev, self.vpool.dtype)
+        if self.kv_quant:
+            self.kscale[:, page] = torch.as_tensor(kscale).to(
+                dev, torch.float32)
+            self.vscale[:, page] = torch.as_tensor(vscale).to(
+                dev, torch.float32)
+
+    def release(self):
+        """Drop the KV pools and the placed weights (engine recovery
+        frees a dead runner's device memory before the rebuilt runner
+        allocates its own, so both never hold it at once).  The decode
+        state stays: a released runner still takes slot parks."""
+        self.kpool = self.vpool = self.kscale = self.vscale = None
+        self.state = None
+
     @torch.no_grad()
     def push_slot(self, slot: int, row: np.ndarray, pos: int, tok: int,
                   active: int, adapter_row: int = 0):
@@ -398,6 +556,12 @@ class ModelRunner:
         val = torch.as_tensor([t for _, t in corrections], dtype=torch.int32,
                               device=self.device)
         self._tok_dev[idx] = val
+
+    def reinject_step(self):
+        """Rebuild the decode-step program (perf-gate hook: its next run
+        counts as a fresh trace, so retrace detection can be exercised
+        deterministically)."""
+        self._step_fn = self._build_step()
 
 
 def _prefill_layer_cached(w, x, kpre, vpre, cos_s, sin_s, mask, cfg,

@@ -9,8 +9,8 @@ so a plain ``for tok in req.stream():`` serves the request end to end).
 With ``sync_interval > 1`` tokens surface in bursts of up to
 ``sync_interval`` — the host only observes the device token ring at
 sync points.  ``adapter`` names the request's LoRA adapter.  Tracing
-spans, tenants and the request timeline come with the slices that port
-those features.
+spans and tenants come with the slices that port those features;
+``timeline`` stays None until the request log is ported.
 """
 from __future__ import annotations
 
@@ -57,14 +57,21 @@ class Request:
         self.prompt = prompt
         self.gen = gen
         self.deadline = deadline          # absolute, on the engine clock
-        # scheduling class: higher admits first
+        # scheduling class: higher admits first and may preempt lower
+        # residents (any int works)
         self.priority = int(priority)
+        # times this request was preempted (evicted for a higher class
+        # and re-queued for resume)
         self.preemptions = 0
         self.on_token = on_token
         self.state = RequestState.QUEUED
         self.cancel_requested = False
-        # length|eos|cancelled|deadline
+        # length|eos|cancelled|deadline|error
         self.finish_reason: str | None = None
+        # human-readable failure detail when finish_reason == "error"
+        # (quarantined by the engine: non-finite logits, replay failure,
+        # recovery budget exhausted, ...)
+        self.error: str | None = None
         self.output_tokens: list[int] = []
         # prompt tokens served from the engine's prefix cache at
         # admission (0 with caching off); set by Engine._prefill
@@ -72,6 +79,18 @@ class Request:
         self.prefill_computed_tokens = 0  # prompt tokens run on device
         self.prefill_cached_tokens = 0    # skipped via prefix cache/CoW
         self.prefill_chunks = 0           # chunked-prefill chunks run
+        # per-request cost ledger: plain counters the engine bumps at the
+        # seams that update the global mirrors
+        self.queue_seconds = 0.0          # admission + resume re-queues
+        self.spec_proposed_tokens = 0     # draft tokens proposed
+        self.spec_accepted_tokens = 0     # draft tokens accepted
+        self.spilled_pages = 0            # pages copied to host on
+        self.spill_bytes = 0              # ... preemption, and back on
+        self.restored_pages = 0           # ... resume
+        self.restore_bytes = 0
+        self.replays = 0                  # recovery replays
+        # the request log's lifecycle timeline (None: not ported yet)
+        self.timeline = None
         # LoRA adapter name (None = the dense base model); the engine's
         # AdapterStore resolves it to a bank row at submit
         self.adapter = str(adapter).strip() if adapter else None
@@ -80,8 +99,13 @@ class Request:
         # timing (engine clock): TTFT = first_token_at - arrival_time
         self.arrival_time = time.monotonic() if arrival_time is None \
             else arrival_time
+        # queue-wait anchor for the cost ledger: reset to "now" on a
+        # preemption re-queue so queue_seconds sums every wait
+        self._queued_since = self.arrival_time
         self.admitted_at: float | None = None
-        # FIFO stamp assigned by the scheduler at first submit
+        # FIFO stamp assigned by the scheduler at first submit; a
+        # preempted victim keeps it, so it re-queues ahead of later
+        # arrivals of its class
         self.arrival_seq: int | None = None
         self.first_token_at: float | None = None
         self.last_token_at: float | None = None
@@ -98,8 +122,8 @@ class Request:
         return self.state in (RequestState.DONE, RequestState.CANCELLED)
 
     def resume_tokens(self) -> np.ndarray:
-        """Prompt + tokens generated so far (the effective prompt of a
-        re-admission)."""
+        """Prompt + tokens generated so far — the effective prompt a
+        preempted request re-prefills from on re-admission."""
         if not self.output_tokens:
             return self.prompt
         return np.concatenate(

@@ -8,8 +8,17 @@ order, reserving their whole page budget up front (all-or-nothing: an
 admitted request can never exhaust the pool mid-decode), and
 (3) reports backpressure when the head of the queue cannot be placed.
 Within a priority class admission is strict FCFS — a head request that
-does not fit blocks the queue rather than being overtaken.  Preemption
-(preempt-and-swap) comes with the slice that ports it.
+does not fit blocks the queue rather than being overtaken.
+
+When the head outranks a resident and cannot be placed, the scheduler
+preempts: the lowest-priority, most-recently-admitted DECODE resident
+is handed to the engine's ``_preempt`` callback (which spills its
+exclusive KV pages to the BlockManager host tier and parks the slot)
+and re-queued ahead of later arrivals of its class; on re-admission
+the engine resumes it from prompt + generated-so-far with greedy
+token-for-token parity.  All-default-priority traffic never preempts.
+The reference's fair-share victim bias (``FLAGS_serving_fair_share``)
+reads the usage meter, which is not ported: the flag raises here.
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ import time
 from collections import deque
 
 from .. import observability as _obs
+from ..flags import FLAGS
 from .block_manager import BlockManager
 from .request import Request, RequestState
 
@@ -35,22 +45,33 @@ _M_BACKPRESSURE = _obs.counter(
     "serving_backpressure_total",
     "scheduling passes where the queue head could not be placed",
     ("reason",))
+_M_PREEMPTED = _obs.counter(
+    "serving_preemptions_total",
+    "residents evicted for a higher-priority request (KV spilled to "
+    "host, request re-queued for resume)")
 
 
 class Scheduler:
     def __init__(self, blocks: BlockManager, max_slots: int, *,
-                 clock=None):
+                 clock=None, preempt_enabled: bool = True):
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
+        if FLAGS.get("FLAGS_serving_fair_share"):
+            raise NotImplementedError(
+                "FLAGS_serving_fair_share biases preemption by the usage "
+                "meter, which is not ported to paddle_tpu_torch yet "
+                "(ROADMAP queue 1 item 2, usage metering)")
         self.blocks = blocks
         self.max_slots = int(max_slots)
         self.slots: list[Request | None] = [None] * self.max_slots
         self.queue: deque[Request] = deque()
         self.draining = False
+        self.preempt_enabled = bool(preempt_enabled)
         self._clock = clock or time.monotonic
         self._arrivals = 0         # FIFO stamps handed out by submit()
         self._finalize = None      # engine callback: (req, reason, now)
         self._on_evict = None      # engine callback: (slot,) — park it
+        self._preempt = None       # engine callback: (slot,) -> bool
 
     # ------------------------------------------------------------ intake
     @staticmethod
@@ -134,17 +155,23 @@ class Scheduler:
             head = self.queue[0]
             free = [i for i, r in enumerate(self.slots) if r is None]
             if not free:
+                if self._try_preempt(head, now):
+                    continue
                 _M_BACKPRESSURE.labels("slots").inc()
                 break
             # prefix-cache-aware reservation: shared prefix pages are
             # refcounted, only the uncached suffix is charged against
-            # the pool — with caching off this is the plain page count
+            # the pool — with caching off this is the plain page count.
+            # A resume (preempted victim) re-reserves for its effective
+            # prompt (original + generated) and its remaining budget
             pages = self.blocks.allocate_seq(head.id, head.resume_tokens(),
                                              head.remaining_new_tokens,
                                              adapter=head.adapter)
             if pages is None:
                 # pool exhausted: the head waits (and blocks the queue —
                 # strict FCFS), surfaced as backpressure, not an error
+                if self._try_preempt(head, now):
+                    continue
                 _M_BACKPRESSURE.labels("pages").inc()
                 break
             self.queue.popleft()
@@ -166,6 +193,35 @@ class Scheduler:
                 head.resume_tokens().size, head.remaining_new_tokens)
         self.blocks.record_fragmentation(head_need)
         return admitted
+
+    # -------------------------------------------------------- preemption
+    def _try_preempt(self, head: Request, now: float) -> bool:
+        """Make room for ``head`` by preempting a lower-priority DECODE
+        resident: lowest class first, most-recently-admitted within the
+        class (it has the least sunk work).  The engine callback spills
+        the victim's exclusive pages to host RAM and parks the slot; a
+        False return (spill failed / no engine) leaves the victim
+        untouched.  On success the victim is re-queued for resume."""
+        if not self.preempt_enabled or self._preempt is None:
+            return False
+        victims = [(i, r) for i, r in enumerate(self.slots)
+                   if r is not None and r.state == RequestState.DECODE
+                   and r.priority < head.priority]
+        if not victims:
+            return False
+        slot, victim = min(
+            victims, key=lambda ir: (ir[1].priority,
+                                     -(ir[1].admitted_at or 0.0)))
+        if not self._preempt(slot):
+            return False
+        self.slots[slot] = None
+        victim.state = RequestState.QUEUED
+        victim.admitted_at = None
+        victim.preemptions += 1
+        _M_PREEMPTED.inc()
+        self.submit(victim)
+        _M_ACTIVE.set(self.active_count)
+        return True
 
     # ---------------------------------------------------------- eviction
     def evict(self, slot: int, reason: str, now: float):

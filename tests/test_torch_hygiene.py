@@ -51,7 +51,10 @@ def test_import_leaves_jax_unloaded():
             "paddle_tpu_torch.distributed.moe, "
             "paddle_tpu_torch.ops.pallas.grouped_ffn, "
             "paddle_tpu_torch.ops.pallas.rms_norm, "
-            "paddle_tpu_torch.incubate.nn.functional; "
+            "paddle_tpu_torch.incubate.nn.functional, "
+            "paddle_tpu_torch.flags, paddle_tpu_torch.serving.faults, "
+            "paddle_tpu_torch.serving.spec, "
+            "paddle_tpu_torch.serving.supervisor; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

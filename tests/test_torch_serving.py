@@ -4,8 +4,9 @@ One JAX ``llama_tiny`` model's weights drive both engines (the port's
 with ``device="cpu"``: every kernel wrapper runs its plain version).
 Greedy tokens must match token for token under staggered submits over 3
 slots, ``sync_interval`` 1 and 4, prefix caching on/off (with a
-copy-on-write tail divergence), chunked prefill, a cancel mid-decode and
-a do_sample request pinned to greedy by ``top_k=1`` — and the engines'
+copy-on-write tail divergence), chunked prefill, a cancel mid-decode, a
+do_sample request pinned to greedy by ``top_k=1`` and a priority-1
+arrival (preempting a resident when ``preempt=True``) — and the engines'
 counters must agree.  The host half is also held differentially:
 ``BlockManager`` op sequences and ``_pick_token`` sampling.
 """
@@ -34,7 +35,8 @@ STATS = ("decode_steps", "host_syncs", "pages_in_use", "pages_allocated",
          "prefix_hits", "prefix_misses", "cow_copies", "cached_tokens",
          "cached_pages", "prefill_chunks", "max_prefill_gap",
          "decode_traces", "prefill_buckets", "cached_prefill_buckets",
-         "logit_fetches")
+         "logit_fetches", "preemptions", "spilled_pages", "restored_pages",
+         "spill_bytes", "host_parked_pages")
 
 
 @pytest.fixture(scope="module")
@@ -66,11 +68,16 @@ SCHEDULE = [(0, 0, 9, False, 0), (0, 1, 6, False, 0), (1, 2, 8, True, 0),
 CANCEL = (9, 4)          # cancel prompt 4's request at step 9
 
 MODES = {
-    "sync1": dict(sync_interval=1, emit_logits=True),
-    "sync4": dict(sync_interval=4, emit_logits=True),
-    "cache_sync1": dict(enable_prefix_cache=True, emit_logits=True),
+    "sync1": dict(sync_interval=1, emit_logits=True, preempt=False),
+    "sync4": dict(sync_interval=4, emit_logits=True, preempt=False),
+    "cache_sync1": dict(enable_prefix_cache=True, emit_logits=True,
+                        preempt=False),
     "cache_sync4_chunked": dict(enable_prefix_cache=True, sync_interval=4,
-                                prefill_chunk=8),
+                                prefill_chunk=8, preempt=False),
+    # the priority-1 arrival preempts a resident (spill to the host
+    # tier, resume later) in both engines
+    "cache_sync1_preempt": dict(enable_prefix_cache=True, emit_logits=True,
+                                preempt=True),
 }
 
 
@@ -102,10 +109,7 @@ def _first_token_order(reqs):
 @pytest.mark.parametrize("mode", list(MODES))
 def test_engine_matches_jax_engine(model, mode):
     jmodel, np_state = model
-    # preemption is a later slice: the JAX engine must not preempt for the
-    # priority-1 arrival either
-    kw = dict(max_slots=3, page_size=8, max_model_len=96, preempt=False,
-              **MODES[mode])
+    kw = dict(max_slots=3, page_size=8, max_model_len=96, **MODES[mode])
     je = j_create_engine(jmodel, **kw)
     te = t_create_engine(TL.llama_tiny(),
                          TC.state_from_numpy(np_state, device="cpu"),
@@ -129,6 +133,8 @@ def test_engine_matches_jax_engine(model, mode):
         # chunked admissions publish their pages only after the last
         # chunk, so cache_sync1's prefix and CoW hits miss here
         assert ts["prefill_chunks"] > 0
+    assert ts["preemptions"] == js["preemptions"]
+    assert (ts["preemptions"] > 0) == kw["preempt"]
 
 
 def _block_ops(bm_cls):
@@ -191,14 +197,11 @@ def test_pick_token_matches_jax(gen):
     assert picks[0] == picks[1]
 
 
-# quant/kv_quant/lora are ported; combined with a later slice's option
-# (tp > 1 quant and LoRA shards, preemption's int8 page spill) they
-# still raise
-@pytest.mark.parametrize("kw", [dict(spec_k=2), dict(preempt=True),
-                                dict(mesh=2), dict(quant="int8", mesh=2),
-                                dict(kv_quant=True, preempt=True),
+# quant/kv_quant/lora, spec_k, preempt and faults are ported; tensor
+# parallelism, usage metering, request logs and SLO tracking still raise
+@pytest.mark.parametrize("kw", [dict(mesh=2), dict(quant="int8", mesh=2),
                                 dict(lora=object(), mesh=2),
-                                dict(faults=object()), dict(usage=object()),
+                                dict(usage=object()),
                                 dict(requestlog=object()),
                                 dict(slo=object())])
 def test_later_slice_options_raise(kw):
