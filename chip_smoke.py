@@ -154,7 +154,28 @@ no CUDA ``_weight_int8pack_mm``):
    within 1e-4, and a verify step one key short must fail that check),
    ``spec_k=4`` with the n-gram drafter, a preempt -> spill -> resume,
    and a ``step_raise`` fault at decode step 3 recovered through
-   ``EngineSupervisor``: identical tokens and counters.
+   ``EngineSupervisor``: identical tokens and counters;
+20. llama3_8b at full width and depth behind the HTTP server
+   (``serve(config, state)`` on the card, phases 17-18's state: 8 slots,
+   pages of 64, prefix cache): phase 4's traffic (``serve_prompts``, 64
+   new tokens) first in-process on the server's engine, then, the prefix
+   cache flushed, from 8 threads at once through ``ServingClient`` (four
+   blocking, four streamed over SSE, each under its own trace): every
+   answer 200 with 64 tokens and ``finish_reason`` "length", usage equal
+   to the tokens returned, the ``/metrics`` token count's growth equal
+   to the tokens sent, one ``request`` span per request under the trace
+   id the client sent, ``/healthz`` ok, K3 and K8 launched and no plain
+   version of either (the cached-suffix prefill's bool mask takes plain
+   attention once per layer, as it takes XLA in the reference); client
+   TTFT of the streams, decode tokens/s over HTTP, and beside them the
+   in-process numbers and phase 4's.  Then a drain with one stream in
+   flight: the stream finishes, a request during the drain gets 503;
+21. 2 layers of llama3_8b width in float32 behind the HTTP server on the
+   card, with two rank-16 adapters named in half of 8 request bodies,
+   against the port's engine on the CPU: tokens (parting only at a tie,
+   as in phase 9), finish reasons and usage blocks equal; a ``Router``
+   over two more card servers on the same state dict gives the same
+   tokens at a prefix hit rate no worse than one server's.
 
 Every phase prints its wall seconds.
 
@@ -254,6 +275,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1931,7 +1953,8 @@ def phase_serve(cfg, PA, FM, create_engine, init_state, GenerationConfig,
     """The main path at full width and depth (phase 4: llama3_8b): 8
     requests of 128-2048 tokens + 64 (phase 16, TinyLlama-1.1B, whose
     2048 positions hold prompt and output: each prompt cut to 2048 - 64
-    tokens, which leaves the 2048 prefill bucket)."""
+    tokens, which leaves the 2048 prefill bucket).  Returns the kernels'
+    launches and the printed record."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     state = init_state(cfg, gen, device="cuda")
@@ -1986,22 +2009,24 @@ def phase_serve(cfg, PA, FM, create_engine, init_state, GenerationConfig,
     decode_s = (engine.timings["decode_s"] - timings0["decode_s"]
                 + engine.timings["host_sync_s"] - timings0["host_sync_s"])
     decode_tokens = sum(len(r.output_tokens) - 1 for r in reqs)
-    emit({"phase": phase, "requests": len(reqs), "prompt_lens": lens,
-          "max_new_tokens": 64, "finished_by_length": len(reqs),
-          "wall_s": wall, "ttft_s_mean": float(np.mean(ttft)),
-          "ttft_s_max": float(np.max(ttft)),
-          "prefill_s": engine.timings["prefill_s"] - timings0["prefill_s"],
-          "decode_s": decode_s, "decode_tokens": decode_tokens,
-          "decode_tokens_per_s": decode_tokens / decode_s,
-          **{k: stats[k] - stats0[k] for k in (
-              "decode_steps", "host_syncs", "prefix_hits",
-              "cached_tokens")},
-          "decode_traces": stats["decode_traces"], "pool": pool,
-          "launches": launches,
-          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    rec = {
+    "phase": phase, "requests": len(reqs), "prompt_lens": lens,
+    "max_new_tokens": 64, "finished_by_length": len(reqs),
+    "wall_s": wall, "ttft_s_mean": float(np.mean(ttft)),
+    "ttft_s_max": float(np.max(ttft)),
+    "prefill_s": engine.timings["prefill_s"] - timings0["prefill_s"],
+    "decode_s": decode_s, "decode_tokens": decode_tokens,
+    "decode_tokens_per_s": decode_tokens / decode_s,
+    **{k: stats[k] - stats0[k] for k in (
+        "decode_steps", "host_syncs", "prefix_hits",
+        "cached_tokens")},
+    "decode_traces": stats["decode_traces"], "pool": pool,
+    "launches": launches,
+    "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    emit(rec)
     profile_decode(engine, [rng.integers(0, cfg.vocab_size, n) for n in lens],
                    GenerationConfig, phase=phase)
-    return launches
+    return launches, rec
 
 
 def profile_decode(engine, prompts, GenerationConfig, steps=8, phase=4,
@@ -2911,6 +2936,423 @@ def phase_serving_parity(cfg8b, create_engine, init_state, GenerationConfig,
     return result
 
 
+# ----------------------------------------- phases 20-21: the HTTP front end
+HTTP_NEW_TOKENS = 64
+HTTP_TIMEOUT_S = 600.0
+
+
+def http_counters(client):
+    """Counter samples of a ``/metrics`` scrape: {(name, labels): value}."""
+    counters, out = set(), {}
+    for line in client.metrics_text().splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split()
+            if kind == "counter":
+                counters.add(name)
+        elif line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            name = key.split("{", 1)[0]
+            if name in counters:
+                out[(name, key[len(name):])] = float(value)
+    return out
+
+
+def in_process_window(engine, prompts, GenerationConfig, new):
+    """Phase 4's measurement on ``engine``: every prompt submitted at
+    once through ``Engine.submit`` and run to completion in-process;
+    TTFT on the engine clock, decode tokens/s over the engine's decode
+    and host-sync seconds."""
+    timings0, stats0 = dict(engine.timings), engine.stats()
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, GenerationConfig(max_new_tokens=new))
+            for p in prompts]
+    engine.run_until_complete()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = engine.stats()
+    ttft = [r.first_token_at - r.arrival_time for r in reqs]
+    decode_s = (engine.timings["decode_s"] - timings0["decode_s"]
+                + engine.timings["host_sync_s"] - timings0["host_sync_s"])
+    decode_tokens = sum(len(r.output_tokens) - 1 for r in reqs)
+    for r in reqs:
+        require(r.finish_reason == "length"
+                and len(r.output_tokens) == new, r)
+    return {"wall_s": wall, "decode_steps": stats["decode_steps"]
+            - stats0["decode_steps"], "ttft_s_mean": float(np.mean(ttft)),
+            "ttft_s_max": float(np.max(ttft)),
+            "decode_tokens_per_s": decode_tokens / decode_s,
+            "tokens": [list(r.output_tokens) for r in reqs]}
+
+
+def http_request(client, obs, prompt, new, stream, **kw):
+    """One completion over HTTP under its own trace (a root span whose
+    context the client sends as ``traceparent``); client-side TTFT for a
+    stream (send -> first token event) and wall seconds."""
+    with obs.tracer().start_span("smoke.client") as span:
+        t0 = time.perf_counter()
+        ttft = None
+        if not stream:
+            out = client.completion(prompt, max_tokens=new, **kw)
+            choice = out["choices"][0]
+            tokens, final, usage = (choice["token_ids"],
+                                    choice["finish_reason"], out["usage"])
+        else:
+            tokens, final, usage = [], None, None
+            for ev in client.completion(prompt, max_tokens=new,
+                                        stream=True, **kw):
+                got = ev["choices"][0]["token_ids"]
+                if got and ttft is None:
+                    ttft = time.perf_counter() - t0
+                tokens.extend(got)
+                if ev["choices"][0]["finish_reason"] is not None:
+                    final, usage = (ev["choices"][0]["finish_reason"],
+                                    ev["usage"])
+        return {"tokens": tokens, "finish": final, "usage": usage,
+                "ttft_s": ttft, "wall_s": time.perf_counter() - t0,
+                "trace_id": span.trace_id, "stream": stream}
+
+
+def http_burst(client, obs, prompts, new):
+    """All ``prompts`` at once from one thread each: the first half
+    blocking, the second half streamed.  Returns the results in prompt
+    order; a thread's exception is re-raised here."""
+    results = [None] * len(prompts)
+    half = len(prompts) // 2
+
+    def one(i):
+        try:
+            results[i] = http_request(client, obs, prompts[i], new,
+                                      stream=i >= half)
+        except BaseException as e:      # re-raised below, on this thread
+            results[i] = e
+
+    threads = [threading.Thread(target=one, args=(i,), daemon=True)
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=HTTP_TIMEOUT_S)
+        require(not t.is_alive(), "an HTTP request never returned")
+    for r in results:
+        if isinstance(r, BaseException):
+            raise r
+    return results
+
+
+def phase_http(cfg, state, PA, FA, FM, serve, ServingClient,
+               ServingHTTPError, obs, GenerationConfig, card, phase4):
+    """Phase 20: llama3_8b at full width and depth behind the HTTP server
+    (``serve(config, state)`` on the card: 8 slots, pages of 64, prefix
+    cache).  Phase 4's traffic (``serve_prompts``) runs first in-process
+    on the server's engine (phase 4's measurement), then, with the prefix
+    cache flushed, over HTTP from 8 threads at once through
+    ``ServingClient``: four blocking, four streamed, each under its own
+    trace.  Then a drain with one stream in flight.  ``phase4`` is phase
+    4's record, printed beside."""
+    warm, prompts, _ = serve_prompts(cfg.vocab_size)
+    new = HTTP_NEW_TOKENS
+    server = serve(cfg, state, max_slots=8, page_size=64,
+                   enable_prefix_cache=True, start=False)
+    stopped = False
+    try:
+        engine = server.worker.engine
+        engine.submit(warm, GenerationConfig(max_new_tokens=8)).result()
+        torch.cuda.synchronize()
+        inproc = in_process_window(engine, prompts, GenerationConfig, new)
+        engine.blocks.flush_prefix_cache()
+        server.start()
+        client = ServingClient(server.address, timeout=HTTP_TIMEOUT_S)
+        require(client.healthz()["status"] == "ok", "healthz")
+        before = http_counters(client)
+        timings0, stats0 = dict(engine.timings), engine.stats()
+        PA.paged_attention.launches = 0
+        FM.flash_mha_masked.launches = 0
+        plain, restore = count_plain_calls(FA, FM, PA)
+        try:
+            t0 = time.perf_counter()
+            results = http_burst(client, obs, prompts, new)
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+        launches = {"paged_attention": PA.paged_attention.launches,
+                    "flash_mha_masked": FM.flash_mha_masked.launches}
+        delta = {k: v - before.get(k, 0.0)
+                 for k, v in http_counters(client).items()}
+        stats = engine.stats()
+        health = client.healthz()
+        spans = client.request("GET", "/debug/trace")["traceEvents"]
+        for i, r in enumerate(results):
+            require(r["finish"] == "length" and len(r["tokens"]) == new,
+                    (i, r["finish"], len(r["tokens"])))
+            require(r["usage"]["completion_tokens"] == len(r["tokens"]),
+                    (i, r["usage"]))
+            require(all(0 <= t < cfg.vocab_size for t in r["tokens"]),
+                    f"request {i}: token outside the vocabulary")
+            roots = [e for e in spans if e["name"] == "request"
+                     and e["args"].get("trace_id") == r["trace_id"]]
+            require(len(roots) == 1, (i, r["trace_id"], len(roots)))
+        sent = sum(len(r["tokens"]) for r in results)
+        require(delta.get(("serving_tokens_total", ""), 0) == sent,
+                (delta.get(("serving_tokens_total", "")), sent))
+        require(delta.get(("serving_http_requests_total",
+                           '{route="/v1/completions",code="200"}')) == 8,
+                delta)
+        require(health["status"] == "ok", health)
+        require(launches["paged_attention"] > 0
+                and launches["flash_mha_masked"] > 0, launches)
+        # no plain version of a kernel on the path ran; the cached-suffix
+        # prefill's [1, 1, S, T] bool mask takes plain attention, as it
+        # takes XLA in the reference: once per layer per cached request
+        cached = sum(1 for r in results
+                     if r["usage"]["prompt_tokens_cached"] > 0)
+        require(all(v == 0 for k, v in plain.items() if k != "_xla_sdpa"),
+                plain)
+        require(plain["_xla_sdpa"] == cfg.num_hidden_layers * cached,
+                (plain, cached))
+        require(stats["prefix_hits"] > stats0["prefix_hits"],
+                "shared-prefix requests missed over HTTP")
+        decode_s = (engine.timings["decode_s"] - timings0["decode_s"]
+                    + engine.timings["host_sync_s"]
+                    - timings0["host_sync_s"])
+        decode_tokens = sum(len(r["tokens"]) - 1 for r in results)
+        with server.worker.lock:
+            server_ttft = [q.first_token_at - q.arrival_time
+                           for q in list(server.worker.requests)[-8:]]
+        stream_ttft = [r["ttft_s"] for r in results if r["stream"]]
+        http = {"wall_s": wall, "decode_steps": stats["decode_steps"]
+                - stats0["decode_steps"],
+                "client_stream_ttft_s_mean": float(np.mean(stream_ttft)),
+                "client_stream_ttft_s_max": float(np.max(stream_ttft)),
+                "client_blocking_e2e_s_mean": float(np.mean(
+                    [r["wall_s"] for r in results if not r["stream"]])),
+                "server_ttft_s_mean": float(np.mean(server_ttft)),
+                "server_ttft_s_max": float(np.max(server_ttft)),
+                "decode_tokens_per_s": decode_tokens / decode_s,
+                "client_tokens_per_s": sent / wall}
+        emit({"phase": 20, "card": card, "layers": cfg.num_hidden_layers,
+              "prompt_lens": [len(p) for p in prompts],
+              "max_new_tokens": new, "requests": len(results),
+              "streamed": len(stream_ttft), "http": http,
+              "in_process": {k: v for k, v in inproc.items()
+                             if k != "tokens"},
+              "http_cost": {
+                  "ttft_s_mean": http["client_stream_ttft_s_mean"]
+                  - inproc["ttft_s_mean"],
+                  "wall_s": wall - inproc["wall_s"],
+                  "decode_tokens_per_s": http["decode_tokens_per_s"]
+                  - inproc["decode_tokens_per_s"]},
+              "phase4": {k: phase4.get(k) for k in (
+                  "ttft_s_mean", "ttft_s_max", "decode_tokens_per_s",
+                  "wall_s")},
+              "same_tokens_as_in_process": [r["tokens"] for r in results]
+              == inproc["tokens"],
+              "launches": launches, "plain_calls": dict(plain),
+              "cached_suffix_prefills": cached,
+              "prefix_hits": stats["prefix_hits"] - stats0["prefix_hits"],
+              "traces": len(results)})
+
+        # drain: one stream in flight, then stop(); a request that comes
+        # while the drain runs gets 503.  The engine holds after each step
+        # (its lock released) while the stream is in flight and that
+        # request has no answer yet, so the stream is still in flight
+        # then however fast it decodes; the hold adds no device work
+        streamed = {}
+        first, probed = threading.Event(), threading.Event()
+        step = engine.step
+
+        def held_step():
+            out = step()
+            deadline = time.monotonic() + 60.0
+            while (engine.scheduler.active_count and not probed.is_set()
+                   and time.monotonic() < deadline):
+                server.worker._wake.wait(0.01)
+            return out
+
+        def stream_one():
+            toks, final = [], None
+            for ev in client.completion(prompts[0], max_tokens=new,
+                                        stream=True):
+                toks.extend(ev["choices"][0]["token_ids"])
+                first.set()
+                final = ev["choices"][0]["finish_reason"] or final
+            streamed.update(tokens=toks, finish=final)
+
+        engine.step = held_step
+        t = threading.Thread(target=stream_one, daemon=True)
+        t.start()
+        require(first.wait(HTTP_TIMEOUT_S), "drain stream never started")
+        stopper = threading.Thread(
+            target=lambda: server.stop(drain_timeout=HTTP_TIMEOUT_S),
+            daemon=True)
+        stopper.start()
+        stopped = True
+        deadline = time.monotonic() + 60.0
+        while not server.worker.draining:
+            require(time.monotonic() < deadline, "drain never began")
+            time.sleep(0.001)
+        try:
+            client.completion(prompts[1], max_tokens=4)
+            status = 200
+        except ServingHTTPError as e:
+            status = e.status
+        finally:
+            probed.set()
+        t.join(timeout=HTTP_TIMEOUT_S)
+        stopper.join(timeout=HTTP_TIMEOUT_S)
+        del engine.step
+        require(not t.is_alive() and not stopper.is_alive(),
+                "drain did not finish")
+        emit({"phase": 20, "drain": {"stream_tokens": len(
+            streamed.get("tokens", [])), "finish": streamed.get("finish"),
+            "status_after_drain_began": status}})
+        require(streamed.get("finish") == "length"
+                and len(streamed["tokens"]) == new, streamed)
+        require(status == 503, f"a request during the drain got {status}")
+    finally:
+        if not stopped:
+            server.stop(drain_timeout=60.0)
+    return launches
+
+
+def phase_http_parity(cfg8b, serve, create_engine, init_state,
+                      GenerationConfig, AdapterStore, random_adapter,
+                      Router, ServingClient, usage_json, card):
+    """Phase 21: 2 layers of llama3_8b width in float32 behind the HTTP
+    server on the card, against the port's engine on the CPU from one
+    state: 8 prompts (some on a shared prefix), half naming one of two
+    rank-16 adapters in the body, sent one at a time.  Tokens, finish
+    reasons and usage blocks equal the CPU's (``queue_ms`` aside; a
+    request may part only at a tie, phase 9's rule); a ``Router`` over
+    two more card servers on the same state dict gives the card
+    server's tokens, at a prefix hit rate no worse than its."""
+    cfg = dataclasses.replace(cfg8b, num_hidden_layers=2, dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    state_cpu = init_state(cfg, torch.Generator().manual_seed(21),
+                           device="cpu")
+    state_gpu = {k: v.to("cuda") for k, v in state_cpu.items()}
+    adapters = {f"a{i}": random_adapter(cfg, LORA_RANK, seed=20 + i)
+                for i in range(2)}
+
+    def store():
+        s = AdapterStore(cfg, capacity=2, rank=LORA_RANK)
+        for a, w in adapters.items():
+            s.register(a, w, alpha=LORA_ALPHA)
+        return s
+
+    rng = np.random.default_rng(21)
+    prefix = rng.integers(0, cfg.vocab_size, 96)
+    prompts = [rng.integers(0, cfg.vocab_size, 37),
+               np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 60)]),
+               np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 9)]),
+               np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 30)]),
+               rng.integers(0, cfg.vocab_size, 200),
+               np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 45)]),
+               rng.integers(0, cfg.vocab_size, 70),
+               np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 20)])]
+    names = (None, "a0", "a0", None, "a1", None, "a1", "a0")
+    new = 16
+    kw = dict(max_slots=4, page_size=64, max_model_len=512,
+              enable_prefix_cache=True)
+
+    def untimed(usage):
+        return {k: v for k, v in usage.items() if k != "queue_ms"}
+
+    engine = create_engine(cfg, state_cpu, device="cpu", emit_logits=True,
+                           sync_interval=1, lora=store(), **kw)
+    rows = record_logits(engine)
+    cpu = []
+    for p, a in zip(prompts, names):
+        r = engine.submit(p, GenerationConfig(max_new_tokens=new),
+                          adapter=a)
+        engine.run_until_complete()
+        cpu.append({"tokens": list(r.output_tokens),
+                    "finish": {"length": "length", "eos": "stop"}.get(
+                        r.finish_reason, r.finish_reason),
+                    "usage": untimed(usage_json(r)), "id": r.id})
+    del engine
+
+    def send(client):
+        out = []
+        for p, a in zip(prompts, names):
+            res = client.completion([int(t) for t in p], max_tokens=new,
+                                    adapter=a)
+            out.append({"tokens": res["choices"][0]["token_ids"],
+                        "finish": res["choices"][0]["finish_reason"],
+                        "usage": untimed(res["usage"])})
+        return out
+
+    def hit_rate(servers, before):
+        hits = sum(s.worker.stats()["prefix_hits"] for s in servers) \
+            - before[0]
+        miss = sum(s.worker.stats()["prefix_misses"] for s in servers) \
+            - before[1]
+        return hits / (hits + miss)
+
+    def counts(servers):
+        return (sum(s.worker.stats()["prefix_hits"] for s in servers),
+                sum(s.worker.stats()["prefix_misses"] for s in servers))
+
+    servers = [serve(cfg, state_gpu, lora=store(), sync_interval=4, **kw)
+               for _ in range(3)]
+    proxy = None
+    try:
+        single, pair = servers[0], servers[1:]
+        c0 = counts([single])
+        on_card = send(ServingClient(single.address,
+                                     timeout=HTTP_TIMEOUT_S))
+        single_rate = hit_rate([single], c0)
+        router = Router([s.address for s in pair], page_size=64,
+                        request_timeout_s=HTTP_TIMEOUT_S)
+        proxy = router.serve()
+        c1 = counts(pair)
+        routed = send(ServingClient(proxy.address,
+                                    timeout=HTTP_TIMEOUT_S))
+        pair_rate = hit_rate(pair, c1)
+        replicas_hit = sum(s.worker.stats()["prefix_hits"] > 0
+                           for s in pair)
+    finally:
+        if proxy is not None:
+            proxy.stop()
+        for s in servers:
+            s.stop(drain_timeout=60.0)
+    parts = []
+    for i, (got, want) in enumerate(zip(on_card, cpu)):
+        t = next((j for j, (a, b) in enumerate(zip(got["tokens"],
+                                                    want["tokens"]))
+                  if a != b), None)
+        if t is None:
+            continue
+        lg = rows[want["id"]][t]
+        parts.append({"request": i, "token": t, "card": got["tokens"][t],
+                      "cpu": want["tokens"][t], "margin_over_std": float(
+                          abs(lg[got["tokens"][t]] - lg[want["tokens"][t]])
+                          / lg.std())})
+    same = [g["tokens"] for g in on_card] == [w["tokens"] for w in cpu]
+    emit({"phase": 21, "card": card,
+          "layers": 2, "dtype": "float32",
+          "prompt_lens": [len(p) for p in prompts], "adapters": names,
+          "new_tokens": new, "tokens_identical": same,
+          "parted_at_tie": parts, "tie_tol": TIE_TOL,
+          "usage_equal": [g["usage"] for g in on_card]
+          == [w["usage"] for w in cpu],
+          "finish_equal": [g["finish"] for g in on_card]
+          == [w["finish"] for w in cpu],
+          "router_tokens_equal": [r["tokens"] for r in routed]
+          == [g["tokens"] for g in on_card],
+          "prefix_hit_rate": {"single": single_rate, "router": pair_rate},
+          "router_replicas_hit": replicas_hit})
+    require(all(p["margin_over_std"] <= TIE_TOL for p in parts), parts)
+    require([g["finish"] for g in on_card] == [w["finish"] for w in cpu],
+            (on_card, cpu))
+    require([g["usage"] for g in on_card] == [w["usage"] for w in cpu],
+            ([g["usage"] for g in on_card], [w["usage"] for w in cpu]))
+    require([r["tokens"] for r in routed] == [g["tokens"] for g in on_card],
+            "the router's tokens differ from the single server's")
+    require(single_rate > 0 and pair_rate >= single_rate - 1e-9,
+            (single_rate, pair_rate))
+
+
 def gemv_entry(name, src, replaces, records, launches, rep):
     """A kernels-line entry: times at ``rep``, the record of the main
     path's largest projection (gate/up at M = 8), errors over every
@@ -2992,18 +3434,19 @@ def phase_train(cfg, TH, FA, batch=8, seq=2048, steps=TRAIN_STEPS, phase=6,
     return launches
 
 
-def count_plain_calls(FA, FM):
-    """Wrap the attention plain versions (K1/K2's, K8's and the XLA-path
-    ``_xla_sdpa``) so that each call is counted: returns (the counts by
-    name, a function that puts the originals back).  The wrappers look
-    their plain versions up by module name, so the counts see every
-    call."""
+def count_plain_calls(FA, FM, PA=None):
+    """Wrap the attention plain versions (K1/K2's, K8's, the XLA-path
+    ``_xla_sdpa`` and, given its module, K3's) so that each call is
+    counted: returns (the counts by name, a function that puts the
+    originals back).  The wrappers look their plain versions up by
+    module name, so the counts see every call."""
     counts, saved = {}, []
-    for mod, names in ((FA, ("_flash_fwd_xla", "_flash_bwd_xla",
-                             "_xla_sdpa")),
-                       (FM, ("_masked_fwd_xla", "_masked_bwd_dq_xla",
-                             "_masked_bwd_dkv_xla",
-                             "_masked_bwd_dbias_xla"))):
+    mods = [(FA, ("_flash_fwd_xla", "_flash_bwd_xla", "_xla_sdpa")),
+            (FM, ("_masked_fwd_xla", "_masked_bwd_dq_xla",
+                  "_masked_bwd_dkv_xla", "_masked_bwd_dbias_xla"))]
+    if PA is not None:
+        mods.append((PA, ("paged_attention_xla",)))
+    for mod, names in mods:
         for name in names:
             fn = getattr(mod, name)
             counts[name] = 0
@@ -4541,10 +4984,13 @@ def main() -> int:
     from paddle_tpu_torch.ops.pallas import paged_attention as PA
     from paddle_tpu_torch.ops.pallas import quant_matmul as QM
     from paddle_tpu_torch.ops.pallas import rms_norm as RN
+    from paddle_tpu_torch import observability as obs
     from paddle_tpu_torch.serving import (AdapterStore, EngineSupervisor,
-                                          FaultPlan, RequestState,
+                                          FaultPlan, RequestState, Router,
+                                          ServingClient, ServingHTTPError,
                                           create_engine, quantize_state,
-                                          random_adapter)
+                                          random_adapter, serve)
+    from paddle_tpu_torch.serving.server import _usage_json
 
     laps = Laps()
     # phase 1: the card
@@ -4611,8 +5057,8 @@ def main() -> int:
     laps(3)
 
     # phase 4: the main path at full width and depth
-    launches = phase_serve(llama3_8b(), PA, FM, create_engine, init_state,
-                           GenerationConfig)
+    launches, serve4 = phase_serve(llama3_8b(), PA, FM, create_engine,
+                                   init_state, GenerationConfig)
     release()
     laps(4)
 
@@ -4723,9 +5169,9 @@ def main() -> int:
     # phase 16: TinyLlama-1.1B served (prefill: the K8 forward at d 64;
     # decode: K3 at d 64), phase 4's traffic; then its greedy tokens at
     # 2 layers, f32, card vs CPU
-    tiny_serve = phase_serve(tinyllama_config(LlamaConfig), PA, FM,
-                             create_engine, init_state, GenerationConfig,
-                             phase=16)
+    tiny_serve, _ = phase_serve(tinyllama_config(LlamaConfig), PA, FM,
+                                create_engine, init_state, GenerationConfig,
+                                phase=16)
     release()
     phase_parity(tinyllama_config(LlamaConfig), create_engine, init_state,
                  GenerationConfig, phase=16)
@@ -4741,7 +5187,6 @@ def main() -> int:
     laps(17)
     phase_preempt(llama3_8b(), state8b, create_engine, GenerationConfig,
                   RequestState, PA, FM)
-    del state8b
     release()
     laps(18)
 
@@ -4752,15 +5197,32 @@ def main() -> int:
     release()
     laps(19)
 
+    # phase 20: llama3_8b served over HTTP (phases 17-18's state)
+    http_launches = phase_http(llama3_8b(), state8b, PA, FA, FM, serve,
+                               ServingClient, ServingHTTPError, obs,
+                               GenerationConfig, smi, serve4)
+    del state8b
+    release()
+    laps(20)
+
+    # phase 21: the HTTP path and the router in float32, card vs CPU
+    phase_http_parity(llama3_8b(), serve, create_engine, init_state,
+                      GenerationConfig, AdapterStore, random_adapter,
+                      Router, ServingClient, _usage_json, smi)
+    release()
+    laps(21)
+
     rep = masked[1]     # the 2048 bucket: the longest prompts of phase 4
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [
         {"name": "paged_attention", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/paged_attention.cu",
          "replaces": "paddle_tpu/ops/pallas/paged_attention.py:123",
-         # phase 4's decode steps and phase 17's decode and verify steps
+         # phase 4's decode steps, phase 17's decode and verify steps
+         # and phase 20's decode steps over HTTP
          "launches": (launches["paged_attention"]
-                      + spec_launches["paged_attention"]),
+                      + spec_launches["paged_attention"]
+                      + http_launches["paged_attention"]),
          "max_abs_err": max(p["max_abs_err"] for p in pageds + [verify]),
          "max_row_rel_err": max(p["max_row_rel_err"]
                                 for p in pageds + [verify]),
@@ -4770,7 +5232,9 @@ def main() -> int:
         {"name": "flash_mha_masked", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_sm90.cuh",
          "replaces": "paddle_tpu/ops/pallas/flash_mask.py:193",
-         "launches": launches["flash_mha_masked"],
+         # phase 4's full prefills and phase 20's over HTTP
+         "launches": (launches["flash_mha_masked"]
+                      + http_launches["flash_mha_masked"]),
          "max_abs_err": max(m["max_abs_err"] for m in masked),
          "max_row_rel_err": max(m["max_row_rel_err"] for m in masked),
          **{k: rep[k] for k in keys}},

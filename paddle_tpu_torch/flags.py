@@ -157,3 +157,113 @@ define_flag("FLAGS_serving_kv_quant", False,
             "the attention gather; spill/restore move the quantized "
             "bytes, roughly halving page traffic at f32 checkpoints; "
             "off (the default) keeps the dense pools byte-identical")
+
+# Observability, front-end and sanitizer flags the port reads (the serving
+# front end, the observability stack and the concurrency sanitizer).
+define_flag("FLAGS_metrics_dir", "",
+            "directory observability.dump() writes metrics.prom/"
+            "metrics.json/retraces.json into (empty: no dump)")
+define_flag("FLAGS_trace_buffer_size", 4096,
+            "tracing: capacity of the per-process finished-span ring "
+            "(observability.tracing.Tracer)")
+define_flag("FLAGS_flight_recorder_size", 512,
+            "capacity of the engine flight-recorder event ring "
+            "(dumped by /debug/flight and the serving watchdog)")
+define_flag("FLAGS_serving_watchdog_seconds", 0.0,
+            "serving watchdog: seconds of zero decode-loop progress "
+            "with active slots before a hang dump (0 disables)")
+define_flag("FLAGS_serving_slo_ttft_ms", 0.0,
+            "SLO target for time-to-first-token, ms (0 disables)")
+define_flag("FLAGS_serving_slo_tpot_ms", 0.0,
+            "SLO target for per-output-token latency, ms (0 disables)")
+define_flag("FLAGS_serving_slo_e2e_ms", 0.0,
+            "SLO target for request end-to-end latency, ms (0 disables)")
+define_flag("FLAGS_serving_slo_objective", 0.99,
+            "SLO objective (fraction of requests that must meet each "
+            "target) — burn rate = violation rate / (1 - objective)")
+define_flag("FLAGS_resource_peak_tflops", 0.0,
+            "peak accelerator TFLOP/s for the resource tracker's MFU "
+            "estimate (0: look the device kind up in the built-in "
+            "table; unknown devices report mfu=null)")
+define_flag("FLAGS_resource_memory_poll_steps", 16,
+            "sample device memory_stats()/host RSS every N engine host "
+            "syncs (a host round-trip per device; 0 disables polling)")
+define_flag("FLAGS_serving_shed_burn_rate", 0.0,
+            "shed load with 429 when any SLO dimension's burn rate "
+            "(violation rate / error budget, slo.py) reaches this "
+            "threshold — backpressure kicks in before the queue is "
+            "full (0 disables; needs SLO targets configured)")
+define_flag("FLAGS_obs_timeseries_interval_s", 0.0,
+            "fleet-observability sampler: seconds between time-series "
+            "ticks (each tick samples the registered serving counters/"
+            "gauges into bounded rings and evaluates the alert rules; "
+            "0 disables — no store or sampler thread is built and the "
+            "serving path pays zero overhead)")
+define_flag("FLAGS_obs_timeseries_capacity", 512,
+            "fleet-observability time-series ring capacity: points "
+            "kept per series (older samples fall off the ring)")
+define_flag("FLAGS_obs_fleet_window", 32,
+            "recent time-series points each replica publishes per "
+            "series in its GET /debug/fleet summary (the router and "
+            "the dashboard consume these windows)")
+define_flag("FLAGS_obs_profile_interval_s", 0.0,
+            "continuous sampling profiler: seconds between stack "
+            "sweeps (each sweep walks sys._current_frames and "
+            "aggregates phase-attributed per-thread stacks; serve "
+            "them via GET /debug/profile or dump() profile.json; "
+            "0 disables — no profiler or sweep thread is built and "
+            "the serving path pays zero overhead)")
+define_flag("FLAGS_obs_capture_dir", "",
+            "directory for alert-triggered diagnostic capture bundles "
+            "(capture_<n>.json: profile window, flight ring, resource "
+            "snapshot, lock-wait graph, series windows; empty falls "
+            "back to FLAGS_metrics_dir; with neither set bundles stay "
+            "in the bounded in-memory ring behind GET /debug/captures)")
+define_flag("FLAGS_obs_capture_min_interval_s", 60.0,
+            "per-rule rate limit for diagnostic captures: a rule that "
+            "re-fires within this many seconds of its last capture is "
+            "counted (obs_captures_rate_limited_total) but captures "
+            "no new bundle — a flapping alert cannot fill a disk")
+define_flag("FLAGS_obs_capture_max", 8,
+            "diagnostic-capture retention: bundles kept on disk and "
+            "in the in-memory ring; writing bundle N+1 deletes the "
+            "oldest capture_<n>.json")
+define_flag("FLAGS_serving_shed_max_priority", 0,
+            "burn-rate load shedding only rejects requests with "
+            "priority <= this class (higher classes are admitted even "
+            "while shedding; used with FLAGS_serving_shed_burn_rate)")
+define_flag("FLAGS_serving_usage_meter", False,
+            "per-request cost attribution + tenant usage metering: "
+            "build a UsageMeter (observability/usage.py) that tracks "
+            "queue/prefill/decode/speculation costs, KV page-seconds "
+            "(device + host spill tier), and per-tenant rollups behind "
+            "GET /debug/usage and serving_usage_* metrics; off (the "
+            "default) builds no meter and the serving path pays only "
+            "is-not-None tests")
+define_flag("FLAGS_serving_usage_max_tenants", 64,
+            "LRU bound on distinct tenant labels the usage meter "
+            "tracks: admitting tenant N+1 folds the least-recently-"
+            "seen tenant's aggregates and metric series into the "
+            "(evicted) rollup, so hostile clients cycling X-Tenant "
+            "values cannot explode the metrics registry")
+define_flag("FLAGS_serving_request_log", False,
+            "tail-latency forensics: build a RequestLog "
+            "(observability/requestlog.py) that records per-request "
+            "lifecycle timelines on the engine clock, folds them into "
+            "critical-path attribution buckets that sum exactly to the "
+            "measured E2E, and keeps worst-K SLO-violation exemplars — "
+            "behind GET /debug/requests/<id>, GET /debug/exemplars, "
+            "and serving_latency_attribution_seconds_total; off (the "
+            "default) builds no log and the serving path pays only "
+            "is-not-None tests")
+define_flag("FLAGS_serving_exemplars_k", 8,
+            "worst-K reservoir depth per SLO dimension "
+            "(ttft/tpot/e2e/error) for the request log's exemplar "
+            "store (requires FLAGS_serving_request_log)")
+define_flag("FLAGS_sanitizer", False,
+            "enable the runtime concurrency sanitizer: serving/"
+            "observability locks become instrumented wrappers that "
+            "track held-lock stacks, detect runtime ABBA inversions "
+            "and lockset-empty shared accesses (Eraser-style), and "
+            "export a lock-wait graph for watchdog hang dumps; zero "
+            "overhead when off (plain threading primitives)")

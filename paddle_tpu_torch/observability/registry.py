@@ -1,9 +1,9 @@
 """Process-wide metrics registry: Counter / Gauge / Histogram with labels.
 
 A copy of ``paddle_tpu/observability/registry.py`` (same metric names,
-same export formats) with plain ``threading.Lock`` mutexes in place of
-the reference's sanitizer lock factory.  One registry owns every
-runtime metric of the port and exports them as Prometheus text or JSON.
+same export formats, the same sanitizer lock factory).  One registry
+owns every runtime metric of the port and exports them as Prometheus
+text or JSON.
 
 Design constraints:
   * hot-path friendly — a bound child (``counter.labels(...)`` result,
@@ -17,9 +17,9 @@ from __future__ import annotations
 
 import json
 import os
-import threading
 import time
 
+from ..sanitizer import make_lock
 from .quantiles import (  # noqa: F401  (re-export: one canonical impl)
     bucket_quantiles, merge_series_buckets, quantile_from_buckets)
 
@@ -67,7 +67,7 @@ class _Child:
     def __init__(self, metric, labelvalues):
         self._metric = metric
         self._labelvalues = labelvalues
-        self._lock = threading.Lock()
+        self._lock = make_lock(f"{metric.name}.child")
         self._value = 0.0
 
     @property
@@ -183,7 +183,7 @@ class _Metric:
         self.labelnames = tuple(labelnames)
         self._registry = registry
         self._children: dict[tuple, _Child] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock(f"{name}.metric")
         if not self.labelnames:
             # pre-bind the unlabeled series so bare .inc()/.set() is one
             # attribute hop, no dict lookup on the hot path
@@ -301,10 +301,10 @@ class MetricsRegistry:
 
     def __init__(self):
         self._metrics: dict[str, _Metric] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("Registry._lock")
         self._sampling = False
         self._events: list[tuple[float, str, tuple, float]] = []
-        self._events_lock = threading.Lock()
+        self._events_lock = make_lock("Registry._events_lock")
 
     # ------------------------------------------------------- constructors
     def _get_or_create(self, kind, name, help_, labelnames, **kw):

@@ -49,6 +49,7 @@ import ctypes
 
 import torch
 
+from ... import resolve_device
 from .. import cuda_lib
 from .flash_attention import (LSE_INVALID, _bshd_empty_like, _bwd_inputs,
                               _check, _expand_kv, _group_sum, _route,
@@ -112,8 +113,10 @@ def padding_mask_to_intervals(key_mask, sq):
 def sliding_window_intervals(sk, window, batch=1, device=None):
     """Causal sliding-window attention (combine with causal=True): row r
     attends keys [r - window, r] — paddle's window convention (window + 1
-    keys with the diagonal), so column j masks rows > j + window."""
-    j = torch.arange(sk, dtype=torch.int32, device=device)
+    keys with the diagonal), so column j masks rows > j + window.  The
+    intervals are made on ``device`` (default CUDA, like every entry
+    point of the port; ``device="cpu"`` for the plain path)."""
+    j = torch.arange(sk, dtype=torch.int32, device=resolve_device(device))
     lts = (j + window + 1).expand(batch, 1, sk)
     lte = torch.full_like(lts, sk)
     return torch.stack([lts, lte], dim=2)

@@ -1,12 +1,12 @@
 """KV-page allocator + automatic prefix cache for the serving engine.
 
-Ports ``paddle_tpu/serving/block_manager.py`` by copy (host-side; the
-flight-recorder and usage-meter hooks come with the slices that port
-those features).  Each sequence owns a list of fixed-size pages in one
-shared pool, so device memory scales with the tokens actually
-resident, not batch * max_len.  The host spill tier holds whatever
-``ModelRunner.read_page`` returns (CPU tensors: numpy has no bfloat16)
-and prices it by ``nbytes``, as the reference prices its numpy pages.
+Ports ``paddle_tpu/serving/block_manager.py`` by copy (host-side, with
+the reference's flight-recorder events and usage-meter hooks).  Each
+sequence owns a list of fixed-size pages in one shared pool, so device
+memory scales with the tokens actually resident, not batch * max_len.
+The host spill tier holds whatever ``ModelRunner.read_page`` returns
+(CPU tensors: numpy has no bfloat16) and prices it by ``nbytes``, as the
+reference prices its numpy pages.
 
 Unlike :class:`~paddle_tpu_torch.ops.pallas.paged_attention.PagedPool` (which
 reserves pages for ONE static batch up front), this manager serves a
@@ -168,6 +168,11 @@ class BlockManager:
         # chain registration (the pages hold no KV yet) and the engine
         # calls publish_seq once the last chunk has landed (0 = off)
         self.defer_publish = 0
+        # usage meter (observability.usage.UsageMeter) fed page
+        # hold/release and host-tier eviction events for the
+        # page-seconds ledger; None (the default) costs one attribute
+        # test per allocation — the engine wires it when metering is on
+        self.usage = None
         # python-side mirrors of the serving_prefix_* metrics (stats())
         self.prefix_hits = 0
         self.prefix_misses = 0
@@ -222,6 +227,10 @@ class BlockManager:
         self._meta[seq_id] = {"cached_len": 0, "cow_src": None}
         self._commit[seq_id] = {"committed": 0, "floor": 0,
                                 "capacity": n * self.page_size}
+        _obs.flight("blocks", "alloc_seq", seq=seq_id, pages=len(pages),
+                    shared=0, cached_tokens=0, cow=False)
+        if self.usage is not None:
+            self.usage.on_hold(seq_id, pages, fresh=len(pages))
         self._update_pool_gauges()
         return list(pages)
 
@@ -325,6 +334,11 @@ class BlockManager:
                               "deferred": deferred}
         self._commit[seq_id] = {"committed": plen, "floor": plen,
                                 "capacity": total * ps}
+        _obs.flight("blocks", "alloc_seq", seq=seq_id, pages=len(pages),
+                    shared=m, cached_tokens=cached_len,
+                    cow=cow_src is not None)
+        if self.usage is not None:
+            self.usage.on_hold(seq_id, pages, fresh=len(fresh))
 
         # register this prompt's fresh full chunks (chain through any
         # page an identical chunk already cached)
@@ -399,6 +413,8 @@ class BlockManager:
                 tails[page] = tail_toks
                 self._tail_parent[page] = parent
                 self._children.setdefault(parent, set()).add(page)
+        _obs.flight("blocks", "publish_seq", seq=seq_id,
+                    chunks=full, tail=off)
         _M_CACHED_PAGES.set(self.cached_pages)
 
     def seq_meta(self, seq_id: int) -> dict:
@@ -420,6 +436,8 @@ class BlockManager:
         self._meta.pop(seq_id, None)
         self._commit.pop(seq_id, None)
         if pages:
+            if self.usage is not None:
+                self.usage.on_release(seq_id, pages)
             for p in pages:
                 self._decref(p)
         self._update_pool_gauges()
@@ -448,6 +466,8 @@ class BlockManager:
         self._children.clear()
         _M_CACHED_PAGES.set(self.cached_pages)
         self._update_pool_gauges()
+        if dropped:
+            _obs.flight("blocks", "prefix_flush", dropped=dropped)
         return dropped
 
     def replay_plan(self, seq_id: int, tokens, adapter=None) -> dict:
@@ -571,7 +591,9 @@ class BlockManager:
         self._host[digest] = arrays
         self._host.move_to_end(digest)
         while len(self._host) > self.host_pages:
-            self._host.popitem(last=False)
+            dropped, _ = self._host.popitem(last=False)
+            if self.usage is not None:
+                self.usage.on_host_evict(dropped)
         nbytes = sum(a.nbytes for a in arrays)
         self.spilled_pages += 1
         self.spill_bytes += nbytes
@@ -598,7 +620,9 @@ class BlockManager:
     def host_discard(self, digests):
         """Drop parked entries (failed-spill abort path)."""
         for d in digests:
-            self._host.pop(d, None)
+            if self._host.pop(d, None) is not None \
+                    and self.usage is not None:
+                self.usage.on_host_evict(d)
         _M_HOST_PARKED.set(len(self._host))
 
     def note_restored(self, n: int = 1):
@@ -876,6 +900,7 @@ class BlockManager:
             self._unregister(page)
             self._free.append(page)
             self.prefix_evictions += 1
+            _obs.flight("blocks", "page_evict", page=page)
             _M_PREFIX_EVICT.inc()
             _M_CACHED_PAGES.set(self.cached_pages)
             return True

@@ -51,10 +51,20 @@ tier and come back on resume; ``faults=FaultPlan(...)`` injects faults
 at the reference's sites, and :meth:`Engine.recover` (driven by the
 :class:`~.supervisor.EngineSupervisor`) rebuilds the runner and replays
 every in-flight request.  A failed prefill or a non-finite logits row
-fails only its request (``finish_reason="error"``).  Usage metering,
-request logs, SLO tracking and tensor parallelism come with later
-slices: their constructor arguments raise ``NotImplementedError`` when
-set.
+fails only its request (``finish_reason="error"``).
+
+Observability follows the reference seam for seam: every request gets a
+``request`` root span (parented under the caller's ``traceparent`` when
+the server passes one) with ``scheduler.queue_wait`` / ``engine.prefill``
+/ ``engine.decode`` children, the engine records ``engine.*`` spans and
+flight-recorder events, publishes ``current_phase`` for the sampling
+profiler, and feeds the process resource tracker.  ``usage=`` (a
+:class:`~..observability.usage.UsageMeter`), ``requestlog=`` (a
+:class:`~..observability.requestlog.RequestLog`) and ``slo=`` (a
+:class:`~.slo.SLOTracker`) arm per-request cost metering, lifecycle
+timelines and SLO verdicts; each seam is one ``is not None`` test when
+off.  Tensor parallelism comes with a later slice: ``mesh`` > 1 raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -62,9 +72,12 @@ import time
 
 import numpy as np
 
+import torch
+
 from .. import observability as _obs
 from .. import resolve_device
 from ..flags import FLAGS
+from ..observability.resources import resource_tracker
 from ..models.generation import GenerationConfig
 from ..models.llama import LlamaConfig
 from .block_manager import BlockManager
@@ -114,8 +127,7 @@ _M_CHUNKS = _obs.counter(
 
 # constructor arguments of the reference engine whose features come with
 # later slices: a set value raises instead of being silently ignored
-_LATER = {"usage": "usage metering", "requestlog": "request logs",
-          "slo": "SLO tracking", "mesh": "tensor parallelism"}
+_LATER = {"mesh": "tensor parallelism"}
 
 
 class NonFiniteLogitsError(ValueError):
@@ -179,7 +191,8 @@ class Engine:
                  prefill_chunk: int | None = None,
                  preempt: bool | None = None, faults=None,
                  quant: str | None = None, kv_quant: bool | None = None,
-                 lora=None, **later):
+                 lora=None, slo=None, usage=None, requestlog=None,
+                 **later):
         _check_later(later)
         self.device = resolve_device(device)
         # quantized serving: convert the dense checkpoint before
@@ -270,6 +283,31 @@ class Engine:
         # and the lockstep decode step (which writes KV for every slot)
         # would corrupt them once reallocated
         self.scheduler._on_evict = self._park
+        # per-request cost attribution (observability.usage): every
+        # call site below is a single ``is not None`` test, so the
+        # default (no meter) adds zero work to the serving path
+        self.usage = usage
+        if usage is not None:
+            if usage._clock is None:
+                usage._clock = self._clock   # page-seconds on engine clock
+            self.blocks.usage = usage        # page hold/release + host tier
+            self.scheduler.usage = usage     # fair-share victim selection
+            if slo is not None:
+                slo.verdict_hook = usage.slo_verdict
+            # the process-active meter: obs.dump() writes usage.json
+            # from it (last engine built wins)
+            _obs.set_active_usage(usage)
+        # tail-latency forensics (observability.requestlog): per-request
+        # lifecycle timelines + critical-path attribution + SLO-violation
+        # exemplars, under the same zero-overhead-off contract
+        self.requestlog = requestlog
+        if requestlog is not None:
+            if slo is not None:
+                # violation exemplars ride the tracker's verdicts; the
+                # usage meter's verdict_hook is untouched
+                slo.exemplar_hook = requestlog.slo_verdict
+            # the process-active log: obs.dump() writes exemplars.json
+            _obs.set_active_requestlog(requestlog)
 
         # the device half; the kwargs are kept so recover() can rebuild
         # an identical runner after a poisoned step (fresh pools, same
@@ -330,13 +368,34 @@ class Engine:
         # total)
         self.timings = {"prefill_s": 0.0, "decode_s": 0.0,
                         "host_sync_s": 0.0}
-        self.progress = 0           # iteration counter, never reset
+        # monotonically increasing iteration counter: the serving
+        # watchdog reads it lock-free to detect a wedged decode loop
+        self.progress = 0
+        # what the engine is doing right now, for the sampling profiler
+        # (prefill / prefill_chunk / decode / verify / host_sync / idle):
+        # a plain attribute store at each section entry, read lock-free
+        self.current_phase = "idle"
+        self.slo = slo              # optional slo.SLOTracker
+        # open "engine.decode_segment" span covering the device steps
+        # since the last host sync (None between segments)
+        self._seg_span = None
+        self._seg_steps = 0
         self._rngs: dict[int, np.random.Generator] = {}
         self._ttft, self._tpot, self._e2e = _serving_hists()
         self._pages_hist = _obs.histogram(
             "serving_pages_in_use_hist",
             "pages-in-use sampled at each decode step",
             buckets=_pages_buckets(self.blocks.num_pages))
+        # resource tracker: model size + device kind feed the MFU
+        # estimate (tokens/s * 2 * n_params / peak_flops); the device
+        # feeds its memory samples
+        n_params = sum(int(np.prod(v.shape))
+                       for v in state.values() if hasattr(v, "shape"))
+        device_kind = (torch.cuda.get_device_name(self.device)
+                       if self.device.type == "cuda" else None)
+        resource_tracker().set_model(n_params=n_params,
+                                     device_kind=device_kind,
+                                     device=self.device)
         # the quant / LoRA metric surface, registered only when the mode
         # is on, so a dense engine exports the pre-quant set
         if self.quant or self.kv_quant:
@@ -356,12 +415,16 @@ class Engine:
                 "bytes one KV page pair (k + v + scales) occupies — "
                 "what each spill/restore moves"
             ).set(self._page_bytes())
+            # quant.json provider for obs.dump() (last engine wins)
+            _obs.set_active_quant(self)
         if self.lora is not None:
             _obs.gauge(
                 "serving_lora_bank_bytes",
                 "device bytes the packed adapter bank occupies "
                 "(all rows, every projection, + the scale vector)"
             ).set(self.runner.lora_bank_bytes())
+            # lora.json provider for obs.dump() (last engine wins)
+            _obs.set_active_lora(self)
 
     # ------------------------------------------------ runner delegation
     @property
@@ -379,15 +442,23 @@ class Engine:
     # ----------------------------------------------------------- intake
     def submit(self, prompt, gen: GenerationConfig | None = None, *,
                deadline: float | None = None, on_token=None,
-               arrival_time: float | None = None,
-               priority: int = 0, adapter: str | None = None) -> Request:
-        """Queue one request; ``priority`` sets its scheduling class
-        (higher admits first and, with preemption on, may preempt
-        lower-priority residents).  ``adapter`` names a LoRA adapter
-        registered with the engine's AdapterStore (None = dense); its
-        bank row is pinned from here to the request's finalize."""
+               arrival_time: float | None = None, trace=None,
+               priority: int = 0, tenant: str | None = None,
+               adapter: str | None = None) -> Request:
+        """Queue one request.  ``trace`` is an optional
+        tracing.SpanContext (or Span) the request's root span is
+        parented under — the server passes the extracted
+        ``traceparent`` here so the engine-side spans join the caller's
+        trace; without it the root span inherits the submitting
+        thread's current span, if any.  ``priority`` sets the scheduling
+        class (higher admits first and, with preemption on, may preempt
+        lower-priority residents).  ``tenant`` is the usage meter's
+        billing dimension (default ``"anon"``).  ``adapter`` names a
+        LoRA adapter registered with the engine's AdapterStore (None =
+        dense); its bank row is pinned from here to the request's
+        finalize."""
         req = Request(prompt, gen, deadline=deadline, on_token=on_token,
-                      priority=priority, adapter=adapter,
+                      priority=priority, tenant=tenant, adapter=adapter,
                       arrival_time=(self._clock() if arrival_time is None
                                     else arrival_time))
         if req.adapter is not None and self.lora is None:
@@ -418,12 +489,41 @@ class Engine:
         req._adapter_row = (self.lora.acquire(req.adapter)
                             if self.lora is not None else 0)
         req._engine = self
+        # spans only after every validation — a rejected submit must not
+        # leave dangling open spans
+        tr = _obs.tracer()
+        attrs = {"req": req.id, "prompt_len": int(req.prompt.size),
+                 "max_new_tokens": int(req.gen.max_new_tokens)}
+        req.trace_parent = trace
+        if trace is not None:
+            req.root_span = tr.start_span("request", parent=trace,
+                                          attributes=attrs)
+        else:
+            req.root_span = tr.start_span("request", attributes=attrs)
+        req.queue_span = tr.start_span("scheduler.queue_wait",
+                                       parent=req.root_span)
+        if self.requestlog is not None:
+            # after the root span exists so the timeline carries the
+            # trace id (the /debug/trace <-> /debug/exemplars join)
+            self.requestlog.attach(req)
         try:
+            _obs.flight("engine", "submit", req=req.id,
+                        prompt_len=int(req.prompt.size),
+                        trace=req.root_span.trace_id)
+            if self.usage is not None:
+                # register BEFORE the scheduler sees the request so any
+                # admission-time page holds already attribute to it
+                self.usage.on_submit(req)
             self.scheduler.submit(req)
         except BaseException:
-            # a rejected submit must not leave its adapter row pinned
+            # a rejected submit must not leave the request's spans open
+            # in the tracer ring — nor its adapter row pinned
             if self.lora is not None:
                 self.lora.release(req.adapter)
+            if self.requestlog is not None:
+                self.requestlog.discard(req.id)
+            req.queue_span.end()
+            req.root_span.end()
             raise
         return req
 
@@ -451,7 +551,8 @@ class Engine:
             self._decode(active)
         else:
             self._prefill_since_decode = 0
-        self.progress += 1
+        self.current_phase = "idle"
+        self.progress += 1          # watchdog heartbeat
         return bool(admitted) or bool(active) or bool(advanced)
 
     def run_until_complete(self, max_steps: int | None = None):
@@ -476,18 +577,29 @@ class Engine:
 
     # ----------------------------------------------------------- prefill
     def _prefill(self, slot: int, req: Request):
+        if req.queue_span is not None:      # queue wait ends at admission
+            req.queue_span.end()
+            req.queue_span = None
         if req.admitted_at is not None:
             # ledger: queue-wait seconds — every wait (first admission
             # and each preemption re-queue) sums into the same field
             req.queue_seconds += max(
                 0.0, req.admitted_at - req._queued_since)
             req._queued_since = req.admitted_at
+            if req.timeline is not None:
+                # a re-queue wait after preemption charges to the
+                # preempted bucket
+                req.timeline.note(
+                    "preempted" if req.num_generated else "queue",
+                    req.admitted_at, event="admit", slot=slot,
+                    then="prefill_compute")
         if req.num_generated:
             # re-admission of a preempted request: rebuild device KV
             # from the prefix cache + host spill tier + a re-prefill of
             # the remainder; no token is emitted
             self._resume(slot, req)
             return
+        self.current_phase = "prefill"
         t0 = time.perf_counter()
         ps = self.page_size
         plen = req.prompt.size
@@ -547,6 +659,18 @@ class Engine:
         now = self._clock()
         self._ttft.observe(now - req.arrival_time)
         self._note_phase("prefill", time.perf_counter() - t0)
+        if req.timeline is not None:
+            req.timeline.note_prefill(now, cached=cached,
+                                      computed=plen - cached, slot=slot)
+        _obs.tracer().record_span(
+            "engine.prefill", t0, time.perf_counter(),
+            parent=req.root_span,
+            attributes={"req": req.id, "slot": slot, "bucket": bucket,
+                        "cached_tokens": cached,
+                        "kind": "cached_suffix" if cached else "full",
+                        "cow": meta["cow_src"] is not None})
+        _obs.flight("engine", "prefill", req=req.id, slot=slot,
+                    bucket=bucket, cached=cached)
         self._enter_decode(slot, req, row, plen, tok)
         if self._proposer is not None:
             # seed the drafter with the prompt; emitted tokens extend
@@ -580,7 +704,7 @@ class Engine:
         self._chunking[slot] = {
             "req": req, "ids": np.asarray(ids_all, np.int32).reshape(-1),
             "done": int(done), "row": row, "resume_tok": resume_tok,
-            "chunks": 0}
+            "chunks": 0, "t0": time.perf_counter()}
         self._advance_chunk(slot)
 
     def _advance_chunk(self, slot: int):
@@ -589,12 +713,18 @@ class Engine:
         chunks never fetch logits, so they cost no host sync."""
         st = self._chunking[slot]
         req = st["req"]
+        if req.timeline is not None:
+            # time since the last chunk (decode steps for other slots
+            # ran in between) is this request's chunk-gap cost
+            req.timeline.note("chunk_gap", self._clock(),
+                              then="prefill_compute")
         ids_all = st["ids"]
         n = int(ids_all.size)
         done = st["done"]
         this = min(self.prefill_chunk, n - done)
         last = done + this >= n
         ps = self.page_size
+        self.current_phase = "prefill_chunk"
         t0 = time.perf_counter()
         try:
             bucket = -(-this // ps) * ps
@@ -615,6 +745,13 @@ class Engine:
             if not last:
                 st["done"] = done + this
                 self._note_phase("prefill", time.perf_counter() - t0)
+                if req.timeline is not None:
+                    req.timeline.note(
+                        "prefill_compute", self._clock(), event="chunk",
+                        slot=slot, done=done + this, total=n,
+                        then="chunk_gap")
+                _obs.flight("engine", "prefill_chunk", req=req.id,
+                            slot=slot, done=done + this, total=n)
                 return
             if st["resume_tok"] is None:
                 # admission: the first output token comes from the final
@@ -637,6 +774,20 @@ class Engine:
         self.blocks.publish_seq(req.id, ids_all, adapter=req.adapter)
         now = self._clock()
         self._note_phase("prefill", time.perf_counter() - t0)
+        if req.timeline is not None:
+            req.timeline.note("prefill_compute", now, event="chunk",
+                              slot=slot, done=n, total=n,
+                              chunks=st["chunks"], then="decode")
+        _obs.tracer().record_span(
+            "engine.prefill", st["t0"], time.perf_counter(),
+            parent=req.root_span,
+            attributes={"req": req.id, "slot": slot,
+                        "chunks": st["chunks"],
+                        "cached_tokens": req.num_cached_tokens,
+                        "kind": "chunked",
+                        "resume": st["resume_tok"] is not None})
+        _obs.flight("engine", "prefill", req=req.id, slot=slot,
+                    chunks=st["chunks"], cached=req.num_cached_tokens)
         self._enter_decode(slot, req, st["row"], n, tok)
         if st["resume_tok"] is None:
             self._ttft.observe(now - req.arrival_time)
@@ -649,7 +800,7 @@ class Engine:
     def _enter_decode(self, slot: int, req: Request, row, pos: int,
                       tok: int):
         """Flip an admitted request into decode: patch the slot mirrors
-        + the device row."""
+        + the device row, open the decode span."""
         self.table[slot] = row
         self._pos[slot] = pos
         self._tok[slot] = tok
@@ -657,6 +808,10 @@ class Engine:
         self._aidx[slot] = req._adapter_row
         self._push_slot(slot)
         req.state = RequestState.DECODE
+        if req.root_span is not None:
+            req.decode_span = _obs.tracer().start_span(
+                "engine.decode", parent=req.root_span,
+                attributes={"req": req.id, "slot": slot})
 
     # -------------------------------------------------------- preemption
     def _preempt(self, slot: int) -> bool:
@@ -670,6 +825,12 @@ class Engine:
         req = self.scheduler.slots[slot]
         if req is None or req.state != RequestState.DECODE:
             return False
+        t0 = time.perf_counter()
+        if req.timeline is not None:
+            # decoding ends here; the spill loop below (and, if the
+            # preemption lands, the re-queue wait and the restore)
+            # charges to the preempted bucket
+            req.timeline.note("decode", self._clock(), then="preempted")
         tokens = req.resume_tokens()
         parked: list[str] = []
         for page, digest in self.blocks.spill_plan(req.id, tokens,
@@ -679,6 +840,15 @@ class Engine:
                                           page=page) is not None):
                 self.blocks.host_discard(parked)
                 self.spill_aborts += 1
+                if req.timeline is not None:
+                    # the aborted spill attempt was still preemption
+                    # cost; the request goes back to decoding
+                    req.timeline.note("preempted", self._clock(),
+                                      event="spill_abort", slot=slot,
+                                      then="decode")
+                _obs.flight("engine", "spill_abort", req=req.id,
+                            slot=slot, page=page,
+                            parked_dropped=len(parked))
                 return False
             arrays = self.runner.read_page(page)
             self.blocks.host_put(digest, *arrays)
@@ -687,6 +857,8 @@ class Engine:
             # int8 pages park (k, v, kscale, vscale)
             req.spilled_pages += 1
             req.spill_bytes += sum(a.nbytes for a in arrays)
+            if self.usage is not None:
+                self.usage.on_host_park(req, digest)
             parked.append(digest)
         self.blocks.release_preempted(req.id, tokens, adapter=req.adapter)
         self._park(slot)
@@ -700,8 +872,30 @@ class Engine:
         # back to the queue: the ledger's queue-wait anchor restarts so
         # queue_seconds sums this wait too
         req._queued_since = self._clock()
+        if req.timeline is not None:
+            req.timeline.note("preempted", req._queued_since,
+                              event="preempt", slot=slot,
+                              pages=len(parked), then="preempted")
         if self._proposer is not None:
             self._proposer.drop(req.id)  # resume re-registers history
+        if req.decode_span is not None:
+            req.decode_span.set_attribute("preempted", True)
+            req.decode_span.set_attribute("generated", req.num_generated)
+            req.decode_span.end()
+            req.decode_span = None
+        if req.root_span is not None:
+            # back to the queue: a fresh queue-wait span covers the
+            # time until re-admission
+            req.queue_span = _obs.tracer().start_span(
+                "scheduler.queue_wait", parent=req.root_span,
+                attributes={"resume": True})
+        _obs.tracer().record_span(
+            "engine.preempt_spill", t0, time.perf_counter(),
+            parent=req.root_span,
+            attributes={"req": req.id, "slot": slot,
+                        "pages": len(parked)})
+        _obs.flight("engine", "preempt_spill", req=req.id, slot=slot,
+                    pages=len(parked))
         return True
 
     def _resume(self, slot: int, req: Request):
@@ -712,8 +906,14 @@ class Engine:
         whatever remains — then decode continues with the last emitted
         token as the next input, token-for-token identical to an
         uninterrupted greedy run."""
+        self.current_phase = "prefill"
         t0 = time.perf_counter()
         ps = self.page_size
+        if self.usage is not None:
+            # this request is no longer waiting on its parked pages —
+            # per-request host-tier accrual stops here (the tenant keeps
+            # paying until the digests fall out of the host LRU)
+            self.usage.on_host_release(req)
         tokens = req.resume_tokens()
         ids_all = tokens[:-1]
         n = int(ids_all.size)
@@ -723,6 +923,7 @@ class Engine:
         req.prefill_cached_tokens += int(meta["cached_len"])
         cached = min(int(meta["cached_len"]), n)
         row = self.blocks.table_row(req.id, self.table_width)
+        restored = 0
         try:
             if meta["cow_src"] is not None:
                 # tail CoW page from the admission match: duplicate it
@@ -742,6 +943,7 @@ class Engine:
                     self.blocks.note_restored()
                     req.restored_pages += 1
                     req.restore_bytes += sum(a.nbytes for a in entry)
+                    restored += 1
                     cached += ps
         except Exception as e:
             self._note_phase("prefill", time.perf_counter() - t0)
@@ -755,6 +957,16 @@ class Engine:
         if self.prefill_chunk and suffix > self.prefill_chunk:
             # a long replay suffix chunks exactly like a long prompt
             self._note_phase("prefill", time.perf_counter() - t0)
+            if req.timeline is not None:
+                # restore work so far charges to preempted; the chunked
+                # re-prefill accounts like any chunked admission
+                req.timeline.note("preempted", self._clock(),
+                                  event="resume", slot=slot,
+                                  restored=restored, cached=cached,
+                                  chunked=True, then="prefill_compute")
+            _obs.flight("engine", "resume", req=req.id, slot=slot,
+                        tokens=n, cached=cached, restored=restored,
+                        chunked=True)
             self._begin_chunks(slot, req, ids_all, cached, row,
                                resume_tok=tok)
             return
@@ -781,13 +993,27 @@ class Engine:
         # the replay suffix, so a resume can be deferred yet single-shot
         # — publish here too (no-op when registration wasn't deferred)
         self.blocks.publish_seq(req.id, ids_all, adapter=req.adapter)
+        now = self._clock()
         self._note_phase("prefill", time.perf_counter() - t0)
+        if req.timeline is not None:
+            req.timeline.note("preempted", now, event="resume",
+                              slot=slot, restored=restored,
+                              cached=cached, then="decode")
         self._enter_decode(slot, req, row, n, tok)
         if self._proposer is not None:
             self._proposer.register(req.id, tokens)
+        _obs.tracer().record_span(
+            "engine.resume", t0, time.perf_counter(),
+            parent=req.root_span,
+            attributes={"req": req.id, "slot": slot, "tokens": n,
+                        "cached_tokens": cached,
+                        "restored_pages": restored})
+        _obs.flight("engine", "resume", req=req.id, slot=slot,
+                    tokens=n, cached=cached, restored=restored)
 
     # ------------------------------------------------------------ decode
     def _decode(self, active: list[int]):
+        self.current_phase = "decode"
         if self.faults is not None:
             f = self.faults.check("slow_step", step=self.decode_steps)
             if f is not None:
@@ -799,6 +1025,14 @@ class Engine:
                 raise InjectedFault(
                     f"injected poisoned decode step "
                     f"(step {self.decode_steps})")
+        if self._seg_span is None:
+            # one span per host-sync interval, NOT per device step —
+            # segments are the engine's visible unit of decode work
+            self._seg_span = _obs.tracer().start_span(
+                "engine.decode_segment", parent=None,
+                attributes={"slots": len(active)})
+            self._seg_steps = 0
+        self._seg_steps += 1
         reqs = [(s, self.scheduler.slots[s]) for s in active]
         drafts = self._propose(reqs)
         if drafts:
@@ -851,6 +1085,7 @@ class Engine:
         per slot, then sync immediately — acceptance needs the ring row
         before the next proposal anyway, and the step commits up to k+1
         tokens, so the sync amortizes like deferred plain steps."""
+        self.current_phase = "verify"
         draft_arr = np.zeros((self.max_slots, self.spec_k), np.int32)
         dlen = np.zeros((self.max_slots,), np.int32)
         for slot, ds in drafts.items():
@@ -878,11 +1113,16 @@ class Engine:
     def _sync(self):
         """Drain the device token ring: ONE [sync_interval, slots] int32
         transfer covers every decode step since the previous sync."""
+        self.current_phase = "host_sync"
         sync_t0 = time.perf_counter()
         ring = self.runner.fetch_ring()
+        sync_s = time.perf_counter() - sync_t0
         self.host_syncs += 1
-        self._note_phase("host_sync", time.perf_counter() - sync_t0)
+        self._note_phase("host_sync", sync_s)
         _M_HOST_SYNCS.labels("ring").inc()
+        poll = int(FLAGS.get("FLAGS_resource_memory_poll_steps") or 0)
+        if poll > 0 and self.host_syncs % poll == 0:
+            resource_tracker().sample_memory()
         # wide-ring rows: [slots, k+1] candidate grids (speculation on);
         # narrow rows: [slots] sampled tokens.  Re-derive each verify
         # row's acceptance from the drafts the host already holds — the
@@ -901,9 +1141,37 @@ class Engine:
                         break
                     a += 1
                 accepted[slot] = (len(drafts.get(slot, ())), a)
+        if self._seg_span is not None:
+            # the ring fetch above blocked on the device — the segment
+            # span ends here, covering dispatch through host sync
+            self._seg_span.set_attribute("steps", self._seg_steps)
+            if accepted:
+                self._seg_span.set_attribute(
+                    "spec_proposed", sum(p for p, _ in accepted.values()))
+                self._seg_span.set_attribute(
+                    "spec_accepted", sum(a for _, a in accepted.values()))
+            self._seg_span.end()
+            self._seg_span = None
+        _obs.flight("engine", "host_sync", rows=len(self._pending),
+                    steps=self._seg_steps, sync_s=round(sync_s, 6))
+        sample_t0 = None
         logits_np = None
         now = self._clock()
         n_rows = len(self._pending)
+        if self.requestlog is not None:
+            # one timeline charge per live request per sync: decode
+            # dispatch up to the blocking ring fetch, then the sync
+            # itself — overlapping requests each experience the full
+            # wall interval, so per-request conservation still holds
+            seen: set[int] = set()
+            for _, entries, _ in self._pending:
+                for _slot, _req in entries:
+                    if (_req.id in seen or _req.is_finished()
+                            or _req.state != RequestState.DECODE
+                            or _req.timeline is None):
+                        continue
+                    seen.add(_req.id)
+                    _req.timeline.note_sync(now, sync_s)
         corrections = []
         for row_i, (ridx, entries, drafts) in enumerate(self._pending):
             for slot, req in entries:
@@ -919,6 +1187,7 @@ class Engine:
                     # sampling rows only exist under eff-interval 1, so
                     # the step's logits are always the right row
                     if logits_np is None:
+                        sample_t0 = time.perf_counter()
                         logits_np = self._last_logits.cpu().numpy()
                         self.logit_fetches += 1
                         _M_HOST_SYNCS.labels("logits").inc()
@@ -940,6 +1209,12 @@ class Engine:
                 self._tok[slot] = tok
                 self._emit(slot, req, tok, now)
         self._pending.clear()
+        if sample_t0 is not None:
+            # host-side sampling for this sync: logits fetch + per-
+            # request pick (argmax/top-k/top-p) + any device feedback
+            _obs.tracer().record_span(
+                "engine.sample", sample_t0, time.perf_counter(),
+                attributes={"corrections": len(corrections)})
         if corrections:
             self.runner.correct_tokens(corrections)
 
@@ -973,16 +1248,21 @@ class Engine:
                 break
 
     def _note_phase(self, phase: str, seconds: float):
-        """Charge engine wall time to a phase (the per-engine mirror and
-        the serving_step_phase_seconds_total counter)."""
+        """Charge engine wall time to a phase: the per-engine mirror,
+        the serving_step_phase_seconds_total counter, and the process
+        tracker's throughput denominator."""
         seconds = max(float(seconds), 0.0)
         self.timings[phase + "_s"] += seconds
         _M_PHASE_SECONDS.labels(phase).inc(seconds)
+        resource_tracker().note_phase(phase, seconds)
 
     def _emit(self, slot: int, req: Request, tok: int, now: float,
               charge: bool = True):
+        if req.timeline is not None and req.first_token_at is None:
+            req.timeline.mark("first_token", now)   # the TTFT moment
         req._emit(tok, now)
         _M_TOKENS.inc()
+        resource_tracker().note_tokens(1)
         if charge:
             # committed-token ledger: one durable token per emit (the
             # speculative path charges its whole span at dispatch and
@@ -1073,6 +1353,39 @@ class Engine:
         self._e2e.observe(now - req.arrival_time)
         _M_REQUESTS.labels(reason).inc()
         _M_FINISH.labels(reason).inc()
+        resource_tracker().note_finish(reason, req.num_generated)
+        if self.requestlog is not None:
+            # close the timeline (residual charge + conservation check)
+            # BEFORE slo.observe, so a violation exemplar snapshots the
+            # finished attribution, not a half-charged one
+            self.requestlog.on_finish(req, reason, now)
+        if self.slo is not None:
+            self.slo.observe(req, now)
+        if self.usage is not None:
+            # after slo.observe so per-tenant verdicts land first; the
+            # page-seconds accumulator folds when the pages release
+            self.usage.on_finish(req, reason, now)
+        _obs.flight("engine", "finish", req=req.id, reason=reason,
+                    generated=req.num_generated)
+        if req.queue_span is not None:      # dropped while still queued
+            req.queue_span.set_attribute("dropped", True)
+            req.queue_span.end()
+            req.queue_span = None
+        if req.decode_span is not None:
+            req.decode_span.set_attribute("generated", req.num_generated)
+            req.decode_span.end()
+            req.decode_span = None
+        if req.root_span is not None:
+            rs = req.root_span
+            rs.set_attribute("finish_reason", reason)
+            rs.set_attribute("generated", req.num_generated)
+            rs.set_attribute("cached_tokens", req.num_cached_tokens)
+            if reason == "deadline" and req.deadline is not None:
+                # how far past its deadline the request was when the
+                # scheduler finally evicted it (engine clock)
+                rs.set_attribute("deadline_overrun_s",
+                                 round(now - req.deadline, 6))
+            rs.end()
 
     # -------------------------------------------------------- self-healing
     def _quarantine(self, slot: int, req: Request, why, now: float):
@@ -1082,6 +1395,8 @@ class Engine:
         req.error = str(why)
         self.quarantines += 1
         _M_RECOVERY.labels("quarantine").inc()
+        _obs.flight("engine", "quarantine", req=req.id, slot=slot,
+                    error=str(why)[:160])
         self._finalize(req, "error", now)
         self.scheduler.evict(slot, "error", now)
 
@@ -1102,6 +1417,12 @@ class Engine:
         own, so a full-size pool is never held twice.  Typically called
         by the :class:`~.supervisor.EngineSupervisor`, not user code."""
         now = self._clock()
+        t0 = time.perf_counter()
+        if self._seg_span is not None:
+            self._seg_span.set_attribute("aborted", True)
+            self._seg_span.end()
+            self._seg_span = None
+        self._seg_steps = 0
         # drop un-synced device state: the ring rows and logits belong
         # to the dead runner (the pos mirrors they would have advanced
         # are recomputed from request state below)
@@ -1134,6 +1455,12 @@ class Engine:
             except Exception as e:
                 self._quarantine(slot, req, f"replay failed: {e}", now)
         self.recoveries += 1
+        _obs.flight("engine", "recover", replayed=replayed,
+                    flushed_cached_pages=flushed)
+        _obs.tracer().record_span(
+            "engine.recover", t0, time.perf_counter(),
+            attributes={"replayed": replayed,
+                        "flushed_cached_pages": flushed})
         return {"replayed": replayed, "flushed_cached_pages": flushed}
 
     def _replay(self, slot: int, req: Request):
@@ -1143,6 +1470,7 @@ class Engine:
         generated - 1``, and the last generated token re-enters as the
         next step's input — decode then continues token-for-token as if
         the fault never happened."""
+        self.current_phase = "prefill"
         t0 = time.perf_counter()
         tokens = [int(t) for t in req.prompt] + list(req.output_tokens)
         ids_all = tokens[:-1]
@@ -1182,6 +1510,19 @@ class Engine:
         self._aidx[slot] = req._adapter_row
         self._push_slot(slot)
         self._note_phase("prefill", time.perf_counter() - t0)
+        if req.timeline is not None:
+            # everything since the last charge — the poisoned step, the
+            # runner rebuild's share, and this replay — was recovery
+            req.timeline.note("recovery", self._clock(), event="replay",
+                              slot=slot, tokens=n, cached=cached,
+                              then="decode")
+        _obs.tracer().record_span(
+            "engine.replay", t0, time.perf_counter(),
+            parent=req.root_span,
+            attributes={"req": req.id, "slot": slot, "tokens": n,
+                        "cached_tokens": cached})
+        _obs.flight("engine", "replay", req=req.id, slot=slot,
+                    tokens=n, cached=cached)
 
     # -------------------------------------------------------------- info
     def stats(self) -> dict:
@@ -1226,6 +1567,7 @@ class Engine:
                      if self.lora is not None else None),
             "timings": {k: round(v, 6) for k, v in self.timings.items()},
             "progress": self.progress,
+            "slo": self.slo.stats() if self.slo is not None else None,
             "recoveries": self.recoveries,
             "quarantines": self.quarantines,
             "replayed_requests": self.replayed_requests,
@@ -1264,11 +1606,54 @@ class Engine:
         }
 
     def lora_snapshot(self) -> dict:
-        """The adapter store's residency census plus the device bank
-        footprint."""
+        """The ``lora.json`` side-file: the adapter store's residency
+        census plus the device bank footprint."""
         snap = self.lora.snapshot() if self.lora is not None else {}
         snap["bank_bytes_device"] = self.runner.lora_bank_bytes()
         return snap
+
+    def resource_snapshot(self) -> dict:
+        """Engine-local half of ``GET /debug/resources``: the exact
+        pool census (live/cached/free with a leak check), per-resident-
+        request page footprints, fragmentation against the queue head,
+        the runner's device memory, and the phase timing breakdown.
+        The process-wide tracker snapshot (memory/compiles/goodput)
+        complements it."""
+        b = self.blocks
+        head_need = None
+        if self.scheduler.queue:
+            head = self.scheduler.queue[0]
+            head_need = b.pages_needed(head.prompt.size,
+                                       head.gen.max_new_tokens)
+        requests = {}
+        for slot, req in enumerate(self.scheduler.slots):
+            if req is not None:
+                fp = b.seq_footprint(req.id)
+                fp["slot"] = slot
+                requests[str(req.id)] = fp
+        pool = b.pool_accounting()
+        pool["fragmentation_ratio"] = round(b.fragmentation(head_need), 6)
+        return {
+            "pool": pool,
+            "requests": requests,
+            "mesh": self.runner.mesh_info(),
+            "lora": (self.lora_snapshot()
+                     if self.lora is not None else None),
+            "timings": {k: round(v, 6) for k, v in self.timings.items()},
+            "counters": {
+                "decode_steps": self.decode_steps,
+                "decode_traces": self.decode_traces,
+                "host_syncs": self.host_syncs,
+                "logit_fetches": self.logit_fetches,
+                "pages_allocated": b.pages_allocated,
+                "recoveries": self.recoveries,
+                "quarantines": self.quarantines,
+                "prefill_chunks": self.prefill_chunks,
+                "preemptions": self.preemptions,
+                "spilled_pages": b.spilled_pages,
+                "restored_pages": b.restored_pages,
+            },
+        }
 
 
 def _softmax(x):
@@ -1298,7 +1683,8 @@ def create_engine(config: LlamaConfig, state: dict, *, device=None,
                   prefill_chunk: int | None = None,
                   preempt: bool | None = None, faults=None,
                   quant: str | None = None, kv_quant: bool | None = None,
-                  lora=None, **later) -> Engine:
+                  lora=None, slo=None, usage=None, requestlog=None,
+                  **later) -> Engine:
     """Build a continuous-batching engine over a Llama state dict (see
     ``models/convert.py``: :func:`state_from_numpy` carries the JAX
     package's weights over, :func:`init_state` makes random ones).
@@ -1318,7 +1704,10 @@ def create_engine(config: LlamaConfig, state: dict, *, device=None,
     (default: ``FLAGS_serving_fault_plan``, empty = none).  ``quant``
     ("int8"/"int4") quantizes the projection weights, ``kv_quant=True``
     the KV pages, and ``lora`` takes an :class:`AdapterStore` (requests
-    then pick an adapter with ``submit(..., adapter=name)``).
+    then pick an adapter with ``submit(..., adapter=name)``).  ``slo``
+    takes an :class:`~.slo.SLOTracker`, ``usage`` a
+    :class:`~..observability.usage.UsageMeter` and ``requestlog`` a
+    :class:`~..observability.requestlog.RequestLog` (each None = off).
 
     Example::
 
@@ -1337,4 +1726,4 @@ def create_engine(config: LlamaConfig, state: dict, *, device=None,
                   sync_interval=sync_interval, clock=clock, spec_k=spec_k,
                   prefill_chunk=prefill_chunk, preempt=preempt,
                   faults=faults, quant=quant, kv_quant=kv_quant, lora=lora,
-                  **later)
+                  slo=slo, usage=usage, requestlog=requestlog, **later)

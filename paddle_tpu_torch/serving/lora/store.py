@@ -23,13 +23,13 @@ hold float32 regardless of the base dtype.
 """
 from __future__ import annotations
 
-import threading
 from collections import OrderedDict
 
 import numpy as np
 import torch
 
 from ... import observability as _obs
+from ...sanitizer import make_lock
 
 __all__ = ["AdapterStore", "LORA_KEYS", "lora_key_dims",
            "random_adapter", "merge_adapter"]
@@ -137,7 +137,7 @@ class AdapterStore:
         self.config = config
         self.capacity = int(capacity)
         self.rank = None if rank is None else int(rank)
-        self._lock = threading.Lock()
+        self._lock = make_lock("lora.AdapterStore")
         self._host: dict[str, dict] = {}      # name -> parked weights
         self._alpha: dict[str, float] = {}
         self._resident: OrderedDict[str, int] = OrderedDict()  # -> row

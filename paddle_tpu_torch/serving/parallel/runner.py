@@ -544,6 +544,37 @@ class ModelRunner:
         if self.lora_slots:
             self._aidx_dev[slot] = int(adapter_row)
 
+    def mesh_info(self) -> dict:
+        """Device memory of the runner's one device, in the reference's
+        per-mesh-position shape (``tp`` 1, position 0): the KV pool,
+        weight and adapter-bank footprints, plus the CUDA allocator's
+        live and peak bytes on a card (a CPU runner reports the
+        footprints alone)."""
+        def nbytes(t):
+            if t is None:
+                return 0
+            if isinstance(t, QuantizedWeight):
+                return nbytes(t.q) + nbytes(t.scale)
+            return t.numel() * t.element_size()
+
+        pools = (self.kpool, self.vpool, self.kscale, self.vscale)
+        dev = self.device
+        idx = dev.index if dev.index is not None else (
+            torch.cuda.current_device() if dev.type == "cuda" else 0)
+        entry = {"device": f"{dev.type}:{idx}", "tp": 0,
+                 "kv_pool_bytes": sum(nbytes(t) for t in pools),
+                 "weight_bytes": sum(nbytes(t) for t in
+                                     (self.state or {}).values()),
+                 "lora_bank_bytes": self.lora_bank_bytes()}
+        if dev.type == "cuda":
+            stats = torch.cuda.memory_stats(dev)
+            entry["bytes_in_use"] = int(stats.get(
+                "allocated_bytes.all.current", 0))
+            entry["peak_bytes_in_use"] = int(stats.get(
+                "allocated_bytes.all.peak", 0))
+        return {"tp": 1, "axis": "tp", "kv_quant": self.kv_quant,
+                "devices": [entry]}
+
     def fetch_ring(self) -> np.ndarray:
         """The host sync: ONE [sync_interval, slots] int32 transfer."""
         return self._ring_dev.cpu().numpy()

@@ -8,25 +8,23 @@ from :meth:`stream` (which drives the attached engine when it runs dry,
 so a plain ``for tok in req.stream():`` serves the request end to end).
 With ``sync_interval > 1`` tokens surface in bursts of up to
 ``sync_interval`` — the host only observes the device token ring at
-sync points.  ``adapter`` names the request's LoRA adapter.  Tracing
-spans and tenants come with the slices that port those features;
-``timeline`` stays None until the request log is ported.
+sync points, trading streaming latency for fewer device round-trips.
 """
 from __future__ import annotations
 
 import enum
 import itertools
-import threading
 import time
 
 import numpy as np
 
 from ..models.generation import GenerationConfig
+from ..sanitizer import make_lock
 
 __all__ = ["Request", "RequestState", "GenerationConfig"]
 
 _ids = itertools.count()
-_ids_lock = threading.Lock()
+_ids_lock = make_lock("request._ids_lock")
 
 
 class RequestState(enum.Enum):
@@ -38,14 +36,18 @@ class RequestState(enum.Enum):
 
 
 class Request:
-    """One generation request with its own :class:`GenerationConfig`
-    (``max_new_tokens`` / ``eos_token_id`` / sampling knobs); the engine
-    batches requests anyway (iteration-level scheduling)."""
+    """One generation request.
+
+    ``gen`` is a per-request :class:`GenerationConfig` — each request
+    chooses its own ``max_new_tokens`` / ``eos_token_id`` / sampling
+    knobs; the engine batches them anyway (iteration-level scheduling:
+    the batch composition is a per-step decision, not a compile-time
+    one)."""
 
     def __init__(self, prompt, gen: GenerationConfig | None = None, *,
                  deadline: float | None = None, on_token=None,
                  arrival_time: float | None = None, priority: int = 0,
-                 adapter: str | None = None):
+                 tenant: str | None = None, adapter: str | None = None):
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
@@ -58,7 +60,7 @@ class Request:
         self.gen = gen
         self.deadline = deadline          # absolute, on the engine clock
         # scheduling class: higher admits first and may preempt lower
-        # residents (any int works)
+        # residents (server maps low/normal/high -> -1/0/1; any int works)
         self.priority = int(priority)
         # times this request was preempted (evicted for a higher class
         # and re-queued for resume)
@@ -76,25 +78,50 @@ class Request:
         # prompt tokens served from the engine's prefix cache at
         # admission (0 with caching off); set by Engine._prefill
         self.num_cached_tokens = 0
+
+        # ------------------------------------------------ cost ledger
+        # Per-request cost attribution (observability.usage): plain
+        # counters the engine bumps unconditionally at the seams that
+        # already update the global mirrors, so summed ledgers equal
+        # the global counters exactly on deterministic workloads.
+        # Billing tenant (HTTP X-Tenant header / body field / submit
+        # kwarg; "" and None canonicalize to "anon").
+        self.tenant = str(tenant).strip() if tenant else "anon"
+        # LoRA adapter id (HTTP X-Adapter header / body field / submit
+        # kwarg; None = dense base model).  Resolved to a bank row by
+        # the engine's AdapterStore at submit; the row is re-acquired on
+        # preemption resume so the id, not the row, is durable state.
+        self.adapter = str(adapter).strip() if adapter else None
+        self._adapter_row = 0             # bank row, set by Engine.submit
+        self.queue_seconds = 0.0          # admission + resume re-queues
         self.prefill_computed_tokens = 0  # prompt tokens run on device
         self.prefill_cached_tokens = 0    # skipped via prefix cache/CoW
         self.prefill_chunks = 0           # chunked-prefill chunks run
-        # per-request cost ledger: plain counters the engine bumps at the
-        # seams that update the global mirrors
-        self.queue_seconds = 0.0          # admission + resume re-queues
         self.spec_proposed_tokens = 0     # draft tokens proposed
         self.spec_accepted_tokens = 0     # draft tokens accepted
+        self.pages_allocated = 0          # fresh pool acquisitions
         self.spilled_pages = 0            # pages copied to host on
         self.spill_bytes = 0              # ... preemption, and back on
         self.restored_pages = 0           # ... resume
         self.restore_bytes = 0
         self.replays = 0                  # recovery replays
-        # the request log's lifecycle timeline (None: not ported yet)
+        # KV residency, folded in by the UsageMeter (0.0 when off)
+        self.page_seconds = 0.0
+        self.host_page_seconds = 0.0
+
+        # tracing (observability.tracing): the engine opens a root
+        # "request" span per request — parented under the caller's
+        # traceparent when one arrived over HTTP — plus child spans for
+        # the queue wait and the decode phase.  All None when tracing
+        # is not in play (engine-only tests, bare Request objects).
+        self.trace_parent = None          # SpanContext from the caller
+        self.root_span = None
+        self.queue_span = None
+        self.decode_span = None
+        # tail-latency forensics (observability.requestlog): the
+        # engine's RequestLog attaches a RequestTimeline at submit;
+        # None when forensics is off — every engine seam guards on it
         self.timeline = None
-        # LoRA adapter name (None = the dense base model); the engine's
-        # AdapterStore resolves it to a bank row at submit
-        self.adapter = str(adapter).strip() if adapter else None
-        self._adapter_row = 0             # set by Engine.submit
 
         # timing (engine clock): TTFT = first_token_at - arrival_time
         self.arrival_time = time.monotonic() if arrival_time is None \
@@ -103,9 +130,10 @@ class Request:
         # preemption re-queue so queue_seconds sums every wait
         self._queued_since = self.arrival_time
         self.admitted_at: float | None = None
-        # FIFO stamp assigned by the scheduler at first submit; a
+        # FIFO stamp assigned by the scheduler at FIRST submit; a
         # preempted victim keeps it, so it re-queues ahead of later
-        # arrivals of its class
+        # arrivals of its class (Request ids are construction order,
+        # which is not necessarily submission order)
         self.arrival_seq: int | None = None
         self.first_token_at: float | None = None
         self.last_token_at: float | None = None

@@ -1,14 +1,15 @@
 """Iteration-level priority scheduler (Orca-style continuous batching).
 
 Ports ``paddle_tpu/serving/scheduler.py`` (host-side, numpy only).
-Each engine iteration the scheduler (1) evicts cancelled /
+Each engine iteration the scheduler (1) evicts finished / cancelled /
 past-deadline sequences so their pages and slot free immediately,
 (2) admits queued requests into free decode slots in (priority, FCFS)
 order, reserving their whole page budget up front (all-or-nothing: an
 admitted request can never exhaust the pool mid-decode), and
 (3) reports backpressure when the head of the queue cannot be placed.
 Within a priority class admission is strict FCFS — a head request that
-does not fit blocks the queue rather than being overtaken.
+does not fit blocks the queue rather than being overtaken (no
+starvation of large requests).
 
 When the head outranks a resident and cannot be placed, the scheduler
 preempts: the lowest-priority, most-recently-admitted DECODE resident
@@ -16,9 +17,8 @@ is handed to the engine's ``_preempt`` callback (which spills its
 exclusive KV pages to the BlockManager host tier and parks the slot)
 and re-queued ahead of later arrivals of its class; on re-admission
 the engine resumes it from prompt + generated-so-far with greedy
-token-for-token parity.  All-default-priority traffic never preempts.
-The reference's fair-share victim bias (``FLAGS_serving_fair_share``)
-reads the usage meter, which is not ported: the flag raises here.
+token-for-token parity.  All-default-priority traffic never preempts
+and degenerates to the exact FCFS order this scheduler always had.
 """
 from __future__ import annotations
 
@@ -26,7 +26,6 @@ import time
 from collections import deque
 
 from .. import observability as _obs
-from ..flags import FLAGS
 from .block_manager import BlockManager
 from .request import Request, RequestState
 
@@ -56,11 +55,6 @@ class Scheduler:
                  clock=None, preempt_enabled: bool = True):
         if max_slots < 1:
             raise ValueError(f"max_slots must be >= 1, got {max_slots}")
-        if FLAGS.get("FLAGS_serving_fair_share"):
-            raise NotImplementedError(
-                "FLAGS_serving_fair_share biases preemption by the usage "
-                "meter, which is not ported to paddle_tpu_torch yet "
-                "(ROADMAP queue 1 item 2, usage metering)")
         self.blocks = blocks
         self.max_slots = int(max_slots)
         self.slots: list[Request | None] = [None] * self.max_slots
@@ -72,12 +66,19 @@ class Scheduler:
         self._finalize = None      # engine callback: (req, reason, now)
         self._on_evict = None      # engine callback: (slot,) — park it
         self._preempt = None       # engine callback: (slot,) -> bool
+        # usage meter (observability.usage), wired by the engine when
+        # metering is on; with FLAGS_serving_fair_share it biases
+        # victim selection toward the heaviest-page-second tenant
+        self.usage = None
 
     # ------------------------------------------------------------ intake
     @staticmethod
     def _key(req: Request):
-        # total admission order: higher priority first, FCFS by the
-        # submit-time arrival stamp within a class
+        # total admission order: higher priority first, FCFS (by the
+        # submit-time arrival stamp — NOT the Request id, which is
+        # construction order) within a class; a preempted victim keeps
+        # its original stamp and so re-queues ahead of later arrivals
+        # of its class
         return (-req.priority, req.arrival_seq)
 
     def submit(self, req: Request):
@@ -112,7 +113,9 @@ class Scheduler:
         if not self.draining:
             return True
         # drain: queued requests wait for resume(), but cancelled or
-        # past-deadline ones must still be dropped by schedule()
+        # past-deadline ones must still be dropped — deadline drops only
+        # run inside schedule(), so reporting "no work" here would
+        # starve them until resume() and blow their deadlines silently
         now = self._clock()
         return any(r.cancel_requested
                    or (r.deadline is not None and now > r.deadline)
@@ -125,9 +128,8 @@ class Scheduler:
     # ---------------------------------------------------------- one pass
     def schedule(self, now: float) -> list[tuple[int, Request]]:
         """One scheduling pass: evict dead sequences, expire deadlines,
-        admit in (priority, FCFS) order.  Returns the newly admitted
-        ``(slot, request)`` pairs — the engine prefills them before the
-        next decode step."""
+        admit FCFS.  Returns the newly admitted ``(slot, request)``
+        pairs — the engine prefills them before the next decode step."""
         # 1) iteration-level eviction of cancelled / expired residents
         for i, req in enumerate(self.slots):
             if req is None:
@@ -142,8 +144,12 @@ class Scheduler:
         kept = deque()
         for req in self.queue:
             if req.cancel_requested:
+                _obs.flight("scheduler", "queue_drop", req=req.id,
+                            reason="cancelled")
                 self._finish(req, "cancelled", now)
             elif req.deadline is not None and now > req.deadline:
+                _obs.flight("scheduler", "queue_drop", req=req.id,
+                            reason="deadline")
                 self._finish(req, "deadline", now)
             else:
                 kept.append(req)
@@ -158,12 +164,15 @@ class Scheduler:
                 if self._try_preempt(head, now):
                     continue
                 _M_BACKPRESSURE.labels("slots").inc()
+                _obs.flight("scheduler", "backpressure", reason="slots",
+                            head=self.queue[0].id, queued=len(self.queue))
                 break
             # prefix-cache-aware reservation: shared prefix pages are
             # refcounted, only the uncached suffix is charged against
             # the pool — with caching off this is the plain page count.
             # A resume (preempted victim) re-reserves for its effective
-            # prompt (original + generated) and its remaining budget
+            # prompt (original + generated) and its remaining budget —
+            # for a fresh request these are exactly prompt/max_new
             pages = self.blocks.allocate_seq(head.id, head.resume_tokens(),
                                              head.remaining_new_tokens,
                                              adapter=head.adapter)
@@ -173,6 +182,8 @@ class Scheduler:
                 if self._try_preempt(head, now):
                     continue
                 _M_BACKPRESSURE.labels("pages").inc()
+                _obs.flight("scheduler", "backpressure", reason="pages",
+                            head=self.queue[0].id, queued=len(self.queue))
                 break
             self.queue.popleft()
             slot = free[0]
@@ -180,6 +191,11 @@ class Scheduler:
             head.state = RequestState.PREFILL
             head.admitted_at = now
             _M_ADMITTED.inc()
+            _obs.flight("scheduler", "admit", req=head.id, slot=slot,
+                        pages=len(pages), queued=len(self.queue))
+            if head.root_span is not None:
+                head.root_span.add_event("scheduler.admit", slot=slot,
+                                         pages=len(pages))
             admitted.append((slot, head))
 
         _M_QUEUE_DEPTH.set(len(self.queue))
@@ -198,10 +214,15 @@ class Scheduler:
     def _try_preempt(self, head: Request, now: float) -> bool:
         """Make room for ``head`` by preempting a lower-priority DECODE
         resident: lowest class first, most-recently-admitted within the
-        class (it has the least sunk work).  The engine callback spills
-        the victim's exclusive pages to host RAM and parks the slot; a
-        False return (spill failed / no engine) leaves the victim
-        untouched.  On success the victim is re-queued for resume."""
+        class (it has the least sunk work).  With
+        ``FLAGS_serving_fair_share`` set and a usage meter wired, the
+        heaviest-page-second tenant's residents are preferred within
+        the lowest class — the tenant that consumed the most KV
+        residency pays for the displacement first.  The engine callback
+        spills the victim's exclusive pages to host RAM and parks the
+        slot; a False return (spill failed / no engine) leaves the
+        victim untouched.  On success the victim is re-queued for
+        resume."""
         if not self.preempt_enabled or self._preempt is None:
             return False
         victims = [(i, r) for i, r in enumerate(self.slots)
@@ -209,9 +230,16 @@ class Scheduler:
                    and r.priority < head.priority]
         if not victims:
             return False
+        heavy = None
+        if self.usage is not None:
+            from ..flags import FLAGS
+            if FLAGS.get("FLAGS_serving_fair_share"):
+                heavy = self.usage.heaviest_tenant()
         slot, victim = min(
-            victims, key=lambda ir: (ir[1].priority,
-                                     -(ir[1].admitted_at or 0.0)))
+            victims, key=lambda ir: (
+                ir[1].priority,
+                0 if getattr(ir[1], "tenant", None) == heavy else 1,
+                -(ir[1].admitted_at or 0.0)))
         if not self._preempt(slot):
             return False
         self.slots[slot] = None
@@ -219,6 +247,11 @@ class Scheduler:
         victim.admitted_at = None
         victim.preemptions += 1
         _M_PREEMPTED.inc()
+        _obs.flight("scheduler", "preempt", req=victim.id, slot=slot,
+                    by=head.id, generated=victim.num_generated)
+        if victim.root_span is not None:
+            victim.root_span.add_event("scheduler.preempt", slot=slot,
+                                       by=head.id)
         self.submit(victim)
         _M_ACTIVE.set(self.active_count)
         return True
@@ -235,6 +268,15 @@ class Scheduler:
         if self._on_evict is not None:
             self._on_evict(slot)
         _M_EVICTED.labels(reason).inc()
+        if req.timeline is not None and reason != "finished":
+            # non-finish evictions (cancel/deadline/error) mark the
+            # waterfall — the reason a timeline ends mid-lifecycle
+            req.timeline.mark("evict", now, slot=slot, reason=reason)
+        _obs.flight("scheduler", "evict", req=req.id, slot=slot,
+                    reason=reason, generated=req.num_generated)
+        if req.root_span is not None:
+            req.root_span.add_event("scheduler.evict", slot=slot,
+                                    reason=reason)
         _M_ACTIVE.set(self.active_count)
         if not req.is_finished():
             self._finish(req, reason, now)

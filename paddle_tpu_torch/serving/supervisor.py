@@ -1,10 +1,6 @@
 """Engine supervisor: step-level failure containment + self-healing.
 
-Ports ``paddle_tpu/serving/supervisor.py`` (host-side).  The counter
-lock is a plain ``threading.Lock``: the reference builds it through its
-concurrency sanitizer, which comes with the observability slice
-(ROADMAP queue 1 item 2), as do the flight-recorder events and the
-``supervisor.recover`` spans the reference also records.
+Ports ``paddle_tpu/serving/supervisor.py`` by copy (host-side).
 
 Wraps :meth:`Engine.step` for the worker loop.  A step that raises (a
 poisoned device call, non-finite device state, an injected
@@ -19,7 +15,8 @@ supervisor **escalates to drain**: in-flight requests finish with
 itself unhealthy — the router's circuit breaker then routes around it.
 
 Every event lands on ``serving_recovery_total{kind}``
-(quarantine | rebuild | stall | drain).
+(quarantine | rebuild | stall | drain), in the flight recorder, and as
+``supervisor.recover`` spans in the trace ring (``/debug/trace``).
 
 Threading: :meth:`step` runs on the single engine thread (the
 EngineWorker loop); :meth:`note_stall` is called from the watchdog
@@ -28,11 +25,11 @@ engine thread, preserving the engine's single-threaded contract.
 """
 from __future__ import annotations
 
-import threading
 import time
 
 from .. import observability as _obs
 from ..flags import FLAGS
+from ..sanitizer import make_lock
 
 __all__ = ["EngineSupervisor"]
 
@@ -63,8 +60,8 @@ class EngineSupervisor:
         self._clock = clock
         # guards the counters below: step() mutates on the engine
         # thread, note_stall() on the watchdog thread, stats() on
-        # handler threads (a plain lock until the sanitizer is ported)
-        self._lock = threading.Lock()
+        # handler threads
+        self._lock = make_lock("EngineSupervisor._lock")
         self._stall_pending = False
         self.recoveries = 0          # rebuilds performed (mirror)
         self.escalated = False       # budget exhausted -> draining
@@ -108,12 +105,25 @@ class EngineSupervisor:
             return
         label = "stall" if kind == "stall" else "rebuild"
         _M_RECOVERY.labels(label).inc()
+        _obs.flight("supervisor", "recover", kind=kind,
+                    error=str(err)[:160],
+                    budget_left=self.max_recoveries - self.recoveries)
+        t0 = time.perf_counter()
         try:
-            self.engine.recover()
+            result = self.engine.recover()
         except Exception as e:
             # the rebuild itself failed: the device is gone for good —
             # escalate instead of crashing the worker loop
             self._escalate(e)
+            return
+        _obs.tracer().record_span(
+            "supervisor.recover", t0, time.perf_counter(),
+            attributes={"kind": kind, **result})
+        log = getattr(self.engine, "requestlog", None)
+        if log is not None:
+            # forensics: count the sweep (per-request replay seconds
+            # already landed in each timeline's recovery bucket)
+            log.note_recovery(result)
 
     def _escalate(self, err):
         """Restart budget exhausted: stop admitting, fail what is in
@@ -134,6 +144,8 @@ class EngineSupervisor:
                     slot, req,
                     f"recovery budget exhausted after "
                     f"{self.recoveries} rebuilds ({err})", now)
+        _obs.flight("supervisor", "escalate", error=str(err)[:160],
+                    recoveries=self.recoveries)
 
     # -------------------------------------------------------------- info
     def stats(self) -> dict:

@@ -53,7 +53,8 @@ def _intervals(kind, seed, b, h, sq, sk):
         seg = torch.from_numpy(np.broadcast_to(seg, (b, sk)).copy())
         return TFM.segment_intervals(seg, causal=kind == "docs2")
     if kind == "window":
-        return TFM.sliding_window_intervals(sk, int(rng.randint(60, 300)), b)
+        return TFM.sliding_window_intervals(sk, int(rng.randint(60, 300)), b,
+                                            device="cpu")
     # random: ends drawn independently per column (some intervals empty)
     # over a few runs of columns, so that tiles of every class occur
     runs = rng.randint(0, sq + 1, (b, 1, 4, 6))

@@ -159,7 +159,8 @@ def test_flashmask_attention_dropout_uses_the_generator():
 def test_sliding_window_intervals_match_jax():
     for sk, window, batch in ((256, 40, 1), (100, 0, 3), (64, 200, 2)):
         np.testing.assert_array_equal(
-            TFM.sliding_window_intervals(sk, window, batch).numpy(),
+            TFM.sliding_window_intervals(sk, window, batch,
+                                         device="cpu").numpy(),
             np.asarray(JFM.sliding_window_intervals(sk, window, batch)))
 
 

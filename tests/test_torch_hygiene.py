@@ -54,7 +54,23 @@ def test_import_leaves_jax_unloaded():
             "paddle_tpu_torch.incubate.nn.functional, "
             "paddle_tpu_torch.flags, paddle_tpu_torch.serving.faults, "
             "paddle_tpu_torch.serving.spec, "
-            "paddle_tpu_torch.serving.supervisor; "
+            "paddle_tpu_torch.serving.supervisor, "
+            "paddle_tpu_torch.serving.server, "
+            "paddle_tpu_torch.serving.router, "
+            "paddle_tpu_torch.serving.client, "
+            "paddle_tpu_torch.serving.watchdog, "
+            "paddle_tpu_torch.serving.slo, "
+            "paddle_tpu_torch.serving.lora.batch, "
+            "paddle_tpu_torch.observability.tracing, "
+            "paddle_tpu_torch.observability.resources, "
+            "paddle_tpu_torch.observability.usage, "
+            "paddle_tpu_torch.observability.requestlog, "
+            "paddle_tpu_torch.observability.timeseries, "
+            "paddle_tpu_torch.observability.profiling, "
+            "paddle_tpu_torch.observability.capture, "
+            "paddle_tpu_torch.sanitizer, "
+            "paddle_tpu_torch.sanitizer.lockset, "
+            "paddle_tpu_torch.sanitizer.findings; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -108,3 +124,26 @@ def test_entry_points_default_to_cuda():
     engine = create_engine(cfg, state, device="cpu", max_model_len=32)
     assert engine.device.type == "cpu"
     assert engine.kpool.device.type == "cpu"
+
+
+def test_front_end_and_mask_helpers_default_to_cuda():
+    """The HTTP server's ``serve`` builds its engine on CUDA unless told
+    otherwise, and so does the flashmask interval helper that takes a
+    device (it made CPU tensors by default before)."""
+    _no_card()
+    from paddle_tpu_torch.models import init_state, llama_tiny
+    from paddle_tpu_torch.ops.pallas import flash_mask as FM
+    from paddle_tpu_torch.serving import serve
+    cfg = llama_tiny(num_hidden_layers=1)
+    state = init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve(cfg, state, max_model_len=32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FM.sliding_window_intervals(64, 8)
+    assert FM.sliding_window_intervals(64, 8, device="cpu").device.type \
+        == "cpu"
+    srv = serve(cfg, state, device="cpu", max_model_len=32)
+    try:
+        assert srv.worker.engine.device.type == "cpu"
+    finally:
+        srv.stop(drain_timeout=5.0)

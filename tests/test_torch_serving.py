@@ -197,13 +197,14 @@ def test_pick_token_matches_jax(gen):
     assert picks[0] == picks[1]
 
 
-# quant/kv_quant/lora, spec_k, preempt and faults are ported; tensor
-# parallelism, usage metering, request logs and SLO tracking still raise
+# quant/kv_quant/lora, spec_k, preempt, faults, usage metering, request
+# logs and SLO tracking are ported; tensor parallelism still raises,
+# whatever mode rides with it
 @pytest.mark.parametrize("kw", [dict(mesh=2), dict(quant="int8", mesh=2),
                                 dict(lora=object(), mesh=2),
-                                dict(usage=object()),
-                                dict(requestlog=object()),
-                                dict(slo=object())])
+                                dict(usage=object(), mesh=2),
+                                dict(requestlog=object(), mesh=2),
+                                dict(slo=object(), mesh=2)])
 def test_later_slice_options_raise(kw):
     state = TC.init_state(TL.llama_tiny(num_hidden_layers=1),
                           torch.Generator().manual_seed(0), device="cpu")

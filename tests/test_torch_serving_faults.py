@@ -101,11 +101,30 @@ def test_flags_are_the_reference_flags_the_port_reads():
     so setting it raises instead of being ignored."""
     from paddle_tpu.flags import _DEFS as JDEFS
     from paddle_tpu_torch.flags import _DEFS, set_flags
-    assert len(_DEFS) == 10
+    # the serving engine's 10, and the front end's, the observability
+    # stack's and the sanitizer's 24
+    assert len(_DEFS) == 34
+    for name in ("FLAGS_serving_slo_ttft_ms", "FLAGS_serving_slo_tpot_ms",
+                 "FLAGS_serving_slo_e2e_ms", "FLAGS_serving_slo_objective",
+                 "FLAGS_serving_shed_burn_rate",
+                 "FLAGS_serving_shed_max_priority",
+                 "FLAGS_serving_watchdog_seconds",
+                 "FLAGS_serving_usage_meter",
+                 "FLAGS_serving_usage_max_tenants",
+                 "FLAGS_serving_request_log", "FLAGS_serving_exemplars_k",
+                 "FLAGS_serving_fair_share",
+                 "FLAGS_obs_timeseries_interval_s",
+                 "FLAGS_obs_timeseries_capacity", "FLAGS_obs_fleet_window",
+                 "FLAGS_obs_profile_interval_s", "FLAGS_obs_capture_dir",
+                 "FLAGS_obs_capture_min_interval_s", "FLAGS_obs_capture_max",
+                 "FLAGS_metrics_dir", "FLAGS_trace_buffer_size",
+                 "FLAGS_flight_recorder_size", "FLAGS_resource_peak_tflops",
+                 "FLAGS_resource_memory_poll_steps", "FLAGS_sanitizer"):
+        assert name in _DEFS, name
     for name, (t, default, _) in _DEFS.items():
         assert JDEFS[name][:2] == (t, default), name
-    for name in ("FLAGS_serving_usage_meter", "FLAGS_tpu_matmul_precision",
-                 "FLAGS_serving_request_log"):
+    for name in ("FLAGS_host_trace", "FLAGS_tpu_matmul_precision",
+                 "FLAGS_comm_timeout_seconds"):
         assert name in JDEFS
         with pytest.raises(ValueError, match="unknown flag"):
             set_flags({name: JDEFS[name][1]})

@@ -234,7 +234,37 @@ def test_preempt_never_targets_equal_or_higher_class():
     assert sched.schedule(now=1.0) == [] and asked == []
 
 
+def _fair_share_victim(sched_cls, bm_cls, req_cls, gen_cls, usage):
+    """Three low-class residents; the most recently admitted one is of
+    tenant "b", the two before it of tenant "a".  A priority-1 arrival
+    asks for one victim."""
+    sched = sched_cls(bm_cls(num_pages=12, page_size=4), 3)
+    sched.usage = usage
+    asked = []
+    sched._preempt = lambda slot: asked.append(slot) or True
+    for i, tenant in enumerate(("a", "a", "b")):
+        r = req_cls(np.arange(1, 5), gen_cls(max_new_tokens=8),
+                    tenant=tenant)
+        sched.submit(r)
+        sched.schedule(now=float(i))
+        r.state = type(r.state).DECODE
+    sched.submit(req_cls(np.arange(1, 5), gen_cls(max_new_tokens=8),
+                         priority=1))
+    sched.schedule(now=9.0)
+    return asked
+
+
 def test_fair_share_flag_names_the_usage_slice(monkeypatch):
+    """FLAGS_serving_fair_share reads the usage meter: within the lowest
+    class the heaviest-page-second tenant's resident is preempted first,
+    on both packages; without a meter the flag changes nothing."""
+    from paddle_tpu.flags import FLAGS as JFLAGS
     monkeypatch.setitem(FLAGS, "FLAGS_serving_fair_share", True)
-    with pytest.raises(NotImplementedError, match="usage"):
-        Scheduler(BlockManager(num_pages=8, page_size=4), 2)
+    monkeypatch.setitem(JFLAGS, "FLAGS_serving_fair_share", True)
+    heavy_a = type("Meter", (), {"heaviest_tenant": lambda self: "a"})()
+    for usage, want in ((None, [2]), (heavy_a, [1])):
+        got = [_fair_share_victim(Scheduler, BlockManager, Request, TGen,
+                                  usage),
+               _fair_share_victim(JScheduler, JBlockManager, JRequest,
+                                  JGen, usage)]
+        assert got == [want, want]
