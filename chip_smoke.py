@@ -175,7 +175,21 @@ no CUDA ``_weight_int8pack_mm``):
    against the port's engine on the CPU: tokens (parting only at a tie,
    as in phase 9), finish reasons and usage blocks equal; a ``Router``
    over two more card servers on the same state dict gives the same
-   tokens at a prefix hit rate no worse than one server's.
+   tokens at a prefix hit rate no worse than one server's;
+22. hybrid-parallel training through ``torch.distributed``: (22a) one
+   NCCL rank, a (1, 1, 1) mesh, llama3_8b's width at 4 layers, bf16,
+   8 x 2048: a ``remat=True`` step launches K1 2·L times, then 5 timed
+   ``remat="attn"`` steps L times a step (K2 L times a step in both),
+   the loss finite and falling; tokens/s, MFU, peak memory and a
+   profile of one step; then one f32 ``remat="attn"`` step at 2 layers,
+   card vs CPU (loss, every grad and param within 1e-4).  (22b) where
+   the machine has four cards, four NCCL ranks spawned one per card: at
+   (pp 2, tp 2) zero bubble with VPP 2 and sp, (pp 2, dp 2) 1F1B with
+   ZeRO-1, and (dp 2, tp 2) GPipe with sp and ZeRO-1, one f32 step at 4
+   layers against the one-rank run on the same card (loss and every
+   param within 1e-4), then 5 bf16 steps at 8 layers: tokens/s per
+   card, MFU, the NCCL share of the device's busy time and each rank's
+   peak memory.  ``python3 chip_smoke.py hybrid-ranks`` runs 22b alone.
 
 Every phase prints its wall seconds.
 
@@ -195,8 +209,9 @@ runs to give the same bits.
 Phase 3 also holds the flash-attention kernels (K1 forward, K2 dq and
 dk/dv; in bf16 the Hopper kernels of ``csrc/flash_sm90.cuh``: wgmma,
 a TMA ring, register accumulators) to their plain versions in bf16 at
-five shapes (the training shape, llama3_8b widths, a ragged sq > sk
-case, seq 8192 and 13a's MoE rung), per row of out, dq, dk and dv, with
+six shapes (the training shape, llama3_8b widths, a ragged sq > sk
+case, seq 8192, 13a's MoE rung and phase 22b's tp-split heads, 16/4),
+per row of out, dq, dk and dv, with
 the same kind of planted fault (the kernels told 64 keys fewer than
 there are); and the weight-only GEMV (K4, int8
 and int4; bf16 on mma.sync tensor cores, one launch) and the
@@ -311,6 +326,9 @@ FLASH_SHAPES = (  # name, B, H, kvH, Sq, Sk, D
     ("moe_train", MOE_BATCH, MOE_HEADS, MOE_HEADS, MOE_SEQ, MOE_SEQ, 128),
     ("tinyllama_train", 8, 32, 4, 2048, 2048, 64),
     ("gemma2b_d256", 8, 8, 1, 2048, 2048, 256),
+    # phase 22b's tp-split attention: llama3_8b's 32/8 heads over tp 2
+    # (16/4 a rank, a group of 4) at a dp rank's 4 rows of 2048
+    ("llama3_8b_tp2", 4, 16, 4, 2048, 2048, 128),
 )
 # softmax's exponentials (one per visible pair and pass): at head_dim 64
 # the MUFU rate, 16 a clock on each of the 132 SMs at the 1.98 GHz boost
@@ -441,7 +459,8 @@ BENCH_PROJ_SHAPES = (("bench_qkv_fused", 2048, 6144), ("bench_o", 2048, 2048),
 # model runs: TinyLlama-1.1B's 32/4 heads at head_dim 64 (its config.json),
 # head_dim 256 at 16/4, a group of 32, and llama_tiny's 4/2 heads at
 # head_dim 32 (its table spans max_position_embeddings, 256, in pages of
-# 16)
+# 16); then two of the instances whose shared-memory rows are padded
+# instead of swizzled: head_dim 80 at 32/8 and 96 at a group of 32
 PAGED_SHAPES = (
     ("serve", 32, 8, 64, 128, (1, 64, 65, 300, 1000, 2047, 4096, 8192), 128),
     ("bench_paged", 16, 16, 128, -(-(max(PAGED_LENGTHS) + PAGED_NEW) // 128),
@@ -454,6 +473,9 @@ PAGED_SHAPES = (
     ("group32", 32, 1, 64, 32, (2048, 1800, 1024, 999, 512, 100, 65, 1),
      128),
     ("llama_tiny_d32", 4, 2, 16, 16, (256, 200, 129, 100, 65, 64, 16, 1), 32),
+    ("d80", 32, 8, 64, 32, (2048, 2047, 1024, 1000, 500, 257, 64, 5), 80),
+    ("d96_group32", 32, 1, 64, 32, (2048, 1800, 1024, 999, 512, 100, 65, 1),
+     96),
 )
 # phase 17's speculative engine: k drafts per slot, and the verify
 # step's K3 record in phase 3 (8 slots at ragged positions, k + 1 rows
@@ -3531,9 +3553,10 @@ def rel_norm(a, b):
     return ((a - b).norm() / b.norm().clamp_min(1e-300)).item()
 
 
-def phase_train_parity(cfg, TH, seq=256, phase=7):
+def phase_train_parity(cfg, TH, seq=256, phase=7, remat=True, mesh=None):
     """One f32 training step, card (kernels) vs CPU (plain versions),
-    from one set of params: loss, every grad, every param after it."""
+    from one set of params: loss, every grad, every param after it
+    (``mesh``: phase 22a's one-rank mesh, which both runs take)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
@@ -3544,20 +3567,22 @@ def phase_train_parity(cfg, TH, seq=256, phase=7):
     for device in ("cuda", "cpu"):
         params = TH.tree_map(lambda t: t.to(device, copy=True), params_cpu)
         t0 = time.perf_counter()
-        loss, grads = TH.value_and_grad(params, ids.to(device), cfg,
-                                        remat=True)
-        step = TH.build_train_step(cfg, remat=True, device=device)
+        loss, grads = TH.value_and_grad(params, ids.to(device), cfg, mesh,
+                                        remat=remat)
+        step = TH.build_train_step(cfg, mesh, remat=remat, device=device)
         _, params, _ = step(params, TH.init_adamw(params), ids)
         if device == "cuda":
             torch.cuda.synchronize()
         res[device] = (loss, TH.tree_leaves(grads), TH.tree_leaves(params),
                        time.perf_counter() - t0)
     (gl, gg, gp, gs), (cl, cg, cp, cs) = res["cuda"], res["cpu"]
+    # on the card, in float64: at llama3_8b's width the CPU's norms of
+    # the 128256-row embedding and head would take longer than the step
     errs = {"loss": rel_norm(gl, cl),
-            "grads": max(rel_norm(a, b) for a, b in zip(gg, cg)),
-            "params": max(rel_norm(a, b) for a, b in zip(gp, cp))}
+            "grads": max(dev_rel_norm(a, b.cuda()) for a, b in zip(gg, cg)),
+            "params": max(dev_rel_norm(a, b.cuda()) for a, b in zip(gp, cp))}
     emit({"phase": phase, "layers": cfg.num_hidden_layers,
-          "dtype": "float32",
+          "dtype": "float32", "remat": remat,
           "seq": seq, "loss_cuda": float(gl), "loss_cpu": float(cl),
           "rel_err": errs, "tol": PARITY_TOL, "cuda_s": gs, "cpu_s": cs})
     for key, err in errs.items():
@@ -4964,7 +4989,371 @@ def k9_entries(records, launches):
     return out
 
 
+# --------------------------------------------- phase 22: hybrid training
+# 22a, one NCCL rank: llama3_8b's width at HYBRID_LAYERS layers, bf16,
+# remat="attn", 8 x 2048, HYBRID_STEPS timed steps; then the f32 step at
+# 2 layers of that width, card vs CPU, at HYBRID_PARITY_SEQ tokens
+HYBRID_LAYERS = 4
+HYBRID_STEPS = 5
+HYBRID_PARITY_SEQ = 64
+# 22b, four NCCL ranks, one per card (where the machine has four):
+# (name, (pp, dp, tp), schedule, n_virtual, sp, zero1, n_micro) at
+# llama3_8b's width; f32 parity at HYBRID_RANK_PARITY_LAYERS layers on
+# a HYBRID_RANK_PARITY_BATCH batch against the one-rank run on the same
+# card, then bf16 timing at HYBRID_RANK_LAYERS layers, 8 x 2048
+HYBRID_MESHES = (
+    ("pp2_tp2_zb_vpp2_sp", (2, 1, 2), "zb", 2, True, False, 4),
+    ("pp2_dp2_1f1b_zero1", (2, 2, 1), "1f1b", 1, False, True, 4),
+    ("dp2_tp2_gpipe_sp_zero1", (1, 2, 2), "gpipe", 1, True, True, 1),
+)
+HYBRID_RANK_LAYERS = 8
+HYBRID_RANK_PARITY_LAYERS = 4
+HYBRID_RANK_PARITY_BATCH = (8, 128)
+HYBRID_RANK_TIMEOUT_S = 900
+
+
+def free_port():
+    """A free TCP port on this machine, for a process group's rendezvous
+    (``tcp://localhost:<port>``)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def train_mfu(tps, n_params, cfg, seq, cards=1):
+    """``bench.py:131-136``: tokens/s over the cards x (6 N + 12 L H S)
+    over their bf16 peak."""
+    attn = 12 * cfg.num_hidden_layers * cfg.hidden_size * seq
+    return tps * (6 * n_params + attn) / (cards * BF16_FLOPS_PER_S)
+
+
+def phase_hybrid(cfg8b, TH, FA, FM, D, smi):
+    """Phase 22a: the hybrid step through ``torch.distributed`` with one
+    NCCL rank (a (1, 1, 1) mesh) at llama3_8b's width and
+    ``HYBRID_LAYERS`` layers, bf16, ``remat="attn"``, 8 x 2048: one
+    ``remat=True`` step must launch K1 2·L times, then the timed
+    ``remat="attn"`` steps L times a step (K2's dq and dk/dv L times a
+    step in both), the loss finite and falling; tokens/s, MFU, peak
+    memory and a profile of one step.  Then one f32 ``remat="attn"``
+    step at 2 layers of that width, card vs CPU.  Returns the timed
+    steps' launches (the main path's)."""
+    D.init_parallel_env(device="cuda", rank=0, world_size=1,
+                        init_method=f"tcp://localhost:{free_port()}")
+    mesh = TH.build_mesh(1)
+    cfg = dataclasses.replace(cfg8b, num_hidden_layers=HYBRID_LAYERS)
+    L = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    params, opt = TH.setup(cfg, seed=0, dtype=torch.bfloat16, mesh=mesh)
+    n_params = sum(t.numel() for t in TH.tree_leaves(params))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch, seq = 8, 2048
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq + 1), device="cuda",
+                        generator=gen)
+    step = TH.build_train_step(cfg, mesh, remat="attn")
+    loss, params, opt = step(params, opt, ids)                 # warm-up
+    zero_flash_counts(FA, FM)
+    TH.build_train_step(cfg, mesh, remat=True)(params, opt, ids)
+    torch.cuda.synchronize()
+    full = flash_counts(FA)
+    require(full == {"flash_attention_fwd": 2 * L,
+                     "flash_attention_bwd_dq": L,
+                     "flash_attention_bwd_dkv": L},
+            f"remat=True launches {full}, want 2L K1 and L K2 (L {L})")
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash_counts(FA, FM)
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(HYBRID_STEPS):
+        loss, params, opt = step(params, opt, ids)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_counts(FA)
+    want = {"flash_attention_fwd": L * HYBRID_STEPS,
+            "flash_attention_bwd_dq": L * HYBRID_STEPS,
+            "flash_attention_bwd_dkv": L * HYBRID_STEPS}
+    require(launches == want, f"remat='attn' launches {launches} != {want}")
+    losses = [float(x) for x in losses]
+    require(all(math.isfinite(x) for x in losses), f"loss {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    tps = batch * seq * HYBRID_STEPS / wall
+    emit({"phase": "22a", "run": "one NCCL rank", "card": smi,
+          "mesh": [1, 1, 1], "backend": "nccl", "layers": L,
+          "params": n_params, "batch": batch, "seq": seq,
+          "remat": "attn", "steps": HYBRID_STEPS,
+          "setup_and_warmup_s": setup_s, "wall_s": wall,
+          "s_per_step": wall / HYBRID_STEPS, "tokens_per_s": tps,
+          "mfu": train_mfu(tps, n_params, cfg, seq), "losses": losses,
+          "launches": launches, "remat_true_launches": full,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()})
+    profile_train(step, params, opt, ids, "22a")
+    del params, opt
+    release()
+    phase_train_parity(dataclasses.replace(cfg8b, num_hidden_layers=2,
+                                           dtype="float32"), TH,
+                       seq=HYBRID_PARITY_SEQ, phase="22a", remat="attn",
+                       mesh=mesh)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+    return launches
+
+
+def rank_shard(TH, full, cfg, mesh, n_virtual):
+    """This rank's shard of a whole (one-device) param tree ``full``."""
+    lay = TH.layout(mesh)
+    mine = TH.rank_layers(cfg.num_hidden_layers, lay.pp, lay.p, n_virtual)
+
+    def cut(t, key):
+        return TH.shard(t, key, lay.tp, lay.t)
+    return {"embed": cut(full["embed"], "embed"),
+            "stages": [{k: cut(t, k) for k, t in full["stages"][li].items()}
+                       for li in mine],
+            "norm": full["norm"], "head": cut(full["head"], "head")}
+
+
+def dev_rel_norm(a, b):
+    """||a - b|| / ||b|| on the card, in float64."""
+    return ((a.double() - b.double()).norm()
+            / b.double().norm().clamp_min(1e-300)).item()
+
+
+def hybrid_rank_worker(rank, world, port, results):
+    """One NCCL rank of phase 22b (spawned, one per card): the f32
+    parity of each ``HYBRID_MESHES`` mesh against the one-rank run on
+    this card, then its bf16 timing; puts (rank, ok, records) on
+    ``results``."""
+    import traceback
+    import torch.distributed as dist
+    try:
+        from paddle_tpu_torch import distributed as D
+        from paddle_tpu_torch.models import llama3_8b
+        from paddle_tpu_torch.models import llama_hybrid as TH
+        D.init_parallel_env(device="cuda", rank=rank, world_size=world,
+                            init_method=f"tcp://localhost:{port}",
+                            timeout_s=HYBRID_RANK_TIMEOUT_S)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        records = []
+        # f32 parity: every mesh against the one-rank run from the same
+        # params (setup draws every leaf on every rank in one order)
+        cfg = dataclasses.replace(llama3_8b(), dtype="float32",
+                                  num_hidden_layers=HYBRID_RANK_PARITY_LAYERS)
+        b, s = HYBRID_RANK_PARITY_BATCH
+        ids = torch.from_numpy(np.random.default_rng(22).integers(
+            0, cfg.vocab_size, (b, s + 1))).cuda()
+        t0 = time.perf_counter()
+        ref, ref_opt = TH.setup(cfg, seed=1)
+        ref_loss, ref, _ = TH.build_train_step(cfg, remat="attn")(
+            ref, ref_opt, ids)
+        ref_loss = float(ref_loss)
+        del ref_opt
+        release()
+        ref_s = time.perf_counter() - t0
+        for name, dims, sched, v, sp, zero1, n_micro in HYBRID_MESHES:
+            mesh = TH.build_mesh(world, *dims)
+            t0 = time.perf_counter()
+            params, opt = TH.setup(cfg, seed=1, mesh=mesh, n_virtual=v,
+                                   zero1=zero1)
+            loss, params, _ = TH.build_train_step(
+                cfg, mesh, remat="attn", schedule=sched, n_virtual=v, sp=sp,
+                zero1=zero1, n_micro=n_micro)(params, opt, ids)
+            del opt
+            want = rank_shard(TH, ref, cfg, mesh, v)
+            errs = [dev_rel_norm(a, w) for a, w in
+                    zip(TH.tree_leaves(params), TH.tree_leaves(want))]
+            records.append({"mesh": name, "part": "parity",
+                            "loss": float(loss), "loss_one_rank": ref_loss,
+                            "loss_rel_err": abs(float(loss) - ref_loss)
+                            / abs(ref_loss),
+                            "param_max_rel_err": max(errs),
+                            "one_rank_s": ref_s,
+                            "s": time.perf_counter() - t0})
+            del params, want
+            release()
+        del ref
+        release()
+        cfg = dataclasses.replace(llama3_8b(),
+                                  num_hidden_layers=HYBRID_RANK_LAYERS)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        batch, seq = 8, 2048
+        ids = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                            device="cuda", generator=gen)
+        for name, dims, sched, v, sp, zero1, n_micro in HYBRID_MESHES:
+            records.append(hybrid_rank_timing(TH, D, cfg, ids, name, dims,
+                                              sched, v, sp, zero1, n_micro))
+            release()
+        results.put((rank, True, records))
+    except BaseException:                       # noqa: BLE001 - reported
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def hybrid_rank_timing(TH, D, cfg, ids, name, dims, sched, v, sp, zero1,
+                       n_micro):
+    """One mesh's bf16 timing on this rank: a warm-up step, then
+    ``HYBRID_STEPS`` timed steps (the ranks start together), peak memory,
+    and one profiled step's NCCL share of the device's busy time."""
+    from torch.profiler import ProfilerActivity, profile
+    mesh = TH.build_mesh(D.get_world_size(), *dims)
+    params, opt = TH.setup(cfg, seed=0, dtype=torch.bfloat16, mesh=mesh,
+                           n_virtual=v, zero1=zero1)
+    n_local = sum(t.numel() for t in TH.tree_leaves(params))
+    step = TH.build_train_step(cfg, mesh, remat="attn", schedule=sched,
+                               n_virtual=v, sp=sp, zero1=zero1,
+                               n_micro=n_micro)
+    loss, params, opt = step(params, opt, ids)
+    torch.cuda.synchronize()
+    D.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(HYBRID_STEPS):
+        loss, params, opt = step(params, opt, ids)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    D.barrier()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step(params, opt, ids)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t1
+    busy = nccl = 0.0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = ev.time_range.elapsed_us()
+            busy += us
+            if "nccl" in ev.name.lower():
+                nccl += us
+    return {"mesh": name, "part": "timing", "dims": list(dims),
+            "schedule": sched, "n_virtual": v, "sp": sp, "zero1": zero1,
+            "n_micro": n_micro, "local_params": n_local,
+            "losses": [float(x) for x in losses], "wall_s": wall,
+            "peak_mem_bytes": peak, "profiled_step_ms": prof_wall * 1e3,
+            "device_busy_ms": busy / 1e3, "nccl_ms": nccl / 1e3,
+            "nccl_share": nccl / busy if busy else None}
+
+
+def phase_hybrid_ranks(smi, n_cards=4):
+    """Phase 22b: ``n_cards`` NCCL ranks, one per card, spawned with
+    ``torch.multiprocessing``; each runs :func:`hybrid_rank_worker`.  A
+    rank that fails, or gives no result within the time limit, fails the
+    phase; every process is stopped before it returns."""
+    import queue as queue_mod
+    import torch.multiprocessing as mp
+    from paddle_tpu_torch.models import llama3_8b
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=hybrid_rank_worker,
+                         args=(r, n_cards, port, results))
+             for r in range(n_cards)]
+    for p in procs:
+        p.start()
+    out, errors = {}, []
+    deadline = time.perf_counter() + HYBRID_RANK_TIMEOUT_S
+    try:
+        while len(out) + len(errors) < n_cards:
+            try:
+                rank, ok, res = results.get(
+                    timeout=max(1.0, deadline - time.perf_counter()))
+            except queue_mod.Empty:
+                errors.append("no result from every rank within "
+                              f"{HYBRID_RANK_TIMEOUT_S} s")
+                break
+            if ok:
+                out[rank] = res
+            else:
+                errors.append(f"rank {rank}:\n{res}")
+    finally:
+        for p in procs:
+            p.join(timeout=60 if not errors else 5)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    require(not errors, "phase 22b: " + "\n".join(errors))
+    cfg = dataclasses.replace(llama3_8b(),
+                              num_hidden_layers=HYBRID_RANK_LAYERS)
+    n_params = (2 * cfg.vocab_size * cfg.hidden_size + cfg.hidden_size
+                + cfg.num_hidden_layers * (
+                    2 * cfg.hidden_size
+                    + 2 * cfg.hidden_size * cfg.hidden_size
+                    + 2 * cfg.hidden_size * cfg.num_key_value_heads
+                    * cfg.head_dim
+                    + 3 * cfg.hidden_size * cfg.intermediate_size))
+    for i, (name, *_rest) in enumerate(HYBRID_MESHES):
+        par = [out[r][i] for r in range(n_cards)]
+        loss_err = max(p["loss_rel_err"] for p in par)
+        param_err = max(p["param_max_rel_err"] for p in par)
+        emit({"phase": "22b", "run": f"{n_cards} NCCL ranks", "card": smi,
+              "mesh": name, "part": "f32 parity vs one rank",
+              "layers": HYBRID_RANK_PARITY_LAYERS,
+              "batch": list(HYBRID_RANK_PARITY_BATCH),
+              "loss": par[0]["loss"], "loss_one_rank": par[0]["loss_one_rank"],
+              "loss_rel_err": loss_err, "param_max_rel_err": param_err,
+              "tol": PARITY_TOL, "s": max(p["s"] for p in par)})
+        require(loss_err <= PARITY_TOL and param_err <= PARITY_TOL,
+                f"phase 22b {name}: loss {loss_err}, params {param_err} > "
+                f"{PARITY_TOL}")
+    for i, (name, *_rest) in enumerate(HYBRID_MESHES):
+        tim = [out[r][len(HYBRID_MESHES) + i] for r in range(n_cards)]
+        wall = max(t["wall_s"] for t in tim)
+        tps = 8 * 2048 * HYBRID_STEPS / wall
+        losses = tim[0]["losses"]
+        require(all(math.isfinite(x) for x in losses) and
+                losses[-1] < losses[0], f"phase 22b {name} loss {losses}")
+        emit({"phase": "22b", "card": smi, "mesh": name, "part": "bf16 timing",
+              "layers": HYBRID_RANK_LAYERS, "params": n_params,
+              "batch": 8, "seq": 2048, "steps": HYBRID_STEPS,
+              "wall_s": wall, "tokens_per_s": tps,
+              "tokens_per_s_per_card": tps / n_cards,
+              "mfu": train_mfu(tps, n_params, cfg, 2048, n_cards),
+              "losses": losses,
+              "nccl_share": [t["nccl_share"] for t in tim],
+              "nccl_ms": [t["nccl_ms"] for t in tim],
+              "device_busy_ms": [t["device_busy_ms"] for t in tim],
+              "profiled_step_ms": [t["profiled_step_ms"] for t in tim],
+              "peak_mem_bytes": [t["peak_mem_bytes"] for t in tim],
+              "local_params": [t["local_params"] for t in tim],
+              **{k: tim[0][k] for k in ("dims", "schedule", "n_virtual",
+                                        "sp", "zero1", "n_micro")}})
+
+
+def main_hybrid_ranks() -> int:
+    """``python3 chip_smoke.py hybrid-ranks``: phase 22b alone, on a
+    machine with four cards."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test runs on the "
+              "card", file=sys.stderr)
+        return 1
+    from paddle_tpu_torch.ops import cuda_lib
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    print("\n".join(smi), flush=True)
+    require(torch.cuda.device_count() >= 4,
+            f"phase 22b needs 4 cards, found {torch.cuda.device_count()}")
+    laps = Laps()
+    emit({"phase": 2, "build_s": cuda_lib.build()})
+    laps(2)
+    phase_hybrid_ranks(smi[0])
+    laps("22b")
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:] == ["hybrid-ranks"]:
+        return main_hybrid_ranks()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the "
               "card", file=sys.stderr)
@@ -4984,6 +5373,7 @@ def main() -> int:
     from paddle_tpu_torch.ops.pallas import paged_attention as PA
     from paddle_tpu_torch.ops.pallas import quant_matmul as QM
     from paddle_tpu_torch.ops.pallas import rms_norm as RN
+    from paddle_tpu_torch import distributed as DIST
     from paddle_tpu_torch import observability as obs
     from paddle_tpu_torch.serving import (AdapterStore, EngineSupervisor,
                                           FaultPlan, RequestState, Router,
@@ -5211,6 +5601,20 @@ def main() -> int:
                       Router, ServingClient, _usage_json, smi)
     release()
     laps(21)
+
+    # phase 22: hybrid-parallel training through torch.distributed: one
+    # NCCL rank (22a); four, one per card, where the machine has them
+    hybrid = phase_hybrid(llama3_8b(), TH, FA, FM, DIST, smi)
+    for k, n in hybrid.items():
+        launches[k] += n
+    release()
+    laps("22a")
+    if torch.cuda.device_count() >= 4:
+        phase_hybrid_ranks(smi)
+        laps("22b")
+    else:
+        emit({"phase": "22b", "ran": "one-rank part only",
+              "cards": torch.cuda.device_count()})
 
     rep = masked[1]     # the 2048 bucket: the longest prompts of phase 4
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

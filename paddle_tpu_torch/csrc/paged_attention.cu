@@ -4,7 +4,8 @@
 // (_paged_kernel, the K3 TPU kernel).  One query token per sequence
 // attends over its KV pages, read from a shared pool [P, kvh, ps, D]
 // through a block table [B, W]; rep = nh / kvh query heads share one KV
-// head (GQA).  Head dims 32, 64, 128 and 256, any group, any page size.
+// head (GQA).  Every head dim that is a multiple of 16 from 16 to 256,
+// any group, any page size.
 // Only keys below lens[b] are read: the pages that pad a table row,
 // the dump page among them, are never touched.
 //
@@ -36,10 +37,16 @@
 //     tile ahead of the copies, during a tile's math, into a small
 //     shared table of pool rows, so no copy waits on a table read;
 //     copies of keys at or past lens[b] are zero-filled, not read.
-//     Rows are XOR-swizzled for ldmatrix: chunk c of row r at
-//     c ^ (r & 7) for D >= 64 (8 or more 16-byte chunks a row), and at
-//     c ^ ((r >> 1) & 3) for D 32 (4 chunks: rows r and r + 2 would
-//     share banks at a 64-byte stride, so the swizzle follows r >> 1);
+//     Rows are laid out for conflict-free ldmatrix: at D 64, 128 and
+//     256 (8 or more 16-byte chunks a row, a power of two) chunk c of
+//     row r sits at c ^ (r & 7), and at D 32 (4 chunks: rows r and
+//     r + 2 would share banks at a 64-byte stride) at c ^ ((r >> 1) &
+//     3).  Every other head dim (a multiple of 16 that is not a power of
+//     two, and 16 itself, 2 chunks a row) has D / 8 + 1 chunks a row,
+//     one of padding: the row stride is an odd number of 16-byte units,
+//     so 8 consecutive rows at one chunk fall in 8 different bank
+//     groups without any XOR (an XOR would leave a row of D / 8 chunks
+//     when D / 8 is not a power of two);
 //   * each of the 4 warps owns 16 keys of every tile: S = Q.K^T (two n8
 //     tiles, K by ldmatrix), the online softmax on the accumulator
 //     registers, then O += P.V with P packed to bf16 straight from the
@@ -60,9 +67,9 @@
 //
 // The float32 instance (the card-vs-CPU parity runs) keeps a simple
 // CUDA-core body: split-T partials of 256 keys (one warp per key for
-// the scores, one thread per head-dim column for P.V) and a combine
-// pass, no tensor cores, so that it agrees with the CPU to f32
-// rounding.
+// the scores, one thread per head-dim column for P.V, in D rounded up
+// to whole warps) and a combine pass, no tensor cores, so that it
+// agrees with the CPU to f32 rounding.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,9 +91,13 @@ constexpr int kChunkF32 = 256;   // keys per CTA of the f32 first pass
 // each row of D bf16 stored as D / 8 swizzled chunks of 16 bytes.
 // After the key loop the ring holds the warps' (m, l) and O for the
 // merge, then the splits' weights.
+// the head dims whose rows take the XOR swizzle; every other one is padded
+template <int D>
+constexpr bool kXorRows = D == 32 || D == 64 || D == 128 || D == 256;
+
 template <int D>
 struct Smem {
-  static constexpr int kRowBytes = D * 2;
+  static constexpr int kRowBytes = kXorRows<D> ? D * 2 : (D / 8 + 1) * 16;
   static constexpr int kTileBytes = kTile * kRowBytes;
   static constexpr int kQ = 0;
   static constexpr int kRing = kRows * kRowBytes;
@@ -100,7 +111,9 @@ struct Smem {
 
 template <int D>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
-  if constexpr (D == 32)
+  if constexpr (!kXorRows<D>)
+    return r * Smem<D>::kRowBytes + (c << 4);
+  else if constexpr (D == 32)
     return r * Smem<D>::kRowBytes + ((c ^ ((r >> 1) & 3)) << 4);
   else
     return r * Smem<D>::kRowBytes + ((c ^ (r & 7)) << 4);
@@ -423,13 +436,19 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Pass 1.  Grid (n_chunks, B * kvh, ceil(rep / 16)), D threads: each CTA
-// takes one 256-key chunk of one (sequence, kv head) for up to 16 query
-// heads, in 64-key tiles gathered row by row from the pages, and writes
-// its partial (m, l, acc) to part_ml [B * nh, n_chunks, 2] and part_o
-// [B * nh, n_chunks, D].
+// Threads of a pass-1 CTA: D rounded up to whole warps.
 template <int D>
-__global__ void __launch_bounds__(D) paged_f32_partial_kernel(
+constexpr int kF32Threads = (D + 31) / 32 * 32;
+
+// Pass 1.  Grid (n_chunks, B * kvh, ceil(rep / 16)), kF32Threads<D>
+// threads: each CTA takes one 256-key chunk of one (sequence, kv head)
+// for up to 16 query heads, in 64-key tiles gathered row by row from the
+// pages, and writes its partial (m, l, acc) to part_ml [B * nh,
+// n_chunks, 2] and part_o [B * nh, n_chunks, D].  Thread t < D owns
+// head-dim column t of P.V; lane i of a warp owns columns [i * kPer,
+// (i + 1) * kPer) of a score's dot product.
+template <int D>
+__global__ void __launch_bounds__(kF32Threads<D>) paged_f32_partial_kernel(
     const float* __restrict__ q, const float* __restrict__ kpool,
     const float* __restrict__ vpool, const int* __restrict__ table,
     const int* __restrict__ lens, float* __restrict__ part_ml,
@@ -444,8 +463,14 @@ __global__ void __launch_bounds__(D) paged_f32_partial_kernel(
   float* l_s = m_s + kRows;                              // [16]
   float* a_s = l_s + kRows;                              // [16] alpha
 
-  constexpr int kW = D / 32;               // warps
-  constexpr int kPer = D / 32;             // head-dim elements per lane
+  constexpr int kNT = kF32Threads<D>;
+  constexpr int kW = kNT / 32;             // warps
+  constexpr int kPer = kNT / 32;           // head-dim elements per lane
+  // whether lane's element e of a dot product lies inside the head dim
+  // (always, at the head dims that are whole warps)
+  const auto in_d = [](int lane, int e) {
+    return D % 32 == 0 || lane * kPer + e < D;
+  };
   const int c = blockIdx.x;
   const int b = blockIdx.y / kvh;
   const int g = blockIdx.y % kvh;
@@ -459,8 +484,9 @@ __global__ void __launch_bounds__(D) paged_f32_partial_kernel(
   const int hi = min(lo + kChunkF32, min(lens[b], W * ps));
   if (lo >= hi) return;  // wholly past lens[b]: pass 2 never reads it
 
-  for (int r = 0; r < nr; ++r)
-    q_s[r * D + t] = q[((size_t)b * nh + g * rep + r0 + r) * D + t];
+  if (D % 32 == 0 || t < D)
+    for (int r = 0; r < nr; ++r)
+      q_s[r * D + t] = q[((size_t)b * nh + g * rep + r0 + r) * D + t];
   if (t < nr) {
     m_s[t] = -INFINITY;
     l_s[t] = 0.f;
@@ -475,7 +501,7 @@ __global__ void __launch_bounds__(D) paged_f32_partial_kernel(
     const int n = min(kTile, hi - t0);  // keys of this tile, all visible
     float4* kdst = reinterpret_cast<float4*>(k_s);
     float4* vdst = reinterpret_cast<float4*>(v_s);
-    for (int e = t; e < n * (D / 4); e += D) {
+    for (int e = t; e < n * (D / 4); e += kNT) {
       const int j = e / (D / 4), tok = t0 + j, pi = tok / ps;
       const size_t row = (((size_t)trow[pi] * kvh + g) * ps + tok - pi * ps) * D;
       kdst[e] = reinterpret_cast<const float4*>(kpool + row)[e % (D / 4)];
@@ -487,11 +513,13 @@ __global__ void __launch_bounds__(D) paged_f32_partial_kernel(
     for (int j = warp; j < n; j += kW) {
       float kf[kPer];
 #pragma unroll
-      for (int e = 0; e < kPer; ++e) kf[e] = k_s[j * D + lane * kPer + e];
+      for (int e = 0; e < kPer; ++e)
+        kf[e] = in_d(lane, e) ? k_s[j * D + lane * kPer + e] : 0.f;
       for (int r = 0; r < nr; ++r) {
         float s = 0.f;
 #pragma unroll
-        for (int e = 0; e < kPer; ++e) s += q_s[r * D + lane * kPer + e] * kf[e];
+        for (int e = 0; e < kPer; ++e)
+          if (in_d(lane, e)) s += q_s[r * D + lane * kPer + e] * kf[e];
         s = warp_sum(s);
         if (lane == 0) p_s[r * kTile + j] = s * sm_scale;
       }
@@ -524,7 +552,7 @@ __global__ void __launch_bounds__(D) paged_f32_partial_kernel(
     // acc[r][t] = acc * alpha + sum_j p[r][j] * v[j][t]
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
-      if (r < nr) {
+      if (r < nr && (D % 32 == 0 || t < D)) {
         float o = acc[r] * a_s[r];
         for (int j = 0; j < n; ++j) o += p_s[r * kTile + j] * v_s[j * D + t];
         acc[r] = o;
@@ -533,6 +561,7 @@ __global__ void __launch_bounds__(D) paged_f32_partial_kernel(
     __syncthreads();  // the next tile overwrites k_s, v_s and p_s
   }
 
+  if (D % 32 != 0 && t >= D) return;
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
     if (r < nr) {
@@ -582,8 +611,8 @@ int launch_f32(const void* q, const void* kpool, const void* vpool,
   cudaError_t err = cudaFuncSetAttribute(
       partial, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  partial<<<dim3(n_chunks, B * kvh, (rep + kRows - 1) / kRows), D, smem,
-            stream>>>(static_cast<const float*>(q),
+  partial<<<dim3(n_chunks, B * kvh, (rep + kRows - 1) / kRows),
+            kF32Threads<D>, smem, stream>>>(static_cast<const float*>(q),
                       static_cast<const float*>(kpool),
                       static_cast<const float*>(vpool),
                       static_cast<const int*>(table),
@@ -618,7 +647,7 @@ int launch(int dtype, const void* q, const void* kpool, const void* vpool,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim 32, 64, 128 or 256.
+// dtype: 0 = float32, 1 = bfloat16; head_dim a multiple of 16, 16 to 256.
 // Returns a cudaError_t code (0 = launched).  Shapes are validated by
 // the Python wrapper (paddle_tpu_torch/ops/pallas/paged_attention.py),
 // which also picks n_split and chunk over the table span W * ps.
@@ -648,22 +677,28 @@ int paged_attention_fwd(int dtype, int head_dim, const void* q,
     return (int)cudaErrorInvalidValue;
   }
   switch (head_dim) {
-    case 32:
-      return launch<32>(dtype, q, kpool, vpool, table, lens, out, part_ml,
-                        part_o, tickets, B, kvh, rep, ps, W, n_split, chunk,
-                        sm_scale, s);
-    case 64:
-      return launch<64>(dtype, q, kpool, vpool, table, lens, out, part_ml,
-                        part_o, tickets, B, kvh, rep, ps, W, n_split, chunk,
-                        sm_scale, s);
-    case 128:
-      return launch<128>(dtype, q, kpool, vpool, table, lens, out, part_ml,
-                         part_o, tickets, B, kvh, rep, ps, W, n_split, chunk,
-                         sm_scale, s);
-    case 256:
-      return launch<256>(dtype, q, kpool, vpool, table, lens, out, part_ml,
-                         part_o, tickets, B, kvh, rep, ps, W, n_split, chunk,
-                         sm_scale, s);
+#define PAGED_HEAD_DIM(D)                                                   \
+  case D:                                                                   \
+    return launch<D>(dtype, q, kpool, vpool, table, lens, out, part_ml,     \
+                     part_o, tickets, B, kvh, rep, ps, W, n_split, chunk,   \
+                     sm_scale, s);
+    PAGED_HEAD_DIM(16)
+    PAGED_HEAD_DIM(32)
+    PAGED_HEAD_DIM(48)
+    PAGED_HEAD_DIM(64)
+    PAGED_HEAD_DIM(80)
+    PAGED_HEAD_DIM(96)
+    PAGED_HEAD_DIM(112)
+    PAGED_HEAD_DIM(128)
+    PAGED_HEAD_DIM(144)
+    PAGED_HEAD_DIM(160)
+    PAGED_HEAD_DIM(176)
+    PAGED_HEAD_DIM(192)
+    PAGED_HEAD_DIM(208)
+    PAGED_HEAD_DIM(224)
+    PAGED_HEAD_DIM(240)
+    PAGED_HEAD_DIM(256)
+#undef PAGED_HEAD_DIM
     default:
       return (int)cudaErrorInvalidValue;
   }

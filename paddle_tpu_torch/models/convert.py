@@ -117,43 +117,156 @@ def init_state(config: LlamaConfig, generator: torch.Generator,
     return state
 
 
-def hybrid_params_from_numpy(np_tree: dict, device=None, dtype=None) -> dict:
+def _mesh_dims(mesh):
+    """(pp, dp, tp) of a :class:`~..distributed.mesh.ProcessMesh` or of a
+    mapping of axis sizes; (1, 1, 1) for None."""
+    if mesh is None:
+        return 1, 1, 1
+    if hasattr(mesh, "get_dim_size"):
+        return tuple(mesh.get_dim_size(a) for a in ("pp", "dp", "tp"))
+    return tuple(int(mesh.get(a, 1)) for a in ("pp", "dp", "tp"))
+
+
+def _coords(rank, dims, mesh=None):
+    """(p, d, t) of ``rank``: from ``mesh`` where it is a ProcessMesh,
+    else on a ('pp', 'dp', 'tp') grid of ``dims`` with rank = (p·dp +
+    d)·tp + t, as ``llama_hybrid.build_mesh`` lays it."""
+    if hasattr(mesh, "coords"):
+        at = mesh.coords(rank)
+        return at["pp"], at["dp"], at["tp"]
+    _, dp, tp = dims
+    return rank // (dp * tp), rank // tp % dp, rank % tp
+
+
+def _global_layers(stages: dict) -> list:
+    """The reference's stage leaves ``[pp, lps, ...]`` or, interleaved,
+    ``[pp, v, lps, ...]`` (device p holds virtual stages c·pp + p) -> one
+    dict of numpy arrays per layer, in model order."""
+    stages = {k: np.asarray(a) for k, a in stages.items()}
+    q = stages["q"]                     # [pp, (v), lps, in, out]
+    if q.ndim == 4:
+        stages = {k: a[:, None] for k, a in stages.items()}
+        q = stages["q"]
+    pp, v, lps = q.shape[:3]
+    layers = [None] * (pp * v * lps)
+    for p in range(pp):
+        for c in range(v):
+            for i in range(lps):
+                layers[(c * pp + p) * lps + i] = {
+                    k: a[p, c, i] for k, a in stages.items()}
+    return layers
+
+
+def hybrid_params_from_numpy(np_tree: dict, device=None, dtype=None, *,
+                             rank=None, mesh=None, n_virtual=1,
+                             zero1=False) -> dict:
     """The reference ``llama_hybrid.init_params`` tree as numpy (stage
-    leaves ``[1, L, ...]``: pp = 1) -> the port's tree, with one owned
-    tensor per layer weight, on ``device`` (default CUDA), optionally
-    cast to ``dtype``.  Also takes AdamW m/v trees."""
+    leaves ``[pp, lps, ...]`` or ``[pp, v, lps, ...]``, any pp and v)
+    -> the port's tree, with one owned tensor per layer weight, on
+    ``device`` (default CUDA), optionally cast to ``dtype``.  Also takes
+    AdamW m/v trees.
+
+    Without ``mesh``, the whole model (one device).  With ``mesh`` (a
+    ``ProcessMesh`` or a mapping of the pp, dp and tp sizes) and
+    ``rank``, that rank's shard: its pipeline stage's layers, chunk by
+    chunk for ``n_virtual`` (``llama_hybrid.rank_layers``), each leaf cut
+    by the tp rule (``llama_hybrid.TP_DIM``).  ``zero1`` marks an AdamW
+    m or v tree of a ZeRO-1 run: a leaf that dp divides becomes the
+    rank's flat 1/dp of its elements (``llama_hybrid.zero1_shardings``)."""
+    from .llama_hybrid import rank_layers, shard, zero1_sharded
     dev = resolve_device(device)
+    dims = _mesh_dims(mesh)
+    p, d, t = (0, 0, 0) if mesh is None else _coords(rank, dims, mesh)
 
-    def conv(a):
-        t = _to_tensor(a)
-        if dtype is not None and t.is_floating_point():
-            t = t.to(dtype)
-        return t.to(dev)
+    def conv(a, key):
+        x = shard(_to_tensor(a), key, dims[2], t)
+        if zero1 and zero1_sharded(x.numel(), dims[1]):
+            n = x.numel() // dims[1]
+            x = x.reshape(-1)[d * n:(d + 1) * n].clone()
+        if dtype is not None and x.is_floating_point():
+            x = x.to(dtype)
+        return x.to(dev)
 
-    stages = {k: np.asarray(a) for k, a in np_tree["stages"].items()}
-    pp, n_layers = next(iter(stages.values())).shape[:2]
-    if pp != 1:
-        raise ValueError(f"stage leaves must be [1, L, ...] (pp = 1), got "
-                         f"pp = {pp}")
-    return {"embed": conv(np_tree["embed"]),
-            "stages": [{k: conv(a[0, i]) for k, a in stages.items()}
-                       for i in range(n_layers)],
-            "norm": conv(np_tree["norm"]), "head": conv(np_tree["head"])}
+    layers = _global_layers(np_tree["stages"])
+    mine = rank_layers(len(layers), dims[0], p, n_virtual) \
+        if mesh is not None else range(len(layers))
+    return {"embed": conv(np_tree["embed"], "embed"),
+            "stages": [{k: conv(a, k) for k, a in layers[li].items()}
+                       for li in mine],
+            "norm": conv(np_tree["norm"], "norm"),
+            "head": conv(np_tree["head"], "head")}
 
 
-def hybrid_params_to_numpy(tree: dict) -> dict:
-    """The inverse of :func:`hybrid_params_from_numpy`: numpy arrays with
-    stage leaves stacked to ``[1, L, ...]`` (bf16 tensors come out as
-    float32, which holds them exactly)."""
-    def conv(t):
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+def _np(t):
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
-    keys = tree["stages"][0].keys()
-    return {"embed": conv(tree["embed"]),
-            "stages": {k: np.stack([conv(lp[k]) for lp in tree["stages"]])[None]
-                       for k in keys},
-            "norm": conv(tree["norm"]), "head": conv(tree["head"])}
+
+def hybrid_params_to_numpy(tree, *, mesh=None, n_virtual=1,
+                           like=None) -> dict:
+    """The inverse of :func:`hybrid_params_from_numpy`: numpy arrays in
+    the reference's layout (bf16 tensors come out as float32, which
+    holds them exactly).
+
+    ``tree``: one device's tree (stage leaves stacked to ``[1, L,
+    ...]``), or, with ``mesh``, the list of every rank's tree in rank
+    order, gathered into stage leaves ``[pp, lps, ...]`` (``[pp, v, lps,
+    ...]`` for ``n_virtual`` > 1).  ``like``: the ranks' param trees,
+    when ``tree`` holds ZeRO-1 AdamW state whose dp parts are put back
+    together first.  Also takes grads trees."""
+    from .llama_hybrid import TP_DIM, rank_layers
+    if mesh is None:
+        keys = tree["stages"][0].keys()
+        return {"embed": _np(tree["embed"]),
+                "stages": {k: np.stack([_np(lp[k])
+                                        for lp in tree["stages"]])[None]
+                           for k in keys},
+                "norm": _np(tree["norm"]), "head": _np(tree["head"])}
+    pp, dp, tp = dims = _mesh_dims(mesh)
+    if len(tree) != pp * dp * tp:
+        raise ValueError(f"{len(tree)} trees for a mesh of {pp * dp * tp}")
+
+    def rank_of(p, d, t):
+        return (p * dp + d) * tp + t
+
+    def leaf(r, get):
+        """Rank r's leaf, its ZeRO-1 dp parts put back together."""
+        x = _np(get(tree[r]))
+        if like is None:
+            return x
+        shape = tuple(get(like[r]).shape)
+        if x.shape == shape:
+            return x
+        p, _, t = _coords(r, dims)
+        return np.concatenate([_np(get(tree[rank_of(p, d, t)]))
+                               for d in range(dp)]).reshape(shape)
+
+    def whole(p, key, get):
+        """The leaf of stage p, its tp parts concatenated."""
+        parts = [leaf(rank_of(p, 0, t), get) for t in range(tp)]
+        dim = TP_DIM[key]
+        return parts[0] if dim is None else np.concatenate(parts, axis=dim)
+
+    n_local = len(tree[0]["stages"])
+    n_layers = n_local * pp
+    layers = [None] * n_layers
+    for p in range(pp):
+        for i, li in enumerate(rank_layers(n_layers, pp, p, n_virtual)):
+            layers[li] = {k: whole(p, k, lambda tr, i=i, k=k:
+                                   tr["stages"][i][k])
+                          for k in tree[0]["stages"][0]}
+    lps = n_layers // (pp * n_virtual)
+    stages = {}
+    for k in layers[0]:
+        rows = [[np.stack([layers[(c * pp + p) * lps + i][k]
+                           for i in range(lps)])
+                 for c in range(n_virtual)] for p in range(pp)]
+        stages[k] = np.stack([np.stack(r) if n_virtual > 1 else r[0]
+                              for r in rows])
+    return {"embed": whole(0, "embed", lambda tr: tr["embed"]),
+            "stages": stages,
+            "norm": whole(pp - 1, "norm", lambda tr: tr["norm"]),
+            "head": whole(pp - 1, "head", lambda tr: tr["head"])}
 
 
 def moe_params_from_numpy(np_tree: dict, device=None, dtype=None) -> dict:

@@ -14,11 +14,11 @@ int32, lens [B] int32 = tokens visible per sequence.  Inference only.
 tensors it runs :func:`paged_attention_xla`, the plain dense-gather
 version; on CUDA tensors it launches the kernel or raises.  The
 reference runs its kernel at every head dim and group
-(``select_paged_attention``, ``:58-61``); the port's is built for head
-dims 32, 64, 128 and 256 at any GQA group and page size, and
-:func:`_route` raises ``NotImplementedError`` at other head dims
-(ROADMAP queue 2 A3) rather than return a result that no kernel of the
-card computes.
+(``select_paged_attention``, ``:58-61``); the port's is built for every
+head dim that is a multiple of 16 from 16 to 256, at any GQA group and
+page size, and :func:`_route` raises ``NotImplementedError`` at other
+head dims (ROADMAP queue 2) rather than return a result that no kernel
+of the card computes.
 
 The kernel makes one launch per call.  It splits the table span W *
 page_size of each (sequence, kv head, group of 16 query heads) into
@@ -64,7 +64,10 @@ __all__ = ["paged_attention", "paged_attention_xla", "PagedPool",
            "gather_kv_pages_quant", "gather_scale_pages",
            "paged_attention_quant", "quantize_kv_rows"]
 
-KERNEL_HEAD_DIMS = (32, 64, 128, 256)   # the kernel's instances
+KERNEL_HEAD_DIMS = tuple(range(16, 257, 16))   # the kernel's instances
+# head dims whose shared-memory rows take the XOR swizzle (kXorRows); the
+# others carry one 16-byte chunk of padding a row
+_XOR_ROW_DIMS = (32, 64, 128, 256)
 _TILE = 64                     # kTile: keys per ring stage
 _MIN_CHUNK = 256               # keys of a split, at least
 _MAX_SPLIT = 64                # kMaxSplit
@@ -138,24 +141,26 @@ paged_attention.launches = 0   # kernel launches (the main-path witness)
 
 
 def _route(head_dim, group):
-    """"kernel" where the port's K3 kernel is built (head dims 32, 64,
-    128 and 256, any GQA group); raises ``NotImplementedError``
-    elsewhere: the reference runs its kernel at every shape, so no plain
-    route exists."""
+    """"kernel" where the port's K3 kernel is built (every head dim that
+    is a multiple of 16 from 16 to 256, any GQA group); raises
+    ``NotImplementedError`` elsewhere: the reference runs its kernel at
+    every shape, so no plain route exists."""
     if head_dim not in KERNEL_HEAD_DIMS or group < 1:
         raise NotImplementedError(
             f"paged_attention (K3) at head_dim {head_dim}, group {group}: "
-            f"the kernel is built for head_dim {KERNEL_HEAD_DIMS} at any "
-            "group (ROADMAP queue 2 A3)")
+            "the kernel is built for the head dims that are multiples of "
+            "16 from 16 to 256, at any group (ROADMAP queue 2)")
     return "kernel"
 
 
 def _smem(d):
     """The bf16 kernel's dynamic shared memory at head_dim d, whatever
     the page size (Smem<D>::kBytes): Q [16, d] and three stages of K and
-    V [64, d] tiles; at most 200 KB (d 256), within the 227 KB a block
-    may take."""
-    return (16 + 3 * 2 * _TILE) * d * 2
+    V [64, d] tiles, each row 2d bytes, or d / 8 + 1 16-byte chunks
+    where it is padded; at most 200 KB (d 256), within the 227 KB a
+    block may take."""
+    row = 2 * d if d in _XOR_ROW_DIMS else (d // 8 + 1) * 16
+    return (16 + 3 * 2 * _TILE) * row
 
 
 def _splits(ctas, span, sms, d):

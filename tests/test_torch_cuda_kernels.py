@@ -75,7 +75,9 @@ broadcast shape and dtype, Sk 1001, intervals with a bias) and a planted
 fault (64 keys dropped).
 
 The paged attention (K3) is held at head dims 32, 64, 128 and 256,
-groups of 1, 4 and 32 and pages of 8, 16, 24, 64 and 128 tokens, with
+groups of 1, 4 and 32 and pages of 8, 16, 24, 64 and 128 tokens, and at
+the padded head dims (the other multiples of 16 up to 256) at groups 1
+and 32 and pages of 24 and 128, each with a planted fault, with
 rows of 0 and 1 keys, a page edge and a full table, and a dropped page
 must fail the bf16 check at each head dim; its reruns (several key
 splits merged by ticket) repeat bit for bit.  K4 is also held at M 1,
@@ -156,6 +158,9 @@ def _paged_inputs(gen, dt, b, nh, kvh, d, ps, lens):
 K3_DIMS = (32, 64, 128, 256)
 K3_GROUPS = ((8, 8), (16, 4), (32, 1))   # nh, kvh: groups 1, 4 and 32
 K3_PAGES = (8, 16, 24, 64, 128)
+# the instances whose shared-memory rows are padded (D / 8 + 1 chunks)
+# instead of XOR-swizzled: every multiple of 16 up to 256 besides K3_DIMS
+K3_PADDED_DIMS = tuple(d for d in range(16, 257, 16) if d not in K3_DIMS)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
@@ -200,6 +205,35 @@ def test_bf16_check_catches_a_dropped_page(gen, d, nh, kvh, ps, lens):
     assert bool((err[lens_t > 64] > BF16_ROW_TOL).all())
 
 
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh,kvh", ((8, 8), (32, 1)))
+@pytest.mark.parametrize("d", K3_PADDED_DIMS)
+def test_paged_padded_dims_match_plain(gen, dt, d, nh, kvh):
+    """Each padded instance at groups 1 and 32, pages of 24 (a tile spans
+    pages) and 128 (a page spans tiles), against the plain version: rows
+    of 0 and 1 keys, a page edge, ragged rows and a long one (several key
+    splits merged by ticket); a bf16 call repeats bit for bit, and a
+    planted fault (each long row told 64 keys fewer) fails the bf16
+    check on every row that loses keys."""
+    for ps in (24, 128):
+        lens = [0, 1, ps, 3 * ps + 7, 1000, 4096]
+        args = _paged_inputs(gen, dt, len(lens), nh, kvh, d, ps, lens)
+        before = PA.paged_attention.launches
+        out = PA.paged_attention(*args)
+        torch.cuda.synchronize()
+        assert PA.paged_attention.launches == before + 1
+        assert torch.count_nonzero(out[0]) == 0
+        ref = PA.paged_attention_xla(*args)
+        assert _close(out[1:], ref[1:], dt)
+        if dt == torch.float32:
+            continue
+        assert torch.equal(out, PA.paged_attention(*args))
+        q, kp, vp, table, lens_t = args
+        short = torch.clamp(lens_t - 64, min=1).to(torch.int32)
+        err = _row_rel_err(PA.paged_attention(q, kp, vp, table, short), ref)
+        assert bool((err[lens_t > 64] > BF16_ROW_TOL).all())
+
+
 def test_paged_kernel_zero_length_rows_are_zero(gen):
     args = _paged_inputs(gen, torch.float32, 2, 8, 2, 128, 16, [0, 20])
     out = PA.paged_attention(*args)
@@ -219,9 +253,9 @@ def test_paged_wrapper_rejects(gen):
     with pytest.raises(ValueError):
         PA.paged_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
                            kp, vp, table, lens)
-    with pytest.raises(NotImplementedError, match=r"K3.*queue 2 A3"):
-        PA.paged_attention(q[..., :96].contiguous(), kp[..., :96].contiguous(),
-                           vp[..., :96].contiguous(), table, lens)
+    with pytest.raises(NotImplementedError, match=r"K3.*queue 2"):
+        PA.paged_attention(q[..., :72].contiguous(), kp[..., :72].contiguous(),
+                           vp[..., :72].contiguous(), table, lens)
 
 
 def test_paged_kernel_is_deterministic(gen):

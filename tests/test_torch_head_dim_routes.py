@@ -121,20 +121,26 @@ def test_decode_rule_follows_the_reference(monkeypatch):
 
 def test_paged_rule_follows_the_reference(monkeypatch):
     """The reference runs its K3 kernel at every shape
-    (``select_paged_attention``); the port's is built for head dims 32,
-    64, 128 and 256 at any group, and raises at other head dims instead
-    of answering with a plain result that no card route computes."""
+    (``select_paged_attention``); the port's is built for every head dim
+    that is a multiple of 16 from 16 to 256 at any group, and raises at
+    other head dims (8, 24, 72, 100, 272 here) instead of answering with
+    a plain result that no card route computes."""
     monkeypatch.setattr(JPA, "_INTERPRET", True)
     assert JPA.select_paged_attention() is JPA.paged_attention
-    assert TPA.KERNEL_HEAD_DIMS == (32, 64, 128, 256)
-    for d in HEAD_DIMS:
+    assert TPA.KERNEL_HEAD_DIMS == tuple(range(16, 257, 16))
+    for d in HEAD_DIMS + (8, 24, 72, 80, 100, 112, 240, 272):
         for group in (1, 4, 16, 32):
-            if d in TPA.KERNEL_HEAD_DIMS:
+            if d % 16 == 0 and 16 <= d <= 256:
                 assert TPA._route(d, group) == "kernel"
             else:
                 with pytest.raises(NotImplementedError,
-                                   match=r"K3.*queue 2 A3"):
+                                   match=r"K3.*queue 2"):
                     TPA._route(d, group)
+    # the bf16 kernel's shared memory fits a block at every instance,
+    # and the padded rows keep 16-byte chunks
+    for d in TPA.KERNEL_HEAD_DIMS:
+        assert TPA._smem(d) <= 227 * 1024
+        assert TPA._smem(d) % (16 * (16 + 6 * TPA._TILE)) == 0
 
 
 @pytest.fixture(scope="module")

@@ -70,7 +70,13 @@ def test_import_leaves_jax_unloaded():
             "paddle_tpu_torch.observability.capture, "
             "paddle_tpu_torch.sanitizer, "
             "paddle_tpu_torch.sanitizer.lockset, "
-            "paddle_tpu_torch.sanitizer.findings; "
+            "paddle_tpu_torch.sanitizer.findings, "
+            "paddle_tpu_torch.distributed.env, "
+            "paddle_tpu_torch.distributed.mesh, "
+            "paddle_tpu_torch.distributed.collective, "
+            "paddle_tpu_torch.distributed.mp_ops, "
+            "paddle_tpu_torch.distributed.pipelining, "
+            "paddle_tpu_torch.distributed.pipeline_schedules; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -147,3 +153,20 @@ def test_front_end_and_mask_helpers_default_to_cuda():
         assert srv.worker.engine.device.type == "cpu"
     finally:
         srv.stop(drain_timeout=5.0)
+
+
+def test_parallel_env_defaults_to_nccl_on_cuda():
+    """``init_parallel_env()`` means NCCL on this process's card, and
+    raises without one; gloo serves only ``device="cpu"``.  A gloo group
+    refuses CUDA tensors (no gloo on the card's tensors)."""
+    _no_card()
+    import torch.distributed as dist
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.models import llama_hybrid as TH
+    with pytest.raises(RuntimeError, match="CUDA"):
+        D.init_parallel_env()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        D.init_parallel_env(device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TH.setup(TH.LlamaConfig(num_hidden_layers=1), mesh=None)
+    assert not dist.is_initialized()

@@ -120,14 +120,31 @@ def test_params_round_trip_and_layout(setup):
         assert abs(a.std() - b.std()) <= 0.15 * b.std() + 1e-6
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(mesh={"pp": 2, "dp": 1, "tp": 1}), dict(mesh={"tp": 2}),
-    dict(zero1=True), dict(schedule="1f1b"), dict(n_virtual=2),
-    dict(remat="attn")], ids=["pp2", "tp2", "zero1", "1f1b", "vpp",
-                              "remat_attn"])
-def test_left_out_options_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        TH.build_train_step(llama_tiny(**KW), device="cpu", **kwargs)
+@pytest.mark.parametrize("kwargs,error", [
+    (dict(mesh={"pp": 2, "dp": 1, "tp": 1}), "ProcessMesh"),
+    (dict(mesh={"tp": 2}), "ProcessMesh"),
+    (dict(zero1=True), None), (dict(schedule="1f1b"), None),
+    (dict(n_virtual=2), "requires schedule='1f1b'"),
+    (dict(remat="attn"), None)],
+    ids=["pp2", "tp2", "zero1", "1f1b", "vpp", "remat_attn"])
+def test_left_out_options_raise(setup, kwargs, error):
+    """The hybrid options are ported: a mesh of pp or tp above 1 is a
+    ProcessMesh of processes (a mapping of sizes raises), n_virtual > 1
+    without a 1F1B schedule raises the reference's ValueError, and on one
+    device zero1, schedule="1f1b" (GPipe at pp = 1, as in the reference)
+    and remat="attn" take a step equal to the plain one."""
+    _, tcfg, np_params, ids, _ = setup
+    if error is not None:
+        with pytest.raises(ValueError, match=error):
+            TH.build_train_step(tcfg, device="cpu", **kwargs)
+        return
+    losses = []
+    for kw in (kwargs, {}):
+        tp = port_params(np_params)
+        loss, tp, _ = TH.build_train_step(tcfg, device="cpu", **kw)(
+            tp, TH.init_adamw(tp), ids)
+        losses.append(float(loss))
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-6)
 
 
 def test_entry_points_default_to_cuda():
