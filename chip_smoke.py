@@ -190,6 +190,28 @@ no CUDA ``_weight_int8pack_mm``):
    param within 1e-4), then 5 bf16 steps at 8 layers: tokens/s per
    card, MFU, the NCCL share of the device's busy time and each rank's
    peak memory.  ``python3 chip_smoke.py hybrid-ranks`` runs 22b alone.
+23. ``python3 chip_smoke.py serving-tp`` (four cards; not part of the
+   one-card run): serving tensor parallelism, one process per card.
+   (23a) 2 layers of llama3_8b width in float32, tp=2 and tp=4 against
+   tp=1 on card 0 from one state, in six modes (dense with the prefix
+   cache and one preempt -> spill -> resume; the same preemption without
+   the cache, its pages restored from the host tier; int8 weights; int8
+   KV pages; two LoRA adapters mixed with dense requests; spec_k 4 with
+   drafts replayed from tp=1's plain run): greedy tokens equal (parting
+   only at a tie, as in phase 9), every logits row within 1e-4 of
+   tp=1's (int8 KV pages: 2^-8, with every int8 page entry within one
+   level of tp=1's), the engines' counters equal, every rank's ring
+   equal to rank 0's after every step; a planted fault (rank 0's o
+   partial left out of the all-reduce) must fail the logits check.
+   (23b) llama3_8b in bf16 at full depth, its state on the host (rank 0
+   holds only its shard), phase 4's traffic at tp 1, 2 and 4: decode
+   tokens/s, TTFT, each card's resident and peak memory, the busy and
+   NCCL shares of a profiled decode window on rank 0, all-reduces per
+   decode step and the host microseconds of each one on rank 0, each
+   rank's host time per decode call and its busy share of a core, and
+   the control message's cost per call.  (23c) a
+   worker killed mid-run: the engine's next call raises naming its
+   rank within the mesh's timeout, and every process is stopped.
 
 Every phase prints its wall seconds.
 
@@ -287,6 +309,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -460,7 +483,9 @@ BENCH_PROJ_SHAPES = (("bench_qkv_fused", 2048, 6144), ("bench_o", 2048, 2048),
 # head_dim 256 at 16/4, a group of 32, and llama_tiny's 4/2 heads at
 # head_dim 32 (its table spans max_position_embeddings, 256, in pages of
 # 16); then two of the instances whose shared-memory rows are padded
-# instead of swizzled: head_dim 80 at 32/8 and 96 at a group of 32
+# instead of swizzled: head_dim 80 at 32/8 and 96 at a group of 32; then
+# the CUDA-core body at two head dims no mma.sync instance serves: 8 (the
+# reference's tensor-parallel test model, 8/8 heads) and 72 at 32/8
 PAGED_SHAPES = (
     ("serve", 32, 8, 64, 128, (1, 64, 65, 300, 1000, 2047, 4096, 8192), 128),
     ("bench_paged", 16, 16, 128, -(-(max(PAGED_LENGTHS) + PAGED_NEW) // 128),
@@ -476,7 +501,11 @@ PAGED_SHAPES = (
     ("d80", 32, 8, 64, 32, (2048, 2047, 1024, 1000, 500, 257, 64, 5), 80),
     ("d96_group32", 32, 1, 64, 32, (2048, 1800, 1024, 999, 512, 100, 65, 1),
      96),
+    ("d8", 8, 8, 64, 32, (2048, 2047, 1024, 1000, 500, 257, 64, 5), 8),
+    ("d72", 32, 8, 64, 32, (2048, 2047, 1024, 1000, 500, 257, 64, 5), 72),
 )
+# the PAGED_SHAPES rows that the CUDA-core K3 body serves
+PAGED_ANY_SHAPES = ("d8", "d72")
 # phase 17's speculative engine: k drafts per slot, and the verify
 # step's K3 record in phase 3 (8 slots at ragged positions, k + 1 rows
 # each, lens pos + 1 ... pos + k + 1)
@@ -740,10 +769,11 @@ def paged_record(PA, name, q, kp, vp, table, lens, bound_ms=None):
     plain_ms = device_ms(lambda: PA.paged_attention_xla(q, kp, vp, table,
                                                         lens), iters=5)
     bound_ms, bound_by = bound_ms or paged_bound(q, kvh, ps, lens)
-    n_split = PA._splits(B * kvh * -(-(nh // kvh) // 16), W * ps,
-                         torch.cuda.get_device_properties(0)
-                         .multi_processor_count, D)[0]
+    n_split = PA.launch_splits(B, nh, kvh, ps, W, D, q.dtype,
+                               torch.cuda.get_device_properties(0)
+                               .multi_processor_count)
     shape = {"kernel": "paged_attention", "shape": name,
+             "body": PA._body(D),
              "dtype": "bfloat16", "B": B,
              "nh": nh, "kvh": kvh, "D": D, "page_size": ps, "W": W,
              "lens": lens.tolist(), "splits": n_split, "max_abs_err": err,
@@ -1732,6 +1762,31 @@ def phase_routes(FA, FM, DA, PA, G, init_state, create_engine,
     require(engine_tokens["cuda"] == engine_tokens["cpu"],
             f"llama_tiny engine (head_dim {cfg.head_dim}, K3) tokens card "
             f"{engine_tokens['cuda']} vs CPU {engine_tokens['cpu']}")
+    # the reference's tensor-parallel test model (head_dim 8): K3's
+    # CUDA-core body in the engine's decode steps, the CPU's tokens
+    cfg8 = dataclasses.replace(llama_tiny(
+        vocab_size=128, hidden_size=64, intermediate_size=128,
+        num_attention_heads=8, num_key_value_heads=8), dtype="float32")
+    state8 = init_state(cfg8, torch.Generator().manual_seed(23),
+                        device="cpu")
+    any_tokens, any_k3 = {}, {}
+    for dev in ("cuda", "cpu"):
+        engine = create_engine(cfg8, {k: t.to(dev) for k, t in
+                                      state8.items()},
+                               device=dev, max_slots=2, page_size=8,
+                               max_model_len=64)
+        n3 = PA.paged_attention.launches
+        reqs = [engine.submit(p % cfg8.vocab_size,
+                              GenerationConfig(max_new_tokens=8))
+                for p in prompts]
+        engine.run_until_complete()
+        any_tokens[dev] = [r.output_tokens for r in reqs]
+        any_k3[dev] = PA.paged_attention.launches - n3
+    require(PA._body(cfg8.head_dim) == "any" and any_k3["cuda"] > 0
+            and any_k3["cpu"] == 0, f"head_dim 8 engine K3 launches {any_k3}")
+    require(any_tokens["cuda"] == any_tokens["cpu"],
+            f"head_dim 8 engine (K3's CUDA-core body) tokens card "
+            f"{any_tokens['cuda']} vs CPU {any_tokens['cpu']}")
     kernel_errs, kernel_launches = {}, {}
     for d in NEW_HEAD_DIMS:
         kernel_errs[d], kernel_launches[d] = kernel_routes(FA, FM, d)
@@ -1751,10 +1806,13 @@ def phase_routes(FA, FM, DA, PA, G, init_state, create_engine,
                                   "llama_tiny_engine_tokens_equal": True,
                                   "llama_tiny_engine_k3_launches":
                                       engine_k3["cuda"],
+                                  "d8_engine_tokens_equal": True,
+                                  "d8_engine_k3_launches": any_k3["cuda"],
                                   "paged_d64_row_err": paged_err,
                                   "kernel_row_err": kernel_errs,
                                   "kernel_launches": kernel_launches}}
     emit(rec)
+    kernel_launches["paged_any"] = any_k3["cuda"]
     return kernel_launches
 
 
@@ -2088,6 +2146,14 @@ def profile_decode(engine, prompts, GenerationConfig, steps=8, phase=4,
     for name, ms in per_kernel.items():
         key = group_kernel(name)
         groups[key] = groups.get(key, 0.0) + ms
+    # host time of the collectives' spans (``collective:<op>``)
+    host = {}
+    for ev in prof.events():
+        if (ev.device_type == torch.autograd.DeviceType.CPU
+                and ev.name.startswith("collective:")):
+            n_us = host.setdefault(ev.name, [0, 0.0])
+            n_us[0] += 1
+            n_us[1] += ev.time_range.elapsed_us()
     busy = sum(per_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     rec = {"phase": phase, "profile": "decode", "steps": steps,
@@ -2097,6 +2163,8 @@ def profile_decode(engine, prompts, GenerationConfig, steps=8, phase=4,
            "kernels_seen": len(per_kernel),
            "top_kernels_ms_per_step": [[n[:80], ms / steps]
                                        for n, ms in top],
+           "host_us_per_collective": {k: us / n for k, (n, us)
+                                      in host.items()},
            "window_counts": grown}
     emit(rec)
     return rec
@@ -2794,8 +2862,8 @@ def verify_key_short(G, verify_rows):
     off-by-one a verify ``lens`` can carry.  Returns the undo."""
     select = G.select_paged_attention
 
-    def faulty():
-        attend = select()
+    def faulty(tp_axis=None):
+        attend = select(tp_axis=tp_axis)
 
         def call(q, kpool, vpool, table, lens):
             if q.shape[0] == verify_rows:
@@ -3867,6 +3935,8 @@ def gen_call(mods, state, cfg, ids, new, k7=True, **kw):
 
 def group_kernel(name):
     low = name.lower()
+    if "nccl" in low:
+        return "nccl"
     if is_k8_forward(low):
         return "flash_mha_masked"
     if is_k8_backward(low):
@@ -3877,6 +3947,7 @@ def group_kernel(name):
                                              "decode_partial",
                                              "decode_combine")),
                        ("paged_attention", ("paged_mma", "paged_f32",
+                                            "paged_any",
                                             "paged_attention")),
                        ("weight_only_matmul", ("wo_mma", "wo_gemv",
                                                "splitk_reduce")),
@@ -5325,6 +5396,601 @@ def phase_hybrid_ranks(smi, n_cards=4):
                                         "sp", "zero1", "n_micro")}})
 
 
+# ------------------------------- phase 23: serving tensor parallelism
+TP_SIZES = (1, 2, 4)
+TP_F32_NEW = 12                  # 23a's new tokens per request
+TP_KILL_RANK = 2                 # 23c's victim
+TP_KILL_TIMEOUT_S = 600          # 23c's child, from spawn to its report
+TP_WALL_S = 900                  # the whole serving-tp run, at most
+# 23a's logits check in the int8-page mode: each run quantizes its K/V
+# rows per (token, head) from f32 values that tp and tp=1 compute ~1e-6
+# apart (the row-sharded o and down sum their K in two parts), and a
+# value that falls on the other side of a rounding edge moves by one
+# int8 level (1/127 of its row's amax).  The mode reads both runs' int8
+# pages and requires every entry within TP_PAGE_LEVELS of tp=1's.  The
+# other modes keep F32_LOGITS_TOL.
+TP_INT8_PAGES_TOL = 2 ** -8
+TP_PAGE_LEVELS = 1
+
+
+def tp_counters(W, obs):
+    """Rank 0's all-reduce calls and the live mesh's control messages
+    (count, host seconds)."""
+    mesh = W._live
+    return {"all_reduce": obs.metric_value("collective_calls_total",
+                                           {"op": "all_reduce"}),
+            "sends": mesh.sends if mesh is not None else 0,
+            "send_s": mesh.send_s if mesh is not None else 0.0}
+
+
+def page_levels(got, want):
+    """Two runs' int8 KV pages (each a list, per page, of ``read_page``'s
+    (k, v, kscale, vscale)): the most int8 levels any entry differs by,
+    how many entries and token rows (a head's row of a page) differ, of
+    how many, and the scales' largest relative difference."""
+    worst = entries = rows = n_entries = n_rows = 0
+    scale = 0.0
+    for g, w in zip(got, want):
+        for gq, wq in zip(g[:2], w[:2]):
+            d = (gq.int() - wq.int()).abs()         # [L, kvh, ps, hd]
+            worst = max(worst, int(d.max()))
+            entries += int((d > 0).sum())
+            rows += int((d > 0).any(-1).sum())
+            n_entries += d.numel()
+            n_rows += d[..., 0].numel()
+        for gs, ws in zip(g[2:], w[2:]):
+            scale = max(scale, float(((gs - ws).abs()
+                                      / ws.abs().clamp_min(1e-30)).max()))
+    return {"max_level_diff": worst, "entries_differing": entries,
+            "entries": n_entries, "rows_differing": rows, "rows": n_rows,
+            "max_scale_rel_diff": scale}
+
+
+def tp_launches(QM, LM, PA, FM):
+    return {"paged_attention": PA.paged_attention.launches,
+            "flash_mha_masked": FM.flash_mha_masked.launches,
+            "weight_only_matmul_int8": QM.weight_only_matmul.int8_launches,
+            "lora_gather_matmul": LM.lora_gather_matmul.launches}
+
+
+def ranks_in_step(engine):
+    """Wrap ``engine.step`` (tp > 1): after every step each rank's ring,
+    positions and next tokens must equal rank 0's.  Returns the list the
+    wrapper counts its checks into."""
+    checks = [0]
+    if engine.tp == 1:
+        return checks
+    step = engine.step
+
+    def checked():
+        out = step()
+        states = engine.runner.rank_states()
+        for r, st in enumerate(states[1:], 1):
+            for key in ("ring", "pos", "tok"):
+                require(np.array_equal(st[key], states[0][key]),
+                        f"rank {r}'s {key} differs from rank 0's")
+        checks[0] += 1
+        return out
+
+    engine.step = checked
+    return checks
+
+
+def omit_rank0_o_partial(G):
+    """The planted fault of 23a: rank 0 sends zeros for its o partial
+    into the all-reduce, in the dense layers of ``models.generation``
+    (the workers' partials still arrive, so every rank agrees on the
+    wrong sum).  Returns the undo."""
+    orig = G._out_proj
+
+    def faulty(w, attn, *a, **kw):
+        return orig(w, torch.zeros_like(attn), *a, **kw)
+
+    G._out_proj = faulty
+    return lambda: setattr(G, "_out_proj", orig)
+
+
+def phase_serving_tp_parity(cfg8b, mods, smi):
+    """Phase 23a (see the module docstring)."""
+    (QM, LM, PA, FM, G, W, obs, create_engine, init_state,
+     GenerationConfig, AdapterStore, random_adapter, RequestState) = mods
+    cfg = dataclasses.replace(cfg8b, num_hidden_layers=2, dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    state = init_state(cfg, torch.Generator(device="cuda").manual_seed(23),
+                       device="cuda")
+    adapters = {f"a{i}": random_adapter(cfg, LORA_RANK, seed=30 + i)
+                for i in range(2)}
+    rng = np.random.default_rng(23)
+    prefix = rng.integers(0, cfg.vocab_size, 96)
+    prompts = [np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 40)]),
+               rng.integers(0, cfg.vocab_size, 150),
+               np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 9)]),
+               rng.integers(0, cfg.vocab_size, 70)]
+    kw = dict(max_slots=2, page_size=64, max_model_len=512, sync_interval=4)
+
+    def store():
+        st = AdapterStore(cfg, capacity=2, rank=LORA_RANK)
+        for a, w in adapters.items():
+            st.register(a, w, alpha=LORA_ALPHA)
+        return st
+
+    def dense(engine):
+        lo = [engine.submit(p, GenerationConfig(max_new_tokens=TP_F32_NEW))
+              for p in prompts[:2]]
+        for _ in range(4):
+            engine.step()
+        return lo + [engine.submit(p, GenerationConfig(
+            max_new_tokens=TP_F32_NEW), priority=1) for p in prompts[2:3]]
+
+    def every(names=(None,) * 4):
+        return lambda engine: [
+            engine.submit(p, GenerationConfig(max_new_tokens=TP_F32_NEW),
+                          adapter=a) for p, a in zip(prompts, names)]
+
+    records = {}
+
+    def replay(engine):
+        engine._proposer = ReplayProposer(SPEC_K, records["plain"])
+        return every()(engine)
+
+    modes = (
+        ("dense_cache_preempt", dense, dict(enable_prefix_cache=True,
+                                            preempt=True),
+         ("preemptions", "spilled_pages", "restored_pages", "spill_bytes",
+          "prefix_hits", "cached_tokens", "cow_copies")),
+        # the prefix cache off: the resumed request's pages come back from
+        # the host tier (read_page / write_page across the ranks)
+        ("dense_host_tier", dense, dict(preempt=True),
+         ("preemptions", "spilled_pages", "restored_pages", "spill_bytes")),
+        ("int8_weights", every(), dict(quant="int8"), ()),
+        ("int8_pages", every(), dict(kv_quant=True), ()),
+        ("lora", every((None, "a0", "a1", "a0")), dict(lora=True), ()),
+        ("spec_replay", replay, dict(spec_k=SPEC_K, enable_prefix_cache=True),
+         ("spec_proposed", "spec_accepted", "spec_verify_steps",
+          "spec_committed_tokens")))
+    common = ("decode_steps", "host_syncs", "pages_allocated", "decode_traces",
+              "prefill_buckets", "cached_prefill_buckets", "pages_in_use")
+
+    def run(tp, script, mode_kw, fault=None):
+        mkw = dict(mode_kw)
+        if mkw.pop("lora", False):
+            mkw["lora"] = store()
+        engine = create_engine(cfg, state, mesh=tp, **kw, **mkw)
+        checks = ranks_in_step(engine)
+        rows = stash_logits(engine, RequestState)
+        zero_launches(QM, LM, PA, FM)
+        before = tp_counters(W, obs)
+        undo = fault() if fault else None
+        try:
+            reqs = script(engine)
+            engine.run_until_complete()
+        finally:
+            if undo:
+                undo()
+        torch.cuda.synchronize()
+        after = tp_counters(W, obs)
+        require(all(r.finish_reason == "length" for r in reqs),
+                (tp, [r.finish_reason for r in reqs]))
+        pages = ([engine.runner.read_page(p)
+                  for p in range(engine.blocks.num_pages)]
+                 if engine.kv_quant else None)
+        return {"reqs": reqs, "rows": rows, "stats": engine.stats(),
+                "pages": pages,
+                "launches": tp_launches(QM, LM, PA, FM),
+                "all_reduce": after["all_reduce"] - before["all_reduce"],
+                "rank_checks": checks[0],
+                "mesh": engine.runner.mesh_info()}
+
+    # the drafts: tp=1's own plain run of the traffic
+    plain = run(1, every(), dict(enable_prefix_cache=True))
+    records["plain"] = [(r.prompt, r.output_tokens) for r in plain["reqs"]]
+    ref, out = {}, []
+    for tp in TP_SIZES:
+        for name, script, mode_kw, keys in modes:
+            got = run(tp, script, mode_kw)
+            if tp == 1:
+                ref[name] = got
+                continue
+            want = ref[name]
+            parts, err = compare_runs(got["reqs"], want["reqs"], got["rows"],
+                                      want["rows"])
+            tol = (TP_INT8_PAGES_TOL if name == "int8_pages"
+                   else F32_LOGITS_TOL)
+            keys = common + keys
+            stats = {k: got["stats"][k] for k in keys}
+            rec = {"phase": "23a", "card": smi, "mode": name, "tp": tp,
+                   "layers": 2, "dtype": "float32",
+                   "tokens_identical": [r.output_tokens for r in got["reqs"]]
+                   == [r.output_tokens for r in want["reqs"]],
+                   "parted": [p for p in parts if "token" in p],
+                   "max_logits_row_rel_err": err,
+                   "logits_tol": tol, "tie_tol": TIE_TOL,
+                   "stats": stats, "stats_equal": stats == {
+                       k: want["stats"][k] for k in keys},
+                   "launches_rank0": got["launches"],
+                   "launches_tp1": want["launches"],
+                   "all_reduce_calls": got["all_reduce"],
+                   "rank_checks": got["rank_checks"],
+                   "devices": [d["device"] for d in got["mesh"]["devices"]]}
+            if name == "int8_pages":
+                rec["pages_vs_tp1"] = page_levels(got["pages"],
+                                                  want["pages"])
+            emit(rec)
+            out.append(rec)
+            require(err <= tol, rec)
+            require(all(p["tie_margin_over_std"] <= TIE_TOL
+                        for p in rec["parted"]), rec)
+            require(rec["stats_equal"], rec)
+            require(got["rank_checks"] > 0, rec)
+            require(got["stats"]["decode_traces"]
+                    == (2 if name == "spec_replay" else 1), rec)
+            if name.startswith("dense"):
+                require(stats["preemptions"] == 1
+                        and stats["spilled_pages"] >= 1, rec)
+            if name == "dense_host_tier":
+                require(stats["restored_pages"] >= 1, rec)
+            if name == "spec_replay":
+                require(stats["spec_accepted"] > stats["spec_verify_steps"]
+                        > 0, rec)
+            for kern in ("paged_attention", "flash_mha_masked"):
+                require(got["launches"][kern] > 0 or name == "int8_pages"
+                        and kern == "paged_attention", (kern, rec))
+            if name == "int8_weights":
+                require(got["launches"]["weight_only_matmul_int8"] > 0, rec)
+            if name == "int8_pages":
+                require(rec["pages_vs_tp1"]["max_level_diff"]
+                        <= TP_PAGE_LEVELS, rec)
+            if name == "lora":
+                require(got["launches"]["lora_gather_matmul"] > 0, rec)
+        if tp == 2:
+            # the planted fault, on this mesh
+            bad = run(2, dense, modes[0][2], fault=lambda: (
+                omit_rank0_o_partial(G)))
+            _, ferr = compare_runs(bad["reqs"], ref[modes[0][0]]["reqs"],
+                                   bad["rows"], ref[modes[0][0]]["rows"])
+            emit({"phase": "23a", "card": smi, "fault": "rank 0's o partial "
+                  "left out of the all-reduce", "tp": 2,
+                  "max_logits_row_rel_err": ferr, "logits_tol": F32_LOGITS_TOL})
+            require(ferr > F32_LOGITS_TOL, f"planted fault passed the "
+                    f"logits check: {ferr}")
+        release()
+    W.shutdown_meshes()
+    del state
+    release()
+    return out
+
+
+def card_processes():
+    """(pid, card index) of each compute process ``nvidia-smi`` lists on
+    each card (none where it lists none, as in some containers)."""
+    def query(what):
+        return [line.split(", ") for line in subprocess.run(
+            ["nvidia-smi", f"--query-{what}", "--format=csv,noheader"],
+            capture_output=True, text=True).stdout.strip().splitlines()
+            if line]
+    index = {u: int(i) for i, u in query("gpu=index,uuid")}
+    return [(int(pid), index.get(u)) for pid, u in
+            query("compute-apps=pid,gpu_uuid")]
+
+
+def host_window(engine, dec):
+    """Each rank's host counters now: the mesh's (see ``WorkerMesh.
+    host_stats``) at tp > 1, this process's at tp=1; rank 0's
+    ``decode_step`` calls are ``dec``'s, timed around the runner's
+    method (its message, its shard and its checks)."""
+    if engine.tp > 1:
+        ranks = engine.runner._mesh.host_stats()
+    else:
+        ranks = [{"pid": os.getpid(), "cpu_s": time.process_time(),
+                  "wall_s": time.perf_counter(), "calls": {}}]
+    ranks[0]["calls"] = dict(ranks[0]["calls"], decode_step=list(dec))
+    return ranks
+
+
+def host_growth(before, after):
+    """Per rank, between two :func:`host_window` readings: the share of a
+    core its process kept busy, and the host microseconds of each
+    ``decode_step`` call."""
+    out = []
+    for a, b in zip(before, after):
+        n0, s0 = a["calls"].get("decode_step", (0, 0.0))
+        n1, s1 = b["calls"].get("decode_step", (0, 0.0))
+        out.append({"pid": b["pid"],
+                    "busy_cores": (b["cpu_s"] - a["cpu_s"])
+                    / (b["wall_s"] - a["wall_s"]),
+                    "decode_calls": n1 - n0,
+                    "decode_us_per_call": (1e6 * (s1 - s0) / (n1 - n0)
+                                           if n1 > n0 else None)})
+    return out
+
+
+def phase_serving_tp_bench(cfg, mods, smi):
+    """Phase 23b (see the module docstring)."""
+    (QM, LM, PA, FM, G, W, obs, create_engine, init_state,
+     GenerationConfig, AdapterStore, random_adapter, RequestState) = mods
+    release()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    # the state stays on the host: a tp engine scatters each rank's shard
+    # from it, so no card holds a second, full copy (made on the card
+    # from the seed, which is quicker, then moved)
+    state = {k: v.cpu() for k, v in init_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0),
+        device="cuda").items()}
+    release()
+    emit({"phase": "23b", "init_state_s": time.perf_counter() - t0,
+          "state_device": "cpu",
+          "card0_allocated_before": before,
+          "card0_allocated_after": torch.cuda.memory_allocated(),
+          "weight_bytes": sum(t.numel() * t.element_size()
+                              for t in state.values())})
+    warm, prompts, rng = serve_prompts(cfg.vocab_size)
+    fresh = [rng.integers(0, cfg.vocab_size, n)
+             for n in (128, 2048, 700, 1500, 333, 1524, 1324, 1900)]
+    out = {}
+    for tp in sorted(TP_SIZES, reverse=True):
+        W.shutdown_meshes()         # each tp on fresh workers: clean peaks
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine = create_engine(cfg, state, mesh=tp, max_slots=8,
+                               page_size=64, max_model_len=8192,
+                               enable_prefix_cache=True, sync_interval=8)
+        build_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        resident = engine.runner.mesh_info()["devices"]
+        procs = card_processes()
+        if tp > 1:
+            # a worker rank holds a context on its own card only
+            rank_of = {pid: r for r, pid in
+                       enumerate(engine.runner._mesh.pids, 1)}
+            seen = [(rank_of[pid], card) for pid, card in procs
+                    if pid in rank_of]
+            require(all(r == card for r, card in seen),
+                    f"a worker rank touched another card: {seen}")
+        dec = [0, 0.0]
+        decode_step = engine.runner.decode_step
+
+        def timed_decode_step():
+            t = time.perf_counter()
+            out = decode_step()
+            dec[0] += 1
+            dec[1] += time.perf_counter() - t
+            return out
+
+        engine.runner.decode_step = timed_decode_step
+        engine.submit(warm, GenerationConfig(max_new_tokens=8)).result()
+        torch.cuda.synchronize()
+        zero_launches(QM, LM, PA, FM)
+        timings0, stats0 = dict(engine.timings), engine.stats()
+        h0 = host_window(engine, dec)
+        c0 = tp_counters(W, obs)
+        t0 = time.perf_counter()
+        reqs = [engine.submit(p, GenerationConfig(max_new_tokens=64))
+                for p in prompts]
+        engine.run_until_complete()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c1 = tp_counters(W, obs)
+        ranks_host = host_growth(h0, host_window(engine, dec))
+        launches = tp_launches(QM, LM, PA, FM)
+        stats = engine.stats()
+        for r in reqs:
+            require(r.finish_reason == "length"
+                    and len(r.output_tokens) == 64, (tp, r.finish_reason))
+        require(stats["decode_traces"] == 1, stats["decode_traces"])
+        require(launches["paged_attention"] > 0
+                and launches["flash_mha_masked"] > 0, launches)
+        ttft = [r.first_token_at - r.arrival_time for r in reqs]
+        decode_s = (engine.timings["decode_s"] - timings0["decode_s"]
+                    + engine.timings["host_sync_s"]
+                    - timings0["host_sync_s"])
+        decode_tokens = sum(len(r.output_tokens) - 1 for r in reqs)
+        steps = stats["decode_steps"] - stats0["decode_steps"]
+        prof = profile_decode(engine, fresh, GenerationConfig, phase="23b",
+                              counters=lambda: tp_counters(W, obs))
+        grown = prof["window_counts"]
+        busy = sum(prof["device_ms_per_step"].values())
+        nccl = prof["device_ms_per_step"].get("nccl", 0.0)
+        peak = engine.runner.mesh_info()["devices"]
+        rec = {"phase": "23b", "card": smi, "tp": tp,
+               "layers": cfg.num_hidden_layers, "dtype": "bfloat16",
+               "requests": len(reqs), "build_s": build_s, "wall_s": wall,
+               "ttft_s_mean": float(np.mean(ttft)),
+               "ttft_s_max": float(np.max(ttft)),
+               "prefill_s": (engine.timings["prefill_s"]
+                             - timings0["prefill_s"]),
+               "decode_s": decode_s, "decode_tokens": decode_tokens,
+               "decode_tokens_per_s": decode_tokens / decode_s,
+               "decode_steps": steps, "launches_rank0": launches,
+               "all_reduce_calls": c1["all_reduce"] - c0["all_reduce"],
+               "all_reduces_per_decode_step": grown["all_reduce"]
+               / prof["steps"],
+               "control_messages": c1["sends"] - c0["sends"],
+               "control_us_per_call": (1e6 * grown["send_s"] / grown["sends"]
+                                       if grown["sends"] else None),
+               "all_reduce_host_us_per_call_rank0": prof[
+                   "host_us_per_collective"].get("collective:all_reduce"),
+               "ranks_host": ranks_host,
+               "wall_ms_per_step": prof["wall_ms_per_step"],
+               "device_busy_share_rank0": prof["device_busy_share"],
+               "nccl_ms_per_step_rank0": nccl,
+               "nccl_share_of_busy_rank0": nccl / busy if busy else None,
+               "resident_bytes": [d.get("bytes_in_use") for d in resident],
+               "peak_bytes": [d.get("peak_bytes_in_use") for d in peak],
+               "kv_pool_bytes": [d["kv_pool_bytes"] for d in resident],
+               "weight_bytes": [d["weight_bytes"] for d in resident],
+               "devices": [d["device"] for d in resident],
+               "card_processes_seen": procs}
+        emit(rec)
+        if tp > 1:
+            require(rec["all_reduces_per_decode_step"]
+                    == 2 * cfg.num_hidden_layers, rec)
+        out[tp] = rec
+        engine.close()
+        del engine, reqs
+        release()
+    W.shutdown_meshes()
+    del state
+    release()
+    return out
+
+
+def serving_tp_kill_child(results):
+    """Phase 23c's rank 0 (a spawned process, so that what a dead peer
+    leaves in its NCCL communicator stays out of the smoke's own
+    process): a tp=4 engine with requests in flight; after 3 steps (the
+    card synchronised, so every rank has finished them) rank
+    ``TP_KILL_RANK``'s worker is killed, and the engine's next calls
+    must raise naming it."""
+    try:
+        from paddle_tpu_torch.models import init_state, llama_tiny
+        from paddle_tpu_torch.serving import GenerationConfig, create_engine
+        from paddle_tpu_torch.serving.parallel import worker as W
+        cfg = llama_tiny(hidden_size=512, intermediate_size=1024,
+                         num_attention_heads=8, num_key_value_heads=8,
+                         num_hidden_layers=2, dtype="bfloat16")
+        state = init_state(cfg, torch.Generator(device="cuda").manual_seed(7),
+                           device="cuda")
+        engine = create_engine(cfg, state, mesh=4, max_slots=4, page_size=16,
+                               max_model_len=256)
+        mesh = engine.runner._mesh
+        results.put(("pids", os.getpid(), mesh.pids))
+        rng = np.random.default_rng(7)
+        reqs = [engine.submit(rng.integers(0, cfg.vocab_size, 40),
+                              GenerationConfig(max_new_tokens=64))
+                for _ in range(4)]
+        for _ in range(3):
+            engine.step()
+        torch.cuda.synchronize()
+        victim = mesh._procs[TP_KILL_RANK - 1]
+        t0 = time.perf_counter()
+        victim.kill()
+        victim.join()
+        try:
+            for _ in range(64):
+                engine.step()
+            raised = None
+        except W.WorkerError as e:
+            raised = (type(e).__name__, e.rank, str(e)[:300])
+        results.put(("raised", raised, time.perf_counter() - t0,
+                     sum(r.is_finished() for r in reqs), W.TIMEOUT_S))
+        engine.close()
+        results.put(("closed", [p.is_alive() for p in mesh._procs] or []))
+    except BaseException:                        # noqa: BLE001 - reported
+        import traceback
+        results.put(("error", traceback.format_exc()))
+
+
+def pid_alive(pid):
+    """Whether ``pid`` runs (a zombie has stopped)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
+def phase_serving_tp_kill(smi):
+    """Phase 23c (see :func:`serving_tp_kill_child`); every process the
+    child started must be stopped at the end."""
+    import queue as queue_mod
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    child = ctx.Process(target=serving_tp_kill_child, args=(results,))
+    t0 = time.perf_counter()
+    child.start()
+    got = {}
+    deadline = t0 + TP_KILL_TIMEOUT_S
+    while "closed" not in got and "error" not in got:
+        try:
+            item = results.get(timeout=max(1.0, deadline
+                                           - time.perf_counter()))
+        except queue_mod.Empty:
+            break
+        got[item[0]] = item[1:]
+    child.join(timeout=60)
+    if child.is_alive():
+        child.kill()
+        child.join()
+    pids = [got["pids"][0], *got["pids"][1]] if "pids" in got else []
+    for pid in pids[1:]:
+        for _ in range(50):                 # a worker exits within 1 s
+            if not pid_alive(pid):
+                break
+            time.sleep(0.1)
+    alive = [pid for pid in pids if pid_alive(pid)]
+    for pid in alive:
+        os.kill(pid, 9)
+    rec = {"phase": "23c", "card": smi, "tp": 4, "killed_rank": TP_KILL_RANK,
+           "raised": got.get("raised"), "closed": "closed" in got,
+           "left_running": alive, "s": time.perf_counter() - t0}
+    emit(rec)
+    require("error" not in got, got.get("error"))
+    raised = got.get("raised")
+    require(raised is not None and raised[0] is not None
+            and raised[0][1] == TP_KILL_RANK
+            and f"rank {TP_KILL_RANK}" in raised[0][2]
+            and raised[1] < raised[3], f"23c: {rec}")
+    require(not alive and "closed" in got, f"23c: processes left: {rec}")
+
+
+def main_serving_tp() -> int:
+    """``python3 chip_smoke.py serving-tp``: phase 23, on a machine with
+    four cards."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test runs on the "
+              "card", file=sys.stderr)
+        return 1
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.models import init_state, llama3_8b
+    from paddle_tpu_torch.ops import cuda_lib
+    from paddle_tpu_torch.ops.pallas import flash_mask as FM
+    from paddle_tpu_torch.ops.pallas import lora_matmul as LM
+    from paddle_tpu_torch.ops.pallas import paged_attention as PA
+    from paddle_tpu_torch.ops.pallas import quant_matmul as QM
+    from paddle_tpu_torch.serving import (AdapterStore, GenerationConfig,
+                                          RequestState, create_engine,
+                                          random_adapter)
+    from paddle_tpu_torch.models import generation as G
+    from paddle_tpu_torch.serving.parallel import worker as W
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    print("\n".join(smi), flush=True)
+    require(torch.cuda.device_count() >= 4,
+            f"phase 23 needs 4 cards, found {torch.cuda.device_count()}")
+    # a hung collective must not hold the cards: past TP_WALL_S the run
+    # ends with an error (the workers exit once this process is gone)
+    guard = threading.Timer(TP_WALL_S, lambda: (print(
+        f"chip_smoke: serving-tp passed {TP_WALL_S} s; stopping",
+        file=sys.stderr, flush=True), os._exit(3)))
+    guard.daemon = True
+    guard.start()
+    laps = Laps()
+    emit({"phase": 2, "build_s": cuda_lib.build()})
+    laps(2)
+    mods = (QM, LM, PA, FM, G, W, obs, create_engine, init_state,
+            GenerationConfig, AdapterStore, random_adapter, RequestState)
+    try:
+        phase_serving_tp_parity(llama3_8b(), mods, smi[0])
+        laps("23a")
+        phase_serving_tp_bench(llama3_8b(), mods, smi[0])
+        laps("23b")
+        phase_serving_tp_kill(smi[0])
+        laps("23c")
+    finally:
+        W.shutdown_meshes()
+    guard.cancel()
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main_hybrid_ranks() -> int:
     """``python3 chip_smoke.py hybrid-ranks``: phase 22b alone, on a
     machine with four cards."""
@@ -5354,6 +6020,8 @@ def main_hybrid_ranks() -> int:
 def main() -> int:
     if sys.argv[1:] == ["hybrid-ranks"]:
         return main_hybrid_ranks()
+    if sys.argv[1:] == ["serving-tp"]:
+        return main_serving_tp()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the "
               "card", file=sys.stderr)
@@ -5633,6 +6301,21 @@ def main() -> int:
          "shapes": [p["shape"] for p in pageds + [verify]],
          "verify": {k: verify[k] for k in keys + ("k7_same_keys_ms",)},
          **{k: paged[k] for k in keys}},
+        # the CUDA-core body: d 72's times, launches from phase 3's
+        # head_dim-8 engine (the reference's tensor-parallel test model)
+        {"name": "paged_attention_any_head_dim", "route": "cuda",
+         "source": "paddle_tpu_torch/csrc/paged_attention.cu",
+         "replaces": "paddle_tpu/ops/pallas/paged_attention.py:123",
+         "launches": route_launches["paged_any"],
+         "max_abs_err": max(p["max_abs_err"] for p in pageds
+                            if p["shape"] in PAGED_ANY_SHAPES),
+         "max_row_rel_err": max(p["max_row_rel_err"] for p in pageds
+                                if p["shape"] in PAGED_ANY_SHAPES),
+         "shapes": list(PAGED_ANY_SHAPES),
+         "d8": {k: next(p for p in pageds if p["shape"] == "d8")[k]
+                for k in keys},
+         **{k: next(p for p in pageds if p["shape"] == "d72")[k]
+            for k in keys}},
         {"name": "flash_mha_masked", "route": "cuda",
          "source": "paddle_tpu_torch/csrc/flash_sm90.cuh",
          "replaces": "paddle_tpu/ops/pallas/flash_mask.py:193",

@@ -4,8 +4,9 @@
 // (_paged_kernel, the K3 TPU kernel).  One query token per sequence
 // attends over its KV pages, read from a shared pool [P, kvh, ps, D]
 // through a block table [B, W]; rep = nh / kvh query heads share one KV
-// head (GQA).  Every head dim that is a multiple of 16 from 16 to 256,
-// any group, any page size.
+// head (GQA).  The mma.sync instances take every head dim that is a
+// multiple of 16 from 16 to 256; a CUDA-core body takes every other head
+// dim (paged_attention_any_fwd, at the end).  Any group, any page size.
 // Only keys below lens[b] are read: the pages that pad a table row,
 // the dump page among them, are never touched.
 //
@@ -643,6 +644,208 @@ int launch(int dtype, const void* q, const void* kpool, const void* vpool,
                        stream);
 }
 
+// ------------------------------------------ the CUDA-core body, any D
+// The head dims that no mma.sync instance serves (not a multiple of 16,
+// or above 256), in float32 and bfloat16, with D a run-time argument.
+// The same two passes as the f32 instances: pass 1 takes one chunk of
+// ``chunk`` keys of one (sequence, kv head) for up to ``rows`` query
+// heads, in tiles of ``tile`` keys gathered row by row from the pages;
+// pass 2 merges the chunks in chunk order (so reruns give the same
+// bits).  K, V, Q and the accumulators sit in shared memory as f32
+// (the wrapper picks ``tile`` and ``rows`` so that they fit); scores
+// and the online softmax are f32, and in bf16 p is rounded to bf16
+// before P.V while l sums the unrounded p, as the mma body does.
+// Threads: D rounded up to whole warps, at most 256; lanes past D idle
+// in the loops over D.  Bytes bound it as they bound every K3 body; this
+// one spends no effort on reaching that bound (one key's dot product per
+// warp, or per thread below D 32).
+template <typename T>
+__device__ __forceinline__ float to_f32(T x);
+template <>
+__device__ __forceinline__ float to_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+constexpr int kAnyThreads = 256;   // threads of a CTA, at most
+
+// Pass 1.  Grid (n_chunks, B * kvh, ceil(rep / rows)); part_ml [B * nh,
+// n_chunks, 2] (m, l), part_o [B * nh, n_chunks, D] (acc, unnormalised).
+template <typename T>
+__global__ void __launch_bounds__(kAnyThreads) paged_any_partial_kernel(
+    const T* __restrict__ q, const T* __restrict__ kpool,
+    const T* __restrict__ vpool, const int* __restrict__ table,
+    const int* __restrict__ lens, float* __restrict__ part_ml,
+    float* __restrict__ part_o, int D, int kvh, int rep, int ps, int W,
+    int n_chunks, int chunk, int tile, int rows, float sm_scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* k_s = reinterpret_cast<float*>(smem);   // [tile][D]
+  float* v_s = k_s + tile * D;                   // [tile][D]
+  float* q_s = v_s + tile * D;                   // [rows][D]
+  float* o_s = q_s + rows * D;                   // [rows][D]
+  float* p_s = o_s + rows * D;                   // [rows][tile]
+  float* m_s = p_s + rows * tile;                // [rows]
+  float* l_s = m_s + rows;                       // [rows]
+  float* a_s = l_s + rows;                       // [rows] alpha
+  const int c = blockIdx.x;
+  const int b = blockIdx.y / kvh, g = blockIdx.y % kvh;
+  const int r0 = blockIdx.z * rows;
+  const int nr = min(rows, rep - r0);
+  const int nt = blockDim.x, t = threadIdx.x;
+  const int lane = t & 31, warp = t >> 5, nw = nt >> 5;
+  const int nh = kvh * rep;
+  const int lo = c * chunk;
+  const int hi = min(lo + chunk, min(lens[b], W * ps));
+  if (lo >= hi) return;  // wholly past lens[b]: pass 2 never reads it
+
+  const size_t q0 = ((size_t)b * nh + g * rep + r0) * D;
+  for (int e = t; e < nr * D; e += nt) {
+    q_s[e] = to_f32(q[q0 + e]);
+    o_s[e] = 0.f;
+  }
+  if (t < nr) {
+    m_s[t] = -INFINITY;
+    l_s[t] = 0.f;
+  }
+  __syncthreads();
+
+  const int* trow = table + (size_t)b * W;
+  for (int t0 = lo; t0 < hi; t0 += tile) {
+    const int n = min(tile, hi - t0);  // keys of this tile, all visible
+    for (int e = t; e < n * D; e += nt) {
+      const int j = e / D, d = e - j * D, tok = t0 + j, pi = tok / ps;
+      const size_t row = (((size_t)trow[pi] * kvh + g) * ps + tok - pi * ps) * D;
+      k_s[e] = to_f32(kpool[row + d]);
+      v_s[e] = to_f32(vpool[row + d]);
+    }
+    __syncthreads();
+
+    // scores s[r][j] = q_r . k_j * scale
+    if (D >= 32) {  // one warp per (row, key), lanes over the head dim
+      for (int pr = warp; pr < nr * n; pr += nw) {
+        const int r = pr / n, j = pr - r * n;
+        float s = 0.f;
+        for (int d = lane; d < D; d += 32) s += q_s[r * D + d] * k_s[j * D + d];
+        s = warp_sum(s);
+        if (lane == 0) p_s[r * tile + j] = s * sm_scale;
+      }
+    } else {  // one thread per (row, key)
+      for (int pr = t; pr < nr * n; pr += nt) {
+        const int r = pr / n, j = pr - r * n;
+        float s = 0.f;
+        for (int d = 0; d < D; ++d) s += q_s[r * D + d] * k_s[j * D + d];
+        p_s[r * tile + j] = s * sm_scale;
+      }
+    }
+    __syncthreads();
+
+    // online softmax, one warp per query row; n >= 1, so m_cur is finite
+    for (int r = warp; r < nr; r += nw) {
+      float mx = -INFINITY;
+      for (int j = lane; j < n; j += 32) mx = fmaxf(mx, p_s[r * tile + j]);
+      mx = warp_max(mx);
+      const float m_prev = m_s[r];
+      const float m_cur = fmaxf(m_prev, mx);
+      float sum = 0.f;
+      for (int j = lane; j < n; j += 32) {
+        const float p = expf(p_s[r * tile + j] - m_cur);
+        sum += p;
+        p_s[r * tile + j] = to_f32(from_f32<T>(p));   // p in v's dtype
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_cur);
+        a_s[r] = alpha;
+        l_s[r] = l_s[r] * alpha + sum;
+        m_s[r] = m_cur;
+      }
+    }
+    __syncthreads();
+
+    // acc[r][d] = acc * alpha + sum_j p[r][j] * v[j][d]
+    for (int e = t; e < nr * D; e += nt) {
+      const int r = e / D, d = e - r * D;
+      float o = o_s[e] * a_s[r];
+      for (int j = 0; j < n; ++j) o += p_s[r * tile + j] * v_s[j * D + d];
+      o_s[e] = o;
+    }
+    __syncthreads();  // the next tile overwrites k_s, v_s and p_s
+  }
+
+  const size_t row0 = ((size_t)b * nh + g * rep + r0) * n_chunks + c;
+  for (int e = t; e < nr * D; e += nt) {
+    const int r = e / D, d = e - r * D;
+    part_o[(row0 + (size_t)r * n_chunks) * D + d] = o_s[e];
+  }
+  if (t < nr) {
+    part_ml[(row0 + (size_t)t * n_chunks) * 2] = m_s[t];
+    part_ml[(row0 + (size_t)t * n_chunks) * 2 + 1] = l_s[t];
+  }
+}
+
+// Pass 2.  Grid B * nh: out[b, h] = sum_c acc_c e^(m_c - m) / sum_c l_c
+// e^(m_c - m) over the chunks pass 1 wrote, in chunk order; zeros when
+// lens[b] == 0.
+template <typename T>
+__global__ void __launch_bounds__(kAnyThreads) paged_any_combine_kernel(
+    const float* __restrict__ part_ml, const float* __restrict__ part_o,
+    const int* __restrict__ lens, T* __restrict__ out, int D, int nh,
+    int span, int n_chunks, int chunk) {
+  const int bh = blockIdx.x;
+  const int hi = max(0, min(lens[bh / nh], span));
+  const int nc = (hi + chunk - 1) / chunk;
+  const float* pml = part_ml + (size_t)bh * n_chunks * 2;
+  const float* pa = part_o + (size_t)bh * n_chunks * D;
+  float m = -INFINITY;
+  for (int c = 0; c < nc; ++c) m = fmaxf(m, pml[2 * c]);
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float l = 0.f, o = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      const float w = expf(pml[2 * c] - m);
+      l += pml[2 * c + 1] * w;
+      o += pa[(size_t)c * D + d] * w;
+    }
+    out[(size_t)bh * D + d] = from_f32<T>(nc > 0 ? o / l : 0.f);
+  }
+}
+
+template <typename T>
+int launch_any(const void* q, const void* kpool, const void* vpool,
+               const void* table, const void* lens, void* out, void* part_ml,
+               void* part_o, int D, int B, int kvh, int rep, int ps, int W,
+               int n_chunks, int chunk, int tile, int rows, float sm_scale,
+               cudaStream_t stream) {
+  const int threads = min((D + 31) / 32 * 32, kAnyThreads);
+  const int smem = (2 * tile * D + 2 * rows * D + rows * tile + 3 * rows) * 4;
+  auto partial = paged_any_partial_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      partial, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  partial<<<dim3(n_chunks, B * kvh, (rep + rows - 1) / rows), threads, smem,
+            stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kpool),
+      static_cast<const T*>(vpool), static_cast<const int*>(table),
+      static_cast<const int*>(lens), static_cast<float*>(part_ml),
+      static_cast<float*>(part_o), D, kvh, rep, ps, W, n_chunks, chunk, tile,
+      rows, sm_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  paged_any_combine_kernel<T><<<B * kvh * rep, threads, 0, stream>>>(
+      static_cast<const float*>(part_ml), static_cast<const float*>(part_o),
+      static_cast<const int*>(lens), static_cast<T*>(out), D, kvh * rep,
+      W * ps, n_chunks, chunk);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -702,6 +905,42 @@ int paged_attention_fwd(int dtype, int head_dim, const void* q,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The CUDA-core body at any head dim (the wrapper sends it the head dims
+// that paged_attention_fwd has no instance for): dtype 0 = float32, 1 =
+// bfloat16; n_chunks = ceil(W * ps / chunk) chunks of ``chunk`` keys,
+// ``tile`` keys a tile and ``rows`` query heads a CTA, which the wrapper
+// picks so that the shared memory fits; part_ml [B * nh, n_chunks, 2]
+// and part_o [B * nh, n_chunks, D] f32.
+int paged_attention_any_fwd(int dtype, int head_dim, const void* q,
+                            const void* kpool, const void* vpool,
+                            const void* table, const void* lens, void* out,
+                            void* part_ml, void* part_o, int B, int kvh,
+                            int rep, int ps, int W, int n_chunks, int chunk,
+                            int tile, int rows, float sm_scale,
+                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long span = (long)W * ps;
+  const long smem =
+      (2L * tile * head_dim + 2L * rows * head_dim + (long)rows * tile +
+       3L * rows) * 4;
+  if (head_dim < 1 || rep < 1 || B < 1 || kvh < 1 || ps < 1 || W < 1 ||
+      span > (1L << 30) || chunk < 1 || tile < 1 || rows < 1 ||
+      rows > rep || n_chunks != (span + chunk - 1) / chunk ||
+      (long)B * kvh > 65535 || (rep + rows - 1) / rows > 65535 ||
+      smem > 232448 || !part_ml || !part_o)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_any<float>(q, kpool, vpool, table, lens, out, part_ml,
+                             part_o, head_dim, B, kvh, rep, ps, W, n_chunks,
+                             chunk, tile, rows, sm_scale, s);
+  if (dtype == 1)
+    return launch_any<__nv_bfloat16>(q, kpool, vpool, table, lens, out,
+                                     part_ml, part_o, head_dim, B, kvh, rep,
+                                     ps, W, n_chunks, chunk, tile, rows,
+                                     sm_scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* paged_attention_error_string(int err) {

@@ -3,6 +3,7 @@ generation; the MoE model is ``models.moe_llm``."""
 from .convert import (hybrid_params_from_numpy,  # noqa: F401
                       hybrid_params_to_numpy, init_state,
                       moe_params_from_numpy, moe_params_to_numpy,
+                      shard_serving_adapter, shard_serving_state,
                       state_from_numpy)
 from .generation import (GenerationConfig, build_generate_fn,  # noqa: F401
                          build_generate_fn_beam, build_generate_fn_paged,

@@ -14,6 +14,9 @@ LoRA adapter dicts over.  An MoE param tree (``models/moe_llm.py``) is
 ``{"embed", "layers", "norm", "head"}`` with one dict per layer in
 ``layers``; :func:`moe_params_from_numpy` and :func:`moe_params_to_numpy`
 carry it to and from the reference's ``[L, ...]``-stacked tree.
+:func:`shard_serving_state` cuts a serving state into one tensor-parallel
+rank's shard, and :func:`shard_serving_adapter` an adapter into that
+rank's bank rows (the reference's ``serving/parallel/runner.py`` rule).
 """
 from __future__ import annotations
 
@@ -24,9 +27,11 @@ from .. import resolve_device
 from ..ops.pallas.quant_matmul import QuantizedWeight
 from .llama import LlamaConfig
 
-__all__ = ["adapter_from_numpy", "hybrid_params_from_numpy",
-           "hybrid_params_to_numpy", "init_state", "moe_params_from_numpy",
-           "moe_params_to_numpy", "state_from_numpy"]
+__all__ = ["adapter_from_numpy", "check_serving_shardable",
+           "hybrid_params_from_numpy", "hybrid_params_to_numpy",
+           "init_state", "moe_params_from_numpy", "moe_params_to_numpy",
+           "serving_shard_axis", "shard_serving_adapter",
+           "shard_serving_leaf", "shard_serving_state", "state_from_numpy"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -304,3 +309,111 @@ def moe_params_to_numpy(tree: dict) -> dict:
             "layers": {k: np.stack([conv(lp[k]) for lp in tree["layers"]])
                        for k in keys},
             "norm": conv(tree["norm"]), "head": conv(tree["head"])}
+
+
+# ------------------------------------------- serving tensor parallelism
+# The reference's rule (serving/parallel/runner.py:73-85): the
+# input-side projections split their output columns (each rank owns
+# nh/tp query heads, kvh/tp KV heads, I/tp FFN columns), the output-side
+# projections split their input rows (their partial products are the
+# layer's two all-reduces); embeddings, norms and lm_head replicate.
+_COL_SHARDED = ("self_attn.q_proj.weight", "self_attn.k_proj.weight",
+                "self_attn.v_proj.weight", "mlp.gate_proj.weight",
+                "mlp.up_proj.weight")
+_ROW_SHARDED = ("self_attn.o_proj.weight", "mlp.down_proj.weight")
+_FUSED_KEYS = ("self_attn.qkv_fused.weight", "mlp.gateup_fused.weight")
+# adapter keys whose base weight splits rows: A (which contracts the
+# split input) splits with it and B replicates; every other key splits
+# B's output columns and replicates A
+_LORA_ROW_KEYS = ("o", "down")
+
+
+def serving_shard_axis(key: str):
+    """The dim of ``key``'s ``[in, out]`` weight that tp splits: 1 for
+    the column-sharded projections, 0 for the row-sharded ones, None for
+    the replicated leaves."""
+    if key.endswith(_COL_SHARDED):
+        return 1
+    if key.endswith(_ROW_SHARDED):
+        return 0
+    return None
+
+
+def check_serving_shardable(state: dict, tp: int):
+    """The reference's ``_check_state_shardable`` (``runner.py:328-356``):
+    a tp > 1 state holds per-projection tensors or
+    :class:`QuantizedWeight` leaves whose split dim tp divides (int4's
+    packed K/2 rows for the row-sharded ones), never a fused weight."""
+    for k, v in state.items():
+        if k.endswith(_FUSED_KEYS):
+            raise ValueError(
+                f"state has fused weight {k!r}: fused serving states are "
+                "single-device only (tp=1); the tp>1 runner shards the "
+                "per-projection q/k/v and gate/up weights individually")
+        if isinstance(v, QuantizedWeight):
+            axis = serving_shard_axis(k)
+            if axis == 0 and v.q.shape[0] % tp:
+                raise ValueError(
+                    f"state[{k!r}]: quantized K rows {v.q.shape[0]} not "
+                    f"divisible by tp={tp}" + (
+                        " (int4 packs two K rows per int8 byte: K/2 must "
+                        "divide)" if v.kind == "int4" else ""))
+            if axis == 1 and v.q.shape[1] % tp:
+                raise ValueError(
+                    f"state[{k!r}]: quantized N columns {v.q.shape[1]} not "
+                    f"divisible by tp={tp}")
+            continue
+        if not torch.is_tensor(v):
+            raise ValueError(
+                f"state[{k!r}] is {type(v).__name__}, not an array or "
+                "QuantizedWeight: cannot be head-sharded")
+
+
+def _cut(t, axis, tp, rank):
+    n = t.shape[axis] // tp
+    return t.narrow(axis, rank * n, n).contiguous()
+
+
+def shard_serving_leaf(key: str, v, tp: int, rank: int):
+    """Rank ``rank``'s piece of one serving leaf (the reference's
+    ``_place`` with ``_spec_for`` / ``_quant_specs``).  A column-sharded
+    :class:`QuantizedWeight` splits its values and per-column scales
+    along N and keeps the logical K; a row-sharded one splits its
+    (packed) value rows, keeps every scale (they multiply partial
+    products before the all-reduce, which is linear) and carries the
+    local K = K / tp.  Replicated leaves come back as they are."""
+    axis = serving_shard_axis(key)
+    if axis is None or tp == 1:
+        return v
+    if isinstance(v, QuantizedWeight):
+        if axis == 1:
+            return QuantizedWeight(_cut(v.q, 1, tp, rank),
+                                   _cut(v.scale, 0, tp, rank), kind=v.kind,
+                                   k=v.k)
+        return QuantizedWeight(_cut(v.q, 0, tp, rank), v.scale, kind=v.kind,
+                               k=v.k // tp)
+    return _cut(v, axis, tp, rank)
+
+
+def shard_serving_state(state: dict, tp: int, rank: int) -> dict:
+    """A full serving state (e.g. from :func:`state_from_numpy`) -> rank
+    ``rank``'s shard of a ``tp``-way serving mesh, on the state's own
+    device (see :func:`shard_serving_leaf`)."""
+    if tp > 1:
+        check_serving_shardable(state, tp)
+    return {k: shard_serving_leaf(k, v, tp, rank) for k, v in state.items()}
+
+
+def shard_serving_adapter(a: dict, b: dict, tp: int, rank: int):
+    """An adapter's ``a`` ``{key: [L, r, in]}`` and ``b`` ``{key: [L, r,
+    out]}`` -> rank ``rank``'s bank rows (the reference's
+    ``_lora_pspecs``): A split on its input for o and down, B split on
+    its output for the other projections."""
+    a_out, b_out = dict(a), dict(b)
+    if tp > 1:
+        for k in a:
+            if k in _LORA_ROW_KEYS:
+                a_out[k] = _cut(torch.as_tensor(a[k]), -1, tp, rank)
+            else:
+                b_out[k] = _cut(torch.as_tensor(b[k]), -1, tp, rank)
+    return a_out, b_out

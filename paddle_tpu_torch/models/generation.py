@@ -32,6 +32,15 @@ K5 kernel for a per-slot index vector, plain matmuls for a scalar
 index) exactly where the reference adds it; ``lora=()`` is the dense
 path, unchanged.
 
+Tensor parallelism: ``_prefill_layer`` and ``_decode_layer_paged`` also
+serve one rank of a serving mesh (``serving/parallel``).  Given a tp
+group ``axis``, the weights are the rank's shards (q/k/v, gate and up
+split by columns, o and down by rows), the head counts come from the
+shards' widths, and the o and down partial products are all-reduced
+over ``axis`` (the reference's ``psum``s; a LoRA partial delta of o or
+down joins the same sum).  ``axis=None``, the default, is the identity:
+no collective runs.
+
 Attention: prompt prefill runs ``sdpa`` with a key-padding mask (the K8
 forward), a dense-cache decode step runs ``decode_attention`` (K7) and a
 paged one ``paged_attention`` (K3).
@@ -46,6 +55,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..distributed.collective import all_reduce
 from ..nn.quant import weight_quantize
 from ..ops.pallas import decode_attention as _DA
 from ..ops.pallas.flash_attention import sdpa
@@ -162,7 +172,13 @@ def _qkv_proj(w, h, lora=(), aidx=None, li=0):
     return q, k, v
 
 
-def _ffn(w, h, lora=(), aidx=None, li=0):
+def _psum(part, axis):
+    """A row-sharded projection's all-reduce over the tp group ``axis``;
+    the identity at ``axis=None``."""
+    return part if axis is None else all_reduce(part, group=axis)
+
+
+def _ffn(w, h, lora=(), aidx=None, li=0, axis=None):
     if "gateup" in w:
         gu = _mm(h, w["gateup"])
         half = gu.shape[-1] // 2
@@ -176,15 +192,15 @@ def _ffn(w, h, lora=(), aidx=None, li=0):
     out = _mm(act, w["down"])
     if lora:
         out = out + lora_delta(lora, "down", li, act, aidx)
-    return out
+    return _psum(out, axis)
 
 
-def _out_proj(w, attn, lora=(), aidx=None, li=0):
+def _out_proj(w, attn, lora=(), aidx=None, li=0, axis=None):
     """The attention output projection, plus its adapter delta."""
     o = _mm(attn, w["o"])
     if lora:
         o = o + lora_delta(lora, "o", li, attn, aidx)
-    return o
+    return _psum(o, axis)
 
 
 def _rope_at(cos, sin, pos):
@@ -193,14 +209,15 @@ def _rope_at(cos, sin, pos):
 
 
 def _prefill_layer(w, x, cos, sin, mask, cfg: LlamaConfig, lora=(),
-                   aidx=None, li=0):
+                   aidx=None, li=0, axis=None):
     """x: [B, S, H]; mask [B, S] bool key padding (True = real token);
-    returns (out, k, v) with k/v [B, S, kvH, D] post-rope."""
+    returns (out, k, v) with k/v [B, S, kvH, D] post-rope (``kvH`` this
+    rank's heads under a tp ``axis``)."""
     b, s, _ = x.shape
-    nh, kvh, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                   cfg.head_dim)
+    hd = cfg.head_dim
     h = _rms(x, w["ln1"], cfg.rms_norm_eps)
     qp, kp, vp = _qkv_proj(w, h, lora, aidx, li)
+    nh, kvh = qp.shape[-1] // hd, kp.shape[-1] // hd
     q = qp.reshape(b, s, nh, hd)
     k = kp.reshape(b, s, kvh, hd)
     v = vp.reshape(b, s, kvh, hd)
@@ -211,9 +228,9 @@ def _prefill_layer(w, x, cos, sin, mask, cfg: LlamaConfig, lora=(),
     # causal + key-padding: the masked flash forward (CUDA K8 forward)
     attn = sdpa(q, k, v, attn_mask=mask[:, None, None, :],
                 is_causal=True).reshape(b, s, nh * hd)
-    x = x + _out_proj(w, attn, lora, aidx, li)
+    x = x + _out_proj(w, attn, lora, aidx, li, axis)
     h = _rms(x, w["ln2"], cfg.rms_norm_eps)
-    return x + _ffn(w, h, lora, aidx, li), k, v
+    return x + _ffn(w, h, lora, aidx, li, axis), k, v
 
 
 def _decode_layer(w, x, kcache, vcache, cos1, sin1, pos,
@@ -251,7 +268,8 @@ def _decode_layer(w, x, kcache, vcache, cos1, sin1, pos,
 
 
 def _decode_layer_paged(w, x, kpool, vpool, table, cos1, sin1, pos,
-                        cfg: LlamaConfig, lora=(), aidx=None, li=0):
+                        cfg: LlamaConfig, lora=(), aidx=None, li=0,
+                        axis=None):
     """Paged-cache decode layer: x [B, H] one token per sequence; pools
     [P, kvH, ps, D], updated IN PLACE with this token's K/V at page
     table[b, pos // ps], slot pos % ps; table [B, max_pages] int32; pos
@@ -259,13 +277,14 @@ def _decode_layer_paged(w, x, kpool, vpool, table, cos1, sin1, pos,
     paged kernel with lens = pos + 1.  Returns the layer output [B, H].
     With the generation quantize state, gate and up run as one fused
     GEMV (the reference's paged layer runs them apart; the columns are
-    the same)."""
+    the same).  Under a tp ``axis`` the pools hold this rank's kv heads
+    and attention runs head-parallel on them, with no collective."""
     b = x.shape[0]
-    nh, kvh, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                   cfg.head_dim)
+    hd = cfg.head_dim
     ps = kpool.shape[2]
     h = _rms(x, w["ln1"], cfg.rms_norm_eps)
     qp, kp, vp = _qkv_proj(w, h, lora, aidx, li)
+    nh, kvh = qp.shape[-1] // hd, kp.shape[-1] // hd
     q = qp.reshape(b, nh, hd)
     k = kp.reshape(b, kvh, hd)
     v = vp.reshape(b, kvh, hd)
@@ -281,11 +300,11 @@ def _decode_layer_paged(w, x, kpool, vpool, table, cos1, sin1, pos,
     kpool[page, heads, off] = k.to(kpool.dtype)
     vpool[page, heads, off] = v.to(vpool.dtype)
 
-    attn = select_paged_attention()(
+    attn = select_paged_attention(tp_axis=axis)(
         q.contiguous(), kpool, vpool, table, pos + 1).reshape(b, nh * hd)
-    x = x + _out_proj(w, attn, lora, aidx, li)
+    x = x + _out_proj(w, attn, lora, aidx, li, axis)
     h = _rms(x, w["ln2"], cfg.rms_norm_eps)
-    return x + _ffn(w, h, lora, aidx, li)
+    return x + _ffn(w, h, lora, aidx, li, axis)
 
 
 # --------------------------------------------------------------- sampling

@@ -14,13 +14,12 @@ int32, lens [B] int32 = tokens visible per sequence.  Inference only.
 tensors it runs :func:`paged_attention_xla`, the plain dense-gather
 version; on CUDA tensors it launches the kernel or raises.  The
 reference runs its kernel at every head dim and group
-(``select_paged_attention``, ``:58-61``); the port's is built for every
-head dim that is a multiple of 16 from 16 to 256, at any GQA group and
-page size, and :func:`_route` raises ``NotImplementedError`` at other
-head dims (ROADMAP queue 2) rather than return a result that no kernel
-of the card computes.
+(``select_paged_attention``, ``:58-61``), and so does the port, with
+two bodies (:func:`_body`): the ``mma.sync`` kernel at every head dim
+that is a multiple of 16 from 16 to 256, and a CUDA-core body at every
+other head dim (:func:`_any_plan`), any GQA group and page size both.
 
-The kernel makes one launch per call.  It splits the table span W *
+The ``mma.sync`` kernel makes one launch per call.  It splits the table span W *
 page_size of each (sequence, kv head, group of 16 query heads) into
 :func:`_splits` chunks; the last CTA of a row to finish merges the
 splits of that row, using a counter per row that it leaves at zero.
@@ -35,7 +34,9 @@ splits past a row's ``lens`` return at once, and a batch of full rows
 still runs in about four waves with a small last one.  The partials and
 counters live in buffers kept per device and stream
 (:func:`cuda_lib.scratch`), so calls on one device must run on one
-stream at a time.
+stream at a time.  The CUDA-core body makes two launches per call (the
+chunks of 256 keys, then their merge in chunk order) and counts as one
+call in :attr:`paged_attention.launches`.
 
 The two differ where the reference's two paths differ: the kernel
 rounds the unnormalised probabilities to v's dtype before P.V (as the
@@ -48,6 +49,12 @@ the engine never passes 0 (an idle slot runs with lens = pos + 1 = 1).
 The int8 KV page mode (:func:`quantize_kv_rows`,
 :func:`gather_kv_pages_quant`, :func:`paged_attention_quant`) is plain
 PyTorch: the reference runs it on XLA and has no kernel for it.
+
+Under serving tensor parallelism each rank holds ``kvH / tp`` heads of
+the pools and ``nh / tp`` query heads: ``select_paged_attention(tp_axis=
+group)`` and ``paged_attention_quant(..., tp_axis=group)`` check that the
+local q heads group onto the local kv heads and run the same body on
+them.  No collective runs inside attention.
 """
 from __future__ import annotations
 
@@ -81,18 +88,41 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
              _I, _I, ctypes.c_float, _P)
+_ANY_ARGTYPES = (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                 _I, _I, _I, _I, ctypes.c_float, _P)
+_ANY_CHUNK = 256               # keys per CTA of the CUDA-core body
+_ANY_TILE = 64                 # keys per tile of it, at most
+_ANY_ROWS = 16                 # query heads per CTA of it, at most
+_ANY_SMEM = 227 * 1024         # the shared memory a block may take
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_launch = None                 # the C entry, resolved at first CUDA use
+_launch = None                 # the C entries, resolved at first CUDA use
+_launch_any = None
 
 
-def select_paged_attention(tp_axis: str | None = None):
-    """The paged-attention callable shared by every decode path.  The
-    head-parallel (``tp_axis``) variant comes with serving tensor
-    parallelism."""
-    if tp_axis is not None:
-        raise NotImplementedError(
-            "head-parallel paged attention (tp > 1) is not ported yet")
-    return paged_attention
+def _check_local_heads(q, kpool):
+    """The head-parallel precondition: this rank's q heads group onto
+    its kv heads (tp divides both head counts)."""
+    nh_l, kvh_l = q.shape[1], kpool.shape[1]
+    if kvh_l == 0 or nh_l % kvh_l:
+        raise ValueError(
+            f"head-parallel paged attention: local q heads {nh_l} do not "
+            f"group onto local KV heads {kvh_l}: the tp size must divide "
+            "both head counts")
+
+
+def select_paged_attention(tp_axis=None):
+    """The paged-attention callable shared by every decode path.
+    ``tp_axis`` (the tensor-parallel group) selects the head-parallel
+    variant: the pools hold this rank's kv heads, so the same kernel
+    runs on the local heads after :func:`_check_local_heads`."""
+    if tp_axis is None:
+        return paged_attention
+
+    def head_parallel(q, kpool, vpool, table, lens):
+        _check_local_heads(q, kpool)
+        return paged_attention(q, kpool, vpool, table, lens)
+
+    return head_parallel
 
 
 def paged_attention(q, kpool, vpool, table, lens):
@@ -109,6 +139,10 @@ def paged_attention(q, kpool, vpool, table, lens):
     stream = torch.cuda.current_stream(dev).cuda_stream
     span = w * ps
     out = torch.empty_like(q)
+    if _body(d) == "any":
+        _launch_any_body(q, kpool, vpool, table, lens, out, rep, stream)
+        paged_attention.launches += 1
+        return out
     part_ml = part_o = tickets = None
     if q.dtype == torch.float32:
         n_split, chunk = -(-span // _F32_CHUNK), _F32_CHUNK
@@ -141,16 +175,78 @@ paged_attention.launches = 0   # kernel launches (the main-path witness)
 
 
 def _route(head_dim, group):
-    """"kernel" where the port's K3 kernel is built (every head dim that
-    is a multiple of 16 from 16 to 256, any GQA group); raises
-    ``NotImplementedError`` elsewhere: the reference runs its kernel at
-    every shape, so no plain route exists."""
-    if head_dim not in KERNEL_HEAD_DIMS or group < 1:
-        raise NotImplementedError(
-            f"paged_attention (K3) at head_dim {head_dim}, group {group}: "
-            "the kernel is built for the head dims that are multiples of "
-            "16 from 16 to 256, at any group (ROADMAP queue 2)")
+    """"kernel" at every head dim and group, as the reference runs its
+    kernel at every shape (no plain route exists on the card); which
+    body serves a head dim is :func:`_body`'s choice."""
+    if head_dim < 1 or group < 1:
+        raise ValueError(f"paged_attention (K3): head_dim {head_dim}, "
+                         f"group {group}: both must be at least 1")
     return "kernel"
+
+
+def _body(head_dim):
+    """"mma" where a ``mma.sync`` instance is built (every multiple of
+    16 from 16 to 256), "any" (the CUDA-core body) at every other head
+    dim."""
+    return "mma" if head_dim in KERNEL_HEAD_DIMS else "any"
+
+
+def _any_smem(d, tile, rows):
+    """The CUDA-core body's dynamic shared memory: K and V tiles, Q and
+    the accumulators, the tile's probabilities and (m, l, alpha), f32."""
+    return (2 * tile * d + 2 * rows * d + rows * tile + 3 * rows) * 4
+
+
+def _any_plan(d, rep):
+    """(tile, rows) of the CUDA-core body at head_dim ``d`` and group
+    ``rep``: 64 keys a tile and up to 16 query heads a CTA, halved (tile
+    first, down to 8 keys, then the rows, then the tile again) until the
+    shared memory fits a block; a head dim too wide for even one key and
+    one row (above 14,527) raises."""
+    tile, rows = _ANY_TILE, min(_ANY_ROWS, rep)
+    while _any_smem(d, tile, rows) > _ANY_SMEM and tile > 8:
+        tile //= 2
+    while _any_smem(d, tile, rows) > _ANY_SMEM and rows > 1:
+        rows = -(-rows // 2)
+    while _any_smem(d, tile, rows) > _ANY_SMEM and tile > 1:
+        tile //= 2
+    if _any_smem(d, tile, rows) > _ANY_SMEM:
+        raise ValueError(f"paged_attention: head_dim {d} leaves no room "
+                         "for one key and one query head in a block's "
+                         "shared memory")
+    return tile, rows
+
+
+def launch_splits(b, nh, kvh, ps, w, d, dtype, sms):
+    """The key splits (chunks) one call makes at these shapes: the
+    mma kernel's :func:`_splits` in bf16, 256-key chunks in f32 and in
+    the CUDA-core body."""
+    if dtype == torch.bfloat16 and _body(d) == "mma":
+        return _splits(b * kvh * -(-(nh // kvh) // 16), w * ps, sms, d)[0]
+    return -(-(w * ps) // _ANY_CHUNK)
+
+
+def _launch_any_body(q, kpool, vpool, table, lens, out, rep, stream):
+    """Launch the CUDA-core body (two kernels) into ``out``."""
+    global _launch_any
+    b, nh, d = q.shape
+    kvh, ps, w = kpool.shape[1], kpool.shape[2], table.shape[1]
+    tile, rows = _any_plan(d, rep)
+    n_chunks = -(-(w * ps) // _ANY_CHUNK)
+    n_ml, n_o = b * nh * n_chunks * 2, b * nh * n_chunks * d
+    part = cuda_lib.scratch("paged_attention.partials", q.device, stream,
+                            n_ml + n_o, torch.float32)
+    if _launch_any is None:
+        _launch_any = cuda_lib.kernel("paged_attention",
+                                      "paged_attention_any_fwd",
+                                      _ANY_ARGTYPES)
+    err = _launch_any(_DTYPES[q.dtype], d, q.data_ptr(), kpool.data_ptr(),
+                      vpool.data_ptr(), table.data_ptr(), lens.data_ptr(),
+                      out.data_ptr(), part.data_ptr(),
+                      part.data_ptr() + 4 * n_ml, b, kvh, rep, ps, w,
+                      n_chunks, _ANY_CHUNK, tile, rows, 1.0 / math.sqrt(d),
+                      stream)
+    cuda_lib.check("paged_attention", err, "paged_attention launch")
 
 
 def _smem(d):
@@ -204,7 +300,12 @@ def _check(q, kpool, vpool, table, lens):
         raise ValueError(f"paged_attention: q {tuple(q.shape)} must match "
                          f"the pools' head_dim and group onto their kv "
                          f"heads, got pools {tuple(kpool.shape)}")
-    _route(d, nh // kvh)                 # raises where no kernel is built
+    _route(d, nh // kvh)
+    if _body(d) == "any":
+        _any_plan(d, nh // kvh)          # raises past the widest head dim
+        if b * kvh > 65535:
+            raise ValueError(f"paged_attention: B * kvH = {b * kvh} rows, "
+                             f"at most 65535 at head_dim {d}")
     if table.dim() != 2 or table.shape[0] != b or tuple(lens.shape) != (b,):
         raise ValueError(
             f"paged_attention: table {tuple(table.shape)} must be [B, W] "
@@ -221,7 +322,8 @@ def _check(q, kpool, vpool, table, lens):
                          "most 65535 in float32")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention kernel takes contiguous inputs")
-    if q.data_ptr() % 16 or kpool.data_ptr() % 16 or vpool.data_ptr() % 16:
+    if _body(d) == "mma" and (q.data_ptr() % 16 or kpool.data_ptr() % 16
+                              or vpool.data_ptr() % 16):
         raise ValueError("paged_attention: q and pools must be 16-byte "
                          "aligned")
     return b, nh, d
@@ -296,11 +398,11 @@ def paged_attention_quant(q, kpool, vpool, kscale, vscale, table, lens,
     scales: the dense-gather formulation of :func:`paged_attention_xla`
     with the dequantization fused into the page gather.  It gathers the
     whole table width of every row (the reference's XLA path); there is
-    no kernel for int8 pages.  The head-parallel (``tp_axis``) variant
-    comes with serving tensor parallelism."""
+    no kernel for int8 pages.  ``tp_axis`` (the tensor-parallel group)
+    marks a head-parallel caller whose pools hold its own kv heads: the
+    local head grouping is checked, and attention needs no collective."""
     if tp_axis is not None:
-        raise NotImplementedError(
-            "head-parallel paged attention (tp > 1) is not ported yet")
+        _check_local_heads(q, kpool)
     b, nh, d = q.shape
     kvh = kpool.shape[1]
     rep = nh // kvh

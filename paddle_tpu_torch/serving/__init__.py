@@ -1,4 +1,4 @@
-"""Continuous-batching LLM serving on the port (tp=1).
+"""Continuous-batching LLM serving on the port.
 
 ``create_engine(config, state)`` builds an :class:`Engine`; requests go
 in through :meth:`Engine.submit` and stream out of :class:`Request`.
@@ -7,7 +7,9 @@ Quantized weights (``quant=``, :func:`quantize_state`), int8 KV pages
 speculative decoding (``spec_k=``, drafts from :class:`NgramProposer`),
 priority preemption (``preempt=``) and fault injection (``faults=`` a
 :class:`FaultPlan`) are engine modes; :class:`EngineSupervisor` drives
-the step loop and recovers from a poisoned step.
+the step loop and recovers from a poisoned step.  ``mesh=`` (or
+``FLAGS_serving_mesh_tp``) serves with tensor parallelism, one process
+per card (:func:`parse_mesh`, ``parallel/worker.py``).
 
 The front end ports the reference's: :func:`serve` puts an engine
 behind an OpenAI-style HTTP server (``POST /v1/completions`` with SSE
@@ -24,6 +26,7 @@ from .client import ServingClient, ServingHTTPError  # noqa: F401
 from .engine import Engine, NonFiniteLogitsError, create_engine  # noqa: F401
 from .faults import (  # noqa: F401
     FaultPlan, InjectedFault, fault_plan_from_flags)
+from .parallel import ModelRunner, parse_mesh  # noqa: F401
 from .lora import (  # noqa: F401
     AdapterStore, BATCH_PRIORITY, BatchJob, merge_adapter,
     random_adapter)
@@ -42,10 +45,11 @@ from .watchdog import Watchdog  # noqa: F401
 __all__ = ["AdapterStore", "BATCH_PRIORITY", "BackpressureError",
            "BatchJob", "BlockManager", "DrainingError", "Engine",
            "EngineSupervisor", "EngineWorker", "FaultPlan",
-           "GenerationConfig", "InjectedFault", "NgramProposer",
+           "GenerationConfig", "InjectedFault", "ModelRunner",
+           "NgramProposer",
            "NoReplicaAvailable", "NonFiniteLogitsError", "Replica",
            "Request", "RequestState", "Router", "RouterServer",
            "SLOConfig", "SLOTracker", "Scheduler", "ServingClient",
            "ServingHTTPError", "ServingServer", "SpecStats", "Watchdog",
            "create_engine", "fault_plan_from_flags", "merge_adapter",
-           "quantize_state", "random_adapter", "serve"]
+           "parse_mesh", "quantize_state", "random_adapter", "serve"]

@@ -1,6 +1,6 @@
 """Continuous-batching inference engine over the paged KV pool.
 
-Ports ``paddle_tpu/serving/engine.py`` at tp=1 (Orca's iteration-level
+Ports ``paddle_tpu/serving/engine.py`` (Orca's iteration-level
 scheduling over vLLM-style PagedAttention):
 
   * ONE decode-step program over a fixed number of decode slots and one
@@ -63,8 +63,15 @@ profiler, and feeds the process resource tracker.  ``usage=`` (a
 :class:`~..observability.requestlog.RequestLog`) and ``slo=`` (a
 :class:`~.slo.SLOTracker`) arm per-request cost metering, lifecycle
 timelines and SLO verdicts; each seam is one ``is not None`` test when
-off.  Tensor parallelism comes with a later slice: ``mesh`` > 1 raises
-``NotImplementedError``.
+off.
+
+Tensor parallelism (``mesh=`` / ``FLAGS_serving_mesh_tp``): heads and
+the FFN hidden dim shard over ``tp`` ranks, one process per card
+(``parallel/worker.py``: this process is rank 0 and keeps the whole host
+half; ranks 1 … tp-1 run their shards of every device call it makes).
+The page table and the scheduling stay host-side and mesh-agnostic.
+``tp=1`` is exactly the single-device runner: no process, no message,
+no collective.  :meth:`Engine.close` stops the workers.
 """
 from __future__ import annotations
 
@@ -82,7 +89,9 @@ from ..models.generation import GenerationConfig
 from ..models.llama import LlamaConfig
 from .block_manager import BlockManager
 from .faults import InjectedFault, fault_plan_from_flags
+from .parallel.mesh import parse_mesh, validate_tp
 from .parallel.runner import ModelRunner
+from .parallel.worker import MeshRunner, get_mesh
 from .quantize import quantize_state
 from .request import Request, RequestState
 from .scheduler import Scheduler
@@ -125,11 +134,6 @@ _M_CHUNKS = _obs.counter(
     "prefill_chunk-token pieces interleaved with decode steps (chunk K "
     "attends chunks 1..K-1 via the cached prefill)")
 
-# constructor arguments of the reference engine whose features come with
-# later slices: a set value raises instead of being silently ignored
-_LATER = {"mesh": "tensor parallelism"}
-
-
 class NonFiniteLogitsError(ValueError):
     """A request's logits hold no usable probability mass (NaN/Inf from
     the model, or top_k/top_p masked every candidate).  A per-request
@@ -149,26 +153,6 @@ def _serving_hists():
         "serving_e2e_seconds", "request arrival -> completion",
         buckets=buckets)
     return ttft, tpot, e2e
-
-
-def _check_later(later: dict):
-    """Raise for a reference option whose feature is not ported yet
-    (``mesh`` 1, or unset with ``FLAGS_serving_mesh_tp`` 1, is tp=1)."""
-    for name, value in later.items():
-        if name not in _LATER:
-            raise TypeError(f"Engine got an unexpected argument {name!r}")
-        unset = value is None or value is False or (
-            isinstance(value, (int, str)) and value in (0, ""))
-        if not unset and not (name == "mesh" and value == 1):
-            raise NotImplementedError(
-                f"{name}={value!r}: {_LATER[name]} is not ported to "
-                "paddle_tpu_torch yet")
-    if later.get("mesh") is None:
-        tp = int(FLAGS.get("FLAGS_serving_mesh_tp") or 1)
-        if tp != 1:
-            raise NotImplementedError(
-                f"FLAGS_serving_mesh_tp={tp}: tensor parallelism is not "
-                "ported to paddle_tpu_torch yet")
 
 
 class Engine:
@@ -192,9 +176,20 @@ class Engine:
                  preempt: bool | None = None, faults=None,
                  quant: str | None = None, kv_quant: bool | None = None,
                  lora=None, slo=None, usage=None, requestlog=None,
-                 **later):
-        _check_later(later)
+                 mesh=None):
+        # the mesh first: a tp that does not divide the heads and the FFN
+        # width is refused before anything is built
+        if mesh is None:
+            mesh = int(FLAGS.get("FLAGS_serving_mesh_tp") or 1)
+        self.tp = parse_mesh(mesh)
+        validate_tp(config, self.tp)
         self.device = resolve_device(device)
+        if self.tp > 1 and self.device.type == "cuda" \
+                and self.device.index not in (None, 0):
+            raise ValueError(
+                f"a tp={self.tp} mesh runs its ranks on cuda:0 … "
+                f"cuda:{self.tp - 1}; rank 0 (this process) takes cuda:0, "
+                f"not {self.device}")
         # quantized serving: convert the dense checkpoint before
         # placement (embeddings/norms/lm_head stay dense, so the dtype
         # the pools take still is the checkpoint's).  quant off (the
@@ -322,7 +317,7 @@ class Engine:
             kv_quant=self.kv_quant,
             lora_slots=lora.capacity if lora is not None else 0,
             lora_rank=lora.rank if lora is not None else 0)
-        self.runner = ModelRunner(config, state, **self._runner_kw)
+        self.runner = self._new_runner()
         if lora is not None:
             # bind the store to the bank: resident adapters (if any)
             # upload now; later acquires patch single rows in place
@@ -1433,8 +1428,7 @@ class Engine:
         # on a failed rebuild the released runner stays in place: its
         # decode-state rows still take the quarantines' slot parks
         self.runner.release()
-        self.runner = ModelRunner(self.config, self.state,
-                                  **self._runner_kw)
+        self.runner = self._new_runner()
         if self.lora is not None:
             # the fresh runner's bank is zeroed — re-upload every
             # resident adapter before any replayed prefill reads it
@@ -1524,6 +1518,24 @@ class Engine:
         _obs.flight("engine", "replay", req=req.id, slot=slot,
                     tokens=n, cached=cached)
 
+    def _new_runner(self):
+        """The device half: the single-device runner at tp=1, else rank
+        0's runner of the live mesh of ``tp`` ranks (the workers build
+        their shards of it; a failed mesh gives way to new workers)."""
+        if self.tp == 1:
+            return ModelRunner(self.config, self.state, **self._runner_kw)
+        return MeshRunner(self.config, self.state,
+                          mesh=get_mesh(self.tp, self.device),
+                          **self._runner_kw)
+
+    def close(self):
+        """Release the runner's device memory; at tp > 1 also stop the
+        mesh's workers (an engine built later starts new ones), a failed
+        mesh's included."""
+        self.runner.release()
+        if self.tp > 1:
+            self.runner._mesh.close()
+
     # -------------------------------------------------------------- info
     def stats(self) -> dict:
         b = self.blocks
@@ -1560,7 +1572,7 @@ class Engine:
             "restored_pages": b.restored_pages,
             "spill_bytes": b.spill_bytes,
             "host_parked_pages": b.host_parked,
-            "mesh_tp": 1,
+            "mesh_tp": self.tp,
             "quant": self.quant,
             "kv_quant": self.kv_quant,
             "lora": (self.lora.snapshot()
@@ -1684,7 +1696,7 @@ def create_engine(config: LlamaConfig, state: dict, *, device=None,
                   preempt: bool | None = None, faults=None,
                   quant: str | None = None, kv_quant: bool | None = None,
                   lora=None, slo=None, usage=None, requestlog=None,
-                  **later) -> Engine:
+                  mesh=None) -> Engine:
     """Build a continuous-batching engine over a Llama state dict (see
     ``models/convert.py``: :func:`state_from_numpy` carries the JAX
     package's weights over, :func:`init_state` makes random ones).
@@ -1708,6 +1720,13 @@ def create_engine(config: LlamaConfig, state: dict, *, device=None,
     takes an :class:`~.slo.SLOTracker`, ``usage`` a
     :class:`~..observability.usage.UsageMeter` and ``requestlog`` a
     :class:`~..observability.requestlog.RequestLog` (each None = off).
+    ``mesh`` (an int, ``"tp=N"`` or a 1-tuple; default
+    ``FLAGS_serving_mesh_tp``) serves over ``tp`` ranks, one process per
+    card (``device="cpu"``: gloo ranks on the CPU); tp must divide the q
+    heads, the kv heads and the FFN width.  Keep a tp engine's ``state``
+    on the host: rank 0 scatters every rank's shard from it, and the
+    engine keeps it for a supervisor's rebuild, so a state on ``cuda:0``
+    would stay there beside rank 0's shard as a second, full copy.
 
     Example::
 
@@ -1726,4 +1745,4 @@ def create_engine(config: LlamaConfig, state: dict, *, device=None,
                   sync_interval=sync_interval, clock=clock, spec_k=spec_k,
                   prefill_chunk=prefill_chunk, preempt=preempt,
                   faults=faults, quant=quant, kv_quant=kv_quant, lora=lora,
-                  slo=slo, usage=usage, requestlog=requestlog, **later)
+                  slo=slo, usage=usage, requestlog=requestlog, mesh=mesh)

@@ -1,7 +1,6 @@
-"""The engine's device half at tp=1: weights, paged KV pools, decode state.
+"""The engine's device half: weights, paged KV pools, decode state.
 
-Ports the ``tp == 1`` branch of
-``paddle_tpu/serving/parallel/runner.py``.  The :class:`ModelRunner`
+Ports ``paddle_tpu/serving/parallel/runner.py``.  The :class:`ModelRunner`
 owns the state dict on its device, the paged KV pools, the rope tables,
 the device-resident decode state (table/pos/tok/active + the
 sampled-token ring) and the programs the engine calls through a narrow
@@ -43,6 +42,29 @@ dense path unchanged.  ``spec_k > 0`` adds the verify program and widens
 the ring to ``[sync_interval, slots, k+1]``.  ``read_page`` returns CPU
 tensors (numpy has no bfloat16); the host spill tier keeps them as
 they are.
+
+Two construction modes, by ``tp``:
+
+``tp == 1``
+    The single-device programs above: no process, no message, no
+    collective.
+
+``tp > 1``
+    One runner per rank of a ``tp``-way mesh, one process per card
+    (``serving/parallel/worker.py`` starts them; the caller's process
+    is rank 0).  Rank 0 scatters its shards from the full state over
+    the process group (``models/convert.py:shard_serving_leaf``: q/k/v,
+    gate and up split their columns, o and down their rows, the rest
+    replicates), the pools hold ``kvh/tp`` heads ``[L, P+1, kvh/tp,
+    page_size, D]``, the adapter bank holds the rank's rows of each
+    adapter, and the layers are tp=1's, given the tp group as ``axis``:
+    their only collectives are the o and down all-reduces (2 x L per
+    decode step).  Logits, the next tokens and the ring come out equal
+    on every rank, so every rank feeds the same token back.  Each rank's
+    ``read_page`` returns its heads of the page and ``write_page`` takes
+    the full page and keeps its heads; rank 0's runner (``worker.
+    MeshRunner``) gathers and scatters them, so the host tier holds
+    full-head pages as at tp=1.
 """
 from __future__ import annotations
 
@@ -56,6 +78,9 @@ from ...models.generation import (_decode_layer_paged, _ffn,
 from ...models.llama import _rms, _rope_tables, _rotate_half
 from ...ops.pallas.flash_attention import sdpa
 from ...ops.pallas.paged_attention import gather_kv_pages, quantize_kv_rows
+from ...distributed import collective as C
+from ...models.convert import (_LORA_ROW_KEYS, serving_shard_axis,
+                               shard_serving_adapter, shard_serving_leaf)
 from ...ops.pallas.quant_matmul import QuantizedWeight
 from ..lora.store import lora_key_dims
 from .layers import decode_layer_paged_quant, prefill_layer_cached_quant
@@ -77,15 +102,24 @@ _M_PREFILL_TRACES = _obs.counter(
 
 
 class ModelRunner:
-    """Device-side serving runner at tp=1 (see module docstring)."""
+    """Device-side serving runner of one rank (see module docstring).
 
-    def __init__(self, config, state: dict, *, device: torch.device,
+    At ``tp > 1``, ``group`` is the mesh's process group and ``state``
+    is the full state on rank 0 and its :func:`state_spec` on the other
+    ranks (their shards arrive by scatter)."""
+
+    def __init__(self, config, state, *, device: torch.device,
                  max_slots: int, page_size: int, table_width: int,
                  num_pages: int, dump_page: int, sync_interval: int = 1,
                  emit_logits: bool = False, spec_k: int = 0,
                  kv_quant: bool = False, lora_slots: int = 0,
-                 lora_rank: int = 0):
+                 lora_rank: int = 0, tp: int = 1, rank: int = 0,
+                 group=None):
         self.config = config
+        self.tp = int(tp)
+        self.rank = int(rank)
+        # the tp group the layers all-reduce over (None: single device)
+        self._axis = group if self.tp > 1 else None
         self.device = device
         self.max_slots = int(max_slots)
         self.page_size = int(page_size)
@@ -102,11 +136,14 @@ class ModelRunner:
             raise ValueError(
                 f"lora_slots={self.lora_slots} requires lora_rank >= 1,"
                 f" got {self.lora_rank}")
-        self._validate_quantized_state(state)
-        self.state = {k: v.to(device) for k, v in state.items()}
+        if self.tp == 1:
+            self._validate_quantized_state(state)
+            self.state = {k: v.to(device) for k, v in state.items()}
+        else:
+            self.state = _scatter_state(state, self.tp, self.rank, device)
 
         L = config.num_hidden_layers
-        kvh, hd = config.num_key_value_heads, config.head_dim
+        kvh, hd = config.num_key_value_heads // self.tp, config.head_dim
         dtype = self.state["llama.embed_tokens.weight"].dtype
         pool_shape = (L, self.num_pages + 1, kvh, self.page_size, hd)
         pool_dtype = torch.int8 if self.kv_quant else dtype
@@ -187,6 +224,10 @@ class ModelRunner:
         base dtype — row 0 stays all zero (the no-adapter row), so a
         mixed batch indexes one bank in one step."""
         dims = lora_key_dims(self.config)
+        if self.tp > 1:     # this rank's rows: A of o/down, B of the rest
+            dims = {k: ((ind // self.tp, outd) if k in _LORA_ROW_KEYS
+                        else (ind, outd // self.tp))
+                    for k, (ind, outd) in dims.items()}
         L = self.config.num_hidden_layers
         rows, r = self.lora_slots + 1, self.lora_rank
         f32 = dict(dtype=torch.float32, device=self.device)
@@ -202,7 +243,18 @@ class ModelRunner:
     def load_adapter(self, row: int, a: dict, b: dict, scale: float):
         """Write one adapter into bank row ``row`` in place (admission
         path, never per step).  ``a``/``b`` map each projection key to
-        its [L, r, dim] host tensor."""
+        its [L, r, dim] host tensor (the whole adapter: at tp > 1 each
+        rank keeps its rows)."""
+        self._check_bank_row(row)
+        if self.tp > 1:
+            a, b = shard_serving_adapter(a, b, self.tp, self.rank)
+        for k, bank in self.lora["a"].items():
+            bank[:, row] = torch.as_tensor(a[k], dtype=torch.float32)
+        for k, bank in self.lora["b"].items():
+            bank[:, row] = torch.as_tensor(b[k], dtype=torch.float32)
+        self.lora["scale"][row] = float(scale)
+
+    def _check_bank_row(self, row):
         if not self.lora_slots:
             raise RuntimeError(
                 "runner built with lora_slots=0 has no adapter bank")
@@ -210,11 +262,6 @@ class ModelRunner:
             raise ValueError(
                 f"bank row {row} out of range 1..{self.lora_slots} "
                 "(row 0 is the reserved no-adapter row)")
-        for k, bank in self.lora["a"].items():
-            bank[:, row] = torch.as_tensor(a[k], dtype=torch.float32)
-        for k, bank in self.lora["b"].items():
-            bank[:, row] = torch.as_tensor(b[k], dtype=torch.float32)
-        self.lora["scale"][row] = float(scale)
 
     def lora_bank_bytes(self) -> int:
         """Total device bytes of the adapter bank (0 when off)."""
@@ -246,12 +293,12 @@ class ModelRunner:
             if self.kv_quant:
                 h = decode_layer_paged_quant(
                     w, h, self.kpool[i], self.vpool[i], self.kscale[i],
-                    self.vscale[i], table, cos1, sin1, posc, cfg, None,
-                    lora, aidx, i)
+                    self.vscale[i], table, cos1, sin1, posc, cfg,
+                    self._axis, lora, aidx, i)
             else:
                 h = _decode_layer_paged(
                     w, h, self.kpool[i], self.vpool[i], table, cos1, sin1,
-                    posc, cfg, lora, aidx, i)
+                    posc, cfg, lora, aidx, i, self._axis)
         h = _rms(h, self.state["llama.norm.weight"], cfg.rms_norm_eps)
         return _logits_of(self.state, h).float()
 
@@ -415,10 +462,10 @@ class ModelRunner:
         x = state["llama.embed_tokens.weight"][ids_t]
         pmask = torch.arange(bucket, device=self.device)[None, :] < plen
         for i in range(cfg.num_hidden_layers):
-            x, k, v = _prefill_layer(_layer_weights(state, i), x,
-                                     self._cos[:bucket], self._sin[:bucket],
-                                     pmask, cfg, self.lora,
-                                     int(adapter_row), i)
+            x, k, v = _prefill_layer(
+                _layer_weights(state, i), x, self._cos[:bucket],
+                self._sin[:bucket], pmask, cfg, self.lora,
+                int(adapter_row), i, self._axis)
             self._write_pages(i, pages, k[0], v[0])
         x = _rms(x, state["llama.norm.weight"], cfg.rms_norm_eps)
         return _logits_of(state, x[:, plen - 1]).float()
@@ -439,7 +486,7 @@ class ModelRunner:
             _M_PREFILL_TRACES.labels(f"cached:{bucket}").inc()
         dev = self.device
         ps, W = self.page_size, self.table_width
-        kvh = cfg.num_key_value_heads
+        kvh = cfg.num_key_value_heads // self.tp
         state = self.state
         row_t = torch.as_tensor(row, device=dev).long()
         x = state["llama.embed_tokens.weight"][
@@ -465,8 +512,8 @@ class ModelRunner:
             if self.kv_quant:
                 x, k, v = prefill_layer_cached_quant(
                     w, x, self.kpool[i], self.vpool[i], self.kscale[i],
-                    self.vscale[i], row_t, cos_s, sin_s, mask, cfg, None,
-                    lora, aidx, i)
+                    self.vscale[i], row_t, cos_s, sin_s, mask, cfg,
+                    self._axis, lora, aidx, i)
                 (qk, sk), (qv, sv) = quantize_kv_rows(k[0]), \
                     quantize_kv_rows(v[0])
                 self.kpool[i][widx] = qk
@@ -478,7 +525,7 @@ class ModelRunner:
             vpre = gather_kv_pages(self.vpool[i], row_t)
             x, k, v = _prefill_layer_cached(
                 w, x, kpre[None], vpre[None], cos_s, sin_s, mask, cfg,
-                lora, aidx, i)
+                lora, aidx, i, self._axis)
             self.kpool[i][widx] = k[0].to(self.kpool.dtype)
             self.vpool[i][widx] = v[0].to(self.vpool.dtype)
         x = _rms(x, state["llama.norm.weight"], cfg.rms_norm_eps)
@@ -499,8 +546,8 @@ class ModelRunner:
         shape [L, kvh, page_size, hd] in the pool dtype, plus ``(kscale,
         vscale)`` [L, kvh, page_size] f32 when the pools are int8 — the
         spill tier moves the quantized bytes, never a dequantized copy.
-        Preemption-spill only: a host sync per call, never on the steady
-        decode path."""
+        At tp > 1, this rank's ``kvh/tp`` heads.  Preemption-spill only:
+        a host sync per call, never on the steady decode path."""
         pools = (self.kpool, self.vpool)
         if self.kv_quant:
             pools += (self.kscale, self.vscale)
@@ -510,12 +557,16 @@ class ModelRunner:
     def write_page(self, page: int, k, v, kscale=None, vscale=None):
         """Host -> device copy of one KV page (preempted-request resume
         unparking a host-tier copy); int8 pages restore with their
-        scales."""
-        if self.kv_quant and (kscale is None or vscale is None):
-            raise ValueError(
-                "int8 KV pages restore with their scales: "
-                "write_page(page, k, v, kscale, vscale)")
+        scales.  The page holds every head; at tp > 1 this rank keeps its
+        ``kvh/tp``."""
+        self._check_page_scales(kscale, vscale)
         dev = self.device
+        if self.tp > 1:
+            n = self.kpool.shape[2]
+            k, v, kscale, vscale = (
+                None if t is None else
+                torch.as_tensor(t)[:, self.rank * n:(self.rank + 1) * n]
+                for t in (k, v, kscale, vscale))
         self.kpool[:, page] = torch.as_tensor(k).to(dev, self.kpool.dtype)
         self.vpool[:, page] = torch.as_tensor(v).to(dev, self.vpool.dtype)
         if self.kv_quant:
@@ -523,6 +574,12 @@ class ModelRunner:
                 dev, torch.float32)
             self.vscale[:, page] = torch.as_tensor(vscale).to(
                 dev, torch.float32)
+
+    def _check_page_scales(self, kscale, vscale):
+        if self.kv_quant and (kscale is None or vscale is None):
+            raise ValueError(
+                "int8 KV pages restore with their scales: "
+                "write_page(page, k, v, kscale, vscale)")
 
     def release(self):
         """Drop the KV pools and the placed weights (engine recovery
@@ -550,6 +607,12 @@ class ModelRunner:
         weight and adapter-bank footprints, plus the CUDA allocator's
         live and peak bytes on a card (a CPU runner reports the
         footprints alone)."""
+        return {"tp": 1, "axis": "tp", "kv_quant": self.kv_quant,
+                "devices": [self.mesh_entry()]}
+
+    def mesh_entry(self) -> dict:
+        """This rank's entry of :meth:`mesh_info`: its device, its mesh
+        position and its footprints (its shards at tp > 1)."""
         def nbytes(t):
             if t is None:
                 return 0
@@ -561,7 +624,9 @@ class ModelRunner:
         dev = self.device
         idx = dev.index if dev.index is not None else (
             torch.cuda.current_device() if dev.type == "cuda" else 0)
-        entry = {"device": f"{dev.type}:{idx}", "tp": 0,
+        if dev.type == "cpu":
+            idx = self.rank         # a CPU rank is a process, not a card
+        entry = {"device": f"{dev.type}:{idx}", "tp": self.rank,
                  "kv_pool_bytes": sum(nbytes(t) for t in pools),
                  "weight_bytes": sum(nbytes(t) for t in
                                      (self.state or {}).values()),
@@ -572,8 +637,14 @@ class ModelRunner:
                 "allocated_bytes.all.current", 0))
             entry["peak_bytes_in_use"] = int(stats.get(
                 "allocated_bytes.all.peak", 0))
-        return {"tp": 1, "axis": "tp", "kv_quant": self.kv_quant,
-                "devices": [entry]}
+        return entry
+
+    def rank_state(self) -> dict:
+        """This rank's device decode state on the host (the ring, pos and
+        tok): the check that every rank feeds the same token back."""
+        return {"ring": self._ring_dev.cpu().numpy(),
+                "pos": self._pos_dev.cpu().numpy(),
+                "tok": self._tok_dev.cpu().numpy()}
 
     def fetch_ring(self) -> np.ndarray:
         """The host sync: ONE [sync_interval, slots] int32 transfer."""
@@ -596,17 +667,18 @@ class ModelRunner:
 
 
 def _prefill_layer_cached(w, x, kpre, vpre, cos_s, sin_s, mask, cfg,
-                          lora=(), aidx=None, li=0):
+                          lora=(), aidx=None, li=0, axis=None):
     """One transformer layer of suffix prefill against a resident
     prefix: ``x`` [1, S, H] suffix hidden, ``kpre``/``vpre``
     [1, Tpre, kvH, D] prefix KV gathered from the pool (keys already
     rotary-encoded at their absolute positions), ``mask``
-    [1, 1, S, Tpre + S] bool.  Returns (out, k_suffix, v_suffix)."""
+    [1, 1, S, Tpre + S] bool.  Returns (out, k_suffix, v_suffix).
+    Under a tp ``axis``: this rank's heads, o and down all-reduced."""
     b, s, _ = x.shape
-    nh, kvh, hd = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                   cfg.head_dim)
+    hd = cfg.head_dim
     h = _rms(x, w["ln1"], cfg.rms_norm_eps)
     qp, kp, vp = _qkv_proj(w, h, lora, aidx, li)
+    nh, kvh = qp.shape[-1] // hd, kp.shape[-1] // hd
     q = qp.reshape(b, s, nh, hd)
     k = kp.reshape(b, s, kvh, hd)
     v = vp.reshape(b, s, kvh, hd)
@@ -618,9 +690,9 @@ def _prefill_layer_cached(w, x, kpre, vpre, cos_s, sin_s, mask, cfg,
     vcat = torch.cat([vpre.to(v.dtype), v], dim=1)
     attn = sdpa(q, kcat, vcat, attn_mask=mask,
                 is_causal=False).reshape(b, s, nh * hd)
-    x = x + _out_proj(w, attn, lora, aidx, li)
+    x = x + _out_proj(w, attn, lora, aidx, li, axis)
     h = _rms(x, w["ln2"], cfg.rms_norm_eps)
-    return x + _ffn(w, h, lora, aidx, li), k, v
+    return x + _ffn(w, h, lora, aidx, li, axis), k, v
 
 
 def _logits_of(state, h):
@@ -628,3 +700,68 @@ def _logits_of(state, h):
     if head is not None:
         return _mm(h, head)
     return h @ state["llama.embed_tokens.weight"].T
+
+
+# ----------------------------------------------- the shards, by scatter
+def _leaf_parts(key, v):
+    """The tensors of one state leaf with the dim tp splits (None:
+    replicated): ``[("w", t, axis)]`` for a tensor; values and scales
+    for a :class:`QuantizedWeight` (scales split with the columns,
+    replicated with the rows)."""
+    axis = serving_shard_axis(key)
+    if isinstance(v, QuantizedWeight):
+        return [("q", v.q, axis), ("scale", v.scale,
+                                   0 if axis == 1 else None)]
+    return [("w", v, axis)]
+
+
+def state_spec(state: dict) -> list:
+    """What the other ranks need to receive their shards of ``state``:
+    per key, its kind (a tensor, or a quantized leaf's kind and logical
+    K) and each part's name, full shape, dtype and split dim."""
+    spec = []
+    for key, v in state.items():
+        kind = (("quant", v.kind, v.k) if isinstance(v, QuantizedWeight)
+                else ("tensor",))
+        spec.append((key, kind, [(name, tuple(t.shape), str(t.dtype), axis)
+                                 for name, t, axis in _leaf_parts(key, v)]))
+    return spec
+
+
+def _scatter_state(state, tp, rank, device):
+    """This rank's shard of the serving state on ``device``: rank 0 holds
+    ``state`` (the full dict) and scatters each split part and
+    broadcasts each replicated one; the other ranks hold its
+    :func:`state_spec` and receive."""
+    full = state if isinstance(state, dict) else None
+    spec = state_spec(full) if full is not None else state
+    out = {}
+    for key, kind, parts in spec:
+        got = {}
+        for i, (name, shape, dtype, axis) in enumerate(parts):
+            dt = getattr(torch, dtype.rpartition(".")[2])
+            local = list(shape)
+            if axis is not None:
+                local[axis] //= tp
+            t = torch.empty(local, dtype=dt, device=device)
+            if axis is None:
+                if full is not None:
+                    t.copy_(_leaf_parts(key, full[key])[i][1])
+                C.broadcast(t, src=0)
+            else:
+                pieces = None
+                if full is not None:
+                    pieces = [shard_serving_leaf(key, full[key], tp, r)
+                              for r in range(tp)]
+                    pieces = [(p if kind[0] == "tensor"
+                               else getattr(p, name)).to(device)
+                              for p in pieces]
+                C.scatter(t, pieces, src=0)
+            got[name] = t
+        if kind[0] == "tensor":
+            out[key] = got["w"]
+        else:
+            k = kind[2] // tp if parts[0][3] == 0 else kind[2]
+            out[key] = QuantizedWeight(got["q"], got["scale"], kind=kind[1],
+                                       k=k)
+    return out

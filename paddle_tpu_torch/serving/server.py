@@ -1360,8 +1360,10 @@ def _main(argv=None):
     ap.add_argument("--emit-logits", action="store_true",
                     help="enable do_sample requests")
     ap.add_argument("--mesh", default=None,
-                    help="tensor-parallel mesh size (default "
-                    "FLAGS_serving_mesh_tp; the port serves tp=1)")
+                    help="tensor-parallel mesh size (e.g. 2 or tp=2; "
+                    "default FLAGS_serving_mesh_tp): one process per "
+                    "card, this one rank 0 on cuda:0; it must divide "
+                    "the 4 q heads and the 2 kv heads")
     ap.add_argument("--quant", choices=("none", "int8", "int4"),
                     default="none",
                     help="weight-only quantized serving (default "

@@ -66,8 +66,8 @@ row told 64 keys fewer), bit-equal reruns and the wrapper's rejections.
 
 The head-dim routes: d outside {64, 128, 256} runs the plain versions on
 the card (K7 here, K1/K2 and K8 through ``sdpa`` in the CPU tests); K3
-off d 32/64/128/256 raises ``NotImplementedError`` naming the kernel
-and its ROADMAP item.  The K1/K2 and K8 cases (kernel vs plain in f32
+runs a kernel at every head dim: its ``mma.sync`` instances at the
+multiples of 16 up to 256, its CUDA-core body at every other head dim.  The K1/K2 and K8 cases (kernel vs plain in f32
 and bf16, planted faults, bit-equal reruns) run at each of the head
 dims 64, 128 and 256 that the kernels are built for.  The bf16 K8 dbias
 (flash_sm90.cuh) is held through the K8 backward cases (every bias
@@ -80,7 +80,9 @@ the padded head dims (the other multiples of 16 up to 256) at groups 1
 and 32 and pages of 24 and 128, each with a planted fault, with
 rows of 0 and 1 keys, a page edge and a full table, and a dropped page
 must fail the bf16 check at each head dim; its reruns (several key
-splits merged by ticket) repeat bit for bit.  K4 is also held at M 1,
+splits merged by ticket) repeat bit for bit.  The CUDA-core body is held
+at head dims 8, 24, 40, 72, 100 and 320, groups 1 and 32, in float32 and
+bf16, with a planted fault and bit-equal reruns.  K4 is also held at M 1,
 8, 17 and 64 in both kinds, one split and many, and repeats bit for
 bit.
 """
@@ -234,6 +236,44 @@ def test_paged_padded_dims_match_plain(gen, dt, d, nh, kvh):
         assert bool((err[lens_t > 64] > BF16_ROW_TOL).all())
 
 
+# head dims that no mma.sync instance serves: the CUDA-core body
+K3_ANY_DIMS = (8, 24, 40, 72, 100, 320)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh,kvh", ((8, 8), (32, 1)))
+@pytest.mark.parametrize("d", K3_ANY_DIMS)
+def test_paged_any_dims_match_plain(gen, dt, d, nh, kvh):
+    """The CUDA-core body at groups 1 and 32, pages of 24 and 128,
+    against the plain version: rows of 0 and 1 keys, a page edge, ragged
+    rows and a long one (several 256-key chunks merged in order); two
+    calls give the same bits, and a planted fault (each long row told 64
+    keys fewer) fails the check on every row that loses keys."""
+    assert PA._body(d) == "any"
+    for ps in (24, 128):
+        lens = [0, 1, ps, 3 * ps + 7, 1000, 4096]
+        args = _paged_inputs(gen, dt, len(lens), nh, kvh, d, ps, lens)
+        before = PA.paged_attention.launches
+        out = PA.paged_attention(*args)
+        torch.cuda.synchronize()
+        assert PA.paged_attention.launches == before + 1
+        assert out.shape == args[0].shape and out.dtype == dt
+        assert torch.count_nonzero(out[0]) == 0
+        ref = PA.paged_attention_xla(*args)
+        assert _close(out[1:], ref[1:], dt)
+        assert torch.equal(out, PA.paged_attention(*args))
+        q, kp, vp, table, lens_t = args
+        short = torch.clamp(lens_t - 64, min=1).to(torch.int32)
+        bad = PA.paged_attention(q, kp, vp, table, short)
+        hit = lens_t > 64
+        if dt == torch.bfloat16:
+            err = _row_rel_err(bad, ref)
+            assert bool((err[hit] > BF16_ROW_TOL).all())
+        else:
+            err = (bad - ref).abs().amax(dim=-1)
+            assert bool((err[hit] > F32_TOL).all())
+
+
 def test_paged_kernel_zero_length_rows_are_zero(gen):
     args = _paged_inputs(gen, torch.float32, 2, 8, 2, 128, 16, [0, 20])
     out = PA.paged_attention(*args)
@@ -253,9 +293,12 @@ def test_paged_wrapper_rejects(gen):
     with pytest.raises(ValueError):
         PA.paged_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
                            kp, vp, table, lens)
-    with pytest.raises(NotImplementedError, match=r"K3.*queue 2"):
-        PA.paged_attention(q[..., :72].contiguous(), kp[..., :72].contiguous(),
-                           vp[..., :72].contiguous(), table, lens)
+    wide = 20000        # no key and query head fit a block's shared memory
+    with pytest.raises(ValueError, match="shared memory"):
+        PA.paged_attention(q[..., :1].expand(2, 8, wide).contiguous(),
+                           kp[..., :1].expand(-1, -1, -1, wide).contiguous(),
+                           vp[..., :1].expand(-1, -1, -1, wide).contiguous(),
+                           table, lens)
 
 
 def test_paged_kernel_is_deterministic(gen):

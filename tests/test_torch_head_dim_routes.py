@@ -121,21 +121,30 @@ def test_decode_rule_follows_the_reference(monkeypatch):
 
 def test_paged_rule_follows_the_reference(monkeypatch):
     """The reference runs its K3 kernel at every shape
-    (``select_paged_attention``); the port's is built for every head dim
-    that is a multiple of 16 from 16 to 256 at any group, and raises at
-    other head dims (8, 24, 72, 100, 272 here) instead of answering with
-    a plain result that no card route computes."""
+    (``select_paged_attention``), and so does the port: the ``mma.sync``
+    kernel at every head dim that is a multiple of 16 from 16 to 256, the
+    CUDA-core body at every other head dim (8, 24, 72, 100, 272 here),
+    at any group."""
     monkeypatch.setattr(JPA, "_INTERPRET", True)
     assert JPA.select_paged_attention() is JPA.paged_attention
     assert TPA.KERNEL_HEAD_DIMS == tuple(range(16, 257, 16))
-    for d in HEAD_DIMS + (8, 24, 72, 80, 100, 112, 240, 272):
+    for d in HEAD_DIMS + (1, 7, 8, 24, 40, 72, 80, 100, 112, 240, 272, 320):
         for group in (1, 4, 16, 32):
-            if d % 16 == 0 and 16 <= d <= 256:
-                assert TPA._route(d, group) == "kernel"
-            else:
-                with pytest.raises(NotImplementedError,
-                                   match=r"K3.*queue 2"):
-                    TPA._route(d, group)
+            assert TPA._route(d, group) == "kernel"
+            body = TPA._body(d)
+            assert body == ("mma" if d % 16 == 0 and 16 <= d <= 256
+                            else "any")
+            if body == "any":
+                tile, rows = TPA._any_plan(d, group)
+                assert 1 <= rows <= min(16, group) and 1 <= tile <= 64
+                assert TPA._any_smem(d, tile, rows) <= 227 * 1024
+    with pytest.raises(ValueError, match="head_dim"):
+        TPA._route(0, 1)
+    # the widest head dims shrink the CUDA-core body's tile, then its rows
+    assert TPA._any_plan(320, 32) == (64, 16)
+    assert TPA._any_plan(4096, 32)[1] < 16
+    with pytest.raises(ValueError, match="shared memory"):
+        TPA._any_plan(20000, 1)
     # the bf16 kernel's shared memory fits a block at every instance,
     # and the padded rows keep 16-byte chunks
     for d in TPA.KERNEL_HEAD_DIMS:

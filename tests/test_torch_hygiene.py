@@ -45,6 +45,9 @@ def test_import_leaves_jax_unloaded():
             "paddle_tpu_torch.nn.quant, paddle_tpu_torch.serving.lora, "
             "paddle_tpu_torch.nn.functional_extra2, "
             "paddle_tpu_torch.serving.parallel.layers, "
+            "paddle_tpu_torch.serving.parallel.mesh, "
+            "paddle_tpu_torch.serving.parallel.runner, "
+            "paddle_tpu_torch.serving.parallel.worker, "
             "paddle_tpu_torch.ops.pallas.decode_attention, "
             "paddle_tpu_torch.models.generation, "
             "paddle_tpu_torch.models.moe_llm, "
@@ -170,3 +173,27 @@ def test_parallel_env_defaults_to_nccl_on_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         TH.setup(TH.LlamaConfig(num_hidden_layers=1), mesh=None)
     assert not dist.is_initialized()
+
+
+def test_serving_mesh_defaults_to_cuda():
+    """A serving mesh means one process per CUDA card: ``mesh_devices``
+    and ``create_engine(mesh=2)`` with no device raise without a card,
+    before any worker starts; the workers' entry lives in the port
+    (a spawned worker imports that module, so nothing of the caller's
+    ``__main__`` or of JAX)."""
+    _no_card()
+    import multiprocessing
+    from paddle_tpu_torch.models import init_state, llama_tiny
+    from paddle_tpu_torch.serving import create_engine
+    from paddle_tpu_torch.serving.parallel import mesh_devices
+    from paddle_tpu_torch.serving.parallel import worker as W
+    with pytest.raises(ValueError, match="needs 2 CUDA devices"):
+        mesh_devices(2)
+    cfg = llama_tiny(num_hidden_layers=1)
+    state = init_state(cfg, torch.Generator().manual_seed(0), device="cpu")
+    children = set(multiprocessing.active_children())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_engine(cfg, state, mesh=2)
+    assert set(multiprocessing.active_children()) == children
+    assert W._worker_main.__module__ == \
+        "paddle_tpu_torch.serving.parallel.worker"

@@ -91,6 +91,25 @@ def test_paged_pool_matches_jax():
 
 
 def test_select_paged_attention():
+    """The head-parallel variant (a tp group as ``tp_axis``) runs the
+    same body on a rank's local heads, as the reference's does inside
+    its ``shard_map``, and refuses local heads that do not group."""
     assert TPA.select_paged_attention() is TPA.paged_attention
-    with pytest.raises(NotImplementedError):
-        TPA.select_paged_attention("tp")
+    rng = np.random.default_rng(3)
+    q = torch.from_numpy(rng.standard_normal((2, 4, 8)).astype(np.float32))
+    kp = torch.from_numpy(rng.standard_normal((5, 2, 4, 8)).astype(
+        np.float32))
+    vp = torch.from_numpy(rng.standard_normal((5, 2, 4, 8)).astype(
+        np.float32))
+    table = torch.tensor([[0, 1, 4], [2, 3, 4]], dtype=torch.int32)
+    lens = torch.tensor([7, 5], dtype=torch.int32)
+    got = TPA.select_paged_attention("tp")(q, kp, vp, table, lens)
+    want = JPA.select_paged_attention(tp_axis="tp")(
+        *(jnp.asarray(x.numpy()) for x in (q, kp, vp, table, lens)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    with pytest.raises(ValueError, match="group onto local KV heads"):
+        TPA.select_paged_attention("tp")(q[:, :3], kp, vp, table, lens)
+    with pytest.raises(ValueError, match="group onto local KV heads"):
+        TPA.paged_attention_quant(q[:, :3], kp.to(torch.int8),
+                                  vp.to(torch.int8), kp[..., 0], vp[..., 0],
+                                  table, lens, tp_axis="tp")

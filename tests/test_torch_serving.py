@@ -197,17 +197,18 @@ def test_pick_token_matches_jax(gen):
     assert picks[0] == picks[1]
 
 
-# quant/kv_quant/lora, spec_k, preempt, faults, usage metering, request
-# logs and SLO tracking are ported; tensor parallelism still raises,
-# whatever mode rides with it
-@pytest.mark.parametrize("kw", [dict(mesh=2), dict(quant="int8", mesh=2),
-                                dict(lora=object(), mesh=2),
-                                dict(usage=object(), mesh=2),
-                                dict(requestlog=object(), mesh=2),
-                                dict(slo=object(), mesh=2)])
+# every engine option is ported, tensor parallelism included: a mesh
+# whose tp does not divide the heads (llama_tiny: 4 q over 2 kv heads)
+# is refused first, before any mode that rides with it is built (the
+# tp=2 engine: tests/test_torch_serving_tp*.py)
+@pytest.mark.parametrize("kw", [dict(mesh=3), dict(quant="int8", mesh=3),
+                                dict(lora=object(), mesh=3),
+                                dict(usage=object(), mesh=3),
+                                dict(requestlog=object(), mesh=3),
+                                dict(slo=object(), mesh=3)])
 def test_later_slice_options_raise(kw):
     state = TC.init_state(TL.llama_tiny(num_hidden_layers=1),
                           torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="tp=3 must divide"):
         t_create_engine(TL.llama_tiny(num_hidden_layers=1), state,
                         device="cpu", **kw)
