@@ -212,6 +212,33 @@ no CUDA ``_weight_int8pack_mm``):
    the control message's cost per call.  (23c) a
    worker killed mid-run: the engine's next call raises naming its
    rank within the mesh's timeout, and every process is stopped.
+24. ``python3 chip_smoke.py expert-sep`` (four cards; not part of the
+   one-card run, which prints one line saying so): expert and context
+   parallelism, one NCCL process per card.  (24a) one ``moe_llm`` step in
+   float32 at 2 layers of 13a's width (8 experts top-2), with 0 and 2
+   shared experts, at capacity_factor 1.25 and 0.35 (entries dropped past
+   the global capacity), at (dp 2, ep 2), (dp 1, ep 4) and (dp 4, ep 1)
+   against the one-rank run on card 0 from the same params: loss, every
+   grad and every param of each rank's shard within 1e-4 relative,
+   routing equal except at a named tie, after which the config runs again
+   on the next seed's batch (all three tying fails); a planted fault
+   (capacity counted per holder, not globally) must fail.  (24b) bf16 at
+   full width: DeepSeekMoE-16B (28 layers, 64 experts top-6, 2 shared) at
+   (dp 1, ep 4) and 13a's model at (dp 2, ep 2), a warm-up and 5 timed
+   steps: the loss finite and falling, K1 and each K2 L times a step on
+   every rank; tokens/s per card, MFU over the active params, the NCCL
+   share of a profiled step's device time and each rank's peak memory.
+   (24c) ring and Ulysses attention over a sep axis of the four cards, B
+   1, S 16384, 32 heads, d 128, causal and not: output and q/k/v
+   gradients in bf16 per row (2^-6) against one card's ``sdpa`` of the
+   whole sequence (K1/K2; the ring, which computes in float32, against a
+   float64 reference as well, and against ``sdpa`` within 2^-6 plus that
+   row's own distance from float64), ``sdpa``'s rows against the plain
+   bf16 versions of K1 and K2 (2^-6), float32 at B 1, S 2048, 8 heads, d
+   64 within 1e-5 by relative norm, Ulysses' K1/K2 launches per call (one
+   each), ms of each beside the one-card ``sdpa``; a ring whose first
+   rotation is skipped (a planted fault) must fail the row check.  Each
+   part prints its wall seconds; the mode stops itself past 900 s.
 
 Every phase prints its wall seconds.
 
@@ -352,6 +379,11 @@ FLASH_SHAPES = (  # name, B, H, kvH, Sq, Sk, D
     # phase 22b's tp-split attention: llama3_8b's 32/8 heads over tp 2
     # (16/4 a rank, a group of 4) at a dp rank's 4 rows of 2048
     ("llama3_8b_tp2", 4, 16, 4, 2048, 2048, 128),
+    # phase 24's: Ulysses' local attention in 24c (SEP_SHAPE's 32 heads
+    # over sep 4, the whole 16384-long sequence) and DeepSeekMoE-16B's
+    # attention in 24b (16/16 heads at its batch 8 x 512)
+    ("ulysses_s16k", 1, 8, 8, 16384, 16384, 128),
+    ("deepseek_moe", 8, 16, 16, 512, 512, 128),
 )
 # softmax's exponentials (one per visible pair and pass): at head_dim 64
 # the MUFU rate, 16 a clock on each of the 132 SMs at the 1.98 GHz boost
@@ -5937,6 +5969,676 @@ def phase_serving_tp_kill(smi):
     require(not alive and "closed" in got, f"23c: processes left: {rec}")
 
 
+# ------------------------- phase 24: expert and context parallelism
+# 24a: f32 parity of one moe_llm step at 2 layers of 13a's width, with 0
+# and 2 shared experts, at each capacity factor, on each (name, (dp, ep))
+# mesh against the one-rank run on card 0 from the same params, batch
+# EP_PARITY_BATCH; the planted fault (capacity counted per holder, not
+# globally) runs at EP_FAULT = (mesh, shared experts, capacity factor).
+# A routing tie on any rank moves which entries drop, and so every
+# number after it: the config runs again on the batch of the next seed
+# of EP_PARITY_SEEDS, and fails if every seed ties
+EP_PARITY_MESHES = (("dp2_ep2", (2, 2)), ("dp1_ep4", (1, 4)),
+                    ("dp4_ep1", (4, 1)))
+EP_PARITY_CF = (1.25, 0.35)
+EP_PARITY_BATCH = (4, 128)
+EP_PARITY_SEEDS = (24, 25, 26)
+EP_FAULT = ("dp2_ep2", 0, 0.35)
+# 24b: bf16 at full width: (name, (dp, ep), batch, seq); EP_STEPS timed
+# steps after one warm-up
+EP_BENCH = (("deepseek_moe_16b", (1, 4), 8, 512),
+            ("bench_moe", (2, 2), MOE_BATCH, MOE_SEQ))
+EP_STEPS = 5
+# 24b's SGD rate: at the bench's 3e-4 an update under half a bf16 ulp
+# rounds away, and 13a's model's loss moved by 3e-5 in five steps, up
+# and down, on an H100; 1e-2 moves the bf16 leaves too
+EP_LR = 1e-2
+# 24c: ring and Ulysses over a sep axis of the four cards, bf16 at
+# SEP_SHAPE (B, S, H, D) against one card's sdpa of the whole sequence
+# per row, and float32 at SEP_F32_SHAPE by relative norm
+SEP_SHAPE = (1, 16384, 32, 128)
+SEP_PLAIN_HEADS = 4       # heads a call of 24c's plain K1/K2 versions takes
+SEP_F32_SHAPE = (1, 2048, 8, 64)
+SEP_F32_TOL = 1e-5
+EP_WALL_S = 900                  # the whole expert-sep run, at most
+
+
+def record_choices(TM, routes):
+    """Wrap ``distributed.moe._choices`` (every routing call, one device
+    or a holder of an expert-parallel mesh) to keep each call's expert
+    ids and f32 probabilities; returns the original."""
+    orig = TM._choices
+
+    def rec(logits, top_k, train, noise_key):
+        out = orig(logits, top_k, train, noise_key)
+        routes.append((out[0].detach().contiguous(), out[2].detach()))
+        return out
+
+    TM._choices = rec
+    return orig
+
+
+def ep_shard(M, tree, lay):
+    """A rank's shard (``lay``: its EPLayout) of a whole param tree."""
+    return dict(tree, layers=[{k: M.shard(t, k, lay.ep, lay.j)
+                               for k, t in lp.items()}
+                              for lp in tree["layers"]])
+
+
+def moe_active_params(cfg):
+    """Params a token passes through: every leaf but the routed experts,
+    which count top_k of E (13a's count by leaf name)."""
+    h, f, L = cfg.hidden_size, cfg.moe_intermediate_size, \
+        cfg.num_hidden_layers
+    hd, nh, kvh = cfg.head_dim, cfg.num_attention_heads, \
+        cfg.num_key_value_heads
+    layer = (2 * h + h * (nh + 2 * kvh) * hd + nh * hd * h
+             + h * cfg.num_experts + cfg.top_k * (2 * h * f + f + h)
+             + 2 * h * cfg.num_shared_experts * f)
+    return 2 * cfg.vocab_size * h + h + L * layer
+
+
+def ep_reference(M, TM, D, cfg, ids):
+    """The one-rank step on card 0 (mesh None) from ``M.setup(cfg,
+    seed=1)``, broadcast to every rank: (loss, grads, params after the
+    step, the first L routing calls' ids and probabilities, the entries
+    dropped past the capacity)."""
+    import torch.distributed as dist
+    full = M.setup(cfg, seed=1)
+    L = cfg.num_hidden_layers
+    t, e, k = ids.shape[0] * (ids.shape[1] - 1), cfg.num_experts, cfg.top_k
+    routes = []
+    if D.get_rank() == 0:
+        orig = record_choices(TM, routes)
+        try:
+            loss, grads = M.value_and_grad(full, ids, cfg)
+            _, after = M.build_train_step(cfg)(
+                M.tree_map(lambda x: x.clone(), full), ids)
+        finally:
+            TM._choices = orig
+        loss = loss.reshape(1)
+        grads, after = M.tree_leaves(grads), M.tree_leaves(after)
+        routes = [x for call in routes[:L] for x in call]
+    else:
+        loss = torch.empty(1, device="cuda")
+        grads = [torch.empty_like(x) for x in M.tree_leaves(full)]
+        after = [torch.empty_like(x) for x in M.tree_leaves(full)]
+        routes = [torch.empty(shape, dtype=dt, device="cuda")
+                  for _ in range(L) for shape, dt in
+                  (((t, k), torch.int64), ((t, e), torch.float32))]
+    for x in [loss, *grads, *after, *routes]:
+        dist.broadcast(x, 0)
+    routes = list(zip(routes[0::2], routes[1::2]))
+    cap = TM._capacity(t, k, cfg.capacity_factor, e, None)
+    dropped = sum(int((TM._count_rank(idx, idx, e, torch.float32)[4]
+                       >= cap).sum()) for idx, _ in routes)
+    return float(loss), M._unflatten(full, grads), \
+        M._unflatten(full, after), routes, dropped
+
+
+def ep_run(M, TM, cfg, ids, dims, ref, plant=False):
+    """One step of ``cfg`` on this rank of a (dp, ep) mesh from its shard
+    of ``M.setup(cfg, seed=1)``: the loss's, grads' and updated params'
+    relative errors against ``ref`` (:func:`ep_reference`), by norm over
+    the rank's shard, and the routing ties against the one-rank run's.
+    ``plant``: capacity counted per holder (the fault 24a must catch)."""
+    import torch.distributed as dist
+    ref_loss, ref_grads, ref_after, ref_routes, _ = ref
+    mesh = M.build_mesh(dist.get_world_size(), *dims)
+    lay = M.layout(mesh)
+    params = M.setup(cfg, mesh, seed=1)
+    routes = []
+    orig_choices = record_choices(TM, routes)
+    orig_cap = TM._capacity
+    if plant:
+        TM._capacity = lambda s, k, cf, e, cap: orig_cap(
+            s // lay.holders, k, cf, e, cap)
+    try:
+        loss, grads = M.value_and_grad(params, ids, cfg, mesh)
+        _, after = M.build_train_step(cfg, mesh)(params, ids)
+    finally:
+        TM._choices, TM._capacity = orig_choices, orig_cap
+    L = cfg.num_hidden_layers
+    tc = routes[0][0].shape[0]
+    at = slice(lay.holder * tc, (lay.holder + 1) * tc)
+    ties = route_ties(routes[:L], [(i[at], p[at]) for i, p in ref_routes]) \
+        if not plant else []
+    return {"loss": float(loss), "loss_one_rank": ref_loss,
+            "loss_rel_err": abs(float(loss) - ref_loss) / abs(ref_loss),
+            "grad_max_rel_err": max(dev_rel_norm(a, b) for a, b in zip(
+                M.tree_leaves(grads),
+                M.tree_leaves(ep_shard(M, ref_grads, lay)))),
+            "param_max_rel_err": max(dev_rel_norm(a, b) for a, b in zip(
+                M.tree_leaves(after),
+                M.tree_leaves(ep_shard(M, ref_after, lay)))),
+            "ties": ties}
+
+
+def ep_parity(M, TM, D):
+    """24a on this rank (see the constants above).  Every rank takes the
+    same seeds: whether a seed tied anywhere is summed over the world."""
+    import torch.distributed as dist
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    b, s = EP_PARITY_BATCH
+    vocab = moe_bench_config(M).vocab_size
+    out = []
+    for shared in (0, 2):
+        for cf in EP_PARITY_CF:
+            t0 = time.perf_counter()
+            cfg = moe_bench_config(M, num_hidden_layers=2, dtype="float32",
+                                   num_shared_experts=shared,
+                                   capacity_factor=cf)
+            for n, seed in enumerate(EP_PARITY_SEEDS):
+                ids = torch.from_numpy(np.random.default_rng(seed).integers(
+                    0, vocab, (b, s + 1))).cuda()
+                ref = ep_reference(M, TM, D, cfg, ids)
+                recs = [{"part": "24a", "mesh": name, "dims": list(dims),
+                         "shared": shared, "cf": cf, "seed": seed,
+                         "dropped": ref[4],
+                         **ep_run(M, TM, cfg, ids, dims, ref)}
+                        for name, dims in EP_PARITY_MESHES]
+                tied = torch.tensor([float(sum(len(r["ties"])
+                                               for r in recs))],
+                                    device="cuda")
+                dist.all_reduce(tied)
+                retry = bool(tied.item()) and n + 1 < len(EP_PARITY_SEEDS)
+                for r in recs:
+                    r["retry"] = retry
+                out += recs
+                if not retry:
+                    break
+                del ref
+                release()
+            if (shared, cf) == EP_FAULT[1:]:
+                name, dims = next(m for m in EP_PARITY_MESHES
+                                  if m[0] == EP_FAULT[0])
+                out.append({"part": "24a fault", "mesh": name,
+                            "shared": shared, "cf": cf, "seed": seed,
+                            **ep_run(M, TM, cfg, ids, dims, ref,
+                                     plant=True)})
+            out.append({"part": "24a step wall", "shared": shared,
+                        "cf": cf, "s": time.perf_counter() - t0})
+            del ref
+            release()
+    return out
+
+
+def ep_bench(M, FA, D, name, dims, batch, seq):
+    """24b on this rank: ``name``'s model in bf16 at (dp, ep) ``dims``, a
+    warm-up step and ``EP_STEPS`` timed steps (the ranks start together)
+    on one [batch, seq + 1] batch; peak memory, K1/K2 launches and one
+    profiled step's NCCL share of the device's busy time."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    cfg = M.deepseek_moe_16b() if name == "deepseek_moe_16b" \
+        else moe_bench_config(M)
+    mesh = M.build_mesh(D.get_world_size(), *dims)
+    params = M.setup(cfg, mesh, seed=0)
+    n_local = sum(t.numel() for t in M.tree_leaves(params))
+    step = M.build_train_step(cfg, mesh, lr=EP_LR)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq + 1), device="cuda",
+                        generator=gen)
+    loss, params = step(params, ids)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    D.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    for attr in ("fwd_launches", "dq_launches", "dkv_launches"):
+        setattr(FA.flash_mha, attr, 0)
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(EP_STEPS):
+        loss, params = step(params, ids)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_counts(FA)
+    peak = torch.cuda.max_memory_allocated()
+    D.barrier()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step(params, ids)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t1
+    busy = nccl = 0.0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = ev.time_range.elapsed_us()
+            busy += us
+            if "nccl" in ev.name.lower():
+                nccl += us
+    del params
+    release()
+    return {"part": "24b", "name": name, "dims": list(dims), "batch": batch,
+            "seq": seq, "layers": cfg.num_hidden_layers,
+            "experts": cfg.num_experts, "top_k": cfg.top_k,
+            "shared": cfg.num_shared_experts, "local_params": n_local,
+            "active_params": moe_active_params(cfg), "setup_s": setup_s,
+            "losses": [float(x) for x in losses], "wall_s": wall,
+            "launches": launches, "peak_mem_bytes": peak,
+            "profiled_step_ms": prof_wall * 1e3,
+            "device_busy_ms": busy / 1e3, "nccl_ms": nccl / 1e3,
+            "nccl_share": nccl / busy if busy else None}
+
+
+def sep_inputs(shape, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(*shape, device="cuda", dtype=dtype, generator=gen)
+            for _ in range(4)]
+
+
+def exact_attention(full, causal):
+    """Attention of the whole sequence in float64, head by head (q, k, v
+    and the output's cotangent in ``full``, [B, S, H, D]): out, dq, dk,
+    dv as float32 [B, S, H, D], the exact reference of 24c's bf16 rows."""
+    res = [torch.empty(full[0].shape, dtype=torch.float32,
+                       device=full[0].device) for _ in range(4)]
+    mask = torch.ones(full[0].shape[1], full[0].shape[1], dtype=torch.bool,
+                      device=full[0].device).tril() if causal else None
+    for b in range(full[0].shape[0]):
+        for h in range(full[0].shape[2]):
+            qh, kh, vh, dh = (t[b, :, h].double() for t in full)
+            scale = qh.shape[-1] ** -0.5
+            s = qh @ kh.T * scale
+            if causal:
+                s.masked_fill_(~mask, float("-inf"))
+            p = torch.softmax(s, dim=-1)
+            del s
+            out = p @ vh
+            ds = p * (dh @ vh.T - (dh * out).sum(dim=-1, keepdim=True))
+            res[3][b, :, h] = (p.T @ dh).float()
+            del p
+            res[0][b, :, h] = out.float()
+            res[1][b, :, h] = (ds @ kh * scale).float()
+            res[2][b, :, h] = (ds.T @ qh * scale).float()
+            del ds
+    return res
+
+
+def sep_row_errs(got, ref):
+    """Per-row errors of out, dq, dk, dv against ``ref`` (row_rel_err for
+    the output, grad_row_err for the gradients)."""
+    return {nm: (row_rel_err(g, r) if nm == "out" else grad_row_err(g, r))
+            for nm, g, r in zip(("out", "dq", "dk", "dv"), got, ref)}
+
+
+def sdpa_vs_plain(FA, full, ref, exact, causal):
+    """24c's one-card ``sdpa`` rows (``ref``: out, dq, dk, dv of the
+    whole sequence ``full``, [B, S, H, D]) against the plain bf16
+    versions of K1 and K2, SEP_PLAIN_HEADS heads a call; the plain
+    backward takes the kernel's out and lse, as phase 3's does.  Returns
+    the per-row errors of ``sdpa`` against the plain rows, and the plain
+    rows' own against float64 (``exact``)."""
+    q, k, v, do = (t.transpose(1, 2) for t in full)     # [B, H, S, D]
+    scale = q.shape[-1] ** -0.5
+    out, lse = FA._flash_fwd(q, k, v, causal, scale)
+    plain = [torch.empty(full[0].shape, dtype=torch.float32,
+                         device=q.device) for _ in range(4)]
+    for h in range(0, q.shape[1], SEP_PLAIN_HEADS):
+        g = slice(h, h + SEP_PLAIN_HEADS)
+        args = (q[:, g], k[:, g], v[:, g])
+        got = [FA._flash_fwd_xla(*args, causal, scale)[0],
+               FA._flash_bwd_dq_xla(*args, out[:, g], lse[:, g], do[:, g],
+                                    causal, scale),
+               *FA._flash_bwd_dkv_xla(*args, out[:, g], lse[:, g],
+                                      do[:, g], causal, scale)]
+        for dst, t in zip(plain, got):
+            dst[:, :, g] = t.transpose(1, 2).float()
+        del got
+    del out, lse
+    vs_plain = sep_row_errs(ref, plain)
+    plain_exact = sep_row_errs(plain, exact)
+    return ({nm: float(e.max()) for nm, e in vs_plain.items()},
+            {nm: float(e.max()) for nm, e in plain_exact.items()})
+
+
+def sep_check(name, got, ref, exact, sdpa_exact):
+    """24c's bf16 rows of ``name``'s out, dq, dk, dv (``got``, the whole
+    sequence) on rank 0.  Ulysses runs the one-card kernels at H/n heads:
+    every row within ROW_TOL of the one-card ``sdpa`` (``ref``).  The ring
+    computes in float32: every row within ROW_TOL of float64 (``exact``),
+    and of ``sdpa`` within ROW_TOL plus that row's own distance from
+    float64 (``sdpa_exact``): K2 takes delta from the bf16 output and
+    rounds dS to bf16, which moves a query that sees few keys by up to
+    0.11 at SEP_SHAPE on an H100."""
+    vs_sdpa = sep_row_errs(got, ref)
+    rec = {"row_err": {nm: float(e.max()) for nm, e in vs_sdpa.items()}}
+    nm, e = max(vs_sdpa.items(), key=lambda kv: float(kv[1].max()))
+    rec["worst_row"] = {"of": nm, "at": [int(i) for i in np.unravel_index(
+        int(e.argmax()), tuple(e.shape))]}
+    if name == "ulysses":
+        rec["within"] = max(rec["row_err"].values()) <= ROW_TOL
+        return rec
+    vs_exact = sep_row_errs(got, exact)
+    rec["row_err_vs_float64"] = {nm: float(e.max())
+                                 for nm, e in vs_exact.items()}
+    rec["within"] = all(
+        float(vs_exact[nm].max()) <= ROW_TOL
+        and bool((vs_sdpa[nm] <= ROW_TOL + sdpa_exact[nm]).all())
+        for nm in vs_sdpa)
+    return rec
+
+
+def sep_call(fn, mine, mesh, causal):
+    """fn's output and q/k/v gradients on this rank's chunks ``mine``
+    (q, k, v, the output's cotangent)."""
+    ts = [t.detach().clone().requires_grad_() for t in mine[:3]]
+    out = fn(*ts, mesh, is_causal=causal)
+    return [out.detach(), *torch.autograd.grad(out, ts, mine[3])]
+
+
+def sep_parts(RA, mp_ops, FA, FAsdpa, D, C):
+    """24c on this rank: ring and Ulysses attention over a sep axis of
+    the world against one card's ``sdpa`` of the whole sequence (rank 0
+    holds the check), bf16 per row and float32 by relative norm; ms of
+    each; Ulysses' K1/K2 launches per call; and a ring whose first k/v
+    rotation is skipped (the planted fault; every rank skips it, so the
+    P2P pairs stay matched)."""
+    from paddle_tpu_torch.distributed import ProcessMesh
+    world, me = D.get_world_size(), D.get_rank()
+    mesh = ProcessMesh(np.arange(world), ["sep"])
+    group = mesh.group("sep")
+    fns = (("ring", RA.ring_attention), ("ulysses", RA.ulysses_attention))
+    out = []
+
+    def chunks(ts):
+        sl = ts[0].shape[1] // world
+        return [t[:, me * sl:(me + 1) * sl].contiguous() for t in ts]
+
+    def whole(ts):
+        return [C.all_gather(None, t.contiguous(), group=group, axis=1)
+                for t in ts]
+
+    for dtype, shape in ((torch.bfloat16, SEP_SHAPE),
+                         (torch.float32, SEP_F32_SHAPE)):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for causal in (True, False):
+            full = sep_inputs(shape, dtype, 24)
+            mine = chunks(full)
+            ref = exact = sdpa_exact = vs_plain = plain_exact = None
+            if me == 0:
+                ref = sep_call(FAsdpa, full, None, causal)
+                if dtype == torch.bfloat16:
+                    exact = exact_attention(full, causal)
+                    sdpa_exact = sep_row_errs(ref, exact)
+                    vs_plain, plain_exact = sdpa_vs_plain(FA, full, ref,
+                                                          exact, causal)
+            for name, fn in fns:
+                for attr in ("fwd_launches", "dq_launches", "dkv_launches"):
+                    setattr(FA.flash_mha, attr, 0)
+                got = whole(sep_call(fn, mine, mesh, causal))
+                launches = flash_counts(FA)
+                rec = {"part": "24c", "fn": name, "dtype": str(dtype),
+                       "shape": list(shape), "causal": causal,
+                       "launches_per_call": launches}
+                if me == 0:
+                    if dtype == torch.bfloat16:
+                        rec.update(sep_check(name, got, ref, exact,
+                                             sdpa_exact))
+                    else:
+                        rec["rel_err"] = {
+                            nm: dev_rel_norm(g, r) for nm, g, r in
+                            zip(("out", "dq", "dk", "dv"), got, ref)}
+                del got
+                if dtype == torch.bfloat16:
+                    D.barrier()
+                    rec["ms"] = cuda_ms(lambda: sep_call(fn, mine, mesh,
+                                                         causal),
+                                        iters=3, warmup=1)
+                out.append(rec)
+            if dtype == torch.bfloat16:
+                out.append({"part": "24c", "fn": "sdpa one card",
+                            "causal": causal, "shape": list(shape),
+                            "row_err_vs_float64": None if me else {
+                                nm: float(e.max())
+                                for nm, e in sdpa_exact.items()},
+                            "row_err_vs_plain": vs_plain,
+                            "plain_row_err_vs_float64": plain_exact,
+                            "ms": cuda_ms(lambda: sep_call(
+                                FAsdpa, full, None, causal), iters=3,
+                                warmup=1) if me == 0 else None})
+                if not causal:
+                    fault_exact = exact       # the planted fault's reference
+            del full, mine, ref, exact, sdpa_exact
+            release()
+            D.barrier()
+    # the planted fault: the first rotation of k and v skipped
+    full = sep_inputs(SEP_SHAPE, torch.bfloat16, 24)
+    orig, calls = mp_ops.ring_shift, [0]
+
+    def skipped(tensors, group, shift=1):
+        calls[0] += 1
+        return list(tensors) if calls[0] == 1 else orig(tensors, group,
+                                                        shift)
+    mp_ops.ring_shift = skipped
+    try:
+        with torch.no_grad():
+            got = whole([RA.ring_attention(*chunks(full)[:3], mesh,
+                                           is_causal=False)])[0]
+    finally:
+        mp_ops.ring_shift = orig
+    err = None
+    if me == 0:
+        with torch.no_grad():
+            want = FAsdpa(*full[:3], is_causal=False)
+        err = {"vs_sdpa": float(row_rel_err(got, want).max()),
+               "vs_float64": float(row_rel_err(got, fault_exact[0]).max())}
+    out.append({"part": "24c fault", "fn": "ring", "row_err": err})
+    return out
+
+
+def expert_sep_worker(rank, world, port, results):
+    """One NCCL rank of phase 24 (spawned, one per card): 24a, 24b and
+    24c; puts (rank, ok, records) on ``results``."""
+    import traceback
+    try:
+        from paddle_tpu_torch import distributed as D
+        from paddle_tpu_torch.distributed import collective as C
+        from paddle_tpu_torch.distributed import moe as TM
+        from paddle_tpu_torch.distributed import mp_ops
+        from paddle_tpu_torch.models import moe_llm as M
+        from paddle_tpu_torch.ops import ring_attention as RA
+        from paddle_tpu_torch.ops.pallas import flash_attention as FA
+        D.init_parallel_env(device="cuda", rank=rank, world_size=world,
+                            init_method=f"tcp://localhost:{port}",
+                            timeout_s=EP_WALL_S)
+        records = []
+        t0 = time.perf_counter()
+        records += ep_parity(M, TM, D)
+        records.append({"part": "24a wall",
+                        "wall_s": time.perf_counter() - t0})
+        for bench in EP_BENCH:
+            t0 = time.perf_counter()
+            records.append(ep_bench(M, FA, D, *bench))
+            records.append({"part": "24b wall", "name": bench[0],
+                            "wall_s": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        records += sep_parts(RA, mp_ops, FA, FA.sdpa, D, C)
+        records.append({"part": "24c wall",
+                        "wall_s": time.perf_counter() - t0})
+        results.put((rank, True, records))
+    except BaseException:                       # noqa: BLE001 - reported
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        # an NCCL group is aborted, not destroyed: a destroy waits on peers
+        from paddle_tpu_torch.serving.parallel.worker import _leave_group
+        _leave_group("cuda")
+
+
+def phase_expert_sep(smi, n_cards=4):
+    """Phase 24: ``n_cards`` NCCL ranks, one per card, each running
+    :func:`expert_sep_worker`; rank 0's records hold the one-card
+    comparisons.  A rank that fails, or gives no result in time, fails
+    the phase; every process is stopped before it returns."""
+    import queue as queue_mod
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=expert_sep_worker,
+                         args=(r, n_cards, port, results))
+             for r in range(n_cards)]
+    for p in procs:
+        p.start()
+    out, errors = {}, []
+    deadline = time.perf_counter() + EP_WALL_S
+    try:
+        while len(out) + len(errors) < n_cards:
+            try:
+                rank, ok, res = results.get(
+                    timeout=max(1.0, deadline - time.perf_counter()))
+            except queue_mod.Empty:
+                errors.append(f"no result from every rank within "
+                              f"{EP_WALL_S} s")
+                break
+            if ok:
+                out[rank] = res
+            else:
+                errors.append(f"rank {rank}:\n{res}")
+    finally:
+        for p in procs:
+            p.join(timeout=60 if not errors else 5)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    require(not errors, "phase 24: " + "\n".join(errors))
+    check_expert_sep(out, smi, n_cards)
+
+
+def check_expert_sep(out, smi, n_cards):
+    """Phase 24's records: printed, and held to their limits."""
+    ranks = [out[r] for r in range(n_cards)]
+    for i, rec in enumerate(ranks[0]):
+        part = rec["part"]
+        per_rank = [r[i] for r in ranks]
+        if part == "24a":
+            errs = {k: max(r[k] for r in per_rank)
+                    for k in ("loss_rel_err", "grad_max_rel_err",
+                              "param_max_rel_err")}
+            ties = [t for r in per_rank for t in r["ties"]]
+            emit({"phase": "24a", "card": smi, **{k: rec[k] for k in (
+                "mesh", "dims", "shared", "cf", "seed", "dropped", "loss",
+                "loss_one_rank")}, **errs, "tol": PARITY_TOL, "ties": ties,
+                "rerun_at_next_seed": rec["retry"]})
+            # a tie at this config on any rank: the next seed's batch
+            # holds the limits (every rank's record says so); no seed left
+            require(rec["retry"] or not ties, f"24a {rec['mesh']} shared "
+                    f"{rec['shared']} cf {rec['cf']}: routing tied at every "
+                    f"seed of {EP_PARITY_SEEDS}")
+            if not rec["retry"]:
+                require(all(v <= PARITY_TOL for v in errs.values()),
+                        f"24a {rec['mesh']} shared {rec['shared']} cf "
+                        f"{rec['cf']}: {errs} > {PARITY_TOL}")
+        elif part == "24a fault":
+            err = max(max(r["loss_rel_err"], r["grad_max_rel_err"],
+                          r["param_max_rel_err"]) for r in per_rank)
+            emit({"phase": "24a", "planted": "capacity per holder",
+                  **{k: rec[k] for k in ("mesh", "shared", "cf", "seed")},
+                  "max_rel_err": err, "tol": PARITY_TOL})
+            require(err > PARITY_TOL, f"24a: the planted fault passed "
+                    f"({err} <= {PARITY_TOL})")
+        elif part == "24b" and "losses" in rec:
+            wall = max(r["wall_s"] for r in per_rank)
+            tokens = rec["batch"] * rec["seq"] * EP_STEPS
+            tps = tokens / wall
+            losses = rec["losses"]
+            L = rec["layers"]
+            emit({"phase": "24b", "card": smi, "cards": n_cards,
+                  **{k: rec[k] for k in ("name", "dims", "batch", "seq",
+                                         "layers", "experts", "top_k",
+                                         "shared", "active_params")},
+                  "steps": EP_STEPS, "wall_s": wall,
+                  "tokens_per_s": tps, "tokens_per_s_per_card":
+                  tps / n_cards, "mfu_active": tps * 6 * rec["active_params"]
+                  / (n_cards * BF16_FLOPS_PER_S), "losses": losses,
+                  "launches_per_step": {k: v / EP_STEPS for k, v in
+                                        rec["launches"].items()},
+                  "setup_s": [r["setup_s"] for r in per_rank],
+                  "local_params": [r["local_params"] for r in per_rank],
+                  "peak_mem_bytes": [r["peak_mem_bytes"] for r in per_rank],
+                  "nccl_share": [r["nccl_share"] for r in per_rank],
+                  "nccl_ms": [r["nccl_ms"] for r in per_rank],
+                  "device_busy_ms": [r["device_busy_ms"] for r in per_rank],
+                  "profiled_step_ms": [r["profiled_step_ms"]
+                                       for r in per_rank]})
+            require(all(math.isfinite(x) for x in losses)
+                    and losses[-1] < losses[0], f"24b {rec['name']} loss "
+                    f"{losses}")
+            for r in per_rank:
+                require(r["launches"] == {
+                    "flash_attention_fwd": L * EP_STEPS,
+                    "flash_attention_bwd_dq": L * EP_STEPS,
+                    "flash_attention_bwd_dkv": L * EP_STEPS},
+                    f"24b {rec['name']} launches {r['launches']}")
+        elif part == "24c" and "fn" in rec:
+            if "ms" in rec and rec["fn"] != "sdpa one card":
+                rec["ms"] = [r["ms"] for r in per_rank]
+            emit({"phase": "24c", "card": smi,
+                  **{k: v for k, v in rec.items() if k != "part"}})
+            if rec["fn"] == "ulysses":
+                require(rec["launches_per_call"] == {
+                    "flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+                    "flash_attention_bwd_dkv": 1},
+                    f"24c ulysses launches {rec['launches_per_call']}")
+            if "within" in rec:
+                require(rec["within"], f"24c {rec}: rows beyond {ROW_TOL}")
+            if rec.get("row_err_vs_plain") is not None:
+                require(max(rec["row_err_vs_plain"].values()) <= ROW_TOL,
+                        f"24c one-card sdpa vs the plain K1/K2 versions: "
+                        f"{rec['row_err_vs_plain']} > {ROW_TOL}")
+            if "rel_err" in rec:
+                require(max(rec["rel_err"].values()) <= SEP_F32_TOL,
+                        f"24c {rec}: > {SEP_F32_TOL}")
+        elif part == "24c fault":
+            emit({"phase": "24c", "planted": "one ring rotation skipped",
+                  "row_err": rec["row_err"], "tol": ROW_TOL})
+            require(min(rec["row_err"].values()) > ROW_TOL, "24c: the "
+                    f"planted ring fault passed ({rec['row_err']})")
+        else:
+            emit({"phase": part, "card": smi, **{
+                k: v for k, v in rec.items() if k != "part"},
+                "per_rank_wall_s": [r.get("wall_s", r.get("s"))
+                                    for r in per_rank]})
+
+
+def main_expert_sep() -> int:
+    """``python3 chip_smoke.py expert-sep``: phase 24, on a machine with
+    four cards."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke test runs on the "
+              "card", file=sys.stderr)
+        return 1
+    from paddle_tpu_torch.ops import cuda_lib
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    print("\n".join(smi), flush=True)
+    require(torch.cuda.device_count() >= 4,
+            f"phase 24 needs 4 cards, found {torch.cuda.device_count()}")
+    # a hung collective must not hold the cards: past EP_WALL_S (the
+    # build included) the run ends with an error
+    guard = threading.Timer(EP_WALL_S, lambda: (print(
+        f"chip_smoke: expert-sep passed {EP_WALL_S} s; stopping",
+        file=sys.stderr, flush=True), os._exit(3)))
+    guard.daemon = True
+    guard.start()
+    laps = Laps()
+    emit({"phase": 2, "build_s": cuda_lib.build()})
+    laps(2)
+    phase_expert_sep(smi[0])
+    laps(24)
+    guard.cancel()
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
 def main_serving_tp() -> int:
     """``python3 chip_smoke.py serving-tp``: phase 23, on a machine with
     four cards."""
@@ -6022,6 +6724,8 @@ def main() -> int:
         return main_hybrid_ranks()
     if sys.argv[1:] == ["serving-tp"]:
         return main_serving_tp()
+    if sys.argv[1:] == ["expert-sep"]:
+        return main_expert_sep()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the "
               "card", file=sys.stderr)
@@ -6283,6 +6987,9 @@ def main() -> int:
     else:
         emit({"phase": "22b", "ran": "one-rank part only",
               "cards": torch.cuda.device_count()})
+    emit({"phase": 24, "ran": False, "cards": torch.cuda.device_count(),
+          "why": "expert and context parallelism take four cards: "
+                 "python3 chip_smoke.py expert-sep"})
 
     rep = masked[1]     # the 2048 bucket: the longest prompts of phase 4
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

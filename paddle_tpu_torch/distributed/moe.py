@@ -20,25 +20,55 @@ What the reference leaves to its semantics, the port spells out:
 * the noise key is an explicit ``torch.Generator``: its Gumbel draws
   are not ``jax.random``'s bits.
 
-Expert parallelism is not ported: a mesh whose ``ep`` axis is above 1
-raises ``NotImplementedError``.  A mesh here is ``None`` or a mapping of
-axis sizes (``{"dp": 1, "ep": 1}``, as ``models.moe_llm.build_mesh``
-returns); a mesh that names the ep axis counts as ep-sharded, as in the
-reference, which keeps the grouped mode off it.
+Expert parallelism (``"sort"`` and ``"dense"``) runs one process per
+rank of a ``ProcessMesh`` with ``dp`` and ``ep`` axes (either may be
+missing, as size 1).  The reference runs the whole flattened batch
+under one jit, so its capacity, its k-major fill order and its drops
+are global; here each rank holds its dp row's tokens [S / dp, M] (the
+same on every ep rank of the row) and its E / ep experts:
+
+* each ep rank of a row takes 1/ep of the row's tokens (a *holder*:
+  rank h = d·ep + j of the mesh holds the h-th slice of the global
+  tokens) and routes only those;
+* the holders all-gather their per-round, per-expert counts [K, E]:
+  from them every rank knows every entry's global position, so the
+  capacity ``ceil(S K cf / E)`` of the global S and the drops past it
+  are the reference's;
+* a dp row's kept entries fill per-row capacity slots [E, C_d, M]
+  (C_d = the row's most-loaded expert), which a reduce-scatter over the
+  ep group (``mp_ops.sp_scatter``, the reference's ``global_scatter``)
+  carries to the experts' ranks and an all-gather (``mp_ops.sp_gather``,
+  its ``global_gather``) brings back; every row computes only its own
+  slots;
+* the router ``gate`` enters through ``mp_ops.copy_to`` over ep (each
+  holder's gradient is summed over the row) and the aux loss is the
+  global mean: each holder's part over the global token count, summed
+  over the mesh by ``mp_ops.reduce_from``;
+* the output is all-gathered over ep, so every ep rank of a row holds
+  y [S / dp, M] whole.
+
+Gradients come out as one device's would for the rank's rows: the
+expert leaves and the gate still need the sum over dp that a train
+step makes.  A mesh may also be ``None`` or a mapping of axis sizes
+(``{"dp": 1, "ep": 1}``, as ``models.moe_llm.build_mesh`` returns at
+one device); a mesh that names the ep axis counts as ep-sharded, as in
+the reference, which keeps the grouped mode off it.
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["grouped_dispatch_ffn", "limit_by_capacity",
-           "moe_dispatch_combine", "number_count", "prune_gate_by_capacity",
-           "sort_dispatch_combine", "top_k_gating"]
+from . import collective as C
+from . import mp_ops
+from .mesh import ProcessMesh
 
-_EP_LATER = ("expert parallelism (ep > 1) is not ported yet (ROADMAP queue "
-             "1, hybrid-parallel training); the port runs MoE on one device")
+__all__ = ["EPLayout", "ep_layout", "grouped_dispatch_ffn",
+           "limit_by_capacity", "moe_dispatch_combine", "number_count",
+           "prune_gate_by_capacity", "sort_dispatch_combine", "top_k_gating"]
 
 
 def gelu(x):
@@ -46,15 +76,65 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def _check_mesh(mesh, ep_axis="ep"):
-    """Whether ``mesh`` names the ep axis; raises when that axis is
-    sharded over more than one device."""
-    if mesh is None or ep_axis not in mesh:
-        return False
-    if int(mesh[ep_axis]) > 1:
-        raise NotImplementedError(f"a mesh with {ep_axis}={mesh[ep_axis]}: "
-                                  + _EP_LATER)
-    return True
+class EPLayout(NamedTuple):
+    """Where a rank sits on a (dp, ep) mesh: the axis sizes, its
+    coordinates, its ep and dp groups and the group of every rank of the
+    mesh (the token holders, in mesh order)."""
+    dp: int
+    ep: int
+    d: int
+    j: int
+    ep_group: object
+    dp_group: object
+    group: object
+
+    @property
+    def holder(self):
+        return self.d * self.ep + self.j
+
+    @property
+    def holders(self):
+        return self.dp * self.ep
+
+
+def ep_layout(mesh, ep_axis="ep"):
+    """(ep-sharded, :class:`EPLayout` or None): whether ``mesh`` names
+    the ep axis (the reference keeps the grouped mode off such a mesh),
+    and, for a ``ProcessMesh`` of more than one rank, this process's
+    place on it.
+    ``mesh``: None, a mapping of axis sizes that are all 1, or a
+    ``ProcessMesh`` whose axes are among ``dp`` and ``ep_axis``."""
+    if mesh is None:
+        return False, None
+    named = ep_axis in (mesh.dim_names if isinstance(mesh, ProcessMesh)
+                        else mesh)
+    if not isinstance(mesh, ProcessMesh):
+        sizes = {a: int(n) for a, n in mesh.items()}
+        if any(n > 1 for n in sizes.values()):
+            raise ValueError(
+                f"a mesh of {sizes} is a ProcessMesh of processes (one per "
+                "rank, after distributed.init_parallel_env()); a mapping "
+                "serves one device")
+        return named, None
+    axes = ("dp", ep_axis)
+    extra = [a for a in mesh.dim_names if a not in axes]
+    if extra:
+        raise ValueError(f"an expert-parallel mesh has axes among {axes}, "
+                         f"got {mesh.dim_names}")
+    dp, ep = (mesh.get_dim_size(a) if a in mesh.dim_names else 1
+              for a in axes)
+    if dp * ep == 1:
+        return named, None
+    import torch.distributed as dist
+    me = dist.get_rank() if dist.is_initialized() else 0
+    at = mesh.coords(me)
+    d, j = at.get("dp", 0), at.get(ep_axis, 0)
+
+    def group(names):
+        names = [a for a in names if a in mesh.dim_names]
+        return mesh.group(names) if names else C.Group([me])
+    return named, EPLayout(dp, ep, d, j, group([ep_axis]), group(["dp"]),
+                           group(axes))
 
 
 # -------------------------------------------------- reference gating utils
@@ -121,19 +201,24 @@ def _gumbel(shape, generator, device, dtype):
     return (-torch.log(-torch.log(u))).to(dtype)
 
 
-def _topk_choices(logits, top_k, train, noise_key):
-    """Shared gating front-end: per-token expert ids [S, K] (descending
-    prob, ties to the lower index), gate values [S, K] f32, and the
-    Switch load-balancing aux loss.  ``noise_key``: a torch.Generator on
-    the logits' device, or None."""
+def _choices(logits, top_k, train, noise_key):
+    """Per-token expert ids [S, K] (descending prob, ties to the lower
+    index), gate values [S, K] f32 and the f32 probabilities [S, E].
+    ``noise_key``: a torch.Generator on the logits' device, or None."""
     if train and noise_key is not None:
         logits = logits + _gumbel(logits.shape, noise_key, logits.device,
                                   logits.dtype) * 1e-2
     probs = torch.softmax(logits.float(), dim=-1)
-    e = probs.shape[-1]
     order = torch.sort(probs, dim=-1, descending=True, stable=True).indices
     idx = order[:, :top_k]                                   # [S, K]
-    gv = probs.gather(1, idx)
+    return idx, probs.gather(1, idx), probs
+
+
+def _topk_choices(logits, top_k, train, noise_key):
+    """Shared gating front-end: :func:`_choices`' ids and gate values,
+    and the Switch load-balancing aux loss."""
+    idx, gv, probs = _choices(logits, top_k, train, noise_key)
+    e = probs.shape[-1]
     frac = F.one_hot(idx, e).to(torch.float32).mean(dim=0)   # [K, E]
     mean_p = probs.mean(dim=0)
     aux = e * (frac * mean_p[None, :]).sum(dim=-1).mean()
@@ -325,8 +410,16 @@ def moe_dispatch_combine(x, gate_w, w1, b1, w2, b2, *, top_k=2,
     dispatch_mode "sort" (default): counting-sort dispatch at capacity
     ceil(S K capacity_factor / E) (at least 4), the expert FFN as two
     einsums; "grouped": dropless, on the grouped expert FFN (K9 on CUDA),
-    silu only; "dense": GShard's one-hot einsums."""
-    ep_sharded = _check_mesh(mesh, ep_axis)
+    silu only, one device; "dense": GShard's one-hot einsums.
+
+    On a ``ProcessMesh`` of (dp, ep) ranks (module docstring): x is this
+    rank's dp row [S / dp, M], w1/b1/w2/b2 its E / ep experts, gate_w
+    whole; y is the row's output and aux the global one."""
+    ep_sharded, lay = ep_layout(mesh, ep_axis)
+    if lay is not None:
+        return _ep_dispatch_combine(x, gate_w, w1, b1, w2, b2, lay, top_k,
+                                    capacity_factor, activation, train,
+                                    noise_key, dispatch_mode)
     logits = x @ gate_w.to(x.dtype)
     s, e = logits.shape
     cap = _capacity(s, top_k, capacity_factor, e, None)
@@ -368,3 +461,116 @@ def moe_dispatch_combine(x, gate_w, w1, b1, w2, b2, *, top_k=2,
     expert_out = ffn(expert_in)
     y = torch.einsum("sec,ecm->sm", combine, expert_out)
     return y, aux.float()
+
+
+# ------------------------------------------------- expert parallelism
+def _global_slots(idx, lay: EPLayout, e, capacity_factor):
+    """The holder's entries (k-major, as :func:`_count_rank`) in the
+    reference's global order: every holder's round-0 entries, holder by
+    holder, before any round-1 entry.  All-gathers the per-round,
+    per-expert counts [K, E] of every holder; returns (fe, keep, cpos,
+    c_d, counts [H, K, E]): an entry is kept where its global position
+    in its expert is under the global capacity, and cpos is its slot in
+    its dp row's [E, c_d] buffer (the row's kept entries of that expert
+    before it, in the global order)."""
+    s, k = idx.shape
+    onehot = F.one_hot(idx.T, e)                          # [K, S, E]
+    # rank within (round, expert), scanned along the contiguous axis
+    running = torch.cumsum(onehot.transpose(1, 2).contiguous(),
+                           dim=2).transpose(1, 2)
+    q = ((running * onehot).sum(dim=-1) - 1).reshape(-1)  # k-major
+    mine = onehot.sum(dim=1)                              # [K, E]
+    counts = C.all_gather(None, mine[None].contiguous(),
+                          group=lay.group, axis=0)        # [H, K, E]
+    cap = _capacity(s * lay.holders, k, capacity_factor, e, None)
+    # global start of each holder's run of (round r, expert e) entries
+    tot = counts.sum(dim=0)
+    before_r = torch.cumsum(tot, dim=0) - tot             # rounds < r
+    before_h = torch.cumsum(counts, dim=0) - counts       # holders < h
+    start = before_r[None] + before_h
+    kept = torch.clamp(cap - start, min=0)
+    kept = torch.minimum(kept, counts)                    # [H, K, E]
+    # per dp row, the kept entries before each run: rounds, then holders
+    rows = kept.reshape(lay.dp, lay.ep, k, e).transpose(1, 2) \
+        .reshape(lay.dp, k * lay.ep, e)
+    base = (torch.cumsum(rows, dim=1) - rows).reshape(
+        lay.dp, k, lay.ep, e).transpose(1, 2).reshape(lay.holders, k, e)
+    c_d = max(1, int(rows[lay.d].sum(dim=0).max()))
+    fe = idx.T.reshape(-1)
+    r = torch.arange(k, device=idx.device).repeat_interleave(s)
+    h = lay.holder
+    keep = q < kept[h, r, fe]
+    cpos = base[h, r, fe] + q
+    return fe, keep, cpos, c_d, counts
+
+
+def _ep_dispatch_combine(x, gate_w, w1, b1, w2, b2, lay: EPLayout, top_k,
+                         capacity_factor, activation, train, noise_key,
+                         dispatch_mode):
+    """:func:`moe_dispatch_combine` on a (dp, ep) mesh (module
+    docstring)."""
+    if dispatch_mode == "grouped":
+        raise NotImplementedError(
+            "dispatch_mode='grouped' is single-device; use 'sort' under an "
+            "ep-sharded mesh")
+    if dispatch_mode not in ("sort", "dense"):
+        raise ValueError(f"dispatch_mode must be 'sort', 'grouped' or "
+                         f"'dense', got {dispatch_mode!r}")
+    e = gate_w.shape[-1]
+    if e % lay.ep or w1.shape[0] * lay.ep != e:
+        raise ValueError(f"{e} experts over ep {lay.ep}: each rank holds "
+                         f"E / ep of them, got {w1.shape[0]}")
+    if x.shape[0] % lay.ep:
+        raise ValueError(f"{x.shape[0]} tokens of a dp row do not split "
+                         f"over ep {lay.ep}")
+    xc = mp_ops.scatter_to(x, lay.ep_group, dim=0)        # the holder's
+    s, m = xc.shape
+    logits = xc @ mp_ops.copy_to(gate_w, lay.ep_group).to(x.dtype)
+    idx, gv, probs = _choices(logits, top_k, train, noise_key)
+    fe, keep, cpos, c_d, counts = _global_slots(idx, lay, e,
+                                                capacity_factor)
+    n_tok = s * lay.holders
+    # the aux loss's global means: frac from the gathered counts, and this
+    # holder's share of mean_p (reduce_from sums the shares over the mesh)
+    frac = counts.sum(dim=0).to(torch.float32) / n_tok    # [K, E]
+    part = e * (frac * probs.sum(dim=0)[None, :]).sum(dim=-1).mean() / n_tok
+    aux = mp_ops.reduce_from(part, lay.group)
+
+    def ffn(expert_in):
+        h = activation(torch.einsum("ecm,emf->ecf", expert_in, w1)
+                       + b1[:, None, :])
+        return torch.einsum("ecf,efm->ecm", h, w2) + b2[:, None, :]
+
+    def experts(buf):                        # [E, c_d, M] -> [E, c_d, M]
+        # the reference's global_scatter / global_gather: each slot is
+        # filled by at most one rank of the group, so a reduce-scatter
+        # over the experts' dim merges the senders' buffers exactly, and
+        # an all-gather brings every rank's experts' outputs back
+        got = mp_ops.sp_scatter(buf, lay.ep_group, dim=0)
+        return mp_ops.sp_gather(ffn(got), lay.ep_group, dim=0)
+
+    n = fe.shape[0]
+    ft = torch.arange(s, device=x.device).repeat(top_k)
+    gvf = gv.T.reshape(n)
+    if dispatch_mode == "sort":
+        gvf = gvf.to(x.dtype)
+        dest = torch.where(keep, fe * c_d + cpos,
+                           torch.full_like(fe, e * c_d))
+        entry_of_slot = _invert(dest, e * c_d + 1, n)[:e * c_d]
+        svalid, ft_slot, gv_slot = _slot_views(entry_of_slot, ft, gvf, n)
+        buf = _GatherDispatch.apply(xc, ft_slot, svalid, dest, keep)
+        out = experts(buf.reshape(e, c_d, m)).reshape(e * c_d, m)
+        y = _GatherCombine.apply(out, gvf, ft, ft_slot, gv_slot, svalid,
+                                 dest, keep, s)
+    else:
+        # GShard's one-hots at the row's slots: each (token, expert, slot)
+        # is filled by at most one entry
+        at = (ft[keep], fe[keep], cpos[keep])
+        dispatch = torch.zeros((s, e, c_d), dtype=x.dtype,
+                               device=x.device).index_put(
+            at, torch.ones_like(at[0], dtype=x.dtype))
+        combine = torch.zeros((s, e, c_d), dtype=torch.float32,
+                              device=x.device).index_put(at, gvf[keep])
+        out = experts(torch.einsum("sec,sm->ecm", dispatch, xc))
+        y = torch.einsum("sec,ecm->sm", combine.to(x.dtype), out)
+    return mp_ops.gather_from(y, lay.ep_group, dim=0), aux.float()

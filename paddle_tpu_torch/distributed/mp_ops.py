@@ -22,7 +22,13 @@ the traffic):
 * :func:`sp_scatter` — reduce-scatter forward, all-gather backward
   (Megatron-SP, after a row-parallel matmul);
 * :func:`vocab_parallel_ce` — the cross-entropy of logits split over
-  the vocabulary, with its gradient.
+  the vocabulary, with its gradient;
+* :func:`all_to_all` — jax's ``all_to_all(tiled=True)``: chunk r of
+  ``split_dim`` goes to rank r, the chunks received are concatenated
+  along ``concat_dim`` in rank order; the backward is the inverse
+  exchange (Ulysses' sequence <-> head trade);
+* :func:`ring_shift` — the ring rotation of ring attention (not an
+  autograd function: the ring's own backward calls it).
 
 Each is the identity, with no communication, on a group of one rank.
 """
@@ -32,8 +38,9 @@ import torch
 
 from . import collective as C
 
-__all__ = ["copy_to", "gather_from", "reduce_from", "scatter_to",
-           "sp_gather", "sp_scatter", "vocab_parallel_ce"]
+__all__ = ["all_to_all", "copy_to", "gather_from", "reduce_from",
+           "ring_shift", "scatter_to", "sp_gather", "sp_scatter",
+           "vocab_parallel_ce"]
 
 
 def _slice(x, group, dim):
@@ -177,3 +184,59 @@ def vocab_parallel_ce(logits, labels, group):
     """Per-row next-token CE of [N, V / n] f32 logits split over
     ``group`` (see :class:`_VocabParallelCE`)."""
     return _VocabParallelCE.apply(logits, labels, group)
+
+
+# ------------------------------------------------- all-to-all exchanges
+def _exchange(x, group, split_dim, concat_dim):
+    n = group.nranks
+    if x.shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not "
+                         f"split over {n} ranks")
+    ins = [t.contiguous() for t in x.chunk(n, dim=split_dim)]
+    return torch.cat(C.all_to_all([], ins, group=group), dim=concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_dim, concat_dim):
+        ctx.group, ctx.dims = group, (split_dim, concat_dim)
+        return _exchange(x, group, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return _exchange(g, ctx.group, concat_dim, split_dim), None, None, \
+            None
+
+
+def all_to_all(x, group, split_dim, concat_dim):
+    """Chunk r of ``x`` along ``split_dim`` goes to rank r of ``group``;
+    the chunks this rank receives are concatenated along ``concat_dim``
+    in rank order (jax ``all_to_all(split_axis, concat_axis,
+    tiled=True)``).  The gradient takes the inverse exchange."""
+    if group.nranks == 1:
+        return x
+    return _AllToAll.apply(x, group, split_dim % x.dim(),
+                           concat_dim % x.dim())
+
+
+def ring_shift(tensors, group, shift=1):
+    """Send each of ``tensors`` to the rank ``shift`` places ahead on the
+    group's ring and receive the ones from ``shift`` places behind, all in
+    one ``batch_isend_irecv`` (NCCL pairs posted apart can deadlock);
+    returns the received tensors."""
+    n = group.nranks
+    if n == 1:
+        return list(tensors)
+    me = group.rank
+    dst = group.ranks[(me + shift) % n]
+    src = group.ranks[(me - shift) % n]
+    sends = [t.contiguous() for t in tensors]
+    outs = [torch.empty_like(t) for t in sends]
+    ops = [C.P2POp(C.isend, t, dst, group, tag=i)
+           for i, t in enumerate(sends)]
+    ops += [C.P2POp(C.irecv, t, src, group, tag=i)
+            for i, t in enumerate(outs)]
+    for work in C.batch_isend_irecv(ops):
+        work.wait()
+    return outs

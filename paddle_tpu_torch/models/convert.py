@@ -122,14 +122,16 @@ def init_state(config: LlamaConfig, generator: torch.Generator,
     return state
 
 
-def _mesh_dims(mesh):
-    """(pp, dp, tp) of a :class:`~..distributed.mesh.ProcessMesh` or of a
-    mapping of axis sizes; (1, 1, 1) for None."""
+def _mesh_dims(mesh, axes=("pp", "dp", "tp")):
+    """The sizes of ``axes`` (1 where an axis is missing) of a
+    :class:`~..distributed.mesh.ProcessMesh` or of a mapping of axis
+    sizes; all 1 for None."""
     if mesh is None:
-        return 1, 1, 1
+        return (1,) * len(axes)
     if hasattr(mesh, "get_dim_size"):
-        return tuple(mesh.get_dim_size(a) for a in ("pp", "dp", "tp"))
-    return tuple(int(mesh.get(a, 1)) for a in ("pp", "dp", "tp"))
+        return tuple(mesh.get_dim_size(a) if a in mesh.dim_names else 1
+                     for a in axes)
+    return tuple(int(mesh.get(a, 1)) for a in axes)
 
 
 def _coords(rank, dims, mesh=None):
@@ -274,16 +276,23 @@ def hybrid_params_to_numpy(tree, *, mesh=None, n_virtual=1,
             "head": whole(pp - 1, "head", lambda tr: tr["head"])}
 
 
-def moe_params_from_numpy(np_tree: dict, device=None, dtype=None) -> dict:
+def moe_params_from_numpy(np_tree: dict, device=None, dtype=None, *,
+                          rank=None, mesh=None) -> dict:
     """The reference ``moe_llm.init_params`` tree as numpy (layer leaves
     stacked ``[L, ...]``) -> the port's tree, one owned tensor per layer
     weight, on ``device`` (default CUDA).  ``dtype`` casts every float
     leaf but the router ``gate``, which stays float32 as in the
-    reference."""
+    reference.  With ``mesh`` (a ('dp', 'ep') ``ProcessMesh`` or a
+    mapping of the dp and ep sizes) and ``rank`` (= d·ep + j), that
+    rank's shard: experts [j·E/ep, (j+1)·E/ep) and 1/ep of the shared
+    experts' inner dim (``moe_llm.EP_DIM``), every other leaf whole."""
+    from .moe_llm import shard
     dev = resolve_device(device)
+    ep = _mesh_dims(mesh, ("dp", "ep"))[1]
+    j = 0 if mesh is None else rank % ep
 
     def conv(a, key=None):
-        t = _to_tensor(a)
+        t = shard(_to_tensor(a), key, ep, j)
         if dtype is not None and t.is_floating_point() and key != "gate":
             t = t.to(dtype)
         return t.to(dev)
@@ -296,19 +305,33 @@ def moe_params_from_numpy(np_tree: dict, device=None, dtype=None) -> dict:
             "norm": conv(np_tree["norm"]), "head": conv(np_tree["head"])}
 
 
-def moe_params_to_numpy(tree: dict) -> dict:
+def moe_params_to_numpy(tree, *, mesh=None) -> dict:
     """The inverse of :func:`moe_params_from_numpy`: numpy arrays with
     layer leaves stacked to ``[L, ...]`` (bf16 tensors come out as
-    float32, which holds them exactly).  Also takes a grads tree."""
-    def conv(t):
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    float32, which holds them exactly).  Also takes a grads tree.  With
+    ``mesh``, ``tree`` is the list of every rank's tree in rank order,
+    and the ep shards of dp row 0 are put back together."""
+    from .moe_llm import EP_DIM
+    if mesh is None:
+        tree, ep = [tree], 1
+    else:
+        dp, ep = _mesh_dims(mesh, ("dp", "ep"))
+        if len(tree) != dp * ep:
+            raise ValueError(f"{len(tree)} trees for a mesh of {dp * ep}")
 
-    keys = tree["layers"][0].keys()
-    return {"embed": conv(tree["embed"]),
-            "layers": {k: np.stack([conv(lp[k]) for lp in tree["layers"]])
-                       for k in keys},
-            "norm": conv(tree["norm"]), "head": conv(tree["head"])}
+    def whole(key, get):
+        parts = [_np(get(tree[j])) for j in range(ep)]
+        dim = EP_DIM.get(key)
+        return parts[0] if dim is None else np.concatenate(parts, axis=dim)
+
+    layers = tree[0]["layers"]
+    return {"embed": whole("embed", lambda tr: tr["embed"]),
+            "layers": {k: np.stack([whole(k, lambda tr, i=i, k=k:
+                                          tr["layers"][i][k])
+                                    for i in range(len(layers))])
+                       for k in layers[0]},
+            "norm": whole("norm", lambda tr: tr["norm"]),
+            "head": whole("head", lambda tr: tr["head"])}
 
 
 # ------------------------------------------- serving tensor parallelism

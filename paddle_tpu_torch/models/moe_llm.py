@@ -1,56 +1,81 @@
-"""Mixture-of-Experts decoder LM, trained on one device, in PyTorch.
+"""Mixture-of-Experts decoder LM with expert-parallel training, in
+PyTorch.
 
-Ports ``paddle_tpu/models/moe_llm.py`` at dp = ep = 1: ``MoEConfig`` and
-its presets (``moe_tiny``, ``qwen2_moe_a14b``, ``deepseek_moe_16b``),
-``init_params`` (``:104``), ``_layer`` (``:178``: fused q/k/v, rope,
-causal ``sdpa`` — the K1/K2 kernels on CUDA —, the MoE FFN on the
-``"sort"`` dispatch of ``distributed.moe``, and the DeepSeekMoE /
-Qwen2-MoE shared experts), ``loss_fn`` (``:210``), ``build_train_step``
-(``:244``, plain SGD) and ``setup`` (``:257``).
+Ports ``paddle_tpu/models/moe_llm.py``: ``MoEConfig`` and its presets
+(``moe_tiny``, ``qwen2_moe_a14b``, ``deepseek_moe_16b``), ``build_mesh``
+(``:96``), ``init_params`` (``:104``), ``param_shardings`` (``:145``),
+``_layer`` (``:178``: fused q/k/v, rope, causal ``sdpa`` — the K1/K2
+kernels on CUDA —, the MoE FFN on the ``"sort"`` dispatch of
+``distributed.moe``, and the DeepSeekMoE / Qwen2-MoE shared experts),
+``loss_fn`` (``:210``), ``build_train_step`` (``:244``, plain SGD) and
+``setup`` (``:257``).
+
+The reference is one SPMD program over a ('dp', 'ep') mesh; here each
+rank of a ``ProcessMesh`` of (dp, ep) processes holds its own shard and
+every collective is explicit:
+
+* tokens: rank (d, j) takes dp row d of the global batch (the
+  reference's ``P("dp", None, None)``); attention, the norms, the
+  embedding and the head run on the row, replicated over ep, and each
+  rank's gradient of those leaves is the row's;
+* routed experts: rank (d, j) stores experts [j·E/ep, (j+1)·E/ep) of
+  ``w1``/``b1``/``w2``/``b2`` (``P(None, "ep", ...)``);
+  ``distributed.moe`` routes with the global capacity and drops and
+  exchanges the capacity slots over the ep group;
+* shared experts: Megatron column and row parallel over the ep group
+  (``sw1`` ``P(None, None, "ep")``, ``sw2`` ``P(None, "ep", None)``):
+  ``mp_ops.copy_to`` before ``sw1``, ``mp_ops.reduce_from`` after
+  ``sw2``;
+* dp: every leaf's gradient is summed over dp (the reference's psum of
+  its dp-sharded batch); the loss is the reference's, CE summed over
+  the global batch and divided by its B·S, plus ``aux_loss_weight`` x
+  the router aux loss (a global mean) averaged over layers.
 
 The param tree keeps the reference's keys ``{"embed", "layers", "norm",
 "head"}`` with ``[in, out]`` weights, but ``layers`` is a list of one
 dict per layer instead of one stacked ``[L, ...]`` leaf per key (so that
 autograd makes no full-size zero gradient per ``w[i]``);
-``models/convert.py`` carries trees across (``moe_params_from_numpy``
-and its inverse).  The reference runs shallow stacks unrolled and deep
-ones (L > 16) under ``lax.scan``: the same math, one Python loop here.
+``models/convert.py`` carries trees across (``moe_params_from_numpy``,
+by rank with a mesh, and its inverse).  The reference runs shallow
+stacks unrolled and deep ones (L > 16) under ``lax.scan``: the same
+math, one Python loop here.
 
 The router weight ``gate`` stays float32 whatever the params' dtype, as
 in the reference.  Like the reference's model, the layer takes the
 ``"sort"`` dispatch: the grouped FFN (K9) is reached through
-``distributed.moe.moe_dispatch_combine(dispatch_mode="grouped")``.
-
-Left out: expert parallelism and any mesh with dp or ep above 1 (each
-raises ``NotImplementedError``; ROADMAP queue 1, hybrid-parallel
-training).
+``distributed.moe.moe_dispatch_combine(dispatch_mode="grouped")`` on one
+device.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from ..distributed.moe import moe_dispatch_combine
+from ..distributed import collective as C
+from ..distributed import mp_ops
+from ..distributed.mesh import ProcessMesh
+from ..distributed.moe import ep_layout, moe_dispatch_combine
 from ..ops.pallas.flash_attention import sdpa
 from .convert import _DTYPES
 from .llama import _rms, _rope_tables, apply_rotary_pos_emb
 from .llama_hybrid import _chunked_ce_sum
 
-__all__ = ["MoEConfig", "build_mesh", "build_train_step", "deepseek_moe_16b",
-           "init_params", "loss_fn", "moe_tiny", "param_shardings",
-           "qwen2_moe_a14b", "setup", "tree_leaves", "tree_map",
-           "value_and_grad"]
+__all__ = ["EP_DIM", "MoEConfig", "build_mesh", "build_train_step",
+           "deepseek_moe_16b", "init_params", "loss_fn", "moe_tiny",
+           "param_shardings", "qwen2_moe_a14b", "setup", "shard",
+           "tree_leaves", "tree_map", "value_and_grad"]
 
 _LAYER_KEYS = ("input_ln", "q", "k", "v", "o", "post_ln", "gate", "w1", "b1",
                "w2", "b2")
 _SHARED_KEYS = ("sw1", "sw2")
-_EP_LATER = ("is not ported yet (ROADMAP queue 1, hybrid-parallel "
-             "training: expert parallelism); the port trains MoE on one "
-             "device")
+# the dim of each layer leaf split over ep (reference param_shardings
+# :145-175, without the stacked L axis); every other leaf is whole
+EP_DIM = {"w1": 0, "b1": 0, "w2": 0, "b2": 0, "sw1": 1, "sw2": 0}
 
 
 @dataclass
@@ -108,25 +133,68 @@ def deepseek_moe_16b() -> MoEConfig:
 
 
 def build_mesh(n_devices=None, dp=1, ep=1, devices=None):
-    """The port's mesh: a mapping of axis sizes, ``{"dp": 1, "ep": 1}``.
-    Only one device is ported."""
-    if dp * ep > 1 or (n_devices is not None and n_devices != 1):
-        raise NotImplementedError(
-            f"a mesh of dp={dp}, ep={ep} over {n_devices or dp * ep} "
-            f"devices {_EP_LATER}")
-    return {"dp": 1, "ep": 1}
+    """The port's mesh.  One device: the mapping ``{"dp": 1, "ep": 1}``.
+    More: a ('dp', 'ep') ``ProcessMesh`` over ranks 0 .. n-1 of the
+    initialised ``torch.distributed`` world, rank = d·ep + j (the
+    reference's device grid, reshaped); dp x ep must be n."""
+    n = n_devices or dp * ep
+    if dp * ep != n:
+        raise ValueError(f"dp {dp} x ep {ep} != {n} devices")
+    if n == 1:
+        return {"dp": 1, "ep": 1}
+    import torch.distributed as dist
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n > world:
+        raise ValueError(f"a mesh of {n} ranks needs a world of {n} "
+                         f"processes (init_parallel_env), got {world}")
+    return ProcessMesh(np.arange(n).reshape(dp, ep), ["dp", "ep"])
 
 
-def _check_mesh(mesh):
-    dp, ep = (1, 1) if mesh is None else (int(mesh.get(a, 1))
-                                         for a in ("dp", "ep"))
-    if dp * ep > 1:
-        raise NotImplementedError(f"a mesh with dp={dp}, ep={ep} {_EP_LATER}")
+def layout(mesh):
+    """This process's ``distributed.moe.EPLayout`` on ``mesh``; None at
+    one device."""
+    return ep_layout(mesh, "ep")[1]
 
 
 def param_shardings(mesh=None, config=None, params=None):
-    """The reference's sharding tree places experts over ep: not ported."""
-    raise NotImplementedError(f"param_shardings (expert sharding) {_EP_LATER}")
+    """The reference's sharding tree, as PartitionSpec tuples over its
+    stacked ``[L, ...]`` leaves: routed experts over ep, the shared
+    experts' inner dim over ep (with ``config.num_shared_experts`` or
+    ``sw1`` in ``params``), every other leaf whole."""
+    rep2, rep3 = (None, None), (None, None, None)
+    layers = {k: rep3 for k in ("q", "k", "v", "o", "gate")}
+    layers.update({"input_ln": rep2, "post_ln": rep2,
+                   "w1": (None, "ep", None, None), "b1": (None, "ep", None),
+                   "w2": (None, "ep", None, None), "b2": (None, "ep", None)})
+    shared = (config is not None and config.num_shared_experts) or (
+        params is not None and "sw1" in params["layers"][0])
+    if shared:
+        layers["sw1"] = (None, None, "ep")
+        layers["sw2"] = (None, "ep", None)
+    return {"embed": rep2, "layers": layers, "norm": (None,), "head": rep2}
+
+
+def shard(t, key, ep, j):
+    """Rank ``j``'s part over ep of layer leaf ``key`` (``EP_DIM``), as
+    an owned contiguous tensor."""
+    dim = EP_DIM.get(key)
+    if dim is None or ep == 1:
+        return t
+    n = t.shape[dim]
+    if n % ep:
+        raise ValueError(f"{key} {tuple(t.shape)}: dim {dim} does not "
+                         f"split over ep {ep}")
+    return t.narrow(dim, j * (n // ep), n // ep).clone(
+        memory_format=torch.contiguous_format)
+
+
+def _check_config(config: MoEConfig, ep):
+    f = config.moe_intermediate_size
+    for name, n in (("num_experts", config.num_experts),
+                    ("num_shared_experts * moe_intermediate_size",
+                     config.num_shared_experts * f)):
+        if n % ep:
+            raise ValueError(f"{name} {n} does not split over ep {ep}")
 
 
 # ------------------------------------------------------------ param trees
@@ -161,53 +229,61 @@ def tree_map(fn, tree) -> dict:
 
 # ------------------------------------------------------------ parameters
 def init_params(config: MoEConfig, generator: torch.Generator, device=None,
-                dtype=torch.float32) -> dict:
+                dtype=torch.float32, mesh=None) -> dict:
     """Random params with the reference's init scales: matrices
     N(0, 1/fan_in), embedding N(0, 0.02^2), head N(0, 1/hidden), norms
     ones, expert biases zeros; the router ``gate`` in float32.  Made on
     ``device`` (default CUDA) from ``generator``, which must live on that
-    device's type."""
+    device's type.  With a ``mesh``, the tree holds this process's shard
+    of the one global init: every rank draws every leaf in the same
+    order and keeps its part."""
     dev = resolve_device(device)
+    lay = layout(mesh)
+    ep, j = (1, 0) if lay is None else (lay.ep, lay.j)
+    _check_config(config, ep)
     h, f, e = (config.hidden_size, config.moe_intermediate_size,
                config.num_experts)
     hd, nh, kvh = (config.head_dim, config.num_attention_heads,
                    config.num_key_value_heads)
     sf = config.num_shared_experts * f
 
-    def normal(*shape, std, dt=dtype):
+    def normal(key, *shape, std, dt=dtype):
         t = torch.empty(shape, dtype=torch.float32, device=dev)
         t.normal_(0.0, std, generator=generator)
-        return t.to(dt)
+        return shard(t, key, ep, j).to(dt)
 
-    def full(*shape, value):
-        return torch.full(shape, value, dtype=dtype, device=dev)
+    def full(key, *shape, value):
+        return shard(torch.full(shape, value, dtype=dtype, device=dev), key,
+                     ep, j)
 
     layers = []
     for _ in range(config.num_hidden_layers):
         lp = {
-            "input_ln": full(h, value=1.0),
-            "q": normal(h, nh * hd, std=1 / math.sqrt(h)),
-            "k": normal(h, kvh * hd, std=1 / math.sqrt(h)),
-            "v": normal(h, kvh * hd, std=1 / math.sqrt(h)),
-            "o": normal(nh * hd, h, std=1 / math.sqrt(nh * hd)),
-            "post_ln": full(h, value=1.0),
-            "gate": normal(h, e, std=1 / math.sqrt(h), dt=torch.float32),
-            "w1": normal(e, h, f, std=1 / math.sqrt(h)),
-            "b1": full(e, f, value=0.0),
-            "w2": normal(e, f, h, std=1 / math.sqrt(f)),
-            "b2": full(e, h, value=0.0),
+            "input_ln": full("input_ln", h, value=1.0),
+            "q": normal("q", h, nh * hd, std=1 / math.sqrt(h)),
+            "k": normal("k", h, kvh * hd, std=1 / math.sqrt(h)),
+            "v": normal("v", h, kvh * hd, std=1 / math.sqrt(h)),
+            "o": normal("o", nh * hd, h, std=1 / math.sqrt(nh * hd)),
+            "post_ln": full("post_ln", h, value=1.0),
+            "gate": normal("gate", h, e, std=1 / math.sqrt(h),
+                           dt=torch.float32),
+            "w1": normal("w1", e, h, f, std=1 / math.sqrt(h)),
+            "b1": full("b1", e, f, value=0.0),
+            "w2": normal("w2", e, f, h, std=1 / math.sqrt(f)),
+            "b2": full("b2", e, h, value=0.0),
         }
         if config.num_shared_experts:
-            lp["sw1"] = normal(h, sf, std=1 / math.sqrt(h))
-            lp["sw2"] = normal(sf, h, std=1 / math.sqrt(sf))
+            lp["sw1"] = normal("sw1", h, sf, std=1 / math.sqrt(h))
+            lp["sw2"] = normal("sw2", sf, h, std=1 / math.sqrt(sf))
         layers.append(lp)
-    return {"embed": normal(config.vocab_size, h, std=0.02),
-            "layers": layers, "norm": full(h, value=1.0),
-            "head": normal(h, config.vocab_size, std=1 / math.sqrt(h))}
+    return {"embed": normal("embed", config.vocab_size, h, std=0.02),
+            "layers": layers, "norm": full("norm", h, value=1.0),
+            "head": normal("head", h, config.vocab_size,
+                           std=1 / math.sqrt(h))}
 
 
 # ------------------------------------------------------------- layer math
-def _layer(lp, x, cos, sin, config: MoEConfig, mesh):
+def _layer(lp, x, cos, sin, config: MoEConfig, mesh, lay=None):
     """One decoder layer, x [B, S, H] -> (x, router aux loss)."""
     nh, kvh, hd = (config.num_attention_heads, config.num_key_value_heads,
                    config.head_dim)
@@ -231,46 +307,90 @@ def _layer(lp, x, cos, sin, config: MoEConfig, mesh):
         activation=F.silu, mesh=mesh, ep_axis="ep")
     if config.num_shared_experts:
         # shared experts: a dense FFN every token passes through, added to
-        # the routed output (no gating)
-        y = y + F.silu(flat @ lp["sw1"]) @ lp["sw2"]
+        # the routed output (no gating); column then row parallel over ep
+        if lay is None:
+            y = y + F.silu(flat @ lp["sw1"]) @ lp["sw2"]
+        else:
+            inner = F.silu(mp_ops.copy_to(flat, lay.ep_group) @ lp["sw1"])
+            y = y + mp_ops.reduce_from(inner @ lp["sw2"], lay.ep_group)
     return r + y.reshape(b, sq, hdim), aux
 
 
-def loss_fn(params, ids, config: MoEConfig, mesh=None):
-    """Mean next-token CE over a [B, S+1] int64 batch, plus
-    ``aux_loss_weight`` times the router aux loss averaged over layers."""
-    _check_mesh(mesh)
+def _dp_rows(ids, lay):
+    """This dp rank's rows of the global batch."""
+    if lay is None:
+        return ids
+    b = ids.shape[0]
+    if b % lay.dp:
+        raise ValueError(f"batch {b} does not split over dp {lay.dp}")
+    n = b // lay.dp
+    return ids[lay.d * n:(lay.d + 1) * n]
+
+
+def _loss_parts(params, ids, config: MoEConfig, mesh, lay):
+    """(CE part, aux part) of this rank's dp rows ``ids`` [b, S+1]: the
+    rows' CE summed over the global batch's B·S tokens, and
+    ``aux_loss_weight`` x the layers' mean of the (global) aux loss."""
     inp, lab = ids[:, :-1], ids[:, 1:]
     b, s = inp.shape
+    n_tokens = b * s * (1 if lay is None else lay.dp)
     x = F.embedding(inp, params["embed"])
     cos, sin = _rope_tables(s, config.head_dim, config.rope_theta,
                             device=x.device)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
-        x, a = _layer(lp, x, cos, sin, config, mesh)
+        x, a = _layer(lp, x, cos, sin, config, mesh, lay)
         aux_total = aux_total + a
     h = _rms(x, params["norm"], config.rms_norm_eps)
-    ce = _chunked_ce_sum(h, lab, params["head"]) / (b * s)
-    return ce + config.aux_loss_weight * aux_total / config.num_hidden_layers
+    ce = _chunked_ce_sum(h, lab, params["head"]) / n_tokens
+    return ce, config.aux_loss_weight * aux_total / config.num_hidden_layers
+
+
+def loss_fn(params, ids, config: MoEConfig, mesh=None):
+    """Mean next-token CE over a [B, S+1] int64 batch, plus
+    ``aux_loss_weight`` times the router aux loss averaged over layers:
+    the global loss on every rank.  On a mesh of dp > 1 its gradient is
+    this rank's part (its rows' CE), which a sum over dp makes whole, as
+    in :func:`value_and_grad`."""
+    lay = layout(mesh)
+    ce, aux = _loss_parts(params, _dp_rows(ids, lay), config, mesh, lay)
+    if lay is not None and lay.dp > 1:
+        total = C.all_reduce(ce.detach().clone(), group=lay.dp_group)
+        ce = ce + (total - ce.detach())
+    return ce + aux
 
 
 def value_and_grad(params, ids, config: MoEConfig, mesh=None):
-    """(loss, grads) of :func:`loss_fn`; grads is a tree like params, in
-    the params' dtypes.  params themselves are left as they are."""
+    """(loss, grads) of :func:`loss_fn` for the global [B, S+1] batch
+    ``ids``: the loss whole on every rank, and the gradient of this
+    rank's shard of every leaf, summed over dp, in the params' dtypes.
+    params themselves are left as they are."""
+    lay = layout(mesh)
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
     with torch.enable_grad():
-        loss = loss_fn(_unflatten(params, leaves), ids, config, mesh)
-        grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), _unflatten(params, grads)
+        ce, aux = _loss_parts(_unflatten(params, leaves), _dp_rows(ids, lay),
+                              config, mesh, lay)
+        # contiguous: the fused q/k/v's gradients are views of one
+        # tensor, which an in-place all-reduce must not take
+        grads = [g.contiguous() for g in torch.autograd.grad(ce + aux,
+                                                             leaves)]
+    ce = ce.detach()
+    if lay is not None and lay.dp > 1:
+        C.all_reduce(ce, group=lay.dp_group)
+        for g in grads:
+            C.all_reduce(g, group=lay.dp_group)
+    return ce + aux.detach(), _unflatten(params, grads)
 
 
 def build_train_step(config: MoEConfig, mesh=None, lr=3e-4, device=None):
     """Returns ``step(params, ids) -> (loss, params)`` on ``device``
     (default CUDA; raises with no card): the reference's plain SGD, each
-    update in f32 and cast back to the param's dtype.  params are updated
-    in place and returned (the reference donates them)."""
+    update in f32 and cast back to the param's dtype.  ``ids`` is the
+    global [B, S+1] batch on every rank.  params are updated in place
+    and returned (the reference donates them)."""
     dev = resolve_device(device)
-    _check_mesh(mesh)
+    lay = layout(mesh)
+    _check_config(config, 1 if lay is None else lay.ep)
 
     def step(params, ids):
         ids = torch.as_tensor(ids).to(device=dev, dtype=torch.long)
@@ -284,11 +404,11 @@ def build_train_step(config: MoEConfig, mesh=None, lr=3e-4, device=None):
 
 
 def setup(config: MoEConfig, mesh=None, seed=0, dtype=None, device=None):
-    """Random params from ``seed`` on ``device`` (default CUDA), in
-    ``dtype`` (default: the config's own, as the reference's setup)."""
+    """Random params from ``seed`` (this rank's shard of them, on a
+    mesh) on ``device`` (default CUDA), in ``dtype`` (default: the
+    config's own, as the reference's setup)."""
     dev = resolve_device(device)
-    _check_mesh(mesh)
     if dtype is None:
         dtype = _DTYPES[config.dtype]
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return init_params(config, gen, dev, dtype)
+    return init_params(config, gen, dev, dtype, mesh)

@@ -6,8 +6,8 @@ Usage, on the machine with the card, from any directory::
     python3 paddle_tpu_torch/tools/flash_ab.py PATH_TO_CHECKOUT [PARTS]
 
 PARTS is a comma-separated subset of
-``flash,k8,small,longctx,k7,dbias,decode,k3,k4,serve,k5,k9`` (default:
-all of them); the kernel lines below are printed always.
+``flash,k8,small,longctx,k7,dbias,decode,k3,k4,serve,k5,k9,moe``
+(default: all of them); the kernel lines below are printed always.
 
 It builds that checkout's ``flash_attention``, ``flash_mask``,
 ``decode_attention``, ``paged_attention``, ``quant_matmul``,
@@ -43,7 +43,9 @@ part ``k9`` one line per ``K9_SHAPES`` row (the grouped FFN's forward
 and backward device ms, their bounds and the sort path's two expert
 einsums, forward and forward + backward, as the cuBLAS yardstick), then
 ``chip_smoke.py``'s 13b (one MoE layer, fwd + bwd device ms by dispatch
-mode) on the checkout's kernels.
+mode) on the checkout's kernels; part ``moe`` runs ``chip_smoke.py``'s
+13a twice (the bench's MoE rung through the checkout's ``moe_llm``:
+tokens/s and a profiled step's busy share).
 Part ``flash`` prints one JSON line
 per row of
 ``chip_smoke.py``'s
@@ -92,7 +94,7 @@ from pathlib import Path
 SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "HMMA", "LDS", "STS", "LDL",
             "STL", "MUFU")
 PARTS = ("flash", "k8", "small", "longctx", "k7", "dbias", "decode", "k3",
-         "k4", "serve", "k5", "k9")
+         "k4", "serve", "k5", "k9", "moe")
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3):
@@ -208,6 +210,8 @@ def main(root, parts=PARTS):
         k5_rows(torch, root, gen)
     if "k9" in parts:
         k9_rows(torch, root, gen, release)
+    if "moe" in parts:
+        moe_train(release)
     if "k7" in parts:
         k7_rows(torch, DA, root, gen, K7_SHAPES, bound)
     if "k3" in parts:
@@ -626,6 +630,18 @@ def k9_rows(torch, root, gen, release):
         release()
     for shape in MOE_LAYER_SHAPES:
         phase_moe_layer(TM, GF, gen, *shape)
+        release()
+
+
+def moe_train(release):
+    """``chip_smoke.py``'s 13a, twice, on the checkout's modules."""
+    from chip_smoke import phase_moe_train
+    from paddle_tpu_torch.models import moe_llm as M
+    from paddle_tpu_torch.ops.pallas import flash_attention as FA
+    from paddle_tpu_torch.ops.pallas import grouped_ffn as GF
+    from paddle_tpu_torch.ops.pallas import rms_norm as RN
+    for _ in range(2):
+        phase_moe_train(M, FA, GF, RN)
         release()
 
 

@@ -79,7 +79,8 @@ def test_import_leaves_jax_unloaded():
             "paddle_tpu_torch.distributed.collective, "
             "paddle_tpu_torch.distributed.mp_ops, "
             "paddle_tpu_torch.distributed.pipelining, "
-            "paddle_tpu_torch.distributed.pipeline_schedules; "
+            "paddle_tpu_torch.distributed.pipeline_schedules, "
+            "paddle_tpu_torch.ops.ring_attention; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

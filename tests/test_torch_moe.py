@@ -128,6 +128,7 @@ def test_reference_errors():
         TM.moe_dispatch_combine(*args, activation=F.silu,
                                 dispatch_mode="grouped",
                                 mesh={"dp": 1, "ep": 1})
-    with pytest.raises(NotImplementedError,
-                       match="hybrid-parallel training"):
+    # a mesh of more than one rank is a ProcessMesh of processes
+    # (test_torch_moe_ep.py runs it); a mapping serves one device
+    with pytest.raises(ValueError, match="ProcessMesh"):
         TM.moe_dispatch_combine(*args, mesh={"dp": 1, "ep": 2})

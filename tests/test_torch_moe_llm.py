@@ -91,11 +91,13 @@ def test_presets_and_single_device_rules():
     for fn in ("moe_tiny", "qwen2_moe_a14b", "deepseek_moe_16b"):
         assert vars(getattr(TM, fn)()) == vars(getattr(JM, fn)())
     assert TM.build_mesh() == {"dp": 1, "ep": 1}
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
+    # more than one rank needs that many processes (test_torch_moe_llm_ep.py
+    # runs them); a mapping serves one device
+    with pytest.raises(ValueError, match="world of 2 processes"):
         TM.build_mesh(dp=1, ep=2)
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
-        TM.param_shardings({"dp": 1, "ep": 1})
-    with pytest.raises(NotImplementedError, match="expert parallelism"):
+    assert TM.param_shardings({"dp": 1, "ep": 1})["layers"]["w1"] == \
+        (None, "ep", None, None)
+    with pytest.raises(ValueError, match="ProcessMesh"):
         TM.build_train_step(TM.moe_tiny(), {"dp": 2, "ep": 1}, device="cpu")
     params = TM.setup(TM.moe_tiny(num_shared_experts=2, dtype="bfloat16"),
                       device="cpu")

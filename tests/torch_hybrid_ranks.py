@@ -370,3 +370,130 @@ def collectives(X, Y, Z):
     out["more_counters"] = growth(t1, t2)
     out["group"] = (g.ranks, g.nranks, g.rank, D.get_world_size_group(g))
     return out
+
+
+# ----------------------------------------- expert and context parallelism
+def ep_mesh(dims):
+    """The mesh of an expert-parallel job on this 8-rank world: ``(dp,
+    ep)`` over all 8 ranks, or ``("ep", n)``: a 1-D ep mesh of n ranks,
+    one per group of n consecutive ranks (each group runs the same
+    problem), of which this rank's is returned."""
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import ProcessMesh
+    if dims[0] == "ep":
+        n, world = dims[1], dist.get_world_size()
+        meshes = [ProcessMesh(np.arange(s, s + n), ["ep"])
+                  for s in range(0, world, n)]
+        return meshes[dist.get_rank() // n]
+    return ProcessMesh(np.arange(8).reshape(dims), ["dp", "ep"])
+
+
+def moe_ep(dims, cases, x, gate_w, w1, b1, w2, b2):
+    """``moe_dispatch_combine`` on this rank of the mesh ``ep_mesh(dims)``
+    for each (mode, top_k, capacity_factor) of ``cases``: the rank's dp
+    row of x and its experts of the weights, the objective sum(y ** 2) +
+    aux; returns y, aux and the gradients of x (the row's), gate_w, w1,
+    b1, w2 and b2 (the rank's experts), each summed over dp."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.distributed import all_reduce
+    from paddle_tpu_torch.distributed import moe as TM
+    mesh = ep_mesh(dims)
+    _, lay = TM.ep_layout(mesh)
+    rows = x.shape[0] // lay.dp
+    el = w1.shape[0] // lay.ep
+    mine = [x[lay.d * rows:(lay.d + 1) * rows], gate_w] + [
+        a[lay.j * el:(lay.j + 1) * el] for a in (w1, b1, w2, b2)]
+    out = []
+    for mode, top_k, cf in cases:
+        args = [torch.from_numpy(a.copy()).requires_grad_() for a in mine]
+        y, aux = TM.moe_dispatch_combine(
+            *args, top_k=top_k, capacity_factor=cf, mesh=mesh, train=False,
+            dispatch_mode=mode)
+        grads = torch.autograd.grad((y ** 2).sum() + aux, args)
+        grads = [grads[0]] + [all_reduce(g.contiguous(), group=lay.dp_group)
+                              for g in grads[1:]]
+        out.append({"y": y.detach().numpy(), "aux": float(aux),
+                    "grads": [g.numpy() for g in grads]})
+    try:
+        TM.moe_dispatch_combine(*(torch.from_numpy(a) for a in mine),
+                                activation=F.silu, mesh=mesh,
+                                dispatch_mode="grouped")
+        grouped = None
+    except NotImplementedError as e:
+        grouped = str(e)
+    return {"cases": out, "grouped": grouped, "dp": lay.dp, "ep": lay.ep,
+            "d": lay.d, "j": lay.j}
+
+
+def moe_llm_ep(cfg_kw, dims, np_params, ids, steps, lr):
+    """``steps`` SGD steps of ``moe_llm`` on this rank of a (dp, ep) mesh
+    from its shard of the reference's tree ``np_params``; returns every
+    step's loss, ``loss_fn`` of the starting params, the rank's params
+    after the steps (numpy tree) and the shapes of its shard's first
+    layer as it started."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.models import (moe_params_from_numpy,
+                                         moe_params_to_numpy)
+    from paddle_tpu_torch.models import moe_llm as TM
+    cfg = TM.moe_tiny(**cfg_kw)
+    mesh = TM.build_mesh(8, *dims)
+    params = moe_params_from_numpy(np_params, device="cpu",
+                                   rank=dist.get_rank(), mesh=mesh)
+    shapes = {k: tuple(t.shape) for k, t in params["layers"][0].items()}
+    shapes.update({k: tuple(params[k].shape)
+                   for k in ("embed", "norm", "head")})
+    first = float(TM.loss_fn(params, torch.from_numpy(ids), cfg, mesh))
+    step = TM.build_train_step(cfg, mesh, lr=lr, device="cpu")
+    losses = []
+    for _ in range(steps):
+        loss, params = step(params, torch.from_numpy(ids))
+        losses.append(float(loss))
+    return {"losses": losses, "loss_fn": first, "shapes": shapes,
+            "params": moe_params_to_numpy(params)}
+
+
+def moe_llm_ep_runs(runs):
+    """:func:`moe_llm_ep` for each keyword dict of ``runs``, in order."""
+    return [moe_llm_ep(**kw) for kw in runs]
+
+
+def ring(q, k, v, ct, qu, ku, vu, ctu):
+    """Ring attention (causal and not) and Ulysses (causal) on this
+    rank's sequence chunk of the 8-rank ``sep`` axis: each output chunk
+    and the gradients of sum(out * ct) w.r.t. the chunks of q, k, v; and
+    the messages of the calls that must raise."""
+    import torch
+    import torch.distributed as dist
+    from paddle_tpu_torch.distributed import ProcessMesh
+    from paddle_tpu_torch.ops.ring_attention import (ring_attention,
+                                                     ulysses_attention)
+    n, r = dist.get_world_size(), dist.get_rank()
+    mesh = ProcessMesh(np.arange(n), ["sep"])
+
+    def chunk(a):
+        s = a.shape[1] // n
+        return torch.from_numpy(a[:, r * s:(r + 1) * s].copy())
+
+    def run(fn, arrays, cot, **kw):
+        ts = [chunk(a).requires_grad_() for a in arrays]
+        out = fn(*ts, mesh, **kw)
+        grads = torch.autograd.grad((out * chunk(cot)).sum(), ts)
+        return [out.detach().numpy()] + [g.numpy() for g in grads]
+
+    res = {"ring_causal": run(ring_attention, (q, k, v), ct, is_causal=True),
+           "ring_full": run(ring_attention, (q, k, v), ct, is_causal=False),
+           "ulysses": run(ulysses_attention, (qu, ku, vu), ctu,
+                          is_causal=True)}
+    errors = {}
+    for name, fn, a in (("ring_gqa", ring_attention,
+                         (q, k[:, :, :2], v[:, :, :2])),
+                        ("ulysses_heads", ulysses_attention, (q, k, v))):
+        try:
+            fn(*(chunk(x) for x in a), mesh)
+            errors[name] = None
+        except ValueError as e:
+            errors[name] = str(e)
+    res["errors"] = errors
+    return res
