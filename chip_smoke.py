@@ -239,6 +239,30 @@ no CUDA ``_weight_int8pack_mm``):
    each), ms of each beside the one-card ``sdpa``; a ring whose first
    rotation is skipped (a planted fault) must fail the row check.  Each
    part prints its wall seconds; the mode stops itself past 900 s.
+25. (run after phase 16, before the llama3_8b phases 17-22) the eager
+   Paddle API (``paddle_tpu_torch`` as ``paddle``: Tensor, autograd, the
+   op registry, ``nn.Layer``, ``optimizer.AdamW``), first printing the
+   bytes allocated on the card and its largest live tensors:
+   (25a) TinyLlama-1.1B at full width and depth (phase 15's config and
+   seeded weights) as a ``LlamaForCausalLM`` in bf16, 8 x 2048 without
+   recompute (halved for both paths, and said so, if that exceeds the
+   card's memory), 1 warm-up and 5 timed eager steps of
+   ``crit(model(ids), labels).backward(); opt.step(); opt.clear_grad()``:
+   K1, K2 dq and K2 dk/dv exactly 22 times a step each (the registry's
+   ``flash_attention`` op -> ``sdpa``), no attention plain version
+   called, a finite, falling loss; tokens/s, MFU, peak memory and a
+   profile of one step, and beside them the functional step's tokens/s
+   (``llama_hybrid.build_train_step(remat=False)``) on the same weights
+   and batch and the ratio of the two; (25b) f32 at 2 of its layers: the
+   Layer path on the card against the same on the CPU (the loss of each
+   of 2 AdamW steps and every param after them, and every grad of each
+   step against the CPU's at the card's params of that step, within
+   1e-4 relative), against
+   the functional path on the card (loss within 1e-5, grads within
+   1e-4), and a planted fault (AdamW without its bias correction) that
+   must fail the param check; (25c) greedy tokens of 4 prompts from
+   ``model.generate`` and ``create_engine(model)`` on the card equal to
+   the ``(state, config)`` forms on the card and to the CPU's.
 
 Every phase prints its wall seconds.
 
@@ -647,7 +671,8 @@ class Laps:
     def __call__(self, phase):
         now = time.perf_counter()
         emit({"phase": phase, "phase_wall_s": now - self.t,
-              "total_wall_s": now - self.t0})
+              "total_wall_s": now - self.t0,
+              "allocated_bytes": torch.cuda.memory_allocated()})
         self.t = now
 
 
@@ -4400,7 +4425,7 @@ def head_dim_entries(flash, k8, masked, routes, train15, serve16):
     the ``tinyllama_2048`` prefill and ``gemma2b_sft``; dq and dk/dv under
     intervals: ``tinyllama_sft``, ``gemma2b_sft``; the biased forward and
     dbias: ``alibi_d64``, ``alibi_d256``); launches from the main paths
-    that run them (phase 15's training for K1/K2 at d 64, phase 16's
+    that run them (phases 15 and 25a's training for K1/K2 at d 64, 16's
     prefills for the K8 forward at d 64), else from phase 3's ``sdpa``
     calls at that head dim (``kernel_routes``).  Library times as in
     :func:`flash_entries` and :func:`k8_entries`."""
@@ -6605,6 +6630,344 @@ def check_expert_sep(out, smi, n_cards):
                                     for r in per_rank]})
 
 
+# ------------------------------------------- phase 25: the eager Paddle API
+EAGER_STEPS = 5          # 25a's timed steps, after one warm-up
+EAGER_SEQ = 2048
+EAGER_BATCH = 8
+EAGER_PARITY_SEQ = 256   # 25b / 25c: f32, 2 layers of TinyLlama's width
+EAGER_LOSS_TOL = 1e-5    # 25b: the Layer path against the functional one
+EAGER_NEW = 16           # 25c: greedy tokens per prompt
+
+
+def layer_state_of(params) -> dict:
+    """A training param tree (``models/llama_hybrid``) under the Layer
+    model's state keys (``functional_state()``: ``llama.embed_tokens.
+    weight``, ...), the same tensors."""
+    names = {"input_ln": "input_layernorm.weight",
+             "q": "self_attn.q_proj.weight", "k": "self_attn.k_proj.weight",
+             "v": "self_attn.v_proj.weight", "o": "self_attn.o_proj.weight",
+             "post_ln": "post_attention_layernorm.weight",
+             "gate": "mlp.gate_proj.weight", "up": "mlp.up_proj.weight",
+             "down": "mlp.down_proj.weight"}
+    out = {"llama.embed_tokens.weight": params["embed"]}
+    for i, lp in enumerate(params["stages"]):
+        out.update({f"llama.layers.{i}.{names[k]}": t
+                    for k, t in lp.items()})
+    out["llama.norm.weight"] = params["norm"]
+    out["lm_head.weight"] = params["head"]
+    return out
+
+
+def eager_model(cfg, params, device):
+    """A ``LlamaForCausalLM`` built through the Paddle API on ``device``
+    ("cpu" or "gpu"), holding copies of the training tree's weights."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import llama as TL
+    prev = paddle.device._current
+    paddle.set_device(device)
+    try:
+        model = TL.LlamaForCausalLM(cfg)
+    finally:
+        paddle.device._current = prev
+    dev = "cpu" if device == "cpu" else "cuda"
+    model.load_functional_state({k: t.detach().to(dev, copy=True)
+                                 for k, t in layer_state_of(params).items()})
+    return model
+
+
+def eager_step(paddle, model, crit, opt, ids):
+    """One eager step through the Paddle API: the loss (a Tensor)."""
+    t_ids = paddle.Tensor(ids)
+    loss = crit(model(t_ids[:, :-1]), t_ids[:, 1:])
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss
+
+
+def eager_train(cfg, TH, FA, plain, batch, smi):
+    """25a at ``batch`` rows: the Layer path's timed steps (launches,
+    plain calls, losses, tokens/s, MFU, peak memory, a profile), then the
+    functional step's tokens/s on the same weights and batch."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import llama as TL
+    params, _ = TH.setup(cfg, seed=0, dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (batch, EAGER_SEQ + 1),
+                        device="cuda", generator=gen)
+    t0 = time.perf_counter()
+    model = eager_model(cfg, params, "gpu")
+    crit = TL.LlamaPretrainingCriterion()
+    opt = paddle.optimizer.AdamW(parameters=model.parameters())
+    n_params = sum(int(np.prod(p.shape)) for p in model.parameters())
+    eager_step(paddle, model, crit, opt, ids)                  # warm-up
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    FA.flash_mha.fwd_launches = 0
+    FA.flash_mha.dq_launches = 0
+    FA.flash_mha.dkv_launches = 0
+    plain0 = dict(plain)
+    t0 = time.perf_counter()
+    losses = [eager_step(paddle, model, crit, opt, ids)
+              for _ in range(EAGER_STEPS)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"flash_attention_fwd": FA.flash_mha.fwd_launches,
+                "flash_attention_bwd_dq": FA.flash_mha.dq_launches,
+                "flash_attention_bwd_dkv": FA.flash_mha.dkv_launches}
+    plain_calls = {k: n - plain0[k] for k, n in plain.items()}
+    losses = [float(x) for x in losses]
+    layers = cfg.num_hidden_layers
+    require(not any(plain_calls.values()),
+            f"25a: the eager steps called plain attention: {plain_calls}")
+    require(all(math.isfinite(x) for x in losses), f"25a loss {losses}")
+    require(losses[-1] < losses[0], f"25a: loss did not fall: {losses}")
+    want = {k: layers * EAGER_STEPS for k in launches}
+    require(launches == want, f"25a flash launches {launches} != {want}")
+    tps = batch * EAGER_SEQ * EAGER_STEPS / wall
+    attn_flops = 12 * layers * cfg.hidden_size * EAGER_SEQ
+    mfu = tps * (6 * n_params + attn_flops) / BF16_FLOPS_PER_S
+    profile_train(lambda *_: eager_step(paddle, model, crit, opt, ids),
+                  None, None, None, phase="25a")
+    del model, opt, crit
+    release()
+    # the functional step (phases 6 and 15's path, without recompute:
+    # the Layer path has none) on the same weights and batch
+    step = TH.build_train_step(cfg, remat=False)
+    fopt = TH.init_adamw(params)
+    loss, params, fopt = step(params, fopt, ids)                # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(EAGER_STEPS):
+        loss, params, fopt = step(params, fopt, ids)
+    torch.cuda.synchronize()
+    f_tps = batch * EAGER_SEQ * EAGER_STEPS / (time.perf_counter() - t0)
+    rec = {"phase": "25a", "card": smi, "params": n_params,
+           "batch": batch, "seq": EAGER_SEQ, "steps": EAGER_STEPS,
+           "remat": False, "setup_and_warmup_s": setup_s, "wall_s": wall,
+           "s_per_step": wall / EAGER_STEPS, "tokens_per_s": tps,
+           "mfu": mfu, "losses": losses, "launches": launches,
+           "plain_attention_calls": plain_calls,
+           "resident_bytes": resident, "peak_mem_bytes": peak,
+           "functional_tokens_per_s": f_tps,
+           "eager_over_functional": tps / f_tps}
+    emit(rec)
+    del params, fopt, step
+    release()
+    return launches
+
+
+def eager_parity(cfg, TH, smi):
+    """25b: f32 at 2 layers — the Layer path on the card against the same
+    on the CPU: the loss of each of 2 AdamW steps and every param after
+    them (two independent runs), and every grad of each step against the
+    CPU's grads at the card's params of that step (a CPU probe model
+    loaded with them: an AdamW step moves a near-zero gradient's element
+    by up to lr either way, so the second step of two independent runs
+    starts from params ~3e-5 apart, and their grads differ by more than
+    the kernels do — printed beside); against the functional path on the
+    card (loss, grads); and a planted fault (AdamW without its bias
+    correction) that must fail the param check.  Returns the card and
+    CPU models for 25c."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import llama as TL
+    from paddle_tpu_torch.optimizer import AdamW
+
+    class UncorrectedAdamW(AdamW):
+        """The planted fault: AdamW without its bias correction."""
+
+        def _update_param(self, p, g, lr):
+            x = self._param_f32(p)
+            if self._wd:
+                x = x * (1.0 - lr * self._wd)
+            m = self._beta1 * self._acc(p, "moment1") + (1 - self._beta1) * g
+            v = self._beta2 * self._acc(p, "moment2") \
+                + (1 - self._beta2) * torch.square(g)
+            self._set_acc(p, "moment1", m)
+            self._set_acc(p, "moment2", v)
+            self._write_back(p, x - lr * m / (torch.sqrt(v) + self._epsilon))
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params, _ = TH.setup(cfg, seed=1, dtype=torch.float32, device="cpu")
+    ids = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (1, EAGER_PARITY_SEQ + 1)).astype(np.int64))
+    crit = TL.LlamaPretrainingCriterion()
+
+    def grads_of(model, dev_ids):
+        t_ids = paddle.Tensor(dev_ids)
+        loss = crit(model(t_ids[:, :-1]), t_ids[:, 1:])
+        loss.backward()
+        return loss._data.detach().double().cpu(), {
+            n: p._grad_data().detach().clone()
+            for n, p in model.named_parameters()}
+
+    probe = eager_model(cfg, params, "cpu")
+    runs, models, probe_errs = {}, {}, []
+    for name, device, opt_cls in (("cuda", "gpu", AdamW),
+                                  ("cpu", "cpu", AdamW),
+                                  ("fault", "gpu", UncorrectedAdamW)):
+        model = eager_model(cfg, params, device)
+        opt = opt_cls(parameters=model.parameters())
+        dev_ids = ids.to("cpu" if device == "cpu" else "cuda")
+        losses, grads = [], []
+        t0 = time.perf_counter()
+        for _ in range(2):
+            if name == "cuda":      # the CPU's grads at these params
+                probe.load_functional_state({
+                    k: v.detach().cpu().clone()
+                    for k, v in model.functional_state().items()})
+                _, want = grads_of(probe, ids)
+                probe.clear_gradients()
+            loss, g = grads_of(model, dev_ids)
+            if name == "cuda":
+                probe_errs.append(max(dev_rel_norm(g[k], want[k].cuda())
+                                      for k in want))
+            losses.append(loss)
+            grads.append(g)
+            opt.step()
+            opt.clear_grad()
+        runs[name] = (losses, grads, {n: p._data.detach() for n, p
+                                      in model.named_parameters()},
+                      time.perf_counter() - t0)
+        if name != "fault":
+            models[name] = model
+    del probe
+    # the functional path at the same initial weights, on the card
+    cparams = TH.tree_map(lambda t: t.to("cuda", copy=True), params)
+    f_loss, f_grads = TH.value_and_grad(cparams, ids.cuda(), cfg, None,
+                                        remat=False)
+    f_grads = layer_state_of(f_grads)
+
+    def worst(a, b):
+        return max(dev_rel_norm(a[k].cuda(), b[k].cuda()) for k in b)
+
+    (gl, gg, gp, gs), (cl, cg, cp, cs) = runs["cuda"], runs["cpu"]
+    errs = {"loss": max(rel_norm(a, b) for a, b in zip(gl, cl)),
+            "grads": max(probe_errs), "params": worst(gp, cp)}
+    vs_fn = {"loss": rel_norm(gl[0], f_loss), "grads": worst(gg[0],
+                                                             f_grads)}
+    fault = worst(runs["fault"][2], cp)
+    emit({"phase": "25b", "card": smi, "layers": cfg.num_hidden_layers,
+          "dtype": "float32", "seq": EAGER_PARITY_SEQ, "steps": 2,
+          "card_vs_cpu": errs, "grads_by_step": probe_errs,
+          "independent_runs_grads_by_step": [worst(a, b)
+                                             for a, b in zip(gg, cg)],
+          "tol": PARITY_TOL, "layer_vs_functional": vs_fn,
+          "loss_tol": EAGER_LOSS_TOL, "fault_params": fault,
+          "loss_cuda": [float(x) for x in gl],
+          "loss_cpu": [float(x) for x in cl], "cuda_s": gs, "cpu_s": cs})
+    for key, err in errs.items():
+        require(err <= PARITY_TOL, f"25b card vs CPU {key}: {err}")
+    require(vs_fn["loss"] <= EAGER_LOSS_TOL,
+            f"25b Layer vs functional loss: {vs_fn['loss']}")
+    require(vs_fn["grads"] <= PARITY_TOL,
+            f"25b Layer vs functional grads: {vs_fn['grads']}")
+    require(fault > PARITY_TOL,
+            f"25b: the planted fault passed the param check ({fault})")
+    return models
+
+
+def eager_serving(models, smi):
+    """25c: greedy tokens of 4 prompts from the model forms —
+    ``model.generate`` and ``create_engine(model)`` on the card — equal
+    to the ``(state, config)`` forms on the card and to the CPU's."""
+    from paddle_tpu_torch.models import generation as G
+    from paddle_tpu_torch.serving import GenerationConfig, create_engine
+    card, cpu = models["cuda"], models["cpu"]
+    cfg = card.config
+    prompts = np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (4, 32)).astype(np.int64)
+
+    def engine_tokens(engine):
+        reqs = [engine.submit(p.tolist(),
+                              GenerationConfig(max_new_tokens=EAGER_NEW))
+                for p in prompts]
+        while engine.scheduler.has_work():
+            engine.step()
+        return [r.output_tokens for r in reqs]
+
+    kw = dict(max_slots=4, page_size=64)
+    out = {
+        "generate_model": card.generate(prompts, max_new_tokens=EAGER_NEW),
+        "generate_state": G.generate(card.functional_state(), cfg, prompts,
+                                     max_new_tokens=EAGER_NEW),
+        "generate_cpu": cpu.generate(prompts, max_new_tokens=EAGER_NEW),
+    }
+    out = {k: v.cpu().numpy()[:, prompts.shape[1]:].tolist()
+           for k, v in out.items()}
+    out["engine_model"] = engine_tokens(create_engine(card, **kw))
+    out["engine_state"] = engine_tokens(create_engine(
+        cfg, card.functional_state(), **kw))
+    out["engine_cpu"] = engine_tokens(create_engine(cpu, **kw))
+    # each form against the CPU's run of the same entry point
+    same = {k: v == out[k.split("_")[0] + "_cpu"] for k, v in out.items()}
+    emit({"phase": "25c", "card": smi, "prompts": len(prompts),
+          "new_tokens": EAGER_NEW, "equal_to_cpu": same,
+          "generate_equals_engine": out["generate_cpu"]
+          == out["engine_cpu"]})
+    require(all(same.values()), f"25c tokens differ: {same}")
+
+
+def live_cuda_tensors(top=6):
+    """The largest CUDA tensors alive (found by ``gc``) with the types of
+    what holds them, two levels up: what earlier phases left on the
+    card."""
+    found = [o for o in gc.get_objects()
+             if isinstance(o, torch.Tensor) and o.is_cuda]
+    found.sort(key=lambda t: -t.numel() * t.element_size())
+    out = []
+    for t in found[:top]:
+        holders = []
+        for r in gc.get_referrers(t):
+            if r is found:
+                continue
+            up = [type(u).__name__ for u in gc.get_referrers(r)
+                  if u is not found][:3]
+            holders.append(f"{type(r).__name__}<-{','.join(up)}")
+        out.append([list(t.shape), str(t.dtype),
+                    t.numel() * t.element_size(), holders[:3]])
+    del found
+    return out
+
+
+def phase_eager(LlamaConfig, TH, FA, FM, smi):
+    """Phase 25: the eager Paddle API on the card (see the module
+    docstring).  Returns 25a's K1/K2 launches."""
+    t0 = time.perf_counter()
+    emit({"phase": 25, "allocated_at_start": torch.cuda.memory_allocated(),
+          "largest_live": live_cuda_tensors()})
+    cfg = tinyllama_config(LlamaConfig)
+    plain, restore = count_plain_calls(FA, FM)
+    try:
+        launches = None
+        try:
+            launches = eager_train(cfg, TH, FA, plain, EAGER_BATCH, smi)
+        except torch.cuda.OutOfMemoryError:
+            pass            # retried below, once the failed frames are gone
+        if launches is None:
+            release()
+            emit({"phase": "25a", "note": f"batch {EAGER_BATCH} x "
+                  f"{EAGER_SEQ} without recompute exceeds the card's "
+                  f"memory: both paths take batch {EAGER_BATCH // 2}"})
+            launches = eager_train(cfg, TH, FA, plain, EAGER_BATCH // 2,
+                                   smi)
+    finally:
+        restore()
+    release()
+    models = eager_parity(tinyllama_config(
+        LlamaConfig, num_hidden_layers=2, dtype="float32"), TH, smi)
+    release()
+    eager_serving(models, smi)
+    del models
+    release()
+    emit({"phase": 25, "wall_s": time.perf_counter() - t0})
+    return launches
+
+
 def main_expert_sep() -> int:
     """``python3 chip_smoke.py expert-sep``: phase 24, on a machine with
     four cards."""
@@ -6940,6 +7303,15 @@ def main() -> int:
     release()
     laps(16)
 
+    # phase 25 (run here, beside TinyLlama's phases 15-16, before the
+    # llama3_8b phases 17-22): the eager Paddle API, TinyLlama-1.1B as an
+    # nn.Layer trained by the port's AdamW (K1/K2 at d 64 through the
+    # registry's flash_attention op), its f32 parity, serving from it
+    eager = phase_eager(LlamaConfig, TH, FA, FM, smi)
+    tiny_train = {k: tiny_train[k] + eager[k] for k in tiny_train}
+    release()
+    laps(25)
+
     # phases 17-18: the serving engine's speculative decoding and
     # preemption at llama3_8b full width and depth, on one state
     gen8b = torch.Generator(device="cuda").manual_seed(0)
@@ -6990,6 +7362,7 @@ def main() -> int:
     emit({"phase": 24, "ran": False, "cards": torch.cuda.device_count(),
           "why": "expert and context parallelism take four cards: "
                  "python3 chip_smoke.py expert-sep"})
+
 
     rep = masked[1]     # the 2048 bucket: the longest prompts of phase 4
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

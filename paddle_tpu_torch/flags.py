@@ -267,3 +267,13 @@ define_flag("FLAGS_sanitizer", False,
             "and lockset-empty shared accesses (Eraser-style), and "
             "export a lock-wait graph for watchdog hang dumps; zero "
             "overhead when off (plain threading primitives)")
+
+
+# Core flags the eager Paddle API reads (same names, defaults and help
+# texts as the reference).
+define_flag("FLAGS_check_nan_inf", False, "check op outputs for nan/inf")
+define_flag("FLAGS_check_nan_inf_level", 0, "0: abort on nan/inf; 3: log only")
+define_flag("FLAGS_strict_view_semantics", False,
+            "error on in-place mutation with live views (the aliasing "
+            "policy divergence becomes loud; README 'Compatibility "
+            "policy')")

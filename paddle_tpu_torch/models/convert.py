@@ -17,6 +17,8 @@ carry it to and from the reference's ``[L, ...]``-stacked tree.
 :func:`shard_serving_state` cuts a serving state into one tensor-parallel
 rank's shard, and :func:`shard_serving_adapter` an adapter into that
 rank's bank rows (the reference's ``serving/parallel/runner.py`` rule).
+:func:`layer_state_from_numpy` loads a reference ``Layer.state_dict()``
+(as numpy) into a port ``nn.Layer`` with the same keys.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from .llama import LlamaConfig
 
 __all__ = ["adapter_from_numpy", "check_serving_shardable",
            "hybrid_params_from_numpy", "hybrid_params_to_numpy",
-           "init_state", "moe_params_from_numpy", "moe_params_to_numpy",
+           "init_state", "layer_state_from_numpy", "moe_params_from_numpy", "moe_params_to_numpy",
            "serving_shard_axis", "shard_serving_adapter",
            "shard_serving_leaf", "shard_serving_state", "state_from_numpy"]
 
@@ -69,6 +71,29 @@ def state_from_numpy(np_state: dict, device=None, dtype=None) -> dict:
             t = t.to(dtype)
         out[k] = t.to(dev)
     return out
+
+
+def layer_state_from_numpy(model, np_state: dict, strict=True):
+    """Load ``np_state`` — a reference ``Layer.state_dict()`` as numpy,
+    e.g. ``{k: np.asarray(v._data) for k, v in
+    ref_model.state_dict().items()}`` — into the port Layer ``model``:
+    every entry is cast to its parameter's dtype and put on its device
+    (bf16 arrays keep their bits).  ``strict`` raises KeyError when the
+    keys differ; otherwise returns ``(missing, unexpected)``."""
+    own = model.state_dict()
+    missing = [k for k in own if k not in np_state]
+    unexpected = [k for k in np_state if k not in own]
+    if strict and (missing or unexpected):
+        raise KeyError(f"state keys differ: missing {missing}, "
+                       f"unexpected {unexpected}")
+    for k, t in own.items():
+        if k in np_state:
+            a = np_state[k]
+            if list(np.shape(a)) != t.shape:
+                raise ValueError(f"shape mismatch for {k}: "
+                                 f"{list(np.shape(a))} vs {t.shape}")
+            t.set_value(_to_tensor(a))
+    return missing, unexpected
 
 
 def adapter_from_numpy(weights: dict) -> dict:

@@ -65,7 +65,8 @@ from ..ops.pallas.quant_matmul import QuantizedWeight, weight_only_matmul
 from .llama import MATMUL_KEYS, LlamaConfig, _rms, _rope_tables, _rotate_half
 
 __all__ = ["GenerationConfig", "build_generate_fn", "build_generate_fn_beam",
-           "build_generate_fn_paged", "generate", "quantize_state"]
+           "build_generate_fn_paged", "generate", "generate_from_state",
+           "quantize_state"]
 
 
 @dataclass
@@ -660,14 +661,38 @@ def _check_state_device(state, dev):
                 f"{t.device}; move the state there first")
 
 
+def generate(model_or_state, *args, **kwargs):
+    """User entry, in the reference's form ``generate(model, input_ids,
+    max_new_tokens=64, ...)`` — ``model`` a ``LlamaForCausalLM`` (any
+    ``nn.Layer`` with ``config`` and ``functional_state()``), which runs
+    on its parameters' device unless ``device`` says otherwise — or in
+    the state form ``generate(state, config, input_ids, ...)`` of
+    :func:`generate_from_state`.  The two are told apart by the first
+    argument: a Layer has ``functional_state``, a state dict does not.
+    ``input_ids`` and ``lengths`` may be Tensor handles."""
+    if not hasattr(model_or_state, "functional_state"):
+        return generate_from_state(model_or_state, *args, **kwargs)
+    model = model_or_state
+    input_ids, rest = (args[0], args[1:]) if args else \
+        (kwargs.pop("input_ids"), ())
+    state = model.functional_state()
+    kwargs.setdefault("device", next(iter(state.values())).device)
+    unwrap = (lambda x: getattr(x, "_data", x))
+    if "lengths" in kwargs:
+        kwargs["lengths"] = unwrap(kwargs["lengths"])
+    return generate_from_state(state, model.config, unwrap(input_ids),
+                               *rest, **kwargs)
+
+
 @torch.no_grad()
-def generate(state, config: LlamaConfig, input_ids, max_new_tokens=64,
-             do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
-             eos_token_id=None, pad_token_id=0, seed=0, lengths=None,
-             cache="dense", page_size=128, weight_quant=None, num_beams=1,
-             device=None):
-    """User entry: ``state`` is a llama state dict (``models/convert``)
-    with ``config``; ``input_ids`` [B, S] (right-padded if ``lengths``
+def generate_from_state(state, config: LlamaConfig, input_ids,
+                        max_new_tokens=64, do_sample=False, temperature=1.0,
+                        top_k=0, top_p=1.0, eos_token_id=None,
+                        pad_token_id=0, seed=0, lengths=None, cache="dense",
+                        page_size=128, weight_quant=None, num_beams=1,
+                        device=None):
+    """``state`` is a llama state dict (``models/convert``) with
+    ``config``; ``input_ids`` [B, S] (right-padded if ``lengths``
     is given; new tokens overwrite the padded slots in the cache).
     Returns int64 ids [B, S + max_new_tokens] on ``device`` (default
     CUDA; the state must already lie there).
@@ -678,8 +703,7 @@ def generate(state, config: LlamaConfig, input_ids, max_new_tokens=64,
     ("int8" | "int4") runs every matmul, fused q/k/v and gate/up and
     ``lm_head`` through the K4 GEMV.  ``num_beams > 1`` runs beam search
     with the dense cache.  ``do_sample`` draws from ``torch.Generator``
-    seeded with ``seed``.  The reference takes a ``LlamaForCausalLM``
-    where this takes ``state`` and ``config``."""
+    seeded with ``seed``."""
     dev = resolve_device(device)
     _check_state_device(state, dev)
     if isinstance(input_ids, torch.Tensor):

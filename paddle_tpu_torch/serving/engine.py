@@ -162,9 +162,15 @@ class Engine:
     ``table_width`` pages per sequence, ``num_pages (+ dump)`` pool rows,
     ``sync_interval`` ring rows.  Everything per-request is data.
     ``device=None`` runs on CUDA and raises when there is no card.
+
+    Built from a ``model`` (a ``LlamaForCausalLM``: its ``config`` and
+    ``functional_state()``, served on its parameters' device unless
+    ``device`` says otherwise), as the reference's is, or from
+    ``config=`` and ``state=``.
     """
 
-    def __init__(self, *, config: LlamaConfig, state: dict, device=None,
+    def __init__(self, model=None, *, config: LlamaConfig = None,
+                 state: dict | None = None, device=None,
                  max_slots: int = 4, page_size: int = 64,
                  num_pages: int | None = None,
                  max_model_len: int | None = None,
@@ -177,6 +183,12 @@ class Engine:
                  quant: str | None = None, kv_quant: bool | None = None,
                  lora=None, slo=None, usage=None, requestlog=None,
                  mesh=None):
+        if model is not None:
+            config, state = model.config, model.functional_state()
+            if device is None:
+                device = next(iter(state.values())).device
+        if config is None or state is None:
+            raise ValueError("pass a model, or both config= and state=")
         # the mesh first: a tp that does not divide the heads and the FFN
         # width is refused before anything is built
         if mesh is None:
@@ -1684,7 +1696,8 @@ def _pages_buckets(num_pages):
     return tuple(float(e) for e in edges)
 
 
-def create_engine(config: LlamaConfig, state: dict, *, device=None,
+def create_engine(model_or_config, state: dict | None = None, *,
+                  device=None,
                   max_slots: int = 4, page_size: int = 64,
                   num_pages: int | None = None,
                   max_model_len: int | None = None,
@@ -1697,9 +1710,15 @@ def create_engine(config: LlamaConfig, state: dict, *, device=None,
                   quant: str | None = None, kv_quant: bool | None = None,
                   lora=None, slo=None, usage=None, requestlog=None,
                   mesh=None) -> Engine:
-    """Build a continuous-batching engine over a Llama state dict (see
-    ``models/convert.py``: :func:`state_from_numpy` carries the JAX
-    package's weights over, :func:`init_state` makes random ones).
+    """Build a continuous-batching engine over a ``LlamaForCausalLM``
+    (``create_engine(model)``, the reference's form: its ``config`` and
+    ``functional_state()``, on its parameters' device unless ``device``
+    says otherwise) or over a config and a Llama state dict
+    (``create_engine(config, state)``; see ``models/convert.py``:
+    :func:`state_from_numpy` carries the JAX package's weights over,
+    :func:`init_state` makes random ones).  The two are told apart by
+    the first argument: a Layer has ``functional_state``, a config does
+    not.
 
     ``device=None`` runs on CUDA (and raises without a card);
     ``device="cpu"`` runs every kernel's plain PyTorch version.
@@ -1737,7 +1756,13 @@ def create_engine(config: LlamaConfig, state: dict, *, device=None,
         for tok in req.stream():
             ...
     """
-    return Engine(config=config, state=state, device=device,
+    if hasattr(model_or_config, "functional_state"):
+        if state is not None:
+            raise ValueError("create_engine(model) takes no state")
+        model, config = model_or_config, None
+    else:
+        model, config = None, model_or_config
+    return Engine(model, config=config, state=state, device=device,
                   max_slots=max_slots, page_size=page_size,
                   num_pages=num_pages, max_model_len=max_model_len,
                   emit_logits=emit_logits,

@@ -1249,7 +1249,8 @@ class _Handler(BaseHTTPRequestHandler):
             pass
 
 
-def serve(config=None, state=None, *, engine: Engine | None = None,
+def serve(config=None, state=None, *, model=None,
+          engine: Engine | None = None,
           host: str = "127.0.0.1", port: int = 0, max_queue: int = 64,
           retry_after_s: float = 1.0, model_name: str = "paddle-tpu-torch",
           watchdog_s: float | None = None,
@@ -1262,10 +1263,13 @@ def serve(config=None, state=None, *, engine: Engine | None = None,
                        enable_prefix_cache=True)
         print("listening on", server.address)
 
-    Pass either ``config`` and ``state`` (a Llama config and its state
-    dict; ``engine_kw`` forwards to
-    :func:`~paddle_tpu_torch.serving.create_engine`, whose ``device=None``
-    runs on CUDA) or a prebuilt ``engine=``.  With ``start=False`` the
+    Pass a ``model`` (a ``LlamaForCausalLM``, as the reference's
+    ``serve(model)``: served on its parameters' device), or ``config``
+    and ``state`` (a Llama config and its state dict; ``engine_kw``
+    forwards to :func:`~paddle_tpu_torch.serving.create_engine`, whose
+    ``device=None`` runs on CUDA), or a prebuilt ``engine=``.  A model
+    passed first (``serve(model)``) is told from a config by its
+    ``functional_state``.  With ``start=False`` the
     caller wires signals and starts the server itself.  ``watchdog_s``
     arms the decode-loop watchdog (default:
     ``FLAGS_serving_watchdog_seconds``; 0 off), ``timeseries_interval_s``
@@ -1280,9 +1284,13 @@ def serve(config=None, state=None, *, engine: Engine | None = None,
     ``FLAGS_serving_usage_meter`` and a request log under
     ``FLAGS_serving_request_log``).
     """
+    if hasattr(config, "functional_state"):
+        model, config = config, None
+    if model is not None and (config is not None or state is not None):
+        raise ValueError("pass model=, or config= and state=, not both")
     if engine is None:
-        if config is None or state is None:
-            raise ValueError("pass config= and state=, or engine=")
+        if model is None and (config is None or state is None):
+            raise ValueError("pass model=, config= and state=, or engine=")
         from .engine import create_engine
         if "slo" not in engine_kw:
             from .slo import SLOConfig, SLOTracker
@@ -1299,10 +1307,13 @@ def serve(config=None, state=None, *, engine: Engine | None = None,
             from ..observability.requestlog import RequestLog
             engine_kw["requestlog"] = RequestLog(
                 k=int(FLAGS.get("FLAGS_serving_exemplars_k") or 8))
-        engine = create_engine(config, state, **engine_kw)
-    elif config is not None or state is not None or engine_kw:
+        engine = create_engine(model, **engine_kw) if model is not None \
+            else create_engine(config, state, **engine_kw)
+    elif config is not None or state is not None or model is not None \
+            or engine_kw:
         extra = sorted(engine_kw) + [n for n, v in (("config", config),
-                                                    ("state", state))
+                                                    ("state", state),
+                                                    ("model", model))
                                      if v is not None]
         raise ValueError(f"engine= given; unexpected {sorted(extra)}")
     worker = EngineWorker(engine, max_queue=max_queue)

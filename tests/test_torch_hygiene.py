@@ -80,7 +80,29 @@ def test_import_leaves_jax_unloaded():
             "paddle_tpu_torch.distributed.mp_ops, "
             "paddle_tpu_torch.distributed.pipelining, "
             "paddle_tpu_torch.distributed.pipeline_schedules, "
-            "paddle_tpu_torch.ops.ring_attention; "
+            "paddle_tpu_torch.ops.ring_attention, "
+            "paddle_tpu_torch.framework.dtype, "
+            "paddle_tpu_torch.framework.random, "
+            "paddle_tpu_torch.framework.tensor, "
+            "paddle_tpu_torch.framework.tensor_methods, "
+            "paddle_tpu_torch.device, paddle_tpu_torch.autograd.tape, "
+            "paddle_tpu_torch.autograd.functional, "
+            "paddle_tpu_torch.autograd.py_layer, "
+            "paddle_tpu_torch.amp.auto_cast, "
+            "paddle_tpu_torch.profiler.statistic, "
+            "paddle_tpu_torch.ops.registry, paddle_tpu_torch.ops.math, "
+            "paddle_tpu_torch.ops.reduction, "
+            "paddle_tpu_torch.ops.manipulation, "
+            "paddle_tpu_torch.ops.creation, "
+            "paddle_tpu_torch.ops.comparison, "
+            "paddle_tpu_torch.ops.indexing, paddle_tpu_torch.nn.layer, "
+            "paddle_tpu_torch.nn.initializer, "
+            "paddle_tpu_torch.nn.functional, "
+            "paddle_tpu_torch.nn.layer_common, "
+            "paddle_tpu_torch.nn.layer_norm, paddle_tpu_torch.nn.clip, "
+            "paddle_tpu_torch.optimizer.optimizer, "
+            "paddle_tpu_torch.optimizer.optimizers, "
+            "paddle_tpu_torch.optimizer.lr, paddle_tpu_torch.models.llama; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

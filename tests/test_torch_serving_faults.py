@@ -102,8 +102,8 @@ def test_flags_are_the_reference_flags_the_port_reads():
     from paddle_tpu.flags import _DEFS as JDEFS
     from paddle_tpu_torch.flags import _DEFS, set_flags
     # the serving engine's 10, and the front end's, the observability
-    # stack's and the sanitizer's 24
-    assert len(_DEFS) == 34
+    # stack's and the sanitizer's 24, and the eager Paddle API's 3
+    assert len(_DEFS) == 37
     for name in ("FLAGS_serving_slo_ttft_ms", "FLAGS_serving_slo_tpot_ms",
                  "FLAGS_serving_slo_e2e_ms", "FLAGS_serving_slo_objective",
                  "FLAGS_serving_shed_burn_rate",
@@ -119,7 +119,9 @@ def test_flags_are_the_reference_flags_the_port_reads():
                  "FLAGS_obs_capture_min_interval_s", "FLAGS_obs_capture_max",
                  "FLAGS_metrics_dir", "FLAGS_trace_buffer_size",
                  "FLAGS_flight_recorder_size", "FLAGS_resource_peak_tflops",
-                 "FLAGS_resource_memory_poll_steps", "FLAGS_sanitizer"):
+                 "FLAGS_resource_memory_poll_steps", "FLAGS_sanitizer",
+                 "FLAGS_check_nan_inf", "FLAGS_check_nan_inf_level",
+                 "FLAGS_strict_view_semantics"):
         assert name in _DEFS, name
     for name, (t, default, _) in _DEFS.items():
         assert JDEFS[name][:2] == (t, default), name
