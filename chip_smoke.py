@@ -263,6 +263,35 @@ no CUDA ``_weight_int8pack_mm``):
    must fail the param check; (25c) greedy tokens of 4 prompts from
    ``model.generate`` and ``create_engine(model)`` on the card equal to
    the ``(state, config)`` forms on the card and to the CPU's.
+26. (run after phase 25, before phase 17) the reference bench's LeNet,
+   ResNet50 and BERT rungs through the public API
+   (``paddle_tpu_torch.jit.train_step``, ``vision.models``,
+   ``models.bert``): (26a) ``bench_lenet``: LeNet at batch 64 x 1 x 28²,
+   SGD lr 0.01, f32, 3 warm-up steps, then 30 eager steps and 30
+   ``train_step`` steps from the same seeded model: steps/s of each and
+   their ratio, the loss falling on both; (26b) ``bench_resnet50``:
+   128 x 3 x 224², 1000 classes, ``amp.auto_cast`` O1 in bf16,
+   ``Momentum(0.1, 0.9)``, ``train_step(...).multi_step(10)``, a warm-up
+   call and the best of 2 timed calls: images/s, MFU by the bench's
+   count (3 x 4.1 GFLOP an image over 989 TFLOP/s), peak memory, the
+   loss, and one profiled step's device time by group (cuDNN
+   convolutions, batch norms, elementwise) with its top kernels and
+   idle share; (26c) ``bench_bert``: ``BertConfig()`` (BERT-base: 12
+   layers, 12 heads of 64) at 32 x 384, O1 in bf16, ``AdamW(3e-5)``,
+   ``multi_step(10)``, 2 warm-up calls and 3 timed ones: examples/s, MFU
+   by ``bench.py:272-274``, exactly 12 launches each of K1, K2 dq and K2
+   dk/dv a step (not causal, d 64) and no call of an attention plain
+   version, and a profiled step; (26d) f32, the card against the port on
+   the CPU on the same weights: the output, loss and every grad of one
+   eager step, then every param and BatchNorm buffer after 2
+   ``train_step`` steps, within 1e-4 relative, for LeNet (batch 64), the
+   whole ResNet50 (2 x 3 x 64 x 64) and BERT at base width with 2 layers
+   (2 x 384); TF32 off for matmuls and cuDNN and put back after; a
+   planted fault (BatchNorm stepped with torch's momentum number, 0.1,
+   in place of Paddle's 0.9) must fail the buffers' check.  Phase 3
+   holds K1/K2 not causal at BERT-base's attention (``bert_base``: b 32,
+   12/12 heads, s 384, d 64) as it holds the causal rows; the kernels
+   line's ``*_d64_noncausal`` entries take its times and 26c's launches.
 
 Every phase prints its wall seconds.
 
@@ -1243,10 +1272,11 @@ def window_backward(FA, FM, gen, q, k, v, out, lse, vecs, pairs):
             "tiles": tiles}
 
 
-def phase_flash(FA, gen, name, B, H, kvh, sq, sk, D):
+def phase_flash(FA, gen, name, B, H, kvh, sq, sk, D, causal=True):
     """K1 forward and the K2 dq and dk/dv kernels against their plain
-    versions in bf16, causal, on [B, S, H, D] tensors passed as the
-    transposed views ``sdpa`` hands over.  The backward kernels and
+    versions in bf16, causal unless told otherwise (BERT's attention is
+    not), on [B, S, H, D] tensors passed as the transposed views ``sdpa``
+    hands over.  The backward kernels and
     their plain versions take the same (q, k, v, out, lse, dout): the
     kernel forward's out and lse.  Two runs must give the same bits."""
     dev, dt = "cuda", torch.bfloat16
@@ -1254,21 +1284,21 @@ def phase_flash(FA, gen, name, B, H, kvh, sq, sk, D):
     q, k, v, do = (torch.randn(B, s, n, D, device=dev, generator=gen)
                    .to(dt).transpose(1, 2)
                    for s, n in ((sq, H), (sk, kvh), (sk, kvh), (sq, H)))
-    out, lse = FA._flash_fwd(q, k, v, True, scale)
-    dq, delta = FA._flash_bwd_dq(q, k, v, out, lse, do, True, scale)
-    dk, dv = FA._flash_bwd_dkv(q, k, v, lse, delta, do, True, scale)
+    out, lse = FA._flash_fwd(q, k, v, causal, scale)
+    dq, delta = FA._flash_bwd_dq(q, k, v, out, lse, do, causal, scale)
+    dk, dv = FA._flash_bwd_dkv(q, k, v, lse, delta, do, causal, scale)
     torch.cuda.synchronize()
     errs, rows = {}, {}
-    ref, ref_lse = FA._flash_fwd_xla(q, k, v, True, scale)
+    ref, ref_lse = FA._flash_fwd_xla(q, k, v, causal, scale)
     live = ref_lse != FA.LSE_INVALID                 # rows that see a key
     require(bool((lse[~live] == FA.LSE_INVALID).all()),
             f"flash fwd {name}: rows with no key must get LSE_INVALID")
     rows["out"] = row_rel_err(out, ref)
     errs["out"] = (out.float() - ref.float()).abs().max().item()
-    ref_dq = FA._flash_bwd_dq_xla(q, k, v, out, lse, do, True, scale)
+    ref_dq = FA._flash_bwd_dq_xla(q, k, v, out, lse, do, causal, scale)
     rows["dq"] = grad_row_err(dq, ref_dq)
     errs["dq"] = (dq.float() - ref_dq.float()).abs().max().item()
-    ref_dk, ref_dv = FA._flash_bwd_dkv_xla(q, k, v, out, lse, do, True,
+    ref_dk, ref_dv = FA._flash_bwd_dkv_xla(q, k, v, out, lse, do, causal,
                                            scale)
     for key, got, want in (("dk", dk, ref_dk), ("dv", dv, ref_dv)):
         rows[key] = grad_row_err(got, want)
@@ -1277,18 +1307,24 @@ def phase_flash(FA, gen, name, B, H, kvh, sq, sk, D):
     for key, err in row_err.items():
         require(err <= ROW_TOL, f"flash {key} kernel vs plain at {name}: "
                 f"row error {err} > {ROW_TOL}")
-    again = (*FA._flash_fwd(q, k, v, True, scale),
-             *FA._flash_bwd_dq(q, k, v, out, lse, do, True, scale),
-             *FA._flash_bwd_dkv(q, k, v, lse, delta, do, True, scale))
+    again = (*FA._flash_fwd(q, k, v, causal, scale),
+             *FA._flash_bwd_dq(q, k, v, out, lse, do, causal, scale),
+             *FA._flash_bwd_dkv(q, k, v, lse, delta, do, causal, scale))
     require(all(torch.equal(a, b) for a, b in zip(
         again, (out, lse, dq, delta, dk, dv))),
         f"flash kernels at {name}: two runs differ")
     del again
-    # planted fault: every kernel told 64 keys fewer than there are
+    # planted fault: every kernel told 64 keys fewer than there are.  Not
+    # causal, the kept keys' probabilities move only through the lse, so
+    # there the backward takes the faulty forward's out and lse (causal,
+    # the shorter key axis moves every row's visible keys already)
     kf, vf = k[:, :, :-FAULT_KEYS], v[:, :, :-FAULT_KEYS]
-    f_out, _ = FA._flash_fwd(q, kf, vf, True, scale)
-    f_dq, f_delta = FA._flash_bwd_dq(q, kf, vf, out, lse, do, True, scale)
-    f_dk, f_dv = FA._flash_bwd_dkv(q, kf, vf, lse, f_delta, do, True, scale)
+    f_out, f_lse = FA._flash_fwd(q, kf, vf, causal, scale)
+    b_out, b_lse = (out, lse) if causal else (f_out, f_lse)
+    f_dq, f_delta = FA._flash_bwd_dq(q, kf, vf, b_out, b_lse, do, causal,
+                                     scale)
+    f_dk, f_dv = FA._flash_bwd_dkv(q, kf, vf, b_lse, f_delta, do, causal,
+                                   scale)
     # a row that sees one key has dq = 0 (ds = p (dp - delta), delta =
     # dp): the dq check covers the rows that see two or more
     multi = (torch.arange(sq, device=dev) + (sk - sq) >= 1)[None, None]
@@ -1300,7 +1336,8 @@ def phase_flash(FA, gen, name, B, H, kvh, sq, sk, D):
     fault = {key: r.min().item() for key, r in fault_rows.items()}
     caught = {key: (r > ROW_TOL).float().mean().item()
               for key, r in fault_rows.items()}
-    del ref, ref_dq, ref_dk, ref_dv, f_out, f_dq, f_dk, f_dv, fault_rows
+    del ref, ref_dq, ref_dk, ref_dv, f_out, f_lse, f_dq, f_dk, f_dv
+    del fault_rows, b_out, b_lse
     # every output row must see the fault; a gradient row sums over all
     # the rows (or keys) it meets, so losing 64 of ~8000 terms moves a
     # few rows in 10^5 by less than the limit: 99 % of them must fail
@@ -1312,35 +1349,38 @@ def phase_flash(FA, gen, name, B, H, kvh, sq, sk, D):
                 f"keys dropped) failed the flash {key} check at {name} on "
                 f"only {caught[key]:.4f} of the rows (< {FAULT_SHARE})")
 
-    ms = {"fwd": cuda_ms(lambda: FA._flash_fwd(q, k, v, True, scale)),
-          "dq": cuda_ms(lambda: FA._flash_bwd_dq(q, k, v, out, lse, do, True,
-                                                 scale)),
+    ms = {"fwd": cuda_ms(lambda: FA._flash_fwd(q, k, v, causal, scale)),
+          "dq": cuda_ms(lambda: FA._flash_bwd_dq(q, k, v, out, lse, do,
+                                                 causal, scale)),
           "dkv": cuda_ms(lambda: FA._flash_bwd_dkv(q, k, v, lse, delta, do,
-                                                   True, scale))}
-    plain = {"fwd": cuda_ms(lambda: FA._flash_fwd_xla(q, k, v, True, scale),
+                                                   causal, scale))}
+    plain = {"fwd": cuda_ms(lambda: FA._flash_fwd_xla(q, k, v, causal,
+                                                      scale),
                             iters=3, warmup=1),
              "dq": cuda_ms(lambda: FA._flash_bwd_dq_xla(
-                 q, k, v, out, lse, do, True, scale), iters=3, warmup=1),
+                 q, k, v, out, lse, do, causal, scale), iters=3, warmup=1),
              "dkv": cuda_ms(lambda: FA._flash_bwd_dkv_xla(
-                 q, k, v, out, lse, do, True, scale), iters=3, warmup=1)}
+                 q, k, v, out, lse, do, causal, scale), iters=3, warmup=1)}
     # yardstick: one scaled_dot_product_attention call (never on the
-    # port's path), bottom-right causal; forward, and forward + backward
+    # port's path), bottom-right causal where the row is; forward, and
+    # forward + backward
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    mask = None if sq == sk else torch.ones(
+    mask = None if sq == sk or not causal else torch.ones(
         sq, sk, dtype=torch.bool, device=dev).tril(sk - sq)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
 
     def lib_fwd():
-        return sdpa(q, k, v, attn_mask=mask, is_causal=mask is None,
-                    scale=scale, enable_gqa=kvh != H)
+        return sdpa(q, k, v, attn_mask=mask,
+                    is_causal=causal and mask is None, scale=scale,
+                    enable_gqa=kvh != H)
 
     def lib_fwd_bwd():
-        o = sdpa(*leaves, attn_mask=mask, is_causal=mask is None,
+        o = sdpa(*leaves, attn_mask=mask, is_causal=causal and mask is None,
                  scale=scale, enable_gqa=kvh != H)
         torch.autograd.grad(o, leaves, do)
 
     library = {"fwd": cuda_ms(lib_fwd), "fwd_bwd": cuda_ms(lib_fwd_bwd)}
-    pairs = visible_pairs(sq, sk) * B * H
+    pairs = (visible_pairs(sq, sk) if causal else sq * sk) * B * H
     item = 2
     n_q, n_kv = B * H * sq * D, B * kvh * sk * D
     rows_f32 = B * H * sq * 4                            # lse or delta
@@ -1352,7 +1392,7 @@ def phase_flash(FA, gen, name, B, H, kvh, sq, sk, D):
                      8 * pairs * D)}
     shape = {"kernel": "flash_attention", "shape": name, "dtype": "bfloat16",
              "B": B, "H": H, "kvh": kvh, "D": D, "sq": sq, "sk": sk,
-             "causal": True, "dead_rows": int((~live).sum()),
+             "causal": causal, "dead_rows": int((~live).sum()),
              "max_abs_err": errs, "max_row_rel_err": row_err,
              "row_tol": ROW_TOL, "fault_min_row_rel_err": fault,
              "fault_rows_caught": caught, "rerun_bit_equal": True, "ms": ms,
@@ -4481,6 +4521,29 @@ def head_dim_entries(flash, k8, masked, routes, train15, serve16):
     return out
 
 
+def bert_flash_entries(rec, launches):
+    """The kernels-line entries of K1/K2 at d 64, not causal: times and
+    errors from phase 3's ``bert_base`` record, launches from 26c's timed
+    BERT-base steps."""
+    ref = "paddle_tpu/ops/pallas/flash_attention.py"
+    return [{"name": f"{name}_d64_noncausal", "route": "cuda",
+             "source": "paddle_tpu_torch/csrc/flash_sm90.cuh",
+             "replaces": f"{ref}:{line}", "launches": launches[name],
+             "shape": rec["shape"],
+             "max_abs_err": max(rec["max_abs_err"][e] for e in errs),
+             "max_row_rel_err": max(rec["max_row_rel_err"][e]
+                                    for e in errs),
+             "ms": rec["ms"][part], "plain_ms": rec["plain_ms"][part],
+             "bound_ms": rec["bound_ms"][part],
+             "bound_by": rec["bound_by"][part],
+             "library_ms": rec["library_ms"][lib]}
+            for name, part, line, errs, lib in (
+                ("flash_attention_fwd", "fwd", 576, ("out",), "fwd"),
+                ("flash_attention_bwd_dq", "dq", 1036, ("dq",), "fwd_bwd"),
+                ("flash_attention_bwd_dkv", "dkv", 1053, ("dk", "dv"),
+                 "fwd_bwd"))]
+
+
 # ------------------------------------------------- K9, K6 and the MoE rung
 def moe_routing(TM, gen, tokens, E, k, D, routing):
     """(x [tokens, D] bf16, expert ids, gate values) from a seeded gate;
@@ -6968,6 +7031,484 @@ def phase_eager(LlamaConfig, TH, FA, FM, smi):
     return launches
 
 
+# ------------------------- phase 26: LeNet, ResNet50 and BERT-base trained
+LENET_BATCH, LENET_WARMUP, LENET_STEPS = 64, 3, 30   # bench.py:528-585
+RESNET_BATCH, RESNET_HW, RESNET_CHUNK = 128, 224, 10  # bench.py:174-226
+RESNET_FLOPS_PER_IMAGE = 3 * 4.1e9   # the bench's count (bench.py:218-219)
+BERT_BATCH, BERT_SEQ, BERT_CHUNK, BERT_CALLS = 32, 384, 10, 3  # :229-283
+# 26d: f32, card vs the port on the CPU from the same weights
+VISION_STEPS = 2
+RESNET_PARITY_SHAPE = (2, 3, 64, 64)
+BERT_PARITY_LAYERS, BERT_PARITY_SHAPE = 2, (2, 384)
+# BERT's phase-3 record: BERT-base's attention (12 of 64, S 384, not
+# causal) at 26c's batch
+BERT_FLASH_SHAPE = ("bert_base", BERT_BATCH, 12, 12, BERT_SEQ, BERT_SEQ, 64)
+
+
+def on_device(paddle, device):
+    """A context that makes ``device`` the eager API's current one."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        prev = paddle.device._current
+        paddle.set_device(device)
+        try:
+            yield
+        finally:
+            paddle.device._current = prev
+    return ctx()
+
+
+def vision_profile(fn, phase):
+    """One call of ``fn`` under ``torch.profiler``: device ms by group
+    (cuDNN convolutions, batch norms, K1/K2, other matmuls, elementwise
+    and the rest), the top kernels and the idle share (1 - busy / wall)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_kernel: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[ev.name] = (per_kernel.get(ev.name, 0.0)
+                                   + ev.time_range.elapsed_us() / 1e3)
+    groups = dict.fromkeys(("conv", "batch_norm", "flash", "matmul",
+                            "elementwise"), 0.0)
+    for name, ms in per_kernel.items():
+        low = name.lower()
+        if "batch_norm" in low or "bn_fw" in low or "bn_bw" in low:
+            key = "batch_norm"
+        elif "flash_sm90::" in low or "flash_bwd_" in low \
+                or "flash_fwd_" in low:
+            key = "flash"
+        elif any(m in low for m in ("conv", "implicit_gemm", "fprop",
+                                    "dgrad", "wgrad", "cudnn")):
+            key = "conv"
+        elif any(m in low for m in ("gemm", "gemv", "cutlass", "xmma",
+                                    "sm90", "cublas", "nvjet")):
+            key = "matmul"
+        else:
+            key = "elementwise"
+        groups[key] += ms
+    busy = sum(per_kernel.values())
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]
+    rec = {"phase": phase, "profile": "one step", "wall_ms": wall * 1e3,
+           "device_ms": groups, "device_busy_ms": busy,
+           "device_idle_share": 1 - busy / (wall * 1e3),
+           "kernels_seen": len(per_kernel),
+           "top_kernels_ms": [[n[:80], ms] for n, ms in top]}
+    emit(rec)
+    return rec
+
+
+def phase_lenet(smi):
+    """26a: ``bench_lenet`` on the card: 3 warm-up steps, then 30 eager
+    steps and 30 ``train_step`` steps, each path from seed 0's LeNet."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import LeNet
+    F = paddle.nn.functional
+    rng = np.random.default_rng(0)
+    x = paddle.to_tensor(rng.standard_normal(
+        (LENET_BATCH, 1, 28, 28)).astype(np.float32))
+    y = paddle.to_tensor(rng.integers(0, 10, (LENET_BATCH,)))
+
+    def make():
+        paddle.seed(0)
+        m = LeNet()
+        m.train()
+        return m, paddle.optimizer.SGD(learning_rate=0.01,
+                                       parameters=m.parameters())
+
+    model, opt = make()
+
+    def eager():
+        loss = F.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+
+    first = float(eager())
+    for _ in range(LENET_WARMUP - 1):
+        eager()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LENET_STEPS):
+        loss = eager()
+    eager_last = float(loss)
+    eager_sps = LENET_STEPS / (time.perf_counter() - t0)
+    model, opt = make()
+    step = paddle.jit.train_step(model, opt,
+                                 lambda m, a, b: F.cross_entropy(m(a), b))
+    float(step(x, y))
+    for _ in range(LENET_WARMUP):
+        loss = step(x, y)
+    float(loss)
+    t0 = time.perf_counter()
+    for _ in range(LENET_STEPS):
+        loss = step(x, y)
+    step_last = float(loss)
+    step_sps = LENET_STEPS / (time.perf_counter() - t0)
+    emit({"phase": "26a", "card": smi, "model": "LeNet",
+          "batch": LENET_BATCH, "steps": LENET_STEPS,
+          "eager_steps_per_s": eager_sps,
+          "train_step_steps_per_s": step_sps,
+          "eager_over_train_step": eager_sps / step_sps,
+          "loss_first": first, "loss_eager_last": eager_last,
+          "loss_train_step_last": step_last,
+          "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                   "cudnn": torch.backends.cudnn.allow_tf32}})
+    require(all(math.isfinite(v) for v in (first, eager_last, step_last)),
+            "26a: a LeNet loss is not finite")
+    require(eager_last < first and step_last < first,
+            f"26a: LeNet's loss did not fall: {first} -> {eager_last} "
+            f"(eager), {step_last} (train_step)")
+
+
+def phase_resnet50(smi):
+    """26b: ``bench_resnet50`` on the card: AMP O1 in bf16, Momentum(0.1,
+    0.9), ``train_step(...).multi_step(10)``: a warm-up call, then the
+    best of 2 timed calls; images/s, MFU by the bench's count, peak
+    memory, the loss and a profile of one step."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import resnet50
+    F = paddle.nn.functional
+    t0 = time.perf_counter()
+    paddle.seed(0)
+    model = resnet50(num_classes=1000)
+    model.train()
+    opt = paddle.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                    parameters=model.parameters())
+
+    def loss_fn(m, x, y):
+        with paddle.amp.auto_cast(enable=True, level="O1"):
+            out = m(x)
+        return F.cross_entropy(out, y)
+
+    train = paddle.jit.train_step(model, opt, loss_fn)
+    many = train.multi_step(RESNET_CHUNK)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = paddle.Tensor(torch.randn(RESNET_BATCH, 3, RESNET_HW, RESNET_HW,
+                                  device="cuda", generator=gen))
+    y = paddle.Tensor(torch.randint(0, 1000, (RESNET_BATCH,), device="cuda",
+                                    generator=gen))
+    first = float(many(x, y))                       # warm-up: 10 steps
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    best = math.inf
+    for _ in range(2):
+        t0 = time.perf_counter()
+        loss = float(many(x, y))
+        best = min(best, time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    ips = RESNET_BATCH * RESNET_CHUNK / best
+    mfu = ips * RESNET_FLOPS_PER_IMAGE / BF16_FLOPS_PER_S
+    prof = vision_profile(lambda: train(x, y), "26b")
+    emit({"phase": "26b", "card": smi, "model": "resnet50",
+          "batch": RESNET_BATCH, "hw": RESNET_HW, "amp": "O1 bfloat16",
+          "steps_per_call": RESNET_CHUNK, "best_call_s": best,
+          "images_per_s": ips, "mfu": mfu, "peak_mem_bytes": peak,
+          "setup_and_warmup_s": setup_s, "loss_after_warmup": first,
+          "loss": loss, "s_per_step": best / RESNET_CHUNK,
+          "profiled_step_device_idle_share": prof["device_idle_share"]})
+    require(math.isfinite(loss), f"26b: ResNet50's loss {loss}")
+    del model, opt, train, many, x, y
+    release()
+
+
+def phase_bert_base(FA, FM, smi):
+    """26c: ``bench_bert`` on the card: ``BertConfig()`` at 32 x 384, AMP
+    O1 in bf16, AdamW(3e-5), ``multi_step(10)``, 2 warm-up calls and 3
+    timed ones; examples/s, MFU by the bench's count; 12 launches each of
+    K1, K2 dq and K2 dk/dv a step and no call of an attention plain
+    version.  Returns the launches of the timed calls."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.bert import BertConfig, \
+        BertForSequenceClassification
+    F = paddle.nn.functional
+    cfg = BertConfig()
+    paddle.seed(0)
+    model = BertForSequenceClassification(cfg)
+    model.train()
+    opt = paddle.optimizer.AdamW(learning_rate=3e-5,
+                                 parameters=model.parameters())
+
+    def loss_fn(m, ids, y):
+        with paddle.amp.auto_cast(enable=True, level="O1"):
+            logits = m(ids)
+        return F.cross_entropy(logits, y)
+
+    train = paddle.jit.train_step(model, opt, loss_fn)
+    many = train.multi_step(BERT_CHUNK)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = paddle.Tensor(torch.randint(0, cfg.vocab_size,
+                                      (BERT_BATCH, BERT_SEQ), device="cuda",
+                                      generator=gen))
+    y = paddle.Tensor(torch.randint(0, cfg.num_labels, (BERT_BATCH,),
+                                    device="cuda", generator=gen))
+    first = float(many(ids, y))
+    float(many(ids, y))
+    n_params = sum(int(np.prod(p.shape)) for p in model.parameters())
+    plain, restore = count_plain_calls(FA, FM)
+    try:
+        FA.flash_mha.fwd_launches = 0
+        FA.flash_mha.dq_launches = 0
+        FA.flash_mha.dkv_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(BERT_CALLS):
+            loss = many(ids, y)
+        loss = float(loss)
+        dt = time.perf_counter() - t0
+        launches = {"flash_attention_fwd": FA.flash_mha.fwd_launches,
+                    "flash_attention_bwd_dq": FA.flash_mha.dq_launches,
+                    "flash_attention_bwd_dkv": FA.flash_mha.dkv_launches}
+        plain_calls = dict(plain)
+    finally:
+        restore()
+    steps = BERT_CALLS * BERT_CHUNK
+    eps = BERT_BATCH * steps / dt
+    flops_per_ex = 6 * n_params * BERT_SEQ + 12 * cfg.num_hidden_layers \
+        * cfg.hidden_size * BERT_SEQ * BERT_SEQ       # bench.py:272-274
+    mfu = eps * flops_per_ex / BF16_FLOPS_PER_S
+    prof = vision_profile(lambda: train(ids, y), "26c")
+    emit({"phase": "26c", "card": smi, "model": "BERT-base",
+          "params": n_params, "batch": BERT_BATCH, "seq": BERT_SEQ,
+          "amp": "O1 bfloat16", "steps": steps, "wall_s": dt,
+          "examples_per_s": eps, "mfu": mfu, "loss_first_call": first,
+          "loss": loss, "launches": launches,
+          "launches_per_step": {k: n / steps for k, n in launches.items()},
+          "plain_attention_calls": plain_calls,
+          "profiled_step_device_idle_share": prof["device_idle_share"]})
+    require(math.isfinite(loss), f"26c: BERT-base loss {loss}")
+    want = {k: cfg.num_hidden_layers * steps for k in launches}
+    require(launches == want, f"26c flash launches {launches} != {want}")
+    require(not any(plain_calls.values()),
+            f"26c: BERT-base called plain attention: {plain_calls}")
+    del model, opt, train, many
+    release()
+    return launches
+
+
+def vision_twins(paddle, build, seed=0):
+    """``build()`` on the card (from ``seed``) and on the CPU, the CPU's
+    loaded with the card's state dict."""
+    from paddle_tpu_torch.models.convert import layer_state_from_numpy
+    paddle.seed(seed)
+    card = build()
+    with on_device(paddle, "cpu"):
+        cpu = build()
+    layer_state_from_numpy(cpu, {k: v.numpy() for k, v
+                                 in card.state_dict().items()})
+    return card, cpu
+
+
+def vision_run(paddle, model, device, batch, out_loss, make_opt,
+               dtype="float32"):
+    """One eager forward and backward (output, loss, grads), then
+    ``VISION_STEPS`` ``train_step`` steps; returns those and the state
+    dict after them, as float64 CPU tensors.  Float inputs take
+    ``dtype``."""
+    def cpu64(t):
+        return t.detach().double().cpu()
+
+    with on_device(paddle, device):
+        xs = [paddle.to_tensor(b, dtype=dtype if b.dtype.kind == "f"
+                               else None) for b in batch]
+        out, loss = out_loss(model, *xs)
+        loss.backward()
+        grads = {n: cpu64(p._grad_data()) for n, p
+                 in model.named_parameters() if p._grad_data() is not None}
+        model.clear_gradients()
+        step = paddle.jit.train_step(model, make_opt(model),
+                                     lambda m, *b: out_loss(m, *b)[1])
+        for _ in range(VISION_STEPS):
+            step(*xs)
+        state = {k: cpu64(v._data) for k, v in model.state_dict().items()}
+    return cpu64(out._data), cpu64(loss._data), grads, state
+
+
+def vision_errs(card, cpu, f64=None, noise=None):
+    """Card vs CPU, by relative norm: the output, the loss, the grads and
+    the state (params and BatchNorm buffers).  Without ``f64``, each leaf
+    is held within the limit: a leaf whose gradient is rounding noise (an
+    attention key bias's) against 1e-4 of the whole gradient's norm, and
+    ``noise`` (key suffix -> bound) holds such params by their largest
+    absolute difference.  With ``f64`` (the CPU's run in float64), each
+    of the four is held whole (all its leaves as one vector): within the
+    limit, or no farther from float64 than twice the CPU's own distance
+    from it, plus the limit.  ResNet50's f32 gradients lie 1.5-2.7 %
+    from float64 on the CPU alone (batch 2-32, 64-128 px), leaf by leaf
+    and whole, so no two f32 runs hold 1e-4 there, and the Momentum
+    steps carry that into the params.  Returns (errors, failures)."""
+    (go, gl, gg, gs), (co, cl, cg, cs) = card, cpu
+    require(sorted(gg) == sorted(cg), "26d: card and CPU grads of "
+            f"different params: {sorted(set(gg) ^ set(cg))}")
+    whole = math.sqrt(sum(float(g.square().sum()) for g in cg.values()))
+    fails, errs, loose = [], {}, {}
+
+    def rel(a, b, floor=0.0):
+        return float((a - b).norm()) / max(float(b.norm()), floor, 1e-300)
+
+    def flat(d, keys):
+        return torch.cat([d[k].reshape(-1) for k in keys])
+
+    states = [k for k in cs
+              if not any(k.endswith(s_) for s_ in noise or {})]
+    parts = {"output": (go, co, f64 and f64[0]),
+             "loss": (gl.reshape(1), cl.reshape(1),
+                      f64 and f64[1].reshape(1)),
+             "grads": (flat(gg, cg), flat(cg, cg), f64 and flat(f64[2], cg)),
+             "state": (flat(gs, states), flat(cs, states),
+                       f64 and flat(f64[3], states))}
+    for kind, (a, b, ref64) in parts.items():
+        errs[kind] = rel(a, b)
+        if f64 is None:
+            continue
+        mine, cpus = rel(a, ref64), rel(b, ref64)
+        errs[kind + "_vs_float64"] = [mine, cpus]
+        if errs[kind] > PARITY_TOL and mine > 2 * cpus + PARITY_TOL:
+            fails.append((kind, "whole", mine, cpus))
+    errs["worst_grad_leaf"] = max(rel(gg[n], cg[n], 1e-4 * whole)
+                                  for n in cg)
+    errs["worst_state_leaf"] = max(rel(gs[k], cs[k]) for k in states)
+    for k in cs:
+        bound_ = next((b for s_, b in (noise or {}).items()
+                       if k.endswith(s_)), None)
+        if bound_ is not None:
+            loose[k] = float((gs[k] - cs[k]).abs().max())
+            if loose[k] > bound_:
+                fails.append(("state", k, loose[k], bound_))
+    errs["noise_leaves_max_abs"] = max(loose.values(), default=0.0)
+    if f64 is None:
+        for kind in ("output", "loss"):
+            if errs[kind] > PARITY_TOL:
+                fails.append((kind, kind, errs[kind]))
+        for kind in ("grad", "state"):
+            if errs[f"worst_{kind}_leaf"] > PARITY_TOL:
+                fails.append((kind, "worst leaf",
+                              errs[f"worst_{kind}_leaf"]))
+    return errs, fails
+
+
+def vision_parity(smi):
+    """26d: f32, the card against the port on the CPU on the same
+    weights: output, loss and every grad of one eager step, then params
+    and BatchNorm buffers after 2 ``train_step`` steps, within 1e-4
+    relative, for LeNet (batch 64), the whole ResNet50 (2 x 3 x 64 x 64,
+    held whole against the CPU's float64 run: ``vision_errs``) and
+    BERT at base width with 2 layers (2 x 384: the f32 K1/K2 at d 64, not
+    causal).  TF32 is off for matmuls and cuDNN (cuDNN's is on by
+    default) and put back after.  A planted fault, BatchNorm stepped
+    with torch's momentum number (0.1) in place of Paddle's (0.9), must
+    fail the check."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models.bert import BertConfig, \
+        BertForSequenceClassification
+    from paddle_tpu_torch.vision.models import LeNet, resnet50
+    F = paddle.nn.functional
+    rng = np.random.default_rng(5)
+
+    def ce(m, x, y):
+        out = m(x)
+        return out, F.cross_entropy(out, y)
+
+    def sgd(m):
+        return paddle.optimizer.SGD(learning_rate=0.01,
+                                    parameters=m.parameters())
+
+    def momentum(m):
+        return paddle.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                         parameters=m.parameters())
+
+    bert_lr = 3e-5
+
+    def adamw(m):
+        return paddle.optimizer.AdamW(learning_rate=bert_lr,
+                                      parameters=m.parameters())
+
+    bert_cfg = BertConfig(num_hidden_layers=BERT_PARITY_LAYERS)
+    cases = {
+        "lenet": (LeNet, [rng.standard_normal((LENET_BATCH, 1, 28, 28))
+                          .astype(np.float32),
+                          rng.integers(0, 10, (LENET_BATCH,))], sgd, None),
+        "resnet50": (lambda: resnet50(num_classes=1000),
+                     [rng.standard_normal(RESNET_PARITY_SHAPE)
+                      .astype(np.float32),
+                      rng.integers(0, 1000, (RESNET_PARITY_SHAPE[0],))],
+                     momentum, None),
+        "bert": (lambda: BertForSequenceClassification(bert_cfg),
+                 [rng.integers(0, bert_cfg.vocab_size, BERT_PARITY_SHAPE),
+                  rng.integers(0, 2, (BERT_PARITY_SHAPE[0],))], adamw,
+                 {"attention.key.bias": 2 * VISION_STEPS * bert_lr}),
+    }
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for name, (build, batch, make_opt, noise) in cases.items():
+            t0 = time.perf_counter()
+            card, cpu = vision_twins(paddle, build)
+            f64 = fault = None
+            if name == "resnet50":
+                fault, cpu64 = vision_twins(paddle, build)
+                for layer in fault.sublayers():
+                    if hasattr(layer, "_momentum"):
+                        layer._momentum = 0.1
+                cpu64.to(device="cpu", dtype="float64")
+                cpu64.train()
+                f64 = vision_run(paddle, cpu64, "cpu", batch, ce, make_opt,
+                                 dtype="float64")
+                del cpu64
+            for m in (card, cpu):
+                m.train()
+            runs = {dev: vision_run(paddle, m, dev, batch, ce, make_opt)
+                    for dev, m in (("gpu", card), ("cpu", cpu))}
+            errs, fails = vision_errs(runs["gpu"], runs["cpu"], f64, noise)
+            rec = {"phase": "26d", "card": smi, "model": name,
+                   "dtype": "float32", "steps": VISION_STEPS,
+                   "card_vs_cpu": errs, "tol": PARITY_TOL,
+                   "failed": fails[:5], "wall_s": time.perf_counter() - t0}
+            if fault is not None:
+                fault.train()
+                f_run = vision_run(paddle, fault, "gpu", batch, ce, make_opt)
+                f_errs, f_fails = vision_errs(f_run, runs["cpu"], f64)
+                rec["fault_state"] = f_errs["state"]
+                rec["fault_failed"] = len(f_fails)
+            emit(rec)
+            require(not fails, f"26d {name} card vs CPU: {fails[:5]}")
+            if fault is not None:
+                require(any(f[0] == "state" for f in f_fails),
+                        "26d: BatchNorm at torch's momentum passed the "
+                        f"state check ({rec['fault_state']})")
+            out[name] = errs
+            del card, cpu, fault, runs, f64
+            release()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    return out
+
+
+def phase_vision(FA, FM, smi):
+    """Phase 26: the bench's LeNet, ResNet50 and BERT rungs through the
+    public API, then their f32 parity.  Returns 26c's K1/K2 launches."""
+    t0 = time.perf_counter()
+    phase_lenet(smi)
+    release()
+    phase_resnet50(smi)
+    launches = phase_bert_base(FA, FM, smi)
+    vision_parity(smi)
+    emit({"phase": 26, "wall_s": time.perf_counter() - t0})
+    return launches
+
+
 def main_expert_sep() -> int:
     """``python3 chip_smoke.py expert-sep``: phase 24, on a machine with
     four cards."""
@@ -7155,6 +7696,7 @@ def main() -> int:
     phase_window(FA, FM, gen, *WINDOW_SHAPE)
     release()
     flash = [phase_flash(FA, gen, *shape) for shape in FLASH_SHAPES]
+    bert_flash = phase_flash(FA, gen, *BERT_FLASH_SHAPE, causal=False)
     k8 = [phase_k8(FM, gen, *shape) for shape in K8_SHAPES]
     release()
     for name, B, H, kvh, _, causal, kind, D in K8_SHAPES:
@@ -7312,6 +7854,13 @@ def main() -> int:
     release()
     laps(25)
 
+    # phase 26 (after 25, before 17): the bench's LeNet, ResNet50 and
+    # BERT rungs through jit.train_step (BERT-base: K1/K2 at d 64, not
+    # causal), then their f32 parity, card vs CPU
+    bert_train = phase_vision(FA, FM, smi)
+    release()
+    laps(26)
+
     # phases 17-18: the serving engine's speculative decoding and
     # preemption at llama3_8b full width and depth, on one state
     gen8b = torch.Generator(device="cuda").manual_seed(0)
@@ -7428,6 +7977,7 @@ def main() -> int:
         *k8_entries(k8, k8_launches),
         *head_dim_entries(flash, k8, masked, route_launches, tiny_train,
                           tiny_serve),
+        *bert_flash_entries(bert_flash, bert_train),
         decode_entry(decode, decode_launches["decode_attention"]),
         *k9_entries(k9, k9_launches),
         {"name": "rms_norm", "route": "cuda",

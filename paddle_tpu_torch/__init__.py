@@ -93,6 +93,8 @@ from .ops.comparison import (  # noqa: E402,F401
     equal, not_equal, greater_than, greater_equal, less_than, less_equal,
     equal_all, allclose, isclose, logical_and, logical_or, logical_xor,
     logical_not, is_empty)
+from .ops.linalg import (  # noqa: E402,F401
+    bitwise_and, bitwise_or, bitwise_xor, bitwise_not)
 
 # -- subpackages -----------------------------------------------------------
 from . import ops  # noqa: E402,F401
@@ -106,6 +108,8 @@ from .device import set_device, get_device, CPUPlace, \
 from .flags import set_flags, get_flags  # noqa: E402,F401
 from . import profiler  # noqa: E402,F401
 from . import models  # noqa: E402,F401
+from . import jit  # noqa: E402,F401
+from . import vision  # noqa: E402,F401
 from .nn.layer import ParamAttr  # noqa: E402,F401
 
 
@@ -134,7 +138,8 @@ def _export_inplace_functions():
     import sys
     mod = sys.modules[__name__]
     names = [
-        "abs", "acos", "add", "addmm", "asin", "atan", "bernoulli", "cast",
+        "abs", "acos", "add", "addmm", "asin", "atan", "bernoulli",
+        "bitwise_and", "bitwise_not", "bitwise_or", "bitwise_xor", "cast",
         "cauchy", "ceil", "clip", "cos", "cumprod", "cumsum", "digamma",
         "divide", "equal", "erf", "erfinv", "exp", "expm1", "exponential",
         "fill", "flatten", "floor", "floor_divide", "frac", "gcd",

@@ -87,7 +87,9 @@ def _numpy_to_torch(arr: np.ndarray) -> torch.Tensor:
         # ml_dtypes.bfloat16 (a JAX bf16 array in numpy): same bits
         return torch.from_numpy(arr.view(np.int16).copy()).view(
             torch.bfloat16)
-    if not arr.flags.writeable:
+    if not arr.flags.writeable or any(st < 0 for st in arr.strides):
+        # a size-1 dim may keep a negative stride in a "contiguous"
+        # array, which torch.from_numpy refuses
         arr = arr.copy()
     return torch.from_numpy(arr)
 

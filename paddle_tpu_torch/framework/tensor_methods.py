@@ -2,8 +2,9 @@
 
 Ports ``paddle_tpu/framework/tensor_methods.py`` for the ops the port
 has (``ops/math``, ``reduction``, ``manipulation``, ``creation``,
-``comparison``, ``indexing``); the methods over ``linalg`` and
-``math_extra`` come with those modules.  Called once from the package
+``comparison``, ``indexing`` and the bitwise ops of ``linalg``); the
+methods over the rest of ``linalg`` and ``math_extra`` come with those
+modules.  Called once from the package
 ``__init__``.
 """
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 
 from .tensor import Tensor, _link_view, _strict_views_on
 from ..ops import math as m, reduction as r, manipulation as mp, \
-    creation as c, comparison as cmp, indexing as ix
+    creation as c, comparison as cmp, indexing as ix, linalg as lg
 from .random import generator_for
 
 # method name -> op callable taking (self, ...)
@@ -75,6 +76,9 @@ _METHODS = dict(
     allclose=cmp.allclose, isclose=cmp.isclose,
     logical_and=cmp.logical_and, logical_or=cmp.logical_or,
     logical_xor=cmp.logical_xor, logical_not=cmp.logical_not,
+    # linalg (the bitwise ops only)
+    bitwise_and=lg.bitwise_and, bitwise_or=lg.bitwise_or,
+    bitwise_xor=lg.bitwise_xor, bitwise_not=lg.bitwise_not,
     # creation-likes
     zeros_like=c.zeros_like, ones_like=c.ones_like, full_like=c.full_like,
     clone=c.clone, bernoulli=c.bernoulli, multinomial=c.multinomial,
@@ -93,7 +97,8 @@ _INPLACE = [
     "acosh", "atanh", "erf", "expm1", "log2", "log10", "log1p", "digamma",
     "lgamma", "polygamma", "gcd", "lcm", "hypot", "i0", "frac",
     "cumsum", "cumprod", "logit", "logical_and", "logical_or",
-    "logical_xor", "logical_not", "equal", "not_equal", "greater_than",
+    "logical_xor", "logical_not", "bitwise_and", "bitwise_or",
+    "bitwise_xor", "bitwise_not", "equal", "not_equal", "greater_than",
     "greater_equal", "less_than", "less_equal", "mod", "addmm",
 ]
 
@@ -195,11 +200,15 @@ def _patch():
     Tensor.__rmatmul__ = lambda s, o: m.matmul(o, s)
     Tensor.__neg__ = lambda s: m.neg(s)
     Tensor.__abs__ = lambda s: m.abs(s)
-    # bitwise forms of ~ & | ^ come with ops/linalg
-    Tensor.__invert__ = lambda s: cmp.logical_not(s)
-    Tensor.__and__ = lambda s, o: cmp.logical_and(s, o)
-    Tensor.__or__ = lambda s, o: cmp.logical_or(s, o)
-    Tensor.__xor__ = lambda s, o: cmp.logical_xor(s, o)
+    # ~ & | ^: logical on bool tensors, bitwise on all others
+    Tensor.__invert__ = lambda s: cmp.logical_not(s) \
+        if s.dtype.name == "bool" else lg.bitwise_not(s)
+    Tensor.__and__ = lambda s, o: cmp.logical_and(s, o) \
+        if s.dtype.name == "bool" else lg.bitwise_and(s, o)
+    Tensor.__or__ = lambda s, o: cmp.logical_or(s, o) \
+        if s.dtype.name == "bool" else lg.bitwise_or(s, o)
+    Tensor.__xor__ = lambda s, o: cmp.logical_xor(s, o) \
+        if s.dtype.name == "bool" else lg.bitwise_xor(s, o)
     Tensor.__eq__ = lambda s, o: cmp.equal(s, o)
     Tensor.__ne__ = lambda s, o: cmp.not_equal(s, o)
     Tensor.__lt__ = lambda s, o: cmp.less_than(s, o)

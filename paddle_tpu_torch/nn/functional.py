@@ -343,9 +343,12 @@ def _conv(x, weight, bias, stride, padding, dilation, groups, nd,
     pads = _explicit_pads(_conv_padding(padding, nd), x.shape[2:],
                           weight.shape[2:], s, d)
     fn = (TF.conv1d, TF.conv2d, TF.conv3d)[nd - 1]
-    out = fn(_pad_spatial(x, pads), weight, None, s, 0, d, groups)
-    if bias is not None:
-        out = out + bias.reshape((1, -1) + (1,) * nd)
+    if all(lo == hi for lo, hi in pads):
+        # symmetric: the convolution pads (no padded copy of x)
+        out = fn(x, weight, bias, s, tuple(lo for lo, _ in pads), d,
+                 groups)
+    else:
+        out = fn(_pad_spatial(x, pads), weight, bias, s, 0, d, groups)
     return torch.movedim(out, 1, -1) if channels_last else out
 
 
@@ -565,34 +568,60 @@ def rms_norm(x, weight=None, epsilon=1e-6, name=None):
     return out
 
 
+class _BatchStats(torch.autograd.Function):
+    """The batch mean and biased variance that torch's batch norm
+    computed, made differentiable in x as the reference's are (d mean =
+    1/n, d var = 2 (x - mean) / n) without a second pass over x: the
+    backward runs only if a loss reaches the running stats."""
+
+    @staticmethod
+    def forward(ctx, xc, mean, var):
+        ctx.save_for_backward(xc, mean)
+        return mean.clone(), var.clone()
+
+    @staticmethod
+    def backward(ctx, g_mean, g_var):
+        xc, mean = ctx.saved_tensors
+        shape = [1] * xc.dim()
+        shape[1] = -1
+        n = xc.numel() // xc.shape[1]
+        dx = (g_mean / n).reshape(shape) + (2.0 / n) * g_var.reshape(
+            shape) * (xc.to(mean.dtype) - mean.reshape(shape))
+        return dx.to(xc.dtype), None, None
+
+
 @op
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-05,
                data_format="NCHW", use_global_stats=None, name=None):
-    c_axis = 1 if data_format.startswith("NC") else x.dim() - 1
-    dims = tuple(i for i in range(x.dim()) if i != c_axis)
-    bshape = [1] * x.dim()
-    bshape[c_axis] = -1
-    xf = x.float()
-    if training and not use_global_stats:
-        # one-pass sum + sum-of-squares stats in f32, as the reference
-        mean = torch.mean(xf, dim=dims)
-        sq = torch.mean(torch.square(xf), dim=dims)
-        var = torch.clamp(sq - torch.square(mean), min=0.0)
-        new_rm = (momentum * running_mean
-                  + (1 - momentum) * mean).to(running_mean.dtype)
-        new_rv = (momentum * running_var
-                  + (1 - momentum) * var).to(running_var.dtype)
-    else:
-        mean, var = running_mean.float(), running_var.float()
-        new_rm, new_rv = running_mean, running_var
-    out = (xf - mean.reshape(bshape)) * torch.rsqrt(
-        var.reshape(bshape) + epsilon)
-    if weight is not None:
-        out = out * weight.float().reshape(bshape)
-    if bias is not None:
-        out = out + bias.float().reshape(bshape)
-    return out.to(x.dtype), new_rm, new_rv
+    """torch's batch norm (its own CUDA kernels on the card, for NCHW)
+    computes the output from the batch's stats (training) or the running
+    ones; the running stats follow Paddle: ``momentum * old + (1 - momentum) * batch``, with the
+    biased batch variance.  torch hands its batch stats out through the
+    running buffers it is given, so those are fresh zeros stepped with
+    momentum 1 (its variance unbiased, rescaled here)."""
+    channels_last = not data_format.startswith("NC")
+    xc = torch.movedim(x, -1, 1) if channels_last else x
+    if not training or use_global_stats:
+        out = TF.batch_norm(xc, running_mean, running_var, weight, bias,
+                            False, 0.0, epsilon)
+        return (torch.movedim(out, 1, -1) if channels_last else out,
+                running_mean, running_var)
+    c = xc.shape[1]
+    stat_dtype = weight.dtype if weight is not None else \
+        torch.float32 if x.dtype in (torch.float16, torch.bfloat16) \
+        else x.dtype
+    mean = torch.zeros(c, dtype=stat_dtype, device=x.device)
+    var = torch.zeros_like(mean)
+    out = TF.batch_norm(xc, mean, var, weight, bias, True, 1.0, epsilon)
+    n = xc.numel() // c
+    mean, var = _BatchStats.apply(xc, mean, var * ((n - 1) / n))
+    new_rm = (momentum * running_mean
+              + (1 - momentum) * mean).to(running_mean.dtype)
+    new_rv = (momentum * running_var
+              + (1 - momentum) * var).to(running_var.dtype)
+    return (torch.movedim(out, 1, -1) if channels_last else out,
+            new_rm, new_rv)
 
 
 @op

@@ -21,6 +21,7 @@ from __future__ import annotations
 import json
 import os
 import time
+import weakref
 
 from ..sanitizer import make_lock
 
@@ -62,38 +63,56 @@ __all__ = ["AlertRule", "Counter", "DiagnosticCapture",
            "format_traceparent", "parse_traceparent",
            "merge_exemplars", "merge_usage", "request_ledger",
            "resource_tracker", "serving_sources",
-           "active_lora", "set_active_lora",
+           "active_lora", "set_active_lora", "release_providers",
            "set_active_capture", "set_active_profiler",
            "set_active_quant", "set_active_requestlog",
            "set_active_usage", "tracer"]
 
-# the quantized-serving provider: dump() writes quant.json from its
-# quant_snapshot() (last engine built wins, like the profiler/usage
-# holders — but plain module state here, no dedicated subsystem module)
+# the quantized-serving and multi-LoRA providers: dump() writes
+# quant.json from the first's quant_snapshot() and lora.json from the
+# second's lora_snapshot() (last engine built wins, like the profiler /
+# usage holders).  The slots hold weak references: an engine the caller
+# dropped, closed or not, is freed with its weights, and its slot reads
+# None; close() and a worker's stop() clear theirs at once.
 _active_quant = None
+_active_lora = None
+
+
+def _weak(provider):
+    return None if provider is None else weakref.ref(provider)
+
+
+def _deref(slot):
+    return None if slot is None else slot()
 
 
 def set_active_quant(provider):
     global _active_quant
-    _active_quant = provider
+    _active_quant = _weak(provider)
 
 
 def active_quant():
-    return _active_quant
-
-
-# the multi-LoRA provider: dump() writes lora.json from its
-# lora_snapshot() (same last-engine-wins contract as the quant holder)
-_active_lora = None
+    return _deref(_active_quant)
 
 
 def set_active_lora(provider):
     global _active_lora
-    _active_lora = provider
+    _active_lora = _weak(provider)
 
 
 def active_lora():
-    return _active_lora
+    return _deref(_active_lora)
+
+
+def release_providers(*owners):
+    """Clear the quant.json and lora.json slots that hold one of
+    ``owners`` (a closed engine, a stopped worker): a slot holding
+    another engine stays as it is."""
+    global _active_quant, _active_lora
+    if any(active_quant() is o for o in owners):
+        _active_quant = None
+    if any(active_lora() is o for o in owners):
+        _active_lora = None
 
 
 def counter(name, help_="", labelnames=()):

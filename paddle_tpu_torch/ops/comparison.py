@@ -64,17 +64,17 @@ def isclose(x, y, rtol=1e-05, atol=1e-08, equal_nan=False, name=None):
 
 @op
 def logical_and(x, y, out=None, name=None):
-    return torch.logical_and(x, y)
+    return torch.logical_and(*_co(x, y))
 
 
 @op
 def logical_or(x, y, out=None, name=None):
-    return torch.logical_or(x, y)
+    return torch.logical_or(*_co(x, y))
 
 
 @op
 def logical_xor(x, y, out=None, name=None):
-    return torch.logical_xor(x, y)
+    return torch.logical_xor(*_co(x, y))
 
 
 @op

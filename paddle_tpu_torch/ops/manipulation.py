@@ -299,9 +299,11 @@ def masked_fill(x, mask, value, name=None):
 @op
 def topk(x, k, axis=None, largest=True, sorted=True, name=None):
     axis = -1 if axis is None else int(axis)
-    vals, idxs = torch.topk(x, int(k), dim=axis, largest=largest,
+    # torch's topk takes no bool: rank a bool as uint8
+    xs = x.to(torch.uint8) if x.dtype == torch.bool else x
+    vals, idxs = torch.topk(xs, int(k), dim=axis, largest=largest,
                             sorted=True)
-    return vals, idxs.to(torch.int64)
+    return vals.to(x.dtype), idxs.to(torch.int64)
 
 
 @op

@@ -5,7 +5,11 @@ torch's: a python scalar takes the tensor's dtype (``_promote_binary``,
 reference ``:13``; an int tensor plus 2.5 adds 2, as there), and two
 tensors of different dtypes meet at their promoted dtype whatever their
 ranks (torch would let a 0-d tensor of a wider float lose to an n-d
-one).
+one).  Bool and integer inputs follow jnp's rules with x64 on: a
+transcendental op computes an int64 input in float64 and a bool or a
+narrower int in float32 (``inexact``); ``abs``, ``floor``, ``ceil`` and
+``trunc`` keep a bool; ``//``, ``%`` and ``**`` compute bools as int32;
+cumulative sums widen a bool to int64; float ``x // 0`` is NaN.
 """
 from __future__ import annotations
 
@@ -28,6 +32,29 @@ def _scalar_as(v, dtype):
     if dtype.is_floating_point:
         return float(v)
     return int(v)
+
+
+def inexact(x):
+    """``x`` in the float dtype jnp computes it in (with x64 on): a float
+    or complex tensor as it is, int64 in float64, bool and narrower ints
+    in float32."""
+    if x.is_floating_point() or x.is_complex():
+        return x
+    return x.double() if x.dtype in (torch.int64, torch.uint64) \
+        else x.float()
+
+
+def _no_bool(opname, x):
+    if x.dtype == torch.bool:
+        raise TypeError(f"{opname} does not accept dtype bool")
+    return x
+
+
+def _floats_only(opname, x):
+    if not (x.is_floating_point() or x.is_complex()):
+        raise TypeError(f"{opname} does not accept dtype "
+                        f"{str(x.dtype).replace('torch.', '')}")
+    return x
 
 
 def _promote_binary(x, y):
@@ -63,24 +90,50 @@ def multiply(x, y, name=None):
     return torch.mul(x, y)
 
 
+def _is_int(x):
+    return not (x.is_floating_point() or x.is_complex()) \
+        and x.dtype != torch.bool
+
+
 @op
 def divide(x, y, name=None):
+    # a python scalar takes the tensor's kind, so the tensors decide
+    ints = all(_is_int(v) for v in (x, y) if isinstance(v, torch.Tensor))
     x, y = _promote_binary(x, y)
-    if not (x.is_floating_point() or x.is_complex()):
+    if ints:
+        # the reference casts an int / int quotient to float32
         return torch.true_divide(x.double(), y.double()).float()
-    return torch.true_divide(x, y)
+    return torch.true_divide(inexact(x), inexact(y))
+
+
+def _float_floor_divide(x, y):
+    """jnp's float floor division (``lax.rem``, then the sign fix-up):
+    x // 0 is NaN, as there."""
+    mod = torch.fmod(x, y)
+    div = (x - mod) / y
+    fix = (mod != 0) & (torch.sign(y) != torch.sign(mod))
+    return torch.round(torch.where(fix, div - 1, div))
+
+
+def _bool_as_int32(x, y):
+    """jnp computes ``//``, ``%`` and ``**`` of bools as int32."""
+    if x.dtype == torch.bool:
+        return x.to(torch.int32), y.to(torch.int32)
+    return x, y
 
 
 @op
 def floor_divide(x, y, name=None):
     x, y = _promote_binary(x, y)
-    return torch.floor_divide(x, y)
+    if x.is_floating_point():
+        return _float_floor_divide(x, y)
+    return torch.floor_divide(*_bool_as_int32(x, y))
 
 
 @op
 def remainder(x, y, name=None):
     x, y = _promote_binary(x, y)
-    return torch.remainder(x, y)
+    return torch.remainder(*_bool_as_int32(x, y))
 
 
 mod = remainder
@@ -89,7 +142,7 @@ mod = remainder
 @op
 def pow(x, y, name=None):
     x, y = _promote_binary(x, y)
-    return torch.pow(x, y)
+    return torch.pow(*_bool_as_int32(x, y))
 
 
 @op
@@ -118,6 +171,23 @@ def _unary(name, fn):
     return _f
 
 
+def _on_inexact(fn):
+    """A transcendental op: bool and int inputs computed in the float
+    dtype jnp gives them."""
+    return lambda x: fn(inexact(x))
+
+
+def _keep_bool(fn):
+    """``abs``, ``floor``, ``ceil`` and ``trunc``: a bool passes through
+    (torch has no bool kernel for them; jnp's ``round`` raises)."""
+    return lambda x: x if x.dtype == torch.bool else fn(x)
+
+
+def _square(x):
+    # jnp squares a bool as int32
+    return torch.square(x.to(torch.int32) if x.dtype == torch.bool else x)
+
+
 def _real_part(x):
     return torch.real(x) if x.is_complex() else x
 
@@ -127,40 +197,41 @@ def _imag_part(x):
 
 
 neg = _unary("neg", torch.neg)
-abs = _unary("abs", torch.abs)
-exp = _unary("exp", torch.exp)
-expm1 = _unary("expm1", torch.expm1)
-log = _unary("log", torch.log)
-log2 = _unary("log2", torch.log2)
-log10 = _unary("log10", torch.log10)
-log1p = _unary("log1p", torch.log1p)
-sqrt = _unary("sqrt", torch.sqrt)
-rsqrt = _unary("rsqrt", torch.rsqrt)
-square = _unary("square", torch.square)
-sin = _unary("sin", torch.sin)
-cos = _unary("cos", torch.cos)
-tan = _unary("tan", torch.tan)
-asin = _unary("asin", torch.asin)
-acos = _unary("acos", torch.acos)
-atan = _unary("atan", torch.atan)
-sinh = _unary("sinh", torch.sinh)
-cosh = _unary("cosh", torch.cosh)
-tanh = _unary("tanh", torch.tanh)
-asinh = _unary("asinh", torch.asinh)
-acosh = _unary("acosh", torch.acosh)
-atanh = _unary("atanh", torch.atanh)
-erf = _unary("erf", torch.erf)
-erfinv = _unary("erfinv", torch.erfinv)
-floor = _unary("floor", torch.floor)
-ceil = _unary("ceil", torch.ceil)
-round = _unary("round", torch.round)
-trunc = _unary("trunc", torch.trunc)
-sign = _unary("sign", torch.sign)
-reciprocal = _unary("reciprocal", torch.reciprocal)
-sigmoid = _unary("sigmoid", torch.sigmoid)
-digamma = _unary("digamma", torch.digamma)
-lgamma = _unary("lgamma", torch.lgamma)
-i0 = _unary("i0", torch.special.i0)
+abs = _unary("abs", _keep_bool(torch.abs))
+exp = _unary("exp", _on_inexact(torch.exp))
+expm1 = _unary("expm1", _on_inexact(torch.expm1))
+log = _unary("log", _on_inexact(torch.log))
+log2 = _unary("log2", _on_inexact(torch.log2))
+log10 = _unary("log10", _on_inexact(torch.log10))
+log1p = _unary("log1p", _on_inexact(torch.log1p))
+sqrt = _unary("sqrt", _on_inexact(torch.sqrt))
+rsqrt = _unary("rsqrt", lambda x: torch.rsqrt(_floats_only("rsqrt", x)))
+square = _unary("square", _square)
+sin = _unary("sin", _on_inexact(torch.sin))
+cos = _unary("cos", _on_inexact(torch.cos))
+tan = _unary("tan", _on_inexact(torch.tan))
+asin = _unary("asin", _on_inexact(torch.asin))
+acos = _unary("acos", _on_inexact(torch.acos))
+atan = _unary("atan", _on_inexact(torch.atan))
+sinh = _unary("sinh", _on_inexact(torch.sinh))
+cosh = _unary("cosh", _on_inexact(torch.cosh))
+tanh = _unary("tanh", _on_inexact(torch.tanh))
+asinh = _unary("asinh", _on_inexact(torch.asinh))
+acosh = _unary("acosh", _on_inexact(torch.acosh))
+atanh = _unary("atanh", _on_inexact(torch.atanh))
+erf = _unary("erf", _on_inexact(torch.erf))
+erfinv = _unary("erfinv", _on_inexact(torch.erfinv))
+floor = _unary("floor", _keep_bool(torch.floor))
+ceil = _unary("ceil", _keep_bool(torch.ceil))
+round = _unary("round", lambda x: torch.round(_no_bool("round", x)))
+trunc = _unary("trunc", _keep_bool(torch.trunc))
+sign = _unary("sign", lambda x: torch.sign(_no_bool("sign", x)))
+reciprocal = _unary("reciprocal", _on_inexact(torch.reciprocal))
+sigmoid = _unary("sigmoid",
+                 lambda x: torch.sigmoid(_floats_only("sigmoid", x)))
+digamma = _unary("digamma", _on_inexact(torch.digamma))
+lgamma = _unary("lgamma", _on_inexact(torch.lgamma))
+i0 = _unary("i0", _on_inexact(torch.special.i0))
 frac = _unary("frac", lambda x: x - torch.trunc(x))
 deg2rad = _unary("deg2rad", torch.deg2rad)
 rad2deg = _unary("rad2deg", torch.rad2deg)
@@ -179,7 +250,10 @@ def _bound(v, x):
 
 @op
 def clip(x, min=None, max=None, name=None):
-    return torch.clamp(x, _bound(min, x), _bound(max, x))
+    lo, hi = _bound(min, x), _bound(max, x)
+    if x.dtype == torch.bool:          # torch has no bool clamp
+        return torch.clamp(x.to(torch.int8), lo, hi).bool()
+    return torch.clamp(x, lo, hi)
 
 
 @op
@@ -229,6 +303,8 @@ def stanh(x, scale_a=0.67, scale_b=1.7159, name=None):
 
 @op
 def logit(x, eps=None, name=None):
+    if not (x.is_floating_point() or x.is_complex()):
+        x = x.double()                 # int - a python float: float64
     if eps is not None:
         x = torch.clamp(x, eps, 1.0 - eps)
     return torch.log(x / (1.0 - x))
@@ -269,9 +345,9 @@ def _flat_axis(x, axis):
 
 def _keep_int(out, x):
     """jnp's cumulative ops keep an integer input's dtype (torch widens
-    to int64)."""
-    return out if x.is_floating_point() or x.is_complex() else \
-        out.to(x.dtype)
+    to int64) and widen a bool to int64, as torch does."""
+    return out if x.is_floating_point() or x.is_complex() \
+        or x.dtype == torch.bool else out.to(x.dtype)
 
 
 @op

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from .registry import op
+from .math import inexact
 from ..framework.dtype import to_torch_dtype
 
 
@@ -27,11 +28,6 @@ def _dims(x, axis):
     return a if isinstance(a, tuple) else (a,)
 
 
-def _float(x):
-    """An integer input's mean is float64, as jnp's is with x64."""
-    return x if x.is_floating_point() or x.is_complex() else x.double()
-
-
 def _reduce(fn, x, axis, keepdim, **kw):
     dims = _dims(x, axis)
     if not dims:                       # a 0-d tensor
@@ -49,7 +45,7 @@ def sum_(x, axis=None, dtype=None, keepdim=False, name=None):
 
 @op
 def mean(x, axis=None, keepdim=False, name=None):
-    return _reduce(torch.mean, _float(x), axis, keepdim)
+    return _reduce(torch.mean, inexact(x), axis, keepdim)
 
 
 @op(name="max")
@@ -95,14 +91,14 @@ def any_(x, axis=None, keepdim=False, name=None):
 
 @op
 def var(x, axis=None, unbiased=True, keepdim=False, name=None):
-    return torch.var(x, dim=_dims(x, axis), correction=1 if unbiased else 0,
-                     keepdim=keepdim)
+    return torch.var(inexact(x), dim=_dims(x, axis),
+                     correction=1 if unbiased else 0, keepdim=keepdim)
 
 
 @op
 def std(x, axis=None, unbiased=True, keepdim=False, name=None):
-    return torch.std(x, dim=_dims(x, axis), correction=1 if unbiased else 0,
-                     keepdim=keepdim)
+    return torch.std(inexact(x), dim=_dims(x, axis),
+                     correction=1 if unbiased else 0, keepdim=keepdim)
 
 
 @op
@@ -115,7 +111,7 @@ def nansum(x, axis=None, dtype=None, keepdim=False, name=None):
 
 @op
 def nanmean(x, axis=None, keepdim=False, name=None):
-    return _reduce(torch.nanmean, _float(x), axis, keepdim)
+    return _reduce(torch.nanmean, inexact(x), axis, keepdim)
 
 
 @op
@@ -125,10 +121,12 @@ def count_nonzero(x, axis=None, keepdim=False, name=None):
 
 @op
 def logsumexp(x, axis=None, keepdim=False, name=None):
-    return torch.logsumexp(x, dim=_dims(x, axis), keepdim=keepdim)
+    return torch.logsumexp(inexact(x), dim=_dims(x, axis), keepdim=keepdim)
 
 
 def _arg(fn, x, axis, keepdim, dtype):
+    if x.dtype == torch.bool:          # torch's arg-reductions take no bool
+        x = x.to(torch.uint8)
     if axis is None:
         out = fn(x.reshape(-1))
         if keepdim:
@@ -149,7 +147,13 @@ def argmin(x, axis=None, keepdim=False, dtype="int64", name=None):
 
 
 def _quantile(x, q, axis, keepdim, method="linear", nan=False):
-    """numpy-style quantile over ``axis`` (None: all)."""
+    """numpy-style quantile over ``axis`` (None: all), in the float dtype
+    jnp gives ``x``; float16 and bfloat16 are computed in float32 (torch
+    has no half quantile)."""
+    x = inexact(x)
+    if x.dtype in (torch.float16, torch.bfloat16):
+        return _quantile(x.float(), q, axis, keepdim, method,
+                         nan).to(x.dtype)
     fn = torch.nanquantile if nan else torch.quantile
     qt = torch.as_tensor(q, dtype=x.dtype, device=x.device)
     if axis is None:

@@ -1543,7 +1543,9 @@ class Engine:
     def close(self):
         """Release the runner's device memory; at tp > 1 also stop the
         mesh's workers (an engine built later starts new ones), a failed
-        mesh's included."""
+        mesh's included.  The observability slots that hold this engine
+        (quant.json, lora.json) let it go."""
+        _obs.release_providers(self)
         self.runner.release()
         if self.tp > 1:
             self.runner._mesh.close()

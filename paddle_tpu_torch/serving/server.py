@@ -166,11 +166,14 @@ class EngineWorker:
         return self
 
     def stop(self, timeout: float = 10.0):
+        """Stop the engine thread; the lora.json and quant.json slots
+        that hold this worker or its engine let them go."""
         with self._wake:
             self._stop = True
             self._wake.notify_all()
         if self._started:
             self._thread.join(timeout=timeout)
+        _obs.release_providers(self, self.engine)
 
     def _loop(self):
         while True:
@@ -768,6 +771,9 @@ class _Handler(BaseHTTPRequestHandler):
     # ----------------------------------------------------------- helpers
     def _json(self, code: int, obj: dict, route: str, headers=()):
         body = json.dumps(obj).encode()
+        # counted before the answer goes out: a client that scrapes
+        # /metrics right after reading it sees its own request
+        _M_HTTP_REQS.labels(route, str(code)).inc()
         try:
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
@@ -779,7 +785,6 @@ class _Handler(BaseHTTPRequestHandler):
         except (BrokenPipeError, ConnectionResetError,
                 ConnectionAbortedError):
             pass
-        _M_HTTP_REQS.labels(route, str(code)).inc()
 
     def _error(self, code: int, message: str, route: str, *,
                etype: str = "invalid_request_error", headers=()):
@@ -805,6 +810,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._json(200, st, "/healthz")
         elif self.path == "/metrics":
             text = _obs.default_registry().to_prometheus().encode()
+            _M_HTTP_REQS.labels("/metrics", "200").inc()
             try:
                 self.send_response(200)
                 self.send_header("Content-Type",
@@ -814,7 +820,6 @@ class _Handler(BaseHTTPRequestHandler):
                 self.wfile.write(text)
             except (BrokenPipeError, ConnectionResetError):
                 pass
-            _M_HTTP_REQS.labels("/metrics", "200").inc()
         elif self.path == "/debug/flight":
             fr = _obs.flight_recorder()
             self._json(200, {"capacity": fr.capacity,
@@ -977,6 +982,7 @@ class _Handler(BaseHTTPRequestHandler):
                        "/debug/profile")
             return
         text = (prof.folded() + "\n").encode()
+        _M_HTTP_REQS.labels("/debug/profile", "200").inc()
         try:
             self.send_response(200)
             self.send_header("Content-Type", "text/plain")
@@ -986,7 +992,6 @@ class _Handler(BaseHTTPRequestHandler):
         except (BrokenPipeError, ConnectionResetError,
                 ConnectionAbortedError):
             pass
-        _M_HTTP_REQS.labels("/debug/profile", "200").inc()
 
     def worker_stats(self) -> dict:
         return self.server.worker.stats()

@@ -102,7 +102,15 @@ def test_import_leaves_jax_unloaded():
             "paddle_tpu_torch.nn.layer_norm, paddle_tpu_torch.nn.clip, "
             "paddle_tpu_torch.optimizer.optimizer, "
             "paddle_tpu_torch.optimizer.optimizers, "
-            "paddle_tpu_torch.optimizer.lr, paddle_tpu_torch.models.llama; "
+            "paddle_tpu_torch.optimizer.lr, paddle_tpu_torch.models.llama, "
+            "paddle_tpu_torch.ops.linalg, paddle_tpu_torch.nn.layer_conv, "
+            "paddle_tpu_torch.nn.layer_pool, "
+            "paddle_tpu_torch.nn.layer_loss, "
+            "paddle_tpu_torch.vision, paddle_tpu_torch.vision.models, "
+            "paddle_tpu_torch.vision.models.lenet, "
+            "paddle_tpu_torch.vision.models.resnet, "
+            "paddle_tpu_torch.jit, paddle_tpu_torch.jit.functional, "
+            "paddle_tpu_torch.models.bert; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -220,3 +228,40 @@ def test_serving_mesh_defaults_to_cuda():
     assert set(multiprocessing.active_children()) == children
     assert W._worker_main.__module__ == \
         "paddle_tpu_torch.serving.parallel.worker"
+
+
+def test_vision_bert_and_train_step_default_to_cuda():
+    """Without ``set_device("cpu")``, building LeNet, resnet18 or a BERT
+    classifier raises here, and so does a ``train_step`` call (its batch
+    goes to the current device): none runs on the CPU unasked."""
+    _no_card()
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch import device as D
+    from paddle_tpu_torch.models.bert import BertConfig, \
+        BertForSequenceClassification
+    from paddle_tpu_torch.vision.models import LeNet, resnet18
+    small = BertConfig(vocab_size=64, hidden_size=32, num_hidden_layers=1,
+                       num_attention_heads=2, intermediate_size=64)
+    prev = D._current
+    D._current = None
+    try:
+        for build in (LeNet, resnet18,
+                      lambda: BertForSequenceClassification(small)):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                build()
+        T.set_device("cpu")
+        m = LeNet()
+        step = T.jit.train_step(
+            m, T.optimizer.SGD(0.01, parameters=m.parameters()),
+            lambda m, x, y: T.nn.functional.cross_entropy(m(x), y))
+        x = np.zeros((2, 1, 28, 28), np.float32)
+        y = np.zeros(2, np.int64)
+        D._current = None
+        with pytest.raises(RuntimeError, match="CUDA"):
+            step(x, y)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            step.multi_step(2)(x, y)
+        T.set_device("cpu")
+        assert np.isfinite(float(step(x, y)))
+    finally:
+        D._current = prev
